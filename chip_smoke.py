@@ -6,12 +6,16 @@
 Phases, each printed as one JSON line:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   build    nvcc builds of every kernel from `sd_tpu_torch/csrc`, in parallel;
-  kernel   each hand-written kernel at every shape the 512² text-to-image path
-           gives it (plus a ragged-kv case), against its plain PyTorch version
+  kernel   each hand-written kernel at every shape the 512² text-to-image and
+           training paths give it (plus a ragged case), against its plain PyTorch version
            computed in fp32 from the same bf16 inputs: max|Δ| ≤ 1e-2·max|ref|
-           (bf16 output rounding at 2^-8 plus p rounded to bf16); with the
-           kernel's, the plain version's and one PyTorch library call's time
-           (CUDA events) and the least time the card could take (bound);
+           (bf16 output rounding at 2^-8 plus p rounded to bf16); the flash
+           training kernels: lse2 within 1e-3 absolute, dq/dk/dv within
+           2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16, sums
+           over up to 4096 rows), and dK/dV bitwise equal on a second run;
+           with the kernel's, the plain version's and one PyTorch library
+           call's time (CUDA events) and the least time the card could take
+           (bound);
   parity   the SD-v1-width UNet (latent 32², batch 2) and KL-f8 decoder
            (latent 32²) with every parameter random: bf16 with the kernels on
            the card against fp32 plain on the CPU, same (bf16-rounded) weights
@@ -20,8 +24,21 @@ Phases, each printed as one JSON line:
            seed: generate() of 2 prompts, 512², 50 DDIM steps, CFG 7.5; checks
            the uint8 [2, 512, 512, 3] output, a finite and non-constant image
            before quantisation, and the kernels' launch counts on that run.
+  train_parity  the SD-v1-width UNet (latent 32², batch 1: level 0 has 1024
+           tokens and trains through the flash kernels) under a training step,
+           MSE to a fixed target: bf16 with the kernels on the card against
+           fp32 plain on the CPU, same (bf16-rounded) weights; the global
+           gradient and each level-0 attn1 q/k/v weight gradient within
+           ‖Δg‖₂ ≤ 0.1·‖g‖₂ (a dropped gradient reads ≈ 1.0);
+  train    train_ldm(sd512_train_config()) at full width, every weight random
+           from the config's seed, on seeded uint8-range 512² images with
+           class captions: 1 warm-up and 3 timed optimizer steps (batch 4 as
+           4 microbatches, bf16 params, fp32 Adam moments and EMA, remat
+           "dots"); checks finite losses, grad_norm > 0, changed bf16 params,
+           fp32 moments and a moved fp32 EMA shadow, and the launch counts.
   profile  (only with `--profile`) the layers' times and the device time of
-           one generate by kernel family, against its wall time.
+           one generate by kernel family, against its wall time, and the same
+           for one optimizer step of train_ldm.
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero; without
 a CUDA device, or without the repository beside it, it exits non-zero before
@@ -45,10 +62,22 @@ PEAK_BYTES = 3.35e12
 # launches of one generate() at 512², 50 steps: 10 self-attention and 10
 # GEGLU calls per UNet step, the decoder's mid-block attention and 18 convs
 EXPECTED_LAUNCHES = {"flash_attention": 1, "flash_attention_hpacked": 500,
+                     "flash_attention_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                      "geglu_ff": 500, "conv3x3_same": 18}
+# launches of one optimizer step of train_ldm(sd512_train_config()): 10
+# self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
+# remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
+# (tests/test_torch_structure.py derives these from the shape rules)
+EXPECTED_TRAIN_LAUNCHES = {"flash_attention": 0, "flash_attention_hpacked": 0,
+                           "flash_attention_lse": 80, "flash_bwd_dq": 40,
+                           "flash_bwd_dkv": 40, "geglu_ff": 0, "conv3x3_same": 0}
 KERNEL_TOL = 1e-2
+LSE_TOL = 1e-3                                   # absolute, base-2 units
+GRAD_TOL = {"max_rel": 2e-2, "l2_rel": 1e-2}     # flash dq, dk, dv
 UNET_TOL = {"max_rel": 0.1, "l2_rel": 0.03}      # stated before measuring
 DECODER_TOL = {"max_rel": 0.1, "l2_rel": 0.03}
+TRAIN_GRAD_TOL = 0.1                             # ‖Δg‖₂ / ‖g‖₂, stated before measuring
+TRAIN_STEPS = 3                                  # timed, after one warm-up step
 
 
 def emit(obj) -> None:
@@ -78,6 +107,20 @@ def attention_cost(b, sq, skv, h, d):
     return 4 * b * h * sq * skv * d, 2 * b * h * d * (2 * sq + 2 * skv)
 
 
+def attention_lse_cost(b, sq, skv, h, d):
+    return 4 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 2 * skv) + 4 * sq)
+
+
+def attention_dq_cost(b, sq, skv, h, d):
+    # reads q, k, v, o, dO, lse2; writes dq, delta
+    return 6 * b * h * sq * skv * d, b * h * (2 * d * (4 * sq + 2 * skv) + 8 * sq)
+
+
+def attention_dkv_cost(b, sq, skv, h, d):
+    # reads q, k, v, dO, lse2, delta; writes dk, dv
+    return 8 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 4 * skv) + 8 * sq)
+
+
 def geglu_cost(n, c, inner):
     return 6 * n * c * inner, 2 * (2 * n * c + 3 * c * inner + 2 * inner + c)
 
@@ -103,6 +146,10 @@ def time_ms(fn, reps: int = 10) -> float:
 def rel_err(out, ref) -> tuple[float, float]:
     d = (out.float() - ref.float()).abs().max().item()
     return d, d / max(ref.float().abs().max().item(), 1e-30)
+
+
+def l2_rel(out, ref) -> float:
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +252,93 @@ def phase_kernels(gen) -> dict:
         # the kernel table reports each kernel at its heaviest main-path shape
         if case["name"] not in best or case["cost"][0] > best[case["name"]][0]:
             best[case["name"]] = (case["cost"][0], row)
+        torch.cuda.empty_cache()
+    return {name: row for name, (_, row) in best.items()}
+
+
+def phase_train_kernels(gen) -> dict:
+    """The flash training kernels (LSE forward, dQ, dK/dV) at the training
+    path's self-attention shapes ([1, 4096, 8, 40] at UNet level 0,
+    [1, 1024, 8, 80] at level 1, microbatch 1) and a ragged case, against
+    their plain versions in fp32 from the same bf16 inputs; dK/dV run twice
+    must give the same bits. Library: `scaled_dot_product_attention`, its
+    forward for the LSE row and its backward (fwd+bwd − fwd) for the dQ and
+    dK/dV rows together."""
+    import torch
+    import torch.nn.functional as F
+
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    best = {}
+    for b, sq, skv, h, d in ((1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80),
+                             (1, 1000, 1300, 8, 40)):
+        scale = d**-0.5
+        q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
+        f32 = lambda *ts: [t.float() for t in ts]
+        o, lse = fa.flash_attention_lse(q, k, v, scale)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa._flash_lse_ref(*f32(q, k, v), scale)
+        dq_ref, dk_ref, dv_ref, _ = fa._flash_bwd_ref(*f32(q, k, v, o), lse, do.float(), scale)
+        errs = {"o": rel_err(o, o_ref), "dq": rel_err(dq, dq_ref), "dk": rel_err(dk, dk_ref),
+                "dv": rel_err(dv, dv_ref)}
+        l2 = {"dq": l2_rel(dq, dq_ref), "dk": l2_rel(dk, dk_ref), "dv": l2_rel(dv, dv_ref)}
+        lse_err = (lse - lse_ref).abs().max().item()
+        deterministic = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dk2, dv2
+
+        heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        do_h = do.transpose(1, 2)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(*heads))
+        lib_both = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*heads), heads, do_h))
+        shape = [b, sq, skv, h, d]
+        rows = {
+            "flash_attention_lse": dict(
+                max_abs_err=errs["o"][0], rel_err=errs["o"][1], lse_abs_err=lse_err,
+                ms=time_ms(lambda: fa.flash_attention_lse(q, k, v, scale)),
+                plain_ms=time_ms(lambda: fa._flash_lse_ref(q, k, v, scale), 3),
+                library_ms=lib_fwd, library_call="scaled_dot_product_attention forward",
+                cost=attention_lse_cost(*shape)),
+            "flash_bwd_dq": dict(
+                max_abs_err=errs["dq"][0], rel_err=errs["dq"][1], l2_rel=l2["dq"],
+                ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale)),
+                plain_ms=time_ms(lambda: fa._flash_bwd_dq_ref(q, k, v, o, lse, do, scale), 3),
+                library_ms=lib_both - lib_fwd,
+                library_call="scaled_dot_product_attention backward (fwd+bwd - fwd), "
+                             "dq and dk/dv together",
+                cost=attention_dq_cost(*shape)),
+            "flash_bwd_dkv": dict(
+                max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                rel_err=max(errs["dk"][1], errs["dv"][1]), l2_rel=max(l2["dk"], l2["dv"]),
+                deterministic=deterministic,
+                ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)),
+                plain_ms=time_ms(lambda: fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), 3),
+                library_ms=lib_both - lib_fwd,
+                library_call="scaled_dot_product_attention backward (fwd+bwd - fwd), "
+                             "dq and dk/dv together",
+                cost=attention_dkv_cost(*shape)),
+        }
+        for name, r in rows.items():
+            cost = r.pop("cost")
+            b_ms, b_by = bound_ms(*cost)
+            row = {"phase": "kernel", "name": name, "shape": shape, **r,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            if name not in best or cost[0] > best[name][0]:
+                best[name] = (cost[0], row)
+        require(errs["o"][1] <= KERNEL_TOL and lse_err <= LSE_TOL,
+                f"LSE forward {shape}: o {errs['o'][1]:.3g}·max|ref|, lse2 {lse_err:.3g}")
+        for g in ("dq", "dk", "dv"):
+            require(errs[g][1] <= GRAD_TOL["max_rel"] and l2[g] <= GRAD_TOL["l2_rel"],
+                    f"{g} {shape}: max {errs[g][1]:.3g}·max|ref|, l2 {l2[g]:.3g}·‖ref‖")
+        require(deterministic, f"dK/dV {shape} gives the same bits twice")
+        del q, k, v, do, o, lse, dq, delta, dk, dv, heads
         torch.cuda.empty_cache()
     return {name: row for name, (_, row) in best.items()}
 
@@ -329,9 +463,152 @@ def phase_e2e() -> dict:
     return launches, pipe, prompts
 
 
+def phase_train_parity() -> dict:
+    """Gradients of the full-width UNet through the flash training kernels:
+    bf16 on the card against fp32 plain on the CPU, same bf16-rounded
+    weights, inputs and target, inside a training step's context."""
+    import math
+    import re
+
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import sd_v1_config
+    from sd_tpu_torch.kernels.conv2d import training_trace
+    from sd_tpu_torch.models.unet_sd import UNetModel
+    from sd_tpu_torch.weights import randomize_params_
+
+    params = sd_v1_config()["unet"]["params"]
+    g = torch.Generator().manual_seed(2)
+    rounded = lambda t: t.bfloat16().float()
+    cpu = UNetModel(**params, dtype=torch.float32, device="cpu")
+    randomize_params_(cpu, g)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(rounded(p))
+    gpu = UNetModel(**params, dtype=torch.bfloat16, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x, ctx = rounded(torch.randn(1, 32, 32, 4, generator=g)), rounded(torch.randn(1, 77, 768, generator=g))
+    t, target = torch.tensor([500]), torch.randn(1, 32, 32, 4, generator=g)
+
+    def run(model, dev, dtype):
+        model.requires_grad_(True)
+        with training_trace():
+            out = model(x.to(dev, dtype), t.to(dev), ctx.to(dev, dtype))
+            loss = ((out.float() - target.to(dev)) ** 2).mean()
+            loss.backward()
+        return loss.item(), {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+    kernels.reset_launches()
+    loss_gpu, g_gpu = run(gpu, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = run(cpu, "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    d2 = sum(((g_gpu[n] - g_cpu[n]) ** 2).sum().item() for n in g_cpu)
+    n2 = sum((g_cpu[n] ** 2).sum().item() for n in g_cpu)
+    level0 = re.compile(r"^(in|out)_0_\d_attn\.block_0\.attn1\.to_[qkv]\.weight$")
+    per = {n: l2_rel(g_gpu[n], g_cpu[n]) for n in g_cpu if level0.match(n)}
+    row = {"phase": "train_parity", "latent": [1, 32, 32, 4], "loss_gpu": loss_gpu,
+           "loss_cpu": loss_cpu, "grad_l2_rel": math.sqrt(d2 / n2), "attn1_qkv_l2_rel": per,
+           "bound": TRAIN_GRAD_TOL, "launches": launches, "cpu_seconds": cpu_s}
+    emit(row)
+    require(len(per) == 15, f"15 level-0 attn1 q/k/v weights, found {sorted(per)}")
+    require(math.isfinite(loss_gpu) and row["grad_l2_rel"] <= TRAIN_GRAD_TOL
+            and max(per.values()) <= TRAIN_GRAD_TOL,
+            f"UNet gradients within {TRAIN_GRAD_TOL}: global {row['grad_l2_rel']:.3g}, "
+            f"attn1 q/k/v up to {max(per.values()):.3g}")
+    # latent 32²: level 0 has 1024 tokens (5 self-attentions), level 1 256
+    require(launches["flash_attention_lse"] == 5 and launches["flash_bwd_dq"] == 5
+            and launches["flash_bwd_dkv"] == 5 and launches["flash_attention_hpacked"] == 0
+            and launches["geglu_ff"] == 0, f"train parity launches {launches}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def _train_batches(cfg, n: int, seed: int = 0):
+    """n batches of the config's size: uint8-range images scaled to [-1, 1],
+    as the image loaders give them, with class captions."""
+    import numpy as np
+
+    tc = cfg["train"]
+    rng = np.random.default_rng(seed)
+    classes = ("cat", "dog")
+    for _ in range(n):
+        img = rng.integers(0, 256, (tc["batch_size"], tc["image_size"], tc["image_size"], 3),
+                           dtype=np.uint8)
+        labels = rng.integers(0, len(classes), tc["batch_size"])
+        yield {"image": img.astype(np.float32) / 127.5 - 1.0,
+               "txt_raw": [cfg["data"]["template"].format(classes[i]) for i in labels]}
+
+
+def phase_train() -> dict:
+    """train_ldm(sd512_train_config()) at full width: 1 warm-up and
+    TRAIN_STEPS timed optimizer steps, launch counts over the whole run."""
+    import math
+
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import sd512_train_config
+    from sd_tpu_torch.train.runners import build_ldm, train_ldm
+
+    cfg = sd512_train_config()
+    steps = 1 + TRAIN_STEPS
+    # the weights train_ldm starts from: the same build from the same seed
+    _, unet, _, _ = build_ldm(cfg, torch.Generator("cuda").manual_seed(cfg["seed"]),
+                              torch.bfloat16, "cuda")
+    init = {n: p.detach().cpu() for n, p in unet.named_parameters()}
+    del unet
+    torch.cuda.empty_cache()
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = train_ldm(cfg, _train_batches(cfg, steps), max_steps=steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    changed = sum(int((p.detach().cpu() != init[n]).sum()) for n, p in state.params.items())
+    moments = state.opt_state.mu + state.opt_state.nu
+    ema_moved = sum(int((s.cpu() != init[n].float()).sum()) for n, s in state.ema.shadow.items())
+    timed = [r["seconds"] for r in hist[1:]]
+    sec = sum(timed) / len(timed)
+    bsz = cfg["train"]["batch_size"]
+    row = {"phase": "train", "steps": len(hist), "timed_step_seconds": timed,
+           "seconds_per_step": sec, "images_per_second": bsz / sec,
+           "run_seconds": run_s, "peak_memory_gb": peak_gb,
+           "losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+           "params": sum(p.numel() for p in state.params.values()),
+           "param_elements_changed": changed, "ema_elements_moved": ema_moved,
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    emit(row)
+    require(len(hist) == steps, f"{steps} optimizer steps, ran {len(hist)}")
+    require(all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 and math.isfinite(r["grad_norm"])
+                for r in hist), "finite loss and grad_norm > 0 on every step")
+    require(all(p.dtype == torch.bfloat16 for p in state.params.values()) and changed > 0,
+            "bf16 params that changed")
+    require(all(m.dtype == torch.float32 for m in moments)
+            and any(bool(m.abs().sum() > 0) for m in state.opt_state.mu), "fp32 Adam moments")
+    require(all(s.dtype == torch.float32 for s in state.ema.shadow.values()) and ema_moved > 0,
+            "an fp32 EMA shadow that moved")
+    want = {k: v * steps for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    require(launches == want, f"train launches {launches} == {want}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
 def _family(name: str) -> str:
     low = name.lower()
-    for key, fam in (("flash_fwd_kernel", "flash (port)"), ("geglu_kernel", "geglu (port)"),
+    if "flash_fwd_kernel" in name and "true>" in name:
+        return "flash LSE forward (port)"
+    for key, fam in (("flash_fwd_kernel", "flash (port)"), ("flash_bwd_dq", "flash dQ (port)"),
+                     ("flash_bwd_dkv", "flash dK/dV (port)"), ("geglu_kernel", "geglu (port)"),
                      ("conv3x3_kernel", "conv3x3 (port)")):
         if key in name:
             return fam
@@ -348,8 +625,6 @@ def phase_profile(pipe, prompts) -> None:
     """Where one generate's time goes (`--profile`): the layers' times from
     CUDA events, and device time by kernel family from torch.profiler over
     a whole 50-step generate, against its wall time."""
-    from collections import Counter
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -368,6 +643,17 @@ def phase_profile(pipe, prompts) -> None:
         pipe.generate(prompts, num_steps=50, guidance_scale=7.5, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    emit({"phase": "profile", "of": "generate", "layers": layers,
+          **_device_breakdown(prof, wall)})
+
+
+def _device_breakdown(prof, wall: float) -> dict:
+    """Device time by kernel family and the top kernels of a profile,
+    against the wall time of the profiled window."""
+    from collections import Counter
+
+    import torch
+
     fam_us, kernels = Counter(), []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -379,11 +665,99 @@ def phase_profile(pipe, prompts) -> None:
         kernels.append((us, ev.count, ev.key[:90]))
     device_s = sum(fam_us.values()) / 1e6
     kernels.sort(reverse=True)
-    emit({"phase": "profile", "layers": layers, "wall_seconds": wall,
-          "device_seconds": device_s, "device_busy_share": device_s / wall,
-          "families_ms": {k: v / 1e3 for k, v in fam_us.most_common()},
-          "top_kernels": [{"name": n, "ms": us / 1e3, "count": cnt}
-                          for us, cnt, n in kernels[:15]]})
+    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.self_cpu_time_total > 0), reverse=True)
+    return {"wall_seconds": wall, "device_seconds": device_s,
+            "device_busy_share": device_s / wall,
+            "kernel_launches": sum(cnt for _, cnt, _ in kernels),
+            "families_ms": {k: v / 1e3 for k, v in fam_us.most_common()},
+            "top_kernels": [{"name": n, "ms": us / 1e3, "count": cnt}
+                            for us, cnt, n in kernels[:15]],
+            "top_host_ops": [{"name": n[:60], "self_ms": us / 1e3, "count": cnt}
+                             for us, cnt, n in host[:12]]}
+
+
+def phase_train_profile() -> None:
+    """Where one optimizer step of train_ldm goes (`--profile`): the second
+    step of a two-step run under torch.profiler, by kernel family. The
+    profiler starts when train_ldm asks for the second batch, which it does
+    once the first step's results are read back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sd_tpu_torch.core.config import sd512_train_config
+    from sd_tpu_torch.train.runners import train_ldm
+
+    cfg = sd512_train_config()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start = []
+
+    def batches():
+        first, second = _train_batches(cfg, 2, seed=1)
+        yield first
+        torch.cuda.synchronize()
+        prof.start()
+        start.append(time.perf_counter())
+        yield second
+
+    _, hist = train_ldm(cfg, batches(), max_steps=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start[0]
+    prof.stop()
+    emit({"phase": "profile", "of": "optimizer step", "step_seconds": hist[1]["seconds"],
+          "layers": _train_layers(cfg), **_device_breakdown(prof, wall)})
+
+
+def _train_layers(cfg) -> dict:
+    """CUDA-event times of the parts of one optimizer step, built from the
+    same public pieces train_ldm uses: the fp32 KL encode of one image, the
+    UNet forward + remat recompute + backward of one microbatch, the CLIP
+    embedding of the batch's captions, and clip + Adam and the EMA update
+    over the UNet's parameters."""
+    import torch
+
+    from sd_tpu_torch.core.ema import ema_update
+    from sd_tpu_torch.kernels.conv2d import training_trace
+    from sd_tpu_torch.train.diffusion import (ddpm_optimizer, float32_moments,
+                                              init_train_state)
+    from sd_tpu_torch.train.remat import remat_apply
+    from sd_tpu_torch.train.runners import build_ldm
+
+    tc = cfg["train"]
+    ld, unet, vae, embed = build_ldm(cfg, torch.Generator("cuda").manual_seed(cfg["seed"]),
+                                     torch.bfloat16, "cuda")
+    batch = next(_train_batches(cfg, 1, seed=2))
+    image = torch.as_tensor(batch["image"][:1]).cuda()
+    lat = cfg["latent"]["image_size"]
+    x = torch.randn(1, lat, lat, 4, device="cuda")
+    t = torch.tensor([500], device="cuda")
+    ctx = embed(batch["txt_raw"][:1])
+    params = dict(unet.named_parameters())
+    opt = float32_moments(ddpm_optimizer(tc["lr"], tc.get("grad_clip", 1.0)))
+    state = init_train_state(params, opt, tc["ema_decay"], num_timesteps=1000)
+
+    def fwd_bwd(policy):
+        apply = remat_apply(unet, policy)
+
+        def run():
+            with training_trace():
+                apply(x, t, ctx).float().pow(2).mean().backward()
+        return run
+
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: vae.encode(image), 3)
+    # the config's policy, then the others on the same microbatch
+    policies = [tc["remat"]] + [p for p in ("none", "nothing", "dots") if p != tc["remat"]]
+    layers = {"encode_ms": encode_ms,
+              "unet_fwd_bwd_ms_by_remat": {p: time_ms(fwd_bwd(p), 3) for p in policies},
+              "clip_ms": time_ms(lambda: embed(batch["txt_raw"]), 3)}
+    grads = [p.grad for p in params.values()]
+    layers["clip_adam_ms"] = time_ms(
+        lambda: opt.update_(list(params.values()), grads, state.opt_state), 3)
+    layers["ema_ms"] = time_ms(lambda: ema_update(state.ema, params), 3)
+    del ld, unet, vae, embed, state, params, grads
+    torch.cuda.empty_cache()
+    return layers
 
 
 def main() -> int:
@@ -411,24 +785,40 @@ def main() -> int:
     per_lib = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library": per_lib})
 
-    table = phase_kernels(torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(0)
+    table = {**phase_kernels(gen), **phase_train_kernels(gen)}
     phase_parity()
     launches, pipe, prompts = phase_e2e()
-    if "--profile" in sys.argv[1:]:
+    profiling = "--profile" in sys.argv[1:]
+    if profiling:
         phase_profile(pipe, prompts)
+    del pipe
+    torch.cuda.empty_cache()
+    phase_train_parity()
+    train = phase_train()
+    if profiling:
+        phase_train_profile()
 
-    sources = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
-                                   "sd_tpu/kernels/flash_attention.py:66"),
-               "flash_attention_hpacked": ("sd_tpu_torch/csrc/flash_attention.cu",
-                                           "sd_tpu/kernels/flash_attention.py:293"),
-               "geglu_ff": ("sd_tpu_torch/csrc/geglu.cu", "sd_tpu/kernels/geglu.py:48"),
-               "conv3x3_same": ("sd_tpu_torch/csrc/conv2d.cu",
-                                "sd_tpu/kernels/conv2d.py:30")}
+    # each kernel's launches on its main path: generate for the inference
+    # kernels, the train_ldm run for the training kernels
+    train_kernels = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+    src = "sd_tpu_torch/csrc/"
+    tpu = "sd_tpu/kernels/"
+    sources = {"flash_attention": (src + "flash_attention.cu", tpu + "flash_attention.py:66"),
+               "flash_attention_hpacked": (src + "flash_attention.cu",
+                                           tpu + "flash_attention.py:293"),
+               "flash_attention_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:421"),
+               "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
+               "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
+               "geglu_ff": (src + "geglu.cu", tpu + "geglu.py:48"),
+               "conv3x3_same": (src + "conv2d.cu", tpu + "conv2d.py:30")}
     rows = []
-    for name, (src, rep) in sources.items():
+    for name, (source, rep) in sources.items():
         r = table[name]
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[name], "max_abs_err": r["max_abs_err"],
+        path = "train_ldm" if name in train_kernels else "generate"
+        n = train["launches"][name] if name in train_kernels else launches[name]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": rep,
+                     "launches": n, "launches_path": path, "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "shape": r["shape"]})

@@ -1,7 +1,9 @@
 """Configurations and device selection.
 
 `sd_v1_config()` is `configs/sd_txt2img.yaml` (the SD-v1 text-to-image
-recipe) as a dict, so the port runs where PyYAML is not installed.
+recipe) and `sd512_train_config()` is `configs/sd512_catdog.yaml` (the SD-v1
+latent-diffusion training recipe at 512² pixels) as dicts, so the port runs
+where PyYAML is not installed.
 """
 
 from __future__ import annotations
@@ -43,6 +45,27 @@ def sd_v1_config() -> dict:
                   "total_steps": 1000000, "checkpoint_every": 2000},
         "sample": {"num_steps": 50, "guidance_scale": 7.5, "eta": 0.0},
     }
+
+
+def sd512_train_config() -> dict:
+    """`configs/sd512_catdog.yaml` without `first_stage.ckpt` (no trained
+    first stage is in the repository): 512² pixels → KL-f8 (fp32, frozen) →
+    64²×4 latents → the SD-v1 UNet (859.5M parameters) trained in bf16 with
+    fp32 Adam moments and EMA, batch 4 as 4 microbatches of 1, remat "dots",
+    ε-loss on the linear β 0.00085→0.012 schedule, 10% caption dropout,
+    `scale_factor: auto`."""
+    cfg = sd_v1_config()
+    cfg["data"] = {"captions": "class", "label_from": "filename_prefix",
+                   "template": "a photo of a {}"}
+    cfg["latent"]["scale_factor"] = "auto"
+    cfg["train"] = {
+        "image_size": 512, "batch_size": 4, "param_dtype": "bfloat16",
+        "remat": "dots", "grad_accum": 4, "lr": 1.0e-4,
+        "lr_schedule": {"warm_up_steps": [200], "f_min": [1.0], "f_max": [1.0],
+                        "f_start": [1.0e-6], "cycle_lengths": [10000000000000]},
+        "ema_decay": 0.9999, "cond_dropout": 0.1, "total_steps": 3200,
+        "eval_every": 400, "checkpoint_every": 1600}
+    return cfg
 
 
 def resolve_device(device=None) -> torch.device:

@@ -2,7 +2,9 @@
 
 Counterpart of `sd_tpu/core/schedules.py`: the tables are computed once in
 float64 numpy and stored as float32 tensors, so they match the TPU package's
-exactly. Only the pieces the DDIM text-to-image path uses are ported.
+exactly. Ported: the tables and methods of DDIM sampling and of the training
+loss (`q_sample`, `get_v`, `lvlb_weights`); the posterior tables of the
+ancestral sampler and zero-terminal-SNR rescaling are not ported yet.
 """
 
 from __future__ import annotations
@@ -89,15 +91,25 @@ def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, dtype=np.float32))
 
 
+def _to(obj, device):
+    """A copy of a frozen dataclass of tables with every tensor on `device`."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Per-timestep tables of a DDPM process (the ones DDIM sampling reads)."""
+    """Per-timestep tables of a DDPM process: the ones DDIM sampling and the
+    training loss read."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    lvlb_weights: torch.Tensor
     num_timesteps: int
 
     @classmethod
@@ -110,20 +122,51 @@ class DiffusionSchedule:
         cosine_s: float = 8e-3,
         parameterization: str = "eps",
     ) -> "DiffusionSchedule":
-        if parameterization != "eps":
-            raise NotImplementedError(
-                f"parameterization {parameterization!r} is not ported yet")
         betas = make_beta_schedule(
             beta_schedule, timesteps, linear_start, linear_end, cosine_s)
-        alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+        alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas, axis=0)
+        alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+        if parameterization == "eps":
+            with np.errstate(divide="ignore"):
+                lvlb_weights = betas**2 / (
+                    2 * posterior_variance * alphas * (1 - alphas_cumprod))
+            # the t = 0 term is singular; the reference copies lvlb_weights[1]
+            lvlb_weights[0] = lvlb_weights[1]
+        elif parameterization == "x0":
+            lvlb_weights = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * (1 - alphas_cumprod))
+        elif parameterization == "v":
+            # the v-space MSE is already SNR+1-weighted: identity reweighting
+            lvlb_weights = np.ones_like(betas)
+        else:
+            raise ValueError(f"unknown parameterization {parameterization!r}")
         return cls(
             betas=_f32(betas),
             alphas_cumprod=_f32(alphas_cumprod),
-            alphas_cumprod_prev=_f32(np.append(1.0, alphas_cumprod[:-1])),
+            alphas_cumprod_prev=_f32(alphas_cumprod_prev),
             sqrt_alphas_cumprod=_f32(np.sqrt(alphas_cumprod)),
             sqrt_one_minus_alphas_cumprod=_f32(np.sqrt(1.0 - alphas_cumprod)),
+            lvlb_weights=_f32(lvlb_weights),
             num_timesteps=int(betas.shape[0]),
         )
+
+    to = _to
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward diffusion q(x_t | x_0) (DDPM eq. 4), in x_start's dtype."""
+        nd = x_start.ndim
+        return (extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+                + extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+                ).to(x_start.dtype)
+
+    def get_v(self, x_start: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target √ᾱ_t·ε − √(1−ᾱ_t)·x_0."""
+        nd = x_start.ndim
+        return (extract(self.sqrt_alphas_cumprod, t, nd) * noise
+                - extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * x_start)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +188,7 @@ class DDIMSchedule:
     @classmethod
     def create(cls, base: DiffusionSchedule, num_steps: int, eta: float = 0.0,
                method: str = "uniform") -> "DDIMSchedule":
-        alphacums = base.alphas_cumprod.numpy().astype(np.float64)
+        alphacums = base.alphas_cumprod.cpu().numpy().astype(np.float64)
         ts = make_ddim_timesteps(method, num_steps, base.num_timesteps)
         sigmas, alphas, alphas_prev = make_ddim_sampling_parameters(alphacums, ts, eta)
         return cls(
@@ -158,8 +201,4 @@ class DDIMSchedule:
             eta=float(eta),
         )
 
-    def to(self, device) -> "DDIMSchedule":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+    to = _to

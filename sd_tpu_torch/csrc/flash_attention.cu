@@ -6,6 +6,10 @@
 // `flash_attention_hpacked`). Both become this one kernel over strided
 // [B, S, H, D] views: the head stride is D for a [B, S, H*D] projection and
 // the row stride is H*D, so no layout copy enters or leaves either caller.
+// Compiled with LSE = true it also replaces `_flash_kernel_lse` (:421), the
+// training forward: the same sweep, plus the base-2 row log-sum-exp
+// lse2 = m + log2(l) (NEG where l = 0) written to a [B*H, Sq] fp32 array for
+// the backward kernels (`flash_attention_bwd.cu`). Its bound is the same.
 //
 // Math (the TPU kernel's): non-causal softmax(q k^T * scale) v with the
 // softmax in base 2 (log2(e) folded into the scale, exp2f), running max m,
@@ -75,10 +79,11 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int DP, int BQ, int BK, int CW>
+template <int DP, int BQ, int BK, int CW, bool LSE>
 __global__ void __launch_bounds__(Cfg<DP, BQ, BK, CW>::THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H,
                  int Sq, int Skv, int D, long long q_sb, long long q_ss,
                  long long q_sh, long long k_sb, long long k_ss,
                  long long k_sh, long long v_sb, long long v_ss,
@@ -227,6 +232,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
+  // ---- base-2 row log-sum-exp (training forward only) -------------------
+  if (LSE) {
+    for (int i = tid; i < BQ; i += C::THREADS)
+      if (q0 + i < Sq)
+        lse[(long long)blockIdx.y * Sq + q0 + i] =
+            l_s[i] > 0.f ? m_s[i] + log2f(l_s[i]) : NEG;
+  }
+
   // ---- O / l, bf16, strided store ----------------------------------------
   const int r_lo = rg * 16 + g, r_hi = r_lo + 8;
   const float inv_lo = 1.f / fmaxf(l_s[r_lo], 1e-30f);
@@ -245,16 +258,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP, int BQ, int BK, int CW>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
-           int Sq, int Skv, int D, const long long* st, float scale_log2,
-           cudaStream_t stream) {
+template <int DP, int BQ, int BK, int CW, bool LSE = false>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+           int B, int H, int Sq, int Skv, int D, const long long* st,
+           float scale_log2, cudaStream_t stream) {
   using C = Cfg<DP, BQ, BK, CW>;
-  auto kern = flash_fwd_kernel<DP, BQ, BK, CW>;
+  auto kern = flash_fwd_kernel<DP, BQ, BK, CW, LSE>;
   SDK_SET_SMEM(kern, C::SMEM);
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
-      q, k, v, o, H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
+      q, k, v, o, lse, H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
 }
@@ -276,7 +289,7 @@ extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
   const int dp = (D + 15) / 16 * 16;
 #define SDK_SMALL(DPV) \
   case DPV:            \
-    return launch<DPV, 64, 64, 1>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<DPV, 64, 64, 1>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   switch (dp) {
     SDK_SMALL(16)
     SDK_SMALL(32)
@@ -291,8 +304,38 @@ extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
   }
 #undef SDK_SMALL
   if (D <= 256)
-    return launch<256, 32, 64, 4>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<256, 32, 64, 4>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   if (D <= 512)
-    return launch<512, 32, 64, 4>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<512, 32, 64, 4>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: as sd_flash_fwd, plus lse2 [B*H, Sq] fp32 (row
+// b*H + h). Head dims up to 128 (the backward kernels' range).
+extern "C" int sd_flash_fwd_lse(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int B, int H, int Sq,
+                                int Skv, int D, const long long* strides,
+                                float scale_log2, void* stream) {
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
+  bf16* O = static_cast<bf16*>(o);
+  float* L = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((D + 15) / 16 * 16) {
+#define SDK_LSE(DPV) \
+  case DPV:          \
+    return launch<DPV, 64, 64, 1, true>(Q, K, V, O, L, B, H, Sq, Skv, D, strides, scale_log2, s);
+    SDK_LSE(16)
+    SDK_LSE(32)
+    SDK_LSE(48)
+    SDK_LSE(64)
+    SDK_LSE(80)
+    SDK_LSE(96)
+    SDK_LSE(112)
+    SDK_LSE(128)
+#undef SDK_LSE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

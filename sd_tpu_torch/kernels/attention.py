@@ -7,13 +7,16 @@ The shape rules below copy the TPU package's gates (`_pallas_ok`,
 `hpacked_flash_ok`) with the backend check replaced by the kernel's dtype:
 the CUDA kernel is bf16 only, so other dtypes take the plain path on any
 device. Where a rule holds, the kernel wrapper runs (the kernel on the card,
-its plain version elsewhere).
+its plain version elsewhere). `dot_product_attention` reaches the
+differentiable `flash_attention`; the head-packed kernel is inference-only
+and, as on the TPU, not chosen inside a training step (`training_trace`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from sd_tpu_torch.kernels import conv2d
 from sd_tpu_torch.kernels import flash_attention as fa
 
 
@@ -37,7 +40,10 @@ def flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
 def hpacked_flash_ok(sq: int, skv: int, heads: int, d: int,
                      dtype: torch.dtype = torch.bfloat16) -> bool:
     """`hpacked_flash_ok`: whether projection-native [B, S, H·D]
-    self-attention takes the flash kernel."""
+    self-attention takes the flash kernel (never in a training step: the
+    kernel has no backward)."""
+    if conv2d._TRAIN_CTX_VAR.get():
+        return False
     return dtype == torch.bfloat16 and _flash_shape_ok(sq, skv, d)
 
 

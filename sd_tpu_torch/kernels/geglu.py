@@ -45,9 +45,11 @@ def geglu_wants_pallas(n_tokens: int, c: int, inner: int,
 
 def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Fused `(x@w1ᵀ+b1) → a·gelu(g) → @w2ᵀ+b2` over flattened tokens."""
+    """Fused `(x@w1ᵀ+b1) → a·gelu(g) → @w2ᵀ+b2` over flattened tokens.
+    Forward only: on the card an input that needs a gradient raises."""
     if not x.is_cuda:
         return _geglu_xla(x, w1, b1, w2, b2)
+    kernels.refuse_grad("geglu_ff", x, w1, b1, w2, b2)
     C = x.shape[-1]
     inner = w1.shape[0] // 2
     if w1.shape != (2 * inner, C) or w2.shape != (C, inner) \
@@ -72,3 +74,12 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     kernels.LAUNCHES["geglu_ff"] += 1
     return out.view(x.shape)
 
+
+def geglu_ff_trainable(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """`geglu_ff` for inference, the plain version (autograd's own forward
+    and backward) when a gradient is wanted: the TPU package's
+    `geglu_ff_trainable` (a custom VJP whose training forward is XLA's)."""
+    if kernels.needs_grad(x, w1, b1, w2, b2):
+        return _geglu_xla(x, w1, b1, w2, b2)
+    return geglu_ff(x, w1, b1, w2, b2)

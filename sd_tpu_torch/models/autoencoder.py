@@ -1,9 +1,10 @@
-"""KL autoencoder, decode side.
+"""KL autoencoder.
 
-Counterpart of `sd_tpu/models/autoencoder.py` `AutoencoderKL`: `decode` is
-post_quant_conv followed by the decoder. Encoding (and the VQ first stages)
-are not ported yet, so the module holds only the decode-side parameters
-(`decoder`, `post_quant_conv` of the TPU package's tree).
+Counterpart of `sd_tpu/models/autoencoder.py` `AutoencoderKL`: `encode` is
+the encoder, then `quant_conv` to the posterior's moments, a
+`DiagonalGaussian`; `decode` is post_quant_conv followed by the decoder.
+The module holds the TPU package's whole KL tree (`encoder`, `decoder`,
+`quant_conv`, `post_quant_conv`). The VQ first stages are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,15 +15,13 @@ import torch
 from torch import nn
 
 from sd_tpu_torch.core.config import resolve_device
-from sd_tpu_torch.models.codec import Decoder
+from sd_tpu_torch.core.distributions import DiagonalGaussian
+from sd_tpu_torch.models.codec import Decoder, Encoder
 from sd_tpu_torch.nn.layers import Conv2d
-
-DECODE_PARAMS = ("decoder", "post_quant_conv")
 
 
 class AutoencoderKL(nn.Module):
-    """Decode side of the KL autoencoder; built on the card unless `device`
-    names another."""
+    """The KL autoencoder; built on the card unless `device` names another."""
 
     def __init__(self, embed_dim: int = 4, ch: int = 128,
                  ch_mult: Sequence[int] = (1, 2, 4, 4),
@@ -35,12 +34,19 @@ class AutoencoderKL(nn.Module):
         # which SD-v1 does not use and the port does not have yet
         del resolution
         if tuple(attn_resolutions):
-            raise NotImplementedError("per-level decoder attention is not ported")
+            raise NotImplementedError("per-level codec attention is not ported")
         kw = dict(dtype=dtype, device=resolve_device(device))
+        self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                               z_channels=z_channels, double_z=True, **kw)
         self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
                                num_res_blocks=num_res_blocks,
                                z_channels=z_channels, **kw)
+        self.quant_conv = Conv2d(2 * z_channels, 2 * embed_dim, 1, **kw)
         self.post_quant_conv = Conv2d(embed_dim, z_channels, 1, **kw)
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        """image [B, H, W, 3] in [-1, 1] → posterior over [B, H/8, W/8, embed_dim]."""
+        return DiagonalGaussian.from_moments(self.quant_conv(self.encoder(x)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, h, w, embed_dim] → image [B, 8h, 8w, out_ch] in [-1, 1]."""

@@ -1,11 +1,12 @@
 """Attention blocks: codec self-attention and the SD transformer
 (self/cross-attention, GEGLU feed-forward, SpatialTransformer).
 
-Counterpart of `sd_tpu/nn/attention.py`, on the SD-v1 inference path: the
-unmasked self-attention branch through the head-packed flash kernel, the
-cross-attention branch through the plain einsum attention, the GEGLU
-feed-forward through the fused kernel where the TPU package's shape rule
-sends it. NHWC layout; LayerNorm and softmax in fp32.
+Counterpart of `sd_tpu/nn/attention.py`, on the SD-v1 path: the unmasked
+self-attention branch through the head-packed flash kernel at inference and
+the differentiable flash attention in training, the cross-attention branch
+through the plain einsum attention, the GEGLU feed-forward through the fused
+kernel where the TPU package's shape rule sends it (its plain version when a
+gradient is wanted). NHWC layout; LayerNorm and softmax in fp32.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ class FeedForwardGEGLU(nn.Module):
         args = (x, self.proj_in.weight, self.proj_in.bias,
                 self.proj_out.weight, self.proj_out.bias)
         if geglu_k.geglu_wants_pallas(x.numel() // C, C, self.inner, x.dtype):
-            return geglu_k.geglu_ff(*args)
+            return geglu_k.geglu_ff_trainable(*args)
         return geglu_k._geglu_xla(*args)
 
 

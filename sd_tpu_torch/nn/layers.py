@@ -74,7 +74,7 @@ def apply_conv3x3(x: torch.Tensor, w: torch.Tensor,
     """Functional 3×3 SAME conv with the kernel-vs-plain dispatch."""
     x = x.to(w.dtype)
     if conv_k.conv3x3_wants_pallas(x.shape, x.shape[-1], w.shape[0], x.dtype):
-        return conv_k.conv3x3_same(x, w, b)
+        return conv_k.conv3x3_same_trainable(x, w, b)
     return conv_k._xla_conv3x3(x, w, b)
 
 

@@ -21,6 +21,7 @@ import torch
 
 from sd_tpu_torch.core.config import resolve_device
 from sd_tpu_torch.core.schedules import DiffusionSchedule
+from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion
 from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
@@ -52,7 +53,8 @@ class Text2ImagePipeline:
         diff = dict(cfg.get("diffusion", {}))
         lat = cfg["latent"]
         self.ld = LatentDiffusion(
-            schedule=DiffusionSchedule.create(**diff),
+            process=DDPMProcess(DiffusionSchedule.create(**diff),
+                                parameterization=diff.get("parameterization", "eps")),
             unet_apply=lambda x, t, ctx: self.unet(x.to(self.dtype), t, ctx),
             decode_fn=lambda z: self.vae.decode(z.to(self.dtype)),
             conditioning_key=lat.get("conditioning_key", "crossattn"),

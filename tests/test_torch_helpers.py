@@ -43,9 +43,10 @@ def randomize_tree(params, seed: int = 0):
 
 
 def flax_init(module, *args, seed: int = 0, **kw):
-    """Random params for a flax module, as plain nested dicts of numpy."""
-    params = module.init(jax.random.PRNGKey(0), *args, **kw)["params"]
-    params = jax.tree_util.tree_map(np.asarray, params)
+    """Random params for a flax module, as plain nested dicts of numpy (only
+    the tree's shapes are traced: every leaf is drawn anew)."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kw))["params"]
+    params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     return randomize_tree(_plain(params), seed)
 
 

@@ -1,7 +1,8 @@
 """The ported models against the JAX package at the tiny widths of the TPU
 benchmark's self-test (`bench.py` smoke: UNet 32 ch × (1, 2), VAE 16 ch ×
 (1, 2), latent 16²), fp32 on the CPU, every parameter random, within
-1e-4·max(1, max|ref|).
+1e-4·max(1, max|ref|): the UNet, the KL decoder, the encoder and the
+posterior moments of `AutoencoderKL.encode`.
 """
 
 from __future__ import annotations
@@ -12,9 +13,9 @@ import torch
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
 
 from sd_tpu.models import autoencoder as jae
+from sd_tpu.models import codec as jcodec
 from sd_tpu.models import unet_sd as junet
-from sd_tpu_torch.models import autoencoder, unet_sd
-from sd_tpu_torch.models.autoencoder import DECODE_PARAMS
+from sd_tpu_torch.models import autoencoder, codec, unet_sd
 
 TINY_UNET = dict(in_channels=4, model_channels=32, out_channels=4,
                  num_res_blocks=1, attention_resolutions=(2,),
@@ -28,10 +29,10 @@ def unet_params(seed=0):
                      jnp.zeros((1,), jnp.int32), jnp.zeros((1, 16, 32)), seed=seed)
 
 
-def vae_decode_params(seed=0):
-    full = flax_init(jae.AutoencoderKL(**TINY_VAE), jnp.zeros((1, 32, 32, 3)),
+def vae_params(seed=0):
+    """The whole KL tree (encoder, decoder, quant_conv, post_quant_conv)."""
+    return flax_init(jae.AutoencoderKL(**TINY_VAE), jnp.zeros((1, 32, 32, 3)),
                      seed=seed)
-    return {k: full[k] for k in DECODE_PARAMS}
 
 
 def test_unet():
@@ -47,7 +48,7 @@ def test_unet():
 
 
 def test_autoencoder_decode():
-    params = vae_decode_params()
+    params = vae_params()
     z = nprand(2, 16, 16, 4, seed=1)
     ref = jae.AutoencoderKL(**TINY_VAE).apply(
         {"params": params}, jnp.asarray(z), method=jae.AutoencoderKL.decode)
@@ -56,3 +57,27 @@ def test_autoencoder_decode():
         got = mod.decode(to_torch(z))
     assert got.shape == (2, 32, 32, 3)
     assert_close(got, ref)
+
+
+def test_encoder():
+    params = vae_params(seed=2)["encoder"]
+    x = nprand(2, 32, 32, 3, seed=1)
+    ref = jcodec.Encoder(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+                         z_channels=4).apply({"params": params}, jnp.asarray(x))
+    mod = port(codec.Encoder(ch=16, ch_mult=(1, 2), num_res_blocks=1, z_channels=4), params)
+    with torch.no_grad():
+        got = mod(to_torch(x))
+    assert got.shape == (2, 16, 16, 8)
+    assert_close(got, ref)
+
+
+def test_autoencoder_encode():
+    params = vae_params(seed=3)
+    x = nprand(2, 32, 32, 3, seed=1)
+    ref = jae.AutoencoderKL(**TINY_VAE).apply(
+        {"params": params}, jnp.asarray(x), method=jae.AutoencoderKL.encode)
+    mod = port(autoencoder.AutoencoderKL(**TINY_VAE, device="cpu"), params)
+    with torch.no_grad():
+        got = mod.encode(to_torch(x))
+    assert_close(got.mean, ref.mean)
+    assert_close(got.logvar, ref.logvar)

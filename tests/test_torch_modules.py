@@ -14,6 +14,7 @@ import pytest
 import torch
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
 
+from sd_tpu.core import distributions as jdist
 from sd_tpu.core import schedules as jsched
 from sd_tpu.diffusion import ddim as jddim
 from sd_tpu.diffusion import guidance as jguid
@@ -22,7 +23,7 @@ from sd_tpu.nn import attention as jattn
 from sd_tpu.nn import layers as jlayers
 from sd_tpu.nn import resnet as jresnet
 from sd_tpu.nn import updown as jupdown
-from sd_tpu_torch.core import schedules
+from sd_tpu_torch.core import distributions, schedules
 from sd_tpu_torch.diffusion import ddim, guidance, latent
 from sd_tpu_torch.models import clip_text
 from sd_tpu_torch.nn import attention, layers, resnet, updown
@@ -74,6 +75,36 @@ def test_schedule_tables_exact(eta):
         np.asarray(jsched.extract(jbase.alphas_cumprod, jnp.asarray(t), 4)))
 
 
+@pytest.mark.parametrize("param", ["eps", "x0", "v"])
+def test_training_schedule_tables_and_methods(param):
+    kw = dict(timesteps=1000, beta_schedule="linear", linear_start=0.00085,
+              linear_end=0.012, parameterization=param)
+    base, jbase = schedules.DiffusionSchedule.create(**kw), jsched.DiffusionSchedule.create(**kw)
+    np.testing.assert_array_equal(base.lvlb_weights.numpy(), np.asarray(jbase.lvlb_weights))
+    x0, noise = nprand(3, 4, 4, 2, seed=1), nprand(3, 4, 4, 2, seed=2)
+    t = np.array([0, 417, 999])
+    tt, jt = torch.from_numpy(t), jnp.asarray(t)
+    assert_close(base.q_sample(to_torch(x0), tt, to_torch(noise)),
+                 jbase.q_sample(jnp.asarray(x0), jt, jnp.asarray(noise)))
+    assert_close(base.get_v(to_torch(x0), to_torch(noise), tt),
+                 jbase.get_v(jnp.asarray(x0), jnp.asarray(noise), jt))
+
+
+def test_diagonal_gaussian():
+    moments = nprand(2, 4, 4, 8, scale=30.0)      # logvar past both clamps
+    other = nprand(2, 4, 4, 8, seed=1)
+    eps = nprand(2, 4, 4, 4, seed=2)
+    g = distributions.DiagonalGaussian.from_moments(to_torch(moments))
+    jg = jdist.DiagonalGaussian.from_moments(jnp.asarray(moments))
+    go = distributions.DiagonalGaussian.from_moments(to_torch(other))
+    jgo = jdist.DiagonalGaussian.from_moments(jnp.asarray(other))
+    assert_close(g.logvar, jg.logvar)
+    assert_close(g.mode(), jg.mode())
+    assert_close(g.sample(to_torch(eps)), jg.mean + jg.std * jnp.asarray(eps))
+    assert_close(go.kl(), jgo.kl())
+    assert_close(go.kl(g), jgo.kl(jg), 1e-3)      # var ratios up to e^50: fp32 sums
+
+
 # -- nn/layers ---------------------------------------------------------------------
 
 
@@ -100,6 +131,13 @@ def test_conv3x3():
 def test_downsample():
     got, ref = _run(jupdown.Downsample(with_conv=True), updown.Downsample(8),
                     nprand(2, 8, 8, 8))
+    assert_close(got, ref)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 10)])
+def test_downsample_asymmetric_padding(hw):
+    got, ref = _run(jupdown.Downsample(with_conv=True, asymmetric_padding=True),
+                    updown.Downsample(8, asymmetric_padding=True), nprand(2, *hw, 8))
     assert_close(got, ref)
 
 

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import SLICE_TOL, assert_close, flax_init, nprand, port, to_torch
-from test_torch_models import TINY_UNET, TINY_VAE, unet_params, vae_decode_params
+from test_torch_models import TINY_UNET, TINY_VAE, unet_params, vae_params
 
 from sd_tpu.core.schedules import DiffusionSchedule
 from sd_tpu.diffusion.ddim import DDIMSampler
@@ -42,7 +42,7 @@ def tiny_config() -> dict:
 def weights():
     clip = ClipTextTransformer(ClipTextConfig(**TINY_CLIP))
     cparams = flax_init(clip, jnp.zeros((1, 16), jnp.int32), seed=3)
-    return clip, cparams, unet_params(seed=4), vae_decode_params(seed=5)
+    return clip, cparams, unet_params(seed=4), vae_params(seed=5)
 
 
 def test_text_to_image_slice(weights):
