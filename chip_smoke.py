@@ -7,12 +7,16 @@ Phases, each printed as one JSON line:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   build    nvcc builds of every kernel from `sd_tpu_torch/csrc`, in parallel;
   kernel   each hand-written kernel at every shape the 512² text-to-image and
-           training paths give it (plus a ragged case), against its plain PyTorch version
+           training paths give it, the opt-in configuration's included (plus a
+           ragged case), against its plain PyTorch version
            computed in fp32 from the same bf16 inputs: max|Δ| ≤ 1e-2·max|ref|
            (bf16 output rounding at 2^-8 plus p rounded to bf16); the flash
            training kernels: lse2 within 1e-3 absolute, dq/dk/dv within
            2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16, sums
            over up to 4096 rows), and dK/dV bitwise equal on a second run;
+           the pipelined flash sweep against the serial kernel too (max|Δ|,
+           same bits expected); the fused GroupNorm → SiLU → 3×3 conv, which
+           no path calls, at the decoder's conv shapes;
            with the kernel's, the plain version's and one PyTorch library
            call's time (CUDA events) and the least time the card could take
            (bound);
@@ -20,10 +24,18 @@ Phases, each printed as one JSON line:
            (latent 32²) with every parameter random: bf16 with the kernels on
            the card against fp32 plain on the CPU, same (bf16-rounded) weights
            and inputs, relative-error bounds stated below;
+  parity_optin  the same with the opt-in switches set (`SD_TPU_PALLAS_GN=1
+           SD_TPU_PALLAS_XATTN=1 SD_TPU_FLASH_PIPE=1`), under the same bounds,
+           with the launches of GroupNorm, fused cross-attention and the
+           pipelined flash sweep;
   e2e      Text2ImagePipeline(sd_v1_config()) with every weight random from a
            seed: generate() of 2 prompts, 512², 50 DDIM steps, CFG 7.5; checks
            the uint8 [2, 512, 512, 3] output, a finite and non-constant image
            before quantisation, and the kernels' launch counts on that run.
+  e2e_optin  the same generate with the opt-in switches set in the
+           environment for the phase (restored after it): image checks, the
+           opt-in launch counts, and s/generate of the two configurations
+           timed in turns (default, opt-in, opt-in, default).
   train_parity  the SD-v1-width UNet (latent 32², batch 1: level 0 has 1024
            tokens and trains through the flash kernels) under a training step,
            MSE to a fixed target: bf16 with the kernels on the card against
@@ -37,8 +49,9 @@ Phases, each printed as one JSON line:
            "dots"); checks finite losses, grad_norm > 0, changed bf16 params,
            fp32 moments and a moved fp32 EMA shadow, and the launch counts.
   profile  (only with `--profile`) the layers' times and the device time of
-           one generate by kernel family, against its wall time, and the same
-           for one optimizer step of train_ldm.
+           one generate by kernel family, against its wall time, for the
+           default and the opt-in configuration, and the same for one
+           optimizer step of train_ldm.
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero; without
 a CUDA device, or without the repository beside it, it exits non-zero before
@@ -48,29 +61,63 @@ printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 HERE = Path(__file__).resolve().parent
 
-# peak rates of one H100 SXM (dense bf16 tensor cores, HBM3)
+# peak rates of one H100 SXM (dense bf16 tensor cores, fp32 outside the
+# tensor cores, HBM3)
 PEAK_FLOPS = 989e12
+PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+
+# every kernel wrapper's launch counter (`sd_tpu_torch.kernels.LAUNCHES`)
+KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpacked",
+           "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "geglu_ff",
+           "conv3x3_same", "gn_silu_conv3x3", "group_norm", "crossattn_kv")
+
+
+def launches_of(**nonzero) -> dict:
+    return {**dict.fromkeys(KERNELS, 0), **nonzero}
+
 
 # launches of one generate() at 512², 50 steps: 10 self-attention and 10
 # GEGLU calls per UNet step, the decoder's mid-block attention and 18 convs
-EXPECTED_LAUNCHES = {"flash_attention": 1, "flash_attention_hpacked": 500,
-                     "flash_attention_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                     "geglu_ff": 500, "conv3x3_same": 18}
+EXPECTED_LAUNCHES = launches_of(flash_attention=1, flash_attention_hpacked=500,
+                                geglu_ff=500, conv3x3_same=18)
+# the opt-in configuration: the TPU package's switches that reach kernels
+OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
+# ... and its launches per generate: 57 of the UNet's 61 GroupNorms and 15 of
+# its 16 cross-attentions per step, the decoder's mid-block attention through
+# the pipelined sweep (tests/test_torch_structure.py derives these)
+EXPECTED_LAUNCHES_OPTIN = launches_of(
+    flash_attention_pipelined=1, flash_attention_hpacked=500, geglu_ff=500,
+    conv3x3_same=18, group_norm=2850, crossattn_kv=750)
 # launches of one optimizer step of train_ldm(sd512_train_config()): 10
 # self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
 # remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
 # (tests/test_torch_structure.py derives these from the shape rules)
-EXPECTED_TRAIN_LAUNCHES = {"flash_attention": 0, "flash_attention_hpacked": 0,
-                           "flash_attention_lse": 80, "flash_bwd_dq": 40,
-                           "flash_bwd_dkv": 40, "geglu_ff": 0, "conv3x3_same": 0}
+EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_bwd_dq=40,
+                                      flash_bwd_dkv=40)
+# launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
+PARITY_OPTIN_LAUNCHES = {
+    "unet": launches_of(flash_attention_hpacked=5, geglu_ff=5, group_norm=46, crossattn_kv=10),
+    "decoder": launches_of(flash_attention_pipelined=1, conv3x3_same=12, group_norm=11)}
+# [B, S, C] of every GroupNorm and [B, N, M, heads, d, C] of every fused
+# cross-attention one opt-in generate of 2 prompts launches
+GN_SHAPES = [(4, 4096, 320), (4, 1024, 320), (4, 1024, 640), (4, 1024, 960),
+             (4, 1024, 1280), (4, 256, 640), (4, 256, 1280), (4, 256, 1920),
+             (4, 256, 2560), (4, 64, 1280), (4, 64, 2560)]
+XATTN_SHAPES = [(4, 4096, 77, 8, 40, 320), (4, 1024, 77, 8, 80, 640),
+                (4, 256, 77, 8, 160, 1280)]
+# the decoder's ResnetBlock convs at 128², 256², 512² (B, H = W, C, O), B = 2
+DECODER_CONVS = [(2, 128, 512, 512), (2, 256, 512, 256), (2, 256, 256, 256),
+                 (2, 512, 256, 128), (2, 512, 128, 128)]
 KERNEL_TOL = 1e-2
 LSE_TOL = 1e-3                                   # absolute, base-2 units
 GRAD_TOL = {"max_rel": 2e-2, "l2_rel": 1e-2}     # flash dq, dk, dv
@@ -91,8 +138,8 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound_ms(flops: int, nbytes: int) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: int, nbytes: int, peak: float = PEAK_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -129,6 +176,30 @@ def conv3x3_cost(b, h, w, c, o):
     return 18 * b * h * w * c * o, 2 * (b * h * w * (c + o) + 9 * c * o + o)
 
 
+def gn_silu_conv_cost(b, h, w, c, o):
+    # the conv's, plus the GroupNorm scale and bias read
+    flops, nbytes = conv3x3_cost(b, h, w, c, o)
+    return flops, nbytes + 4 * c
+
+
+def group_norm_cost(b, s, c, silu):
+    # fp32 outside the tensor cores: sum and square-sum (3), x·a + c (2),
+    # SiLU (4); x read once, y written once, bf16 scale and bias
+    return (5 + 4 * silu) * b * s * c, 2 * (2 * b * s * c + 2 * c), PEAK_FP32
+
+
+def crossattn_cost(b, n, m, heads, d, c):
+    # q and out projections, QKᵀ and PV over the m context tokens
+    hd = heads * d
+    return 4 * b * n * c * hd + 4 * b * n * m * hd, 2 * (2 * b * n * c + 2 * c * hd
+                                                         + 2 * b * m * hd + c)
+
+
+def switches(env: dict):
+    """Environment variables set for a block and restored after it."""
+    return mock.patch.dict(os.environ, env)
+
+
 def time_ms(fn, reps: int = 10) -> float:
     import torch
 
@@ -162,7 +233,8 @@ def kernel_cases(gen):
     import torch
     import torch.nn.functional as F
 
-    from sd_tpu_torch.kernels import conv2d, flash_attention as fa, geglu
+    from sd_tpu_torch.kernels import conv2d, cross_attention as xattn
+    from sd_tpu_torch.kernels import flash_attention as fa, geglu, groupnorm as gn
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
@@ -211,8 +283,7 @@ def kernel_cases(gen):
             library=None, view=lambda o: o,
             cost=geglu_cost(N, C, I)))
     # row 8: the decoder's ResnetBlock convs at 128², 256², 512², B = 2
-    for Hs, C, O in ((128, 512, 512), (256, 512, 256), (256, 256, 256),
-                     (512, 256, 128), (512, 128, 128)):
+    for _, Hs, C, O in DECODER_CONVS:
         x = rnd(2, Hs, Hs, C)
         w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
             memory_format=torch.channels_last)
@@ -225,6 +296,79 @@ def kernel_cases(gen):
             library=lambda x=x, w=w, b=b: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1),
             view=lambda o: o,
             cost=conv3x3_cost(2, Hs, Hs, C, O)))
+    # row 2 (opt-in): the pipelined kv sweep, at the decoder's mid-block
+    # attention and two ragged cases; also held against the serial kernel
+    for B, S, Skv, H, D in ((2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
+                            (1, 1000, 1300, 8, 40)):
+        q, k, v = rnd(B, S, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
+        heads = lambda t: t.transpose(1, 2)
+
+        def piped(q=q, k=k, v=v):
+            with switches({"SD_TPU_FLASH_PIPE": "1"}):
+                return fa.flash_attention(q, k, v)
+
+        def vs_serial(out, q=q, k=k, v=v):
+            serial = fa.flash_attention(q, k, v)
+            return {"serial_max_abs_diff": rel_err(out, serial)[0],
+                    "same_bits_as_serial": bool(torch.equal(out, serial))}
+
+        cases.append(dict(
+            name="flash_attention_pipelined", shape=[B, S, Skv, H, D], kernel=piped,
+            plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
+            ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(),
+                                                       D**-0.5),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v)),
+            view=lambda o: o, extra=vs_serial,
+            cost=attention_cost(B, S, Skv, H, D)))
+    # row 10 (opt-in): GroupNorm at every opt-in generate shape (eps 1e-5, the
+    # resblocks'), the transformer norms' eps 1e-6, the SiLU epilogue (no
+    # model path uses it) and a ragged case with 8 groups
+    gn_cases = [(b, s_, c, 32, 1e-5, None, True) for b, s_, c in GN_SHAPES]
+    gn_cases += [(4, 4096, 320, 32, 1e-6, None, False), (4, 1024, 640, 32, 1e-6, None, False),
+                 (4, 256, 1280, 32, 1e-6, None, False), (4, 4096, 320, 32, 1e-6, "silu", False),
+                 (3, 100, 136, 8, 1e-6, "silu", False)]
+    for B, S, C, G, eps, act, table in gn_cases:
+        x = rnd(B, S, C, scale=3.0) + 0.5
+        sc, bi = 1 + rnd(C, scale=0.2), rnd(C, scale=0.3)
+        kw = dict(groups=G, eps=eps, act=act)
+        cases.append(dict(
+            name="group_norm", shape=[B, S, C, G, eps, act],
+            kernel=lambda x=x, sc=sc, bi=bi, kw=kw: gn.group_norm(x, sc, bi, **kw),
+            plain=lambda x=x, sc=sc, bi=bi, kw=kw: gn.group_norm_xla(x, sc, bi, **kw),
+            ref=lambda x=x, sc=sc, bi=bi, kw=kw: gn.group_norm_xla(
+                x.float(), sc.float(), bi.float(), **kw),
+            library=(None if act else lambda x=x, sc=sc, bi=bi, G=G, eps=eps:
+                     F.group_norm(x.transpose(1, 2), G, sc, bi, eps)),
+            view=lambda o: o, table=table, cost=group_norm_cost(B, S, C, act == "silu")))
+    # row 11 (opt-in): the fused cross-attention at UNet levels 0-2 over the
+    # 77 CLIP tokens, and a ragged case (rows past a q tile, 33 tokens, d = 24)
+    for B, N, M, H, D, C in XATTN_SHAPES + [(1, 1000, 33, 4, 24, 96)]:
+        HD = H * D
+        args = (rnd(B, N, C), rnd(HD, C, scale=C**-0.5), rnd(B, M, HD), rnd(B, M, HD),
+                rnd(C, HD, scale=HD**-0.5), rnd(C, scale=0.1))
+        cases.append(dict(
+            name="crossattn_kv", shape=[B, N, M, H, D, C],
+            kernel=lambda a=args, H=H: xattn.crossattn_kv(*a, H),
+            plain=lambda a=args, H=H: xattn.crossattn_kv_xla(*a, H),
+            ref=lambda a=args, H=H: xattn.crossattn_kv_xla(*(t.float() for t in a), H),
+            library=None, view=lambda o: o, cost=crossattn_cost(B, N, M, H, D, C)))
+    # row 9 (no model path): GroupNorm → SiLU → 3×3 conv at the decoder's
+    # conv shapes, and a ragged one
+    for B, Hs, Ws, C, O in [(b, h, h, c, o) for b, h, c, o in DECODER_CONVS] + [
+            (1, 37, 50, 64, 128)]:
+        x = rnd(B, Hs, Ws, C, scale=2.0) + 0.5
+        sc, bi = 1 + rnd(C, scale=0.1), rnd(C, scale=0.1)
+        w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
+            memory_format=torch.channels_last)
+        b = rnd(O, scale=0.1)
+        args = (x, sc, bi, w, b)
+        cases.append(dict(
+            name="gn_silu_conv3x3", shape=[B, Hs, Ws, C, O],
+            kernel=lambda a=args: conv2d.gn_silu_conv3x3(*a),
+            plain=lambda a=args: conv2d._gn_silu_conv_xla(*a),
+            ref=lambda a=args: conv2d._gn_silu_conv_xla(*(t.float() for t in a)),
+            library=None, view=lambda o: o, cost=gn_silu_conv_cost(B, Hs, Ws, C, O)))
     return cases
 
 
@@ -241,7 +385,7 @@ def phase_kernels(gen) -> dict:
         b_ms, b_by = bound_ms(*case["cost"])
         row = {
             "phase": "kernel", "name": case["name"], "shape": case["shape"],
-            "max_abs_err": err, "rel_err": rel,
+            "max_abs_err": err, "rel_err": rel, **case.get("extra", lambda o: {})(out),
             "ms": time_ms(case["kernel"]), "plain_ms": time_ms(case["plain"], 3),
             "library_ms": (time_ms(case["library"]) if case["library"] else None),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -250,7 +394,8 @@ def phase_kernels(gen) -> dict:
         require(rel <= KERNEL_TOL, f"{case['name']} {case['shape']}: max|Δ| = "
                 f"{rel:.3g}·max|ref| > {KERNEL_TOL}")
         # the kernel table reports each kernel at its heaviest main-path shape
-        if case["name"] not in best or case["cost"][0] > best[case["name"]][0]:
+        if case.get("table", True) and (case["name"] not in best
+                                        or case["cost"][0] > best[case["name"]][0]):
             best[case["name"]] = (case["cost"][0], row)
         torch.cuda.empty_cache()
     return {name: row for name, (_, row) in best.items()}
@@ -343,7 +488,7 @@ def phase_train_kernels(gen) -> dict:
     return {name: row for name, (_, row) in best.items()}
 
 
-def _parity(name, build, inputs_fn, run, tol, gen_cpu):
+def _parity(name, build, inputs_fn, run, tol, gen_cpu, phase="parity"):
     """bf16 + kernels on the card vs fp32 plain on the CPU, same weights."""
     import torch
 
@@ -371,7 +516,7 @@ def _parity(name, build, inputs_fn, run, tol, gen_cpu):
     d = out - ref
     max_rel = (d.abs().max() / ref.abs().max()).item()
     l2_rel = (d.norm() / ref.norm()).item()
-    emit({"phase": "parity", "model": name, "shape": list(out.shape),
+    emit({"phase": phase, "model": name, "shape": list(out.shape),
           "max_rel": max_rel, "l2_rel": l2_rel, "bound": tol,
           "launches": launches, "cpu_seconds": cpu_s})
     require(bool(torch.isfinite(out).all()) and max_rel <= tol["max_rel"]
@@ -381,7 +526,9 @@ def _parity(name, build, inputs_fn, run, tol, gen_cpu):
     return launches
 
 
-def phase_parity() -> None:
+def phase_parity(optin: bool = False) -> None:
+    """UNet and decoder parity; with `optin`, under the opt-in switches,
+    requiring exactly the launches `PARITY_OPTIN_LAUNCHES` lists."""
     import torch
 
     from sd_tpu_torch.core.config import sd_v1_config
@@ -391,34 +538,78 @@ def phase_parity() -> None:
     cfg = sd_v1_config()
     g = torch.Generator().manual_seed(1)
     rounded = lambda t: t.bfloat16().float()
+    phase = "parity_optin" if optin else "parity"
 
     def unet_inputs():
         return (rounded(torch.randn(2, 32, 32, 4, generator=g)),
                 torch.tensor([999, 501]),
                 rounded(torch.randn(2, 77, 768, generator=g)))
 
-    launches = _parity(
-        "unet", lambda dt, dev: UNetModel(**cfg["unet"]["params"], dtype=dt, device=dev),
-        unet_inputs, lambda m, x, t, c: m(x, t, c), UNET_TOL, g)
+    with switches(OPT_IN if optin else {}):
+        unet = _parity(
+            "unet", lambda dt, dev: UNetModel(**cfg["unet"]["params"], dtype=dt, device=dev),
+            unet_inputs, lambda m, x, t, c: m(x, t, c), UNET_TOL, g, phase)
+        decoder = _parity(
+            "decoder", lambda dt, dev: AutoencoderKL(**cfg["first_stage"]["params"],
+                                                     dtype=dt, device=dev),
+            lambda: (rounded(torch.randn(1, 32, 32, 4, generator=g)),),
+            lambda m, z: m.decode(z), DECODER_TOL, g, phase)
+    if optin:
+        want = PARITY_OPTIN_LAUNCHES
+        require({"unet": unet, "decoder": decoder} == want,
+                f"opt-in parity launches {unet}, {decoder} == {want}")
+        return
     # latent 32² puts 1024 tokens through level 0: both UNet kernels run
-    require(launches["flash_attention_hpacked"] == 5 and launches["geglu_ff"] == 5,
-            f"UNet parity launches {launches}")
+    require(unet["flash_attention_hpacked"] == 5 and unet["geglu_ff"] == 5,
+            f"UNet parity launches {unet}")
+    require(decoder["flash_attention"] == 1 and decoder["conv3x3_same"] == 12,
+            f"decoder parity launches {decoder}")
 
-    launches = _parity(
-        "decoder", lambda dt, dev: AutoencoderKL(**cfg["first_stage"]["params"],
-                                                 dtype=dt, device=dev),
-        lambda: (rounded(torch.randn(1, 32, 32, 4, generator=g)),),
-        lambda m, z: m.decode(z), DECODER_TOL, g)
-    require(launches["flash_attention"] == 1 and launches["conv3x3_same"] == 12,
-            f"decoder parity launches {launches}")
+
+def _timed_generate(pipe, prompts, env: dict) -> tuple[float, dict, object]:
+    """Seconds, launches and uint8 images of one 50-step CFG generate under
+    the environment `env`."""
+    import torch
+
+    from sd_tpu_torch import kernels
+
+    with switches(env):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = pipe.generate(prompts, num_steps=50, guidance_scale=7.5, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return secs, dict(kernels.LAUNCHES), images
+
+
+def _check_images(pipe, prompts, images, env: dict) -> dict:
+    """uint8 [2, 512, 512, 3] images; the same run's image before
+    quantisation (same seed, same noise) finite and non-constant, and how
+    many of its bytes differ from the images once quantised."""
+    import torch
+
+    from sd_tpu_torch.pipeline import to_uint8
+
+    with switches(env):
+        g = torch.Generator("cuda").manual_seed(0)
+        x_T = torch.randn((2,) + pipe.latent_shape, generator=g, device="cuda")
+        pre = pipe.sample(prompts, x_T, num_steps=50, guidance_scale=7.5, generator=g)
+    pre32 = pre.float()
+    require(images.shape == (2, 512, 512, 3) and images.dtype.name == "uint8",
+            f"uint8 [2, 512, 512, 3] images, got {images.dtype} {images.shape}")
+    require(bool(torch.isfinite(pre32).all()), "finite image before quantisation")
+    require(pre32.std().item() > 0 and images.std() > 0, "non-constant image")
+    return {"pre_quant_min": pre32.min().item(), "pre_quant_max": pre32.max().item(),
+            "pre_quant_std": pre32.std().item(),
+            "uint8_mismatch_vs_rerun": int((to_uint8(pre) != images).sum())}
 
 
 def phase_e2e() -> dict:
     import torch
 
-    from sd_tpu_torch import kernels
     from sd_tpu_torch.core.config import sd_v1_config
-    from sd_tpu_torch.pipeline import Text2ImagePipeline, to_uint8
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
     from sd_tpu_torch.weights import randomize_params_
 
     t0 = time.perf_counter()
@@ -432,35 +623,43 @@ def phase_e2e() -> dict:
                "a watercolor painting of a lighthouse at dusk"]
     pipe.generate(prompts, num_steps=2)          # warm-up, not counted
 
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    images = pipe.generate(prompts, num_steps=50, guidance_scale=7.5, seed=0)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-
-    # the same run's image before quantisation: same seed, same noise
-    g = torch.Generator("cuda").manual_seed(0)
-    x_T = torch.randn((2,) + pipe.latent_shape, generator=g, device="cuda")
-    pre = pipe.sample(prompts, x_T, num_steps=50, guidance_scale=7.5, generator=g)
-    pre32 = pre.float()
+    secs, launches, images = _timed_generate(pipe, prompts, {})
     row = {"phase": "e2e", "images": list(images.shape), "dtype": str(images.dtype),
            "seconds_per_generate": secs, "images_per_second": len(prompts) / secs,
            "pipeline_build_seconds": build_s, "launches": launches,
-           "pre_quant_min": pre32.min().item(), "pre_quant_max": pre32.max().item(),
-           "pre_quant_std": pre32.std().item(),
-           "uint8_mismatch_vs_rerun": int((to_uint8(pre) != images).sum()),
+           **_check_images(pipe, prompts, images, {}),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit(row)
-    require(images.shape == (2, 512, 512, 3) and images.dtype.name == "uint8",
-            f"uint8 [2, 512, 512, 3] images, got {images.dtype} {images.shape}")
-    require(bool(torch.isfinite(pre32).all()), "finite image before quantisation")
-    require(pre32.std().item() > 0 and images.std() > 0, "non-constant image")
     total = launches["flash_attention"] + launches["flash_attention_hpacked"]
     require(launches == EXPECTED_LAUNCHES and total == 501,
             f"launches {launches} == {EXPECTED_LAUNCHES}")
-    return launches, pipe, prompts
+    return launches, pipe, prompts, images
+
+
+def phase_e2e_optin(pipe, prompts, default_images) -> dict:
+    """The same generate with the opt-in switches set for the phase: image
+    checks and launches of its first timed run, then both configurations
+    timed in turns (default, opt-in, opt-in, default)."""
+    import torch
+
+    with switches(OPT_IN):
+        pipe.generate(prompts, num_steps=2)      # warm-up, not counted
+    secs, launches, images = _timed_generate(pipe, prompts, OPT_IN)
+    checks = _check_images(pipe, prompts, images, OPT_IN)
+    turns = {"default": [], "optin": []}
+    for which in ("default", "optin", "optin", "default"):
+        turns[which].append(_timed_generate(pipe, prompts, OPT_IN if which == "optin" else {})[0])
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    emit({"phase": "e2e_optin", "switches": OPT_IN, "images": list(images.shape),
+          "seconds_per_generate": secs, "images_per_second": len(prompts) / secs,
+          "launches": launches, **checks,
+          "uint8_mismatch_vs_default": int((images != default_images).sum()),
+          "turns_seconds": turns, "mean_seconds_per_generate": mean,
+          "optin_over_default": mean["optin"] / mean["default"],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30})
+    require(launches == EXPECTED_LAUNCHES_OPTIN,
+            f"opt-in launches {launches} == {EXPECTED_LAUNCHES_OPTIN}")
+    return launches
 
 
 def phase_train_parity() -> dict:
@@ -605,11 +804,18 @@ def phase_train() -> dict:
 
 def _family(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in name and "true>" in name:
-        return "flash LSE forward (port)"
-    for key, fam in (("flash_fwd_kernel", "flash (port)"), ("flash_bwd_dq", "flash dQ (port)"),
-                     ("flash_bwd_dkv", "flash dK/dV (port)"), ("geglu_kernel", "geglu (port)"),
-                     ("conv3x3_kernel", "conv3x3 (port)")):
+    if "flash_fwd_kernel<" in name:
+        # template arguments <DP, BQ, BK, CW, LSE, PIPE>
+        args = name.split("flash_fwd_kernel<")[1].split(">")[0].split(", ")
+        if args[4] == "true":
+            return "flash LSE forward (port)"
+        return "flash pipelined (port)" if args[5] == "true" else "flash (port)"
+    if "conv3x3_kernel<true>" in name:
+        return "GN-SiLU-conv3x3 (port)"
+    for key, fam in (("flash_bwd_dq", "flash dQ (port)"), ("flash_bwd_dkv", "flash dK/dV (port)"),
+                     ("geglu_kernel", "geglu (port)"), ("conv3x3_kernel", "conv3x3 (port)"),
+                     ("gn_stats_kernel", "groupnorm (port)"), ("gn_norm_kernel", "groupnorm (port)"),
+                     ("crossattn_kernel", "cross-attention (port)")):
         if key in name:
             return fam
     if "conv" in low or "fprop" in low or "cudnn" in low:
@@ -621,10 +827,16 @@ def _family(name: str) -> str:
     return "elementwise/other"
 
 
-def phase_profile(pipe, prompts) -> None:
+def phase_profile(pipe, prompts, optin: bool = False) -> None:
     """Where one generate's time goes (`--profile`): the layers' times from
     CUDA events, and device time by kernel family from torch.profiler over
-    a whole 50-step generate, against its wall time."""
+    a whole 50-step generate, against its wall time; with `optin`, under the
+    opt-in switches."""
+    with switches(OPT_IN if optin else {}):
+        _profile_generate(pipe, prompts, "generate (opt-in)" if optin else "generate")
+
+
+def _profile_generate(pipe, prompts, of: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -643,7 +855,7 @@ def phase_profile(pipe, prompts) -> None:
         pipe.generate(prompts, num_steps=50, guidance_scale=7.5, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    emit({"phase": "profile", "of": "generate", "layers": layers,
+    emit({"phase": "profile", "of": of, "layers": layers,
           **_device_breakdown(prof, wall)})
 
 
@@ -771,6 +983,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
+    for var in (*OPT_IN, "SD_TPU_PALLAS_CONV"):    # each phase sets what it measures
+        os.environ.pop(var, None)
     torch.backends.cudnn.allow_tf32 = False       # fp32 references in fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi()
@@ -788,10 +1002,13 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     table = {**phase_kernels(gen), **phase_train_kernels(gen)}
     phase_parity()
-    launches, pipe, prompts = phase_e2e()
+    phase_parity(optin=True)
+    launches, pipe, prompts, images = phase_e2e()
+    launches_optin = phase_e2e_optin(pipe, prompts, images)
     profiling = "--profile" in sys.argv[1:]
     if profiling:
         phase_profile(pipe, prompts)
+        phase_profile(pipe, prompts, optin=True)
     del pipe
     torch.cuda.empty_cache()
     phase_train_parity()
@@ -800,25 +1017,38 @@ def main() -> int:
         phase_train_profile()
 
     # each kernel's launches on its main path: generate for the inference
-    # kernels, the train_ldm run for the training kernels
-    train_kernels = ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv")
+    # kernels, the opt-in generate for the opt-in ones, the train_ldm run for
+    # the training kernels; the fused GN → SiLU → conv is on no path (as in
+    # sd_tpu, where no model calls it)
     src = "sd_tpu_torch/csrc/"
     tpu = "sd_tpu/kernels/"
     sources = {"flash_attention": (src + "flash_attention.cu", tpu + "flash_attention.py:66"),
+               "flash_attention_pipelined": (src + "flash_attention.cu",
+                                             tpu + "flash_attention.py:123"),
                "flash_attention_hpacked": (src + "flash_attention.cu",
                                            tpu + "flash_attention.py:293"),
                "flash_attention_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:421"),
                "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
                "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
                "geglu_ff": (src + "geglu.cu", tpu + "geglu.py:48"),
-               "conv3x3_same": (src + "conv2d.cu", tpu + "conv2d.py:30")}
+               "conv3x3_same": (src + "conv2d.cu", tpu + "conv2d.py:30"),
+               "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
+               "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
+               "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
+    paths = {"flash_attention_lse": ("train_ldm", train["launches"]),
+             "flash_bwd_dq": ("train_ldm", train["launches"]),
+             "flash_bwd_dkv": ("train_ldm", train["launches"]),
+             "flash_attention_pipelined": ("generate, opt-in", launches_optin),
+             "group_norm": ("generate, opt-in", launches_optin),
+             "crossattn_kv": ("generate, opt-in", launches_optin),
+             "gn_silu_conv3x3": ("none: not wired, as in sd_tpu", launches_optin)}
     rows = []
     for name, (source, rep) in sources.items():
         r = table[name]
-        path = "train_ldm" if name in train_kernels else "generate"
-        n = train["launches"][name] if name in train_kernels else launches[name]
+        path, counts = paths.get(name, ("generate", launches))
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": rep,
-                     "launches": n, "launches_path": path, "max_abs_err": r["max_abs_err"],
+                     "launches": counts[name], "launches_path": path,
+                     "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "shape": r["shape"]})

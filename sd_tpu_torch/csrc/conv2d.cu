@@ -26,6 +26,17 @@
 // Weights are the torch OIHW tensor in channels_last memory format, i.e.
 // physically [O][3][3][C]: each (tap, o) row is c-contiguous, which is the
 // layout the B operand wants.
+//
+// Compiled with PRO = true the same kernel replaces `_conv3x3_prologue_kernel`
+// (sd_tpu/kernels/conv2d.py:38, behind `gn_silu_conv3x3`): each input value
+// of the window becomes bf16(silu(x * a[b, c] + c[b, c])) in fp32 as it lands
+// in shared memory, where a and c ([B, C] fp32, computed outside the kernel)
+// fold GroupNorm's statistics and affine. Pixels outside the image stay
+// zeros, written after (instead of) the transform: silu(c) is not 0, so
+// transforming the SAME halo would be wrong (the TPU kernel re-zeroes it).
+// Its bound is the conv's (the prologue adds ~6 fp32 ops per input value,
+// against 18 * O tensor-core flops); what it saves is the normalized
+// tensor's write and read in device memory.
 #include "common.cuh"
 
 namespace {
@@ -41,9 +52,11 @@ constexpr int XS = KC + 8;         // row stride of a window pixel / weight row
 constexpr int NT = TO / 8;         // n8 tiles per warp
 constexpr size_t SMEM = (size_t)(WH * WW * XS + 9 * TO * XS) * 2;
 
+template <bool PRO>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               const bf16* __restrict__ bias, bf16* __restrict__ y, int H,
+               const bf16* __restrict__ bias, const float* __restrict__ pa,
+               const float* __restrict__ pc, bf16* __restrict__ y, int H,
                int W, int C, int O) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem);
@@ -73,8 +86,25 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int py = pix / WW, px = pix - py * WW;
       const int gy = y0 - 1 + py, gx = x0 - 1 + px;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
         val = *reinterpret_cast<const uint4*>(xb + ((long long)gy * W + gx) * C + c0 + v * 8);
+        if (PRO) {
+          // silu(x * a + c) in fp32, one bf16 rounding
+          const float* ab = pa + (long long)b * C + c0 + v * 8;
+          const float* cb = pc + (long long)b * C + c0 + v * 8;
+          const bf16* e = reinterpret_cast<const bf16*>(&val);
+          uint32_t packed[4];
+#pragma unroll
+          for (int u = 0; u < 8; u += 2) {
+            float f0 = __bfloat162float(e[u]) * ab[u] + cb[u];
+            float f1 = __bfloat162float(e[u + 1]) * ab[u + 1] + cb[u + 1];
+            f0 = f0 / (1.f + __expf(-f0));
+            f1 = f1 / (1.f + __expf(-f1));
+            packed[u / 2] = sdk::pack_bf16(f0, f1);
+          }
+          val = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        }
+      }
       *reinterpret_cast<uint4*>(Xs + pix * XS + v * 8) = val;
     }
     // weights of this chunk: Ws[tap][o][c]
@@ -116,6 +146,19 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+template <bool PRO>
+int launch(const void* x, const void* w, const void* bias, const float* a,
+           const float* c, void* y, int B, int H, int W, int C, int O,
+           void* stream) {
+  if (C % KC != 0 || O % TO != 0) return (int)cudaErrorInvalidValue;
+  SDK_SET_SMEM(conv3x3_kernel<PRO>, SMEM);
+  dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), O / TO, B);
+  conv3x3_kernel<PRO><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(bias), a, c, static_cast<bf16*>(y), H, W, C, O);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [B, H, W, C], w [O, 3, 3, C], bias [O], y [B, H, W, O]: contiguous bf16.
@@ -124,11 +167,15 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 extern "C" int sd_conv3x3_fwd(const void* x, const void* w, const void* bias,
                               void* y, int B, int H, int W, int C, int O,
                               void* stream) {
-  if (C % KC != 0 || O % TO != 0) return (int)cudaErrorInvalidValue;
-  SDK_SET_SMEM(conv3x3_kernel, SMEM);
-  dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), O / TO, B);
-  conv3x3_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(y), H, W, C, O);
-  return (int)cudaGetLastError();
+  return launch<false>(x, w, bias, nullptr, nullptr, y, B, H, W, C, O, stream);
+}
+
+// As sd_conv3x3_fwd, with the input taken as silu(x * a + c): a, c [B, C]
+// contiguous fp32 (GroupNorm folded per batch row and channel).
+extern "C" int sd_gn_silu_conv3x3_fwd(const void* x, const void* w,
+                                      const void* bias, const void* a,
+                                      const void* c, void* y, int B, int H,
+                                      int W, int C, int O, void* stream) {
+  return launch<true>(x, w, bias, static_cast<const float*>(a),
+                      static_cast<const float*>(c), y, B, H, W, C, O, stream);
 }

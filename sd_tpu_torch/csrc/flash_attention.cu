@@ -10,6 +10,15 @@
 // training forward: the same sweep, plus the base-2 row log-sum-exp
 // lse2 = m + log2(l) (NEG where l = 0) written to a [B*H, Sq] fp32 array for
 // the backward kernels (`flash_attention_bwd.cu`). Its bound is the same.
+// Compiled with PIPE = true it replaces `_flash_kernel_pipelined` (:123, the
+// opt-in `SD_TPU_FLASH_PIPE=1` variant of `_flash_kernel`): the kv sweep runs
+// one extra drain step, and step j issues Q K_j^T and the exp2 of tile j
+// before P_{j-1} V_{j-1}, with two P tiles and two rescale vectors in shared
+// memory. The softmax of tile j and the PV product of tile j-1 touch disjoint
+// buffers, so no barrier separates them: warps that finish their exp2 go on to
+// the tensor cores while others are still exponentiating, and a step has three
+// barriers instead of four. The arithmetic and the rounding of P are the
+// serial kernel's, in the same order, so the output is the same bits.
 //
 // Math (the TPU kernel's): non-causal softmax(q k^T * scale) v with the
 // softmax in base 2 (log2(e) folded into the scale, exp2f), running max m,
@@ -43,7 +52,7 @@ using sdk::bf16;
 
 constexpr float NEG = -1e30f;
 
-template <int DP, int BQ, int BK, int CW>
+template <int DP, int BQ, int BK, int CW, bool PIPE = false>
 struct Cfg {
   static constexpr int RG = BQ / 16;
   static constexpr int WARPS = RG * CW;
@@ -56,9 +65,10 @@ struct Cfg {
   static constexpr int SNT = BK / 8 / CW;     // n8 tiles of S per warp
   static constexpr int TPR = THREADS / BQ;    // softmax threads per row
   static constexpr int VPT = BK / TPR;        // softmax values per thread
+  static constexpr int NP = PIPE ? 2 : 1;      // P tiles and rescale vectors
   static constexpr size_t SMEM =
-      (size_t)(BQ * SS + 3 * BQ) * 4 +
-      (size_t)(BQ * QS + BK * QS + DP * VS + BQ * VS) * 2;
+      (size_t)(BQ * SS + (2 + NP) * BQ) * 4 +
+      (size_t)(BQ * QS + BK * QS + DP * VS + NP * BQ * VS) * 2;
   static_assert(DP % 16 == 0 && OCOLS % 8 == 0, "head tiling");
   static_assert(BK % (8 * CW) == 0 && 32 % TPR == 0 && BK % TPR == 0, "tiling");
 };
@@ -79,8 +89,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int DP, int BQ, int BK, int CW, bool LSE>
-__global__ void __launch_bounds__(Cfg<DP, BQ, BK, CW>::THREADS)
+template <int DP, int BQ, int BK, int CW, bool LSE, bool PIPE>
+__global__ void __launch_bounds__(Cfg<DP, BQ, BK, CW, PIPE>::THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int H,
@@ -89,16 +99,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long k_sh, long long v_sb, long long v_ss,
                  long long v_sh, long long o_sb, long long o_ss,
                  long long o_sh, float scale_log2) {
-  using C = Cfg<DP, BQ, BK, CW>;
+  using C = Cfg<DP, BQ, BK, CW, PIPE>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ss = reinterpret_cast<float*>(smem);
   float* m_s = Ss + BQ * C::SS;
   float* l_s = m_s + BQ;
-  float* c_s = l_s + BQ;
-  bf16* Qs = reinterpret_cast<bf16*>(c_s + BQ);
+  float* c_s = l_s + BQ;               // NP rescale vectors of BQ
+  bf16* Qs = reinterpret_cast<bf16*>(c_s + C::NP * BQ);
   bf16* Ks = Qs + BQ * C::QS;
   bf16* Vt = Ks + BK * C::QS;
-  bf16* Ps = Vt + DP * C::VS;
+  bf16* Ps = Vt + DP * C::VS;          // NP P tiles of BQ x VS
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -128,22 +138,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
 
   const int dv = D / 8;
-  for (int j0 = 0; j0 < Skv; j0 += BK) {
-    // ---- K tile row-major, V tile transposed to [d][kv] ----------------
-    load_rows<BK, C::QS, C::THREADS>(Ks, kb, k_ss, j0, Skv, D);
-    for (int idx = tid; idx < BK * dv; idx += C::THREADS) {
-      const int r = idx / dv, c = (idx - r * dv) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + r < Skv)
-        val = *reinterpret_cast<const uint4*>(vb + (long long)(j0 + r) * v_ss + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
+  const int n_kv = (Skv + BK - 1) / BK;
+  // serial: step j is QK, softmax and PV of tile j; pipelined: QK and
+  // softmax of tile j, PV of tile j - 1, and one drain step at the end
+  for (int j = 0; j < n_kv + (PIPE ? 1 : 0); ++j) {
+    const int jp = PIPE ? j - 1 : j;     // the tile whose PV runs this step
+    const bool qk_step = j < n_kv, pv_step = jp >= 0;
+    const int j0 = j * BK;
+    bf16* Pw = Ps + (PIPE ? (j & 1) : 0) * BQ * C::VS;
+    float* cw = c_s + (PIPE ? (j & 1) : 0) * BQ;
+    const bf16* Pr = Ps + (PIPE ? (jp & 1) : 0) * BQ * C::VS;
+    const float* cr = c_s + (PIPE ? (jp & 1) : 0) * BQ;
+
+    // ---- K tile j row-major, V tile jp transposed to [d][kv] -------------
+    if (qk_step) load_rows<BK, C::QS, C::THREADS>(Ks, kb, k_ss, j0, Skv, D);
+    if (pv_step) {
+      const int v0 = jp * BK;
+      for (int idx = tid; idx < BK * dv; idx += C::THREADS) {
+        const int r = idx / dv, c = (idx - r * dv) * 8;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (v0 + r < Skv)
+          val = *reinterpret_cast<const uint4*>(vb + (long long)(v0 + r) * v_ss + c);
+        const bf16* e = reinterpret_cast<const bf16*>(&val);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) Vt[(c + u) * C::VS + r] = e[u];
+        for (int u = 0; u < 8; ++u) Vt[(c + u) * C::VS + r] = e[u];
+      }
     }
     __syncthreads();
 
     // ---- S = Q K^T (scaled into base 2) --------------------------------
-    {
+    if (qk_step) {
       float sacc[C::SNT][4];
 #pragma unroll
       for (int i = 0; i < C::SNT; ++i)
@@ -170,8 +194,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    // ---- online softmax: TPR neighbouring lanes per row ------------------
-    {
+    // ---- online softmax of tile j: TPR neighbouring lanes per row ---------
+    if (qk_step) {
       const int row = tid / C::TPR, sub = tid % C::TPR;
       const int valid = Skv - j0;
       float vals[C::VPT];
@@ -193,7 +217,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < C::VPT; ++i) {
         const float p = exp2f(vals[i] - m_new);
         sum += p;
-        Ps[row * C::VS + sub + i * C::TPR] = __float2bfloat16(p);
+        Pw[row * C::VS + sub + i * C::TPR] = __float2bfloat16(p);
       }
 #pragma unroll
       for (int off = C::TPR / 2; off > 0; off >>= 1)
@@ -201,16 +225,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncwarp();
       if (sub == 0) {
         const float corr = exp2f(m_prev - m_new);
-        c_s[row] = corr;
+        cw[row] = corr;
         l_s[row] = corr * l_s[row] + sum;
         m_s[row] = m_new;
       }
     }
-    __syncthreads();
+    // serial: PV reads the P just written; pipelined: it reads the other tile
+    if (!PIPE) __syncthreads();
 
-    // ---- O = O * corr + P V ----------------------------------------------
-    {
-      const float c_lo = c_s[rg * 16 + g], c_hi = c_s[rg * 16 + g + 8];
+    // ---- O = O * corr + P V of tile jp -------------------------------------
+    if (pv_step) {
+      const float c_lo = cr[rg * 16 + g], c_hi = cr[rg * 16 + g + 8];
 #pragma unroll
       for (int nt = 0; nt < C::ONT; ++nt) {
         oacc[nt][0] *= c_lo;
@@ -221,7 +246,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         uint32_t a[4];
-        sdk::load_a(a, Ps, C::VS, rg * 16, kk * 16, g, t);
+        sdk::load_a(a, Pr, C::VS, rg * 16, kk * 16, g, t);
 #pragma unroll
         for (int nt = 0; nt < C::ONT; ++nt) {
           const bf16* p = Vt + (cg * C::OCOLS + nt * 8 + g) * C::VS + kk * 16 + 2 * t;
@@ -258,12 +283,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP, int BQ, int BK, int CW, bool LSE = false>
+template <int DP, int BQ, int BK, int CW, bool LSE = false, bool PIPE = false>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
            int B, int H, int Sq, int Skv, int D, const long long* st,
            float scale_log2, cudaStream_t stream) {
-  using C = Cfg<DP, BQ, BK, CW>;
-  auto kern = flash_fwd_kernel<DP, BQ, BK, CW, LSE>;
+  using C = Cfg<DP, BQ, BK, CW, PIPE>;
+  auto kern = flash_fwd_kernel<DP, BQ, BK, CW, LSE, PIPE>;
   SDK_SET_SMEM(kern, C::SMEM);
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
@@ -272,25 +297,13 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q, k, v, o: [B, S, H, D] bf16 views with unit stride along D; `strides`
-// holds (batch, row, head) strides in elements for q, k, v, o in that order.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, int B, int H, int Sq, int Skv, int D,
-                            const long long* strides, float scale_log2,
-                            void* stream) {
-  const bf16* Q = static_cast<const bf16*>(q);
-  const bf16* K = static_cast<const bf16*>(k);
-  const bf16* V = static_cast<const bf16*>(v);
-  bf16* O = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = (D + 15) / 16 * 16;
+template <bool PIPE>
+int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, int B, int H, int Sq,
+        int Skv, int D, const long long* strides, float scale_log2, cudaStream_t s) {
+  switch ((D + 15) / 16 * 16) {
 #define SDK_SMALL(DPV) \
   case DPV:            \
-    return launch<DPV, 64, 64, 1>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
-  switch (dp) {
+    return launch<DPV, 64, 64, 1, false, PIPE>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
     SDK_SMALL(16)
     SDK_SMALL(32)
     SDK_SMALL(48)
@@ -299,15 +312,34 @@ extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
     SDK_SMALL(96)
     SDK_SMALL(112)
     SDK_SMALL(128)
+#undef SDK_SMALL
     default:
       break;
   }
-#undef SDK_SMALL
   if (D <= 256)
-    return launch<256, 32, 64, 4>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<256, 32, 64, 4, false, PIPE>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   if (D <= 512)
-    return launch<512, 32, 64, 4>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<512, 32, 64, 4, false, PIPE>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q, k, v, o: [B, S, H, D] bf16 views with unit stride along D; `strides`
+// holds (batch, row, head) strides in elements for q, k, v, o in that order.
+// pipelined = 1 runs the software-pipelined kv sweep (same output bits).
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, int B, int H, int Sq, int Skv, int D,
+                            const long long* strides, float scale_log2,
+                            int pipelined, void* stream) {
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
+  bf16* O = static_cast<bf16*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pipelined ? fwd<true>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s)
+                   : fwd<false>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
 }
 
 // The training forward: as sd_flash_fwd, plus lse2 [B*H, Sq] fp32 (row

@@ -6,22 +6,28 @@ per wrapper (a wrapper adds one where it launches, nowhere else), so a run
 can show which kernels its main path went through.
 
 Only flash attention has backward kernels (`flash_attention.py`, an
-autograd Function). GEGLU and the 3×3 conv are forward-only kernels: their
-`*_trainable` entry points take the plain version when a gradient is
-wanted, and the kernel wrappers themselves refuse, on the card, an input
-that needs a gradient (`refuse_grad`), so no gradient is ever dropped.
+autograd Function). GEGLU, the 3×3 conv, GroupNorm and the fused
+cross-attention are forward-only kernels: their `*_trainable` entry points
+take the plain version when a gradient is wanted; the fused GroupNorm →
+SiLU → 3×3 conv is an autograd Function whose backward recomputes the plain
+version. The kernel wrappers themselves refuse, on the card, an input that
+needs a gradient (`refuse_grad`), so no gradient is ever dropped.
 """
 
 import torch
 
 LAUNCHES: dict[str, int] = {
     "flash_attention": 0,
+    "flash_attention_pipelined": 0,
     "flash_attention_hpacked": 0,
     "flash_attention_lse": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
     "geglu_ff": 0,
     "conv3x3_same": 0,
+    "gn_silu_conv3x3": 0,
+    "group_norm": 0,
+    "crossattn_kv": 0,
 }
 
 

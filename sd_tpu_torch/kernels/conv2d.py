@@ -1,16 +1,20 @@
-"""Direct 3×3 SAME convolution: a hand-written CUDA kernel
-(`csrc/conv2d.cu`) and its plain PyTorch version.
+"""Direct 3×3 SAME convolution and the fused GroupNorm → SiLU → 3×3 conv:
+hand-written CUDA kernels (`csrc/conv2d.cu`) and their plain PyTorch
+versions.
 
 Counterpart of `sd_tpu/kernels/conv2d.py` (`conv3x3_same`, `_xla_conv3x3`,
-`conv3x3_same_trainable`, `conv3x3_wants_pallas`, `training_trace`).
-Activations are NHWC as in the TPU package; the weight is the torch OIHW
-tensor (the TPU package's is HWIO).
+`conv3x3_same_trainable`, `conv3x3_wants_pallas`, `training_trace`,
+`gn_silu_conv3x3`, `_gn_stats_affine`, `_gn_silu_conv_xla`,
+`gn_silu_conv3x3_trainable`). Activations are NHWC as in the TPU package;
+the weight is the torch OIHW tensor (the TPU package's is HWIO). As in the
+TPU package, no model path calls the fused form.
 """
 
 from __future__ import annotations
 
 import contextvars
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
@@ -54,14 +58,39 @@ class training_trace:
 
 def conv3x3_wants_pallas(shape: tuple, c_in: int, c_out: int,
                          dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The TPU gate's shape rule: big spatial maps with channel counts in
-    whole 128s, in the kernel's dtype, outside a training step."""
+    """The TPU gate: on unless `SD_TPU_PALLAS_CONV` is set to anything but
+    "1", outside a training step, the kernel's dtype, big spatial maps with
+    channel counts in whole 128s."""
     if _TRAIN_CTX_VAR.get() or dtype != torch.bfloat16:
+        return False
+    if os.environ.get("SD_TPU_PALLAS_CONV", "1") != "1":
         return False
     H, W = shape[1], shape[2]
     if c_in < 128 or c_in % 128 != 0 or c_out % 128 != 0:
         return False
     return H * W >= 128 * 128 and W >= 128
+
+
+def _conv_operands(name: str, x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor):
+    """Checks what the conv kernels take; (weight as [O][3][3][C], bias,
+    output) for a launch."""
+    B, H, W, C = x.shape
+    O = w.shape[0]
+    if w.shape != (O, C, 3, 3) or b.shape != (O,):
+        raise ValueError(f"{name}: w {tuple(w.shape)}, b {tuple(b.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    if C % 32 or O % 128:
+        raise ValueError(f"{name}: kernel takes C % 32 == 0 and "
+                         f"O % 128 == 0, got C={C}, O={O}")
+    for t, tname in ((x, "x"), (w, "w"), (b, "b")):
+        if t.dtype != torch.bfloat16 or t.device != x.device:
+            raise ValueError(f"{name}: {tname} must be bfloat16 on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous NHWC")
+    # the kernel reads the weight as [O][3][3][C]: OIHW in channels_last
+    return (w.contiguous(memory_format=torch.channels_last), b.contiguous(),
+            torch.empty((B, H, W, O), dtype=x.dtype, device=x.device))
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor,
@@ -72,27 +101,11 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor,
     if not x.is_cuda:
         return _xla_conv3x3(x, w, b)
     kernels.refuse_grad("conv3x3_same", x, w, b)
-    B, H, W, C = x.shape
-    O = w.shape[0]
-    if w.shape != (O, C, 3, 3) or b.shape != (O,):
-        raise ValueError(f"conv3x3_same: w {tuple(w.shape)}, b {tuple(b.shape)} "
-                         f"do not fit x {tuple(x.shape)}")
-    if C % 32 or O % 128:
-        raise ValueError(f"conv3x3_same: kernel takes C % 32 == 0 and "
-                         f"O % 128 == 0, got C={C}, O={O}")
-    for t, name in ((x, "x"), (w, "w"), (b, "b")):
-        if t.dtype != torch.bfloat16 or t.device != x.device:
-            raise ValueError(f"conv3x3_same: {name} must be bfloat16 on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("conv3x3_same: x must be contiguous NHWC")
-    # the kernel reads the weight as [O][3][3][C]: OIHW in channels_last
-    wk = w.contiguous(memory_format=torch.channels_last)
-    bk = b.contiguous()
-    y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
+    wk, bk, y = _conv_operands("conv3x3_same", x, w, b)
     fn = _build.function("conv2d", "sd_conv3x3_fwd",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-              B, H, W, C, O, _build.stream_ptr(x.device))
+              *x.shape, y.shape[-1], _build.stream_ptr(x.device))
     _build.check(code, "sd_conv3x3_fwd")
     kernels.LAUNCHES["conv3x3_same"] += 1
     return y
@@ -106,3 +119,84 @@ def conv3x3_same_trainable(x: torch.Tensor, w: torch.Tensor,
     if kernels.needs_grad(x, w, b):
         return _xla_conv3x3(x, w, b)
     return conv3x3_same(x, w, b)
+
+
+# -- GroupNorm → SiLU → 3×3 conv ----------------------------------------------------
+
+
+def _gn_stats_affine(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                     groups: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, channel) fp32 (a, c) [B, C] folding GroupNorm's statistics
+    and affine, so the normalized value is x·a + c: fp32 fast-variance stats
+    clamped at 0, as in the TPU package."""
+    B, H, W, C = x.shape
+    cg = C // groups
+    x32g = x.float().reshape(B, H * W, groups, cg)
+    mu = x32g.mean(dim=(1, 3))                                  # [B, g]
+    mu2 = (x32g * x32g).mean(dim=(1, 3))
+    rinv = torch.rsqrt((mu2 - mu * mu).clamp_min(0.0) + eps)
+    a = rinv.repeat_interleave(cg, -1) * gn_scale.float()[None]
+    c = gn_bias.float()[None] - mu.repeat_interleave(cg, -1) * a
+    return a, c
+
+
+def _gn_silu_conv_xla(x, gn_scale, gn_bias, w, b, groups: int = 32,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Plain version with the fused kernel's numerics: normalize and SiLU in
+    fp32, cast to x's dtype, then the conv of `_xla_conv3x3`."""
+    a, c = _gn_stats_affine(x, gn_scale, gn_bias, groups, eps)
+    y = x.float() * a[:, None, None, :] + c[:, None, None, :]
+    y = (y * torch.sigmoid(y)).to(x.dtype)
+    return _xla_conv3x3(y, w, b)
+
+
+def gn_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                    w: torch.Tensor, b: torch.Tensor, *, groups: int = 32,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """conv3x3(silu(GroupNorm(x))) of x [B, H, W, C]: the statistics in plain
+    torch (`_gn_stats_affine`, one read of x), then one kernel that applies
+    silu(x·a + c) to each input window as it lands and runs the 3×3 SAME conv,
+    so the normalized tensor never reaches device memory. Forward only: on
+    the card an input that needs a gradient raises."""
+    if not x.is_cuda:
+        return _gn_silu_conv_xla(x, gn_scale, gn_bias, w, b, groups, eps)
+    kernels.refuse_grad("gn_silu_conv3x3", x, gn_scale, gn_bias, w, b)
+    if x.shape[-1] % groups:
+        raise ValueError(f"gn_silu_conv3x3: {x.shape[-1]} channels in {groups} groups")
+    wk, bk, y = _conv_operands("gn_silu_conv3x3", x, w, b)
+    a, c = _gn_stats_affine(x, gn_scale, gn_bias, groups, eps)
+    fn = _build.function("conv2d", "sd_gn_silu_conv3x3_fwd",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    code = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), a.data_ptr(), c.data_ptr(),
+              y.data_ptr(), *x.shape, y.shape[-1], _build.stream_ptr(x.device))
+    _build.check(code, "sd_gn_silu_conv3x3_fwd")
+    kernels.LAUNCHES["gn_silu_conv3x3"] += 1
+    return y
+
+
+class _GnSiluConv(torch.autograd.Function):
+    """The TPU package's `_gnsc_fwd` / `_gnsc_bwd`: the fused kernel forward,
+    a backward that recomputes the plain version once and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, w, b, groups, eps):
+        ctx.save_for_backward(x, gn_scale, gn_bias, w, b)
+        ctx.groups, ctx.eps = groups, eps
+        return gn_silu_conv3x3(x, gn_scale, gn_bias, w, b, groups=groups, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _gn_silu_conv_xla(*saved, ctx.groups, ctx.eps)
+            grads = torch.autograd.grad(out, saved, g)
+        return (*(gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad)), None, None)
+
+
+def gn_silu_conv3x3_trainable(x, gn_scale, gn_bias, w, b, groups: int = 32,
+                              eps: float = 1e-6) -> torch.Tensor:
+    """`gn_silu_conv3x3` with a backward: the kernel forward, the plain
+    version recomputed and differentiated in backward (unlike
+    `conv3x3_same_trainable`, the kernel runs under grad too)."""
+    return _GnSiluConv.apply(x, gn_scale, gn_bias, w, b, groups, float(eps))

@@ -10,12 +10,16 @@ projection-native [B, S, H*D]; here one kernel reads both through strides.
 is: with grad off it runs the inference forward; with grad on, the training
 forward that also keeps the base-2 row log-sum-exp, and a backward of a dQ
 kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel. Non-causal
-only. `flash_attention_hpacked` is inference-only, as on the TPU.
+only. `flash_attention_hpacked` is inference-only, as on the TPU. With
+`SD_TPU_FLASH_PIPE=1` (opt-in, as in the TPU package) the inference launch of
+`flash_attention` runs the software-pipelined kv sweep, which gives the same
+bits; the head-packed and training kernels never do.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -128,18 +132,36 @@ def _strides(*tensors) -> ctypes.Array:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            out: torch.Tensor, scale: float) -> None:
+            out: torch.Tensor, scale: float, pipelined: bool = False) -> None:
     """Run the inference kernel over strided [B, S, H, D] views (out written
-    in place). It has no backward: an input that needs a gradient raises."""
+    in place), serial or software-pipelined. It has no backward: an input
+    that needs a gradient raises."""
     kernels.refuse_grad("flash attention forward", q, k, v)
     B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (out, "out", q))
     fn = _build.function("flash_attention", "sd_flash_fwd", [ctypes.c_void_p] * 4
                          + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
-                                                 ctypes.c_float, ctypes.c_void_p])
+                                                 ctypes.c_float, ctypes.c_int,
+                                                 ctypes.c_void_p])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               B, H, Sq, Skv, D, _strides(q, k, v, out), float(scale) * LOG2E,
-              _build.stream_ptr(q.device))
+              int(pipelined), _build.stream_ptr(q.device))
     _build.check(code, "sd_flash_fwd")
+
+
+def _tpu_kv_tiles(skv: int, d: int, block_k: int = 1024) -> int:
+    """Kv tiles of the TPU package's `flash_attention` sweep (its default
+    block_k, rounded to 128 lanes, halved down to 512 rows at wide heads)."""
+    bk = min(block_k, -(-skv // 128) * 128)
+    while bk * d * 2 > (1 << 19) and bk > 512:
+        bk //= 2
+    return -(-skv // bk)
+
+
+def flash_pipelined_ok(skv: int, d: int) -> bool:
+    """The TPU package's switch in `_flash_attention_bhsd`: opt-in
+    (`SD_TPU_FLASH_PIPE=1`) and a kv sweep of at least two of its tiles."""
+    return (os.environ.get("SD_TPU_FLASH_PIPE", "0") == "1"
+            and _tpu_kv_tiles(skv, d) >= 2)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,11 +262,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = q.shape[-1] ** -0.5
     if kernels.needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, float(scale))
+    # decided on every device, so a CPU or meta run makes the card's choice
+    pipelined = flash_pipelined_ok(k.shape[1], q.shape[3])
     if not q.is_cuda:
         return _xla_ref(q, k, v, scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, scale)
-    kernels.LAUNCHES["flash_attention"] += 1
+    _launch(q, k, v, out, scale, pipelined)
+    kernels.LAUNCHES["flash_attention_pipelined" if pipelined else "flash_attention"] += 1
     return out
 
 

@@ -4,9 +4,11 @@
 Counterpart of `sd_tpu/nn/attention.py`, on the SD-v1 path: the unmasked
 self-attention branch through the head-packed flash kernel at inference and
 the differentiable flash attention in training, the cross-attention branch
-through the plain einsum attention, the GEGLU feed-forward through the fused
-kernel where the TPU package's shape rule sends it (its plain version when a
-gradient is wanted). NHWC layout; LayerNorm and softmax in fp32.
+through the fused cross-attention kernel where the TPU package's opt-in gate
+holds (`SD_TPU_PALLAS_XATTN=1`) and the plain einsum attention otherwise, the
+GEGLU feed-forward through the fused kernel where the TPU package's shape
+rule sends it (their plain versions when a gradient is wanted). NHWC layout;
+LayerNorm and softmax in fp32.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from sd_tpu_torch.kernels import attention as attn_k
+from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import flash_attention as fa
 from sd_tpu_torch.kernels import geglu as geglu_k
 from sd_tpu_torch.nn.layers import Conv2d, Dense, GroupNorm32, LayerNorm
@@ -66,18 +69,25 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 context: torch.Tensor | None = None) -> torch.Tensor:
-        B, N, _ = x.shape
+        B, N, C = x.shape
         ctx = x if context is None else context
         M = ctx.shape[1]
         h, d = self.heads, self.dim_head
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        if context is None and attn_k.hpacked_flash_ok(N, M, h, d, q.dtype):
+        dt = self.to_q.weight.dtype
+        if context is None and attn_k.hpacked_flash_ok(N, M, h, d, dt):
             # projection-native [B, N, H·D] straight into the kernel
-            out = fa.flash_attention_hpacked(q, k, v, h)
-        else:
-            out = attn_k.dot_product_attention(
-                q.reshape(B, N, h, d), k.reshape(B, M, h, d),
-                v.reshape(B, M, h, d)).reshape(B, N, h * d)
+            out = fa.flash_attention_hpacked(self.to_q(x), self.to_k(x), self.to_v(x), h)
+            return self.to_out(out)
+        if context is not None and xattn_k.crossattn_kv_wants_pallas(N, M, h, d, C, dt):
+            # K/V projected plainly (77 tokens), then q-projection, softmax
+            # and out-projection in one kernel
+            return xattn_k.crossattn_kv_trainable(
+                x.to(dt).contiguous(), self.to_q.weight, self.to_k(ctx), self.to_v(ctx),
+                self.to_out.weight, self.to_out.bias, h)
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        out = attn_k.dot_product_attention(
+            q.reshape(B, N, h, d), k.reshape(B, M, h, d),
+            v.reshape(B, M, h, d)).reshape(B, N, h * d)
         return self.to_out(out)
 
 

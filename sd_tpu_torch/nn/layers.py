@@ -1,5 +1,6 @@
-"""Shared low-level blocks: fp32 GroupNorm, timestep embeddings, NHWC
-linear/conv layers and the 3×3 conv with the kernel dispatch.
+"""Shared low-level blocks: fp32 GroupNorm (with the opt-in kernel
+dispatch), timestep embeddings, NHWC linear/conv layers and the 3×3 conv
+with the kernel dispatch.
 
 Counterpart of `sd_tpu/nn/layers.py`. Layout is NHWC as in the TPU package.
 Every layer holds its parameters in one dtype (`dtype`) on one device and
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.kernels import conv2d as conv_k
+from sd_tpu_torch.kernels import groupnorm as gn_k
 
 
 def _empty(shape, dtype, device, channels_last=False):
@@ -82,7 +84,9 @@ class GroupNorm32(nn.Module):
     """GroupNorm over the channel (last) axis, computed in fp32 and returned
     in the input dtype. Exactly `num_groups` groups when C divides; otherwise
     the largest divisor of C that keeps >= 2 channels per group (the TPU
-    package's fallback for tiny test widths)."""
+    package's fallback for tiny test widths). Where the TPU package's gate
+    holds (opt-in, `SD_TPU_PALLAS_GN=1`) it runs the GroupNorm kernel, as
+    `_GroupNormCore` does; otherwise flax's module math, unclamped."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  *, dtype=torch.float32, device=None):
@@ -100,6 +104,12 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         C = x.shape[-1]
+        if gn_k.group_norm_wants_pallas(x.shape, self.groups, x.dtype):
+            # [B, S, C] rows for the kernel (a copy only if x is not NHWC-dense)
+            xs = x.reshape(x.shape[0], -1, C).contiguous()
+            y = gn_k.group_norm_trainable(xs, self.weight, self.bias,
+                                          self.groups, self.eps)
+            return y.reshape(x.shape)
         x32 = x.float()
         xr = x32.reshape(x.shape[0], -1, self.groups, C // self.groups)
         mu = xr.mean(dim=(1, 3), keepdim=True)

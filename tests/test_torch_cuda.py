@@ -2,7 +2,9 @@
 
 bf16 inputs from a seed, the plain version computed in fp32 from the same
 inputs, max|Δ| ≤ 1e-2·max|ref| (bf16 output rounding plus p rounded to bf16
-in attention). The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
+in attention; q, p and the head outputs also round to bf16 in the fused
+cross-attention). The pipelined flash sweep gives the serial kernel's bits.
+The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
 and the sums run over up to 4096 rows). Every test needs a CUDA device and
 skips without one. This
@@ -18,7 +20,8 @@ import pytest
 import torch
 
 from sd_tpu_torch import kernels
-from sd_tpu_torch.kernels import conv2d, flash_attention as fa, geglu
+from sd_tpu_torch.kernels import conv2d, cross_attention as xattn, flash_attention as fa
+from sd_tpu_torch.kernels import geglu, groupnorm as gn
 
 
 @pytest.fixture
@@ -136,3 +139,82 @@ def test_forward_only_kernels_refuse_inputs_that_need_grad(cuda):
     qkv = _rnd(cuda, 1, 1024, 8 * 40).requires_grad_()
     with pytest.raises(RuntimeError, match="requires grad"):
         fa.flash_attention_hpacked(qkv, qkv, qkv, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d", [(2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
+                                          (1, 1000, 1300, 8, 40)])
+def test_pipelined_flash_kernel_on_card(cuda, monkeypatch, b, sq, skv, h, d):
+    q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    serial = fa.flash_attention(q, k, v)
+    monkeypatch.setenv("SD_TPU_FLASH_PIPE", "1")
+    kernels.reset_launches()
+    out = fa.flash_attention(q, k, v)
+    assert kernels.LAUNCHES["flash_attention_pipelined"] == 1
+    _within(out, fa._xla_ref(q.float(), k.float(), v.float(), d**-0.5))
+    assert torch.equal(out, serial)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,groups", [(4, 4096, 320, 32), (4, 1024, 1280, 32),
+                                          (4, 64, 2560, 32), (3, 100, 136, 8)])
+@pytest.mark.parametrize("eps,act", [(1e-5, None), (1e-6, "silu")])
+def test_group_norm_kernel_on_card(cuda, b, s, c, groups, eps, act):
+    x = _rnd(cuda, b, s, c, scale=3.0) + 0.5
+    scale, bias = 1 + _rnd(cuda, c, scale=0.2), _rnd(cuda, c, scale=0.3)
+    ref = gn.group_norm_xla(x.float(), scale.float(), bias.float(), groups=groups,
+                            eps=eps, act=act)
+    _within(gn.group_norm(x, scale, bias, groups=groups, eps=eps, act=act), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,heads,d,c", [(4, 4096, 77, 8, 40, 320), (4, 1024, 77, 8, 80, 640),
+                                             (4, 256, 77, 8, 160, 1280), (1, 1000, 33, 4, 24, 96)])
+def test_crossattn_kernel_on_card(cuda, b, n, m, heads, d, c):
+    hd = heads * d
+    args = (_rnd(cuda, b, n, c), _rnd(cuda, hd, c, scale=c**-0.5), _rnd(cuda, b, m, hd),
+            _rnd(cuda, b, m, hd), _rnd(cuda, c, hd, scale=hd**-0.5), _rnd(cuda, c, scale=0.1))
+    ref = xattn.crossattn_kv_xla(*(a.float() for a in args), heads)
+    _within(xattn.crossattn_kv(*args, heads), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128, 512, 512), (1, 37, 50, 64, 128)])
+def test_gn_silu_conv_kernel_on_card(cuda, shape):
+    B, H, W, C, O = shape
+    x = _rnd(cuda, B, H, W, C, scale=2.0) + 0.5
+    s, sb = 1 + _rnd(cuda, C, scale=0.1), _rnd(cuda, C, scale=0.1)
+    w = _rnd(cuda, O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
+        memory_format=torch.channels_last)
+    b = _rnd(cuda, O, scale=0.1)
+    ref = conv2d._gn_silu_conv_xla(*(t.float() for t in (x, s, sb, w, b)), 32, 1e-6)
+    _within(conv2d.gn_silu_conv3x3(x, s, sb, w, b), ref)
+
+
+@pytest.mark.cuda
+def test_gn_silu_conv_trains_through_the_kernel(cuda):
+    x = _rnd(cuda, 1, 32, 32, 64).requires_grad_()
+    s, sb = (1 + _rnd(cuda, 64, scale=0.1)).requires_grad_(), _rnd(cuda, 64, scale=0.1)
+    w = _rnd(cuda, 128, 64, 3, 3, scale=(9 * 64) ** -0.5).requires_grad_()
+    b, g = _rnd(cuda, 128), _rnd(cuda, 1, 32, 32, 128)
+    kernels.reset_launches()
+    conv2d.gn_silu_conv3x3_trainable(x, s, sb, w, b).backward(g)
+    assert kernels.LAUNCHES["gn_silu_conv3x3"] == 1
+    ref = [t.detach().float().requires_grad_() for t in (x, s, w)]
+    conv2d._gn_silu_conv_xla(ref[0], ref[1], sb.float(), ref[2], b.float()).backward(g.float())
+    for t, r in zip((x, s, w), ref):
+        _grad_within(t.grad, r.grad)
+
+
+@pytest.mark.cuda
+def test_new_forward_only_kernels_refuse_inputs_that_need_grad(cuda):
+    x = _rnd(cuda, 2, 256, 128).requires_grad_()
+    one, zero = torch.ones(128, device="cuda"), torch.zeros(128, device="cuda")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        gn.group_norm(x, one, zero)
+    assert gn.group_norm_trainable(x, one, zero).grad_fn is not None
+    kv = _rnd(cuda, 2, 77, 128)
+    w = _rnd(cuda, 128, 128)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        xattn.crossattn_kv(x, w, kv, kv, w, zero.bfloat16(), 4)
+    assert xattn.crossattn_kv_trainable(x, w, kv, kv, w, zero.bfloat16(), 4).grad_fn is not None

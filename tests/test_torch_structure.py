@@ -8,12 +8,18 @@
   every call site of the 512² text-to-image path (found by running the
   port's full-width UNet and decoder on `meta` tensors), which gives the
   launch counts of one 50-step generate: 501 flash, 500 GEGLU, 18 conv;
+* the same with the opt-in switches set (`SD_TPU_PALLAS_GN=1
+  SD_TPU_PALLAS_XATTN=1 SD_TPU_FLASH_PIPE=1`), where the GroupNorm,
+  fused cross-attention and pipelined-flash rules decide too: 2850 GroupNorm,
+  750 cross-attention and 1 pipelined flash launch per generate, no serial
+  flash, and the shapes and parity launches `chip_smoke.py` checks; and
+  with `SD_TPU_PALLAS_CONV=0`, no conv;
 * the same at every call site of one full-width optimizer step of
   `configs/sd512_catdog.yaml` (KL encode, UNet forward, remat recompute and
   backward, 4 microbatches, on `meta` tensors) with the JAX gates in their
   training context; counting the kernel wrappers it reaches gives the
   training launch counts `chip_smoke.py` requires: 80 LSE forwards, 40 dQ,
-  40 dK/dV and no other kernel per step;
+  40 dK/dV and no other kernel per step, with the opt-in switches set too;
 * the port and `chip_smoke.py` import neither JAX nor the JAX package;
 * the pipeline and the trainer refuse to run without a card unless asked
   for the CPU;
@@ -37,7 +43,10 @@ import yaml
 
 from sd_tpu.kernels import attention as jattn
 from sd_tpu.kernels import conv2d as jconv
+from sd_tpu.kernels import cross_attention as jxattn
+from sd_tpu.kernels import flash_attention as jfa
 from sd_tpu.kernels import geglu as jgeglu
+from sd_tpu.kernels import groupnorm as jgn
 from sd_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL
 from sd_tpu.models.clip_text import ClipTextConfig as JClipConfig
 from sd_tpu.models.clip_text import ClipTextTransformer as JClip
@@ -47,10 +56,13 @@ from sd_tpu_torch.core.config import sd512_train_config, sd_v1_config
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion
+from sd_tpu_torch import kernels
 from sd_tpu_torch.kernels import flash_attention as fa
 from sd_tpu_torch.kernels import attention as attn_k
 from sd_tpu_torch.kernels import conv2d as conv_k
+from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import geglu as geglu_k
+from sd_tpu_torch.kernels import groupnorm as gn_k
 from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import ClipTextConfig, ClipTextTransformer
 from sd_tpu_torch.models.unet_sd import UNetModel
@@ -104,12 +116,20 @@ def _numel(shape):
 # -- kernel shape rules at the 512² call sites -----------------------------------
 
 
+SWITCHES = ("SD_TPU_PALLAS_CONV", "SD_TPU_PALLAS_GN", "SD_TPU_PALLAS_XATTN",
+            "SD_TPU_FLASH_PIPE")
+OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
+
+
 @pytest.fixture
 def tpu_gates(monkeypatch):
-    """The JAX gates as they decide on a TPU at inference."""
+    """The JAX gates as they decide on a TPU at inference; the switches unset
+    (their defaults) until a test sets them. Every decision of a port gate
+    is checked against the JAX gate's and counted; `decisions.args` keeps
+    the arguments of those that chose a kernel."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setitem(jattn._SHARD_CTX, "mesh", None)
-    for var in ("SD_TPU_ATTN_HPACKED", "SD_TPU_ATTN_IMPL", "SD_TPU_PALLAS_CONV"):
+    for var in ("SD_TPU_ATTN_HPACKED", "SD_TPU_ATTN_IMPL", *SWITCHES):
         monkeypatch.delenv(var, raising=False)
 
     jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
@@ -127,7 +147,30 @@ def tpu_gates(monkeypatch):
     def jax_conv(shape, c_in, c_out, dtype):
         return jconv.conv3x3_wants_pallas(tuple(shape), c_in, c_out, jdt[dtype])
 
+    def jax_gn(shape, groups, dtype):
+        return jgn.group_norm_wants_pallas(tuple(shape), groups, jdt[dtype])
+
+    def jax_xattn(n, m, heads, d, c, dtype):
+        return jxattn.crossattn_kv_wants_pallas(n, m, heads, d, c, jdt[dtype])
+
+    def jax_pipelined(skv, d):
+        # which forward kernel the JAX `flash_attention` builds (traced
+        # abstractly, its Pallas call recorded); its choice reads no q length
+        seen = []
+        real = jfa.pl.pallas_call
+
+        def spy(kernel, **kw):
+            seen.append(kernel.func.__name__)
+            return real(kernel, **kw)
+
+        with monkeypatch.context() as m:
+            m.setattr(jfa.pl, "pallas_call", spy)
+            s = jax.ShapeDtypeStruct((1, skv, 1, d), jnp.bfloat16)
+            jax.eval_shape(lambda q, k, v: jfa.flash_attention(q, k, v), s, s, s)
+        return seen == ["_flash_kernel_pipelined"]
+
     decisions = Counter()
+    decisions.args = []
 
     def record(module, name, jax_gate):
         port_gate = getattr(module, name)
@@ -136,6 +179,8 @@ def tpu_gates(monkeypatch):
             mine = port_gate(*args)
             assert mine == jax_gate(*args), (name, args)
             decisions[name, mine] += 1
+            if mine:
+                decisions.args.append((name, args))
             return mine
 
         monkeypatch.setattr(module, name, gate)
@@ -144,16 +189,23 @@ def tpu_gates(monkeypatch):
     record(attn_k, "flash_ok", jax_flash)
     record(geglu_k, "geglu_wants_pallas", jax_geglu)
     record(conv_k, "conv3x3_wants_pallas", jax_conv)
+    record(gn_k, "group_norm_wants_pallas", jax_gn)
+    record(xattn_k, "crossattn_kv_wants_pallas", jax_xattn)
+    record(fa, "flash_pipelined_ok", jax_pipelined)
     return decisions
 
 
-def _launched(decisions):
-    return {name: decisions[name, True] for name in (
-        "hpacked_flash_ok", "flash_ok", "geglu_wants_pallas", "conv3x3_wants_pallas")}
+GATES = ("hpacked_flash_ok", "flash_ok", "geglu_wants_pallas", "conv3x3_wants_pallas")
+OPT_IN_GATES = ("group_norm_wants_pallas", "crossattn_kv_wants_pallas", "flash_pipelined_ok")
 
 
-@pytest.mark.parametrize("batch", [1, 2, 4])
-def test_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, batch):
+def _launched(decisions, gates=GATES):
+    return {name: decisions[name, True] for name in gates}
+
+
+def _walk_512(tpu_gates, batch, gates=GATES):
+    """Kernel decisions of one CFG-batched UNet call and of one decode at
+    512², on `meta` tensors."""
     unet = UNetModel(**UNET, **BF16)
     vae = AutoencoderKL(**VAE, **BF16)
     meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
@@ -161,11 +213,17 @@ def test_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, batch):
         # one UNet call of the CFG-batched sampler: [uncond; cond] → 2·batch
         unet(meta(2 * batch, 64, 64, 4), meta(2 * batch, dtype=torch.long),
              meta(2 * batch, 77, 768))
-        per_step = _launched(tpu_gates)
+        per_step = _launched(tpu_gates, gates)
         tpu_gates.clear()
         img = vae.decode(meta(batch, 64, 64, 4))
-        per_decode = _launched(tpu_gates)
+        per_decode = _launched(tpu_gates, gates)
     assert img.shape == (batch, 512, 512, 3)
+    return per_step, per_decode
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, batch):
+    per_step, per_decode = _walk_512(tpu_gates, batch)
     assert per_step == {"hpacked_flash_ok": 10, "flash_ok": 0,
                         "geglu_wants_pallas": 10, "conv3x3_wants_pallas": 0}
     assert per_decode == {"hpacked_flash_ok": 0, "flash_ok": 1,
@@ -176,7 +234,92 @@ def test_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, batch):
             per_decode["conv3x3_wants_pallas"]) == (501, 500, 18)
 
 
-def test_training_step_gates_and_launches(tpu_gates, monkeypatch):
+def _generate_launches(per_step, per_decode, steps=50):
+    """Kernel launches of one generate from the decisions of one UNet call
+    and one decode (no gate holds in CLIP)."""
+    both = lambda gate: steps * per_step[gate] + per_decode[gate]
+    pipelined = both("flash_pipelined_ok")
+    return {**{name: 0 for name in kernels.LAUNCHES},
+            "flash_attention": both("flash_ok") - pipelined,
+            "flash_attention_pipelined": pipelined,
+            "flash_attention_hpacked": both("hpacked_flash_ok"),
+            "geglu_ff": both("geglu_wants_pallas"),
+            "conv3x3_same": both("conv3x3_wants_pallas"),
+            "group_norm": both("group_norm_wants_pallas"),
+            "crossattn_kv": both("crossattn_kv_wants_pallas")}
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_optin_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, monkeypatch,
+                                                                  batch):
+    """With the three opt-in switches set: of the UNet's 61 GroupNorms, all
+    but the four up-path concat norms above 3 MB (1920 ch at level 1; 960,
+    640, 640 ch at level 0) take the kernel, no decoder norm does (64²×512
+    is already 4 MB); 15 of the 16 cross-attentions (not the mid block's
+    64 tokens); the decoder's mid-block attention takes the pipelined sweep."""
+    for var, val in OPT_IN.items():
+        monkeypatch.setenv(var, val)
+    per_step, per_decode = _walk_512(tpu_gates, batch, GATES + OPT_IN_GATES)
+    assert per_step == {"hpacked_flash_ok": 10, "flash_ok": 0, "geglu_wants_pallas": 10,
+                        "conv3x3_wants_pallas": 0, "group_norm_wants_pallas": 57,
+                        "crossattn_kv_wants_pallas": 15, "flash_pipelined_ok": 0}
+    assert per_decode == {"hpacked_flash_ok": 0, "flash_ok": 1, "geglu_wants_pallas": 0,
+                          "conv3x3_wants_pallas": 18, "group_norm_wants_pallas": 0,
+                          "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 1}
+    assert tpu_gates["group_norm_wants_pallas", False] == 30       # all the decoder's
+    launches = _generate_launches(per_step, per_decode)
+    assert launches == chip_smoke.EXPECTED_LAUNCHES_OPTIN
+    assert {k: v for k, v in launches.items() if v} == {
+        "flash_attention_pipelined": 1, "flash_attention_hpacked": 500, "geglu_ff": 500,
+        "conv3x3_same": 18, "group_norm": 2850, "crossattn_kv": 750}
+
+
+def test_optin_kernel_shapes_of_chip_smoke_are_the_generate_shapes(tpu_gates, monkeypatch):
+    """`chip_smoke.py` holds the GroupNorm and cross-attention kernels at
+    exactly the shapes one opt-in generate of 2 prompts gives them."""
+    for var, val in OPT_IN.items():
+        monkeypatch.setenv(var, val)
+    _walk_512(tpu_gates, 2, GATES + OPT_IN_GATES)
+    gn_shapes, xattn_shapes = set(), set()
+    for name, args in tpu_gates.args:
+        if name == "group_norm_wants_pallas":
+            shape = args[0]
+            gn_shapes.add((shape[0], shape[1] * shape[2], shape[3]))
+        elif name == "crossattn_kv_wants_pallas":
+            n, m, heads, d, c, _ = args
+            xattn_shapes.add((4, n, m, heads, d, c))
+    assert gn_shapes == set(chip_smoke.GN_SHAPES)
+    assert xattn_shapes == set(chip_smoke.XATTN_SHAPES)
+
+
+def test_optin_parity_launches_of_chip_smoke(tpu_gates, monkeypatch):
+    """The launches `chip_smoke.py` requires of its opt-in parity runs: the
+    UNet at latent 32², batch 2, and the decoder at latent 32²."""
+    for var, val in OPT_IN.items():
+        monkeypatch.setenv(var, val)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    gates = GATES + OPT_IN_GATES
+    with torch.no_grad():
+        UNetModel(**UNET, **BF16)(meta(2, 32, 32, 4), meta(2, dtype=torch.long),
+                                  meta(2, 77, 768))
+        unet = _generate_launches(_launched(tpu_gates, gates),
+                                  dict.fromkeys(gates, 0), steps=1)
+        tpu_gates.clear()
+        AutoencoderKL(**VAE, **BF16).decode(meta(1, 32, 32, 4))
+        decoder = _generate_launches(dict.fromkeys(gates, 0), _launched(tpu_gates, gates))
+    assert {"unet": unet, "decoder": decoder} == chip_smoke.PARITY_OPTIN_LAUNCHES
+
+
+def test_conv_switch_agrees_with_the_tpu_gate(tpu_gates, monkeypatch):
+    monkeypatch.setenv("SD_TPU_PALLAS_CONV", "0")
+    meta = torch.empty(1, 64, 64, 4, dtype=torch.bfloat16, device="meta")
+    with torch.no_grad():
+        AutoencoderKL(**VAE, **BF16).decode(meta)
+    assert tpu_gates["conv3x3_wants_pallas", True] == 0
+    assert tpu_gates["conv3x3_wants_pallas", False] > 0
+
+
+def _training_step_launches(tpu_gates, monkeypatch):
     """One optimizer step of the training config on `meta` tensors: every
     gate agrees with JAX's as it decides inside a traced train step, and the
     kernel wrappers reached are the launches of one step on the card."""
@@ -185,7 +328,9 @@ def test_training_step_gates_and_launches(tpu_gates, monkeypatch):
     calls = Counter()
     for module, name in ((fa, "flash_attention_lse"), (fa, "flash_bwd_dq"),
                          (fa, "flash_bwd_dkv"), (fa, "flash_attention_hpacked"),
-                         (fa, "_launch"), (geglu_k, "geglu_ff"), (conv_k, "conv3x3_same")):
+                         (fa, "_launch"), (geglu_k, "geglu_ff"), (conv_k, "conv3x3_same"),
+                         (conv_k, "gn_silu_conv3x3"), (gn_k, "group_norm"),
+                         (xattn_k, "crossattn_kv")):
         def counted(*args, _fn=getattr(module, name), _name=name, **kw):
             calls[_name] += 1
             return _fn(*args, **kw)
@@ -215,14 +360,37 @@ def test_training_step_gates_and_launches(tpu_gates, monkeypatch):
     # the flash rule in the forward and again in the remat recompute; GEGLU's
     # rule holds at the 5 level-0 blocks only (level 1 has 1024 < 2048
     # tokens) and its trainable form takes the plain path under grad;
-    # nothing takes the head-packed kernel or the conv
+    # nothing takes the head-packed kernel, the conv, GroupNorm or the fused
+    # cross-attention, and no launch reaches the pipelined sweep
     passes = tc["grad_accum"] * 2
-    assert _launched(tpu_gates) == {"hpacked_flash_ok": 0, "flash_ok": passes * 10,
-                                    "geglu_wants_pallas": passes * 5,
-                                    "conv3x3_wants_pallas": 0}
+    assert _launched(tpu_gates, GATES + OPT_IN_GATES) == {
+        "hpacked_flash_ok": 0, "flash_ok": passes * 10, "geglu_wants_pallas": passes * 5,
+        "conv3x3_wants_pallas": 0, "group_norm_wants_pallas": 0,
+        "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 0}
     want = {k: v for k, v in chip_smoke.EXPECTED_TRAIN_LAUNCHES.items() if v}
     assert dict(calls) == want == {"flash_attention_lse": 80, "flash_bwd_dq": 40,
                                    "flash_bwd_dkv": 40}
+
+
+def test_training_step_gates_and_launches(tpu_gates, monkeypatch):
+    _training_step_launches(tpu_gates, monkeypatch)
+
+
+def test_training_step_with_the_optin_switches(tpu_gates, monkeypatch):
+    """The opt-in switches do not reach training: the same 80 / 40 / 40
+    launches and none of the opt-in kernels."""
+    for var, val in OPT_IN.items():
+        monkeypatch.setenv(var, val)
+    _training_step_launches(tpu_gates, monkeypatch)
+    assert tpu_gates["group_norm_wants_pallas", False] > 0
+    assert tpu_gates["crossattn_kv_wants_pallas", False] > 0
+
+
+def test_launch_counters_are_chip_smokes_kernels():
+    assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
+    for want in (chip_smoke.EXPECTED_LAUNCHES, chip_smoke.EXPECTED_LAUNCHES_OPTIN,
+                 chip_smoke.EXPECTED_TRAIN_LAUNCHES):
+        assert set(want) == set(kernels.LAUNCHES)
 
 
 def test_shape_rules_refuse_other_dtypes():
