@@ -48,10 +48,29 @@ Phases, each printed as one JSON line:
            4 microbatches, bf16 params, fp32 Adam moments and EMA, remat
            "dots"); checks finite losses, grad_norm > 0, changed bf16 params,
            fp32 moments and a moved fp32 EMA shadow, and the launch counts.
+  klvae_parity  one KL GAN step (train/gan.py) of the full-width KL-f8 codec,
+           PatchGAN and random-VGG LPIPS at 256², batch 2, `disc_start` 0,
+           every weight random: bf16 parameters with the kernels on the card
+           against fp32 plain on the card (TF32 off), same bf16-rounded
+           weights, images and posterior noise; each loss term within 5e-2
+           relative, d_weight within 0.1, the generator's gradients (global
+           and each mid-block AttnBlock q/k/v/proj_out weight) within
+           ‖Δg‖₂ ≤ 0.1·‖g‖₂, and 2/2/2 training-kernel launches;
+  klvae_train  train_kl_vae(kl_f8_256_train_config(), bf16 parameters) on
+           seeded 256² images, batch 4: 1 warm-up and 4 timed steps; checks
+           finite losses, the dtype policy and 2/2/2 launches per step, and
+           prints s/step, img/s and peak memory.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, and the same for one
-           optimizer step of train_ldm.
+           optimizer step of train_ldm and one step of train_kl_vae.
+The build line carries the registers and spills of the flash kernels' head
+dim 256 and 512 instantiations. The flash training kernels are also held at
+head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
+and a ragged [1, 1000, 1300, 1, 512]), with the backend
+`scaled_dot_product_attention` ran there; their row in the kernel table is
+train_kl_vae's shape and launches, with train_ldm's launches and the other
+shapes beside them.
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero; without
 a CUDA device, or without the repository beside it, it exits non-zero before
@@ -104,6 +123,11 @@ EXPECTED_LAUNCHES_OPTIN = launches_of(
 # (tests/test_torch_structure.py derives these from the shape rules)
 EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_bwd_dq=40,
                                       flash_bwd_dkv=40)
+# launches of one step of train_kl_vae(kl_f8_256_train_config()), 256²: the
+# codec's two mid-block attentions (encoder, decoder; [4, 1024, 1, 512])
+# in the one generator forward and its backward, no inference kernel
+EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_bwd_dq=2,
+                                      flash_bwd_dkv=2)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, geglu_ff=5, group_norm=46, crossattn_kv=10),
@@ -125,6 +149,19 @@ UNET_TOL = {"max_rel": 0.1, "l2_rel": 0.03}      # stated before measuring
 DECODER_TOL = {"max_rel": 0.1, "l2_rel": 0.03}
 TRAIN_GRAD_TOL = 0.1                             # ‖Δg‖₂ / ‖g‖₂, stated before measuring
 TRAIN_STEPS = 3                                  # timed, after one warm-up step
+# [B, Sq, Skv, H, D] of the flash training kernels' checks: train_ldm's
+# self-attention at UNet levels 0 and 1, a ragged case, train_kl_vae's codec
+# mid-block at 256², a 512² codec's, and a ragged case at d = 512
+KLVAE_ATTN_SHAPE = (4, 1024, 1024, 1, 512)
+TRAIN_KERNEL_SHAPES = ((1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80), (1, 1000, 1300, 8, 40),
+                       KLVAE_ATTN_SHAPE, (1, 4096, 4096, 1, 512), (1, 1000, 1300, 1, 512))
+# the KL-VAE parity gates, stated before measuring: each loss term within
+# 5e-2 relative, d_weight within 0.1 relative (a ratio of two bf16 gradient
+# norms), generator gradients ‖Δg‖₂ ≤ 0.1·‖g‖₂ (a dropped gradient reads ≈ 1.0)
+KLVAE_LOSS_TOL = 5e-2
+KLVAE_DWEIGHT_TOL = 0.1
+KLVAE_GRAD_TOL = 0.1
+KLVAE_STEPS = 4                                  # timed, after one warm-up step
 
 
 def emit(obj) -> None:
@@ -401,14 +438,37 @@ def phase_kernels(gen) -> dict:
     return {name: row for name, (_, row) in best.items()}
 
 
+def sdpa_backend(fn) -> dict:
+    """Which of PyTorch's attention backends one call of `fn` ran: the
+    device kernels of one profiled call, the busiest first, and the backend
+    their names belong to."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted(((ev.self_device_time_total, ev.key) for ev in prof.key_averages()
+                    if ev.self_device_time_total > 0), reverse=True)
+    joined = " ".join(n for _, n in names).lower()
+    backend = ("flash" if "pytorch_flash" in joined or "flash_fwd" in joined
+               else "cudnn" if "cudnn" in joined
+               else "efficient" if "fmha" in joined or "cutlass" in joined
+               else "math")
+    return {"backend": backend, "kernels": [n[:80] for _, n in names[:3]]}
+
+
 def phase_train_kernels(gen) -> dict:
     """The flash training kernels (LSE forward, dQ, dK/dV) at the training
-    path's self-attention shapes ([1, 4096, 8, 40] at UNet level 0,
-    [1, 1024, 8, 80] at level 1, microbatch 1) and a ragged case, against
-    their plain versions in fp32 from the same bf16 inputs; dK/dV run twice
-    must give the same bits. Library: `scaled_dot_product_attention`, its
-    forward for the LSE row and its backward (fwd+bwd − fwd) for the dQ and
-    dK/dV rows together."""
+    paths' self-attention shapes: train_ldm's [1, 4096, 8, 40] at UNet
+    level 0 and [1, 1024, 8, 80] at level 1 (microbatch 1), train_kl_vae's
+    codec mid-block [4, 1024, 1, 512] (256², batch 4), a 512² codec's
+    [1, 4096, 1, 512], and ragged cases at d = 40 and 512; against their
+    plain versions in fp32 from the same bf16 inputs; dK/dV run twice must
+    give the same bits. Library: `scaled_dot_product_attention`, its forward
+    for the LSE row and its backward (fwd+bwd − fwd) for the dQ and dK/dV
+    rows together, with the backend that ran it. Returns {name: {shape:
+    row}}."""
     import torch
     import torch.nn.functional as F
 
@@ -417,9 +477,8 @@ def phase_train_kernels(gen) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
-    best = {}
-    for b, sq, skv, h, d in ((1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80),
-                             (1, 1000, 1300, 8, 40)):
+    rows_by_shape = {}
+    for b, sq, skv, h, d in TRAIN_KERNEL_SHAPES:
         scale = d**-0.5
         q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
         f32 = lambda *ts: [t.float() for t in ts]
@@ -440,8 +499,10 @@ def phase_train_kernels(gen) -> dict:
         heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         do_h = do.transpose(1, 2)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(*heads))
-        lib_both = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*heads), heads, do_h))
+        lib_fwd_bwd = lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*heads), heads, do_h)
+        lib_both = time_ms(lib_fwd_bwd)
+        backend = sdpa_backend(lib_fwd_bwd)
         shape = [b, sq, skv, h, d]
         rows = {
             "flash_attention_lse": dict(
@@ -449,6 +510,7 @@ def phase_train_kernels(gen) -> dict:
                 ms=time_ms(lambda: fa.flash_attention_lse(q, k, v, scale)),
                 plain_ms=time_ms(lambda: fa._flash_lse_ref(q, k, v, scale), 3),
                 library_ms=lib_fwd, library_call="scaled_dot_product_attention forward",
+                library_backend=backend,
                 cost=attention_lse_cost(*shape)),
             "flash_bwd_dq": dict(
                 max_abs_err=errs["dq"][0], rel_err=errs["dq"][1], l2_rel=l2["dq"],
@@ -457,7 +519,7 @@ def phase_train_kernels(gen) -> dict:
                 library_ms=lib_both - lib_fwd,
                 library_call="scaled_dot_product_attention backward (fwd+bwd - fwd), "
                              "dq and dk/dv together",
-                cost=attention_dq_cost(*shape)),
+                library_backend=backend, cost=attention_dq_cost(*shape)),
             "flash_bwd_dkv": dict(
                 max_abs_err=max(errs["dk"][0], errs["dv"][0]),
                 rel_err=max(errs["dk"][1], errs["dv"][1]), l2_rel=max(l2["dk"], l2["dv"]),
@@ -467,7 +529,7 @@ def phase_train_kernels(gen) -> dict:
                 library_ms=lib_both - lib_fwd,
                 library_call="scaled_dot_product_attention backward (fwd+bwd - fwd), "
                              "dq and dk/dv together",
-                cost=attention_dkv_cost(*shape)),
+                library_backend=backend, cost=attention_dkv_cost(*shape)),
         }
         for name, r in rows.items():
             cost = r.pop("cost")
@@ -475,8 +537,7 @@ def phase_train_kernels(gen) -> dict:
             row = {"phase": "kernel", "name": name, "shape": shape, **r,
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
-            if name not in best or cost[0] > best[name][0]:
-                best[name] = (cost[0], row)
+            rows_by_shape.setdefault(name, {})[tuple(shape)] = row
         require(errs["o"][1] <= KERNEL_TOL and lse_err <= LSE_TOL,
                 f"LSE forward {shape}: o {errs['o'][1]:.3g}·max|ref|, lse2 {lse_err:.3g}")
         for g in ("dq", "dk", "dv"):
@@ -485,7 +546,7 @@ def phase_train_kernels(gen) -> dict:
         require(deterministic, f"dK/dV {shape} gives the same bits twice")
         del q, k, v, do, o, lse, dq, delta, dk, dv, heads
         torch.cuda.empty_cache()
-    return {name: row for name, (_, row) in best.items()}
+    return rows_by_shape
 
 
 def _parity(name, build, inputs_fn, run, tol, gen_cpu, phase="parity"):
@@ -727,19 +788,26 @@ def phase_train_parity() -> dict:
     return row
 
 
-def _train_batches(cfg, n: int, seed: int = 0):
-    """n batches of the config's size: uint8-range images scaled to [-1, 1],
-    as the image loaders give them, with class captions."""
+def _image_batches(tc: dict, n: int, rng):
+    """n batches of {'image'} of the train config's size: uint8-range images
+    scaled to [-1, 1], as the image loaders give them."""
     import numpy as np
 
-    tc = cfg["train"]
-    rng = np.random.default_rng(seed)
-    classes = ("cat", "dog")
     for _ in range(n):
         img = rng.integers(0, 256, (tc["batch_size"], tc["image_size"], tc["image_size"], 3),
                            dtype=np.uint8)
-        labels = rng.integers(0, len(classes), tc["batch_size"])
-        yield {"image": img.astype(np.float32) / 127.5 - 1.0,
+        yield {"image": img.astype(np.float32) / 127.5 - 1.0}
+
+
+def _train_batches(cfg, n: int, seed: int = 0):
+    """n image batches of the config's size with class captions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    classes = ("cat", "dog")
+    for batch in _image_batches(cfg["train"], n, rng):
+        labels = rng.integers(0, len(classes), cfg["train"]["batch_size"])
+        yield {**batch,
                "txt_raw": [cfg["data"]["template"].format(classes[i]) for i in labels]}
 
 
@@ -800,6 +868,246 @@ def phase_train() -> dict:
     del state
     torch.cuda.empty_cache()
     return row
+
+
+class _GradRecorder:
+    """Stands in for an optimizer: keeps the gradients it is handed (fp32)
+    and changes no parameter."""
+
+    def init(self, params):
+        return None
+
+    def update_(self, params, grads, state):
+        self.grads = [g.detach().float() for g in grads]
+
+
+def _klvae_config() -> dict:
+    """kl_f8_256_train_config() under the bf16 parameter policy."""
+    from sd_tpu_torch.core.config import kl_f8_256_train_config
+
+    cfg = kl_f8_256_train_config()
+    cfg["train"]["param_dtype"] = "bfloat16"
+    return cfg
+
+
+def phase_klvae_parity() -> dict:
+    """One KL GAN step of the full-width KL-f8 codec, PatchGAN and LPIPS at
+    256², batch 2, `disc_start` 0, every weight random (bf16-rounded): bf16
+    parameters with the kernels on the card against fp32 plain on the card
+    (TF32 off), same weights, images and posterior noise. Each loss term,
+    d_weight, and the generator's gradients (global and at each mid-block
+    AttnBlock q/k/v/proj_out weight) against their gates; launches 2/2/2.
+    The bf16 step once more with the attention on its plain version tells
+    what the bf16 policy alone moves from what the kernels add."""
+    import math
+
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.losses.gan import GanLossConfig
+    from sd_tpu_torch.models.autoencoder import AutoencoderKL
+    from sd_tpu_torch.models.discriminator import NLayerDiscriminator
+    from sd_tpu_torch.models.lpips import make_lpips_fn
+    from sd_tpu_torch.train.gan import init_gan_state, make_kl_gan_train_step
+    from sd_tpu_torch.weights import randomize_params_
+
+    cfg = _klvae_config()
+    mp, B, px = cfg["model"]["params"], 2, cfg["train"]["image_size"]
+    g = torch.Generator("cuda").manual_seed(5)
+    vae = AutoencoderKL(**mp, dtype=torch.float32, device="cuda")
+    disc = NLayerDiscriminator(**cfg["discriminator"], dtype=torch.float32, device="cuda")
+    for module in (vae, disc):
+        randomize_params_(module, g)
+        with torch.no_grad():
+            for p in module.parameters():  # the bf16 run's weights are these
+                p.copy_(p.bfloat16().float())
+    lpips_fn = make_lpips_fn(mode="random", device="cuda")
+    x = torch.rand(B, px, px, 3, generator=g, device="cuda") * 2 - 1
+    lat = px // 2 ** (len(mp["ch_mult"]) - 1)
+    noise = torch.randn(B, lat, lat, mp["embed_dim"], generator=g, device="cuda")
+    loss_cfg = GanLossConfig(**{**cfg["loss"], "disc_start": 0})
+
+    def run(param_dtype):
+        opt_g, opt_d = _GradRecorder(), _GradRecorder()
+        state = init_gan_state(vae, disc, opt_g, opt_d, param_dtype=param_dtype)
+        step = make_kl_gan_train_step(lambda x, _: vae(x, noise), disc, lpips_fn,
+                                      opt_g, opt_d, loss_cfg)
+        logs = {k: float(v) for k, v in step(state, x, None).items()}
+        return logs, dict(zip(state.params_g, opt_g.grads))
+
+    logs32, grads32 = run(None)
+    kernels.reset_launches()
+    logs16, grads16 = run(torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # the same bf16 step with the attention on its plain version: what the
+    # bf16 policy alone moves, and how far the kernels are from it
+    with mock.patch("sd_tpu_torch.kernels.attention.flash_ok", lambda q, k: False):
+        logs_plain, grads_plain = run(torch.bfloat16)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    terms = ("total_loss", "nll_loss", "kl_loss", "g_loss", "rec_loss", "disc_loss")
+    loss_rel = {t: rel(logs16[f"train/{t}"], logs32[f"train/{t}"]) for t in terms}
+    dw_rel = rel(logs16["train/d_weight"], logs32["train/d_weight"])
+    d2 = sum(((grads16[n] - grads32[n]) ** 2).sum().item() for n in grads32)
+    n2 = sum((grads32[n] ** 2).sum().item() for n in grads32)
+    attn = {n: l2_rel(grads16[n], grads32[n]) for n in grads32
+            if ".AttnBlock_0." in n and n.endswith(("q.weight", "k.weight", "v.weight",
+                                                    "proj_out.weight"))}
+    global_rel = lambda a, b: math.sqrt(sum(((a[n] - b[n]) ** 2).sum().item() for n in b)
+                                        / sum((b[n] ** 2).sum().item() for n in b))
+    row = {"phase": "klvae_parity", "images": [B, px, px, 3],
+           "logs_bf16": logs16, "logs_fp32": logs32, "loss_rel": loss_rel,
+           "d_weight_rel": dw_rel, "grad_l2_rel": math.sqrt(d2 / n2),
+           "attn_l2_rel": attn, "launches": launches,
+           "bf16_plain_vs_fp32": {
+               "loss_rel": {t: rel(logs_plain[f"train/{t}"], logs32[f"train/{t}"]) for t in terms},
+               "grad_l2_rel": global_rel(grads_plain, grads32),
+               "attn_l2_rel": {n: l2_rel(grads_plain[n], grads32[n]) for n in attn}},
+           "kernels_vs_bf16_plain": {
+               "grad_l2_rel": global_rel(grads16, grads_plain),
+               "attn_l2_rel": {n: l2_rel(grads16[n], grads_plain[n]) for n in attn}},
+           "bounds": {"loss_rel": KLVAE_LOSS_TOL, "d_weight_rel": KLVAE_DWEIGHT_TOL,
+                      "grad_l2_rel": KLVAE_GRAD_TOL}}
+    emit(row)
+    require(len(attn) == 8, f"8 mid-block AttnBlock q/k/v/proj_out weights, found {sorted(attn)}")
+    require(all(math.isfinite(v) for v in logs16.values()), "finite bf16 logs")
+    require(max(loss_rel.values()) <= KLVAE_LOSS_TOL, f"loss terms within {KLVAE_LOSS_TOL}: {loss_rel}")
+    require(dw_rel <= KLVAE_DWEIGHT_TOL, f"d_weight within {KLVAE_DWEIGHT_TOL}: {dw_rel:.3g}")
+    require(row["grad_l2_rel"] <= KLVAE_GRAD_TOL and max(attn.values()) <= KLVAE_GRAD_TOL,
+            f"generator gradients within {KLVAE_GRAD_TOL}: global {row['grad_l2_rel']:.3g}, "
+            f"attention up to {max(attn.values()):.3g}")
+    require(launches == EXPECTED_KLVAE_LAUNCHES,
+            f"KL-VAE parity launches {launches} == {EXPECTED_KLVAE_LAUNCHES}")
+    del vae, disc, lpips_fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_klvae_train() -> dict:
+    """train_kl_vae(kl_f8_256_train_config(), bf16 parameters) at full width,
+    every weight random from the config's seed, on seeded uint8-range 256²
+    images, batch 4: 1 warm-up and KLVAE_STEPS timed steps, launch counts
+    over the whole run."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.train.runners import train_kl_vae
+
+    cfg = _klvae_config()
+    tc = cfg["train"]
+    steps = 1 + KLVAE_STEPS
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = train_kl_vae(cfg, _image_batches(tc, steps, np.random.default_rng(3)),
+                               max_steps=steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    timed = [r["seconds"] for r in hist[1:]]
+    sec = sum(timed) / len(timed)
+    moments = (state.opt_state_g.mu + state.opt_state_g.nu
+               + state.opt_state_d.mu + state.opt_state_d.nu)
+    gen_params = [p for n, p in state.params_g.items() if n != "logvar"]
+    row = {"phase": "klvae_train", "steps": len(hist), "timed_step_seconds": timed,
+           "seconds_per_step": sec, "images_per_second": tc["batch_size"] / sec,
+           "run_seconds": run_s, "peak_memory_gb": peak_gb,
+           "losses": {k[len("train/"):]: [r[k] for r in hist] for k in hist[0]
+                      if k.startswith("train/")},
+           "params_g": sum(p.numel() for p in gen_params),
+           "params_d": sum(p.numel() for p in state.params_d.values()),
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    emit(row)
+    require(len(hist) == steps, f"{steps} steps, ran {len(hist)}")
+    require(all(math.isfinite(v) for r in hist for v in r.values()), "finite losses and logs")
+    require(all(p.dtype == torch.bfloat16 for p in gen_params + list(state.params_d.values())),
+            "bf16 generator and discriminator parameters")
+    require(state.params_g["logvar"].dtype == torch.float32 and hist[-1]["train/logvar"] != 0.0,
+            "an fp32 logvar that trains")
+    require(all(m.dtype == torch.float32 for m in moments)
+            and any(bool(m.abs().sum() > 0) for m in state.opt_state_g.mu), "fp32 Adam moments")
+    want = {k: v * steps for k, v in EXPECTED_KLVAE_LAUNCHES.items()}
+    require(launches == want, f"KL-VAE train launches {launches} == {want}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_klvae_profile() -> None:
+    """Where one train_kl_vae step goes (`--profile`): the second step of a
+    two-step run under torch.profiler, by kernel family, and its busy
+    share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sd_tpu_torch.train.runners import train_kl_vae
+
+    cfg = _klvae_config()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start = []
+
+    def batches():
+        first, second = _image_batches(cfg["train"], 2, np.random.default_rng(4))
+        yield first
+        torch.cuda.synchronize()
+        prof.start()
+        start.append(time.perf_counter())
+        yield second
+
+    _, hist = train_kl_vae(cfg, batches(), max_steps=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start[0]
+    prof.stop()
+    emit({"phase": "profile", "of": "train_kl_vae step", "step_seconds": hist[1]["seconds"],
+          **_device_breakdown(prof, wall)})
+
+
+def ptxas_report(log: str, keep) -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} from an
+    `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if keep(m.group(1)) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, [None, 0, 0])[0] = int(m.group(1))
+    return out
+
+
+def wide_flash_registers() -> dict:
+    """Registers and spills of the flash kernels' head-dim 256 and 512
+    instantiations (the training forward and the wide dQ, dK/dV kernels),
+    from the build's logs."""
+    import re
+
+    from sd_tpu_torch.kernels import _build
+
+    short = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        log = (_build.build_dir() / f"{lib}.log").read_text()
+        rep = ptxas_report(log, lambda n: ("wide_kernel" in n or "ELb1ELb0E" in n)
+                           and re.search(r"ILi(256|512)E", n))
+        for mangled, vals in rep.items():
+            kind = re.search(r"(flash_bwd_dq_wide|flash_bwd_dkv_wide|flash_fwd)_kernel", mangled)
+            dp = re.search(r"ILi(\d+)E", mangled).group(1)
+            short[f"{kind.group(1)}<{dp}>" + (" lse" if kind.group(1) == "flash_fwd" else "")] = {
+                "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
+    return short
 
 
 def _family(name: str) -> str:
@@ -997,10 +1305,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     per_lib = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library": per_lib})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library": per_lib,
+          "wide_flash_registers": wide_flash_registers()})
 
     gen = torch.Generator("cuda").manual_seed(0)
-    table = {**phase_kernels(gen), **phase_train_kernels(gen)}
+    table = phase_kernels(gen)
+    train_rows = phase_train_kernels(gen)
     phase_parity()
     phase_parity(optin=True)
     launches, pipe, prompts, images = phase_e2e()
@@ -1015,6 +1325,10 @@ def main() -> int:
     train = phase_train()
     if profiling:
         phase_train_profile()
+    phase_klvae_parity()
+    klvae = phase_klvae_train()
+    if profiling:
+        phase_klvae_profile()
 
     # each kernel's launches on its main path: generate for the inference
     # kernels, the opt-in generate for the opt-in ones, the train_ldm run for
@@ -1035,9 +1349,16 @@ def main() -> int:
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
                "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
                "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
-    paths = {"flash_attention_lse": ("train_ldm", train["launches"]),
-             "flash_bwd_dq": ("train_ldm", train["launches"]),
-             "flash_bwd_dkv": ("train_ldm", train["launches"]),
+    # the flash training kernels (rows 4-6) run on two paths: their row is
+    # train_kl_vae's shape and launches, with train_ldm's beside them
+    for name, by_shape in train_rows.items():
+        table[name] = {**by_shape[KLVAE_ATTN_SHAPE], "other_shapes": [
+            {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_backend")}
+            for shape, r in by_shape.items() if shape != KLVAE_ATTN_SHAPE]}
+    paths = {"flash_attention_lse": ("train_kl_vae", klvae["launches"]),
+             "flash_bwd_dq": ("train_kl_vae", klvae["launches"]),
+             "flash_bwd_dkv": ("train_kl_vae", klvae["launches"]),
              "flash_attention_pipelined": ("generate, opt-in", launches_optin),
              "group_norm": ("generate, opt-in", launches_optin),
              "crossattn_kv": ("generate, opt-in", launches_optin),
@@ -1046,12 +1367,17 @@ def main() -> int:
     for name, (source, rep) in sources.items():
         r = table[name]
         path, counts = paths.get(name, ("generate", launches))
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": rep,
-                     "launches": counts[name], "launches_path": path,
-                     "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                     "shape": r["shape"]})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": rep,
+               "launches": counts[name], "launches_path": path,
+               "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "shape": r["shape"]}
+        if name in train_rows:
+            row.update(launches_by_path={"train_kl_vae": klvae["launches"][name],
+                                         "train_ldm": train["launches"][name]},
+                       library_backend=r["library_backend"], other_shapes=r["other_shapes"])
+        rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,11 @@
 """Configurations and device selection.
 
 `sd_v1_config()` is `configs/sd_txt2img.yaml` (the SD-v1 text-to-image
-recipe) and `sd512_train_config()` is `configs/sd512_catdog.yaml` (the SD-v1
-latent-diffusion training recipe at 512² pixels) as dicts, so the port runs
-where PyYAML is not installed.
+recipe), `sd512_train_config()` is `configs/sd512_catdog.yaml` (the SD-v1
+latent-diffusion training recipe at 512² pixels) and
+`kl_f8_256_train_config()` is `configs/kl_f8_256_catdog.yaml` (the KL-f8
+first stage's GAN training at 256²) as dicts, so the port runs where PyYAML
+is not installed.
 """
 
 from __future__ import annotations
@@ -66,6 +68,26 @@ def sd512_train_config() -> dict:
         "ema_decay": 0.9999, "cond_dropout": 0.1, "total_steps": 3200,
         "eval_every": 400, "checkpoint_every": 1600}
     return cfg
+
+
+def kl_f8_256_train_config() -> dict:
+    """`configs/kl_f8_256_catdog.yaml`: the SD-v1 first stage (KL-f8, embed
+    4, ch 128, mult (1,2,4,4), 2 res blocks, no per-level attention) trained
+    at 256², batch 4, lr 1e-4, with L1 + LPIPS + KL (1e-6) and a hinge
+    PatchGAN (ndf 64, 3 layers, BatchNorm) that starts at step 1500."""
+    return {
+        "task": "kl_vae",
+        "seed": 42,
+        "model": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                  "params": {"embed_dim": 4, "ch": 128, "ch_mult": [1, 2, 4, 4],
+                             "num_res_blocks": 2, "attn_resolutions": [],
+                             "resolution": 256, "z_channels": 4}},
+        "loss": {"disc_start": 1500, "kl_weight": 1.0e-6, "disc_weight": 0.5,
+                 "perceptual_weight": 1.0, "disc_loss": "hinge"},
+        "discriminator": {"ndf": 64, "n_layers": 3, "use_actnorm": False},
+        "train": {"image_size": 256, "batch_size": 4, "lr": 1.0e-4, "ema_decay": None,
+                  "total_steps": 2600, "eval_every": 250, "checkpoint_every": 1000},
+    }
 
 
 def resolve_device(device=None) -> torch.device:

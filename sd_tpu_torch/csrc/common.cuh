@@ -58,6 +58,20 @@ __device__ __forceinline__ void st32(bf16* p, float lo, float hi) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
 }
 
+// B fragments of two neighbouring n8 tiles read with `ldmatrix .trans` from
+// a k16 slab stored row-major as [k][n] (n contiguous), so a product whose
+// B operand lies that way needs no transposed copy. Lane l passes the
+// address of slab row (l & 15), columns n0 + 8 * (l >> 4) (16-byte
+// aligned); b[0], b[1] are then the b0, b1 of n tile n0 and b[2], b[3]
+// those of n tile n0 + 8.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&b)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
 }  // namespace sdk
 
 // Host side: a launch that needs more than 48 KB of dynamic shared memory

@@ -343,7 +343,9 @@ extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The training forward: as sd_flash_fwd, plus lse2 [B*H, Sq] fp32 (row
-// b*H + h). Head dims up to 128 (the backward kernels' range).
+// b*H + h). Head dims up to 512, as the backward kernels take. Above 128
+// the O tile is split over CW = 4 column warps, and each row's m and l live
+// in shared memory, so its lse2 is written once, by one thread.
 extern "C" int sd_flash_fwd_lse(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int H, int Sq,
                                 int Skv, int D, const long long* strides,
@@ -368,6 +370,11 @@ extern "C" int sd_flash_fwd_lse(const void* q, const void* k, const void* v,
     SDK_LSE(128)
 #undef SDK_LSE
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  if (D <= 256)
+    return launch<256, 32, 64, 4, true>(Q, K, V, O, L, B, H, Sq, Skv, D, strides, scale_log2, s);
+  if (D <= 512)
+    return launch<512, 32, 64, 4, true>(Q, K, V, O, L, B, H, Sq, Skv, D, strides, scale_log2, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,8 +9,10 @@ projection-native [B, S, H*D]; here one kernel reads both through strides.
 `flash_attention` is differentiable, as the TPU package's `jax.custom_vjp`
 is: with grad off it runs the inference forward; with grad on, the training
 forward that also keeps the base-2 row log-sum-exp, and a backward of a dQ
-kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel. Non-causal
-only. `flash_attention_hpacked` is inference-only, as on the TPU. With
+kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel, at every
+head dim the forward takes (multiples of 8 up to 512: the SD UNet's 40-160
+and the codec's single-head 512). Non-causal only.
+`flash_attention_hpacked` is inference-only, as on the TPU. With
 `SD_TPU_FLASH_PIPE=1` (opt-in, as in the TPU package) the inference launch of
 `flash_attention` runs the software-pipelined kv sweep, which gives the same
 bits; the head-packed and training kernels never do.
@@ -96,7 +98,7 @@ def _check(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"flash attention: {name} must be 16-byte aligned")
 
 
-def _check_views(q, k, *rest, max_d: int = 512):
+def _check_views(q, k, *rest):
     """Shapes, head dim, device, dtype and strides of bf16 [B, S, H, D] views
     (`rest` are (tensor, name, like), `like` the view whose shape it has)."""
     B, Sq, H, D = q.shape
@@ -105,9 +107,9 @@ def _check_views(q, k, *rest, max_d: int = 512):
         raise ValueError(f"flash attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, "
                          + ", ".join(f"{n} {tuple(t.shape)}" for t, n, _ in rest))
-    if D % 8 or D > max_d:
+    if D % 8 or D > 512:
         raise ValueError(f"flash attention: head dim {D} must be a multiple "
-                         f"of 8 and at most {max_d}")
+                         f"of 8 and at most 512")
     devs = {q.device, k.device} | {t.device for t, _, _ in rest}
     if len(devs) != 1:
         raise ValueError(f"flash attention: tensors on {devs}")
@@ -167,12 +169,11 @@ def flash_pipelined_ok(skv: int, d: int) -> bool:
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward over q [B, Sq, H, D], k/v [B, Skv, H, D]: (o, lse2
-    [B, H, Sq] fp32). On the card the kernel (head dim ≤ 128), else the plain
-    version."""
+    [B, H, Sq] fp32). On the card the kernel, else the plain version."""
     if not q.is_cuda:
         return _flash_lse_ref(q, k, v, scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (out, "out", q), max_d=128)
+    B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (out, "out", q))
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention", "sd_flash_fwd_lse",
                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -199,7 +200,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
         return _flash_bwd_dq_ref(q, k, v, o, lse, do, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (o, "o", q), (do, "do", q),
-                                    (dq, "dq", q), max_d=128)
+                                    (dq, "dq", q))
     _check_rows(lse, "lse", B, H, Sq, q.device)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd", "sd_flash_bwd_dq", _BWD_ARGS)
@@ -221,7 +222,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (do, "do", q), (dk, "dk", k),
-                                    (dv, "dv", k), max_d=128)
+                                    (dv, "dv", k))
     _check_rows(lse, "lse", B, H, Sq, q.device)
     _check_rows(delta, "delta", B, H, Sq, q.device)
     fn = _build.function("flash_attention_bwd", "sd_flash_bwd_dkv", _BWD_ARGS)

@@ -2,9 +2,12 @@
 
 Counterpart of `sd_tpu/models/autoencoder.py` `AutoencoderKL`: `encode` is
 the encoder, then `quant_conv` to the posterior's moments, a
-`DiagonalGaussian`; `decode` is post_quant_conv followed by the decoder.
-The module holds the TPU package's whole KL tree (`encoder`, `decoder`,
-`quant_conv`, `post_quant_conv`). The VQ first stages are not ported yet.
+`DiagonalGaussian`; `decode` is post_quant_conv followed by the decoder;
+calling the module runs encode → posterior sample (or mode) → decode and
+returns `(recon, posterior)`, as the TPU package's `__call__` does and as
+the GAN step (`sd_tpu_torch.train.gan`) uses it. The module holds the TPU
+package's whole KL tree (`encoder`, `decoder`, `quant_conv`,
+`post_quant_conv`). `VQModel` and `IdentityFirstStage` are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,4 +55,15 @@ class AutoencoderKL(nn.Module):
         """z [B, h, w, embed_dim] → image [B, 8h, 8w, out_ch] in [-1, 1]."""
         return self.decoder(self.post_quant_conv(z))
 
-    forward = decode
+    def forward(self, x: torch.Tensor, noise: torch.Tensor | None = None,
+                sample_posterior: bool = True) -> tuple[torch.Tensor, DiagonalGaussian]:
+        """(recon, posterior) of image `x`: the posterior sampled with the
+        standard-normal `noise` (shape of its mean; the TPU package draws it
+        from an rng), or its mode when `noise` is None or `sample_posterior`
+        is off."""
+        posterior = self.encode(x)
+        if sample_posterior and noise is not None:
+            z = posterior.sample(noise)
+        else:
+            z = posterior.mode()
+        return self.decode(z), posterior

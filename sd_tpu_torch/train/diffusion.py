@@ -52,14 +52,16 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
-    """Clip by global norm (`grad_clip`; None: no clipping), then Adam,
-    then the step size `lr` (a float or a function of the step count).
-    `compute_dtype` None computes in each gradient's dtype, as optax does;
-    `float32_moments` sets it to fp32."""
+    """Clip by global norm (`grad_clip`; None: no clipping), then Adam with
+    betas `b1`, `b2`, then the step size `lr` (a float or a function of the
+    step count). `compute_dtype` None computes in each gradient's dtype, as
+    optax does; `float32_moments` sets it to fp32."""
 
     lr: float | Callable[[int], float]
     grad_clip: float | None = 1.0
     compute_dtype: torch.dtype | None = None
+    b1: float = B1
+    b2: float = B2
 
     def init(self, params: list[torch.Tensor]) -> AdamState:
         zeros = lambda p: torch.zeros(p.shape, dtype=self.compute_dtype or p.dtype,
@@ -78,11 +80,12 @@ class Adam:
                   for g in gs]
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         state.count += 1
-        c1 = 1.0 - B1**state.count
-        c2 = 1.0 - B2**state.count
+        b1, b2 = self.b1, self.b2
+        c1 = 1.0 - b1**state.count
+        c2 = 1.0 - b2**state.count
         for p, g, mu, nu in zip(params, gs, state.mu, state.nu):
-            mu.mul_(B1).add_(g, alpha=1.0 - B1)
-            nu.mul_(B2).addcmul_(g, g, value=1.0 - B2)
+            mu.mul_(b1).add_(g, alpha=1.0 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
             update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
             p.add_((update * -lr).to(p.dtype))
 

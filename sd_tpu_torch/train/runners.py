@@ -1,4 +1,4 @@
-"""Config-driven latent-diffusion training.
+"""Config-driven training: latent diffusion and the KL first stage.
 
 Counterpart of `sd_tpu/train/runners.py` `build_ldm` and `train_ldm` on its
 plain-UNet branch (the SD-v1 recipe, `configs/sd512_catdog.yaml`): CLIP
@@ -14,6 +14,11 @@ is random from the config's seed (loading a trained first stage,
 `first_stage.ckpt`, is not ported); there is no checkpointing, metrics file
 or eval sampler. The LoRA, ControlNet, IP-Adapter and trainable-cond-stage
 branches are not ported yet.
+
+`train_kl_vae` is the TPU package's `train_kl_vae` (capability config #3):
+the KL autoencoder against L1 + LPIPS + KL + a PatchGAN, two Adam
+optimizers, the same bf16 parameter policy. `train_ddpm`, `train_vq` and
+the other capability runners are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,13 +36,18 @@ from sd_tpu_torch.core.config import resolve_device
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion, calibrate_scale_factor
+from sd_tpu_torch.losses.gan import GanLossConfig
 from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
                                            SimpleHashTokenizer)
+from sd_tpu_torch.models.discriminator import NLayerDiscriminator, init_discriminator_
+from sd_tpu_torch.models.lpips import make_lpips_fn
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.train.diffusion import (TrainState, ddpm_optimizer,
                                           float32_moments, init_train_state,
                                           make_diffusion_train_step)
+from sd_tpu_torch.train.gan import (GanTrainState, gan_adam, init_gan_state,
+                                    make_kl_gan_train_step)
 from sd_tpu_torch.train.lr_schedules import lambda_linear_schedule
 from sd_tpu_torch.train.remat import remat_apply
 from sd_tpu_torch.weights import init_params_
@@ -167,6 +177,82 @@ def train_ldm(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
     for batch in itertools.islice(batches, total):
         t0 = time.perf_counter()
         logs = step_fn(state, embed_batch(batch), gen)
+        row = {k: float(v) for k, v in logs.items()}
+        row["seconds"] = time.perf_counter() - t0
+        history.append(row)
+    return state, history
+
+
+def _resolve_lpips(loss_cfg: GanLossConfig, mode: str, device):
+    """The perceptual term of `loss.perceptual`: auto (here always the
+    fixed-seed random-VGG surrogate: no VGG16 weights are in the
+    repository), calibrated, random or none; None when its weight is 0.
+    Says which it built."""
+    if loss_cfg.perceptual_weight <= 0:
+        return None
+    fn = make_lpips_fn(mode=mode, device=device)
+    if fn is not None:
+        kind = "calibrated" if fn.calibrated else "random-VGG surrogate"
+        print(f"[kl-vae] perceptual loss: {kind} LPIPS (weight={loss_cfg.perceptual_weight})")
+    else:
+        print("[kl-vae] perceptual loss disabled (perceptual: none)")
+    return fn
+
+
+def train_kl_vae(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
+                 device=None) -> tuple[GanTrainState, list[dict]]:
+    """Train the KL autoencoder of `cfg` (e.g. `kl_f8_256_train_config()`)
+    with its PatchGAN on `batches` of {'image': [B, H, W, 3] in [-1, 1]} for
+    `max_steps` steps (default `train.total_steps`, fewer if the batches run
+    out). Every weight is random from the config's seed. With
+    `train.param_dtype` (e.g. "bfloat16") the generator and discriminator
+    parameters are stored in it and the Adam moments are fp32. Returns the
+    training state and one dict of floats per step: the step's logs
+    (`train/...`) and `seconds` (host clock, the step's results read back).
+    Checkpointing, the metrics file and the reconstruction eval sampler of
+    the TPU package's runner are not ported yet."""
+    cfg = copy.deepcopy(cfg)
+    tc = cfg["train"]
+    target = cfg["model"].get("target", "")
+    if not target.endswith("AutoencoderKL"):
+        raise NotImplementedError(f"first stage {target!r} is not ported yet")
+    device = resolve_device(device)
+    gen = torch.Generator(device).manual_seed(cfg.get("seed", 0))
+    param_dtype = getattr(torch, tc["param_dtype"]) if tc.get("param_dtype") else None
+
+    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
+    vae = AutoencoderKL(**mp, device=device)
+    disc = NLayerDiscriminator(**cfg.get("discriminator", {}), device=device)
+    init_params_(vae, gen)
+    init_discriminator_(disc, gen)
+    loss_kwargs = dict(cfg.get("loss", {}))
+    lpips_mode = loss_kwargs.pop("perceptual", "auto")
+    loss_cfg = GanLossConfig(**loss_kwargs)
+    lpips_fn = _resolve_lpips(loss_cfg, lpips_mode, device)
+    if lpips_fn is None and loss_cfg.perceptual_weight > 0:
+        loss_cfg = dataclasses.replace(loss_cfg, perceptual_weight=0.0)
+
+    opt_g, opt_d = gan_adam(tc.get("lr", 4.5e-6)), gan_adam(tc.get("lr", 4.5e-6))
+    if param_dtype not in (None, torch.float32):
+        opt_g, opt_d = float32_moments(opt_g), float32_moments(opt_d)
+    state = init_gan_state(vae, disc, opt_g, opt_d, param_dtype=param_dtype)
+
+    down = 2 ** (len(mp.get("ch_mult", (1, 2, 4, 4))) - 1)
+    embed_dim = mp.get("embed_dim", 4)
+
+    def ae_apply(x, generator):
+        b, h, w, _ = x.shape
+        noise = torch.randn((b, h // down, w // down, embed_dim), generator=generator,
+                            device=x.device)
+        return vae(x, noise)
+
+    step_fn = make_kl_gan_train_step(ae_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg)
+    total = max_steps if max_steps is not None else tc.get("total_steps", 1000)
+    history = []
+    for batch in itertools.islice(batches, total):
+        t0 = time.perf_counter()
+        x = torch.as_tensor(np.asarray(batch["image"]), dtype=torch.float32).to(device)
+        logs = step_fn(state, x, gen)
         row = {k: float(v) for k, v in logs.items()}
         row["seconds"] = time.perf_counter() - t0
         history.append(row)

@@ -60,7 +60,16 @@ def load_flax_params(module: nn.Module, params: Mapping) -> None:
     """Fill `module` from a flax param tree (nested dicts of arrays). Strict:
     raises on a missing, extra or mis-shaped leaf. Values are cast to each
     parameter's dtype and device; memory formats are kept."""
-    own = dict(module.named_parameters())
+    _load(dict(module.named_parameters()), params)
+
+
+def load_flax_batch_stats(module: nn.Module, batch_stats: Mapping) -> None:
+    """Fill `module`'s buffers from a flax `batch_stats` collection (the
+    discriminator's BatchNorm `mean` / `var`), as strictly."""
+    _load(dict(module.named_buffers()), batch_stats)
+
+
+def _load(own: dict[str, torch.Tensor], params: Mapping) -> None:
     converted = {}
     for path, leaf in _flatten(params).items():
         arr = np.asarray(leaf)

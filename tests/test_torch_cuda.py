@@ -92,7 +92,9 @@ def _grad_within(out, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,d", [(1, 1024, 1024, 8, 80), (1, 200, 333, 3, 40),
-                                          (2, 256, 256, 1, 128), (1, 4096, 4096, 8, 40)])
+                                          (2, 256, 256, 1, 128), (1, 4096, 4096, 8, 40),
+                                          (4, 1024, 1024, 1, 512), (1, 1000, 1300, 1, 512),
+                                          (1, 200, 333, 2, 192), (2, 256, 300, 1, 136)])
 def test_flash_training_kernels_on_card(cuda, b, sq, skv, h, d):
     q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
     do = _rnd(cuda, b, sq, h, d)
@@ -112,9 +114,10 @@ def test_flash_training_kernels_on_card(cuda, b, sq, skv, h, d):
 
 
 @pytest.mark.cuda
-def test_flash_function_trains_through_the_kernels(cuda):
-    q, k, v = (_rnd(cuda, 1, 512, 2, 40).requires_grad_() for _ in range(3))
-    do = _rnd(cuda, 1, 512, 2, 40)
+@pytest.mark.parametrize("b,s,h,d", [(1, 512, 2, 40), (2, 1024, 1, 512)])
+def test_flash_function_trains_through_the_kernels(cuda, b, s, h, d):
+    q, k, v = (_rnd(cuda, b, s, h, d).requires_grad_() for _ in range(3))
+    do = _rnd(cuda, b, s, h, d)
     kernels.reset_launches()
     fa.flash_attention(q, k, v).backward(do)
     assert {n: kernels.LAUNCHES[n] for n in ("flash_attention", "flash_attention_lse",
@@ -122,7 +125,7 @@ def test_flash_function_trains_through_the_kernels(cuda):
         "flash_attention": 0, "flash_attention_lse": 1, "flash_bwd_dq": 1,
         "flash_bwd_dkv": 1}
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
-    fa._xla_ref(*ref, 40**-0.5).backward(do.float())
+    fa._xla_ref(*ref, d**-0.5).backward(do.float())
     for t, r in zip((q, k, v), ref):
         _grad_within(t.grad, r.grad)
 

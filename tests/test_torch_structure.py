@@ -20,11 +20,16 @@
   training context; counting the kernel wrappers it reaches gives the
   training launch counts `chip_smoke.py` requires: 80 LSE forwards, 40 dQ,
   40 dK/dV and no other kernel per step, with the opt-in switches set too;
+* the same for one full-width step of the KL-f8 first stage's GAN training
+  (`configs/kl_f8_256_catdog.yaml`, 256², batch 4, bf16 parameters): the
+  codec's two mid-block attentions at head dim 512 pass the flash gate, and
+  the step reaches 2 LSE forwards, 2 dQ and 2 dK/dV and no other kernel;
 * the port and `chip_smoke.py` import neither JAX nor the JAX package;
 * the pipeline and the trainer refuse to run without a card unless asked
   for the CPU;
-* `sd_v1_config()` is `configs/sd_txt2img.yaml` and `sd512_train_config()`
-  is `configs/sd512_catdog.yaml` without the first-stage checkpoint.
+* `sd_v1_config()` is `configs/sd_txt2img.yaml`, `sd512_train_config()`
+  is `configs/sd512_catdog.yaml` without the first-stage checkpoint and
+  `kl_f8_256_train_config()` is `configs/kl_f8_256_catdog.yaml`.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ from sd_tpu.models.clip_text import ClipTextConfig as JClipConfig
 from sd_tpu.models.clip_text import ClipTextTransformer as JClip
 from sd_tpu.models.unet_sd import UNetModel as JUNet
 import chip_smoke
-from sd_tpu_torch.core.config import sd512_train_config, sd_v1_config
+from sd_tpu_torch.core.config import (kl_f8_256_train_config, sd512_train_config,
+                                     sd_v1_config)
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion
@@ -63,11 +69,15 @@ from sd_tpu_torch.kernels import conv2d as conv_k
 from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import geglu as geglu_k
 from sd_tpu_torch.kernels import groupnorm as gn_k
+from sd_tpu_torch.losses.gan import GanLossConfig
 from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import ClipTextConfig, ClipTextTransformer
+from sd_tpu_torch.models.discriminator import NLayerDiscriminator
+from sd_tpu_torch.models.lpips import LPIPS
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.pipeline import Text2ImagePipeline
 from sd_tpu_torch.train import diffusion as train
+from sd_tpu_torch.train import gan as gan_train
 from sd_tpu_torch.train.remat import remat_apply
 from sd_tpu_torch.train.runners import train_ldm
 from sd_tpu_torch.weights import flax_shapes
@@ -319,12 +329,9 @@ def test_conv_switch_agrees_with_the_tpu_gate(tpu_gates, monkeypatch):
     assert tpu_gates["conv3x3_wants_pallas", False] > 0
 
 
-def _training_step_launches(tpu_gates, monkeypatch):
-    """One optimizer step of the training config on `meta` tensors: every
-    gate agrees with JAX's as it decides inside a traced train step, and the
-    kernel wrappers reached are the launches of one step on the card."""
-    cfg = sd512_train_config()
-    tc = cfg["train"]
+def _count_kernel_calls(monkeypatch) -> Counter:
+    """Count the calls of every kernel wrapper (on `meta` tensors each runs
+    its plain version, so a call is where a launch would be on the card)."""
     calls = Counter()
     for module, name in ((fa, "flash_attention_lse"), (fa, "flash_bwd_dq"),
                          (fa, "flash_bwd_dkv"), (fa, "flash_attention_hpacked"),
@@ -335,7 +342,16 @@ def _training_step_launches(tpu_gates, monkeypatch):
             calls[_name] += 1
             return _fn(*args, **kw)
         monkeypatch.setattr(module, name, counted)
+    return calls
 
+
+def _training_step_launches(tpu_gates, monkeypatch):
+    """One optimizer step of the training config on `meta` tensors: every
+    gate agrees with JAX's as it decides inside a traced train step, and the
+    kernel wrappers reached are the launches of one step on the card."""
+    cfg = sd512_train_config()
+    tc = cfg["train"]
+    calls = _count_kernel_calls(monkeypatch)
     unet = UNetModel(**UNET, **BF16)
     vae = AutoencoderKL(**VAE, dtype=torch.float32, device="meta")
     ld = LatentDiffusion(
@@ -386,10 +402,52 @@ def test_training_step_with_the_optin_switches(tpu_gates, monkeypatch):
     assert tpu_gates["crossattn_kv_wants_pallas", False] > 0
 
 
+@pytest.mark.parametrize("optin", [False, True])
+def test_kl_vae_step_gates_and_launches(tpu_gates, monkeypatch, optin):
+    """One full-width step of `kl_f8_256_train_config()` (256², batch 4)
+    under the bf16 parameter policy, `disc_start` 0, on `meta` tensors: the
+    codec's two mid-block attentions ([4, 1024, 1, 512] bf16) pass the flash
+    gate, as the JAX gate decides inside a traced train step, and the step
+    reaches 2 LSE forwards, 2 dQ and 2 dK/dV and no other kernel (one
+    generator forward: no inference flash kernel), with or without the
+    opt-in switches."""
+    if optin:
+        for var, val in OPT_IN.items():
+            monkeypatch.setenv(var, val)
+    cfg = kl_f8_256_train_config()
+    tc, mp = cfg["train"], cfg["model"]["params"]
+    calls = _count_kernel_calls(monkeypatch)
+    vae = AutoencoderKL(**mp, **BF16)
+    disc = NLayerDiscriminator(**cfg["discriminator"], **BF16)
+    lpips = LPIPS(device="meta")
+    lpips.requires_grad_(False)
+    opt = train.float32_moments(gan_train.gan_adam(tc["lr"]))
+    state = gan_train.init_gan_state(vae, disc, opt, opt, param_dtype=torch.bfloat16)
+    B, px = tc["batch_size"], tc["image_size"]
+    noise = torch.empty(B, px // 8, px // 8, mp["embed_dim"], device="meta")
+    step = gan_train.make_kl_gan_train_step(
+        lambda x, g: vae(x, noise), disc, lpips, opt, opt,
+        GanLossConfig(**{**cfg["loss"], "disc_start": 0}))
+    with jconv.training_trace():      # the JAX gates inside a traced train step
+        logs = step(state, torch.empty(B, px, px, 3, device="meta"), None)
+    assert logs["train/total_loss"].shape == () and logs["train/disc_factor"] == 1.0
+    assert state.step == 1
+    assert _launched(tpu_gates, GATES + OPT_IN_GATES) == {
+        "hpacked_flash_ok": 0, "flash_ok": 2, "geglu_wants_pallas": 0,
+        "conv3x3_wants_pallas": 0, "group_norm_wants_pallas": 0,
+        "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 0}
+    assert [[(tuple(t.shape), t.dtype) for t in args]
+            for name, args in tpu_gates.args if name == "flash_ok"] == [
+        [((4, 1024, 1, 512), torch.bfloat16)] * 2] * 2
+    want = {k: v for k, v in chip_smoke.EXPECTED_KLVAE_LAUNCHES.items() if v}
+    assert dict(calls) == want == {"flash_attention_lse": 2, "flash_bwd_dq": 2,
+                                   "flash_bwd_dkv": 2}
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     for want in (chip_smoke.EXPECTED_LAUNCHES, chip_smoke.EXPECTED_LAUNCHES_OPTIN,
-                 chip_smoke.EXPECTED_TRAIN_LAUNCHES):
+                 chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES):
         assert set(want) == set(kernels.LAUNCHES)
 
 
@@ -451,6 +509,11 @@ def test_sd512_train_config_is_the_yaml():
         want = yaml.safe_load(f)
     del want["first_stage"]["ckpt"]    # no trained first stage in the repository
     assert sd512_train_config() == want
+
+
+def test_kl_f8_256_train_config_is_the_yaml():
+    with open(REPO / "configs" / "kl_f8_256_catdog.yaml") as f:
+        assert kl_f8_256_train_config() == yaml.safe_load(f)
 
 
 def test_trainer_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
