@@ -89,16 +89,22 @@ from unittest import mock
 
 HERE = Path(__file__).resolve().parent
 
-# peak rates of one H100 SXM (dense bf16 tensor cores, fp32 outside the
-# tensor cores, HBM3)
+# peak rates of one H100 SXM (dense bf16 and int8 tensor cores, fp32 outside
+# the tensor cores, HBM3)
 PEAK_FLOPS = 989e12
+PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 # every kernel wrapper's launch counter (`sd_tpu_torch.kernels.LAUNCHES`)
 KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpacked",
            "flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv", "geglu_ff",
-           "conv3x3_same", "gn_silu_conv3x3", "group_norm", "crossattn_kv")
+           "conv3x3_same", "gn_silu_conv3x3", "group_norm", "crossattn_kv",
+           # the inference variants (SD_TPU_FLASH_EXP=bf16, SD_TPU_FLASH_PV=int8)
+           "flash_attention_exp_bf16", "flash_attention_pv_int8",
+           "flash_attention_exp_bf16_pv_int8", "flash_attention_pipelined_exp_bf16",
+           "flash_attention_hpacked_exp_bf16", "flash_attention_hpacked_pv_int8",
+           "flash_attention_hpacked_exp_bf16_pv_int8")
 
 
 def launches_of(**nonzero) -> dict:
@@ -117,6 +123,17 @@ OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIP
 EXPECTED_LAUNCHES_OPTIN = launches_of(
     flash_attention_pipelined=1, flash_attention_hpacked=500, geglu_ff=500,
     conv3x3_same=18, group_norm=2850, crossattn_kv=750)
+# the serving phase's switches, and the launches of one grouped batch of
+# requests (bucket 4, 30 DDIM steps, CFG, 512²): the variant kernels in place
+# of the head-packed and the decoder's flash kernel
+SERVE = {"SD_TPU_FLASH_EXP": "bf16", "SD_TPU_FLASH_PV": "int8"}
+SERVE_STEPS = 30
+# UNet calls of 30 DDIM steps: the "uniform" striding of both packages,
+# range(0, 1000, 1000 // 30), has 31 entries
+SERVE_UNET_CALLS = 31
+EXPECTED_SERVE_LAUNCHES = launches_of(
+    flash_attention_hpacked_exp_bf16_pv_int8=10 * SERVE_UNET_CALLS,
+    flash_attention_exp_bf16_pv_int8=1, geglu_ff=10 * SERVE_UNET_CALLS, conv3x3_same=18)
 # launches of one optimizer step of train_ldm(sd512_train_config()): 10
 # self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
 # remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
@@ -132,6 +149,10 @@ EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_bwd_dq=2,
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, geglu_ff=5, group_norm=46, crossattn_kv=10),
     "decoder": launches_of(flash_attention_pipelined=1, conv3x3_same=12, group_norm=11)}
+# ... and of the serving parity runs, every flash call through its variant
+PARITY_SERVE_LAUNCHES = {
+    "unet": launches_of(flash_attention_hpacked_exp_bf16_pv_int8=5, geglu_ff=5),
+    "decoder": launches_of(flash_attention_exp_bf16_pv_int8=1, conv3x3_same=12)}
 # [B, S, C] of every GroupNorm and [B, N, M, heads, d, C] of every fused
 # cross-attention one opt-in generate of 2 prompts launches
 GN_SHAPES = [(4, 4096, 320), (4, 1024, 320), (4, 1024, 640), (4, 1024, 960),
@@ -162,6 +183,23 @@ KLVAE_LOSS_TOL = 5e-2
 KLVAE_DWEIGHT_TOL = 0.1
 KLVAE_GRAD_TOL = 0.1
 KLVAE_STEPS = 4                                  # timed, after one warm-up step
+# the inference variants' kernel checks: the serving path's shapes (bucket 4:
+# the UNet at batch 8, the decoder at batch 4), a ragged d = 512 case, and
+# the shape where the TPU package states the int8 contract
+# (tests/test_flash_attention.py:206); [B, Sq, Skv, H, D]
+SERVE_HPACKED_SHAPES = ((8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80))
+SERVE_DECODER_SHAPE = (4, 4096, 4096, 1, 512)
+CONTRACT_SHAPE = (1, 256, 256, 2, 40)
+VARIANT_SHAPES = (SERVE_DECODER_SHAPE, (1, 512, 700, 1, 512), CONTRACT_SHAPE)
+PIPE_EXP_SHAPES = (SERVE_DECODER_SHAPE, (1, 1000, 1300, 8, 40))
+# against exact fp32 attention, stated before measuring: the mean error
+# everywhere, the worst element at CONTRACT_SHAPE (the TPU package's measured
+# contract); at the other shapes the kernel may not add more than KERNEL_TOL
+# to its plain version's worst error (the quantization's own error grows
+# with the sequence: the plain version carries it too)
+EXACT_TOL = {"mean": 1e-2, "int8_max": 8e-2, "bf16_max": 1e-2}
+# (softmax in bf16, PV in int8) of each inference variant
+VARIANTS = ((True, False), (False, True), (True, True))
 
 
 def emit(obj) -> None:
@@ -203,6 +241,15 @@ def attention_dq_cost(b, sq, skv, h, d):
 def attention_dkv_cost(b, sq, skv, h, d):
     # reads q, k, v, dO, lse2, delta; writes dk, dv
     return 8 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 4 * skv) + 8 * sq)
+
+
+def variant_bound(b, sq, skv, h, d, pv_int8) -> tuple[float, str]:
+    """The least time of flash attention with the PV product on the int8
+    tensor cores (QKᵀ at the bf16 rate) or the bf16 ones."""
+    flops, nbytes = attention_cost(b, sq, skv, h, d)
+    t_ops = flops / 2 / PEAK_FLOPS + flops / 2 / (PEAK_INT8 if pv_int8 else PEAK_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def geglu_cost(n, c, inner):
@@ -438,6 +485,137 @@ def phase_kernels(gen) -> dict:
     return {name: row for name, (_, row) in best.items()}
 
 
+def _exact_errs(out, exact) -> tuple[float, float]:
+    """(worst, mean) |out − exact| over max|exact|."""
+    d = (out.float() - exact).abs()
+    scale = max(exact.abs().max().item(), 1e-30)
+    return d.max().item() / scale, d.mean().item() / scale
+
+
+def phase_variant_kernels(gen) -> dict:
+    """The inference variants (bf16 softmax exponential, int8 PV, both) of
+    the serial and head-packed flash kernels at the serving path's shapes,
+    a ragged case and the TPU package's contract shape; the pipelined sweep
+    with the bf16 exponential. Each against its plain tiled version at the
+    kernel's kv tile (64) and against exact fp32 attention, with its time,
+    the plain version's, `scaled_dot_product_attention`'s (exact attention:
+    no PyTorch call computes the quantized function) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    bk, best = fa.KERNEL_BLOCK_K, {}
+    cases = [("flash_attention_hpacked", shape, True) for shape in SERVE_HPACKED_SHAPES]
+    cases += [("flash_attention", shape, shape == SERVE_DECODER_SHAPE) for shape in VARIANT_SHAPES]
+    for base, (B, Sq, Skv, H, D), table in cases:
+        packed = base == "flash_attention_hpacked"
+        if packed:
+            q, k, v = rnd(B, Sq, H * D), rnd(B, Skv, H * D), rnd(B, Skv, H * D)
+            split = lambda t, H=H, D=D: t.unflatten(2, (H, D))
+        else:
+            q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
+            split = lambda t: t
+        exact = fa._xla_ref(*(split(t).float() for t in (q, k, v)), D**-0.5)
+        heads = lambda t: split(t).transpose(1, 2)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
+        for exp_bf16, pv_int8 in VARIANTS:
+            kw = dict(softmax_dtype=torch.bfloat16 if exp_bf16 else torch.float32,
+                      pv_quant="int8" if pv_int8 else "none")
+            if packed:
+                kernel = lambda kw=kw, H=H: fa.flash_attention_hpacked(q, k, v, H, **kw)
+                plain = lambda kw=kw, H=H, D=D: fa._flash_hpacked_tiled_ref(
+                    q, k, v, H, D**-0.5, bk, kw["softmax_dtype"], kw["pv_quant"])
+            else:
+                kernel = lambda kw=kw: fa.flash_attention(q, k, v, **kw)
+                plain = lambda kw=kw, D=D: fa._flash_tiled_ref(
+                    q, k, v, D**-0.5, bk, kw["softmax_dtype"], kw["pv_quant"])
+            out, ref = split(kernel()), split(plain())
+            torch.cuda.synchronize()
+            _, vs_plain = rel_err(out, ref)
+            worst, mean = _exact_errs(out, exact)
+            plain_worst, plain_mean = _exact_errs(ref, exact)
+            b_ms, b_by = variant_bound(B, Sq, Skv, H, D, pv_int8)
+            name = fa.launch_name(base, exp_bf16, pv_int8)
+            row = {"phase": "kernel", "name": name, "shape": [B, Sq, Skv, H, D],
+                   "max_abs_err": rel_err(out, ref)[0], "rel_err": vs_plain,
+                   "vs_exact": {"max": worst, "mean": mean},
+                   "plain_vs_exact": {"max": plain_worst, "mean": plain_mean},
+                   "ms": time_ms(kernel), "plain_ms": time_ms(plain, 2),
+                   "library_ms": library_ms, "library": "scaled_dot_product_attention (exact)",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            what = f"{name} {[B, Sq, Skv, H, D]}"
+            require(vs_plain <= KERNEL_TOL, f"{what}: {vs_plain:.3g} from its plain version")
+            require(mean < EXACT_TOL["mean"], f"{what}: mean error {mean:.3g} vs exact")
+            if (B, Sq, Skv, H, D) == CONTRACT_SHAPE:
+                gate = EXACT_TOL["int8_max" if pv_int8 else "bf16_max"]
+                require(worst < gate if pv_int8 else worst <= gate,
+                        f"{what}: worst error {worst:.3g} vs exact, gate {gate}")
+            else:
+                require(worst <= plain_worst + KERNEL_TOL,
+                        f"{what}: worst error {worst:.3g} vs exact past the plain "
+                        f"version's {plain_worst:.3g}")
+            if table and (name not in best or B * Sq * Skv * H * D > best[name][0]):
+                best[name] = (B * Sq * Skv * H * D, row)
+        del exact
+        torch.cuda.empty_cache()
+
+    # the pipelined sweep keeps the bf16 exponential and drops the int8 PV:
+    # the same bits as the serial kernel with the bf16 exponential alone
+    for B, Sq, Skv, H, D in PIPE_EXP_SHAPES:
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
+        exact = fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5)
+
+        def piped(q=q, k=k, v=v):
+            with switches({"SD_TPU_FLASH_PIPE": "1"}):
+                return fa.flash_attention(q, k, v, softmax_dtype=torch.bfloat16,
+                                          pv_quant="int8")
+
+        plain = lambda q=q, k=k, v=v, D=D: fa._flash_tiled_ref(
+            q, k, v, D**-0.5, bk, torch.bfloat16, "none", pipelined=True)
+        before = kernels_launched("flash_attention_pipelined_exp_bf16")
+        out = piped()
+        require(kernels_launched("flash_attention_pipelined_exp_bf16") == before + 1,
+                "SD_TPU_FLASH_PIPE=1 with both variants runs the pipelined bf16 sweep")
+        serial = fa.flash_attention(q, k, v, softmax_dtype=torch.bfloat16)
+        ref = plain()
+        _, vs_plain = rel_err(out, ref)
+        worst, mean = _exact_errs(out, exact)
+        plain_worst, plain_mean = _exact_errs(ref, exact)
+        b_ms, b_by = variant_bound(B, Sq, Skv, H, D, False)
+        row = {"phase": "kernel", "name": "flash_attention_pipelined_exp_bf16",
+               "shape": [B, Sq, Skv, H, D], "max_abs_err": rel_err(out, ref)[0],
+               "rel_err": vs_plain, "vs_exact": {"max": worst, "mean": mean},
+               "plain_vs_exact": {"max": plain_worst, "mean": plain_mean},
+               "serial_exp_bf16_max_abs_diff": rel_err(out, serial)[0],
+               "same_bits_as_serial_exp_bf16": bool(torch.equal(out, serial)),
+               "ms": time_ms(piped), "plain_ms": time_ms(plain, 2),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))),
+               "library": "scaled_dot_product_attention (exact)",
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        require(vs_plain <= KERNEL_TOL and worst <= plain_worst + KERNEL_TOL
+                and mean < EXACT_TOL["mean"] and row["same_bits_as_serial_exp_bf16"],
+                f"pipelined bf16 flash {[B, Sq, Skv, H, D]}: within its gates, the same "
+                f"bits as the serial sweep")
+        if (B, Sq, Skv, H, D) == SERVE_DECODER_SHAPE:
+            best[row["name"]] = (0, row)
+        del exact
+        torch.cuda.empty_cache()
+    return {name: row for name, (_, row) in best.items()}
+
+
+def kernels_launched(name: str) -> int:
+    from sd_tpu_torch import kernels
+
+    return kernels.LAUNCHES[name]
+
+
 def sdpa_backend(fn) -> dict:
     """Which of PyTorch's attention backends one call of `fn` ran: the
     device kernels of one profiled call, the busiest first, and the backend
@@ -587,9 +765,10 @@ def _parity(name, build, inputs_fn, run, tol, gen_cpu, phase="parity"):
     return launches
 
 
-def phase_parity(optin: bool = False) -> None:
+def phase_parity(optin: bool = False, serve: bool = False) -> None:
     """UNet and decoder parity; with `optin`, under the opt-in switches,
-    requiring exactly the launches `PARITY_OPTIN_LAUNCHES` lists."""
+    requiring exactly the launches `PARITY_OPTIN_LAUNCHES` lists; with
+    `serve`, under the serving switches (the variant kernels)."""
     import torch
 
     from sd_tpu_torch.core.config import sd_v1_config
@@ -599,14 +778,14 @@ def phase_parity(optin: bool = False) -> None:
     cfg = sd_v1_config()
     g = torch.Generator().manual_seed(1)
     rounded = lambda t: t.bfloat16().float()
-    phase = "parity_optin" if optin else "parity"
+    phase = "parity_optin" if optin else "parity_serve" if serve else "parity"
 
     def unet_inputs():
         return (rounded(torch.randn(2, 32, 32, 4, generator=g)),
                 torch.tensor([999, 501]),
                 rounded(torch.randn(2, 77, 768, generator=g)))
 
-    with switches(OPT_IN if optin else {}):
+    with switches(OPT_IN if optin else SERVE if serve else {}):
         unet = _parity(
             "unet", lambda dt, dev: UNetModel(**cfg["unet"]["params"], dtype=dt, device=dev),
             unet_inputs, lambda m, x, t, c: m(x, t, c), UNET_TOL, g, phase)
@@ -615,10 +794,10 @@ def phase_parity(optin: bool = False) -> None:
                                                      dtype=dt, device=dev),
             lambda: (rounded(torch.randn(1, 32, 32, 4, generator=g)),),
             lambda m, z: m.decode(z), DECODER_TOL, g, phase)
-    if optin:
-        want = PARITY_OPTIN_LAUNCHES
+    if optin or serve:
+        want = PARITY_OPTIN_LAUNCHES if optin else PARITY_SERVE_LAUNCHES
         require({"unet": unet, "decoder": decoder} == want,
-                f"opt-in parity launches {unet}, {decoder} == {want}")
+                f"{phase} launches {unet}, {decoder} == {want}")
         return
     # latent 32² puts 1024 tokens through level 0: both UNet kernels run
     require(unet["flash_attention_hpacked"] == 5 and unet["geglu_ff"] == 5,
@@ -721,6 +900,180 @@ def phase_e2e_optin(pipe, prompts, default_images) -> dict:
     require(launches == EXPECTED_LAUNCHES_OPTIN,
             f"opt-in launches {launches} == {EXPECTED_LAUNCHES_OPTIN}")
     return launches
+
+
+class _Recording:
+    """The served pipeline, keeping the prompts and keywords of every batch
+    the server runs (so a direct `generate` can repeat one)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.batches = pipe, []
+
+    def generate(self, prompts, **kw):
+        self.batches.append((list(prompts), kw))
+        return self.pipe.generate(prompts, **kw)
+
+
+SERVE_PROMPTS = ["a photograph of an astronaut riding a horse",
+                 "a watercolor painting of a lighthouse at dusk",
+                 "a red cube on a wooden table", "a city street at night in the rain"]
+SERVE_WATERMARK = "sd-tpu-torch"
+
+
+def phase_serve(pipe, smi: str) -> dict:
+    """The serving entry point with the variant kernels: `BatchingServer`
+    (max_batch 4, a server-wide watermark) behind `make_http_server` on
+    127.0.0.1, with SD_TPU_FLASH_EXP=bf16 SD_TPU_FLASH_PV=int8 set for the
+    phase. Four same-key requests (30 DDIM steps, CFG 7.5, seed 1234) are
+    queued before the batcher starts, so they run as one bucket-4 generate
+    (the launch counts are read around it); then one `dpm` request at 20
+    steps, one 512×768, one weighted prompt, and GET /healthz. The grouped
+    images are held against a direct `generate` of the same batch."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.serve import BatchingServer, decode_png, make_http_server
+    from sd_tpu_torch.utils.watermark import verify_watermark
+
+    rec = _Recording(pipe)
+    batcher = BatchingServer(rec, max_batch=4, batch_window_ms=50,
+                             default_steps=SERVE_STEPS, watermark=SERVE_WATERMARK)
+    server = make_http_server(batcher, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(body) -> tuple[int, dict, float]:
+        req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+    def image(out) -> "np.ndarray":
+        return decode_png(base64.b64decode(out["image"]))
+
+    try:
+        with switches(SERVE):
+            pipe.generate(SERVE_PROMPTS, num_steps=2)          # warm-up, not counted
+            bodies = [{"prompt": p, "steps": SERVE_STEPS, "guidance_scale": 7.5, "seed": 1234}
+                      for p in SERVE_PROMPTS]
+            grouped = {}
+            threads = [threading.Thread(target=lambda i=i, b=b: grouped.__setitem__(i, post(b)),
+                                        daemon=True) for i, b in enumerate(bodies)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 60
+            while batcher.queue_depth() < len(bodies) and time.monotonic() < deadline:
+                time.sleep(0.005)
+            require(batcher.queue_depth() == len(bodies), "the four requests queued")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            batcher.start()
+            for t in threads:
+                t.join(600)
+            torch.cuda.synchronize()
+            group_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            require(len(grouped) == len(bodies) and len(rec.batches) == 1,
+                    "the four requests answered by one generate")
+            prompts, kw = rec.batches[0]
+            direct = pipe.generate(prompts, **kw)
+            diffs, grouped_rows = [], []
+            for i, body in enumerate(bodies):
+                status, out, latency = grouped[i]
+                img = image(out)
+                require(status == 200 and img.shape == (512, 512, 3)
+                        and out["batch_size"] == 4 and out["seed"] == 1234,
+                        f"grouped request {i}: {status} {img.shape} {out['batch_size']}")
+                diffs.append(int(np.abs(img.astype(int)
+                                        - direct[prompts.index(body["prompt"])]).max()))
+                grouped_rows.append({"latency_s": latency, "batch_size": out["batch_size"]})
+            singles = []
+            for body, size in (({"prompt": "a lighthouse", "sampler": "dpm", "steps": 20,
+                                 "seed": 7}, (512, 512, 3)),
+                               ({"prompt": "a wide valley", "height": 512, "width": 768,
+                                 "seed": 8}, (512, 768, 3)),
+                               ({"prompt": "(cat:1.3)", "seed": 9}, (512, 512, 3))):
+                torch.cuda.synchronize()
+                status, out, latency = post(body)
+                img = image(out)
+                require(status == 200 and img.shape == size and out["batch_size"] == 1,
+                        f"request {body}: {status} {img.shape}")
+                singles.append({"request": body, "latency_s": latency, "shape": list(img.shape),
+                                "std": float(img.std())})
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            marked = verify_watermark(image(grouped[0][1]), SERVE_WATERMARK)
+    finally:
+        batcher.stop()
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    row = {"phase": "serve", "nvidia_smi": smi, "switches": SERVE,
+           "grouped": {"requests": grouped_rows, "seconds": group_s,
+                       "images_per_second": len(bodies) / group_s, "steps": SERVE_STEPS},
+           "max_uint8_diff_vs_direct_generate": max(diffs),
+           "same_bits_as_direct_generate": max(diffs) == 0,
+           "singles": singles, "healthz": health, "watermark_verified": bool(marked),
+           "launches": launches, "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    require(max(diffs) <= 1, f"served images within 1 uint8 level of a direct generate: "
+            f"{max(diffs)}")
+    require(health == {"ok": True, "queue_depth": 0, "requests_served": 7, "batches_run": 4},
+            f"healthz {health}")
+    require(marked, "the server's watermark reads back")
+    require(launches == EXPECTED_SERVE_LAUNCHES,
+            f"serve launches {launches} == {EXPECTED_SERVE_LAUNCHES}")
+    return launches
+
+
+# the other switch combinations, each with the launches of one serving UNet
+# call (bucket 4: batch 8, 512²) and one decode (batch 4)
+SWITCH_COMBINATIONS = (
+    ({"SD_TPU_FLASH_EXP": "bf16"}, "flash_attention_hpacked_exp_bf16",
+     "flash_attention_exp_bf16"),
+    ({"SD_TPU_FLASH_PV": "int8"}, "flash_attention_hpacked_pv_int8",
+     "flash_attention_pv_int8"),
+    ({"SD_TPU_FLASH_EXP": "bf16", "SD_TPU_FLASH_PV": "int8", "SD_TPU_FLASH_PIPE": "1"},
+     "flash_attention_hpacked_exp_bf16_pv_int8", "flash_attention_pipelined_exp_bf16"))
+
+
+def phase_switch_combinations(pipe) -> dict:
+    """One UNet call and one decode of the serving shapes under each other
+    combination of the switches: which kernel each reaches, and a finite
+    output. Returns {kernel: launches} of the variants these reach."""
+    import torch
+
+    from sd_tpu_torch import kernels
+
+    c, uc = pipe.encode_prompts(SERVE_PROMPTS)
+    ctx = torch.cat([uc, c])
+    x = torch.randn((8,) + pipe.latent_shape, device="cuda").bfloat16()
+    t = torch.full((8,), 501, device="cuda")
+    z = torch.randn((4,) + pipe.latent_shape, device="cuda").bfloat16()
+    seen = {}
+    for env, hpacked, decoder in SWITCH_COMBINATIONS:
+        with switches(env), torch.no_grad():
+            kernels.reset_launches()
+            out, img = pipe.unet(x, t, ctx), pipe.vae.decode(z)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        emit({"phase": "switches", "switches": env, "launches": launches,
+              "finite": bool(torch.isfinite(out).all() and torch.isfinite(img).all())})
+        require(launches == {hpacked: 10, decoder: 1, "geglu_ff": 10, "conv3x3_same": 18}
+                and bool(torch.isfinite(out).all() and torch.isfinite(img).all()),
+                f"switches {env}: launches {launches}")
+        seen.setdefault(hpacked, 10)
+        seen[decoder] = 1
+    return seen
 
 
 def phase_train_parity() -> dict:
@@ -1089,6 +1442,17 @@ def ptxas_report(log: str, keep) -> dict:
     return out
 
 
+def _flash_fwd_args(mangled: str):
+    """(padded head dim, [LSE, PIPE, EXPB, PV8]) of a mangled
+    flash_fwd_kernel instantiation, or None for another kernel."""
+    import re
+
+    m = re.search(r"flash_fwd_kernelILi(\d+)ELi\d+ELi\d+ELi\d+E((?:Lb[01]E)+)", mangled)
+    if m is None:
+        return None
+    return int(m.group(1)), [f == "1" for f in re.findall(r"Lb([01])E", m.group(2))]
+
+
 def wide_flash_registers() -> dict:
     """Registers and spills of the flash kernels' head-dim 256 and 512
     instantiations (the training forward and the wide dQ, dK/dV kernels),
@@ -1097,17 +1461,50 @@ def wide_flash_registers() -> dict:
 
     from sd_tpu_torch.kernels import _build
 
+    def keep(n):
+        fwd = _flash_fwd_args(n)
+        return (fwd[0] in (256, 512) and fwd[1][0]) if fwd else (
+            "wide_kernel" in n and re.search(r"ILi(256|512)E", n))
+
     short = {}
     for lib in ("flash_attention", "flash_attention_bwd"):
         log = (_build.build_dir() / f"{lib}.log").read_text()
-        rep = ptxas_report(log, lambda n: ("wide_kernel" in n or "ELb1ELb0E" in n)
-                           and re.search(r"ILi(256|512)E", n))
-        for mangled, vals in rep.items():
+        for mangled, vals in ptxas_report(log, keep).items():
             kind = re.search(r"(flash_bwd_dq_wide|flash_bwd_dkv_wide|flash_fwd)_kernel", mangled)
             dp = re.search(r"ILi(\d+)E", mangled).group(1)
             short[f"{kind.group(1)}<{dp}>" + (" lse" if kind.group(1) == "flash_fwd" else "")] = {
                 "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
     return short
+
+
+def variant_flash_registers() -> dict:
+    """Registers and spills of the inference forward's instantiations at the
+    serving path's head dims (40 → 48, 80, 512), variants included."""
+    from sd_tpu_torch.kernels import _build
+
+    def keep(n):
+        fwd = _flash_fwd_args(n)
+        return bool(fwd) and fwd[0] in (48, 80, 512) and not fwd[1][0]
+
+    log = (_build.build_dir() / "flash_attention.log").read_text()
+    out = {}
+    for mangled, vals in ptxas_report(log, keep).items():
+        dp, (_, pipe, expb, pv8) = _flash_fwd_args(mangled)
+        flags = [f for f, on in (("pipe", pipe), ("exp_bf16", expb), ("pv_int8", pv8)) if on]
+        out[f"flash_fwd<{dp}>" + "".join(" " + f for f in flags)] = {
+            "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
+    return out
+
+
+def flash_smem() -> dict:
+    """Dynamic shared memory of the inference forward at the serving path's
+    head dims: [serial, pipelined, int8 PV] bytes."""
+    import ctypes
+
+    from sd_tpu_torch.kernels import _build
+
+    fn = _build.function("flash_attention", "sd_flash_fwd_smem", [ctypes.c_int] * 3)
+    return {d: [fn(d, 0, 0), fn(d, 1, 0), fn(d, 0, 1)] for d in (40, 80, 512)}
 
 
 def _family(name: str) -> str:
@@ -1302,19 +1699,26 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     from sd_tpu_torch.kernels import _build
+    from sd_tpu_torch.kernels.flash_attention import launch_name as fa_launch_name
 
     t0 = time.perf_counter()
     per_lib = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library": per_lib,
-          "wide_flash_registers": wide_flash_registers()})
+          "wide_flash_registers": wide_flash_registers(),
+          "flash_variant_registers": variant_flash_registers(),
+          "flash_fwd_smem_bytes": flash_smem()})
 
     gen = torch.Generator("cuda").manual_seed(0)
     table = phase_kernels(gen)
+    table.update(phase_variant_kernels(gen))
     train_rows = phase_train_kernels(gen)
     phase_parity()
     phase_parity(optin=True)
+    phase_parity(serve=True)
     launches, pipe, prompts, images = phase_e2e()
     launches_optin = phase_e2e_optin(pipe, prompts, images)
+    launches_serve = phase_serve(pipe, smi)
+    launches_switches = phase_switch_combinations(pipe)
     profiling = "--profile" in sys.argv[1:]
     if profiling:
         phase_profile(pipe, prompts)
@@ -1349,6 +1753,12 @@ def main() -> int:
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
                "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
                "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
+    # the inference variants: template parameters of the same CUDA kernel
+    for exp_bf16, pv_int8 in VARIANTS:
+        sources[fa_launch_name("flash_attention", exp_bf16, pv_int8)] = sources["flash_attention"]
+        sources[fa_launch_name("flash_attention_hpacked", exp_bf16, pv_int8)] = \
+            sources["flash_attention_hpacked"]
+    sources["flash_attention_pipelined_exp_bf16"] = sources["flash_attention_pipelined"]
     # the flash training kernels (rows 4-6) run on two paths: their row is
     # train_kl_vae's shape and launches, with train_ldm's beside them
     for name, by_shape in train_rows.items():
@@ -1363,12 +1773,19 @@ def main() -> int:
              "group_norm": ("generate, opt-in", launches_optin),
              "crossattn_kv": ("generate, opt-in", launches_optin),
              "gn_silu_conv3x3": ("none: not wired, as in sd_tpu", launches_optin)}
+    for name in launches_switches:
+        env = next(e for e, *names in SWITCH_COMBINATIONS if name in names)
+        paths[name] = ("one serving UNet call + decode, " + " ".join(
+            f"{k}={v}" for k, v in env.items()), launches_switches)
+    for name, n in launches_serve.items():
+        if n and name.endswith("pv_int8"):
+            paths[name] = ("serve (4 requests, one bucket-4 generate)", launches_serve)
     rows = []
     for name, (source, rep) in sources.items():
         r = table[name]
         path, counts = paths.get(name, ("generate", launches))
         row = {"name": name, "route": "cuda", "source": source, "replaces": rep,
-               "launches": counts[name], "launches_path": path,
+               "launches": counts[name], "launches_path": path, "nvidia_smi": smi,
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -2,9 +2,11 @@
 
 Counterpart of `sd_tpu/core/schedules.py`: the tables are computed once in
 float64 numpy and stored as float32 tensors, so they match the TPU package's
-exactly. Ported: the tables and methods of DDIM sampling and of the training
-loss (`q_sample`, `get_v`, `lvlb_weights`); the posterior tables of the
-ancestral sampler and zero-terminal-SNR rescaling are not ported yet.
+exactly. Ported: the tables and methods of sampling (DDIM sub-schedules
+with uniform / quad / trailing / Karras striding, the x0 / ε / v coordinate
+changes, the posterior of the ancestral sampler) and of the training loss
+(`q_sample`, `get_v`, `lvlb_weights`); zero-terminal-SNR rescaling and
+`given_betas` are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,9 +65,46 @@ def make_ddim_timesteps(
         ddim_timesteps = (
             np.linspace(0, math.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps) ** 2
         ).astype(int)
+    elif ddim_discr_method == "trailing":
+        # include the final step t = T-1; no +1 shift (t = 0 is the data end)
+        ts = np.round(
+            np.arange(num_ddpm_timesteps, 0, -num_ddpm_timesteps / num_ddim_timesteps)
+        ).astype(int) - 1
+        return np.unique(ts)
     else:
         raise NotImplementedError(f"unknown ddim discretization {ddim_discr_method!r}")
     return ddim_timesteps + 1
+
+
+def make_karras_timesteps(alphas_cumprod: np.ndarray, num_timesteps: int,
+                          rho: float = 7.0) -> np.ndarray:
+    """Karras ρ-spaced timesteps (arXiv:2206.00364 eq. 5) on the discrete
+    DDPM lattice (int64, ascending, strictly increasing): σ(t) =
+    sqrt((1-ᾱ)/ᾱ) spaced evenly in σ^(1/ρ) from σ(T-1) down to σ(1), each
+    target mapped to the nearest t, collisions pushed up."""
+    abar = np.asarray(alphas_cumprod, dtype=np.float64)
+    sig = np.sqrt((1.0 - abar) / abar)
+    s_min, s_max = sig[1], sig[-1]
+    frac = np.arange(num_timesteps, dtype=np.float64) / max(num_timesteps - 1, 1)
+    sigmas = (s_max ** (1.0 / rho) + frac * (s_min ** (1.0 / rho) - s_max ** (1.0 / rho))) ** rho
+    ts = np.sort(np.abs(sig[None, :] - sigmas[:, None]).argmin(axis=1))
+    ts = np.maximum(ts, 1)
+    for k in range(1, len(ts)):
+        if ts[k] <= ts[k - 1]:
+            ts[k] = ts[k - 1] + 1
+    if ts[-1] >= len(abar):
+        raise ValueError(f"karras striding needs num_timesteps ({num_timesteps}) well "
+                         f"below the DDPM T ({len(abar)})")
+    return ts
+
+
+def sub_timesteps(base: "DiffusionSchedule", num_steps: int, method: str) -> np.ndarray:
+    """The ascending DDPM timesteps of an S-step sub-schedule ("karras" or a
+    `make_ddim_timesteps` method) and ᾱ in float64 (from the fp32 table)."""
+    abar = base.alphas_cumprod.cpu().numpy().astype(np.float64)
+    if method == "karras":
+        return make_karras_timesteps(abar, num_steps), abar
+    return make_ddim_timesteps(method, num_steps, base.num_timesteps), abar
 
 
 def make_ddim_sampling_parameters(
@@ -101,7 +140,7 @@ def _to(obj, device):
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Per-timestep tables of a DDPM process: the ones DDIM sampling and the
+    """Per-timestep tables of a DDPM process: the ones the samplers and the
     training loss read."""
 
     betas: torch.Tensor
@@ -109,6 +148,12 @@ class DiffusionSchedule:
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
     lvlb_weights: torch.Tensor
     num_timesteps: int
 
@@ -147,6 +192,15 @@ class DiffusionSchedule:
             alphas_cumprod_prev=_f32(alphas_cumprod_prev),
             sqrt_alphas_cumprod=_f32(np.sqrt(alphas_cumprod)),
             sqrt_one_minus_alphas_cumprod=_f32(np.sqrt(1.0 - alphas_cumprod)),
+            sqrt_recip_alphas_cumprod=_f32(np.sqrt(1.0 / alphas_cumprod)),
+            sqrt_recipm1_alphas_cumprod=_f32(np.sqrt(1.0 / alphas_cumprod - 1.0)),
+            posterior_variance=_f32(posterior_variance),
+            posterior_log_variance_clipped=_f32(np.log(np.maximum(posterior_variance, 1e-20))),
+            # Ho et al. eq. 7 (the paper-correct coef2, as the TPU package)
+            posterior_mean_coef1=_f32(betas * np.sqrt(alphas_cumprod_prev)
+                                      / (1.0 - alphas_cumprod)),
+            posterior_mean_coef2=_f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
+                                      / (1.0 - alphas_cumprod)),
             lvlb_weights=_f32(lvlb_weights),
             num_timesteps=int(betas.shape[0]),
         )
@@ -168,6 +222,37 @@ class DiffusionSchedule:
         return (extract(self.sqrt_alphas_cumprod, t, nd) * noise
                 - extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * x_start)
 
+    # coordinate changes between ε, x0 and v, with x_t = α·x0 + σ·ε,
+    # α = √ᾱ_t, σ = √(1−ᾱ_t) and v = α·ε − σ·x0
+
+    def predict_start_from_noise(self, x_t, t, noise):
+        nd = x_t.ndim
+        return (extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
+                - extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * noise)
+
+    def predict_eps_from_start(self, x_t, t, x0):
+        nd = x_t.ndim
+        return ((extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t - x0)
+                / extract(self.sqrt_recipm1_alphas_cumprod, t, nd))
+
+    def predict_start_from_v(self, x_t, t, v):
+        nd = x_t.ndim
+        return (extract(self.sqrt_alphas_cumprod, t, nd) * x_t
+                - extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * v)
+
+    def predict_eps_from_v(self, x_t, t, v):
+        nd = x_t.ndim
+        return (extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * x_t
+                + extract(self.sqrt_alphas_cumprod, t, nd) * v)
+
+    def q_posterior(self, x_start, x_t, t):
+        """Mean, variance and clipped log-variance of q(x_{t-1} | x_t, x_0)."""
+        nd = x_t.ndim
+        mean = (extract(self.posterior_mean_coef1, t, nd) * x_start
+                + extract(self.posterior_mean_coef2, t, nd) * x_t)
+        return (mean, extract(self.posterior_variance, t, nd),
+                extract(self.posterior_log_variance_clipped, t, nd))
+
 
 @dataclasses.dataclass(frozen=True)
 class DDIMSchedule:
@@ -188,8 +273,7 @@ class DDIMSchedule:
     @classmethod
     def create(cls, base: DiffusionSchedule, num_steps: int, eta: float = 0.0,
                method: str = "uniform") -> "DDIMSchedule":
-        alphacums = base.alphas_cumprod.cpu().numpy().astype(np.float64)
-        ts = make_ddim_timesteps(method, num_steps, base.num_timesteps)
+        ts, alphacums = sub_timesteps(base, num_steps, method)
         sigmas, alphas, alphas_prev = make_ddim_sampling_parameters(alphacums, ts, eta)
         return cls(
             timesteps=torch.from_numpy(ts.astype(np.int64)),

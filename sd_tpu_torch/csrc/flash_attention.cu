@@ -20,6 +20,28 @@
 // barriers instead of four. The arithmetic and the rounding of P are the
 // serial kernel's, in the same order, so the output is the same bits.
 //
+// Compiled with EXPB = true (the inference switch SD_TPU_FLASH_EXP=bf16, the
+// TPU kernels' p_dtype = bfloat16, serial and pipelined sweeps) the softmax
+// exponential runs as the TPU package computes jnp.exp2 on a bf16 operand:
+// XLA lowers it to exp(x * ln2) with the operand and the product in bf16,
+// and keeps the exponential's fp32 result where it is read in fp32, so
+//   p = exp(bf16(bf16(s - m_new) * bf16(ln2)))     bf16(ln2) = 0.69140625
+// (about 0.25% below 2^x per unit of |x|: the constant itself is rounded).
+// From there p goes the fp32 sweep's way: summed in fp32, rounded to bf16
+// for the PV product; corr = exp2f(m_prev - m_new) stays fp32. Hopper's
+// ex2.approx.bf16x2 computes 2^x, a different function, so the kernel
+// evaluates the exponential in fp32.
+// Compiled with PV8 = true (SD_TPU_FLASH_PV=int8, the TPU kernels' `_pv_int8`,
+// serial sweep only) the PV product of each kv tile runs on the int8 tensor
+// cores (mma.sync m16n8k32 s8.s8.s32): p_i8 = trunc(p * 127 + 0.5), the
+// row sum for l is sum(p_i8) / 127 (the denominator uses the quantized p),
+// and V is quantized per head-dim column over the tile's rows,
+// vs = max|v| / 127, v_i8 = round-half-even(v / max(vs, 1e-30)), in place in
+// the bytes of the bf16 V^T tile (each V^T row is one column, so its max is
+// one warp reduction); the tile's int32 sum enters O as
+// O * corr + float(acc) * (vs / 127). The quantization depends on the tile,
+// so the result depends on the kv tile (BK = 64 here, 512-1024 on the TPU).
+//
 // Math (the TPU kernel's): non-causal softmax(q k^T * scale) v with the
 // softmax in base 2 (log2(e) folded into the scale, exp2f), running max m,
 // running sum l and the output accumulator in fp32, p rounded to bf16 before
@@ -52,7 +74,7 @@ using sdk::bf16;
 
 constexpr float NEG = -1e30f;
 
-template <int DP, int BQ, int BK, int CW, bool PIPE = false>
+template <int DP, int BQ, int BK, int CW, bool PIPE = false, bool PV8 = false>
 struct Cfg {
   static constexpr int RG = BQ / 16;
   static constexpr int WARPS = RG * CW;
@@ -66,12 +88,43 @@ struct Cfg {
   static constexpr int TPR = THREADS / BQ;    // softmax threads per row
   static constexpr int VPT = BK / TPR;        // softmax values per thread
   static constexpr int NP = PIPE ? 2 : 1;      // P tiles and rescale vectors
+  static constexpr int NVS = PV8 ? DP : 0;     // per-column V scales / 127
+  static constexpr int PS8 = BK + 16;          // byte row stride of the int8 P
+  static constexpr int VS8 = VS * 2;           // byte row stride of the int8 V^T
   static constexpr size_t SMEM =
-      (size_t)(BQ * SS + (2 + NP) * BQ) * 4 +
+      (size_t)(BQ * SS + (2 + NP) * BQ + NVS) * 4 +
       (size_t)(BQ * QS + BK * QS + DP * VS + NP * BQ * VS) * 2;
   static_assert(DP % 16 == 0 && OCOLS % 8 == 0, "head tiling");
   static_assert(BK % (8 * CW) == 0 && 32 % TPR == 0 && BK % TPR == 0, "tiling");
+  static_assert(!PV8 || (!PIPE && BK % 32 == 0 && PS8 <= 2 * VS), "int8 PV tiling");
 };
+
+// sd_tpu's jnp.exp2 on a bf16 operand: exp(bf16(bf16(x) * bf16(ln2))), in fp32
+__device__ __forceinline__ float exp2_bf16(float x) {
+  const float xb = __bfloat162float(__float2bfloat16_rn(x));
+  return expf(__bfloat162float(__float2bfloat16_rn(__fmul_rn(xb, 0.69140625f))));
+}
+
+// four consecutive int8 values as one 32-bit register
+__device__ __forceinline__ uint32_t ld32_s8(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D += A B on the int8 tensor cores, A 16x32 row-major, B 32x8 "col", int32
+// accumulate. Fragments (PTX ISA, "Matrix fragments for mma.m16n8k32"), with
+// g = lane / 4, t = lane % 4, four s8 values per register:
+//   a0 = A[g][4t..4t+3]   a1 = A[g+8][4t..4t+3]
+//   a2 = A[g][4t+16..]    a3 = A[g+8][4t+16..]
+//   b0 = B[4t..4t+3][g]   b1 = B[4t+16..4t+19][g]
+//   d0,d1 = D[g][2t..2t+1]   d2,d3 = D[g+8][2t..2t+1]
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // rows [r0, r0+R) x columns [0, D) of a strided bf16 matrix into shared
 // memory (row stride LD); rows at or past n are written as zeros.
@@ -89,8 +142,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int DP, int BQ, int BK, int CW, bool LSE, bool PIPE>
-__global__ void __launch_bounds__(Cfg<DP, BQ, BK, CW, PIPE>::THREADS)
+template <int DP, int BQ, int BK, int CW, bool LSE, bool PIPE, bool EXPB, bool PV8>
+__global__ void __launch_bounds__(Cfg<DP, BQ, BK, CW, PIPE, PV8>::THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int H,
@@ -99,16 +152,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long k_sh, long long v_sb, long long v_ss,
                  long long v_sh, long long o_sb, long long o_ss,
                  long long o_sh, float scale_log2) {
-  using C = Cfg<DP, BQ, BK, CW, PIPE>;
+  using C = Cfg<DP, BQ, BK, CW, PIPE, PV8>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ss = reinterpret_cast<float*>(smem);
   float* m_s = Ss + BQ * C::SS;
   float* l_s = m_s + BQ;
   float* c_s = l_s + BQ;               // NP rescale vectors of BQ
-  bf16* Qs = reinterpret_cast<bf16*>(c_s + C::NP * BQ);
+  float* vsc_s = c_s + C::NP * BQ;     // int8 PV: vs / 127 per column
+  bf16* Qs = reinterpret_cast<bf16*>(vsc_s + C::NVS);
   bf16* Ks = Qs + BQ * C::QS;
   bf16* Vt = Ks + BK * C::QS;
   bf16* Ps = Vt + DP * C::VS;          // NP P tiles of BQ x VS
+  // int8 PV: V^T quantized in place (row d at byte d * VS8), P as int8 in
+  // the P tile's bytes (row stride PS8)
+  int8_t* Vt8 = reinterpret_cast<int8_t*>(Vt);
+  int8_t* P8 = reinterpret_cast<int8_t*>(Ps);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -166,6 +224,33 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
+    // ---- int8 PV: quantize V^T tile jp per row (one head-dim column) ----
+    // A warp owns whole rows: every lane reads its values, then the row is
+    // rewritten as int8 in its own first BK bytes. The zero rows past D and
+    // past Skv quantize to zeros. The barrier after QK orders it before PV.
+    if (PV8 && pv_step) {
+      constexpr int PER = BK / 32;
+      for (int r = warp; r < DP; r += C::WARPS) {
+        float vals[PER];
+        float mx = 0.f;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          vals[i] = __bfloat162float(Vt[r * C::VS + lane + 32 * i]);
+          mx = fmaxf(mx, fabsf(vals[i]));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float vs = mx / 127.f;
+        const float den = fmaxf(vs, 1e-30f);
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          Vt8[r * C::VS8 + lane + 32 * i] = (int8_t)__float2int_rn(vals[i] / den);
+        if (lane == 0) vsc_s[r] = vs / 127.f;
+      }
+    }
+
     // ---- S = Q K^T (scaled into base 2) --------------------------------
     if (qk_step) {
       float sacc[C::SNT][4];
@@ -213,15 +298,27 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float m_prev = m_s[row];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
+      int isum = 0;
 #pragma unroll
       for (int i = 0; i < C::VPT; ++i) {
-        const float p = exp2f(vals[i] - m_new);
-        sum += p;
-        Pw[row * C::VS + sub + i * C::TPR] = __float2bfloat16(p);
+        const float p = EXPB ? exp2_bf16(vals[i] - m_new) : exp2f(vals[i] - m_new);
+        if (PV8) {
+          const int q8 = (int)__fadd_rn(__fmul_rn(p, 127.f), 0.5f);   // trunc, p >= 0
+          isum += q8;
+          P8[row * C::PS8 + sub + i * C::TPR] = (int8_t)q8;
+        } else {
+          sum += p;
+          Pw[row * C::VS + sub + i * C::TPR] = __float2bfloat16(p);
+        }
       }
 #pragma unroll
-      for (int off = C::TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int off = C::TPR / 2; off > 0; off >>= 1) {
+        if (PV8)
+          isum += __shfl_xor_sync(0xffffffffu, isum, off);
+        else
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      if (PV8) sum = (float)isum / 127.f;
       __syncwarp();
       if (sub == 0) {
         const float corr = exp2f(m_prev - m_new);
@@ -243,14 +340,42 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         oacc[nt][2] *= c_hi;
         oacc[nt][3] *= c_hi;
       }
+      if (PV8) {
+        // the tile's int32 P V, then O += float(acc) * vs / 127 per column
+        uint32_t a[BK / 32][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        sdk::load_a(a, Pr, C::VS, rg * 16, kk * 16, g, t);
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          const int8_t* pa = P8 + (rg * 16 + g) * C::PS8 + kk * 32 + 4 * t;
+          a[kk][0] = ld32_s8(pa);
+          a[kk][1] = ld32_s8(pa + 8 * C::PS8);
+          a[kk][2] = ld32_s8(pa + 16);
+          a[kk][3] = ld32_s8(pa + 8 * C::PS8 + 16);
+        }
 #pragma unroll
         for (int nt = 0; nt < C::ONT; ++nt) {
-          const bf16* p = Vt + (cg * C::OCOLS + nt * 8 + g) * C::VS + kk * 16 + 2 * t;
-          sdk::mma_16816(oacc[nt], a, sdk::ld32(p), sdk::ld32(p + 8));
+          int acc[4] = {0, 0, 0, 0};
+          const int n0 = cg * C::OCOLS + nt * 8;
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk) {
+            const int8_t* pb = Vt8 + (n0 + g) * C::VS8 + kk * 32 + 4 * t;
+            mma_s8_16832(acc, a[kk], ld32_s8(pb), ld32_s8(pb + 16));
+          }
+          const float s0 = vsc_s[n0 + 2 * t], s1 = vsc_s[n0 + 2 * t + 1];
+          oacc[nt][0] += (float)acc[0] * s0;
+          oacc[nt][1] += (float)acc[1] * s1;
+          oacc[nt][2] += (float)acc[2] * s0;
+          oacc[nt][3] += (float)acc[3] * s1;
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t a[4];
+          sdk::load_a(a, Pr, C::VS, rg * 16, kk * 16, g, t);
+#pragma unroll
+          for (int nt = 0; nt < C::ONT; ++nt) {
+            const bf16* p = Vt + (cg * C::OCOLS + nt * 8 + g) * C::VS + kk * 16 + 2 * t;
+            sdk::mma_16816(oacc[nt], a, sdk::ld32(p), sdk::ld32(p + 8));
+          }
         }
       }
     }
@@ -283,12 +408,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP, int BQ, int BK, int CW, bool LSE = false, bool PIPE = false>
+template <int DP, int BQ, int BK, int CW, bool LSE = false, bool PIPE = false,
+          bool EXPB = false, bool PV8 = false>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
            int B, int H, int Sq, int Skv, int D, const long long* st,
            float scale_log2, cudaStream_t stream) {
-  using C = Cfg<DP, BQ, BK, CW, PIPE>;
-  auto kern = flash_fwd_kernel<DP, BQ, BK, CW, LSE, PIPE>;
+  using C = Cfg<DP, BQ, BK, CW, PIPE, PV8>;
+  auto kern = flash_fwd_kernel<DP, BQ, BK, CW, LSE, PIPE, EXPB, PV8>;
   SDK_SET_SMEM(kern, C::SMEM);
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
@@ -297,13 +423,13 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
   return (int)cudaGetLastError();
 }
 
-template <bool PIPE>
+template <bool PIPE, bool EXPB, bool PV8>
 int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, int B, int H, int Sq,
         int Skv, int D, const long long* strides, float scale_log2, cudaStream_t s) {
   switch ((D + 15) / 16 * 16) {
 #define SDK_SMALL(DPV) \
   case DPV:            \
-    return launch<DPV, 64, 64, 1, false, PIPE>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<DPV, 64, 64, 1, false, PIPE, EXPB, PV8>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
     SDK_SMALL(16)
     SDK_SMALL(32)
     SDK_SMALL(48)
@@ -317,9 +443,9 @@ int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, int B, int H, int 
       break;
   }
   if (D <= 256)
-    return launch<256, 32, 64, 4, false, PIPE>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<256, 32, 64, 4, false, PIPE, EXPB, PV8>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   if (D <= 512)
-    return launch<512, 32, 64, 4, false, PIPE>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<512, 32, 64, 4, false, PIPE, EXPB, PV8>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -327,19 +453,27 @@ int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, int B, int H, int 
 
 // q, k, v, o: [B, S, H, D] bf16 views with unit stride along D; `strides`
 // holds (batch, row, head) strides in elements for q, k, v, o in that order.
-// pipelined = 1 runs the software-pipelined kv sweep (same output bits).
+// pipelined = 1 runs the software-pipelined kv sweep (same output bits);
+// exp_bf16 = 1 the bf16 softmax exponential, pv_int8 = 1 the int8 PV product
+// (serial sweep only: pipelined with pv_int8 is refused).
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int sd_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int Sq, int Skv, int D,
                             const long long* strides, float scale_log2,
-                            int pipelined, void* stream) {
+                            int pipelined, int exp_bf16, int pv_int8, void* stream) {
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
   bf16* O = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pipelined ? fwd<true>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s)
-                   : fwd<false>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
+#define SDK_FWD(P, E, I) fwd<P, E, I>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s)
+  if (pipelined) {
+    if (pv_int8) return (int)cudaErrorInvalidValue;
+    return exp_bf16 ? SDK_FWD(true, true, false) : SDK_FWD(true, false, false);
+  }
+  if (pv_int8) return exp_bf16 ? SDK_FWD(false, true, true) : SDK_FWD(false, false, true);
+  return exp_bf16 ? SDK_FWD(false, true, false) : SDK_FWD(false, false, false);
+#undef SDK_FWD
 }
 
 // The training forward: as sd_flash_fwd, plus lse2 [B*H, Sq] fp32 (row
@@ -377,4 +511,35 @@ extern "C" int sd_flash_fwd_lse(const void* q, const void* k, const void* v,
   if (D <= 512)
     return launch<512, 32, 64, 4, true>(Q, K, V, O, L, B, H, Sq, Skv, D, strides, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+template <bool PIPE, bool PV8>
+size_t smem_of(int dp) {
+  switch (dp) {
+#define SDK_SMEM(DPV) \
+  case DPV:           \
+    return Cfg<DPV, 64, 64, 1, PIPE, PV8>::SMEM;
+    SDK_SMEM(16)
+    SDK_SMEM(32)
+    SDK_SMEM(48)
+    SDK_SMEM(64)
+    SDK_SMEM(80)
+    SDK_SMEM(96)
+    SDK_SMEM(112)
+    SDK_SMEM(128)
+#undef SDK_SMEM
+    default:
+      break;
+  }
+  return dp <= 256 ? Cfg<256, 32, 64, 4, PIPE, PV8>::SMEM : Cfg<512, 32, 64, 4, PIPE, PV8>::SMEM;
+}
+}  // namespace
+
+// Dynamic shared memory (bytes) of the inference launch sd_flash_fwd makes
+// for head dim D (the build report).
+extern "C" int sd_flash_fwd_smem(int D, int pipelined, int pv_int8) {
+  const int dp = (D + 15) / 16 * 16;
+  if (pipelined) return (int)smem_of<true, false>(dp);
+  return (int)(pv_int8 ? smem_of<false, true>(dp) : smem_of<false, false>(dp));
 }

@@ -1,9 +1,11 @@
-"""DDPM process: the training loss.
+"""DDPM process: the training loss and the ancestral sampler.
 
-Counterpart of `sd_tpu/diffusion/ddpm.py` on the training path:
-`draw_training_noise` and `DDPMProcess.p_losses` (eps / x0 / v targets, l2 /
-l1, min-SNR-γ weighting, the learned per-timestep logvar and the ELBO
-weight). The ancestral sampler is not ported yet.
+Counterpart of `sd_tpu/diffusion/ddpm.py`: `draw_training_noise`,
+`DDPMProcess.p_losses` (eps / x0 / v targets, l2 / l1, min-SNR-γ weighting,
+the learned per-timestep logvar and the ELBO weight) and `p_sample_loop`,
+the T-step ancestral sampler ("ddpm"; no CFG, as in the TPU package), whose
+noise per step comes from `noise(t, shape)`, by default drawn from an
+explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Callable
 import torch
 
 from sd_tpu_torch.core.schedules import DiffusionSchedule
+from sd_tpu_torch.diffusion.guidance import NoiseFn, gaussian_noise
 
 # model_fn(x, t, cond) -> prediction (eps, x0 or v by parameterization)
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
@@ -47,6 +50,7 @@ class DDPMProcess:
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
     min_snr_gamma: float | None = None
+    clip_denoised: bool = True             # the ancestral sampler's x0 in [-1, 1]
 
     def p_losses(self, model_fn: ModelFn, x_start: torch.Tensor,
                  t: torch.Tensor, noise: torch.Tensor, cond: Any = None,
@@ -100,3 +104,37 @@ class DDPMProcess:
         loss = loss + self.original_elbo_weight * loss_vlb
         logs["loss"] = loss
         return loss, logs
+
+    # -- reverse process ---------------------------------------------------
+
+    def model_eps_and_x0(self, model_fn: ModelFn, x, t, cond):
+        out = model_fn(x, t, cond)
+        sched = self.schedule
+        if self.parameterization == "eps":
+            eps, x0 = out, sched.predict_start_from_noise(x, t, out)
+        elif self.parameterization == "v":
+            eps, x0 = sched.predict_eps_from_v(x, t, out), sched.predict_start_from_v(x, t, out)
+        else:
+            eps, x0 = sched.predict_eps_from_start(x, t, out), out
+        if self.clip_denoised:
+            x0 = torch.clamp(x0, -1.0, 1.0)
+        return eps, x0
+
+    def p_sample_loop(self, model_fn: ModelFn, shape: tuple[int, ...], x_T: torch.Tensor,
+                      cond: Any = None, temperature: float = 1.0,
+                      generator: torch.Generator | None = None,
+                      noise: NoiseFn | None = None) -> torch.Tensor:
+        """T ancestral steps t = T-1 … 0 from x_T: the posterior mean plus
+        exp(½ log σ²)·z·temperature (no noise at t = 0)."""
+        sched = self.schedule.to(x_T.device)
+        proc = dataclasses.replace(self, schedule=sched)
+        noise = noise or gaussian_noise(generator, x_T.device)
+        img = x_T
+        for t_i in range(sched.num_timesteps - 1, -1, -1):
+            t = torch.full((shape[0],), t_i, dtype=torch.long, device=x_T.device)
+            _, x0 = proc.model_eps_and_x0(model_fn, img, t, cond)
+            mean, _, log_var = sched.q_posterior(x0, img, t)
+            z = noise(t_i, tuple(shape))
+            nonzero = float(t_i > 0)
+            img = (mean + nonzero * torch.exp(0.5 * log_var) * z * temperature).to(img.dtype)
+        return img

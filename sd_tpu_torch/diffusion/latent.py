@@ -1,12 +1,14 @@
 """Latent diffusion glue: conditioning dispatch, the frozen first stage, the
-training loss, DDIM sampling and the scale-factor calibration.
+training loss, sampling and the scale-factor calibration.
 
 Counterpart of `sd_tpu/diffusion/latent.py` on the text-to-image path:
 `apply_conditioned` with the `crossattn` key, `get_input`,
-`training_loss` / `p_losses`, the `sampler="ddim"` branch of
-`LatentDiffusion.sample` followed by the decode, and
-`calibrate_scale_factor`. The other conditioning keys, the other samplers
-and the patched (fold/unfold) paths are not ported yet.
+`training_loss` / `p_losses`, `LatentDiffusion.sample` with its sampler
+dispatch (ddim, dpm, dpm_sde, unipc, plms, euler, euler_a, heun, ddpm and
+`guidance_rescale`; the same errors for lcm / flow on an ε-model) followed
+by the decode, and `calibrate_scale_factor`. Self-attention guidance
+(`sag_scale`), the consistency sampler, flow models, the other conditioning
+keys and the patched (fold/unfold) paths are not ported yet.
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
 `torch.Generator`; a batch may carry the draws instead (`t`, `noise`, and
@@ -25,6 +27,11 @@ from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddim import DDIMSampler
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess, draw_training_noise
+from sd_tpu_torch.diffusion.dpm_solver import DPMSolverSampler
+from sd_tpu_torch.diffusion.guidance import NoiseFn
+from sd_tpu_torch.diffusion.k_samplers import KDiffusionSampler
+from sd_tpu_torch.diffusion.plms import PLMSSampler
+from sd_tpu_torch.diffusion.unipc import UniPCSampler
 
 
 def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
@@ -110,16 +117,52 @@ class LatentDiffusion:
     def sample(self, shape: tuple[int, ...], x_T: torch.Tensor, cond: dict,
                uncond: dict | None = None, guidance_scale: float = 1.0,
                num_steps: int = 50, eta: float = 0.0,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-        """DDIM sampling from x_T (the CFG branches go through one batched
-        model call), then the first-stage decode."""
-        if self.process.parameterization != "eps":
-            raise NotImplementedError("DDIM sampling of x0/v models is not ported yet")
-        z = DDIMSampler(self.schedule).sample(
-            self.apply_model, shape, x_T, num_steps=num_steps, cond=cond,
-            uncond=uncond, guidance_scale=guidance_scale, eta=eta,
-            generator=generator)
-        return self.decode_first_stage(z)
+               generator: torch.Generator | None = None, sampler: str = "ddim",
+               guidance_rescale: float = 0.0, sag_scale: float = 0.0,
+               noise: NoiseFn | None = None, decode: bool = True) -> torch.Tensor:
+        """Sampling from x_T with `sampler` (the CFG branches go through one
+        batched model call; `eta` reaches DDIM only, `guidance_rescale` the
+        CFG samplers; the stochastic ones draw from `generator` or
+        `noise`), then the first-stage decode."""
+        param = self.process.parameterization
+        kw = dict(num_steps=num_steps, cond=cond, uncond=uncond,
+                  guidance_scale=guidance_scale, guidance_rescale=guidance_rescale)
+        if sag_scale > 0.0:
+            if sampler != "ddim":
+                raise ValueError(f"sag_scale is only supported by the ddim sampler, "
+                                 f"got sampler={sampler!r}")
+            raise NotImplementedError("SAG is not ported yet (diffusion/sag.py, "
+                                      "nn/attn_probe.py)")
+        if sampler in ("flow", "flow_midpoint"):
+            raise ValueError("sampler='flow' needs a FlowProcess model "
+                             "(diffusion.type: flow)")
+        if sampler in ("euler", "euler_a", "heun"):
+            z = KDiffusionSampler(self.schedule, order=sampler, parameterization=param).sample(
+                self.apply_model, shape, x_T, generator=generator, noise=noise, **kw)
+        elif sampler in ("dpm", "dpm_sde"):
+            z = DPMSolverSampler(self.schedule, parameterization=param,
+                                 sde=sampler == "dpm_sde").sample(
+                self.apply_model, shape, x_T, generator=generator, noise=noise, **kw)
+        elif sampler == "unipc":
+            z = UniPCSampler(self.schedule, parameterization=param).sample(
+                self.apply_model, shape, x_T, **kw)
+        elif sampler in ("lcm", "consistency"):
+            if uncond is not None and guidance_scale != 1.0:
+                raise ValueError("lcm sampling has no CFG branch — guidance was baked "
+                                 "in at distillation (distill.guidance_scale)")
+            raise NotImplementedError("the consistency sampler is not ported yet "
+                                      "(diffusion/consistency.py)")
+        elif sampler == "plms":
+            z = PLMSSampler(self.schedule, parameterization=param).sample(
+                self.apply_model, shape, x_T, **kw)
+        elif sampler == "ddim":
+            z = DDIMSampler(self.schedule, parameterization=param).sample(
+                self.apply_model, shape, x_T, eta=eta, generator=generator, noise=noise, **kw)
+        else:
+            # ancestral sampling has no CFG path
+            z = self.process.p_sample_loop(self.apply_model, shape, x_T, cond,
+                                           generator=generator, noise=noise)
+        return self.decode_first_stage(z) if decode else z
 
 
 def calibrate_scale_factor(z: torch.Tensor) -> float:

@@ -18,8 +18,15 @@ import torch
 
 LAUNCHES: dict[str, int] = {
     "flash_attention": 0,
+    "flash_attention_exp_bf16": 0,
+    "flash_attention_pv_int8": 0,
+    "flash_attention_exp_bf16_pv_int8": 0,
     "flash_attention_pipelined": 0,
+    "flash_attention_pipelined_exp_bf16": 0,
     "flash_attention_hpacked": 0,
+    "flash_attention_hpacked_exp_bf16": 0,
+    "flash_attention_hpacked_pv_int8": 0,
+    "flash_attention_hpacked_exp_bf16_pv_int8": 0,
     "flash_attention_lse": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,

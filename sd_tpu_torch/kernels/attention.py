@@ -10,9 +10,18 @@ device. Where a rule holds, the kernel wrapper runs (the kernel on the card,
 its plain version elsewhere). `dot_product_attention` reaches the
 differentiable `flash_attention`; the head-packed kernel is inference-only
 and, as on the TPU, not chosen inside a training step (`training_trace`).
+
+The inference variants are read from the environment at each call, as the
+TPU package reads them when it traces (`sd_tpu/kernels/attention.py:207-210,
+253-259`): `SD_TPU_FLASH_EXP=bf16` runs the softmax exponential in bf16,
+`SD_TPU_FLASH_PV=int8` the PV product on int8 codes. Attention the gates
+send to the plain path (the 77-token cross-attention, fp32, short sequences)
+ignores them, as `_xla_attention` does.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -47,11 +56,25 @@ def hpacked_flash_ok(sq: int, skv: int, heads: int, d: int,
     return dtype == torch.bfloat16 and _flash_shape_ok(sq, skv, d)
 
 
+def flash_variants() -> dict:
+    """The inference variants the environment asks for now."""
+    return {"softmax_dtype": (torch.bfloat16 if os.environ.get("SD_TPU_FLASH_EXP") == "bf16"
+                              else torch.float32),
+            "pv_quant": "int8" if os.environ.get("SD_TPU_FLASH_PV") == "int8" else "none"}
+
+
+def hpacked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            heads: int, *, scale: float | None = None) -> torch.Tensor:
+    """Flash attention over projection-native [B, S, H·D] tensors, with the
+    variants the environment asks for."""
+    return fa.flash_attention_hpacked(q, k, v, heads, scale=scale, **flash_variants())
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: float | None = None) -> torch.Tensor:
     """Scaled dot-product attention over [B, S, H, D] tensors."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if flash_ok(q, k):
-        return fa.flash_attention(q, k, v, scale=scale)
+        return fa.flash_attention(q, k, v, scale=scale, **flash_variants())
     return _xla_attention(q, k, v, scale)

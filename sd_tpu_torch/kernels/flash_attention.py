@@ -16,6 +16,16 @@ and the codec's single-head 512). Non-causal only.
 `SD_TPU_FLASH_PIPE=1` (opt-in, as in the TPU package) the inference launch of
 `flash_attention` runs the software-pipelined kv sweep, which gives the same
 bits; the head-packed and training kernels never do.
+
+The inference forwards take the TPU kernels' two variants:
+`softmax_dtype=torch.bfloat16` (the softmax exponential in bf16, as
+`jnp.exp2` computes it on a bf16 operand) and `pv_quant="int8"` (the PV
+product of each kv tile on int8 codes, `_pv_int8`). The pipelined sweep
+keeps the first and drops the second, as `_flash_attention_bhsd` does; the
+training path ignores both. Their plain version is a tiled online-softmax
+sweep (`_flash_tiled_ref`) that takes the kv tile: the int8 codes depend on
+it. Off the card the wrappers run it at the TPU package's kv tile (so the
+CPU tests hold it against the Pallas kernels); the CUDA kernel's tile is 64.
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ from sd_tpu_torch import kernels
 from sd_tpu_torch.kernels import _build
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 NEG_INF = -1e30
+KERNEL_BLOCK_K = 64          # the CUDA kernel's kv tile
 
 
 def _xla_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,6 +52,79 @@ def _xla_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits * scale, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def _exp2(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.exp2` as XLA lowers it: exp(x · ln 2) with ln 2 and the product
+    rounded to x's dtype (in bf16 the constant is 0.69140625), the
+    exponential in fp32 (XLA keeps that precision where the result is read
+    in fp32, as every use in the sweep reads it)."""
+    return torch.exp((x * torch.tensor(LN2, dtype=x.dtype, device=x.device)).float())
+
+
+def _pv_int8(p: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The TPU package's int8 PV of one kv tile: p [B, H, Sq, bk] fp32 in
+    [0, 1], v [B, bk, H, D]. Returns (pv [B, H, Sq, D] fp32, row sums of the
+    quantized p [B, H, Sq, 1]): p_i8 = trunc(p·127 + 0.5), per head-dim
+    column vs = max|v| / 127 and v_i8 = round-half-even(v / max(vs, 1e-30)),
+    pv = (p_i8 · v_i8) · vs / 127. The integer products are summed in fp32,
+    exactly: |p_i8 · v_i8| ≤ 127², so every partial sum over a tile of up to
+    1024 rows stays an integer below 2^24."""
+    if p.shape[-1] > 1024:
+        raise ValueError(f"int8 PV: a kv tile of {p.shape[-1]} rows is not summed exactly")
+    p_i8 = (p * 127.0 + 0.5).to(torch.int8)
+    p_sum = p_i8.float().sum(dim=-1, keepdim=True) / 127.0
+    v32 = v.float()
+    vs = v32.abs().amax(dim=1, keepdim=True) / 127.0                # [B, 1, H, D]
+    v_i8 = torch.round(v32 / torch.clamp(vs, min=1e-30)).to(torch.int8)
+    pv = torch.einsum("bhqk,bkhd->bhqd", p_i8.float(), v_i8.float())
+    return pv * (vs / 127.0).permute(0, 2, 1, 3), p_sum
+
+
+def _flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, block_k: int,
+                     softmax_dtype: torch.dtype = torch.float32,
+                     pv_quant: str = "none", pipelined: bool = False) -> torch.Tensor:
+    """Plain version of the inference forward with its variants: the TPU
+    kernel's online-softmax sweep over kv tiles of `block_k` rows, q
+    [B, Sq, H, D], k/v [B, Skv, H, D]. Base-2 logits in fp32, p =
+    exp2((s − m_new) in `softmax_dtype`), corr = exp2(m_prev − m_new) in
+    fp32; p cast to v's dtype for the PV product, or both quantized per tile
+    with `pv_quant="int8"`; the output divided by max(l, 1e-30). The
+    pipelined sweep stores p in `softmax_dtype` between its two halves, so
+    its PV reads the rounded exponential (`pipelined=True`)."""
+    B, Sq, H, D = q.shape
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), device=q.device)
+    acc = torch.zeros((B, H, Sq, D), device=q.device)
+    qf = q.float()
+    for j0 in range(0, k.shape[1], block_k):
+        kt, vt = k[:, j0:j0 + block_k], v[:, j0:j0 + block_k]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt.float()) * (scale * LOG2E)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = _exp2((s - m_new).to(softmax_dtype))
+        corr = _exp2(m - m_new)
+        if pv_quant == "int8":
+            pv, p_sum = _pv_int8(p.float(), vt)
+        else:
+            p_pv = p.to(softmax_dtype) if pipelined else p
+            pv = torch.einsum("bhqk,bkhd->bhqd", p_pv.to(v.dtype).float(), vt.float())
+            p_sum = p.float().sum(dim=-1, keepdim=True)
+        l = corr * l + p_sum
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _flash_hpacked_tiled_ref(q, k, v, heads: int, scale: float, block_k: int,
+                             softmax_dtype: torch.dtype = torch.float32,
+                             pv_quant: str = "none") -> torch.Tensor:
+    """`_flash_tiled_ref` over projection-native [B, S, H·D] tensors."""
+    b, sq, hd = q.shape
+    split = lambda x: x.unflatten(2, (heads, hd // heads))
+    return _flash_tiled_ref(split(q), split(k), split(v), scale, block_k,
+                            softmax_dtype, pv_quant).reshape(b, sq, hd)
 
 
 def _flash_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,29 +219,71 @@ def _strides(*tensors) -> ctypes.Array:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            out: torch.Tensor, scale: float, pipelined: bool = False) -> None:
+            out: torch.Tensor, scale: float, pipelined: bool = False,
+            exp_bf16: bool = False, pv_int8: bool = False) -> None:
     """Run the inference kernel over strided [B, S, H, D] views (out written
-    in place), serial or software-pipelined. It has no backward: an input
-    that needs a gradient raises."""
+    in place), serial or software-pipelined, with the bf16 exponential and
+    the int8 PV where asked (never int8 with the pipelined sweep). It has no
+    backward: an input that needs a gradient raises."""
     kernels.refuse_grad("flash attention forward", q, k, v)
+    if pipelined and pv_int8:
+        raise ValueError("flash attention: the pipelined sweep has no int8 PV")
     B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (out, "out", q))
     fn = _build.function("flash_attention", "sd_flash_fwd", [ctypes.c_void_p] * 4
                          + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
-                                                 ctypes.c_float, ctypes.c_int,
-                                                 ctypes.c_void_p])
+                                                 ctypes.c_float] + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               B, H, Sq, Skv, D, _strides(q, k, v, out), float(scale) * LOG2E,
-              int(pipelined), _build.stream_ptr(q.device))
+              int(pipelined), int(exp_bf16), int(pv_int8), _build.stream_ptr(q.device))
     _build.check(code, "sd_flash_fwd")
 
 
-def _tpu_kv_tiles(skv: int, d: int, block_k: int = 1024) -> int:
-    """Kv tiles of the TPU package's `flash_attention` sweep (its default
+def launch_name(base: str, exp_bf16: bool, pv_int8: bool) -> str:
+    """The launch counter of an inference flash kernel and its variants."""
+    return base + ("_exp_bf16" if exp_bf16 else "") + ("_pv_int8" if pv_int8 else "")
+
+
+def _variants(softmax_dtype: torch.dtype, pv_quant: str) -> tuple[bool, bool]:
+    if softmax_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash attention: softmax_dtype {softmax_dtype}")
+    if pv_quant not in ("none", "int8"):
+        raise ValueError(f"flash attention: pv_quant {pv_quant!r}")
+    return softmax_dtype == torch.bfloat16, pv_quant == "int8"
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _tpu_block_k(skv: int, d: int, block_k: int = 1024) -> int:
+    """The kv tile of the TPU package's `flash_attention` sweep (its default
     block_k, rounded to 128 lanes, halved down to 512 rows at wide heads)."""
-    bk = min(block_k, -(-skv // 128) * 128)
+    bk = min(block_k, _round_up(skv, 128))
     while bk * d * 2 > (1 << 19) and bk > 512:
         bk //= 2
-    return -(-skv // bk)
+    return bk
+
+
+def _tpu_kv_tiles(skv: int, d: int, block_k: int = 1024) -> int:
+    """Kv tiles of the TPU package's `flash_attention` sweep."""
+    return -(-skv // _tpu_block_k(skv, d, block_k))
+
+
+def _tpu_hpacked_block_k(sq: int, skv: int, hd: int, block_q: int = 1024,
+                         block_k: int = 1024) -> int:
+    """The kv tile of the TPU package's `flash_attention_hpacked` (its
+    default blocks under its VMEM caps)."""
+    bq, bk = min(block_q, _round_up(sq, 8)), min(block_k, _round_up(skv, 128))
+    while bq * hd * 6 > 8 * 1024 * 1024 and bq > 256:
+        bq //= 2
+    while bk * hd * 4 > 4 * 1024 * 1024 and bk > 256:
+        bk //= 2
+    while bq * bk > 512 * 1024 and bq > 256:
+        bq //= 2
+    while bq * bk > 512 * 1024 and bk > 256:
+        bk //= 2
+    return bk
 
 
 def flash_pipelined_ok(skv: int, d: int) -> bool:
@@ -256,26 +383,38 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    softmax_dtype: torch.dtype = torch.float32,
+                    pv_quant: str = "none") -> torch.Tensor:
     """Attention over q [B, Sq, H, D], k/v [B, Skv, H, D] (non-causal);
-    differentiable in q, k and v."""
+    differentiable in q, k and v (the gradient path ignores the inference
+    variants `softmax_dtype` and `pv_quant`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kernels.needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, float(scale))
-    # decided on every device, so a CPU or meta run makes the card's choice
+    exp_bf16, pv_int8 = _variants(softmax_dtype, pv_quant)
+    # decided on every device, so a CPU or meta run makes the card's choice;
+    # the pipelined sweep keeps the bf16 exponential and drops the int8 PV
     pipelined = flash_pipelined_ok(k.shape[1], q.shape[3])
+    pv_int8 = pv_int8 and not pipelined
     if not q.is_cuda:
-        return _xla_ref(q, k, v, scale)
+        if not (exp_bf16 or pv_int8):
+            return _xla_ref(q, k, v, scale)
+        return _flash_tiled_ref(q, k, v, scale, _tpu_block_k(k.shape[1], q.shape[3]),
+                                softmax_dtype, "int8" if pv_int8 else "none", pipelined)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, scale, pipelined)
-    kernels.LAUNCHES["flash_attention_pipelined" if pipelined else "flash_attention"] += 1
+    _launch(q, k, v, out, scale, pipelined, exp_bf16, pv_int8)
+    base = "flash_attention_pipelined" if pipelined else "flash_attention"
+    kernels.LAUNCHES[launch_name(base, exp_bf16, pv_int8)] += 1
     return out
 
 
 def flash_attention_hpacked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, heads: int, *,
-                            scale: float | None = None) -> torch.Tensor:
+                            scale: float | None = None,
+                            softmax_dtype: torch.dtype = torch.float32,
+                            pv_quant: str = "none") -> torch.Tensor:
     """Attention over projection-native q [B, Sq, H*D], k/v [B, Skv, H*D]:
     heads are read through strides, no transpose enters or leaves.
     Inference only (`hpacked_flash_ok` keeps training away from it)."""
@@ -285,10 +424,15 @@ def flash_attention_hpacked(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"width {hd} is not {heads} heads")
     if scale is None:
         scale = d ** -0.5
+    exp_bf16, pv_int8 = _variants(softmax_dtype, pv_quant)
     split = lambda x: x.unflatten(2, (heads, d))
     if not q.is_cuda:
-        return _xla_ref(split(q), split(k), split(v), scale).reshape(b, sq, hd)
+        if not (exp_bf16 or pv_int8):
+            return _xla_ref(split(q), split(k), split(v), scale).reshape(b, sq, hd)
+        return _flash_hpacked_tiled_ref(q, k, v, heads, scale,
+                                        _tpu_hpacked_block_k(sq, k.shape[1], hd),
+                                        softmax_dtype, pv_quant)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(split(q), split(k), split(v), split(out), scale)
-    kernels.LAUNCHES["flash_attention_hpacked"] += 1
+    _launch(split(q), split(k), split(v), split(out), scale, False, exp_bf16, pv_int8)
+    kernels.LAUNCHES[launch_name("flash_attention_hpacked", exp_bf16, pv_int8)] += 1
     return out

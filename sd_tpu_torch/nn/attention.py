@@ -18,7 +18,6 @@ from torch import nn
 
 from sd_tpu_torch.kernels import attention as attn_k
 from sd_tpu_torch.kernels import cross_attention as xattn_k
-from sd_tpu_torch.kernels import flash_attention as fa
 from sd_tpu_torch.kernels import geglu as geglu_k
 from sd_tpu_torch.nn.layers import Conv2d, Dense, GroupNorm32, LayerNorm
 
@@ -76,7 +75,7 @@ class CrossAttention(nn.Module):
         dt = self.to_q.weight.dtype
         if context is None and attn_k.hpacked_flash_ok(N, M, h, d, dt):
             # projection-native [B, N, H·D] straight into the kernel
-            out = fa.flash_attention_hpacked(self.to_q(x), self.to_k(x), self.to_v(x), h)
+            out = attn_k.hpacked_flash_attention(self.to_q(x), self.to_k(x), self.to_v(x), h)
             return self.to_out(out)
         if context is not None and xattn_k.crossattn_kv_wants_pallas(N, M, h, d, C, dt):
             # K/V projected plainly (77 tokens), then q-projection, softmax

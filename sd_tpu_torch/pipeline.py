@@ -1,15 +1,17 @@
 """Text2ImagePipeline — prompts to images with the SD-v1 stack.
 
-Counterpart of `sd_tpu/pipeline.py` `Text2ImagePipeline.generate` on its
-main path: CLIP text encode of [negative; prompt] in one batched call →
-DDIM with batched classifier-free guidance through the UNet → KL-f8
-decode. Dtype policy (the TPU benchmark's): UNet, VAE and CLIP parameters
-and compute in bf16, the latent cast to bf16 at each UNet call, the DDIM
-state and update in fp32, z / scale_factor cast to bf16 before decode.
+Counterpart of `sd_tpu/pipeline.py` `Text2ImagePipeline.generate`: CLIP
+text encode of [negative; prompt] in one batched call (attention-weighting
+syntax, per-call `clip_skip`) → the requested sampler with batched
+classifier-free guidance (and `guidance_rescale`) through the UNet at the
+requested size → KL-f8 decode → uint8, optionally watermarked. Dtype policy
+(the TPU benchmark's): UNet, VAE and CLIP parameters and compute in bf16,
+the latent cast to bf16 at each UNet call, the sampler state and update in
+fp32, z / scale_factor cast to bf16 before decode.
 
 Weights are random from a seed (`init_params_`); loading a real SD
-checkpoint, img2img/inpainting, prompt weighting and the other samplers
-are not ported yet.
+checkpoint, img2img/inpainting, tiled decode, ControlNet, IP-Adapter and
+self-attention guidance are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
                                            SimpleHashTokenizer)
 from sd_tpu_torch.models.unet_sd import UNetModel
+from sd_tpu_torch.utils.prompt_weights import (apply_prompt_weights, parse_weighted_prompt,
+                                               tokenize_weighted)
+from sd_tpu_torch.utils.watermark import embed_watermark, str_to_bits
 from sd_tpu_torch.weights import init_params_
-
-_WEIGHTING_CHARS = "()[]\\"
 
 
 class Text2ImagePipeline:
@@ -66,49 +69,103 @@ class Text2ImagePipeline:
         lat = self.cfg["latent"]
         return lat["image_size"], lat["image_size"], lat["channels"]
 
-    def _tokens(self, texts: list[str]) -> torch.Tensor:
-        if any(c in t for t in texts for c in _WEIGHTING_CHARS):
-            raise NotImplementedError(
-                "prompt weighting syntax ((), [], \\) is not ported yet")
-        return torch.from_numpy(self.tokenizer(texts).astype(np.int64)).to(self.device)
+    def latent_hw(self, height: int | None, width: int | None) -> tuple[int, int]:
+        """Pixel height/width → the latent grid, checked against the model's
+        total downsampling (VAE factor × UNet levels); the config's square
+        size where neither is given."""
+        lat = self.cfg["latent"]
+        if height is None and width is None:
+            return lat["image_size"], lat["image_size"]
+        f_vae = 2 ** (len(self.cfg["first_stage"]["params"].get("ch_mult", (1, 2, 4, 4))) - 1)
+        f_unet = 2 ** (len(self.cfg["unet"]["params"].get("channel_mult", (1, 2, 4, 4))) - 1)
+        f = f_vae * f_unet
+        height = height if height is not None else lat["image_size"] * f_vae
+        width = width if width is not None else lat["image_size"] * f_vae
+        if height % f or width % f:
+            raise ValueError(f"height/width must be multiples of {f} "
+                             f"(VAE f{f_vae} × UNet {f_unet}-level downsampling)")
+        return height // f_vae, width // f_vae
+
+    def _tokenize_weighted(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray | None]:
+        """ids [B, L] and per-token weights (None when no prompt carries
+        emphasis: the plain tokenizer, so plain prompts stay bit-identical)."""
+        parsed = [parse_weighted_prompt(t) for t in texts]
+        if all(len(p) == 1 and p[0][1] == 1.0 for p in parsed):
+            return self.tokenizer(texts), None
+        tok = self.tokenizer
+        return tokenize_weighted(texts, tok.encode_chunk, self.clip_cfg.max_length,
+                                 tok.bos_token_id, tok.eos_token_id)
 
     @torch.no_grad()
     def encode_prompts(self, prompts: Sequence[str],
-                       negative_prompt: str | Sequence[str] = ""):
+                       negative_prompt: str | Sequence[str] = "",
+                       clip_skip: int | None = None):
         """(cond, uncond) text embeddings from one batched CLIP call over
-        [negative; prompt]."""
+        [negative; prompt], prompt weights applied to the CLIP output."""
         if isinstance(negative_prompt, str):
             negative_prompt = [negative_prompt] * len(prompts)
         elif len(negative_prompt) != len(prompts):
             raise ValueError("negative_prompt list must match prompts length")
-        ids = self._tokens(list(negative_prompt) + list(prompts))
-        uc, c = self.clip(ids).to(self.dtype).chunk(2)
+        parts = [self._tokenize_weighted(list(t)) for t in (negative_prompt, prompts)]
+        ids = torch.from_numpy(np.concatenate([i for i, _ in parts]).astype(np.int64))
+        emb = self.clip(ids.to(self.device), clip_skip=clip_skip)
+        if any(w is not None for _, w in parts):
+            wts = np.concatenate([np.ones(i.shape, np.float32) if w is None else w
+                                  for i, w in parts])
+            emb = apply_prompt_weights(emb, torch.from_numpy(wts).to(self.device))
+        uc, c = emb.to(self.dtype).chunk(2)
         return c, uc
 
     @torch.no_grad()
     def sample(self, prompts: Sequence[str], x_T: torch.Tensor,
                negative_prompt: str | Sequence[str] = "", num_steps: int = 50,
                guidance_scale: float = 7.5, eta: float = 0.0,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None, sampler: str = "ddim",
+               guidance_rescale: float = 0.0, clip_skip: int | None = None,
+               sag_scale: float = 0.0, noise=None) -> torch.Tensor:
         """Prompts and initial noise x_T [B, h, w, 4] → decoded images
         [B, 8h, 8w, 3] in the model dtype, range about [-1, 1]."""
-        c, uc = self.encode_prompts(prompts, negative_prompt)
+        c, uc = self.encode_prompts(prompts, negative_prompt, clip_skip)
         return self.ld.sample(
             tuple(x_T.shape), x_T.float(), cond={"c_crossattn": [c]},
             uncond={"c_crossattn": [uc]}, guidance_scale=guidance_scale,
-            num_steps=num_steps, eta=eta, generator=generator)
+            num_steps=num_steps, eta=eta, generator=generator, sampler=sampler,
+            guidance_rescale=guidance_rescale, sag_scale=sag_scale, noise=noise)
 
     def generate(self, prompts: Sequence[str],
                  negative_prompt: str | Sequence[str] = "",
                  num_steps: int = 50, guidance_scale: float = 7.5,
-                 eta: float = 0.0, seed: int = 0) -> np.ndarray:
-        """prompts → uint8 images [B, H, W, 3]."""
+                 eta: float = 0.0, seed: int = 0, sampler: str = "ddim",
+                 guidance_rescale: float = 0.0, height: int | None = None,
+                 width: int | None = None, clip_skip: int | None = None,
+                 decode_tile: int | None = None, control_image=None,
+                 sag_scale: float = 0.0, ip_image=None, watermark: str | None = None,
+                 watermark_bits: int = 48, watermark_key: int = 0) -> np.ndarray:
+        """prompts → uint8 images [B, H, W, 3]. `sampler`: ddim, dpm,
+        dpm_sde, unipc, plms, euler, euler_a, heun or ddpm; `height` /
+        `width` in pixels (multiples of 64 for SD-v1; default the config's
+        square size); `clip_skip` conditions on an earlier CLIP hidden state;
+        prompts may carry `(emphasis)` / `(word:1.3)` / `[de-emphasis]`;
+        `watermark` embeds a blind DCT mark (utils/watermark.py) in every
+        image. The noise x_T and every stochastic sampler's draws come from
+        one torch.Generator seeded with `seed`."""
+        for name, value, module in (("decode_tile", decode_tile, "diffusion/latent.py patched_apply"),
+                                    ("control_image", control_image, "models/controlnet.py"),
+                                    ("ip_image", ip_image, "models/ip_adapter.py")):
+            if value is not None:
+                raise NotImplementedError(f"{name}: {module} is not ported yet")
+        h, w = self.latent_hw(height, width)
         gen = torch.Generator(self.device).manual_seed(seed)
-        x_T = torch.randn((len(prompts),) + self.latent_shape, generator=gen,
-                          device=self.device, dtype=torch.float32)
-        img = self.sample(prompts, x_T, negative_prompt, num_steps,
-                          guidance_scale, eta, generator=gen)
-        return to_uint8(img)
+        x_T = torch.randn((len(prompts), h, w, self.cfg["latent"]["channels"]),
+                          generator=gen, device=self.device, dtype=torch.float32)
+        img = self.sample(prompts, x_T, negative_prompt, num_steps, guidance_scale, eta,
+                          generator=gen, sampler=sampler, guidance_rescale=guidance_rescale,
+                          clip_skip=clip_skip, sag_scale=sag_scale)
+        out = to_uint8(img)
+        if watermark is not None:
+            bits = str_to_bits(watermark, watermark_bits)
+            out = np.stack([embed_watermark(o, bits, key=watermark_key) for o in out])
+        return out
 
 
 def to_uint8(img: torch.Tensor) -> np.ndarray:

@@ -1,0 +1,181 @@
+"""The inference variants of the flash forward (`SD_TPU_FLASH_EXP=bf16`,
+`SD_TPU_FLASH_PV=int8`) against the JAX package's Pallas kernels run in
+interpret mode, fp32 on the CPU.
+
+The plain tiled versions (`_flash_tiled_ref`, `_flash_hpacked_tiled_ref`)
+run at the Pallas call's own kv tile (`block_k`): the int8 codes depend on
+it. q and k are multiples of 1/8 in [-1, 1], so the logits are exact in
+fp32 on both sides and both take the same bf16 exponentials and the same
+int8 codes; what remains is fp32 summation order. Tolerance:
+max|Δ| ≤ 1e-5·max|ref|.
+
+Also: the pipelined sweep keeps the bf16 exponential and drops the int8 PV
+(`_flash_attention_bhsd`'s precedence), the gradient path ignores both
+switches, and the gates read the switches at call time.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_helpers import MODULE_TOL, assert_close, nprand, to_torch
+
+from sd_tpu.kernels import flash_attention as jfa
+from sd_tpu_torch.kernels import attention as attn_k
+from sd_tpu_torch.kernels import flash_attention as fa
+
+VARIANT_TOL = 1e-5
+VARIANTS = [("bf16", "none"), ("f32", "int8"), ("bf16", "int8")]
+JAX_DT = {"bf16": jnp.bfloat16, "f32": jnp.float32}
+TORCH_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.fixture(autouse=True)
+def no_switches(monkeypatch):
+    for var in ("SD_TPU_FLASH_PIPE", "SD_TPU_FLASH_EXP", "SD_TPU_FLASH_PV"):
+        monkeypatch.delenv(var, raising=False)
+
+
+def dyadic(*shape, seed: int = 0) -> np.ndarray:
+    """Multiples of 1/8 in [-1, 1]: their dot products are exact in fp32."""
+    return (np.random.default_rng(seed).integers(-8, 9, shape) / 8).astype(np.float32)
+
+
+def qkv(b, sq, skv, width, seed=0):
+    return dyadic(b, sq, width, seed=seed), dyadic(b, skv, width, seed=seed + 1), \
+        nprand(b, skv, width, seed=seed + 2)
+
+
+def close(got, ref, tol=VARIANT_TOL):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    err, bound = float(np.abs(got - ref).max()), tol * float(np.abs(ref).max())
+    assert err <= bound, f"max|Δ| = {err:.3g} > {bound:.3g}"
+
+
+@pytest.mark.parametrize("skv", [256, 200])
+@pytest.mark.parametrize("exp,pv", VARIANTS)
+def test_tiled_variants_match_pallas(skv, exp, pv):
+    q, k, v = (x.reshape(1, x.shape[1], 2, 40) for x in qkv(1, 256, skv, 80))
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+                              block_k=128, interpret=True, softmax_dtype=JAX_DT[exp],
+                              pv_quant=pv)
+    got = fa._flash_tiled_ref(to_torch(q), to_torch(k), to_torch(v), 40**-0.5, 128,
+                              TORCH_DT[exp], pv)
+    close(got, ref)
+
+
+@pytest.mark.parametrize("exp,pv", VARIANTS)
+def test_hpacked_tiled_variants_match_pallas(exp, pv):
+    q, k, v = qkv(1, 256, 200, 80, seed=3)
+    ref = jfa.flash_attention_hpacked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2,
+                                      block_q=128, block_k=128, interpret=True,
+                                      softmax_dtype=JAX_DT[exp], pv_quant=pv)
+    got = fa._flash_hpacked_tiled_ref(to_torch(q), to_torch(k), to_torch(v), 2, 40**-0.5,
+                                      128, TORCH_DT[exp], pv)
+    close(got, ref)
+
+
+def test_wrappers_take_the_tpu_kv_tile_off_the_card():
+    """On a CPU tensor each wrapper runs the plain version at the kv tile the
+    TPU package picks with its default blocks: 1024 rows for the head-packed
+    call below (two tiles, the second ragged), one 256-row tile for the
+    [B, S, H, D] call."""
+    q, k, v = qkv(1, 256, 1300, 160, seed=5)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    kw = dict(softmax_dtype=torch.bfloat16, pv_quant="int8")
+    assert fa._tpu_hpacked_block_k(256, 1300, 160) == 1024
+    close(fa.flash_attention_hpacked(to_torch(q), to_torch(k), to_torch(v), 2, **kw),
+          jfa.flash_attention_hpacked(jq, jk, jv, 2, interpret=True,
+                                      softmax_dtype=jnp.bfloat16, pv_quant="int8"))
+    q4 = q.reshape(1, 256, 2, 80)
+    k4, v4 = (x[:, :200].reshape(1, 200, 2, 80) for x in (k, v))
+    assert fa._tpu_block_k(200, 80) == 256
+    close(fa.flash_attention(to_torch(q4), to_torch(k4), to_torch(v4), **kw),
+          jfa.flash_attention(jnp.asarray(q4), jnp.asarray(k4), jnp.asarray(v4),
+                              interpret=True, softmax_dtype=jnp.bfloat16, pv_quant="int8"))
+
+
+def test_pipelined_sweep_drops_int8_and_keeps_bf16(monkeypatch):
+    """`SD_TPU_FLASH_PIPE=1` with a kv sweep of two TPU tiles: both packages
+    run the pipelined sweep with the bf16 exponential and without int8."""
+    monkeypatch.setenv("SD_TPU_FLASH_PIPE", "1")
+    q, k, v = (x.reshape(1, x.shape[1], 2, 40) for x in qkv(1, 128, 2048, 80, seed=7))
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+                              softmax_dtype=jnp.bfloat16, pv_quant="int8")
+    assert fa.flash_pipelined_ok(2048, 40)
+    got = fa.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                             softmax_dtype=torch.bfloat16, pv_quant="int8")
+    close(got, ref)
+    args = (to_torch(q), to_torch(k), to_torch(v), 40**-0.5, 1024, torch.bfloat16)
+    close(got, fa._flash_tiled_ref(*args, "none", pipelined=True))
+    int8 = fa._flash_tiled_ref(*args, "int8")
+    assert float((got - int8).abs().max()) > 100 * VARIANT_TOL * float(got.abs().max())
+
+
+def test_gradients_ignore_the_switches():
+    """With a gradient wanted, flash_attention runs the training path: the
+    same output and gradients with or without the variants, and the Pallas
+    kernels' vjp with pv_quant="int8" (which ignores it too) within 1e-4."""
+    q, k, v = (nprand(1, 256, 2, 40, seed=s) for s in (8, 9, 10))
+    g = nprand(1, 256, 2, 40, seed=11)
+
+    def port(**kw):
+        ins = [to_torch(a).requires_grad_() for a in (q, k, v)]
+        out = fa.flash_attention(*ins, **kw)
+        out.backward(to_torch(g))
+        return out.detach(), [t.grad for t in ins]
+
+    out_v, grads_v = port(softmax_dtype=torch.bfloat16, pv_quant="int8")
+    out_e, grads_e = port()
+    assert torch.equal(out_v, out_e)
+    assert all(torch.equal(a, b) for a, b in zip(grads_v, grads_e))
+    ref, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a, block_q=128, block_k=128,
+                                                      interpret=True, pv_quant="int8"),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    assert_close(out_v, ref, MODULE_TOL)
+    for got, want in zip(grads_v, vjp(jnp.asarray(g))):
+        assert_close(got, want, MODULE_TOL)
+
+
+def test_gates_read_the_switches_at_call_time(monkeypatch):
+    """`dot_product_attention` (bf16 [1, 512, 1, 64]: the flash rule holds)
+    takes the variants the environment names when it is called; fp32 and the
+    77-token cross-attention shape go to the plain path and ignore them; the
+    head-packed caller passes them on."""
+    q, k, v = (torch.from_numpy(nprand(1, 512, 1, 64, seed=s)).bfloat16() for s in (1, 2, 3))
+    exact = attn_k.dot_product_attention(q, k, v)
+    assert torch.equal(exact, fa._xla_ref(q, k, v, 64**-0.5))
+    monkeypatch.setenv("SD_TPU_FLASH_EXP", "bf16")
+    monkeypatch.setenv("SD_TPU_FLASH_PV", "int8")
+    assert attn_k.flash_variants() == {"softmax_dtype": torch.bfloat16, "pv_quant": "int8"}
+    got = attn_k.dot_product_attention(q, k, v)
+    assert torch.equal(got, fa._flash_tiled_ref(q, k, v, 64**-0.5, 512, torch.bfloat16,
+                                                "int8"))
+    assert not torch.equal(got, exact)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    assert torch.equal(attn_k.dot_product_attention(q32, k32, v32),
+                       fa._xla_ref(q32, k32, v32, 64**-0.5))
+    assert torch.equal(attn_k.dot_product_attention(q, k[:, :77], v[:, :77]),
+                       fa._xla_ref(q, k[:, :77], v[:, :77], 64**-0.5))
+
+    seen = []
+    monkeypatch.setattr(fa, "flash_attention_hpacked", lambda *a, **kw: seen.append(kw))
+    attn_k.hpacked_flash_attention(q[0], k[0], v[0], 1)
+    monkeypatch.delenv("SD_TPU_FLASH_PV")
+    attn_k.hpacked_flash_attention(q[0], k[0], v[0], 1)
+    assert seen == [{"scale": None, "softmax_dtype": torch.bfloat16, "pv_quant": "int8"},
+                    {"scale": None, "softmax_dtype": torch.bfloat16, "pv_quant": "none"}]
+
+
+def test_launch_counter_names():
+    assert fa.launch_name("flash_attention_hpacked", True, True) == \
+        "flash_attention_hpacked_exp_bf16_pv_int8"
+    assert fa.launch_name("flash_attention_pipelined", True, False) == \
+        "flash_attention_pipelined_exp_bf16"
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.zeros(1, 8, 1, 8), torch.zeros(1, 8, 1, 8),
+                           torch.zeros(1, 8, 1, 8), pv_quant="fp8")

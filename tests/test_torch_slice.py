@@ -80,7 +80,23 @@ def test_generate_returns_uint8_images(weights):
     np.testing.assert_array_equal(out, to_uint8(pipe.sample(PROMPTS, x_T, num_steps=4)))
 
 
-def test_weighting_syntax_is_refused():
+def test_weighting_syntax_is_refused(weights):
+    """Weighting syntax is ported now: a weighted prompt runs and its emphasis
+    changes the image. What `generate` still refuses is the options whose
+    modules are not ported (tiled decode, ControlNet, IP-Adapter, SAG).
+    (The JAX package's weights: the port's own initialisation zeroes the
+    transformer blocks' output projections, so the text would not reach
+    the image.)"""
+    clip, cparams, uparams, vparams = weights
     pipe = Text2ImagePipeline(tiny_config(), device="cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        pipe.generate(["a (very:1.3) red cube"], num_steps=4)
+    port(pipe.clip, cparams)
+    port(pipe.unet, uparams)
+    port(pipe.vae, vparams)
+    weighted = pipe.generate(["a (very:1.3) red cube"], num_steps=4)
+    plain = pipe.generate(["a very red cube"], num_steps=4)
+    assert weighted.shape == plain.shape == (1, 32, 32, 3)
+    assert not np.array_equal(weighted, plain)
+    for option in (dict(decode_tile=16), dict(control_image=np.zeros((32, 32, 3))),
+                   dict(ip_image=np.zeros((32, 32, 3))), dict(sag_scale=0.5)):
+        with pytest.raises(NotImplementedError):
+            pipe.generate(["a red cube"], num_steps=4, **option)

@@ -24,7 +24,12 @@
   (`configs/kl_f8_256_catdog.yaml`, 256², batch 4, bf16 parameters): the
   codec's two mid-block attentions at head dim 512 pass the flash gate, and
   the step reaches 2 LSE forwards, 2 dQ and 2 dK/dV and no other kernel;
-* the port and `chip_smoke.py` import neither JAX nor the JAX package;
+* the serving path at full width (a bucket-4 group of 30-step requests with
+  `SD_TPU_FLASH_EXP=bf16 SD_TPU_FLASH_PV=int8`, on `meta` tensors): 300
+  head-packed launches of the bf16-exponential int8-PV variant and 1 flash
+  launch of the decoder, the switches read as the JAX package reads them;
+* the port (the serving modules included) and `chip_smoke.py` import
+  neither JAX nor the JAX package;
 * the pipeline and the trainer refuse to run without a card unless asked
   for the CPU;
 * `sd_v1_config()` is `configs/sd_txt2img.yaml`, `sd512_train_config()`
@@ -46,6 +51,7 @@ import pytest
 import torch
 import yaml
 
+from sd_tpu.core import schedules as jschedules
 from sd_tpu.kernels import attention as jattn
 from sd_tpu.kernels import conv2d as jconv
 from sd_tpu.kernels import cross_attention as jxattn
@@ -320,6 +326,66 @@ def test_optin_parity_launches_of_chip_smoke(tpu_gates, monkeypatch):
     assert {"unet": unet, "decoder": decoder} == chip_smoke.PARITY_OPTIN_LAUNCHES
 
 
+SERVE_VARIANTS = {"SD_TPU_FLASH_EXP": "bf16", "SD_TPU_FLASH_PV": "int8"}
+
+
+@pytest.mark.parametrize("pipe", ["0", "1"])
+def test_served_generate_variant_launches(tpu_gates, monkeypatch, pipe):
+    """The serving path at full width: a bucket-4 group of 30-step CFG
+    requests (UNet batch 8, 512²) with `SD_TPU_FLASH_EXP=bf16
+    SD_TPU_FLASH_PV=int8`, on `meta` tensors. The gates (held against the
+    JAX ones) send the 10 self-attentions per UNet call to the head-packed
+    kernel and the decoder's mid-block attention to the flash kernel; the
+    switches reach both as the JAX package's attention reads them. 30
+    "uniform" DDIM steps make 31 UNet calls in both packages, so 310
+    head-packed launches of the bf16-exponential int8-PV variant and 1 of the
+    [B, S, H, D] kernel. With `SD_TPU_FLASH_PIPE=1` the decoder's attention
+    takes the pipelined sweep, keeps the bf16 exponential and drops int8."""
+    for var, val in {**SERVE_VARIANTS, "SD_TPU_FLASH_PIPE": pipe}.items():
+        monkeypatch.setenv(var, val)
+    # what the JAX package's attention passes its kernels under these switches
+    asked = {}
+    s = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.bfloat16)
+    with monkeypatch.context() as m:
+        for name in ("flash_attention_hpacked", "flash_attention"):
+            m.setattr(jfa, name, lambda *a, name=name, **kw: (asked.setdefault(name, kw), a[0])[1])
+        jax.eval_shape(lambda q: jattn.hpacked_flash_attention(q, q, q, 8), s(8, 4096, 320))
+        jax.eval_shape(lambda q: jattn.dot_product_attention(q, q, q), s(4, 4096, 1, 512))
+    assert len(asked) == 2 and all((kw["softmax_dtype"], kw["pv_quant"]) == (jnp.bfloat16, "int8")
+                                   for kw in asked.values())
+
+    launches = Counter()
+    real = {"hpacked": fa.flash_attention_hpacked, "flash": fa.flash_attention}
+
+    def spy(kind):
+        def run(*args, **kw):
+            exp, pv = (kw["softmax_dtype"] == torch.bfloat16, kw["pv_quant"] == "int8")
+            if kind == "hpacked":
+                launches[fa.launch_name("flash_attention_hpacked", exp, pv)] += 1
+            else:
+                piped = fa.flash_pipelined_ok(args[1].shape[1], args[0].shape[3])
+                launches[fa.launch_name("flash_attention_pipelined" if piped
+                                        else "flash_attention", exp, pv and not piped)] += 1
+            return real[kind](*args, **kw)
+        return run
+
+    monkeypatch.setattr(fa, "flash_attention_hpacked", spy("hpacked"))
+    monkeypatch.setattr(fa, "flash_attention", spy("flash"))
+    per_step, per_decode = _walk_512(tpu_gates, 4)
+    assert per_step["hpacked_flash_ok"] == 10 and per_decode["flash_ok"] == 1
+    calls = len(jschedules.make_ddim_timesteps("uniform", chip_smoke.SERVE_STEPS, 1000))
+    assert calls == chip_smoke.SERVE_UNET_CALLS == 31
+    unet = {k: calls * v for k, v in launches.items() if "hpacked" in k}
+    decoder = {k: v for k, v in launches.items() if "hpacked" not in k}
+    want_decoder = ({"flash_attention_pipelined_exp_bf16": 1} if pipe == "1"
+                    else {"flash_attention_exp_bf16_pv_int8": 1})
+    assert {**unet, **decoder} == {"flash_attention_hpacked_exp_bf16_pv_int8": 310,
+                                   **want_decoder}
+    assert chip_smoke.EXPECTED_SERVE_LAUNCHES == chip_smoke.launches_of(
+        flash_attention_hpacked_exp_bf16_pv_int8=310, flash_attention_exp_bf16_pv_int8=1,
+        geglu_ff=310, conv3x3_same=18)
+
+
 def test_conv_switch_agrees_with_the_tpu_gate(tpu_gates, monkeypatch):
     monkeypatch.setenv("SD_TPU_PALLAS_CONV", "0")
     meta = torch.empty(1, 64, 64, 4, dtype=torch.bfloat16, device="meta")
@@ -460,12 +526,21 @@ def test_shape_rules_refuse_other_dtypes():
 # -- guards -------------------------------------------------------------------------
 
 
+# the serving path's modules, among those the import check walks
+SERVING_MODULES = ("sd_tpu_torch.serve", "sd_tpu_torch.utils.prompt_weights",
+                   "sd_tpu_torch.utils.watermark", "sd_tpu_torch.diffusion.dpm_solver",
+                   "sd_tpu_torch.diffusion.unipc", "sd_tpu_torch.diffusion.plms",
+                   "sd_tpu_torch.diffusion.k_samplers")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import pkgutil, sys, importlib\n"
         "import sd_tpu_torch, chip_smoke\n"
-        "for m in pkgutil.walk_packages(sd_tpu_torch.__path__, 'sd_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(sd_tpu_torch.__path__, 'sd_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"assert set({SERVING_MODULES!r}) <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sd_tpu', 'flax')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
