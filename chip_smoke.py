@@ -90,11 +90,13 @@ from unittest import mock
 HERE = Path(__file__).resolve().parent
 
 # peak rates of one H100 SXM (dense bf16 and int8 tensor cores, fp32 outside
-# the tensor cores, HBM3)
+# the tensor cores, HBM3), and its special-function units' exp2 results per
+# second (16 per clock per SM x 132 SMs x 1.83 GHz)
 PEAK_FLOPS = 989e12
 PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_EXP2 = 3.9e12
 
 # every kernel wrapper's launch counter (`sd_tpu_torch.kernels.LAUNCHES`)
 KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpacked",
@@ -104,7 +106,9 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "flash_attention_exp_bf16", "flash_attention_pv_int8",
            "flash_attention_exp_bf16_pv_int8", "flash_attention_pipelined_exp_bf16",
            "flash_attention_hpacked_exp_bf16", "flash_attention_hpacked_pv_int8",
-           "flash_attention_hpacked_exp_bf16_pv_int8")
+           "flash_attention_hpacked_exp_bf16_pv_int8",
+           # route: inference flash launches served by flash_attention_sm90.cu
+           "flash_fwd_sm90")
 
 
 def launches_of(**nonzero) -> dict:
@@ -112,16 +116,17 @@ def launches_of(**nonzero) -> dict:
 
 
 # launches of one generate() at 512², 50 steps: 10 self-attention and 10
-# GEGLU calls per UNet step, the decoder's mid-block attention and 18 convs
+# GEGLU calls per UNet step, the decoder's mid-block attention and 18 convs;
+# the head-packed launches (d = 40, 80) on the Hopper route
 EXPECTED_LAUNCHES = launches_of(flash_attention=1, flash_attention_hpacked=500,
-                                geglu_ff=500, conv3x3_same=18)
+                                flash_fwd_sm90=500, geglu_ff=500, conv3x3_same=18)
 # the opt-in configuration: the TPU package's switches that reach kernels
 OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
 # ... and its launches per generate: 57 of the UNet's 61 GroupNorms and 15 of
 # its 16 cross-attentions per step, the decoder's mid-block attention through
 # the pipelined sweep (tests/test_torch_structure.py derives these)
 EXPECTED_LAUNCHES_OPTIN = launches_of(
-    flash_attention_pipelined=1, flash_attention_hpacked=500, geglu_ff=500,
+    flash_attention_pipelined=1, flash_attention_hpacked=500, flash_fwd_sm90=500, geglu_ff=500,
     conv3x3_same=18, group_norm=2850, crossattn_kv=750)
 # the serving phase's switches, and the launches of one grouped batch of
 # requests (bucket 4, 30 DDIM steps, CFG, 512²): the variant kernels in place
@@ -147,7 +152,8 @@ EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_bwd_dq=2,
                                       flash_bwd_dkv=2)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
-    "unet": launches_of(flash_attention_hpacked=5, geglu_ff=5, group_norm=46, crossattn_kv=10),
+    "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, group_norm=46,
+                        crossattn_kv=10),
     "decoder": launches_of(flash_attention_pipelined=1, conv3x3_same=12, group_norm=11)}
 # ... and of the serving parity runs, every flash call through its variant
 PARITY_SERVE_LAUNCHES = {
@@ -200,6 +206,9 @@ PIPE_EXP_SHAPES = (SERVE_DECODER_SHAPE, (1, 1000, 1300, 8, 40))
 EXACT_TOL = {"mean": 1e-2, "int8_max": 8e-2, "bf16_max": 1e-2}
 # (softmax in bf16, PV in int8) of each inference variant
 VARIANTS = ((True, False), (False, True), (True, True))
+# the kv tile of csrc/flash_attention.cu's sweeps (the pipelined sweep's plain
+# version runs at it: its bf16 p depends on the running max of each tile)
+TEMPLATE_KV_TILE = 64
 
 
 def emit(obj) -> None:
@@ -213,9 +222,17 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound_ms(flops: int, nbytes: int, peak: float = PEAK_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(flops: int, nbytes: int, peak: float = PEAK_FLOPS,
+             exps: int = 0) -> tuple[float, str, str | None]:
+    """(least ms, "operations" or "bytes", which operations: "tensor",
+    "fp32" or "exp2"): the larger of the operations at their peak rate (the
+    products at `peak`, the exponentials at PEAK_EXP2) and the bytes."""
+    t_ops, t_exp, t_bytes = flops / peak, exps / PEAK_EXP2, nbytes / PEAK_BYTES
+    t = max(t_ops, t_exp, t_bytes)
+    if t == t_bytes:
+        return t * 1e3, "bytes", None
+    return t * 1e3, "operations", ("exp2" if t_exp > t_ops
+                                   else "fp32" if peak == PEAK_FP32 else "tensor")
 
 
 def require(ok: bool, what: str) -> None:
@@ -224,32 +241,37 @@ def require(ok: bool, what: str) -> None:
 
 
 # operations and bytes each kernel's work needs (inputs read once, outputs
-# written once), for its bound
+# written once), for its bound: (tensor flops, bytes, their peak, exp2 calls);
+# every flash kernel takes one exp2 per logit
 def attention_cost(b, sq, skv, h, d):
-    return 4 * b * h * sq * skv * d, 2 * b * h * d * (2 * sq + 2 * skv)
+    return (4 * b * h * sq * skv * d, 2 * b * h * d * (2 * sq + 2 * skv), PEAK_FLOPS,
+            b * h * sq * skv)
 
 
 def attention_lse_cost(b, sq, skv, h, d):
-    return 4 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 2 * skv) + 4 * sq)
+    return (4 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 2 * skv) + 4 * sq),
+            PEAK_FLOPS, b * h * sq * skv)
 
 
 def attention_dq_cost(b, sq, skv, h, d):
     # reads q, k, v, o, dO, lse2; writes dq, delta
-    return 6 * b * h * sq * skv * d, b * h * (2 * d * (4 * sq + 2 * skv) + 8 * sq)
+    return (6 * b * h * sq * skv * d, b * h * (2 * d * (4 * sq + 2 * skv) + 8 * sq),
+            PEAK_FLOPS, b * h * sq * skv)
 
 
 def attention_dkv_cost(b, sq, skv, h, d):
     # reads q, k, v, dO, lse2, delta; writes dk, dv
-    return 8 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 4 * skv) + 8 * sq)
+    return (8 * b * h * sq * skv * d, b * h * (2 * d * (2 * sq + 4 * skv) + 8 * sq),
+            PEAK_FLOPS, b * h * sq * skv)
 
 
-def variant_bound(b, sq, skv, h, d, pv_int8) -> tuple[float, str]:
+def variant_bound(b, sq, skv, h, d, pv_int8) -> tuple[float, str, str | None]:
     """The least time of flash attention with the PV product on the int8
-    tensor cores (QKᵀ at the bf16 rate) or the bf16 ones."""
-    flops, nbytes = attention_cost(b, sq, skv, h, d)
-    t_ops = flops / 2 / PEAK_FLOPS + flops / 2 / (PEAK_INT8 if pv_int8 else PEAK_FLOPS)
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    tensor cores (QKᵀ at the bf16 rate) or the bf16 ones: the tensor flops
+    at their blended rate, the exponentials, the bytes."""
+    flops, nbytes, _, exps = attention_cost(b, sq, skv, h, d)
+    rate = flops / (flops / 2 / PEAK_FLOPS + flops / 2 / (PEAK_INT8 if pv_int8 else PEAK_FLOPS))
+    return bound_ms(flops, nbytes, rate, exps)
 
 
 def geglu_cost(n, c, inner):
@@ -307,6 +329,21 @@ def l2_rel(out, ref) -> float:
     return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
+def template_forward(q, k, v, exp_bf16: bool = False):
+    """The template's serial sweep (`csrc/flash_attention.cu`) over [B, S, H, D]
+    views, launched through its plan: what served the inference launches at
+    head dims up to 128 before `flash_attention_sm90.cu`, timed beside it in
+    the same run (`generic_ms`)."""
+    import torch
+
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fa._launch(q, k, v, out, q.shape[-1] ** -0.5,
+               fa.Plan("flash_attention", "template", False, exp_bf16, False, 0))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -323,28 +360,52 @@ def kernel_cases(gen):
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
 
+    from sd_tpu_torch.kernels import attention as attn_k
+
     cases = []
-    # row 3: UNet self-attention, projection-native [2B, S, H·D], B = 2
+    # rows 1 and 3 at head dims up to 128: the Hopper kernel
+    # (flash_attention_sm90.cu), with the template's serial sweep timed
+    # beside it. UNet self-attention, projection-native [2B, S, H·D], B = 2
     for S, H, D in ((4096, 8, 40), (1024, 8, 80)):
         q, k, v = (rnd(4, S, H * D) for _ in range(3))
         split = lambda t, S=S, H=H, D=D: t.view(4, S, H, D)
         heads = lambda t, split=split: split(t).transpose(1, 2)
         cases.append(dict(
-            name="flash_attention_hpacked", shape=[4, S, H * D, H],
+            name="flash_attention_hpacked", shape=[4, S, H * D, H], route="sm90",
             kernel=lambda q=q, k=k, v=v, H=H: fa.flash_attention_hpacked(q, k, v, H),
             plain=lambda q=q, k=k, v=v, s=split, D=D: fa._xla_ref(s(q), s(k), s(v), D**-0.5),
             ref=lambda q=q, k=k, v=v, s=split, D=D: fa._xla_ref(
                 s(q).float(), s(k).float(), s(v).float(), D**-0.5),
             library=lambda q=q, k=k, v=v, h=heads: F.scaled_dot_product_attention(h(q), h(k), h(v)),
+            generic=lambda q=q, k=k, v=v, s=split: template_forward(s(q), s(k), s(v)),
             view=lambda o, s=split: s(o),
             cost=attention_cost(4, S, S, H, D)))
+    # ... [B, S, H, D]: a ragged case through the forced route
+    # (`impl="pallas"`: Sq = 1000 fails the shape rule), a strided d = 64
+    # view (every other 64 columns of a d = 128 tensor) and d = 128
+    for B, S, Skv, H, D, how in ((1, 1000, 1000, 8, 40, "forced"), (2, 512, 700, 4, 64, "strided"),
+                                 (1, 300, 257, 2, 128, "")):
+        wide = 2 if how == "strided" else 1
+        q, k, v = (rnd(B, n, H, wide * D)[..., :D] for n in (S, Skv, Skv))
+        heads = lambda t: t.transpose(1, 2)
+        cases.append(dict(
+            name="flash_attention", shape=[B, S, Skv, H, D], route="sm90", how=how,
+            kernel=(lambda q=q, k=k, v=v: attn_k.dot_product_attention(q, k, v, impl="pallas"))
+            if how == "forced" else (lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)),
+            plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
+            ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v)),
+            generic=lambda q=q, k=k, v=v: template_forward(q, k, v),
+            view=lambda o: o, table=False,
+            cost=attention_cost(B, S, Skv, H, D)))
     # row 1: VAE mid-block single-head attention [B, 4096, 1, 512], B = 2,
     # and a ragged-kv case (kv not a multiple of the 64-row kv tile)
     for B, S, Skv in ((2, 4096, 4096), (1, 512, 700)):
         q, k, v = rnd(B, S, 1, 512), rnd(B, Skv, 1, 512), rnd(B, Skv, 1, 512)
         heads = lambda t: t.transpose(1, 2)
         cases.append(dict(
-            name="flash_attention", shape=[B, S, Skv, 1, 512],
+            name="flash_attention", shape=[B, S, Skv, 1, 512], route="template",
             kernel=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
             plain=lambda q=q, k=k, v=v: fa._xla_ref(q, k, v, 512**-0.5),
             ref=lambda q=q, k=k, v=v: fa._xla_ref(q.float(), k.float(), v.float(), 512**-0.5),
@@ -392,7 +453,7 @@ def kernel_cases(gen):
                 return fa.flash_attention(q, k, v)
 
         def vs_serial(out, q=q, k=k, v=v):
-            serial = fa.flash_attention(q, k, v)
+            serial = template_forward(q, k, v)
             return {"serial_max_abs_diff": rel_err(out, serial)[0],
                     "same_bits_as_serial": bool(torch.equal(out, serial))}
 
@@ -459,21 +520,34 @@ def kernel_cases(gen):
 def phase_kernels(gen) -> dict:
     import torch
 
-    best = {}
+    from sd_tpu_torch import kernels
+
+    best, sm90_rows = {}, []
     for case in kernel_cases(gen):
+        before = kernels.LAUNCHES["flash_fwd_sm90"]
         out = case["view"](case["kernel"]())
+        on_sm90 = kernels.LAUNCHES["flash_fwd_sm90"] - before
         torch.cuda.synchronize()
         ref = case["ref"]()
         err, rel = rel_err(out, ref)
         del ref
-        b_ms, b_by = bound_ms(*case["cost"])
+        b_ms, b_by, b_op = bound_ms(*case["cost"])
         row = {
             "phase": "kernel", "name": case["name"], "shape": case["shape"],
             "max_abs_err": err, "rel_err": rel, **case.get("extra", lambda o: {})(out),
             "ms": time_ms(case["kernel"]), "plain_ms": time_ms(case["plain"], 3),
             "library_ms": (time_ms(case["library"]) if case["library"] else None),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
         }
+        if "route" in case:
+            row.update(route=case["route"], how=case.get("how", ""))
+            require(on_sm90 == (case["route"] == "sm90"),
+                    f"{case['name']} {case['shape']} on the {case['route']} route")
+        if "generic" in case:
+            row["generic_ms"] = time_ms(case["generic"])
+            require(rel_err(case["view"](case["generic"]()), out)[1] <= KERNEL_TOL,
+                    f"{case['shape']}: the template agrees with the Hopper kernel")
+            sm90_rows.append(row)
         emit(row)
         require(rel <= KERNEL_TOL, f"{case['name']} {case['shape']}: max|Δ| = "
                 f"{rel:.3g}·max|ref| > {KERNEL_TOL}")
@@ -482,7 +556,8 @@ def phase_kernels(gen) -> dict:
                                         or case["cost"][0] > best[case["name"]][0]):
             best[case["name"]] = (case["cost"][0], row)
         torch.cuda.empty_cache()
-    return {name: row for name, (_, row) in best.items()}
+    table = {name: row for name, (_, row) in best.items()}
+    return table, sm90_rows
 
 
 def _exact_errs(out, exact) -> tuple[float, float]:
@@ -492,14 +567,17 @@ def _exact_errs(out, exact) -> tuple[float, float]:
     return d.max().item() / scale, d.mean().item() / scale
 
 
-def phase_variant_kernels(gen) -> dict:
+def phase_variant_kernels(gen) -> tuple[dict, list]:
     """The inference variants (bf16 softmax exponential, int8 PV, both) of
     the serial and head-packed flash kernels at the serving path's shapes,
     a ragged case and the TPU package's contract shape; the pipelined sweep
     with the bf16 exponential. Each against its plain tiled version at the
-    kernel's kv tile (64) and against exact fp32 attention, with its time,
-    the plain version's, `scaled_dot_product_attention`'s (exact attention:
-    no PyTorch call computes the quantized function) and its bound."""
+    TPU package's kv tile (the tile the wrapper hands the int8 PV kernel)
+    and against exact fp32 attention, with its time, the plain version's,
+    `scaled_dot_product_attention`'s (exact attention: no PyTorch call
+    computes the quantized function) and its bound; the bf16-exponential
+    head-packed launches, served by the Hopper kernel, with the template's
+    time beside it (`generic_ms`). Returns the table rows and those."""
     import torch
     import torch.nn.functional as F
 
@@ -508,7 +586,9 @@ def phase_variant_kernels(gen) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
-    bk, best = fa.KERNEL_BLOCK_K, {}
+    from sd_tpu_torch import kernels
+
+    best, sm90_rows = {}, []
     cases = [("flash_attention_hpacked", shape, True) for shape in SERVE_HPACKED_SHAPES]
     cases += [("flash_attention", shape, shape == SERVE_DECODER_SHAPE) for shape in VARIANT_SHAPES]
     for base, (B, Sq, Skv, H, D), table in cases:
@@ -525,6 +605,8 @@ def phase_variant_kernels(gen) -> dict:
         for exp_bf16, pv_int8 in VARIANTS:
             kw = dict(softmax_dtype=torch.bfloat16 if exp_bf16 else torch.float32,
                       pv_quant="int8" if pv_int8 else "none")
+            plan = fa.launch_plan(Sq, Skv, H, D, exp_bf16, pv_int8, packed)
+            bk = plan.block_k
             if packed:
                 kernel = lambda kw=kw, H=H: fa.flash_attention_hpacked(q, k, v, H, **kw)
                 plain = lambda kw=kw, H=H, D=D: fa._flash_hpacked_tiled_ref(
@@ -533,12 +615,15 @@ def phase_variant_kernels(gen) -> dict:
                 kernel = lambda kw=kw: fa.flash_attention(q, k, v, **kw)
                 plain = lambda kw=kw, D=D: fa._flash_tiled_ref(
                     q, k, v, D**-0.5, bk, kw["softmax_dtype"], kw["pv_quant"])
+            before = kernels.LAUNCHES["flash_fwd_sm90"]
             out, ref = split(kernel()), split(plain())
+            require(kernels.LAUNCHES["flash_fwd_sm90"] - before == (plan.route == "sm90"),
+                    f"{plan.name} {[B, Sq, Skv, H, D]} on the {plan.route} route")
             torch.cuda.synchronize()
             _, vs_plain = rel_err(out, ref)
             worst, mean = _exact_errs(out, exact)
             plain_worst, plain_mean = _exact_errs(ref, exact)
-            b_ms, b_by = variant_bound(B, Sq, Skv, H, D, pv_int8)
+            b_ms, b_by, b_op = variant_bound(B, Sq, Skv, H, D, pv_int8)
             name = fa.launch_name(base, exp_bf16, pv_int8)
             row = {"phase": "kernel", "name": name, "shape": [B, Sq, Skv, H, D],
                    "max_abs_err": rel_err(out, ref)[0], "rel_err": vs_plain,
@@ -546,7 +631,14 @@ def phase_variant_kernels(gen) -> dict:
                    "plain_vs_exact": {"max": plain_worst, "mean": plain_mean},
                    "ms": time_ms(kernel), "plain_ms": time_ms(plain, 2),
                    "library_ms": library_ms, "library": "scaled_dot_product_attention (exact)",
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
+                   "route": plan.route, "kv_tile": bk}
+            if plan.route == "sm90":
+                generic = lambda: template_forward(split(q), split(k), split(v), exp_bf16)
+                row["generic_ms"] = time_ms(generic)
+                require(rel_err(generic(), out)[1] <= KERNEL_TOL,
+                        f"{name}: the template agrees with the Hopper kernel")
+                sm90_rows.append(row)
             emit(row)
             what = f"{name} {[B, Sq, Skv, H, D]}"
             require(vs_plain <= KERNEL_TOL, f"{what}: {vs_plain:.3g} from its plain version")
@@ -576,17 +668,19 @@ def phase_variant_kernels(gen) -> dict:
                                           pv_quant="int8")
 
         plain = lambda q=q, k=k, v=v, D=D: fa._flash_tiled_ref(
-            q, k, v, D**-0.5, bk, torch.bfloat16, "none", pipelined=True)
+            q, k, v, D**-0.5, TEMPLATE_KV_TILE, torch.bfloat16, "none", pipelined=True)
         before = kernels_launched("flash_attention_pipelined_exp_bf16")
         out = piped()
         require(kernels_launched("flash_attention_pipelined_exp_bf16") == before + 1,
                 "SD_TPU_FLASH_PIPE=1 with both variants runs the pipelined bf16 sweep")
-        serial = fa.flash_attention(q, k, v, softmax_dtype=torch.bfloat16)
+        # the template's serial sweep (which serves d = 512; at d = 40 the
+        # Hopper kernel serves the serial launch)
+        serial = template_forward(q, k, v, exp_bf16=True)
         ref = plain()
         _, vs_plain = rel_err(out, ref)
         worst, mean = _exact_errs(out, exact)
         plain_worst, plain_mean = _exact_errs(ref, exact)
-        b_ms, b_by = variant_bound(B, Sq, Skv, H, D, False)
+        b_ms, b_by, b_op = variant_bound(B, Sq, Skv, H, D, False)
         row = {"phase": "kernel", "name": "flash_attention_pipelined_exp_bf16",
                "shape": [B, Sq, Skv, H, D], "max_abs_err": rel_err(out, ref)[0],
                "rel_err": vs_plain, "vs_exact": {"max": worst, "mean": mean},
@@ -597,7 +691,7 @@ def phase_variant_kernels(gen) -> dict:
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))),
                "library": "scaled_dot_product_attention (exact)",
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op}
         emit(row)
         require(vs_plain <= KERNEL_TOL and worst <= plain_worst + KERNEL_TOL
                 and mean < EXACT_TOL["mean"] and row["same_bits_as_serial_exp_bf16"],
@@ -607,7 +701,7 @@ def phase_variant_kernels(gen) -> dict:
             best[row["name"]] = (0, row)
         del exact
         torch.cuda.empty_cache()
-    return {name: row for name, (_, row) in best.items()}
+    return {name: row for name, (_, row) in best.items()}, sm90_rows
 
 
 def kernels_launched(name: str) -> int:
@@ -711,9 +805,9 @@ def phase_train_kernels(gen) -> dict:
         }
         for name, r in rows.items():
             cost = r.pop("cost")
-            b_ms, b_by = bound_ms(*cost)
+            b_ms, b_by, b_op = bound_ms(*cost)
             row = {"phase": "kernel", "name": name, "shape": shape, **r,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op}
             emit(row)
             rows_by_shape.setdefault(name, {})[tuple(shape)] = row
         require(errs["o"][1] <= KERNEL_TOL and lse_err <= LSE_TOL,
@@ -800,8 +894,8 @@ def phase_parity(optin: bool = False, serve: bool = False) -> None:
                 f"{phase} launches {unet}, {decoder} == {want}")
         return
     # latent 32² puts 1024 tokens through level 0: both UNet kernels run
-    require(unet["flash_attention_hpacked"] == 5 and unet["geglu_ff"] == 5,
-            f"UNet parity launches {unet}")
+    require(unet["flash_attention_hpacked"] == 5 and unet["flash_fwd_sm90"] == 5
+            and unet["geglu_ff"] == 5, f"UNet parity launches {unet}")
     require(decoder["flash_attention"] == 1 and decoder["conv3x3_same"] == 12,
             f"decoder parity launches {decoder}")
 
@@ -1068,12 +1162,94 @@ def phase_switch_combinations(pipe) -> dict:
             launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         emit({"phase": "switches", "switches": env, "launches": launches,
               "finite": bool(torch.isfinite(out).all() and torch.isfinite(img).all())})
-        require(launches == {hpacked: 10, decoder: 1, "geglu_ff": 10, "conv3x3_same": 18}
+        # the bf16-exponential head-packed launches take the Hopper route
+        want = {hpacked: 10, decoder: 1, "geglu_ff": 10, "conv3x3_same": 18,
+                **({} if hpacked.endswith("pv_int8") else {"flash_fwd_sm90": 10})}
+        require(launches == want
                 and bool(torch.isfinite(out).all() and torch.isfinite(img).all()),
-                f"switches {env}: launches {launches}")
+                f"switches {env}: launches {launches} == {want}")
         seen.setdefault(hpacked, 10)
         seen[decoder] = 1
     return seen
+
+
+# the attention switches of the TPU package the port reads, each with the
+# launches one level-0 transformer attention ([2, 4096, 320], 8 heads of 40)
+# makes under it: self-attention at inference ("self"), the 77-token
+# cross-attention ("cross") and self-attention forward + backward in a
+# training step ("train")
+ATTN_SWITCH_CASES = (
+    ({}, "self", {"flash_attention_hpacked": 1, "flash_fwd_sm90": 1}),
+    ({"SD_TPU_ATTN_HPACKED": "0"}, "self", {"flash_attention": 1, "flash_fwd_sm90": 1}),
+    ({"SD_TPU_ATTN_HPACKED": "0", "SD_TPU_ATTN_PACKED": "1"}, "self",
+     {"flash_attention": 1, "flash_fwd_sm90": 1}),
+    ({"SD_TPU_ATTN_IMPL": "xla"}, "self", {}),
+    ({}, "cross", {}),
+    ({"SD_TPU_ATTN_IMPL": "pallas"}, "cross", {"flash_attention": 1, "flash_fwd_sm90": 1}),
+    ({}, "train", {"flash_attention_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+    ({"SD_TPU_ATTN_PACKED": "1"}, "train",
+     {"flash_attention_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+    ({"SD_TPU_FLASH_BWD": "chunked"}, "train", {"flash_attention": 1, "flash_fwd_sm90": 1}),
+    ({"SD_TPU_ATTN_IMPL": "xla"}, "train", {}),
+)
+
+
+def phase_attention_switches() -> None:
+    """Each of `ATTN_SWITCH_CASES` on the card: the launches that move, and
+    the output (and in training the input gradient) of the bf16 block
+    against the same block in fp32 (the plain path, by the dtype rule):
+    ‖Δ‖₂ ≤ 0.03·‖ref‖₂ forward, ‖Δg‖₂ ≤ 0.1·‖g‖₂ backward."""
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.kernels.conv2d import training_trace
+    from sd_tpu_torch.nn.attention import CrossAttention
+    from sd_tpu_torch.weights import randomize_params_
+
+    g = torch.Generator("cuda").manual_seed(3)
+    blocks = {}
+    for kind, ctx_dim in (("self", None), ("cross", 768)):
+        f32 = CrossAttention(320, ctx_dim, 8, 40, device="cuda")
+        randomize_params_(f32, g)
+        with torch.no_grad():
+            for p in f32.parameters():
+                p.copy_(p.bfloat16().float())
+        bf = CrossAttention(320, ctx_dim, 8, 40, dtype=torch.bfloat16, device="cuda")
+        bf.load_state_dict(f32.state_dict())
+        blocks[kind] = (bf, f32)
+    x = torch.randn(2, 4096, 320, generator=g, device="cuda").bfloat16()
+    ctx = torch.randn(2, 77, 768, generator=g, device="cuda").bfloat16()
+    blocks["train"] = blocks["self"]
+    for env, kind, want in ATTN_SWITCH_CASES:
+        bf, f32 = blocks[kind]
+        c = ctx if kind == "cross" else None
+        with switches(env):
+            kernels.reset_launches()
+            if kind == "train":
+                xb, xf = x.clone().requires_grad_(), x.float().requires_grad_()
+                with training_trace():
+                    out = bf(xb)
+                    out.float().pow(2).mean().backward()
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                ref = f32(xf)
+                ref.pow(2).mean().backward()
+                grad_l2 = l2_rel(xb.grad, xf.grad)
+            else:
+                with torch.no_grad():
+                    out = bf(x, c)
+                    torch.cuda.synchronize()
+                    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                    ref = f32(x.float(), None if c is None else c.float())
+                grad_l2 = None
+        err = l2_rel(out.detach(), ref.detach())
+        emit({"phase": "attention_switches", "switches": env, "call": kind,
+              "launches": launches, "l2_rel": err, "grad_l2_rel": grad_l2})
+        require(launches == want, f"switches {env} ({kind}): launches {launches} == {want}")
+        require(err <= UNET_TOL["l2_rel"] and (grad_l2 is None or grad_l2 <= TRAIN_GRAD_TOL),
+                f"switches {env} ({kind}): ‖Δ‖₂ {err:.3g}, ‖Δg‖₂ {grad_l2}")
+    del blocks
+    torch.cuda.empty_cache()
 
 
 def phase_train_parity() -> dict:
@@ -1443,8 +1619,8 @@ def ptxas_report(log: str, keep) -> dict:
 
 
 def _flash_fwd_args(mangled: str):
-    """(padded head dim, [LSE, PIPE, EXPB, PV8]) of a mangled
-    flash_fwd_kernel instantiation, or None for another kernel."""
+    """(padded head dim, [LSE, PIPE, EXPB]) of a mangled flash_fwd_kernel
+    instantiation, or None for another kernel."""
     import re
 
     m = re.search(r"flash_fwd_kernelILi(\d+)ELi\d+ELi\d+ELi\d+E((?:Lb[01]E)+)", mangled)
@@ -1478,37 +1654,62 @@ def wide_flash_registers() -> dict:
 
 
 def variant_flash_registers() -> dict:
-    """Registers and spills of the inference forward's instantiations at the
-    serving path's head dims (40 → 48, 80, 512), variants included."""
+    """Registers and spills of the inference forwards' instantiations at the
+    path's head dims (40 → 48, 80, 512): the Hopper kernel
+    (`flash_fwd_sm90<DP>`), the template's sweeps and its int8 PV kernel
+    (`flash_fwd_pv8<DP>`), variants included."""
+    import re
+
     from sd_tpu_torch.kernels import _build
+
+    out = {}
+    for lib, pattern in (("flash_attention_sm90", r"flash_fwd_sm90_kernelILi(\d+)ELb([01])E"),
+                         ("flash_attention", r"flash_fwd_pv8_kernelILi(\d+)E.*Lb([01])EE")):
+        log = (_build.build_dir() / f"{lib}.log").read_text()
+        kind = "flash_fwd_sm90" if lib.endswith("sm90") else "flash_fwd_pv8"
+
+        def keep(n, pattern=pattern):
+            m = re.search(pattern, n)
+            return bool(m) and int(m.group(1)) in (48, 80, 512)
+
+        for mangled, vals in ptxas_report(log, keep).items():
+            dp, expb = re.search(pattern, mangled).groups()
+            out[f"{kind}<{dp}>" + (" exp_bf16" if expb == "1" else "")] = {
+                "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
 
     def keep(n):
         fwd = _flash_fwd_args(n)
         return bool(fwd) and fwd[0] in (48, 80, 512) and not fwd[1][0]
 
     log = (_build.build_dir() / "flash_attention.log").read_text()
-    out = {}
     for mangled, vals in ptxas_report(log, keep).items():
-        dp, (_, pipe, expb, pv8) = _flash_fwd_args(mangled)
-        flags = [f for f, on in (("pipe", pipe), ("exp_bf16", expb), ("pv_int8", pv8)) if on]
+        dp, (_, pipe, expb) = _flash_fwd_args(mangled)
+        flags = [f for f, on in (("pipe", pipe), ("exp_bf16", expb)) if on]
         out[f"flash_fwd<{dp}>" + "".join(" " + f for f in flags)] = {
             "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
     return out
 
 
 def flash_smem() -> dict:
-    """Dynamic shared memory of the inference forward at the serving path's
-    head dims: [serial, pipelined, int8 PV] bytes."""
+    """Dynamic shared memory of the inference forwards at the path's head
+    dims: [Hopper kernel (d ≤ 128), template serial, pipelined, int8 PV]
+    bytes."""
     import ctypes
 
     from sd_tpu_torch.kernels import _build
 
     fn = _build.function("flash_attention", "sd_flash_fwd_smem", [ctypes.c_int] * 3)
-    return {d: [fn(d, 0, 0), fn(d, 1, 0), fn(d, 0, 1)] for d in (40, 80, 512)}
+    sm90 = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90_smem", [ctypes.c_int])
+    return {d: [sm90(d) if d <= 128 else None, fn(d, 0, 0), fn(d, 1, 0), fn(d, 0, 1)]
+            for d in (40, 80, 512)}
 
 
 def _family(name: str) -> str:
     low = name.lower()
+    if "flash_fwd_sm90_kernel<" in name:
+        return "flash Hopper forward (port)"
+    if "flash_fwd_pv8_kernel<" in name or "v_scale_kernel" in name:
+        return "flash int8 PV (port)"
     if "flash_fwd_kernel<" in name:
         # template arguments <DP, BQ, BK, CW, LSE, PIPE>
         args = name.split("flash_fwd_kernel<")[1].split(">")[0].split(", ")
@@ -1688,7 +1889,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
-    for var in (*OPT_IN, "SD_TPU_PALLAS_CONV"):    # each phase sets what it measures
+    for var in (*OPT_IN, *SERVE, "SD_TPU_PALLAS_CONV", "SD_TPU_ATTN_IMPL", "SD_TPU_ATTN_HPACKED",
+                "SD_TPU_ATTN_PACKED", "SD_TPU_FLASH_BWD"):   # each phase sets what it measures
         os.environ.pop(var, None)
     torch.backends.cudnn.allow_tf32 = False       # fp32 references in fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1709,9 +1911,11 @@ def main() -> int:
           "flash_fwd_smem_bytes": flash_smem()})
 
     gen = torch.Generator("cuda").manual_seed(0)
-    table = phase_kernels(gen)
-    table.update(phase_variant_kernels(gen))
+    table, sm90_rows = phase_kernels(gen)
+    variant_table, sm90_variant_rows = phase_variant_kernels(gen)
+    table.update(variant_table)
     train_rows = phase_train_kernels(gen)
+    phase_attention_switches()
     phase_parity()
     phase_parity(optin=True)
     phase_parity(serve=True)
@@ -1743,8 +1947,12 @@ def main() -> int:
     sources = {"flash_attention": (src + "flash_attention.cu", tpu + "flash_attention.py:66"),
                "flash_attention_pipelined": (src + "flash_attention.cu",
                                              tpu + "flash_attention.py:123"),
-               "flash_attention_hpacked": (src + "flash_attention.cu",
+               "flash_attention_hpacked": (src + "flash_attention_sm90.cu",
                                            tpu + "flash_attention.py:293"),
+               # the route counter of flash_attention_sm90.cu: rows 1 and 3 at
+               # head dims up to 128, serial sweep, no int8 PV
+               "flash_fwd_sm90": (src + "flash_attention_sm90.cu",
+                                  tpu + "flash_attention.py:66, :293"),
                "flash_attention_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:421"),
                "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
                "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
@@ -1753,18 +1961,27 @@ def main() -> int:
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
                "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
                "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
-    # the inference variants: template parameters of the same CUDA kernel
+    # the inference variants: the bf16 exponential at d ≤ 128 on the Hopper
+    # kernel, every int8 PV and the d = 512 rows on the template
     for exp_bf16, pv_int8 in VARIANTS:
         sources[fa_launch_name("flash_attention", exp_bf16, pv_int8)] = sources["flash_attention"]
-        sources[fa_launch_name("flash_attention_hpacked", exp_bf16, pv_int8)] = \
-            sources["flash_attention_hpacked"]
+        sources[fa_launch_name("flash_attention_hpacked", exp_bf16, pv_int8)] = (
+            src + ("flash_attention.cu" if pv_int8 else "flash_attention_sm90.cu"),
+            tpu + "flash_attention.py:293" + (", _pv_int8 :44" if pv_int8 else ""))
     sources["flash_attention_pipelined_exp_bf16"] = sources["flash_attention_pipelined"]
+    # the Hopper kernel's row: level 0 of generate, with every other shape it
+    # was held at (its template time beside each)
+    keys = ("shape", "name", "how", "max_abs_err", "ms", "generic_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_op", "library_ms")
+    all_sm90 = sm90_rows + sm90_variant_rows
+    table["flash_fwd_sm90"] = {**all_sm90[0], "other_shapes": [
+        {k: r[k] for k in keys if k in r} for r in all_sm90[1:]]}
     # the flash training kernels (rows 4-6) run on two paths: their row is
     # train_kl_vae's shape and launches, with train_ldm's beside them
     for name, by_shape in train_rows.items():
         table[name] = {**by_shape[KLVAE_ATTN_SHAPE], "other_shapes": [
             {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms", "library_backend")}
+                               "bound_by", "bound_op", "library_ms", "library_backend")}
             for shape, r in by_shape.items() if shape != KLVAE_ATTN_SHAPE]}
     paths = {"flash_attention_lse": ("train_kl_vae", klvae["launches"]),
              "flash_bwd_dq": ("train_kl_vae", klvae["launches"]),
@@ -1788,8 +2005,11 @@ def main() -> int:
                "launches": counts[name], "launches_path": path, "nvidia_smi": smi,
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-               "shape": r["shape"]}
+               "bound_by": r["bound_by"], "bound_op": r["bound_op"],
+               "library_ms": r["library_ms"], "shape": r["shape"]}
+        for key in ("generic_ms", "other_shapes", "kv_tile"):
+            if key in r:
+                row[key] = r[key]
         if name in train_rows:
             row.update(launches_by_path={"train_kl_vae": klvae["launches"][name],
                                          "train_ldm": train["launches"][name]},

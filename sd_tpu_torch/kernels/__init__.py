@@ -35,6 +35,9 @@ LAUNCHES: dict[str, int] = {
     "gn_silu_conv3x3": 0,
     "group_norm": 0,
     "crossattn_kv": 0,
+    # route counter: inference flash launches served by flash_attention_sm90.cu
+    # (each also counts under its wrapper's name above)
+    "flash_fwd_sm90": 0,
 }
 
 

@@ -19,8 +19,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention", "flash_attention_bwd", "geglu", "conv2d", "groupnorm",
-           "cross_attention")
+SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_bwd", "geglu",
+           "conv2d", "groupnorm", "cross_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,17 +1,25 @@
-"""Flash attention: hand-written CUDA kernels (`csrc/flash_attention.cu`,
-`csrc/flash_attention_bwd.cu`), their plain PyTorch versions, and the
-`torch.autograd.Function` that trains through them.
+"""Flash attention: hand-written CUDA kernels (`csrc/flash_attention_sm90.cu`,
+`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`), their plain
+PyTorch versions, and the `torch.autograd.Function` that trains through them.
 
 Counterpart of `sd_tpu/kernels/flash_attention.py`. The TPU package has two
 forward kernels, `flash_attention` over [B, S, H, D] (transposed to
 [B*H, S, D] around the kernel) and `flash_attention_hpacked` over the
 projection-native [B, S, H*D]; here one kernel reads both through strides.
+Two CUDA sources serve the inference forward (`kernel_route`): the serial
+sweep at head dims up to 128 without int8 PV, the UNet's, runs the Hopper
+kernel of `flash_attention_sm90.cu` (counted under `flash_fwd_sm90` beside
+the wrapper's own counter); the pipelined sweep, the int8 PV and the wide
+heads run the template of `flash_attention.cu`.
 `flash_attention` is differentiable, as the TPU package's `jax.custom_vjp`
 is: with grad off it runs the inference forward; with grad on, the training
 forward that also keeps the base-2 row log-sum-exp, and a backward of a dQ
 kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel, at every
 head dim the forward takes (multiples of 8 up to 512: the SD UNet's 40-160
-and the codec's single-head 512). Non-causal only.
+and the codec's single-head 512). Non-causal only. With
+`SD_TPU_FLASH_BWD=chunked` (any value but "pallas", as in the TPU package)
+the training forward is the inference forward and the backward a plain
+chunked recompute (`_bwd_chunked_ref`): no LSE, dQ or dK/dV kernel runs.
 `flash_attention_hpacked` is inference-only, as on the TPU. With
 `SD_TPU_FLASH_PIPE=1` (opt-in, as in the TPU package) the inference launch of
 `flash_attention` runs the software-pipelined kv sweep, which gives the same
@@ -24,14 +32,16 @@ product of each kv tile on int8 codes, `_pv_int8`). The pipelined sweep
 keeps the first and drops the second, as `_flash_attention_bhsd` does; the
 training path ignores both. Their plain version is a tiled online-softmax
 sweep (`_flash_tiled_ref`) that takes the kv tile: the int8 codes depend on
-it. Off the card the wrappers run it at the TPU package's kv tile (so the
-CPU tests hold it against the Pallas kernels); the CUDA kernel's tile is 64.
+it. The wrappers hand both the plain version and the CUDA kernel the TPU
+package's kv tile (`_tpu_block_k`, `_tpu_hpacked_block_k`), so the int8
+codes on the card are `sd_tpu`'s.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -41,7 +51,6 @@ from sd_tpu_torch.kernels import _build
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1e30
-KERNEL_BLOCK_K = 64          # the CUDA kernel's kv tile
 
 
 def _xla_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,6 +182,31 @@ def _flash_bwd_ref(q, k, v, o, lse, do, scale: float):
     return (dq, *_flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), delta)
 
 
+def _bwd_chunked_ref(q, k, v, g, scale: float, block_q: int = 1024):
+    """The TPU package's `_bwd_chunked`: (dq, dk, dv) recomputed over q
+    chunks of min(block_q, 512, Sq) rows, softmax in fp32 from the logits,
+    dS and p cast to the inputs' dtype before their products, dK and dV
+    summed in fp32 over the chunks; a ragged Sq takes the gradient of the
+    plain attention instead."""
+    sq = q.shape[1]
+    chunk = min(block_q, 512, sq)
+    if sq % chunk:
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(_xla_ref(*qkv, scale), qkv, g)
+    kf, vf = k.float(), v.float()
+    dk, dv, dqs = torch.zeros(k.shape, device=k.device), torch.zeros(v.shape, device=v.device), []
+    for i0 in range(0, sq, chunk):
+        qi, gi = q[:, i0:i0 + chunk], g[:, i0:i0 + chunk]
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qi.float(), kf) * scale, dim=-1)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gi.float(), vf)
+        ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True))).to(q.dtype).float()
+        dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype))
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qi.float()) * scale
+        dv += torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), gi.float())
+    return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(t: torch.Tensor, name: str) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash attention: {name} must be bfloat16, got {t.dtype}")
@@ -218,25 +252,68 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            out: torch.Tensor, scale: float, pipelined: bool = False,
-            exp_bf16: bool = False, pv_int8: bool = False) -> None:
-    """Run the inference kernel over strided [B, S, H, D] views (out written
-    in place), serial or software-pipelined, with the bf16 exponential and
-    the int8 PV where asked (never int8 with the pipelined sweep). It has no
-    backward: an input that needs a gradient raises."""
+_FWD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float])
+
+
+def kernel_route(d: int, pipelined: bool, pv_int8: bool) -> str:
+    """Which CUDA source an inference launch runs: "sm90"
+    (`flash_attention_sm90.cu`: the serial sweep at head dims up to 128,
+    fp32 or bf16 exponential) or "template" (`flash_attention.cu`: the
+    pipelined sweep, the int8 PV, head dims above 128)."""
+    return "sm90" if d <= 128 and not pipelined and not pv_int8 else "template"
+
+
+class Plan(NamedTuple):
+    """What one inference call launches on the card."""
+    name: str          # its launch counter
+    route: str         # `kernel_route`
+    pipelined: bool
+    exp_bf16: bool
+    pv_int8: bool
+    block_k: int       # the TPU package's kv tile: the int8 PV's and the plain sweep's
+
+
+def launch_plan(sq: int, skv: int, heads: int, d: int, exp_bf16: bool, pv_int8: bool,
+                hpacked: bool) -> Plan:
+    """The inference launch of a [B, S, H, D] (or head-packed) call, decided
+    on every device, so a CPU or meta run makes the card's choice: the
+    pipelined sweep where the switch holds ([B, S, H, D] only), which keeps
+    the bf16 exponential and drops the int8 PV, as the TPU package's does."""
+    pipelined = not hpacked and flash_pipelined_ok(skv, d)
+    pv_int8 = pv_int8 and not pipelined
+    base = ("flash_attention_hpacked" if hpacked
+            else "flash_attention_pipelined" if pipelined else "flash_attention")
+    block_k = (_tpu_hpacked_block_k(sq, skv, heads * d) if hpacked else _tpu_block_k(skv, d))
+    return Plan(launch_name(base, exp_bf16, pv_int8), kernel_route(d, pipelined, pv_int8),
+                pipelined, exp_bf16, pv_int8, block_k)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            scale: float, plan: Plan) -> None:
+    """Run the inference kernel `plan` names over strided [B, S, H, D] views
+    (out written in place) and count it. It has no backward: an input that
+    needs a gradient raises."""
     kernels.refuse_grad("flash attention forward", q, k, v)
-    if pipelined and pv_int8:
-        raise ValueError("flash attention: the pipelined sweep has no int8 PV")
     B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (out, "out", q))
-    fn = _build.function("flash_attention", "sd_flash_fwd", [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
-                                                 ctypes.c_float] + [ctypes.c_int] * 3
-                         + [ctypes.c_void_p])
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              B, H, Sq, Skv, D, _strides(q, k, v, out), float(scale) * LOG2E,
-              int(pipelined), int(exp_bf16), int(pv_int8), _build.stream_ptr(q.device))
-    _build.check(code, "sd_flash_fwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq, Skv, D,
+            _strides(q, k, v, out), float(scale) * LOG2E)
+    stream = _build.stream_ptr(q.device)
+    if plan.route == "sm90":
+        fn = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90",
+                             _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
+        _build.check(fn(*args, int(plan.exp_bf16), stream), "sd_flash_fwd_sm90")
+        kernels.LAUNCHES["flash_fwd_sm90"] += 1
+    else:
+        # the int8 PV's column scales per kv tile: a pre-pass launch fills them
+        scales = (torch.empty((B * H, -(-Skv // plan.block_k), D), dtype=torch.float32,
+                              device=q.device) if plan.pv_int8 else None)
+        fn = _build.function("flash_attention", "sd_flash_fwd",
+                             _FWD_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+        code = fn(*args, int(plan.pipelined), int(plan.exp_bf16), int(plan.pv_int8),
+                  plan.block_k, scales.data_ptr() if plan.pv_int8 else None, stream)
+        _build.check(code, "sd_flash_fwd")
+    kernels.LAUNCHES[plan.name] += 1
 
 
 def launch_name(base: str, exp_bf16: bool, pv_int8: bool) -> str:
@@ -291,6 +368,12 @@ def flash_pipelined_ok(skv: int, d: int) -> bool:
     (`SD_TPU_FLASH_PIPE=1`) and a kv sweep of at least two of its tiles."""
     return (os.environ.get("SD_TPU_FLASH_PIPE", "0") == "1"
             and _tpu_kv_tiles(skv, d) >= 2)
+
+
+def use_pallas_bwd() -> bool:
+    """The TPU package's `_use_pallas_bwd`: the flash backward kernels
+    unless `SD_TPU_FLASH_BWD` names anything but "pallas"."""
+    return os.environ.get("SD_TPU_FLASH_BWD", "pallas") == "pallas"
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -382,6 +465,38 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class _FlashAttentionChunked(torch.autograd.Function):
+    """The training path under `SD_TPU_FLASH_BWD=chunked`: the inference
+    forward (a kernel on the card) and the plain chunked backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _inference(q, k, v, scale, False, False)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*_bwd_chunked_ref(q, k, v, do, ctx.scale), None)
+
+
+def _inference(q, k, v, scale: float, exp_bf16: bool, pv_int8: bool) -> torch.Tensor:
+    """The inference forward over [B, S, H, D]: the kernel on the card, its
+    plain version elsewhere."""
+    plan = launch_plan(q.shape[1], k.shape[1], q.shape[2], q.shape[3], exp_bf16, pv_int8,
+                       False)
+    if not q.is_cuda:
+        if not (plan.exp_bf16 or plan.pv_int8):
+            return _xla_ref(q, k, v, scale)
+        return _flash_tiled_ref(q, k, v, scale, plan.block_k,
+                                torch.bfloat16 if exp_bf16 else torch.float32,
+                                "int8" if plan.pv_int8 else "none", plan.pipelined)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, scale, plan)
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None,
                     softmax_dtype: torch.dtype = torch.float32,
@@ -392,22 +507,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if kernels.needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, float(scale))
-    exp_bf16, pv_int8 = _variants(softmax_dtype, pv_quant)
-    # decided on every device, so a CPU or meta run makes the card's choice;
-    # the pipelined sweep keeps the bf16 exponential and drops the int8 PV
-    pipelined = flash_pipelined_ok(k.shape[1], q.shape[3])
-    pv_int8 = pv_int8 and not pipelined
-    if not q.is_cuda:
-        if not (exp_bf16 or pv_int8):
-            return _xla_ref(q, k, v, scale)
-        return _flash_tiled_ref(q, k, v, scale, _tpu_block_k(k.shape[1], q.shape[3]),
-                                softmax_dtype, "int8" if pv_int8 else "none", pipelined)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, scale, pipelined, exp_bf16, pv_int8)
-    base = "flash_attention_pipelined" if pipelined else "flash_attention"
-    kernels.LAUNCHES[launch_name(base, exp_bf16, pv_int8)] += 1
-    return out
+        fn = _FlashAttention if use_pallas_bwd() else _FlashAttentionChunked
+        return fn.apply(q, k, v, float(scale))
+    return _inference(q, k, v, float(scale), *_variants(softmax_dtype, pv_quant))
 
 
 def flash_attention_hpacked(q: torch.Tensor, k: torch.Tensor,
@@ -426,13 +528,12 @@ def flash_attention_hpacked(q: torch.Tensor, k: torch.Tensor,
         scale = d ** -0.5
     exp_bf16, pv_int8 = _variants(softmax_dtype, pv_quant)
     split = lambda x: x.unflatten(2, (heads, d))
+    plan = launch_plan(sq, k.shape[1], heads, d, exp_bf16, pv_int8, True)
     if not q.is_cuda:
         if not (exp_bf16 or pv_int8):
             return _xla_ref(split(q), split(k), split(v), scale).reshape(b, sq, hd)
-        return _flash_hpacked_tiled_ref(q, k, v, heads, scale,
-                                        _tpu_hpacked_block_k(sq, k.shape[1], hd),
+        return _flash_hpacked_tiled_ref(q, k, v, heads, scale, plan.block_k,
                                         softmax_dtype, pv_quant)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(split(q), split(k), split(v), split(out), scale, False, exp_bf16, pv_int8)
-    kernels.LAUNCHES[launch_name("flash_attention_hpacked", exp_bf16, pv_int8)] += 1
+    _launch(split(q), split(k), split(v), split(out), scale, plan)
     return out

@@ -5,7 +5,9 @@ Counterpart of `sd_tpu/nn/attention.py`, on the SD-v1 path: the unmasked
 self-attention branch through the head-packed flash kernel at inference and
 the differentiable flash attention in training, the cross-attention branch
 through the fused cross-attention kernel where the TPU package's opt-in gate
-holds (`SD_TPU_PALLAS_XATTN=1`) and the plain einsum attention otherwise, the
+holds (`SD_TPU_PALLAS_XATTN=1`) and the plain einsum attention otherwise,
+self-attention through [B, H, S, D] projections where the opt-in packed
+route holds (`SD_TPU_ATTN_PACKED=1`, after the head-packed one), the
 GEGLU feed-forward through the fused kernel where the TPU package's shape
 rule sends it (their plain versions when a gradient is wanted). NHWC layout;
 LayerNorm and softmax in fp32.
@@ -83,6 +85,14 @@ class CrossAttention(nn.Module):
             return xattn_k.crossattn_kv_trainable(
                 x.to(dt).contiguous(), self.to_q.weight, self.to_k(ctx), self.to_v(ctx),
                 self.to_out.weight, self.to_out.bias, h)
+        if context is None and attn_k.packed_flash_ok(N, M, h, d, dt):
+            # opt-in: [B, H, S, D] projections, heads folded into the batch
+            xd = x.to(dt)
+            proj = lambda lin: torch.einsum("bsc,hdc->bhsd", xd, lin.weight.view(h, d, C))
+            out = attn_k.packed_flash_attention(proj(self.to_q), proj(self.to_k),
+                                                proj(self.to_v))
+            return (torch.einsum("bhsd,chd->bsc", out, self.to_out.weight.view(C, h, d))
+                    + self.to_out.bias)
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         out = attn_k.dot_product_attention(
             q.reshape(B, N, h, d), k.reshape(B, M, h, d),

@@ -56,7 +56,8 @@ class Text2ImagePipeline:
         diff = dict(cfg.get("diffusion", {}))
         lat = cfg["latent"]
         self.ld = LatentDiffusion(
-            process=DDPMProcess(DiffusionSchedule.create(**diff),
+            # x0 unclamped, as sd_tpu's pipeline process (`build_ldm`)
+            process=DDPMProcess(DiffusionSchedule.create(**diff), clip_denoised=False,
                                 parameterization=diff.get("parameterization", "eps")),
             unet_apply=lambda x, t, ctx: self.unet(x.to(self.dtype), t, ctx),
             decode_fn=lambda z: self.vae.decode(z.to(self.dtype)),

@@ -102,7 +102,7 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     min_snr = diff.pop("min_snr_gamma", None)
     if diff.pop("type", "ddpm") != "ddpm":
         raise NotImplementedError("the flow-matching objective is not ported yet")
-    process = DDPMProcess(DiffusionSchedule.create(**diff).to(device),
+    process = DDPMProcess(DiffusionSchedule.create(**diff).to(device), clip_denoised=False,
                           parameterization=diff.get("parameterization", "eps"),
                           min_snr_gamma=min_snr)
     ld = LatentDiffusion(

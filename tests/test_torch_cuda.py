@@ -51,6 +51,58 @@ def test_flash_kernel_on_card(cuda, b, sq, skv, h, d):
     _within(hp.unflatten(2, (h, d)), ref)
 
 
+# [B, Sq, Skv, H, D, head-packed] of the Hopper forward (flash_attention_sm90.cu):
+# the UNet's head-packed shapes at batch 4 and 8, a ragged case and strided
+# [B, S, H, D] cases at d = 64 and 128
+SM90_SHAPES = [(4, 4096, 4096, 8, 40, True), (4, 1024, 1024, 8, 80, True),
+               (8, 4096, 4096, 8, 40, True), (1, 1000, 1000, 8, 40, False),
+               (2, 512, 700, 4, 64, False), (1, 300, 257, 2, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,packed", SM90_SHAPES)
+@pytest.mark.parametrize("exp_bf16", [False, True])
+def test_sm90_flash_kernel_on_card(cuda, b, sq, skv, h, d, packed, exp_bf16):
+    """The Hopper forward against its plain version (exact attention with p
+    rounded to bf16, or the tiled sweep with the bf16 exponential), counted
+    under its route, and the same bits on a second run."""
+    q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    sdt = torch.bfloat16 if exp_bf16 else torch.float32
+    if packed:
+        run = lambda: fa.flash_attention_hpacked(q.flatten(2), k.flatten(2), v.flatten(2), h,
+                                                 softmax_dtype=sdt).unflatten(2, (h, d))
+    else:
+        run = lambda: fa.flash_attention(q, k, v, softmax_dtype=sdt)
+    kernels.reset_launches()
+    out = run()
+    assert kernels.LAUNCHES["flash_fwd_sm90"] == 1
+    if exp_bf16:
+        ref = fa._flash_tiled_ref(q, k, v, d**-0.5, 64, torch.bfloat16)
+    else:
+        ref = fa._xla_ref(q.float(), k.float(), v.float(), d**-0.5)
+    _within(out, ref)
+    assert torch.equal(out, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,packed", [(2, 1024, 1024, 8, 80, True),
+                                                 (1, 4096, 4096, 8, 40, True),
+                                                 (1, 1024, 1024, 1, 512, False),
+                                                 (1, 512, 700, 1, 512, False)])
+def test_pv8_kernel_quantizes_over_the_tpu_tile(cuda, b, sq, skv, h, d, packed):
+    """The int8 PV variant against the plain tiled sweep at the TPU package's
+    kv tile, the one the wrapper passes the kernel."""
+    q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    tile = fa.launch_plan(sq, skv, h, d, False, True, packed).block_k
+    assert tile % 64 == 0 and tile > 64
+    if packed:
+        out = fa.flash_attention_hpacked(q.flatten(2), k.flatten(2), v.flatten(2), h,
+                                         pv_quant="int8").unflatten(2, (h, d))
+    else:
+        out = fa.flash_attention(q, k, v, pv_quant="int8")
+    _within(out, fa._flash_tiled_ref(q, k, v, d**-0.5, tile, pv_quant="int8"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,c", [(16384, 320), (4096, 640), (100, 128)])
 def test_geglu_kernel_on_card(cuda, n, c):
@@ -148,8 +200,13 @@ def test_forward_only_kernels_refuse_inputs_that_need_grad(cuda):
 @pytest.mark.parametrize("b,sq,skv,h,d", [(2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
                                           (1, 1000, 1300, 8, 40)])
 def test_pipelined_flash_kernel_on_card(cuda, monkeypatch, b, sq, skv, h, d):
+    """The pipelined sweep gives the bits of the template's serial sweep
+    (which serves the serial launches above head dim 128; at d = 40 it is
+    launched here through its plan, the Hopper kernel serving that launch)."""
     q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
-    serial = fa.flash_attention(q, k, v)
+    serial = torch.empty_like(q)
+    fa._launch(q, k, v, serial, d**-0.5, fa.Plan("flash_attention", "template", False, False,
+                                                 False, 0))
     monkeypatch.setenv("SD_TPU_FLASH_PIPE", "1")
     kernels.reset_launches()
     out = fa.flash_attention(q, k, v)

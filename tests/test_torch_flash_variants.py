@@ -99,6 +99,43 @@ def test_wrappers_take_the_tpu_kv_tile_off_the_card():
                               interpret=True, softmax_dtype=jnp.bfloat16, pv_quant="int8"))
 
 
+@pytest.mark.parametrize("b,sq,skv,h,d,packed", [
+    (8, 4096, 4096, 8, 40, True), (8, 1024, 1024, 8, 80, True),
+    (4, 4096, 4096, 1, 512, False), (1, 1000, 1300, 8, 40, True),
+    (1, 512, 700, 1, 512, False), (2, 4096, 1000, 8, 40, False)])
+def test_int8_pv_tile_is_the_tpu_packages(monkeypatch, b, sq, skv, h, d, packed):
+    """The kv tile an int8-PV call hands the CUDA kernel (its launch plan,
+    made on every device) is the one the TPU package's wrapper builds its
+    Pallas kernel with (traced abstractly, the kernel's `block_k` recorded),
+    at the serving path's shapes and ragged ones; no kernel runs here."""
+    seen, real = [], jfa.pl.pallas_call
+
+    def spy(kernel, **kw):
+        seen.append(kernel.keywords["block_k"])
+        return real(kernel, **kw)
+
+    plans, plan = [], fa.launch_plan
+    monkeypatch.setattr(fa, "launch_plan", lambda *a: plans.append(plan(*a)) or plans[-1])
+    meta = lambda s_: torch.empty(b, s_, h * d, dtype=torch.bfloat16, device="meta")
+    jshape = lambda s_: jax.ShapeDtypeStruct((b, s_, h * d), jnp.bfloat16)
+    with monkeypatch.context() as m:
+        m.setattr(jfa.pl, "pallas_call", spy)
+        if packed:
+            jax.eval_shape(lambda q, k, v: jfa.flash_attention_hpacked(
+                q, k, v, h, pv_quant="int8"), jshape(sq), jshape(skv), jshape(skv))
+            fa.flash_attention_hpacked(meta(sq), meta(skv), meta(skv), h, pv_quant="int8")
+        else:
+            split = lambda x: x.reshape(b, x.shape[1], h, d)
+            jax.eval_shape(lambda q, k, v: jfa.flash_attention(
+                split(q), split(k), split(v), pv_quant="int8"), jshape(sq), jshape(skv),
+                jshape(skv))
+            fa.flash_attention(*(x.unflatten(2, (h, d)) for x in (meta(sq), meta(skv),
+                                                                   meta(skv))),
+                               pv_quant="int8")
+    assert len(seen) == len(plans) == 1
+    assert plans[0].block_k == seen[0] and plans[0].pv_int8 and plans[0].route == "template"
+
+
 def test_pipelined_sweep_drops_int8_and_keeps_bf16(monkeypatch):
     """`SD_TPU_FLASH_PIPE=1` with a kv sweep of two TPU tiles: both packages
     run the pipelined sweep with the bf16 exponential and without int8."""
@@ -179,3 +216,25 @@ def test_launch_counter_names():
     with pytest.raises(ValueError):
         fa.flash_attention(torch.zeros(1, 8, 1, 8), torch.zeros(1, 8, 1, 8),
                            torch.zeros(1, 8, 1, 8), pv_quant="fp8")
+
+
+@pytest.mark.parametrize("sq", [1024, 700])
+def test_chunked_backward_matches_the_tpu_package(monkeypatch, sq):
+    """`SD_TPU_FLASH_BWD=chunked`: flash_attention trains through the
+    inference forward and the plain chunked backward (no LSE, dQ or dK/dV
+    wrapper is reached), whose gradients are the JAX package's
+    `_bwd_chunked` (two 512-row q chunks; a ragged 700 rows take the
+    gradient of the plain attention in both), fp32, within 1e-4."""
+    monkeypatch.setenv("SD_TPU_FLASH_BWD", "chunked")
+    assert not fa.use_pallas_bwd() and not jfa._use_pallas_bwd()
+    q, k, v, g = (nprand(1, n, 2, 40, seed=s) for s, n in ((1, sq), (2, 600), (3, 600), (4, sq)))
+    for name in ("flash_attention_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(fa, name, lambda *a, name=name: pytest.fail(f"{name} reached"))
+    qkv = [to_torch(x).requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*qkv)
+    grads = torch.autograd.grad(out, qkv, to_torch(g))
+    want = jfa._bwd_chunked(40**-0.5, 1024, tuple(jnp.asarray(x) for x in (q, k, v)),
+                            jnp.asarray(g))
+    assert_close(out, jfa._xla_ref(*(jnp.asarray(x) for x in (q, k, v)), 40**-0.5), MODULE_TOL)
+    for got, ref in zip(grads, want):
+        assert_close(got, ref, MODULE_TOL)

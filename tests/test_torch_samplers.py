@@ -250,3 +250,43 @@ def test_latent_sample_errors(data):
         ld.sample(*args, sampler="euler", sag_scale=0.5, decode=False)
     with pytest.raises(NotImplementedError, match="SAG"):
         ld.sample(*args, sampler="ddim", sag_scale=0.5, decode=False)
+
+
+def test_pipeline_ddpm_generate_matches_sd_tpu():
+    """`generate(sampler="ddpm")` at the pipeline level: the JAX pipeline's
+    own process (built by `build_ldm`, x0 unclamped) against the port's
+    pipeline, the same weights (`load_flax_params`), fp32 on the CPU, a
+    6-step schedule, x_T and every step's draw injected from the JAX key
+    stream. x_T is N(0, 2²) and ᾱ stays near 1 over 6 steps, so the
+    predicted x0 leaves [-1, 1] and a clamp would show."""
+    from test_torch_helpers import SLICE_TOL, port
+    from test_torch_slice import PROMPTS, tiny_config
+
+    from sd_tpu.pipeline import Text2ImagePipeline as JPipeline
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+
+    cfg = tiny_config()
+    cfg["diffusion"]["timesteps"] = T = 6
+    jpipe = JPipeline(cfg, rng=jax.random.PRNGKey(3), param_dtype=None)
+    assert not jpipe.ld.process.clip_denoised
+    pipe = Text2ImagePipeline(cfg, device="cpu", param_dtype=torch.float32)
+    assert not pipe.ld.process.clip_denoised
+    port(pipe.unet, jpipe.unet_params)
+    port(pipe.vae, jpipe.vae_params)
+    port(pipe.clip, jpipe.clip.params)
+
+    shape = (2, 16, 16, 4)
+    x_T = nprand(*shape, seed=11, scale=2.0)
+    c, _ = pipe.encode_prompts(PROMPTS)
+    key = jax.random.PRNGKey(5)
+    normal = jax.jit(lambda k: jax.random.normal(k, shape, jnp.float32))
+    draws, k = {}, _split2(key)[0]
+    for t in range(T - 1, -1, -1):
+        k, step = _split2(k)
+        draws[t] = to_torch(np.asarray(normal(step)))
+    ref = jpipe.ld.sample(jpipe.unet_params, key, shape,
+                          cond={"c_crossattn": [jnp.asarray(c.numpy())]},
+                          sampler="ddpm", decode=True, x_T=jnp.asarray(x_T))
+    got = pipe.sample(PROMPTS, to_torch(x_T), sampler="ddpm",
+                      noise=lambda t, s: draws[t])
+    assert_close(got, ref, SLICE_TOL)

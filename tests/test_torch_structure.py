@@ -80,6 +80,7 @@ from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import ClipTextConfig, ClipTextTransformer
 from sd_tpu_torch.models.discriminator import NLayerDiscriminator
 from sd_tpu_torch.models.lpips import LPIPS
+from sd_tpu_torch.nn.attention import CrossAttention
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.pipeline import Text2ImagePipeline
 from sd_tpu_torch.train import diffusion as train
@@ -134,6 +135,8 @@ def _numel(shape):
 
 SWITCHES = ("SD_TPU_PALLAS_CONV", "SD_TPU_PALLAS_GN", "SD_TPU_PALLAS_XATTN",
             "SD_TPU_FLASH_PIPE")
+ATTN_SWITCHES = ("SD_TPU_ATTN_IMPL", "SD_TPU_ATTN_HPACKED", "SD_TPU_ATTN_PACKED",
+                 "SD_TPU_FLASH_BWD")
 OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
 
 
@@ -145,13 +148,18 @@ def tpu_gates(monkeypatch):
     the arguments of those that chose a kernel."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setitem(jattn._SHARD_CTX, "mesh", None)
-    for var in ("SD_TPU_ATTN_HPACKED", "SD_TPU_ATTN_IMPL", *SWITCHES):
+    # every switch at its default until a test sets it
+    # (`test_attention_switches_agree_with_the_tpu_gates` sets each value)
+    for var in (*ATTN_SWITCHES, *SWITCHES):
         monkeypatch.delenv(var, raising=False)
 
     jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
 
     def jax_hpacked(sq, skv, heads, d, dtype):
         return jattn.hpacked_flash_ok(sq, skv, heads, d)
+
+    def jax_packed(sq, skv, heads, d, dtype):
+        return jattn.packed_flash_ok(sq, skv, heads, d)
 
     def jax_flash(q, k):
         s = lambda t: jax.ShapeDtypeStruct(tuple(t.shape), jdt[t.dtype])
@@ -202,6 +210,8 @@ def tpu_gates(monkeypatch):
         monkeypatch.setattr(module, name, gate)
 
     record(attn_k, "hpacked_flash_ok", jax_hpacked)
+    record(attn_k, "packed_flash_ok", jax_packed)
+    record(fa, "use_pallas_bwd", jfa._use_pallas_bwd)
     record(attn_k, "flash_ok", jax_flash)
     record(geglu_k, "geglu_wants_pallas", jax_geglu)
     record(conv_k, "conv3x3_wants_pallas", jax_conv)
@@ -250,6 +260,149 @@ def test_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, batch):
             per_decode["conv3x3_wants_pallas"]) == (501, 500, 18)
 
 
+def _spy_plans(monkeypatch) -> list:
+    """The launch plans of every inference flash call, in order (made on
+    every device: on `meta` tensors, what the card would launch)."""
+    plans, plan = [], fa.launch_plan
+
+    def spy(*args):
+        plans.append(plan(*args))
+        return plans[-1]
+
+    monkeypatch.setattr(fa, "launch_plan", spy)
+    return plans
+
+
+def _plan_launches(plans, times: int = 1) -> Counter:
+    """Launch counts of `plans` run `times` over: each under its counter and,
+    where the Hopper kernel serves it, under `flash_fwd_sm90`."""
+    out = Counter()
+    for p in plans:
+        out[p.name] += times
+        out["flash_fwd_sm90"] += times * (p.route == "sm90")
+    return +out
+
+
+@pytest.mark.parametrize("hpacked", ["1", "0"])
+def test_generate_flash_launches_take_their_routes(tpu_gates, monkeypatch, hpacked):
+    """Every flash launch of one default `generate` (2 prompts, 512², 50
+    steps: a UNet call at batch 4 per step, one decode), call by call: the
+    500 head-packed launches at d = 40 and 80 go to the Hopper kernel
+    (`flash_fwd_sm90`), the decoder's d = 512 launch to the template. With
+    `SD_TPU_ATTN_HPACKED=0` the self-attentions take [B, S, H, D] through
+    `dot_product_attention`: the 500 move to `flash_attention`, on the same
+    Hopper route."""
+    monkeypatch.setenv("SD_TPU_ATTN_HPACKED", hpacked)
+    plans = _spy_plans(monkeypatch)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    with torch.no_grad():
+        UNetModel(**UNET, **BF16)(meta(4, 64, 64, 4), meta(4, dtype=torch.long),
+                                  meta(4, 77, 768))
+        n_unet = len(plans)
+        AutoencoderKL(**VAE, **BF16).decode(meta(2, 64, 64, 4))
+    unet, decode = plans[:n_unet], plans[n_unet:]
+    assert len(unet) == 10 and {(p.route, p.pipelined, p.pv_int8) for p in unet} == {
+        ("sm90", False, False)}
+    assert [(p.name, p.route) for p in decode] == [("flash_attention", "template")]
+    launches = _plan_launches(unet, 50) + _plan_launches(decode)
+    if hpacked == "1":
+        want = {k: v for k, v in chip_smoke.EXPECTED_LAUNCHES.items() if v and "flash" in k}
+        assert dict(launches) == want == {"flash_attention_hpacked": 500, "flash_fwd_sm90": 500,
+                                          "flash_attention": 1}
+    else:
+        assert dict(launches) == {"flash_attention": 501, "flash_fwd_sm90": 500}
+
+
+# each value of the TPU package's attention switches (None: all at their defaults)
+ATTN_SWITCH_VALUES = [(None, None), ("SD_TPU_ATTN_IMPL", "xla"), ("SD_TPU_ATTN_IMPL", "pallas"),
+                      ("SD_TPU_ATTN_HPACKED", "0"), ("SD_TPU_ATTN_HPACKED", "1"),
+                      ("SD_TPU_ATTN_PACKED", "1"), ("SD_TPU_ATTN_PACKED", "0"),
+                      ("SD_TPU_FLASH_BWD", "chunked"), ("SD_TPU_FLASH_BWD", "pallas")]
+
+
+def _jax_dot_route(q, kv_len: int, impl=None) -> str:
+    """The path the JAX package's `dot_product_attention` takes for q
+    [B, S, H, D] bf16 against kv_len keys (traced abstractly)."""
+    seen = []
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jfa, "flash_attention", lambda q, *a, **kw: seen.append("flash") or q)
+        m.setattr(jattn, "_xla_attention", lambda q, *a, **kw: seen.append("plain") or q)
+        s = lambda n: jax.ShapeDtypeStruct((q.shape[0], n, *q.shape[2:]), jnp.bfloat16)
+        jax.eval_shape(lambda q, k, v: jattn.dot_product_attention(q, k, v, impl=impl),
+                       s(q.shape[1]), s(kv_len), s(kv_len))
+    return seen[0]
+
+
+@pytest.mark.parametrize("var,value", ATTN_SWITCH_VALUES)
+def test_attention_switches_agree_with_the_tpu_gates(tpu_gates, monkeypatch, var, value):
+    """Each value of `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`,
+    `SD_TPU_ATTN_PACKED` and `SD_TPU_FLASH_BWD`: the port's gates agree with
+    the JAX gates on every decision (the fixture holds each), and the route
+    each call takes (which wrapper, and so which launch counter, moves on
+    `meta` tensors) is the one the JAX package's routing gives: a level-0
+    self-attention at inference and in a training step (forward and
+    backward), and `dot_product_attention` at a flash shape and at the
+    77-token cross-attention shape, with and without `impl=`."""
+    if var:
+        monkeypatch.setenv(var, value)
+    events = []
+    plans = _spy_plans(monkeypatch)
+    for module, name, tag in ((attn_k, "hpacked_flash_attention", "hpacked"),
+                              (attn_k, "packed_flash_attention", "packed"),
+                              (attn_k, "_xla_attention", "plain"),
+                              (fa, "flash_attention_lse", "lse"), (fa, "flash_bwd_dq", "dq"),
+                              (fa, "flash_bwd_dkv", "dkv")):
+        def spied(*a, _fn=getattr(module, name), _tag=tag, **kw):
+            events.append(_tag)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(module, name, spied)
+
+    def run(fn) -> list:
+        events.clear()
+        plans.clear()
+        fn()
+        return events + [f"{p.name}/{p.route}" for p in plans]
+
+    def jax_expected(training: bool, n: int, h: int, d: int) -> list:
+        # sd_tpu/nn/attention.py: head-packed, then packed, then the front end
+        if jattn.hpacked_flash_ok(n, n, h, d):
+            return ["hpacked", "flash_attention_hpacked/sm90"]
+        flash = ["lse", "dq", "dkv"] if jfa._use_pallas_bwd() else ["flash_attention/sm90"]
+        if not training:
+            flash = ["flash_attention/sm90"]
+        if jattn.packed_flash_ok(n, n, h, d):
+            return ["packed", *flash]
+        q = torch.empty(2, n, h, d, device="meta")
+        return flash if _jax_dot_route(q, n) == "flash" else ["plain"]
+
+    meta = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")
+    block = CrossAttention(320, None, 8, 40, **BF16)
+    with torch.no_grad():
+        got = run(lambda: block(meta(2, 4096, 320)))
+    assert sorted(got) == sorted(jax_expected(False, 4096, 8, 40)), got
+    x = meta(1, 4096, 320).requires_grad_()
+    with conv_k.training_trace(), jconv.training_trace():
+        got = run(lambda: block(x).float().sum().backward())
+        want = jax_expected(True, 4096, 8, 40)
+    assert sorted(got) == sorted(want), (got, want)
+
+    q, ctx = meta(2, 4096, 8, 40), meta(2, 77, 8, 40)
+    with torch.no_grad():
+        for kv, impl in ((q, None), (ctx, None), (q, "xla"), (ctx, "pallas")):
+            got = run(lambda: attn_k.dot_product_attention(q, kv, kv, impl=impl))
+            jax_route = _jax_dot_route(q, kv.shape[1], impl)
+            assert got == (["plain"] if jax_route == "plain" else ["flash_attention/sm90"]), (
+                kv.shape, impl, got)
+        # the dtype rule: fp32 keeps the plain path even when asked for the kernel
+        f32 = torch.empty(2, 4096, 8, 40, device="meta")
+        assert run(lambda: attn_k.dot_product_attention(f32, f32, f32, impl="pallas")) == ["plain"]
+    want_impl = {"xla": ["plain"], "pallas": ["flash_attention/sm90"]}.get(
+        os.environ.get("SD_TPU_ATTN_IMPL"))
+    if want_impl:
+        with torch.no_grad():
+            assert run(lambda: attn_k.dot_product_attention(q, ctx, ctx)) == want_impl
+
+
 def _generate_launches(per_step, per_decode, steps=50):
     """Kernel launches of one generate from the decisions of one UNet call
     and one decode (no gate holds in CLIP)."""
@@ -259,6 +412,9 @@ def _generate_launches(per_step, per_decode, steps=50):
             "flash_attention": both("flash_ok") - pipelined,
             "flash_attention_pipelined": pipelined,
             "flash_attention_hpacked": both("hpacked_flash_ok"),
+            # every head-packed call of these paths is at d ≤ 128 (the route
+            # tests check it call by call); the decoder's flash call is d = 512
+            "flash_fwd_sm90": both("hpacked_flash_ok"),
             "geglu_ff": both("geglu_wants_pallas"),
             "conv3x3_same": both("conv3x3_wants_pallas"),
             "group_norm": both("group_norm_wants_pallas"),
@@ -286,8 +442,8 @@ def test_optin_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, monke
     launches = _generate_launches(per_step, per_decode)
     assert launches == chip_smoke.EXPECTED_LAUNCHES_OPTIN
     assert {k: v for k, v in launches.items() if v} == {
-        "flash_attention_pipelined": 1, "flash_attention_hpacked": 500, "geglu_ff": 500,
-        "conv3x3_same": 18, "group_norm": 2850, "crossattn_kv": 750}
+        "flash_attention_pipelined": 1, "flash_attention_hpacked": 500, "flash_fwd_sm90": 500,
+        "geglu_ff": 500, "conv3x3_same": 18, "group_norm": 2850, "crossattn_kv": 750}
 
 
 def test_optin_kernel_shapes_of_chip_smoke_are_the_generate_shapes(tpu_gates, monkeypatch):
@@ -371,8 +527,13 @@ def test_served_generate_variant_launches(tpu_gates, monkeypatch, pipe):
 
     monkeypatch.setattr(fa, "flash_attention_hpacked", spy("hpacked"))
     monkeypatch.setattr(fa, "flash_attention", spy("flash"))
+    plans = _spy_plans(monkeypatch)
     per_step, per_decode = _walk_512(tpu_gates, 4)
     assert per_step["hpacked_flash_ok"] == 10 and per_decode["flash_ok"] == 1
+    # the int8 PV and the pipelined sweep stay on the template, at the TPU
+    # package's kv tile: no launch reaches the Hopper kernel
+    assert len(plans) == 11 and {p.route for p in plans} == {"template"}
+    assert {p.block_k for p in plans[:10]} == {1024} and plans[10].block_k == 512
     calls = len(jschedules.make_ddim_timesteps("uniform", chip_smoke.SERVE_STEPS, 1000))
     assert calls == chip_smoke.SERVE_UNET_CALLS == 31
     unet = {k: calls * v for k, v in launches.items() if "hpacked" in k}
@@ -401,7 +562,7 @@ def _count_kernel_calls(monkeypatch) -> Counter:
     calls = Counter()
     for module, name in ((fa, "flash_attention_lse"), (fa, "flash_bwd_dq"),
                          (fa, "flash_bwd_dkv"), (fa, "flash_attention_hpacked"),
-                         (fa, "_launch"), (geglu_k, "geglu_ff"), (conv_k, "conv3x3_same"),
+                         (fa, "_inference"), (geglu_k, "geglu_ff"), (conv_k, "conv3x3_same"),
                          (conv_k, "gn_silu_conv3x3"), (gn_k, "group_norm"),
                          (xattn_k, "crossattn_kv")):
         def counted(*args, _fn=getattr(module, name), _name=name, **kw):
