@@ -19,7 +19,18 @@ Phases, each printed as one JSON line:
            no path calls, at the decoder's conv shapes;
            with the kernel's, the plain version's and one PyTorch library
            call's time (CUDA events) and the least time the card could take
-           (bound);
+           (bound: the larger of the bytes at 3.35 TB/s, the tensor
+           operations at their peak and, for attention, one exp2 per logit at
+           3.9e12/s); the Hopper flash forward (`flash_attention_sm90.cu`,
+           d ≤ 128: the head-packed shapes at batch 4 and, with the bf16
+           exponential, 8, a ragged case through `impl="pallas"`, a strided
+           d = 64 view, d = 128) with the template's serial sweep timed
+           beside it (`generic_ms`) and its route counter checked; the int8
+           PV against the plain sweep at the TPU package's kv tile;
+  attention_switches  one level-0 attention block under each value of
+           `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`,
+           `SD_TPU_FLASH_BWD`: which launch counters move, and the output (and
+           input gradient) against the fp32 block;
   parity   the SD-v1-width UNet (latent 32², batch 2) and KL-f8 decoder
            (latent 32²) with every parameter random: bf16 with the kernels on
            the card against fp32 plain on the CPU, same (bf16-rounded) weights

@@ -1,9 +1,13 @@
-// Flash-attention forward for Hopper (bf16 in, bf16 out, fp32 softmax state).
+// Flash-attention forward for Hopper (bf16 in, bf16 out, fp32 softmax state),
+// the template of every flash forward that `flash_attention_sm90.cu` does not
+// serve: head dims above 128, the int8 PV, the pipelined sweep and the LSE
+// forward (the wrapper's `launch_plan` decides; the serial instantiations at
+// d <= 128 remain as the reference the Hopper kernel is timed against).
 //
 // Replaces the TPU kernels `_flash_kernel` (sd_tpu/kernels/flash_attention.py:66,
 // the [B*H, S, D] forward behind `flash_attention`) and `_flash_hpacked_kernel`
 // (:293, the projection-native [B, S, H*D] forward behind
-// `flash_attention_hpacked`). Both become this one kernel over strided
+// `flash_attention_hpacked`) there. Both become this one kernel over strided
 // [B, S, H, D] views: the head stride is D for a [B, S, H*D] projection and
 // the row stride is H*D, so no layout copy enters or leaves either caller.
 // Compiled with LSE = true it also replaces `_flash_kernel_lse` (:421), the

@@ -6,7 +6,7 @@ Counterpart of `sd_tpu/kernels/flash_attention.py`. The TPU package has two
 forward kernels, `flash_attention` over [B, S, H, D] (transposed to
 [B*H, S, D] around the kernel) and `flash_attention_hpacked` over the
 projection-native [B, S, H*D]; here one kernel reads both through strides.
-Two CUDA sources serve the inference forward (`kernel_route`): the serial
+Two CUDA sources serve the inference forward (`launch_plan`): the serial
 sweep at head dims up to 128 without int8 PV, the UNet's, runs the Hopper
 kernel of `flash_attention_sm90.cu` (counted under `flash_fwd_sm90` beside
 the wrapper's own counter); the pipelined sweep, the int8 PV and the wide
@@ -256,18 +256,10 @@ _FWD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float])
 
 
-def kernel_route(d: int, pipelined: bool, pv_int8: bool) -> str:
-    """Which CUDA source an inference launch runs: "sm90"
-    (`flash_attention_sm90.cu`: the serial sweep at head dims up to 128,
-    fp32 or bf16 exponential) or "template" (`flash_attention.cu`: the
-    pipelined sweep, the int8 PV, head dims above 128)."""
-    return "sm90" if d <= 128 and not pipelined and not pv_int8 else "template"
-
-
 class Plan(NamedTuple):
     """What one inference call launches on the card."""
     name: str          # its launch counter
-    route: str         # `kernel_route`
+    route: str         # "sm90" (flash_attention_sm90.cu) or "template" (flash_attention.cu)
     pipelined: bool
     exp_bf16: bool
     pv_int8: bool
@@ -279,14 +271,17 @@ def launch_plan(sq: int, skv: int, heads: int, d: int, exp_bf16: bool, pv_int8: 
     """The inference launch of a [B, S, H, D] (or head-packed) call, decided
     on every device, so a CPU or meta run makes the card's choice: the
     pipelined sweep where the switch holds ([B, S, H, D] only), which keeps
-    the bf16 exponential and drops the int8 PV, as the TPU package's does."""
+    the bf16 exponential and drops the int8 PV, as the TPU package's does;
+    the serial sweep at head dims up to 128 without int8 PV on the Hopper
+    kernel, everything else on the template."""
     pipelined = not hpacked and flash_pipelined_ok(skv, d)
     pv_int8 = pv_int8 and not pipelined
     base = ("flash_attention_hpacked" if hpacked
             else "flash_attention_pipelined" if pipelined else "flash_attention")
     block_k = (_tpu_hpacked_block_k(sq, skv, heads * d) if hpacked else _tpu_block_k(skv, d))
-    return Plan(launch_name(base, exp_bf16, pv_int8), kernel_route(d, pipelined, pv_int8),
-                pipelined, exp_bf16, pv_int8, block_k)
+    route = "sm90" if d <= 128 and not pipelined and not pv_int8 else "template"
+    return Plan(launch_name(base, exp_bf16, pv_int8), route, pipelined, exp_bf16, pv_int8,
+                block_k)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

@@ -3,7 +3,11 @@
 bf16 inputs from a seed, the plain version computed in fp32 from the same
 inputs, max|Δ| ≤ 1e-2·max|ref| (bf16 output rounding plus p rounded to bf16
 in attention; q, p and the head outputs also round to bf16 in the fused
-cross-attention). The pipelined flash sweep gives the serial kernel's bits.
+cross-attention). The pipelined flash sweep gives the bits of the
+template's serial sweep. The Hopper flash forward (`flash_attention_sm90.cu`,
+d ≤ 128) is counted under its route and gives the same bits twice; the
+int8-PV variant is held against the plain sweep at the TPU package's kv
+tile.
 The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
 and the sums run over up to 4096 rows). Every test needs a CUDA device and

@@ -11,7 +11,10 @@ max|Δ| ≤ 1e-5·max|ref|.
 
 Also: the pipelined sweep keeps the bf16 exponential and drops the int8 PV
 (`_flash_attention_bhsd`'s precedence), the gradient path ignores both
-switches, and the gates read the switches at call time.
+switches, the gates read the switches at call time, the kv tile an int8-PV
+launch hands the CUDA kernel is the TPU package's, and
+`SD_TPU_FLASH_BWD=chunked` trains through the plain chunked backward with
+`_bwd_chunked`'s gradients.
 """
 
 from __future__ import annotations

@@ -28,6 +28,15 @@
   `SD_TPU_FLASH_EXP=bf16 SD_TPU_FLASH_PV=int8`, on `meta` tensors): 300
   head-packed launches of the bf16-exponential int8-PV variant and 1 flash
   launch of the decoder, the switches read as the JAX package reads them;
+* the TPU package's attention switches (`SD_TPU_ATTN_IMPL`,
+  `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`, `SD_TPU_FLASH_BWD`), each
+  value: the port's gates agree with the JAX gates, and the route of a
+  level-0 attention at inference and in training and of
+  `dot_product_attention` (with and without `impl=`) is the JAX package's;
+* every flash launch of a full-width `generate` takes the route its plan
+  says: the 500 head-packed launches the Hopper kernel (`flash_fwd_sm90`),
+  the decoder's the template; with `SD_TPU_ATTN_HPACKED=0` the 500 move to
+  `flash_attention` on the same route;
 * the port (the serving modules included) and `chip_smoke.py` import
   neither JAX nor the JAX package;
 * the pipeline and the trainer refuse to run without a card unless asked
