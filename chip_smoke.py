@@ -21,12 +21,17 @@ Phases, each printed as one JSON line:
            call's time (CUDA events) and the least time the card could take
            (bound: the larger of the bytes at 3.35 TB/s, the tensor
            operations at their peak and, for attention, one exp2 per logit at
-           3.9e12/s); the Hopper flash forward (`flash_attention_sm90.cu`,
-           d ≤ 128: the head-packed shapes at batch 4 and, with the bf16
-           exponential, 8, a ragged case through `impl="pallas"`, a strided
-           d = 64 view, d = 128) with the template's serial sweep timed
-           beside it (`generic_ms`) and its route counter checked; the int8
-           PV against the plain sweep at the TPU package's kv tile;
+           3.9e12/s); each Hopper flash forward with the template's sweep
+           timed beside it at the same shapes (`generic_ms`), its route
+           counter checked and the same bits on a second run:
+           `flash_attention_sm90.cu` (d ≤ 128: the head-packed shapes at
+           batch 4 and, with the bf16 exponential, 8, a ragged case through
+           `impl="pallas"`, a strided d = 64 view, d = 128), its int8-PV
+           form `flash_attention_sm90_pv8.cu` (the served head-packed shapes
+           at batch 8, the contract shape; `ms` includes the pre-pass) and
+           `flash_attention_wide.cu` (d = 512 at batch 2 and 4, a ragged
+           case, d = 136 and 256; serial, pipelined, both variants); the
+           int8 PV against the plain sweep at the TPU package's kv tile;
   attention_switches  one level-0 attention block under each value of
            `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`,
            `SD_TPU_FLASH_BWD`: which launch counters move, and the output (and
@@ -73,10 +78,12 @@ Phases, each printed as one JSON line:
            prints s/step, img/s and peak memory.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
-           default and the opt-in configuration, and the same for one
-           optimizer step of train_ldm and one step of train_kl_vae.
+           default and the opt-in configuration, the serve phase's grouped
+           bucket-4 generate, and the same for one optimizer step of
+           train_ldm and one step of train_kl_vae.
 The build line carries the registers and spills of the flash kernels' head
-dim 256 and 512 instantiations. The flash training kernels are also held at
+dim 256 and 512 instantiations, of the inference forwards at the path's
+head dims, and their dynamic shared memory. The flash training kernels are also held at
 head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
 and a ragged [1, 1000, 1300, 1, 512]), with the backend
 `scaled_dot_product_attention` ran there; their row in the kernel table is
@@ -118,8 +125,9 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "flash_attention_exp_bf16_pv_int8", "flash_attention_pipelined_exp_bf16",
            "flash_attention_hpacked_exp_bf16", "flash_attention_hpacked_pv_int8",
            "flash_attention_hpacked_exp_bf16_pv_int8",
-           # route: inference flash launches served by flash_attention_sm90.cu
-           "flash_fwd_sm90")
+           # routes: inference flash launches served by flash_attention_sm90.cu,
+           # flash_attention_sm90_pv8.cu and flash_attention_wide.cu
+           "flash_fwd_sm90", "flash_fwd_sm90_pv8", "flash_fwd_wide")
 
 
 def launches_of(**nonzero) -> dict:
@@ -128,20 +136,23 @@ def launches_of(**nonzero) -> dict:
 
 # launches of one generate() at 512², 50 steps: 10 self-attention and 10
 # GEGLU calls per UNet step, the decoder's mid-block attention and 18 convs;
-# the head-packed launches (d = 40, 80) on the Hopper route
+# the head-packed launches (d = 40, 80) on the Hopper route, the decoder's
+# (d = 512) on the wide kernel
 EXPECTED_LAUNCHES = launches_of(flash_attention=1, flash_attention_hpacked=500,
-                                flash_fwd_sm90=500, geglu_ff=500, conv3x3_same=18)
+                                flash_fwd_sm90=500, flash_fwd_wide=1, geglu_ff=500,
+                                conv3x3_same=18)
 # the opt-in configuration: the TPU package's switches that reach kernels
 OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
 # ... and its launches per generate: 57 of the UNet's 61 GroupNorms and 15 of
 # its 16 cross-attentions per step, the decoder's mid-block attention through
 # the pipelined sweep (tests/test_torch_structure.py derives these)
 EXPECTED_LAUNCHES_OPTIN = launches_of(
-    flash_attention_pipelined=1, flash_attention_hpacked=500, flash_fwd_sm90=500, geglu_ff=500,
-    conv3x3_same=18, group_norm=2850, crossattn_kv=750)
+    flash_attention_pipelined=1, flash_attention_hpacked=500, flash_fwd_sm90=500,
+    flash_fwd_wide=1, geglu_ff=500, conv3x3_same=18, group_norm=2850, crossattn_kv=750)
 # the serving phase's switches, and the launches of one grouped batch of
 # requests (bucket 4, 30 DDIM steps, CFG, 512²): the variant kernels in place
-# of the head-packed and the decoder's flash kernel
+# of the head-packed and the decoder's flash kernel (the int8-PV Hopper
+# kernel and the wide kernel)
 SERVE = {"SD_TPU_FLASH_EXP": "bf16", "SD_TPU_FLASH_PV": "int8"}
 SERVE_STEPS = 30
 # UNet calls of 30 DDIM steps: the "uniform" striding of both packages,
@@ -149,7 +160,8 @@ SERVE_STEPS = 30
 SERVE_UNET_CALLS = 31
 EXPECTED_SERVE_LAUNCHES = launches_of(
     flash_attention_hpacked_exp_bf16_pv_int8=10 * SERVE_UNET_CALLS,
-    flash_attention_exp_bf16_pv_int8=1, geglu_ff=10 * SERVE_UNET_CALLS, conv3x3_same=18)
+    flash_fwd_sm90_pv8=10 * SERVE_UNET_CALLS, flash_attention_exp_bf16_pv_int8=1,
+    flash_fwd_wide=1, geglu_ff=10 * SERVE_UNET_CALLS, conv3x3_same=18)
 # launches of one optimizer step of train_ldm(sd512_train_config()): 10
 # self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
 # remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
@@ -165,11 +177,14 @@ EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_bwd_dq=2,
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, group_norm=46,
                         crossattn_kv=10),
-    "decoder": launches_of(flash_attention_pipelined=1, conv3x3_same=12, group_norm=11)}
+    "decoder": launches_of(flash_attention_pipelined=1, flash_fwd_wide=1, conv3x3_same=12,
+                           group_norm=11)}
 # ... and of the serving parity runs, every flash call through its variant
 PARITY_SERVE_LAUNCHES = {
-    "unet": launches_of(flash_attention_hpacked_exp_bf16_pv_int8=5, geglu_ff=5),
-    "decoder": launches_of(flash_attention_exp_bf16_pv_int8=1, conv3x3_same=12)}
+    "unet": launches_of(flash_attention_hpacked_exp_bf16_pv_int8=5, flash_fwd_sm90_pv8=5,
+                        geglu_ff=5),
+    "decoder": launches_of(flash_attention_exp_bf16_pv_int8=1, flash_fwd_wide=1,
+                           conv3x3_same=12)}
 # [B, S, C] of every GroupNorm and [B, N, M, heads, d, C] of every fused
 # cross-attention one opt-in generate of 2 prompts launches
 GN_SHAPES = [(4, 4096, 320), (4, 1024, 320), (4, 1024, 640), (4, 1024, 960),
@@ -217,8 +232,14 @@ PIPE_EXP_SHAPES = (SERVE_DECODER_SHAPE, (1, 1000, 1300, 8, 40))
 EXACT_TOL = {"mean": 1e-2, "int8_max": 8e-2, "bf16_max": 1e-2}
 # (softmax in bf16, PV in int8) of each inference variant
 VARIANTS = ((True, False), (False, True), (True, True))
-# the kv tile of csrc/flash_attention.cu's sweeps (the pipelined sweep's plain
-# version runs at it: its bf16 p depends on the running max of each tile)
+# each Hopper route of the inference flash forward and its counter
+# (`kernels/flash_attention.py ROUTE_COUNTERS`); the template has none
+ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
+                 "wide": "flash_fwd_wide"}
+ROUTE_COUNTERS = tuple(ROUTE_COUNTER.values())
+# the kv tile of the pipelined sweeps (csrc/flash_attention.cu's and
+# csrc/flash_attention_wide.cu's): its plain version runs at it, since its
+# bf16 p depends on the running max of each tile
 TEMPLATE_KV_TILE = 64
 
 
@@ -340,18 +361,22 @@ def l2_rel(out, ref) -> float:
     return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
-def template_forward(q, k, v, exp_bf16: bool = False):
-    """The template's serial sweep (`csrc/flash_attention.cu`) over [B, S, H, D]
-    views, launched through its plan: what served the inference launches at
-    head dims up to 128 before `flash_attention_sm90.cu`, timed beside it in
-    the same run (`generic_ms`)."""
+def route_forward(q, k, v, route: str = "template", exp_bf16: bool = False,
+                  pv_int8: bool = False, pipelined: bool = False, block_k: int = 0):
+    """One sweep of one source over [B, S, H, D] views, launched through its
+    plan: the template (`csrc/flash_attention.cu`), which served every
+    inference launch the Hopper kernels serve now and is timed beside them in
+    the same run (`generic_ms`), or a Hopper route's serial sweep (the
+    pipelined sweep's yardstick of bits). `block_k` is the int8 PV's tile."""
     import torch
 
     from sd_tpu_torch.kernels import flash_attention as fa
 
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    name = "flash_attention_pipelined" if pipelined else "flash_attention"
     fa._launch(q, k, v, out, q.shape[-1] ** -0.5,
-               fa.Plan("flash_attention", "template", False, exp_bf16, False, 0))
+               fa.Plan(fa.launch_name(name, exp_bf16, pv_int8), route, pipelined, exp_bf16,
+                       pv_int8, block_k))
     return out
 
 
@@ -388,7 +413,7 @@ def kernel_cases(gen):
             ref=lambda q=q, k=k, v=v, s=split, D=D: fa._xla_ref(
                 s(q).float(), s(k).float(), s(v).float(), D**-0.5),
             library=lambda q=q, k=k, v=v, h=heads: F.scaled_dot_product_attention(h(q), h(k), h(v)),
-            generic=lambda q=q, k=k, v=v, s=split: template_forward(s(q), s(k), s(v)),
+            generic=lambda q=q, k=k, v=v, s=split: route_forward(s(q), s(k), s(v)),
             view=lambda o, s=split: s(o),
             cost=attention_cost(4, S, S, H, D)))
     # ... [B, S, H, D]: a ragged case through the forced route
@@ -407,23 +432,27 @@ def kernel_cases(gen):
             ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5),
             library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 heads(q), heads(k), heads(v)),
-            generic=lambda q=q, k=k, v=v: template_forward(q, k, v),
+            generic=lambda q=q, k=k, v=v: route_forward(q, k, v),
             view=lambda o: o, table=False,
             cost=attention_cost(B, S, Skv, H, D)))
-    # row 1: VAE mid-block single-head attention [B, 4096, 1, 512], B = 2,
-    # and a ragged-kv case (kv not a multiple of the 64-row kv tile)
-    for B, S, Skv in ((2, 4096, 4096), (1, 512, 700)):
-        q, k, v = rnd(B, S, 1, 512), rnd(B, Skv, 1, 512), rnd(B, Skv, 1, 512)
+    # row 1 above head dim 128: the wide kernel (flash_attention_wide.cu),
+    # with the template's serial sweep timed beside it. VAE mid-block
+    # single-head attention [B, 4096, 1, 512], B = 2, a ragged-kv case (kv
+    # not a multiple of the 64-row kv tile), d = 136 and 256
+    for B, S, Skv, H, D in ((2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
+                            (1, 300, 257, 2, 136), (1, 1000, 1000, 2, 256)):
+        q, k, v = rnd(B, S, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
         heads = lambda t: t.transpose(1, 2)
         cases.append(dict(
-            name="flash_attention", shape=[B, S, Skv, 1, 512], route="template",
+            name="flash_attention", shape=[B, S, Skv, H, D], route="wide",
             kernel=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
-            plain=lambda q=q, k=k, v=v: fa._xla_ref(q, k, v, 512**-0.5),
-            ref=lambda q=q, k=k, v=v: fa._xla_ref(q.float(), k.float(), v.float(), 512**-0.5),
+            plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
+            ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5),
             library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 heads(q), heads(k), heads(v)),
-            view=lambda o: o,
-            cost=attention_cost(B, S, Skv, 1, 512)))
+            generic=lambda q=q, k=k, v=v: route_forward(q, k, v),
+            view=lambda o: o, table=D == 512,
+            cost=attention_cost(B, S, Skv, H, D)))
     # row 7: GEGLU at UNet levels 0 and 1, tokens = 2B·S
     for N, C in ((16384, 320), (4096, 640)):
         I = 4 * C
@@ -453,23 +482,26 @@ def kernel_cases(gen):
             view=lambda o: o,
             cost=conv3x3_cost(2, Hs, Hs, C, O)))
     # row 2 (opt-in): the pipelined kv sweep, at the decoder's mid-block
-    # attention and two ragged cases; also held against the serial kernel
+    # attention and two ragged cases; also held against the serial sweep of
+    # its source (the wide kernel at d = 512, the template at d = 40), with
+    # the template's pipelined sweep timed beside the wide kernel
     for B, S, Skv, H, D in ((2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
                             (1, 1000, 1300, 8, 40)):
         q, k, v = rnd(B, S, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
         heads = lambda t: t.transpose(1, 2)
+        route = "wide" if D > 128 else "template"
 
-        def piped(q=q, k=k, v=v):
-            with switches({"SD_TPU_FLASH_PIPE": "1"}):
-                return fa.flash_attention(q, k, v)
-
-        def vs_serial(out, q=q, k=k, v=v):
-            serial = template_forward(q, k, v)
+        def vs_serial(out, q=q, k=k, v=v, route=route):
+            serial = route_forward(q, k, v, route)
             return {"serial_max_abs_diff": rel_err(out, serial)[0],
                     "same_bits_as_serial": bool(torch.equal(out, serial))}
 
+        wide = {} if route == "template" else {"generic": lambda q=q, k=k, v=v: route_forward(
+            q, k, v, pipelined=True)}
         cases.append(dict(
-            name="flash_attention_pipelined", shape=[B, S, Skv, H, D], kernel=piped,
+            name="flash_attention_pipelined", shape=[B, S, Skv, H, D],
+            kernel=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
+            env={"SD_TPU_FLASH_PIPE": "1"}, route=route, **wide,
             plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
             ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(),
                                                        D**-0.5),
@@ -528,47 +560,69 @@ def kernel_cases(gen):
     return cases
 
 
+def route_moves(run) -> tuple[object, dict]:
+    """(run(), how far each flash route counter moved in it)."""
+    from sd_tpu_torch import kernels
+
+    before = {c: kernels.LAUNCHES[c] for c in ROUTE_COUNTERS}
+    out = run()
+    return out, {c: kernels.LAUNCHES[c] - before[c] for c in ROUTE_COUNTERS}
+
+
+def require_route(moved: dict, route: str, what: str) -> None:
+    """One launch on `route`'s counter (none on the template), none on another."""
+    want = {c: int(c == ROUTE_COUNTER.get(route)) for c in ROUTE_COUNTERS}
+    require(moved == want, f"{what} on the {route} route: counters moved {moved}")
+
+
 def phase_kernels(gen) -> dict:
     import torch
 
-    from sd_tpu_torch import kernels
-
-    best, sm90_rows = {}, []
+    best, hopper_rows = {}, {c: [] for c in ROUTE_COUNTERS}
     for case in kernel_cases(gen):
-        before = kernels.LAUNCHES["flash_fwd_sm90"]
-        out = case["view"](case["kernel"]())
-        on_sm90 = kernels.LAUNCHES["flash_fwd_sm90"] - before
-        torch.cuda.synchronize()
-        ref = case["ref"]()
-        err, rel = rel_err(out, ref)
-        del ref
-        b_ms, b_by, b_op = bound_ms(*case["cost"])
-        row = {
-            "phase": "kernel", "name": case["name"], "shape": case["shape"],
-            "max_abs_err": err, "rel_err": rel, **case.get("extra", lambda o: {})(out),
-            "ms": time_ms(case["kernel"]), "plain_ms": time_ms(case["plain"], 3),
-            "library_ms": (time_ms(case["library"]) if case["library"] else None),
-            "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
-        }
-        if "route" in case:
-            row.update(route=case["route"], how=case.get("how", ""))
-            require(on_sm90 == (case["route"] == "sm90"),
-                    f"{case['name']} {case['shape']} on the {case['route']} route")
-        if "generic" in case:
-            row["generic_ms"] = time_ms(case["generic"])
-            require(rel_err(case["view"](case["generic"]()), out)[1] <= KERNEL_TOL,
-                    f"{case['shape']}: the template agrees with the Hopper kernel")
-            sm90_rows.append(row)
-        emit(row)
-        require(rel <= KERNEL_TOL, f"{case['name']} {case['shape']}: max|Δ| = "
-                f"{rel:.3g}·max|ref| > {KERNEL_TOL}")
-        # the kernel table reports each kernel at its heaviest main-path shape
+        # a case's switches are set once around it, not around each timed call
+        with switches(case.get("env", {})):
+            best_row = _kernel_case(case, hopper_rows)
         if case.get("table", True) and (case["name"] not in best
                                         or case["cost"][0] > best[case["name"]][0]):
-            best[case["name"]] = (case["cost"][0], row)
+            best[case["name"]] = (case["cost"][0], best_row)
         torch.cuda.empty_cache()
     table = {name: row for name, (_, row) in best.items()}
-    return table, sm90_rows
+    return table, hopper_rows
+
+
+def _kernel_case(case, hopper_rows) -> dict:
+    """One case of the kernel phase: its checks and its row."""
+    import torch
+
+    out, moved = route_moves(lambda: case["view"](case["kernel"]()))
+    torch.cuda.synchronize()
+    ref = case["ref"]()
+    err, rel = rel_err(out, ref)
+    del ref
+    b_ms, b_by, b_op = bound_ms(*case["cost"])
+    row = {
+        "phase": "kernel", "name": case["name"], "shape": case["shape"],
+        "max_abs_err": err, "rel_err": rel, **case.get("extra", lambda o: {})(out),
+        "ms": time_ms(case["kernel"]), "plain_ms": time_ms(case["plain"], 3),
+        "library_ms": (time_ms(case["library"]) if case["library"] else None),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
+    }
+    if "route" in case:
+        row.update(route=case["route"], how=case.get("how", ""))
+        require_route(moved, case["route"], f"{case['name']} {case['shape']}")
+    if "generic" in case:
+        row["generic_ms"] = time_ms(case["generic"])
+        row["same_bits_twice"] = bool(torch.equal(out, case["view"](case["kernel"]())))
+        require(rel_err(case["view"](case["generic"]()), out)[1] <= KERNEL_TOL
+                and row["same_bits_twice"],
+                f"{case['shape']}: the template agrees with the Hopper kernel, which "
+                f"gives the same bits twice")
+        hopper_rows[ROUTE_COUNTER[case["route"]]].append(row)
+    emit(row)
+    require(rel <= KERNEL_TOL, f"{case['name']} {case['shape']}: max|Δ| = "
+            f"{rel:.3g}·max|ref| > {KERNEL_TOL}")
+    return row
 
 
 def _exact_errs(out, exact) -> tuple[float, float]:
@@ -586,9 +640,11 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
     TPU package's kv tile (the tile the wrapper hands the int8 PV kernel)
     and against exact fp32 attention, with its time, the plain version's,
     `scaled_dot_product_attention`'s (exact attention: no PyTorch call
-    computes the quantized function) and its bound; the bf16-exponential
-    head-packed launches, served by the Hopper kernel, with the template's
-    time beside it (`generic_ms`). Returns the table rows and those."""
+    computes the quantized function) and its bound; every launch a Hopper
+    kernel serves (all of them but the pipelined sweep at d = 40) with the
+    template's time beside it (`generic_ms`, the int8 PV at the same tile)
+    and the same bits on a second run. Returns the table rows and the
+    Hopper rows by route counter."""
     import torch
     import torch.nn.functional as F
 
@@ -597,9 +653,7 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
-    from sd_tpu_torch import kernels
-
-    best, sm90_rows = {}, []
+    best, hopper_rows = {}, {c: [] for c in ROUTE_COUNTERS}
     cases = [("flash_attention_hpacked", shape, True) for shape in SERVE_HPACKED_SHAPES]
     cases += [("flash_attention", shape, shape == SERVE_DECODER_SHAPE) for shape in VARIANT_SHAPES]
     for base, (B, Sq, Skv, H, D), table in cases:
@@ -626,10 +680,9 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
                 kernel = lambda kw=kw: fa.flash_attention(q, k, v, **kw)
                 plain = lambda kw=kw, D=D: fa._flash_tiled_ref(
                     q, k, v, D**-0.5, bk, kw["softmax_dtype"], kw["pv_quant"])
-            before = kernels.LAUNCHES["flash_fwd_sm90"]
-            out, ref = split(kernel()), split(plain())
-            require(kernels.LAUNCHES["flash_fwd_sm90"] - before == (plan.route == "sm90"),
-                    f"{plan.name} {[B, Sq, Skv, H, D]} on the {plan.route} route")
+            out, moved = route_moves(lambda: split(kernel()))
+            require_route(moved, plan.route, f"{plan.name} {[B, Sq, Skv, H, D]}")
+            ref = split(plain())
             torch.cuda.synchronize()
             _, vs_plain = rel_err(out, ref)
             worst, mean = _exact_errs(out, exact)
@@ -644,12 +697,15 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
                    "library_ms": library_ms, "library": "scaled_dot_product_attention (exact)",
                    "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
                    "route": plan.route, "kv_tile": bk}
-            if plan.route == "sm90":
-                generic = lambda: template_forward(split(q), split(k), split(v), exp_bf16)
+            if plan.route in ROUTE_COUNTER:
+                generic = lambda: route_forward(split(q), split(k), split(v), "template",
+                                                exp_bf16, pv_int8, block_k=bk)
                 row["generic_ms"] = time_ms(generic)
-                require(rel_err(generic(), out)[1] <= KERNEL_TOL,
-                        f"{name}: the template agrees with the Hopper kernel")
-                sm90_rows.append(row)
+                row["same_bits_twice"] = bool(torch.equal(out, split(kernel())))
+                require(rel_err(generic(), out)[1] <= KERNEL_TOL and row["same_bits_twice"],
+                        f"{name}: the template agrees with the Hopper kernel, which gives "
+                        f"the same bits twice")
+                hopper_rows[ROUTE_COUNTER[plan.route]].append(row)
             emit(row)
             what = f"{name} {[B, Sq, Skv, H, D]}"
             require(vs_plain <= KERNEL_TOL, f"{what}: {vs_plain:.3g} from its plain version")
@@ -673,20 +729,23 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
         q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
         exact = fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5)
 
-        def piped(q=q, k=k, v=v):
-            with switches({"SD_TPU_FLASH_PIPE": "1"}):
-                return fa.flash_attention(q, k, v, softmax_dtype=torch.bfloat16,
-                                          pv_quant="int8")
-
+        # (run under SD_TPU_FLASH_PIPE=1, set once around the calls below)
+        piped = lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, softmax_dtype=torch.bfloat16,
+                                                          pv_quant="int8")
         plain = lambda q=q, k=k, v=v, D=D: fa._flash_tiled_ref(
             q, k, v, D**-0.5, TEMPLATE_KV_TILE, torch.bfloat16, "none", pipelined=True)
         before = kernels_launched("flash_attention_pipelined_exp_bf16")
-        out = piped()
+        route = "wide" if D > 128 else "template"
+        with switches({"SD_TPU_FLASH_PIPE": "1"}):
+            out, moved = route_moves(piped)
+            piped_ms = time_ms(piped)
         require(kernels_launched("flash_attention_pipelined_exp_bf16") == before + 1,
                 "SD_TPU_FLASH_PIPE=1 with both variants runs the pipelined bf16 sweep")
-        # the template's serial sweep (which serves d = 512; at d = 40 the
-        # Hopper kernel serves the serial launch)
-        serial = template_forward(q, k, v, exp_bf16=True)
+        require_route(moved, route, f"pipelined bf16 flash {[B, Sq, Skv, H, D]}")
+        # the serial sweep of the same source (the wide kernel at d = 512; at
+        # d = 40 the template, launched through its plan: the Hopper kernel
+        # serves the serial launch there)
+        serial = route_forward(q, k, v, route, exp_bf16=True)
         ref = plain()
         _, vs_plain = rel_err(out, ref)
         worst, mean = _exact_errs(out, exact)
@@ -698,11 +757,18 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
                "plain_vs_exact": {"max": plain_worst, "mean": plain_mean},
                "serial_exp_bf16_max_abs_diff": rel_err(out, serial)[0],
                "same_bits_as_serial_exp_bf16": bool(torch.equal(out, serial)),
-               "ms": time_ms(piped), "plain_ms": time_ms(plain, 2),
+               "ms": piped_ms, "plain_ms": time_ms(plain, 2),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))),
                "library": "scaled_dot_product_attention (exact)",
-               "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op}
+               "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op, "route": route}
+        if route in ROUTE_COUNTER:
+            generic = lambda q=q, k=k, v=v: route_forward(q, k, v, exp_bf16=True,
+                                                          pipelined=True)
+            row["generic_ms"] = time_ms(generic)
+            require(rel_err(generic(), out)[1] <= KERNEL_TOL,
+                    "the template's pipelined bf16 sweep agrees with the wide kernel's")
+            hopper_rows[ROUTE_COUNTER[route]].append(row)
         emit(row)
         require(vs_plain <= KERNEL_TOL and worst <= plain_worst + KERNEL_TOL
                 and mean < EXACT_TOL["mean"] and row["same_bits_as_serial_exp_bf16"],
@@ -712,7 +778,7 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
             best[row["name"]] = (0, row)
         del exact
         torch.cuda.empty_cache()
-    return {name: row for name, (_, row) in best.items()}, sm90_rows
+    return {name: row for name, (_, row) in best.items()}, hopper_rows
 
 
 def kernels_launched(name: str) -> int:
@@ -907,8 +973,8 @@ def phase_parity(optin: bool = False, serve: bool = False) -> None:
     # latent 32² puts 1024 tokens through level 0: both UNet kernels run
     require(unet["flash_attention_hpacked"] == 5 and unet["flash_fwd_sm90"] == 5
             and unet["geglu_ff"] == 5, f"UNet parity launches {unet}")
-    require(decoder["flash_attention"] == 1 and decoder["conv3x3_same"] == 12,
-            f"decoder parity launches {decoder}")
+    require(decoder["flash_attention"] == 1 and decoder["flash_fwd_wide"] == 1
+            and decoder["conv3x3_same"] == 12, f"decoder parity launches {decoder}")
 
 
 def _timed_generate(pipe, prompts, env: dict) -> tuple[float, dict, object]:
@@ -1137,7 +1203,7 @@ def phase_serve(pipe, smi: str) -> dict:
     require(marked, "the server's watermark reads back")
     require(launches == EXPECTED_SERVE_LAUNCHES,
             f"serve launches {launches} == {EXPECTED_SERVE_LAUNCHES}")
-    return launches
+    return launches, rec.batches[0]
 
 
 # the other switch combinations, each with the launches of one serving UNet
@@ -1173,9 +1239,11 @@ def phase_switch_combinations(pipe) -> dict:
             launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         emit({"phase": "switches", "switches": env, "launches": launches,
               "finite": bool(torch.isfinite(out).all() and torch.isfinite(img).all())})
-        # the bf16-exponential head-packed launches take the Hopper route
-        want = {hpacked: 10, decoder: 1, "geglu_ff": 10, "conv3x3_same": 18,
-                **({} if hpacked.endswith("pv_int8") else {"flash_fwd_sm90": 10})}
+        # the head-packed launches take the Hopper route (its int8-PV form with
+        # the int8 PV), the decoder's (serial or pipelined) the wide kernel
+        route = "flash_fwd_sm90_pv8" if hpacked.endswith("pv_int8") else "flash_fwd_sm90"
+        want = {hpacked: 10, decoder: 1, "geglu_ff": 10, "conv3x3_same": 18, route: 10,
+                "flash_fwd_wide": 1}
         require(launches == want
                 and bool(torch.isfinite(out).all() and torch.isfinite(img).all()),
                 f"switches {env}: launches {launches} == {want}")
@@ -1666,26 +1734,33 @@ def wide_flash_registers() -> dict:
 
 def variant_flash_registers() -> dict:
     """Registers and spills of the inference forwards' instantiations at the
-    path's head dims (40 → 48, 80, 512): the Hopper kernel
-    (`flash_fwd_sm90<DP>`), the template's sweeps and its int8 PV kernel
-    (`flash_fwd_pv8<DP>`), variants included."""
+    path's head dims (40 → 48, 80, 512): the Hopper kernels
+    (`flash_fwd_sm90<DP>`, its int8-PV form `flash_fwd_sm90_pv8<DP>`, the
+    wide kernel `flash_fwd_wide<DP>`), the template's sweeps and its int8 PV
+    kernel (`flash_fwd_pv8<DP>`), variants included."""
     import re
 
     from sd_tpu_torch.kernels import _build
 
     out = {}
-    for lib, pattern in (("flash_attention_sm90", r"flash_fwd_sm90_kernelILi(\d+)ELb([01])E"),
-                         ("flash_attention", r"flash_fwd_pv8_kernelILi(\d+)E.*Lb([01])EE")):
+    flags = ("exp_bf16", "pipe", "pv_int8")
+    for lib, kind, pattern in (
+            ("flash_attention_sm90", "flash_fwd_sm90", r"flash_fwd_sm90_kernelILi(\d+)E(Lb[01]E)"),
+            ("flash_attention_sm90_pv8", "flash_fwd_sm90_pv8",
+             r"flash_fwd_sm90_pv8_kernelILi(\d+)E(Lb[01]E)"),
+            ("flash_attention_wide", "flash_fwd_wide",
+             r"flash_fwd_wide_kernelILi(\d+)E((?:Lb[01]E){3})"),
+            ("flash_attention", "flash_fwd_pv8", r"flash_fwd_pv8_kernelILi(\d+)E.*(Lb[01]E)E")):
         log = (_build.build_dir() / f"{lib}.log").read_text()
-        kind = "flash_fwd_sm90" if lib.endswith("sm90") else "flash_fwd_pv8"
 
         def keep(n, pattern=pattern):
             m = re.search(pattern, n)
             return bool(m) and int(m.group(1)) in (48, 80, 512)
 
         for mangled, vals in ptxas_report(log, keep).items():
-            dp, expb = re.search(pattern, mangled).groups()
-            out[f"{kind}<{dp}>" + (" exp_bf16" if expb == "1" else "")] = {
+            m = re.search(pattern, mangled)
+            on = [f == "1" for f in re.findall(r"Lb([01])E", m.group(2))]
+            out[f"{kind}<{m.group(1)}>" + "".join(" " + f for f, o in zip(flags, on) if o)] = {
                 "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
 
     def keep(n):
@@ -1695,32 +1770,45 @@ def variant_flash_registers() -> dict:
     log = (_build.build_dir() / "flash_attention.log").read_text()
     for mangled, vals in ptxas_report(log, keep).items():
         dp, (_, pipe, expb) = _flash_fwd_args(mangled)
-        flags = [f for f, on in (("pipe", pipe), ("exp_bf16", expb)) if on]
-        out[f"flash_fwd<{dp}>" + "".join(" " + f for f in flags)] = {
+        names = [f for f, on in (("pipe", pipe), ("exp_bf16", expb)) if on]
+        out[f"flash_fwd<{dp}>" + "".join(" " + f for f in names)] = {
             "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
     return out
 
 
 def flash_smem() -> dict:
-    """Dynamic shared memory of the inference forwards at the path's head
-    dims: [Hopper kernel (d ≤ 128), template serial, pipelined, int8 PV]
-    bytes."""
+    """Dynamic shared memory (bytes) of the inference forwards at the path's
+    head dims: each Hopper kernel where it serves, and the template's
+    serial, pipelined and int8 PV sweeps."""
     import ctypes
 
     from sd_tpu_torch.kernels import _build
 
     fn = _build.function("flash_attention", "sd_flash_fwd_smem", [ctypes.c_int] * 3)
     sm90 = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90_smem", [ctypes.c_int])
-    return {d: [sm90(d) if d <= 128 else None, fn(d, 0, 0), fn(d, 1, 0), fn(d, 0, 1)]
-            for d in (40, 80, 512)}
+    pv8 = _build.function("flash_attention_sm90_pv8", "sd_flash_fwd_sm90_pv8_smem",
+                          [ctypes.c_int])
+    wide = _build.function("flash_attention_wide", "sd_flash_fwd_wide_smem", [ctypes.c_int] * 2)
+    out = {}
+    for d in (40, 80, 512):
+        out[d] = ({"sm90": sm90(d), "sm90_pv8": pv8(d)} if d <= 128
+                  else {"wide": wide(d, 0), "wide_pv8": wide(d, 1)})
+        out[d]["template"] = [fn(d, 0, 0), fn(d, 1, 0), fn(d, 0, 1)]
+    return out
 
 
 def _family(name: str) -> str:
     low = name.lower()
     if "flash_fwd_sm90_kernel<" in name:
         return "flash Hopper forward (port)"
+    if "flash_fwd_sm90_pv8_kernel<" in name:
+        return "flash Hopper int8 PV (port)"
+    if "flash_fwd_wide_kernel<" in name:
+        return "flash wide forward (port)"
+    if "v_codes_kernel" in name:
+        return "flash int8 PV pre-pass (port)"
     if "flash_fwd_pv8_kernel<" in name or "v_scale_kernel" in name:
-        return "flash int8 PV (port)"
+        return "flash int8 PV, template (port)"
     if "flash_fwd_kernel<" in name:
         # template arguments <DP, BQ, BK, CW, LSE, PIPE>
         args = name.split("flash_fwd_kernel<")[1].split(">")[0].split(", ")
@@ -1751,6 +1839,31 @@ def phase_profile(pipe, prompts, optin: bool = False) -> None:
     opt-in switches."""
     with switches(OPT_IN if optin else {}):
         _profile_generate(pipe, prompts, "generate (opt-in)" if optin else "generate")
+
+
+def phase_profile_serve(pipe, grouped) -> None:
+    """Where the serve phase's grouped generate goes (`--profile`): the call
+    the batcher made for the four grouped requests (bucket 4, 30 DDIM steps,
+    CFG 7.5, 512², `grouped` = its prompts and keywords) again under the
+    serving switches and torch.profiler: device time by kernel family
+    against its wall time, and its launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sd_tpu_torch import kernels
+
+    prompts, kw = grouped
+    with switches(SERVE):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.generate(prompts, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    emit({"phase": "profile", "of": "serve: grouped bucket-4 generate", "switches": SERVE,
+          "launches": launches, **_device_breakdown(prof, wall)})
 
 
 def _profile_generate(pipe, prompts, of: str) -> None:
@@ -1922,8 +2035,8 @@ def main() -> int:
           "flash_fwd_smem_bytes": flash_smem()})
 
     gen = torch.Generator("cuda").manual_seed(0)
-    table, sm90_rows = phase_kernels(gen)
-    variant_table, sm90_variant_rows = phase_variant_kernels(gen)
+    table, hopper_rows = phase_kernels(gen)
+    variant_table, hopper_variant_rows = phase_variant_kernels(gen)
     table.update(variant_table)
     train_rows = phase_train_kernels(gen)
     phase_attention_switches()
@@ -1932,12 +2045,13 @@ def main() -> int:
     phase_parity(serve=True)
     launches, pipe, prompts, images = phase_e2e()
     launches_optin = phase_e2e_optin(pipe, prompts, images)
-    launches_serve = phase_serve(pipe, smi)
+    launches_serve, grouped = phase_serve(pipe, smi)
     launches_switches = phase_switch_combinations(pipe)
     profiling = "--profile" in sys.argv[1:]
     if profiling:
         phase_profile(pipe, prompts)
         phase_profile(pipe, prompts, optin=True)
+        phase_profile_serve(pipe, grouped)
     del pipe
     torch.cuda.empty_cache()
     phase_train_parity()
@@ -1955,15 +2069,21 @@ def main() -> int:
     # sd_tpu, where no model calls it)
     src = "sd_tpu_torch/csrc/"
     tpu = "sd_tpu/kernels/"
-    sources = {"flash_attention": (src + "flash_attention.cu", tpu + "flash_attention.py:66"),
-               "flash_attention_pipelined": (src + "flash_attention.cu",
+    # (the rows of flash_attention and flash_attention_pipelined are d = 512)
+    sources = {"flash_attention": (src + "flash_attention_wide.cu", tpu + "flash_attention.py:66"),
+               "flash_attention_pipelined": (src + "flash_attention_wide.cu",
                                              tpu + "flash_attention.py:123"),
                "flash_attention_hpacked": (src + "flash_attention_sm90.cu",
                                            tpu + "flash_attention.py:293"),
-               # the route counter of flash_attention_sm90.cu: rows 1 and 3 at
-               # head dims up to 128, serial sweep, no int8 PV
+               # the route counters: flash_attention_sm90.cu (rows 1 and 3 at
+               # head dims up to 128, serial sweep, no int8 PV), its int8-PV
+               # form, and flash_attention_wide.cu (rows 1 and 2 above 128)
                "flash_fwd_sm90": (src + "flash_attention_sm90.cu",
                                   tpu + "flash_attention.py:66, :293"),
+               "flash_fwd_sm90_pv8": (src + "flash_attention_sm90_pv8.cu",
+                                      tpu + "flash_attention.py:66, :293, _pv_int8 :44"),
+               "flash_fwd_wide": (src + "flash_attention_wide.cu",
+                                  tpu + "flash_attention.py:66, :123"),
                "flash_attention_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:421"),
                "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
                "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
@@ -1972,21 +2092,24 @@ def main() -> int:
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
                "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
                "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
-    # the inference variants: the bf16 exponential at d ≤ 128 on the Hopper
-    # kernel, every int8 PV and the d = 512 rows on the template
+    # the inference variants: at d ≤ 128 on the Hopper kernel (the int8 PV
+    # on its int8-PV form), the d = 512 rows on the wide kernel
     for exp_bf16, pv_int8 in VARIANTS:
-        sources[fa_launch_name("flash_attention", exp_bf16, pv_int8)] = sources["flash_attention"]
+        sources[fa_launch_name("flash_attention", exp_bf16, pv_int8)] = (
+            src + "flash_attention_wide.cu",
+            tpu + "flash_attention.py:66" + (", _pv_int8 :44" if pv_int8 else ""))
         sources[fa_launch_name("flash_attention_hpacked", exp_bf16, pv_int8)] = (
-            src + ("flash_attention.cu" if pv_int8 else "flash_attention_sm90.cu"),
+            src + ("flash_attention_sm90_pv8.cu" if pv_int8 else "flash_attention_sm90.cu"),
             tpu + "flash_attention.py:293" + (", _pv_int8 :44" if pv_int8 else ""))
     sources["flash_attention_pipelined_exp_bf16"] = sources["flash_attention_pipelined"]
-    # the Hopper kernel's row: level 0 of generate, with every other shape it
-    # was held at (its template time beside each)
+    # each Hopper route's row: its first main-path shape, with every other
+    # shape it was held at (the template's time beside each)
     keys = ("shape", "name", "how", "max_abs_err", "ms", "generic_ms", "plain_ms", "bound_ms",
-            "bound_by", "bound_op", "library_ms")
-    all_sm90 = sm90_rows + sm90_variant_rows
-    table["flash_fwd_sm90"] = {**all_sm90[0], "other_shapes": [
-        {k: r[k] for k in keys if k in r} for r in all_sm90[1:]]}
+            "bound_by", "bound_op", "library_ms", "kv_tile")
+    for counter in ROUTE_COUNTERS:
+        rows_ = hopper_rows[counter] + hopper_variant_rows[counter]
+        table[counter] = {**rows_[0], "other_shapes": [
+            {k: r[k] for k in keys if k in r} for r in rows_[1:]]}
     # the flash training kernels (rows 4-6) run on two paths: their row is
     # train_kl_vae's shape and launches, with train_ldm's beside them
     for name, by_shape in train_rows.items():
@@ -2006,7 +2129,7 @@ def main() -> int:
         paths[name] = ("one serving UNet call + decode, " + " ".join(
             f"{k}={v}" for k, v in env.items()), launches_switches)
     for name, n in launches_serve.items():
-        if n and name.endswith("pv_int8"):
+        if n and (name.endswith("pv_int8") or name == "flash_fwd_sm90_pv8"):
             paths[name] = ("serve (4 requests, one bucket-4 generate)", launches_serve)
     rows = []
     for name, (source, rep) in sources.items():

@@ -9,9 +9,10 @@
 // through strided [B, S, H, D] views (head stride D and row stride H*D for a
 // head-packed projection), serial sweep, with the fp32 exponential or the
 // bf16 one (EXPB, `p_dtype = bfloat16`: exp(bf16(bf16(x) * bf16(ln 2))) in
-// fp32, as XLA lowers jnp.exp2 on a bf16 operand). The pipelined sweep, the
-// int8 PV product, the LSE forward and head dims above 128 stay on
-// `flash_attention.cu`.
+// fp32, as XLA lowers jnp.exp2 on a bf16 operand). The int8 PV forward at
+// these head dims is `flash_attention_sm90_pv8.cu`, head dims above 128
+// `flash_attention_wide.cu`; the pipelined sweep at d <= 128 and the LSE
+// forward stay on `flash_attention.cu`.
 //
 // Math (the TPU kernel's): non-causal softmax(q k^T * scale) v in base 2
 // (log2(e) folded into the scale), running max m, running sum l and the
@@ -51,14 +52,9 @@
 //     skipped where no row of the warp moved its max.
 // A ping-pong schedule of the two warpgroups' products (named barriers)
 // and 1-block-per-warpgroup layouts were tried and not kept (PERF.md).
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
-
-using sdk::bf16;
 
 constexpr int BQ = 128;        // q rows per block: two warpgroups of 64
 constexpr int STAGES = 4;      // K/V ring depth
@@ -72,373 +68,6 @@ struct Cfg90 {
   static constexpr size_t SMEM =
       (size_t)(BQ * DP + STAGES * 2 * TILE) * 2 + (2 * STAGES + 1) * 8;
   static_assert(DP % 16 == 0 && DP <= 128, "head tiling");
-};
-
-// sd_tpu's jnp.exp2 on a bf16 operand: exp(bf16(bf16(x) * bf16(ln2))), in fp32
-__device__ __forceinline__ float exp2_bf16(float x) {
-  const float xb = __bfloat162float(__float2bfloat16_rn(x));
-  return expf(__bfloat162float(__float2bfloat16_rn(__fmul_rn(xb, 0.69140625f))));
-}
-
-// 2^x on the special-function unit (ex2.approx, 2 ulp; results below 2^-126
-// flush to 0, where they add nothing to a row sum of at least 1)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------------------
-// wgmma: D (fp32, 64 x N per warpgroup) += A (64 x 16) * B (16 x N). The
-// accumulator of thread (warp w, lane 4g + t) holds rows 16w + g and + 8,
-// columns 8i + 2t and + 1 of each n8 group i (d[4i .. 4i + 3]); a register
-// A operand is the mma.sync m16n8k16 A fragment of the warp's 16 rows.
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // D[64x16] += A[64x16] (registers) * B[16x16] (shared, MN-major)
-  __device__ static void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7},"
-        " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  // D[64x32] += A[64x16] (registers) * B[16x32] (shared, MN-major)
-  __device__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15},"
-        " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<48> {
-  // D[64x48] += A[64x16] (registers) * B[16x48] (shared, MN-major)
-  __device__ static void rs(float (&d)[24], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23},"
-        " {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // D[64x64] += A[64x16] (registers) * B[16x64] (shared, MN-major)
-  __device__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-  // D[64x64] (+)= A[64x16] (shared, K-major) * B[16x64] (shared, K-major)
-  __device__ static void ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<80> {
-  // D[64x80] += A[64x16] (registers) * B[16x80] (shared, MN-major)
-  __device__ static void rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39},"
-        " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<96> {
-  // D[64x96] += A[64x16] (registers) * B[16x96] (shared, MN-major)
-  __device__ static void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47},"
-        " {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<112> {
-  // D[64x112] += A[64x16] (registers) * B[16x112] (shared, MN-major)
-  __device__ static void rs(float (&d)[56], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55},"
-        " {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // D[64x128] += A[64x16] (registers) * B[16x128] (shared, MN-major)
-  __device__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55,"
-        " %56, %57, %58, %59, %60, %61, %62, %63},"
-        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-        : "memory");
-  }
-  // D[64x128] (+)= A[64x16] (shared, K-major) * B[16x128] (shared, K-major)
-  __device__ static void ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55,"
-        " %56, %57, %58, %59, %60, %61, %62, %63},"
-        " %64, %65, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate)
-        : "memory");
-  }
-};
-
-
-// element offset of (row r, column c) in a core-matrix tile of R rows: 8-column
-// chunks of R rows x 16 bytes, so each 8x8 core matrix is 128 contiguous bytes
-template <int R>
-__device__ __forceinline__ int cm_off(int r, int c) {
-  return (c >> 3) * (R * 8) + r * 8 + (c & 7);
-}
-
-// shared-memory matrix descriptor, no swizzle: leading / stride byte offsets.
-// K-major operands (Q, K): lbo = the chunk stride (R * 16), sbo = 8 rows
-// (128). MN-major V (N = head dim): lbo = 8 kv rows (128), sbo = the chunk
-// stride (BK * 16).
-__device__ __forceinline__ uint64_t gmma_desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// generic-proxy writes (the zeroed pad chunks) made visible to TMA and wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(b)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(b)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  const uint32_t a = smem_u32(b);
-  uint32_t ok;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok) : "r"(a), "r"(parity) : "memory");
-  } while (!ok);
-}
-// one box of a 4-D tensor map into shared memory, counted on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-         "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// A tensor map over a strided [B, S, H, D] view as 4-D (d, then s and h in
-// order of stride, b), boxes of 8 columns x R rows of one head; `hfirst`
-// says h comes before s.
-struct ViewMap {
-  CUtensorMap map;
-  int hfirst;
 };
 
 template <int DP, bool EXPB>
@@ -618,40 +247,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
                   oacc[4 * nt + 3] * inv_hi);
     }
   }
-}
-
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// the tensor map of a strided [B, S, H, D] bf16 view (strides in elements),
-// boxes of 8 columns x `rows` rows of one head; 0 or an error code
-int make_view_map(ViewMap* m, const bf16* base, int B, int S, int H, int D, long long sb,
-                  long long ss, long long sh, int rows) {
-  auto encode = tensor_map_encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  m->hfirst = sh <= ss;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(m->hfirst ? H : S),
-                              (cuuint64_t)(m->hfirst ? S : H), (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(m->hfirst ? sh : ss) * 2,
-                                 (cuuint64_t)(m->hfirst ? ss : sh) * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {8u, m->hfirst ? 1u : (cuuint32_t)rows,
-                             m->hfirst ? (cuuint32_t)rows : 1u, 1u};
-  const cuuint32_t estr[4] = {1u, 1u, 1u, 1u};
-  const CUresult r = encode(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                            const_cast<bf16*>(base), dims, strides, box, estr,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int DP, bool EXPB>

@@ -35,9 +35,12 @@ LAUNCHES: dict[str, int] = {
     "gn_silu_conv3x3": 0,
     "group_norm": 0,
     "crossattn_kv": 0,
-    # route counter: inference flash launches served by flash_attention_sm90.cu
-    # (each also counts under its wrapper's name above)
+    # route counters: inference flash launches served by flash_attention_sm90.cu,
+    # flash_attention_sm90_pv8.cu and flash_attention_wide.cu (each also counts
+    # under its wrapper's name above)
     "flash_fwd_sm90": 0,
+    "flash_fwd_sm90_pv8": 0,
+    "flash_fwd_wide": 0,
 }
 
 

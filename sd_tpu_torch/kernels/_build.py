@@ -4,8 +4,9 @@ Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
 plain C interface and loaded with `ctypes` — no PyTorch headers, so a build
 takes seconds. Libraries are built at first use into `build/sd_tpu_torch/`
 at the root of the checkout (override with `SD_TPU_TORCH_BUILD_DIR`), named
-by a hash of their sources and flags so an edited source rebuilds. All
-missing libraries are compiled at once, one `nvcc` process per source.
+by a hash of their sources (every header included) and flags so an edited
+source rebuilds. All missing libraries are compiled at once, one `nvcc`
+process per source.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_bwd", "geglu",
-           "conv2d", "groupnorm", "cross_attention")
+SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_sm90_pv8",
+           "flash_attention_wide", "flash_attention_bwd", "geglu", "conv2d", "groupnorm",
+           "cross_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +49,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for p in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for p in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(p.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"

@@ -1,4 +1,5 @@
 """Flash attention: hand-written CUDA kernels (`csrc/flash_attention_sm90.cu`,
+`csrc/flash_attention_sm90_pv8.cu`, `csrc/flash_attention_wide.cu`,
 `csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`), their plain
 PyTorch versions, and the `torch.autograd.Function` that trains through them.
 
@@ -6,11 +7,13 @@ Counterpart of `sd_tpu/kernels/flash_attention.py`. The TPU package has two
 forward kernels, `flash_attention` over [B, S, H, D] (transposed to
 [B*H, S, D] around the kernel) and `flash_attention_hpacked` over the
 projection-native [B, S, H*D]; here one kernel reads both through strides.
-Two CUDA sources serve the inference forward (`launch_plan`): the serial
-sweep at head dims up to 128 without int8 PV, the UNet's, runs the Hopper
-kernel of `flash_attention_sm90.cu` (counted under `flash_fwd_sm90` beside
-the wrapper's own counter); the pipelined sweep, the int8 PV and the wide
-heads run the template of `flash_attention.cu`.
+`launch_plan` decides which source serves an inference call: the serial
+sweep at head dims up to 128 runs `flash_attention_sm90.cu` (route counter
+`flash_fwd_sm90`) or, with the int8 PV, `flash_attention_sm90_pv8.cu`
+(`flash_fwd_sm90_pv8`); every sweep above 128 (serial, pipelined, int8 PV)
+runs `flash_attention_wide.cu` (`flash_fwd_wide`); the pipelined sweep at
+head dims up to 128 runs the template of `flash_attention.cu`. A route
+counter counts beside the wrapper's own counter.
 `flash_attention` is differentiable, as the TPU package's `jax.custom_vjp`
 is: with grad off it runs the inference forward; with grad on, the training
 forward that also keeps the base-2 row log-sum-exp, and a backward of a dQ
@@ -34,7 +37,10 @@ training path ignores both. Their plain version is a tiled online-softmax
 sweep (`_flash_tiled_ref`) that takes the kv tile: the int8 codes depend on
 it. The wrappers hand both the plain version and the CUDA kernel the TPU
 package's kv tile (`_tpu_block_k`, `_tpu_hpacked_block_k`), so the int8
-codes on the card are `sd_tpu`'s.
+codes on the card are `sd_tpu`'s. On the card the int8 PV runs a pre-pass
+launch that writes V's column scales and codes once per kv tile, in the
+order the kernels read them (`_v_codes_ref` is its plain version and
+`_flash_codes_ref` the sweep through its codes).
 """
 
 from __future__ import annotations
@@ -120,6 +126,74 @@ def _flash_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             pv = torch.einsum("bhqk,bkhd->bhqd", p_pv.to(v.dtype).float(), vt.float())
             p_sum = p.float().sum(dim=-1, keepdim=True)
         l = corr * l + p_sum
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _perm16() -> torch.Tensor:
+    """Byte p of each 16-row kv group of the int8 V codes holds kv row
+    perm16(p) (`csrc/sm90.cuh`): the order in which a thread finds its P
+    values in the fp32 accumulator (columns 2t, 2t + 1, 8 + 2t, 9 + 2t), so
+    the kernels pack P into the int8 A fragment with no shuffle."""
+    p = torch.arange(16)
+    return ((p & 2) << 2) | ((p >> 2) << 1) | (p & 1)
+
+
+def _padded_dim(d: int) -> int:
+    """The head dim a kernel tiles: a multiple of 16 up to 128, else 256 or 512."""
+    return _round_up(d, 16) if d <= 128 else 256 if d <= 256 else 512
+
+
+def _v_codes_ref(v: torch.Tensor, block_k: int, dp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the int8 PV pre-pass over v [B, Skv, H, D], per kv
+    super-tile of `block_k` rows (`_pv_int8`'s V half): (codes, vmul).
+    codes [B·H, ⌈Skv/T⌉·T/16, dp, 16] int8: for each 16-row kv group and
+    head-dim column, v_i8 = round-half-even(v / max(vs, 1e-30)) of the
+    group's rows in `_perm16` order, zeros past Skv and past D; vmul
+    [B·H, ⌈Skv/T⌉, dp] fp32: vs / 127 with vs = max|v| / 127 per column of
+    the super-tile, 0 past D."""
+    B, skv, H, D = v.shape
+    n_st = -(-skv // block_k)
+    vp = torch.zeros(B, n_st * block_k, H, dp, dtype=torch.float32, device=v.device)
+    vp[:, :skv, :, :D] = v.float()
+    vp = vp.permute(0, 2, 1, 3).reshape(B * H, n_st, block_k, dp)
+    vs = vp.abs().amax(dim=2) / 127.0                                   # [BH, n_st, dp]
+    codes = torch.round(vp / torch.clamp(vs, min=1e-30)[:, :, None]).to(torch.int8)
+    codes = codes.reshape(B * H, n_st * block_k // 16, 16, dp)[:, :, _perm16().to(v.device)]
+    return codes.transpose(2, 3).contiguous(), vs / 127.0
+
+
+def _flash_codes_ref(q: torch.Tensor, k: torch.Tensor, codes: torch.Tensor,
+                     vmul: torch.Tensor, scale: float, block_k: int,
+                     softmax_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`_flash_tiled_ref`'s int8 sweep with V's half taken from the pre-pass
+    (`_v_codes_ref`): each super-tile's p_i8 is put in the codes' permuted
+    row order and contracted with them, as the kernels do. The integer sums
+    are exact, so the output is the tiled sweep's."""
+    B, Sq, H, D = q.shape
+    n_st, dp = vmul.shape[1], vmul.shape[2]
+    perm = _perm16().to(q.device)
+    cod = codes.view(B, H, n_st, block_k // 16, dp, 16).transpose(-1, -2).float()
+    cod = cod.reshape(B, H, n_st, block_k, dp)
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), device=q.device)
+    acc = torch.zeros((B, H, Sq, D), device=q.device)
+    qf = q.float()
+    for st in range(n_st):
+        kt = k[:, st * block_k:(st + 1) * block_k]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt.float()) * (scale * LOG2E)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = _exp2((s - m_new).to(softmax_dtype))
+        corr = _exp2(m - m_new)
+        p_i8 = (p.float() * 127.0 + 0.5).to(torch.int8).float()
+        p_pad = torch.zeros((B, H, Sq, block_k), device=q.device)
+        p_pad[..., :kt.shape[1]] = p_i8
+        p_perm = p_pad.unflatten(-1, (block_k // 16, 16))[..., perm].flatten(-2)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p_perm, cod[:, :, st])[..., :D]
+        pv = pv * vmul.view(B, H, n_st, dp)[:, :, st, None, :D]
+        l = corr * l + p_i8.sum(dim=-1, keepdim=True) / 127.0
         acc = acc * corr + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
@@ -254,12 +328,22 @@ def _strides(*tensors) -> ctypes.Array:
 
 _FWD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float])
+# ... with the int8 PV's two scratch pointers after the four tensors
+_FWD_PV8_ARGS = _FWD_ARGS[:4] + [ctypes.c_void_p] * 2 + _FWD_ARGS[4:]
+
+
+# the route counter of each source an inference call can run on (the
+# template, flash_attention.cu, has none: its launches count under their names)
+ROUTE_COUNTERS = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
+                  "wide": "flash_fwd_wide"}
 
 
 class Plan(NamedTuple):
     """What one inference call launches on the card."""
     name: str          # its launch counter
-    route: str         # "sm90" (flash_attention_sm90.cu) or "template" (flash_attention.cu)
+    route: str         # "sm90" (flash_attention_sm90.cu), "sm90_pv8"
+    #                    (flash_attention_sm90_pv8.cu), "wide" (flash_attention_wide.cu)
+    #                    or "template" (flash_attention.cu)
     pipelined: bool
     exp_bf16: bool
     pv_int8: bool
@@ -271,15 +355,17 @@ def launch_plan(sq: int, skv: int, heads: int, d: int, exp_bf16: bool, pv_int8: 
     """The inference launch of a [B, S, H, D] (or head-packed) call, decided
     on every device, so a CPU or meta run makes the card's choice: the
     pipelined sweep where the switch holds ([B, S, H, D] only), which keeps
-    the bf16 exponential and drops the int8 PV, as the TPU package's does;
-    the serial sweep at head dims up to 128 without int8 PV on the Hopper
-    kernel, everything else on the template."""
+    the bf16 exponential and drops the int8 PV, as the TPU package's does.
+    Above head dim 128 every sweep runs the wide kernel; up to 128 the serial
+    sweep runs the Hopper kernel (its int8-PV form with the int8 PV) and the
+    pipelined sweep the template."""
     pipelined = not hpacked and flash_pipelined_ok(skv, d)
     pv_int8 = pv_int8 and not pipelined
     base = ("flash_attention_hpacked" if hpacked
             else "flash_attention_pipelined" if pipelined else "flash_attention")
     block_k = (_tpu_hpacked_block_k(sq, skv, heads * d) if hpacked else _tpu_block_k(skv, d))
-    route = "sm90" if d <= 128 and not pipelined and not pv_int8 else "template"
+    route = ("wide" if d > 128 else "template" if pipelined
+             else "sm90_pv8" if pv_int8 else "sm90")
     return Plan(launch_name(base, exp_bf16, pv_int8), route, pipelined, exp_bf16, pv_int8,
                 block_k)
 
@@ -298,7 +384,28 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
         fn = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90",
                              _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
         _build.check(fn(*args, int(plan.exp_bf16), stream), "sd_flash_fwd_sm90")
-        kernels.LAUNCHES["flash_fwd_sm90"] += 1
+    elif plan.route in ("sm90_pv8", "wide"):
+        # the int8 PV's scratch: V's codes and column factors per kv tile,
+        # written by the pre-pass launch
+        codes = vmul = None
+        if plan.pv_int8:
+            n_st, dp = -(-Skv // plan.block_k), _padded_dim(D)
+            codes = torch.empty((B * H, n_st * plan.block_k // 16, dp, 16), dtype=torch.int8,
+                                device=q.device)
+            vmul = torch.empty((B * H, n_st, dp), dtype=torch.float32, device=q.device)
+        scratch = (codes.data_ptr() if plan.pv_int8 else None,
+                   vmul.data_ptr() if plan.pv_int8 else None)
+        lead, rest = args[:4], args[4:]
+        if plan.route == "sm90_pv8":
+            fn = _build.function("flash_attention_sm90_pv8", "sd_flash_fwd_sm90_pv8",
+                                 _FWD_PV8_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            code = fn(*lead, *scratch, *rest, int(plan.exp_bf16), plan.block_k, stream)
+        else:
+            fn = _build.function("flash_attention_wide", "sd_flash_fwd_wide",
+                                 _FWD_PV8_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            code = fn(*lead, *scratch, *rest, int(plan.pipelined), int(plan.exp_bf16),
+                      int(plan.pv_int8), plan.block_k, stream)
+        _build.check(code, "sd_flash_fwd_" + plan.route)
     else:
         # the int8 PV's column scales per kv tile: a pre-pass launch fills them
         scales = (torch.empty((B * H, -(-Skv // plan.block_k), D), dtype=torch.float32,
@@ -308,6 +415,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
         code = fn(*args, int(plan.pipelined), int(plan.exp_bf16), int(plan.pv_int8),
                   plan.block_k, scales.data_ptr() if plan.pv_int8 else None, stream)
         _build.check(code, "sd_flash_fwd")
+    if plan.route in ROUTE_COUNTERS:
+        kernels.LAUNCHES[ROUTE_COUNTERS[plan.route]] += 1
     kernels.LAUNCHES[plan.name] += 1
 
 

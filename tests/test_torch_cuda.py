@@ -3,11 +3,12 @@
 bf16 inputs from a seed, the plain version computed in fp32 from the same
 inputs, max|Δ| ≤ 1e-2·max|ref| (bf16 output rounding plus p rounded to bf16
 in attention; q, p and the head outputs also round to bf16 in the fused
-cross-attention). The pipelined flash sweep gives the bits of the
-template's serial sweep. The Hopper flash forward (`flash_attention_sm90.cu`,
-d ≤ 128) is counted under its route and gives the same bits twice; the
-int8-PV variant is held against the plain sweep at the TPU package's kv
-tile.
+cross-attention). The pipelined flash sweep gives the bits of the serial
+sweep of its source (the template at d ≤ 128, the wide kernel above). The
+Hopper flash forwards (`flash_attention_sm90.cu` and its int8-PV form
+`flash_attention_sm90_pv8.cu` at d ≤ 128, `flash_attention_wide.cu` above)
+are counted under their routes and give the same bits twice; the int8-PV
+variants are held against the plain sweep at the TPU package's kv tile.
 The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
 and the sums run over up to 4096 rows). Every test needs a CUDA device and
@@ -82,6 +83,72 @@ def test_sm90_flash_kernel_on_card(cuda, b, sq, skv, h, d, packed, exp_bf16):
     assert kernels.LAUNCHES["flash_fwd_sm90"] == 1
     if exp_bf16:
         ref = fa._flash_tiled_ref(q, k, v, d**-0.5, 64, torch.bfloat16)
+    else:
+        ref = fa._xla_ref(q.float(), k.float(), v.float(), d**-0.5)
+    _within(out, ref)
+    assert torch.equal(out, run())
+
+
+# [B, Sq, Skv, H, D, head-packed] of the int8-PV Hopper forward
+# (flash_attention_sm90_pv8.cu): the served UNet's head-packed shapes at
+# batch 8, the TPU package's contract shape, a ragged case and d = 64, 128
+PV8_SHAPES = [(8, 4096, 4096, 8, 40, True), (8, 1024, 1024, 8, 80, True),
+              (1, 256, 256, 2, 40, False), (1, 1000, 1300, 8, 40, True),
+              (2, 512, 700, 4, 64, False), (1, 300, 257, 2, 128, False)]
+
+
+def _variant_run(q, k, v, h, packed, **kw):
+    if packed:
+        return lambda: fa.flash_attention_hpacked(q.flatten(2), k.flatten(2), v.flatten(2), h,
+                                                  **kw).unflatten(2, (h, q.shape[-1]))
+    return lambda: fa.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,packed", PV8_SHAPES)
+@pytest.mark.parametrize("exp_bf16", [False, True])
+def test_sm90_pv8_kernel_on_card(cuda, b, sq, skv, h, d, packed, exp_bf16):
+    """The int8-PV Hopper forward against the plain tiled sweep at the TPU
+    package's kv tile, counted under its route, the same bits twice."""
+    q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    sdt = torch.bfloat16 if exp_bf16 else torch.float32
+    run = _variant_run(q, k, v, h, packed, softmax_dtype=sdt, pv_quant="int8")
+    plan = fa.launch_plan(sq, skv, h, d, exp_bf16, True, packed)
+    assert plan.route == "sm90_pv8"
+    kernels.reset_launches()
+    out = run()
+    assert kernels.LAUNCHES["flash_fwd_sm90_pv8"] == 1 and kernels.LAUNCHES[plan.name] == 1
+    _within(out, fa._flash_tiled_ref(q, k, v, d**-0.5, plan.block_k, sdt, "int8"))
+    assert torch.equal(out, run())
+
+
+# [B, Sq, Skv, H, D] of the wide forward (flash_attention_wide.cu): the
+# decoder's mid block at batch 2 and 4 (serving), a ragged case, d = 136, 256
+WIDE_SHAPES = [(2, 4096, 4096, 1, 512), (4, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
+               (1, 300, 257, 2, 136), (1, 1000, 1000, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d", WIDE_SHAPES)
+@pytest.mark.parametrize("exp_bf16,pv_int8", [(False, False), (True, False), (False, True),
+                                              (True, True)])
+def test_wide_flash_kernel_on_card(cuda, b, sq, skv, h, d, exp_bf16, pv_int8):
+    """The wide forward, serial sweep, each variant, against its plain
+    version (exact attention with p in bf16; the tiled sweep at the TPU
+    package's kv tile for a variant), counted under its route, the same bits
+    twice."""
+    q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    sdt = torch.bfloat16 if exp_bf16 else torch.float32
+    run = _variant_run(q, k, v, h, False, softmax_dtype=sdt,
+                       pv_quant="int8" if pv_int8 else "none")
+    plan = fa.launch_plan(sq, skv, h, d, exp_bf16, pv_int8, False)
+    assert plan.route == "wide"
+    kernels.reset_launches()
+    out = run()
+    assert kernels.LAUNCHES["flash_fwd_wide"] == 1 and kernels.LAUNCHES[plan.name] == 1
+    if exp_bf16 or pv_int8:
+        ref = fa._flash_tiled_ref(q, k, v, d**-0.5, plan.block_k, sdt,
+                                  "int8" if pv_int8 else "none")
     else:
         ref = fa._xla_ref(q.float(), k.float(), v.float(), d**-0.5)
     _within(out, ref)
@@ -204,17 +271,20 @@ def test_forward_only_kernels_refuse_inputs_that_need_grad(cuda):
 @pytest.mark.parametrize("b,sq,skv,h,d", [(2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
                                           (1, 1000, 1300, 8, 40)])
 def test_pipelined_flash_kernel_on_card(cuda, monkeypatch, b, sq, skv, h, d):
-    """The pipelined sweep gives the bits of the template's serial sweep
-    (which serves the serial launches above head dim 128; at d = 40 it is
-    launched here through its plan, the Hopper kernel serving that launch)."""
+    """The pipelined sweep gives the bits of the serial sweep of its own
+    source: the wide kernel above head dim 128, the template at d = 40
+    (launched here through its plan, the Hopper kernel serving the serial
+    launch there)."""
     q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    route = "wide" if d > 128 else "template"
     serial = torch.empty_like(q)
-    fa._launch(q, k, v, serial, d**-0.5, fa.Plan("flash_attention", "template", False, False,
+    fa._launch(q, k, v, serial, d**-0.5, fa.Plan("flash_attention", route, False, False,
                                                  False, 0))
     monkeypatch.setenv("SD_TPU_FLASH_PIPE", "1")
     kernels.reset_launches()
     out = fa.flash_attention(q, k, v)
     assert kernels.LAUNCHES["flash_attention_pipelined"] == 1
+    assert kernels.LAUNCHES["flash_fwd_wide"] == (d > 128)
     _within(out, fa._xla_ref(q.float(), k.float(), v.float(), d**-0.5))
     assert torch.equal(out, serial)
 

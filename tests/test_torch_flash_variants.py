@@ -12,9 +12,13 @@ max|Δ| ≤ 1e-5·max|ref|.
 Also: the pipelined sweep keeps the bf16 exponential and drops the int8 PV
 (`_flash_attention_bhsd`'s precedence), the gradient path ignores both
 switches, the gates read the switches at call time, the kv tile an int8-PV
-launch hands the CUDA kernel is the TPU package's, and
-`SD_TPU_FLASH_BWD=chunked` trains through the plain chunked backward with
-`_bwd_chunked`'s gradients.
+launch hands the CUDA kernel is the TPU package's, the route `launch_plan`
+picks for every head dim and switch, and `SD_TPU_FLASH_BWD=chunked` trains
+through the plain chunked backward with `_bwd_chunked`'s gradients. The
+plain version of the int8 PV pre-pass (`_v_codes_ref`: V's codes, permuted
+within 16-row kv groups, and column factors per kv super-tile) gives the
+TPU package's `_pv_int8` codes and scales, and the sweep through those codes
+(`_flash_codes_ref`) gives the tiled sweep's output bit for bit.
 """
 
 from __future__ import annotations
@@ -136,7 +140,104 @@ def test_int8_pv_tile_is_the_tpu_packages(monkeypatch, b, sq, skv, h, d, packed)
                                                                    meta(skv))),
                                pv_quant="int8")
     assert len(seen) == len(plans) == 1
-    assert plans[0].block_k == seen[0] and plans[0].pv_int8 and plans[0].route == "template"
+    assert plans[0].block_k == seen[0] and plans[0].pv_int8
+    assert plans[0].route == ("wide" if d > 128 else "sm90_pv8")
+
+
+@pytest.mark.parametrize("d", [40, 80, 128, 136, 256, 512])
+@pytest.mark.parametrize("hpacked", [True, False])
+@pytest.mark.parametrize("pipe", ["0", "1"])
+@pytest.mark.parametrize("exp_bf16,pv_int8", [(False, False), (True, False), (False, True),
+                                              (True, True)])
+def test_launch_plan_routes(monkeypatch, d, hpacked, pipe, exp_bf16, pv_int8):
+    """The source each inference launch runs on the card, decided on every
+    device: above head dim 128 the wide kernel, whatever the sweep; up to
+    128 the pipelined sweep (where `SD_TPU_FLASH_PIPE=1` holds: [B, S, H, D]
+    calls only) the template, the int8 PV the Hopper kernel's int8-PV form,
+    the rest the Hopper kernel. The pipelined sweep keeps the bf16
+    exponential and drops the int8 PV; the launch counter names the variant
+    that runs."""
+    monkeypatch.setenv("SD_TPU_FLASH_PIPE", pipe)
+    plan = fa.launch_plan(4096, 4096, 8 if hpacked else 1, d, exp_bf16, pv_int8, hpacked)
+    piped = pipe == "1" and not hpacked
+    route = ("wide" if d > 128 else "template" if piped else "sm90_pv8" if pv_int8
+             else "sm90")
+    base = ("flash_attention_hpacked" if hpacked
+            else "flash_attention_pipelined" if piped else "flash_attention")
+    assert (plan.route, plan.pipelined, plan.exp_bf16, plan.pv_int8) == (
+        route, piped, exp_bf16, pv_int8 and not piped)
+    assert plan.name == fa.launch_name(base, exp_bf16, pv_int8 and not piped)
+    assert fa.ROUTE_COUNTERS.get(plan.route) == {
+        "sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8", "wide": "flash_fwd_wide",
+        "template": None}[route]
+
+
+def _tpu_pv_int8_codes(v_tile: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The TPU package's `_pv_int8` on one kv tile v [n, D] with p the n×n
+    identity: (its int8 codes of v, captured from its int32 product, and
+    its output, 127·v_i8 · vs/127 in fp32)."""
+    seen, real = [], jax.lax.dot_general
+
+    def spy(lhs, rhs, *a, **kw):
+        seen.append(np.asarray(rhs))
+        return real(lhs, rhs, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jax.lax, "dot_general", spy)
+        pv, _ = jfa._pv_int8(jnp.eye(v_tile.shape[0], dtype=jnp.float32), jnp.asarray(v_tile))
+    assert len(seen) == 1 and seen[0].dtype == np.int8
+    return seen[0], np.asarray(pv)
+
+
+@pytest.mark.parametrize("skv,d,block_k", [(256, 40, 128), (300, 40, 128), (700, 136, 384)])
+def test_v_codes_are_the_tpu_packages(skv, d, block_k):
+    """The plain pre-pass over v [1, Skv, 2, D] (bf16 values), super-tile by
+    super-tile, the last ragged where Skv is not a multiple of T: un-permuted,
+    its codes are `_pv_int8`'s for that tile (zeros past Skv and past D), and
+    its column factor vs / 127 gives `_pv_int8`'s product bit for bit."""
+    v = to_torch(nprand(1, skv, 2, d, seed=4)).bfloat16()
+    dp = fa._padded_dim(d)
+    codes, vmul = fa._v_codes_ref(v, block_k, dp)
+    n_st = -(-skv // block_k)
+    assert codes.shape == (2, n_st * block_k // 16, dp, 16) and codes.dtype == torch.int8
+    assert vmul.shape == (2, n_st, dp)
+    perm = fa._perm16()
+    assert sorted(perm.tolist()) == list(range(16))
+    # codes[bh, c, :, p] holds kv row 16c + perm[p]: undo the permutation
+    rows = torch.empty_like(codes)
+    rows[..., perm] = codes
+    rows = rows.transpose(2, 3).reshape(2, n_st * block_k, dp).numpy()
+    for h in range(2):
+        for st in range(n_st):
+            r0, r1 = st * block_k, min(skv, (st + 1) * block_k)
+            tile = v[0, r0:r1, h].float().numpy()
+            v_i8, pv = _tpu_pv_int8_codes(tile)
+            np.testing.assert_array_equal(rows[h, r0:r1, :d], v_i8)
+            assert not rows[h, r1:(st + 1) * block_k].any() and not rows[h, r0:r1, d:].any()
+            mine = (127 * v_i8.astype(np.float32)) * vmul[h, st, :d].numpy()
+            np.testing.assert_array_equal(mine, pv)
+            assert not vmul[h, st, d:].any()
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d,block_k", [(1, 256, 256, 2, 40, 128),
+                                                  (2, 50, 700, 1, 136, 384),
+                                                  (1, 33, 1300, 2, 80, 1024)])
+@pytest.mark.parametrize("exp", ["f32", "bf16"])
+def test_sweep_through_the_permuted_codes(b, sq, skv, h, d, block_k, exp):
+    """The int8 sweep through the pre-pass's permuted codes (how the kernels
+    contract P with V) gives the tiled int8 sweep's output bit for bit, the
+    last super-tile ragged; and, on dyadic q and k, the JAX package's
+    Pallas kernel's within the variants' tolerance."""
+    q, k, v = (to_torch(x.reshape(b, x.shape[1], h, d)) for x in qkv(b, sq, skv, h * d, seed=9))
+    codes, vmul = fa._v_codes_ref(v, block_k, fa._padded_dim(d))
+    got = fa._flash_codes_ref(q, k, codes, vmul, d**-0.5, block_k, TORCH_DT[exp])
+    assert torch.equal(got, fa._flash_tiled_ref(q, k, v, d**-0.5, block_k, TORCH_DT[exp],
+                                                "int8"))
+    if b == 1 and skv == 256:
+        ref = jfa.flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)), block_q=128,
+                                  block_k=block_k, interpret=True, softmax_dtype=JAX_DT[exp],
+                                  pv_quant="int8")
+        close(got, ref)
 
 
 def test_pipelined_sweep_drops_int8_and_keeps_bf16(monkeypatch):

@@ -25,9 +25,11 @@
   codec's two mid-block attentions at head dim 512 pass the flash gate, and
   the step reaches 2 LSE forwards, 2 dQ and 2 dK/dV and no other kernel;
 * the serving path at full width (a bucket-4 group of 30-step requests with
-  `SD_TPU_FLASH_EXP=bf16 SD_TPU_FLASH_PV=int8`, on `meta` tensors): 300
-  head-packed launches of the bf16-exponential int8-PV variant and 1 flash
-  launch of the decoder, the switches read as the JAX package reads them;
+  `SD_TPU_FLASH_EXP=bf16 SD_TPU_FLASH_PV=int8`, on `meta` tensors): 310
+  head-packed launches of the bf16-exponential int8-PV variant on the
+  int8-PV Hopper kernel (`flash_fwd_sm90_pv8`) and 1 flash launch of the
+  decoder on the wide kernel (`flash_fwd_wide`), the switches read as the
+  JAX package reads them;
 * the TPU package's attention switches (`SD_TPU_ATTN_IMPL`,
   `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`, `SD_TPU_FLASH_BWD`), each
   value: the port's gates agree with the JAX gates, and the route of a
@@ -35,8 +37,9 @@
   `dot_product_attention` (with and without `impl=`) is the JAX package's;
 * every flash launch of a full-width `generate` takes the route its plan
   says: the 500 head-packed launches the Hopper kernel (`flash_fwd_sm90`),
-  the decoder's the template; with `SD_TPU_ATTN_HPACKED=0` the 500 move to
-  `flash_attention` on the same route;
+  the decoder's the wide kernel (`flash_fwd_wide`); with
+  `SD_TPU_ATTN_HPACKED=0` the 500 move to `flash_attention` on the same
+  route;
 * the port (the serving modules included) and `chip_smoke.py` import
   neither JAX nor the JAX package;
 * the pipeline and the trainer refuse to run without a card unless asked
@@ -284,11 +287,12 @@ def _spy_plans(monkeypatch) -> list:
 
 def _plan_launches(plans, times: int = 1) -> Counter:
     """Launch counts of `plans` run `times` over: each under its counter and,
-    where the Hopper kernel serves it, under `flash_fwd_sm90`."""
+    where a Hopper kernel serves it, under its route's counter."""
     out = Counter()
     for p in plans:
         out[p.name] += times
-        out["flash_fwd_sm90"] += times * (p.route == "sm90")
+        if p.route in fa.ROUTE_COUNTERS:
+            out[fa.ROUTE_COUNTERS[p.route]] += times
     return +out
 
 
@@ -297,7 +301,8 @@ def test_generate_flash_launches_take_their_routes(tpu_gates, monkeypatch, hpack
     """Every flash launch of one default `generate` (2 prompts, 512², 50
     steps: a UNet call at batch 4 per step, one decode), call by call: the
     500 head-packed launches at d = 40 and 80 go to the Hopper kernel
-    (`flash_fwd_sm90`), the decoder's d = 512 launch to the template. With
+    (`flash_fwd_sm90`), the decoder's d = 512 launch to the wide kernel
+    (`flash_fwd_wide`). With
     `SD_TPU_ATTN_HPACKED=0` the self-attentions take [B, S, H, D] through
     `dot_product_attention`: the 500 move to `flash_attention`, on the same
     Hopper route."""
@@ -312,14 +317,15 @@ def test_generate_flash_launches_take_their_routes(tpu_gates, monkeypatch, hpack
     unet, decode = plans[:n_unet], plans[n_unet:]
     assert len(unet) == 10 and {(p.route, p.pipelined, p.pv_int8) for p in unet} == {
         ("sm90", False, False)}
-    assert [(p.name, p.route) for p in decode] == [("flash_attention", "template")]
+    assert [(p.name, p.route) for p in decode] == [("flash_attention", "wide")]
     launches = _plan_launches(unet, 50) + _plan_launches(decode)
     if hpacked == "1":
         want = {k: v for k, v in chip_smoke.EXPECTED_LAUNCHES.items() if v and "flash" in k}
         assert dict(launches) == want == {"flash_attention_hpacked": 500, "flash_fwd_sm90": 500,
-                                          "flash_attention": 1}
+                                          "flash_attention": 1, "flash_fwd_wide": 1}
     else:
-        assert dict(launches) == {"flash_attention": 501, "flash_fwd_sm90": 500}
+        assert dict(launches) == {"flash_attention": 501, "flash_fwd_sm90": 500,
+                                  "flash_fwd_wide": 1}
 
 
 # each value of the TPU package's attention switches (None: all at their defaults)
@@ -421,9 +427,11 @@ def _generate_launches(per_step, per_decode, steps=50):
             "flash_attention": both("flash_ok") - pipelined,
             "flash_attention_pipelined": pipelined,
             "flash_attention_hpacked": both("hpacked_flash_ok"),
-            # every head-packed call of these paths is at d ≤ 128 (the route
-            # tests check it call by call); the decoder's flash call is d = 512
+            # every head-packed call of these paths is at d ≤ 128 and every
+            # [B, S, H, D] call is the decoder's at d = 512, serial or
+            # pipelined (the route tests check it call by call)
             "flash_fwd_sm90": both("hpacked_flash_ok"),
+            "flash_fwd_wide": both("flash_ok"),
             "geglu_ff": both("geglu_wants_pallas"),
             "conv3x3_same": both("conv3x3_wants_pallas"),
             "group_norm": both("group_norm_wants_pallas"),
@@ -452,7 +460,8 @@ def test_optin_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, monke
     assert launches == chip_smoke.EXPECTED_LAUNCHES_OPTIN
     assert {k: v for k, v in launches.items() if v} == {
         "flash_attention_pipelined": 1, "flash_attention_hpacked": 500, "flash_fwd_sm90": 500,
-        "geglu_ff": 500, "conv3x3_same": 18, "group_norm": 2850, "crossattn_kv": 750}
+        "flash_fwd_wide": 1, "geglu_ff": 500, "conv3x3_same": 18, "group_norm": 2850,
+        "crossattn_kv": 750}
 
 
 def test_optin_kernel_shapes_of_chip_smoke_are_the_generate_shapes(tpu_gates, monkeypatch):
@@ -539,9 +548,10 @@ def test_served_generate_variant_launches(tpu_gates, monkeypatch, pipe):
     plans = _spy_plans(monkeypatch)
     per_step, per_decode = _walk_512(tpu_gates, 4)
     assert per_step["hpacked_flash_ok"] == 10 and per_decode["flash_ok"] == 1
-    # the int8 PV and the pipelined sweep stay on the template, at the TPU
-    # package's kv tile: no launch reaches the Hopper kernel
-    assert len(plans) == 11 and {p.route for p in plans} == {"template"}
+    # the head-packed int8 PV on the Hopper kernel's int8-PV form, the
+    # decoder's launch (int8 or pipelined) on the wide kernel, at the TPU
+    # package's kv tile
+    assert [p.route for p in plans] == ["sm90_pv8"] * 10 + ["wide"]
     assert {p.block_k for p in plans[:10]} == {1024} and plans[10].block_k == 512
     calls = len(jschedules.make_ddim_timesteps("uniform", chip_smoke.SERVE_STEPS, 1000))
     assert calls == chip_smoke.SERVE_UNET_CALLS == 31
@@ -551,9 +561,14 @@ def test_served_generate_variant_launches(tpu_gates, monkeypatch, pipe):
                     else {"flash_attention_exp_bf16_pv_int8": 1})
     assert {**unet, **decoder} == {"flash_attention_hpacked_exp_bf16_pv_int8": 310,
                                    **want_decoder}
+    routed = _plan_launches(plans[:10], calls) + _plan_launches(plans[10:])
+    assert dict(routed) == {**unet, **decoder, "flash_fwd_sm90_pv8": 310, "flash_fwd_wide": 1}
     assert chip_smoke.EXPECTED_SERVE_LAUNCHES == chip_smoke.launches_of(
-        flash_attention_hpacked_exp_bf16_pv_int8=310, flash_attention_exp_bf16_pv_int8=1,
-        geglu_ff=310, conv3x3_same=18)
+        flash_attention_hpacked_exp_bf16_pv_int8=310, flash_fwd_sm90_pv8=310,
+        flash_attention_exp_bf16_pv_int8=1, flash_fwd_wide=1, geglu_ff=310, conv3x3_same=18)
+    if pipe == "0":
+        assert chip_smoke.EXPECTED_SERVE_LAUNCHES == chip_smoke.launches_of(
+            **routed, geglu_ff=310, conv3x3_same=18)
 
 
 def test_conv_switch_agrees_with_the_tpu_gate(tpu_gates, monkeypatch):
