@@ -32,15 +32,17 @@
 // exponential), the second recomputes S bit for bit and runs the int8
 // product with
 //   * P quantized in the registers it is computed in, packed four to a
-//     register as the k32 A fragment of `wgmma .s32.s8.s8` with no shuffle:
-//     the pre-pass stores V's codes permuted within each 16-row kv group
-//     (`perm16`) to match;
+//     register as the k32 A fragment of `wgmma .s32.s8.s8` with no shuffle
+//     (the pre-pass stores V's codes permuted within each 16-row kv group,
+//     `perm16`, to match) and with no float-to-int conversion, which would
+//     share the special-function units with the exponential (`q8_bits`);
 //   * V's codes (written once by the pre-pass, K-major as the int8 B operand
 //     needs, since 8-bit wgmma has no transposed mode) arriving by one 1-D
 //     bulk copy per tile beside the K tile;
 //   * the int32 accumulator kept across the super-tile's 64-row sub-tiles
 //     and folded into O once (DP/2 registers a thread);
-//   * the integer row sum kept per lane and folded across the quad at the end.
+//   * the integer row sum kept per lane (one dp4a per four codes) and
+//     folded across the quad at the end.
 #include "sm90.cuh"
 
 namespace {
@@ -224,25 +226,11 @@ flash_fwd_sm90_pv8_kernel(const __grid_constant__ ViewMap mq, const __grid_const
       qk_tile<DP>(s, Qs, reinterpret_cast<const bf16*>(stage), wg);
       mask_tail(s, Skv - (st * spt + jj) * BK, t);
 #pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) {
-        int q8[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int k = 16 * kk + e;
-          const float x = fmaf(s[k], scale_log2, -((k & 2) ? m_hi : m_lo));
-          const float p = EXPB ? exp2_bf16(x) : fast_exp2(x);
-          q8[e] = (int)__fadd_rn(__fmul_rn(p, 127.f), 0.5f);   // trunc, p >= 0
-          if (k & 2)
-            isum_hi += q8[e];
-          else
-            isum_lo += q8[e];
-        }
-        // logical k 4t .. 4t + 3 of each 16 = columns 2t, 2t + 1, 8 + 2t, 9 + 2t
-        a[kk][0] = q8[0] | (q8[1] << 8) | (q8[4] << 16) | (q8[5] << 24);
-        a[kk][1] = q8[2] | (q8[3] << 8) | (q8[6] << 16) | (q8[7] << 24);
-        a[kk][2] = q8[8] | (q8[9] << 8) | (q8[12] << 16) | (q8[13] << 24);
-        a[kk][3] = q8[10] | (q8[11] << 8) | (q8[14] << 16) | (q8[15] << 24);
+      for (int k = 0; k < BK / 2; ++k) {
+        const float x = fmaf(s[k], scale_log2, -((k & 2) ? m_hi : m_lo));
+        s[k] = EXPB ? exp2_bf16(x) : fast_exp2(x);
       }
+      pack_p_i8<BK / 32>(a, s, isum_lo, isum_hi);
       const int8_t* V8 = reinterpret_cast<const int8_t*>(stage + C::KBYTES);
       wg_fence();
 #pragma unroll

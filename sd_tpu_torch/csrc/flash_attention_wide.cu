@@ -267,26 +267,13 @@ flash_fwd_wide_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
     if (PV8) {
       // ---- PV8 pass 2: p_i8 in registers, the int8 product in 64-column
       // chunks, each chunk's int32 sum into O at vs / 127 --------------------
-      uint32_t a[BK / 32][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) {
-        int q8[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int k = 16 * kk + e;
-          const float x = fmaf(s[k], scale_log2, -((k & 2) ? m_hi : m_lo));
-          const float p = EXPB ? exp2_bf16(x) : fast_exp2(x);
-          q8[e] = (int)__fadd_rn(__fmul_rn(p, 127.f), 0.5f);   // trunc, p >= 0
-          if (k & 2)
-            isum_hi += q8[e];
-          else
-            isum_lo += q8[e];
-        }
-        a[kk][0] = q8[0] | (q8[1] << 8) | (q8[4] << 16) | (q8[5] << 24);
-        a[kk][1] = q8[2] | (q8[3] << 8) | (q8[6] << 16) | (q8[7] << 24);
-        a[kk][2] = q8[8] | (q8[9] << 8) | (q8[12] << 16) | (q8[13] << 24);
-        a[kk][3] = q8[10] | (q8[11] << 8) | (q8[14] << 16) | (q8[15] << 24);
+      for (int k = 0; k < XV; ++k) {
+        const float x = fmaf(s[k], scale_log2, -((k & 2) ? m_hi : m_lo));
+        s[k] = EXPB ? exp2_bf16(x) : fast_exp2(x);
       }
+      uint32_t a[BK / 32][4];
+      pack_p_i8<BK / 32>(a, s, isum_lo, isum_hi);
       mbar_wait(vfull, vcount & 1);
       ++vcount;
       const int8_t* V8 = reinterpret_cast<const int8_t*>(Vb);

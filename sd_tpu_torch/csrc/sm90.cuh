@@ -30,6 +30,39 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// p_i8 = trunc(p * 127 + 0.5) (`_pv_int8`, p in [0, 1]) in the low byte of
+// the result, with no float-to-int conversion: 2^23 + t rounded toward zero
+// is 2^23 + trunc(t) for 0 <= t < 2^23, whose low mantissa bits are trunc(t)
+__device__ __forceinline__ uint32_t q8_bits(float p) {
+  return __float_as_uint(__fadd_rz(__fadd_rn(__fmul_rn(p, 127.f), 0.5f), 8388608.f));
+}
+
+// four p_i8 packed into one register, the first in the low byte
+__device__ __forceinline__ uint32_t pack_q8(float p0, float p1, float p2, float p3) {
+  return __byte_perm(__byte_perm(q8_bits(p0), q8_bits(p1), 0x0040),
+                     __byte_perm(q8_bits(p2), q8_bits(p3), 0x0040), 0x5410);
+}
+
+// the k32 int8 A fragments of a warpgroup's P from its fp32 accumulator
+// values p = s[0 .. 16 * KS) (exponentials taken, KS k32 steps): logical k
+// 4t .. 4t + 3 of each 16 columns holds columns 2t, 2t + 1, 8 + 2t, 9 + 2t
+// (the permutation the V codes carry, `perm16`); the integer row sums of
+// p_i8 (rows g and g + 8) are added to isum_lo and isum_hi
+template <int KS>
+__device__ __forceinline__ void pack_p_i8(uint32_t (&a)[KS][4], const float* s, int& isum_lo,
+                                          int& isum_hi) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const float* p = s + 16 * kk;
+    a[kk][0] = pack_q8(p[0], p[1], p[4], p[5]);
+    a[kk][1] = pack_q8(p[2], p[3], p[6], p[7]);
+    a[kk][2] = pack_q8(p[8], p[9], p[12], p[13]);
+    a[kk][3] = pack_q8(p[10], p[11], p[14], p[15]);
+    isum_lo = __dp4a((int)a[kk][0], 0x01010101, __dp4a((int)a[kk][2], 0x01010101, isum_lo));
+    isum_hi = __dp4a((int)a[kk][1], 0x01010101, __dp4a((int)a[kk][3], 0x01010101, isum_hi));
+  }
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -645,47 +678,67 @@ template <int DP>
 __global__ void __launch_bounds__(256)
 v_codes_kernel(const bf16* __restrict__ v, int8_t* __restrict__ codes, float* __restrict__ vmul,
                int H, int Skv, int D, int T, long long v_sb, long long v_ss, long long v_sh) {
-  __shared__ float red[8][32];
+  __shared__ unsigned colmax[DP];   // max|v| per column as bits (non-negative floats order as ints)
   __shared__ float den[DP];
   const int st = blockIdx.x, n_st = gridDim.x, bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const bf16* vb = v + b * v_sb + h * v_sh;
   const int r0 = st * T, r1 = min(r0 + T, Skv);
-  for (int c0 = 0; c0 < DP; c0 += 32) {
-    const int c = c0 + lane;
-    float mx = 0.f;
-    if (c < D)
-      for (int r = r0 + ty; r < r1; r += 8)
-        mx = fmaxf(mx, fabsf(__bfloat162float(vb[(long long)r * v_ss + c])));
-    red[ty][lane] = mx;
-    __syncthreads();
-    if (ty == 0 && c < DP) {
+  const int ncg = D / 8;            // 8-column groups, one 16-byte load each
+  for (int c = threadIdx.x; c < DP; c += 256) colmax[c] = 0u;
+  __syncthreads();
+  // the column max: thread (row phase, 8-column group) over the super-tile's rows
+  const int phases = 256 / ncg;
+  if (threadIdx.x < phases * ncg) {
+    const int cg = threadIdx.x % ncg;
+    float mx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = r0 + threadIdx.x / ncg; r < r1; r += phases) {
+      const uint4 u = *reinterpret_cast<const uint4*>(vb + (long long)r * v_ss + 8 * cg);
+      const bf16* e = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
-      for (int i = 1; i < 8; ++i) mx = fmaxf(mx, red[i][lane]);
-      const float vs = mx / 127.f;
-      den[c] = fmaxf(vs, 1e-30f);
-      vmul[((long long)bh * n_st + st) * DP + c] = vs / 127.f;
+      for (int j = 0; j < 8; ++j) mx[j] = fmaxf(mx[j], fabsf(__bfloat162float(e[j])));
     }
-    __syncthreads();
-  }
-  int8_t* out = codes + ((long long)bh * n_st * T + r0) * DP;
-  for (int idx = threadIdx.x; idx < (T / 16) * DP; idx += 256) {
-    const int cc = idx / DP, d = idx - cc * DP;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (d < D) {
-      const float dn = den[d];
 #pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const int r = r0 + 16 * cc + perm16(p);
-        if (r < Skv) {
-          const int q = __float2int_rn(__bfloat162float(vb[(long long)r * v_ss + d]) / dn);
-          w[p >> 2] |= (uint32_t)(q & 0xff) << (8 * (p & 3));
+    for (int j = 0; j < 8; ++j) atomicMax(&colmax[8 * cg + j], __float_as_uint(mx[j]));
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < DP; c += 256) {
+    const float vs = __uint_as_float(colmax[c]) / 127.f;
+    den[c] = fmaxf(vs, 1e-30f);
+    vmul[((long long)bh * n_st + st) * DP + c] = vs / 127.f;
+  }
+  __syncthreads();
+  // the codes: thread (16-row group, 8-column group) reads the group's rows
+  // in perm16 order and writes 16 bytes for each of its 8 columns
+  int8_t* out = codes + ((long long)bh * n_st * T + r0) * DP;
+  for (int idx = threadIdx.x; idx < (T / 16) * ncg; idx += 256) {
+    const int cc = idx / ncg, cg = idx - cc * ncg;
+    float dn[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dn[j] = den[8 * cg + j];
+    uint32_t w[8][4] = {};
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const int r = r0 + 16 * cc + perm16(p);
+      if (r < Skv) {
+        const uint4 u = *reinterpret_cast<const uint4*>(vb + (long long)r * v_ss + 8 * cg);
+        const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int q = __float2int_rn(__bfloat162float(e[j]) / dn[j]);
+          w[j][p >> 2] |= (uint32_t)(q & 0xff) << (8 * (p & 3));
         }
       }
     }
-    *reinterpret_cast<uint4*>(out + (long long)cc * DP * 16 + d * 16) =
-        make_uint4(w[0], w[1], w[2], w[3]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint4*>(out + (long long)cc * DP * 16 + (8 * cg + j) * 16) =
+          make_uint4(w[j][0], w[j][1], w[j][2], w[j][3]);
+  }
+  // zero codes for the pad columns [D, DP)
+  for (int idx = threadIdx.x; idx < (T / 16) * (DP - D); idx += 256) {
+    const int cc = idx / (DP - D), d = D + idx % (DP - D);
+    *reinterpret_cast<uint4*>(out + (long long)cc * DP * 16 + d * 16) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
