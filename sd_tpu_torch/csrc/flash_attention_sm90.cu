@@ -113,26 +113,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
       mbar_init(empty + i, THREADS / 32);
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   fence_async_smem();
   __syncthreads();
 
-  // rows [r0, r0 + R) of this head of a view, one TMA box per 8-column chunk
-  // (rows past the end arrive as zeros)
-  auto load = [&](const ViewMap& m, bf16* dst, int R, int r0, uint64_t* bar) {
-    for (int c = 0; c < dv; ++c)
-      tma_load_4d(dst + c * R * 8, &m.map, 8 * c, m.hfirst ? h : r0, m.hfirst ? r0 : h, b, bar);
-  };
   auto issue_kv = [&](int j) {
     bf16* Ks = KV + (j % ST) * 2 * TILE;
     mbar_expect_tx(full + j % ST, 2u * dv * BK * 16);
-    load(mk, Ks, BK, j * BK, full + j % ST);
-    load(mv, Ks + TILE, BK, j * BK, full + j % ST);
+    load_rows_tma(mk, Ks, BK, j * BK, b, h, dv, 0, 1, full + j % ST);
+    load_rows_tma(mv, Ks + TILE, BK, j * BK, b, h, dv, 0, 1, full + j % ST);
   };
   if (tid == 0) {
     mbar_expect_tx(qbar, (uint32_t)dv * BQ * 16);
-    load(mq, Qs, BQ, q0, qbar);
+    load_rows_tma(mq, Qs, BQ, q0, b, h, dv, 0, 1, qbar);
     for (int j = 0; j < ST && j < n_kv; ++j) issue_kv(j);
   }
 

@@ -697,6 +697,7 @@ def test_kl_vae_step_gates_and_launches(tpu_gates, monkeypatch, optin):
 
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
+    assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
     for want in (chip_smoke.EXPECTED_LAUNCHES, chip_smoke.EXPECTED_LAUNCHES_OPTIN,
                  chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES):
         assert set(want) == set(kernels.LAUNCHES)
