@@ -738,8 +738,9 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
         route = "wide" if D > 128 else "template"
         with switches({"SD_TPU_FLASH_PIPE": "1"}):
             out, moved = route_moves(piped)
+            launched = kernels_launched("flash_attention_pipelined_exp_bf16") - before
             piped_ms = time_ms(piped)
-        require(kernels_launched("flash_attention_pipelined_exp_bf16") == before + 1,
+        require(launched == 1,
                 "SD_TPU_FLASH_PIPE=1 with both variants runs the pipelined bf16 sweep")
         require_route(moved, route, f"pipelined bf16 flash {[B, Sq, Skv, H, D]}")
         # the serial sweep of the same source (the wide kernel at d = 512; at
