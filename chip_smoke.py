@@ -32,6 +32,17 @@ Phases, each printed as one JSON line:
            `flash_attention_wide.cu` (d = 512 at batch 2 and 4, a ragged
            case, d = 136 and 256; serial, pipelined, both variants); the
            int8 PV against the plain sweep at the TPU package's kv tile;
+           the training (LSE) forward on its Hopper route at every training
+           shape (the LSE epilogue of `flash_attention_sm90.cu` at d ≤ 128,
+           of `flash_attention_wide.cu` above; its kv sweep split in two
+           where the grid is under one wave, with the combine launch held
+           against its plain version as its own row), the template's LSE
+           sweep timed beside it (`generic_ms`), the same bits twice; the
+           3×3 conv (`conv2d_sm90.cu`) at the decoder's five shapes and a
+           ragged one, `conv2d.cu` timed beside it, the same bits twice;
+           the LSE rows also carry `device_ms` (torch.profiler's device
+           time per call) beside the template's and SDPA's, since at tens
+           of microseconds the host's enqueue time sets `ms`;
   attention_switches  one level-0 attention block under each value of
            `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`,
            `SD_TPU_FLASH_BWD`: which launch counters move, and the output (and
@@ -126,8 +137,13 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "flash_attention_hpacked_exp_bf16", "flash_attention_hpacked_pv_int8",
            "flash_attention_hpacked_exp_bf16_pv_int8",
            # routes: inference flash launches served by flash_attention_sm90.cu,
-           # flash_attention_sm90_pv8.cu and flash_attention_wide.cu
-           "flash_fwd_sm90", "flash_fwd_sm90_pv8", "flash_fwd_wide")
+           # flash_attention_sm90_pv8.cu and flash_attention_wide.cu, and
+           # training-forward launches served by the LSE epilogue of
+           # flash_attention_sm90.cu and flash_attention_wide.cu
+           "flash_fwd_sm90", "flash_fwd_sm90_pv8", "flash_fwd_wide",
+           "flash_lse_sm90", "flash_lse_wide",
+           # the combine launch of a training forward whose kv sweep is split
+           "flash_lse_combine")
 
 
 def launches_of(**nonzero) -> dict:
@@ -165,14 +181,17 @@ EXPECTED_SERVE_LAUNCHES = launches_of(
 # launches of one optimizer step of train_ldm(sd512_train_config()): 10
 # self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
 # remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
-# (tests/test_torch_structure.py derives these from the shape rules)
-EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_bwd_dq=40,
-                                      flash_bwd_dkv=40)
+# (tests/test_torch_structure.py derives these from the shape rules); the
+# training forward at d = 40 and 80 on flash_attention_sm90.cu's LSE epilogue
+EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_lse_sm90=80,
+                                      flash_bwd_dq=40, flash_bwd_dkv=40)
 # launches of one step of train_kl_vae(kl_f8_256_train_config()), 256²: the
 # codec's two mid-block attentions (encoder, decoder; [4, 1024, 1, 512])
-# in the one generator forward and its backward, no inference kernel
-EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_bwd_dq=2,
-                                      flash_bwd_dkv=2)
+# in the one generator forward and its backward, no inference kernel; the
+# training forward at d = 512 on flash_attention_wide.cu's LSE epilogue, its
+# kv sweep split (64 blocks) and combined
+EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2,
+                                      flash_lse_combine=2, flash_bwd_dq=2, flash_bwd_dkv=2)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, group_norm=46,
@@ -192,9 +211,18 @@ GN_SHAPES = [(4, 4096, 320), (4, 1024, 320), (4, 1024, 640), (4, 1024, 960),
              (4, 256, 2560), (4, 64, 1280), (4, 64, 2560)]
 XATTN_SHAPES = [(4, 4096, 77, 8, 40, 320), (4, 1024, 77, 8, 80, 640),
                 (4, 256, 77, 8, 160, 1280)]
-# the decoder's ResnetBlock convs at 128², 256², 512² (B, H = W, C, O), B = 2
+# the decoder's ResnetBlock convs at 128², 256², 512² (B, H = W, C, O), B = 2,
+# and the launches of each per generate (18 in all). models/codec.py Decoder
+# (ch 128, ch_mult (1, 2, 4, 4), 3 ResnetBlocks of 2 convs per up level) sends
+# only the ResnetBlocks' 3×3 convs (nn/layers.py Conv3x3) through the shape
+# rule (C, O multiples of 128, H·W ≥ 128², W ≥ 128): the mid block and up
+# level 3 at 64² fail it; up level 2 at 128² gives 6 [512 → 512]; up level 1
+# at 256² one [512 → 256] (its first conv) and 5 [256 → 256]; up level 0 at
+# 512² one [256 → 128] and 5 [128 → 128]. conv_in, the upsample convs and
+# conv_out are plain Conv2d layers, as in sd_tpu.
 DECODER_CONVS = [(2, 128, 512, 512), (2, 256, 512, 256), (2, 256, 256, 256),
                  (2, 512, 256, 128), (2, 512, 128, 128)]
+DECODER_CONV_LAUNCHES = (6, 1, 5, 1, 5)
 KERNEL_TOL = 1e-2
 LSE_TOL = 1e-3                                   # absolute, base-2 units
 GRAD_TOL = {"max_rel": 2e-2, "l2_rel": 1e-2}     # flash dq, dk, dv
@@ -237,6 +265,8 @@ VARIANTS = ((True, False), (False, True), (True, True))
 ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
                  "wide": "flash_fwd_wide"}
 ROUTE_COUNTERS = tuple(ROUTE_COUNTER.values())
+# ... and of the training forward (`kernels/flash_attention.py LSE_ROUTE_COUNTERS`)
+LSE_ROUTE_COUNTER = {"sm90": "flash_lse_sm90", "wide": "flash_lse_wide"}
 # the kv tile of the pipelined sweeps (csrc/flash_attention.cu's and
 # csrc/flash_attention_wide.cu's): its plain version runs at it, since its
 # bf16 p depends on the running max of each tile
@@ -350,6 +380,23 @@ def time_ms(fn, reps: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn`: the self device time of every kernel
+    it launches, summed over `reps` calls under torch.profiler, per call.
+    Unlike `time_ms` it leaves out the host's time to enqueue them, which
+    sets the pace of a call whose kernels take tens of microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()) / reps / 1e3
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -467,20 +514,24 @@ def kernel_cases(gen):
             ref=lambda a=args: geglu._geglu_xla(*(t.float() for t in a)),
             library=None, view=lambda o: o,
             cost=geglu_cost(N, C, I)))
-    # row 8: the decoder's ResnetBlock convs at 128², 256², 512², B = 2
-    for _, Hs, C, O in DECODER_CONVS:
-        x = rnd(2, Hs, Hs, C)
+    # row 8: the decoder's ResnetBlock convs at 128², 256², 512², B = 2, and
+    # a ragged case (H and W not multiples of the 2 x 128 tile): the Hopper
+    # conv (conv2d_sm90.cu), with conv2d.cu's timed beside it
+    for B, Hs, Ws, C, O in [(b, h, h, c, o) for b, h, c, o in DECODER_CONVS] + [
+            (1, 137, 200, 128, 128)]:
+        x = rnd(B, Hs, Ws, C)
         w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
             memory_format=torch.channels_last)
         b = rnd(O, scale=0.1)
         cases.append(dict(
-            name="conv3x3_same", shape=[2, Hs, Hs, C, O],
+            name="conv3x3_same", shape=[B, Hs, Ws, C, O], table=Hs == Ws,
             kernel=lambda x=x, w=w, b=b: conv2d.conv3x3_same(x, w, b),
             plain=lambda x=x, w=w, b=b: conv2d._xla_conv3x3(x, w, b),
             ref=lambda x=x, w=w, b=b: conv2d._xla_conv3x3(x.float(), w.float(), b.float()),
             library=lambda x=x, w=w, b=b: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1),
+            generic=lambda x=x, w=w, b=b: conv2d._launch_conv(x, w, b, "template"),
             view=lambda o: o,
-            cost=conv3x3_cost(2, Hs, Hs, C, O)))
+            cost=conv3x3_cost(B, Hs, Ws, C, O)))
     # row 2 (opt-in): the pipelined kv sweep, at the decoder's mid-block
     # attention and two ragged cases; also held against the serial sweep of
     # its source (the wide kernel at d = 512, the template at d = 40), with
@@ -618,7 +669,9 @@ def _kernel_case(case, hopper_rows) -> dict:
                 and row["same_bits_twice"],
                 f"{case['shape']}: the template agrees with the Hopper kernel, which "
                 f"gives the same bits twice")
-        hopper_rows[ROUTE_COUNTER[case["route"]]].append(row)
+        # each Hopper flash route's rows under its counter, the conv's under its name
+        hopper_rows.setdefault(ROUTE_COUNTER.get(case.get("route"), case["name"]),
+                               []).append(row)
     emit(row)
     require(rel <= KERNEL_TOL, f"{case['name']} {case['shape']}: max|Δ| = "
             f"{rel:.3g}·max|ref| > {KERNEL_TOL}")
@@ -814,8 +867,11 @@ def phase_train_kernels(gen) -> dict:
     level 0 and [1, 1024, 8, 80] at level 1 (microbatch 1), train_kl_vae's
     codec mid-block [4, 1024, 1, 512] (256², batch 4), a 512² codec's
     [1, 4096, 1, 512], and ragged cases at d = 40 and 512; against their
-    plain versions in fp32 from the same bf16 inputs; dK/dV run twice must
-    give the same bits. Library: `scaled_dot_product_attention`, its forward
+    plain versions in fp32 from the same bf16 inputs; the LSE forward on its
+    route (its counter and, where the sweep is split, the combine's moved by
+    one) and the template's LSE sweep beside it (`generic_ms`), the combine
+    launch of a split sweep as its own row; the LSE forward and dK/dV run
+    twice must give the same bits. Library: `scaled_dot_product_attention`, its forward
     for the LSE row and its backward (fwd+bwd − fwd) for the dQ and dK/dV
     rows together, with the backend that ran it. Returns {name: {shape:
     row}}."""
@@ -827,12 +883,29 @@ def phase_train_kernels(gen) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
+    from sd_tpu_torch import kernels
+
     rows_by_shape = {}
     for b, sq, skv, h, d in TRAIN_KERNEL_SHAPES:
         scale = d**-0.5
         q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
         f32 = lambda *ts: [t.float() for t in ts]
+        # the training forward on its Hopper route: one launch on that
+        # route's counter, the same bits twice, the template beside it
+        route, n_split = fa.lse_route(d), fa.lse_split(b, sq, skv, h, d)
+        counters = (*LSE_ROUTE_COUNTER.values(), fa.LSE_COMBINE_COUNTER)
+        before = {c: kernels.LAUNCHES[c] for c in counters}
         o, lse = fa.flash_attention_lse(q, k, v, scale)
+        moved = {c: kernels.LAUNCHES[c] - n for c, n in before.items()}
+        require(moved == {**{c: int(r == route) for r, c in LSE_ROUTE_COUNTER.items()},
+                          fa.LSE_COMBINE_COUNTER: int(n_split > 1)},
+                f"LSE forward {[b, sq, skv, h, d]} on the {route} route, {n_split} kv "
+                f"part(s): moved {moved}")
+        o2, lse2 = fa.flash_attention_lse(q, k, v, scale)
+        lse_same_bits = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        o_t, lse_t = fa._launch_lse(q, k, v, scale, "template")
+        vs_template = (rel_err(o_t, o)[1], (lse_t - lse).abs().max().item())
+        del o2, lse2, o_t, lse_t
         dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
         dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
@@ -857,7 +930,13 @@ def phase_train_kernels(gen) -> dict:
         rows = {
             "flash_attention_lse": dict(
                 max_abs_err=errs["o"][0], rel_err=errs["o"][1], lse_abs_err=lse_err,
+                route=route, kv_split=n_split, same_bits_twice=lse_same_bits,
+                template_rel_err=vs_template[0], template_lse_abs_diff=vs_template[1],
                 ms=time_ms(lambda: fa.flash_attention_lse(q, k, v, scale)),
+                generic_ms=time_ms(lambda: fa._launch_lse(q, k, v, scale, "template")),
+                device_ms=device_ms(lambda: fa.flash_attention_lse(q, k, v, scale)),
+                generic_device_ms=device_ms(lambda: fa._launch_lse(q, k, v, scale, "template")),
+                library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(*heads)),
                 plain_ms=time_ms(lambda: fa._flash_lse_ref(q, k, v, scale), 3),
                 library_ms=lib_fwd, library_call="scaled_dot_product_attention forward",
                 library_backend=backend,
@@ -881,6 +960,8 @@ def phase_train_kernels(gen) -> dict:
                              "dq and dk/dv together",
                 library_backend=backend, cost=attention_dkv_cost(*shape)),
         }
+        if n_split > 1:
+            rows["flash_lse_combine"] = _lse_combine_case(fa, q, k, v, scale, route, n_split)
         for name, r in rows.items():
             cost = r.pop("cost")
             b_ms, b_by, b_op = bound_ms(*cost)
@@ -890,6 +971,9 @@ def phase_train_kernels(gen) -> dict:
             rows_by_shape.setdefault(name, {})[tuple(shape)] = row
         require(errs["o"][1] <= KERNEL_TOL and lse_err <= LSE_TOL,
                 f"LSE forward {shape}: o {errs['o'][1]:.3g}·max|ref|, lse2 {lse_err:.3g}")
+        require(lse_same_bits and vs_template[0] <= KERNEL_TOL and vs_template[1] <= LSE_TOL,
+                f"LSE forward {shape}: the same bits twice ({lse_same_bits}), the template "
+                f"within o {vs_template[0]:.3g}·max|o|, lse2 {vs_template[1]:.3g}")
         for g in ("dq", "dk", "dv"):
             require(errs[g][1] <= GRAD_TOL["max_rel"] and l2[g] <= GRAD_TOL["l2_rel"],
                     f"{g} {shape}: max {errs[g][1]:.3g}·max|ref|, l2 {l2[g]:.3g}·‖ref‖")
@@ -897,6 +981,41 @@ def phase_train_kernels(gen) -> dict:
         del q, k, v, do, o, lse, dq, delta, dk, dv, heads
         torch.cuda.empty_cache()
     return rows_by_shape
+
+
+def _lse_combine_case(fa, q, k, v, scale, route, n_split) -> dict:
+    """The combine launch of a split training forward on the parts of one
+    real sweep: against its plain version (fp32 o within KERNEL_TOL, lse2
+    within LSE_TOL), the same bits twice; its bound is the bytes."""
+    import torch
+
+    b, sq, h, d = q.shape
+    _, _, part = fa._lse_sweep(q, k, v, scale, route, n_split)
+
+    def run():
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        fa.lse_combine(part, out, lse, n_split)
+        return out, lse
+
+    o1, l1 = run()
+    o2, l2 = run()
+    o_ref, l_ref = fa._lse_combine_ref(part, b, h, sq, d, n_split, torch.float32)
+    err, rel = rel_err(o1, o_ref)
+    lse_err = (l1 - l_ref).abs().max().item()
+    same = bool(torch.equal(o1, o2) and torch.equal(l1, l2))
+    require(rel <= KERNEL_TOL and lse_err <= LSE_TOL and same,
+            f"LSE combine {[b, sq, h, d]}: o {rel:.3g}·max|ref|, lse2 {lse_err:.3g}, "
+            f"same bits twice {same}")
+    rows = b * h * sq
+    return dict(max_abs_err=err, rel_err=rel, lse_abs_err=lse_err, route=route,
+                kv_split=n_split, same_bits_twice=same, ms=time_ms(run), device_ms=device_ms(run),
+                plain_ms=time_ms(lambda: fa._lse_combine_ref(part, b, h, sq, d, n_split,
+                                                             q.dtype), 3),
+                library_ms=None, library_call=None, library_backend=None,
+                # reads the parts, writes o and lse2; ~3 fp32 operations a value
+                cost=(3 * n_split * rows * d, 4 * n_split * rows * (d + 2) + rows * (2 * d + 4),
+                      PEAK_FP32))
 
 
 def _parity(name, build, inputs_fn, run, tol, gen_cpu, phase="parity"):
@@ -1266,9 +1385,10 @@ ATTN_SWITCH_CASES = (
     ({"SD_TPU_ATTN_IMPL": "xla"}, "self", {}),
     ({}, "cross", {}),
     ({"SD_TPU_ATTN_IMPL": "pallas"}, "cross", {"flash_attention": 1, "flash_fwd_sm90": 1}),
-    ({}, "train", {"flash_attention_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+    ({}, "train", {"flash_attention_lse": 1, "flash_lse_sm90": 1, "flash_bwd_dq": 1,
+                   "flash_bwd_dkv": 1}),
     ({"SD_TPU_ATTN_PACKED": "1"}, "train",
-     {"flash_attention_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+     {"flash_attention_lse": 1, "flash_lse_sm90": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
     ({"SD_TPU_FLASH_BWD": "chunked"}, "train", {"flash_attention": 1, "flash_fwd_sm90": 1}),
     ({"SD_TPU_ATTN_IMPL": "xla"}, "train", {}),
 )
@@ -1389,7 +1509,8 @@ def phase_train_parity() -> dict:
             f"UNet gradients within {TRAIN_GRAD_TOL}: global {row['grad_l2_rel']:.3g}, "
             f"attn1 q/k/v up to {max(per.values()):.3g}")
     # latent 32²: level 0 has 1024 tokens (5 self-attentions), level 1 256
-    require(launches["flash_attention_lse"] == 5 and launches["flash_bwd_dq"] == 5
+    require(launches["flash_attention_lse"] == 5 and launches["flash_lse_sm90"] == 5
+            and launches["flash_bwd_dq"] == 5
             and launches["flash_bwd_dkv"] == 5 and launches["flash_attention_hpacked"] == 0
             and launches["geglu_ff"] == 0, f"train parity launches {launches}")
     del cpu, gpu
@@ -1461,7 +1582,9 @@ def phase_train() -> dict:
            "losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
            "params": sum(p.numel() for p in state.params.values()),
            "param_elements_changed": changed, "ema_elements_moved": ema_moved,
-           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()}}
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "lse_route_launches_per_step": {c: launches[c] / steps for c in (
+               *LSE_ROUTE_COUNTER.values(), "flash_lse_combine")}}
     emit(row)
     require(len(hist) == steps, f"{steps} optimizer steps, ran {len(hist)}")
     require(all(math.isfinite(r["loss"]) and r["grad_norm"] > 0 and math.isfinite(r["grad_norm"])
@@ -1629,7 +1752,9 @@ def phase_klvae_train() -> dict:
                       if k.startswith("train/")},
            "params_g": sum(p.numel() for p in gen_params),
            "params_d": sum(p.numel() for p in state.params_d.values()),
-           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()}}
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "lse_route_launches_per_step": {c: launches[c] / steps for c in (
+               *LSE_ROUTE_COUNTER.values(), "flash_lse_combine")}}
     emit(row)
     require(len(hist) == steps, f"{steps} steps, ran {len(hist)}")
     require(all(math.isfinite(v) for r in hist for v in r.values()), "finite losses and logs")
@@ -1744,14 +1869,16 @@ def variant_flash_registers() -> dict:
     from sd_tpu_torch.kernels import _build
 
     out = {}
-    flags = ("exp_bf16", "pipe", "pv_int8")
-    for lib, kind, pattern in (
-            ("flash_attention_sm90", "flash_fwd_sm90", r"flash_fwd_sm90_kernelILi(\d+)E(Lb[01]E)"),
+    for lib, kind, pattern, flags in (
+            ("flash_attention_sm90", "flash_fwd_sm90",
+             r"flash_fwd_sm90_kernelILi(\d+)E((?:Lb[01]E){2})", ("exp_bf16", "lse")),
             ("flash_attention_sm90_pv8", "flash_fwd_sm90_pv8",
-             r"flash_fwd_sm90_pv8_kernelILi(\d+)E(Lb[01]E)"),
+             r"flash_fwd_sm90_pv8_kernelILi(\d+)E(Lb[01]E)", ("exp_bf16",)),
             ("flash_attention_wide", "flash_fwd_wide",
-             r"flash_fwd_wide_kernelILi(\d+)E((?:Lb[01]E){3})"),
-            ("flash_attention", "flash_fwd_pv8", r"flash_fwd_pv8_kernelILi(\d+)E.*(Lb[01]E)E")):
+             r"flash_fwd_wide_kernelILi(\d+)E((?:Lb[01]E){4})",
+             ("exp_bf16", "pipe", "pv_int8", "lse")),
+            ("flash_attention", "flash_fwd_pv8", r"flash_fwd_pv8_kernelILi(\d+)E.*(Lb[01]E)E",
+             ("exp_bf16",))):
         log = (_build.build_dir() / f"{lib}.log").read_text()
 
         def keep(n, pattern=pattern):
@@ -1763,6 +1890,13 @@ def variant_flash_registers() -> dict:
             on = [f == "1" for f in re.findall(r"Lb([01])E", m.group(2))]
             out[f"{kind}<{m.group(1)}>" + "".join(" " + f for f, o in zip(flags, on) if o)] = {
                 "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
+    # the 3×3 convs: the Hopper kernel and conv2d.cu's plain and PRO forms
+    for lib in ("conv2d_sm90", "conv2d"):
+        log = (_build.build_dir() / f"{lib}.log").read_text()
+        for mangled, vals in ptxas_report(log, lambda n: "conv3x3" in n).items():
+            name = ("conv3x3_sm90" if "sm90" in mangled
+                    else "conv3x3 pro" if "ILb1E" in mangled else "conv3x3")
+            out[name] = {"registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2]}
 
     def keep(n):
         fwd = _flash_fwd_args(n)
@@ -1801,11 +1935,19 @@ def flash_smem() -> dict:
 def _family(name: str) -> str:
     low = name.lower()
     if "flash_fwd_sm90_kernel<" in name:
-        return "flash Hopper forward (port)"
+        # template arguments <DP, EXPB, LSE>
+        lse = name.split("flash_fwd_sm90_kernel<")[1].split(">")[0].split(", ")[2] == "true"
+        return "flash LSE forward, Hopper (port)" if lse else "flash Hopper forward (port)"
     if "flash_fwd_sm90_pv8_kernel<" in name:
         return "flash Hopper int8 PV (port)"
     if "flash_fwd_wide_kernel<" in name:
-        return "flash wide forward (port)"
+        # template arguments <DP, EXPB, PIPE, PV8, LSE>
+        lse = name.split("flash_fwd_wide_kernel<")[1].split(">")[0].split(", ")[4] == "true"
+        return "flash LSE forward, wide (port)" if lse else "flash wide forward (port)"
+    if "conv3x3_sm90_kernel" in name or "pack_weights_kernel" in name:
+        return "conv3x3 Hopper (port)"
+    if "lse_combine_kernel" in name:
+        return "flash LSE combine (port)"
     if "v_codes_kernel" in name:
         return "flash int8 PV pre-pass (port)"
     if "flash_fwd_pv8_kernel<" in name or "v_scale_kernel" in name:
@@ -1814,7 +1956,7 @@ def _family(name: str) -> str:
         # template arguments <DP, BQ, BK, CW, LSE, PIPE>
         args = name.split("flash_fwd_kernel<")[1].split(">")[0].split(", ")
         if args[4] == "true":
-            return "flash LSE forward (port)"
+            return "flash LSE forward, template (port)"
         return "flash pipelined (port)" if args[5] == "true" else "flash (port)"
     if "conv3x3_kernel<true>" in name:
         return "GN-SiLU-conv3x3 (port)"
@@ -2033,7 +2175,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library": per_lib,
           "wide_flash_registers": wide_flash_registers(),
           "flash_variant_registers": variant_flash_registers(),
-          "flash_fwd_smem_bytes": flash_smem()})
+          "flash_fwd_smem_bytes": flash_smem(),
+          "conv3x3_sm90_smem_bytes": _build.function("conv2d_sm90", "sd_conv3x3_fwd_sm90_smem",
+                                                     [])()})
 
     gen = torch.Generator("cuda").manual_seed(0)
     table, hopper_rows = phase_kernels(gen)
@@ -2085,11 +2229,20 @@ def main() -> int:
                                       tpu + "flash_attention.py:66, :293, _pv_int8 :44"),
                "flash_fwd_wide": (src + "flash_attention_wide.cu",
                                   tpu + "flash_attention.py:66, :123"),
-               "flash_attention_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:421"),
+               # the training forward: its row is train_kl_vae's d = 512 (the
+               # wide kernel's LSE epilogue); its route counters, the Hopper
+               # forward's at d <= 128 (train_ldm) and the wide kernel's
+               "flash_attention_lse": (src + "flash_attention_wide.cu",
+                                       tpu + "flash_attention.py:421"),
+               "flash_lse_sm90": (src + "flash_attention_sm90.cu", tpu + "flash_attention.py:421"),
+               "flash_lse_wide": (src + "flash_attention_wide.cu", tpu + "flash_attention.py:421"),
+               # the combine launch of a split sweep (both routes)
+               "flash_lse_combine": (src + "flash_attention_sm90.cu",
+                                     tpu + "flash_attention.py:421"),
                "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
                "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
                "geglu_ff": (src + "geglu.cu", tpu + "geglu.py:48"),
-               "conv3x3_same": (src + "conv2d.cu", tpu + "conv2d.py:30"),
+               "conv3x3_same": (src + "conv2d_sm90.cu", tpu + "conv2d.py:30"),
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
                "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
                "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
@@ -2111,14 +2264,30 @@ def main() -> int:
         rows_ = hopper_rows[counter] + hopper_variant_rows[counter]
         table[counter] = {**rows_[0], "other_shapes": [
             {k: r[k] for k in keys if k in r} for r in rows_[1:]]}
+    # the conv's row: its largest decoder shape, with the other shapes (and
+    # conv2d.cu's time beside each)
+    table["conv3x3_same"]["other_shapes"] = [
+        {k: r[k] for k in keys if k in r} for r in hopper_rows["conv3x3_same"]
+        if r["shape"] != table["conv3x3_same"]["shape"]]
     # the flash training kernels (rows 4-6) run on two paths: their row is
-    # train_kl_vae's shape and launches, with train_ldm's beside them
+    # train_kl_vae's shape and launches, with train_ldm's beside them; the
+    # training forward's route counters each take their own shapes
+    device_keys = ("device_ms", "generic_device_ms", "library_device_ms")
+    train_keys = ("shape", "route", "kv_split", "max_abs_err", "lse_abs_err", "ms", "generic_ms",
+                  "plain_ms", "bound_ms", "bound_by", "bound_op", "library_ms",
+                  "library_backend", *device_keys)
+    lse_rows = train_rows["flash_attention_lse"]
+    for route, counter in LSE_ROUTE_COUNTER.items():
+        train_rows[counter] = {s_: r for s_, r in lse_rows.items() if r["route"] == route}
     for name, by_shape in train_rows.items():
-        table[name] = {**by_shape[KLVAE_ATTN_SHAPE], "other_shapes": [
-            {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "bound_op", "library_ms", "library_backend")}
-            for shape, r in by_shape.items() if shape != KLVAE_ATTN_SHAPE]}
+        first = KLVAE_ATTN_SHAPE if KLVAE_ATTN_SHAPE in by_shape else next(iter(by_shape))
+        table[name] = {**by_shape[first], "other_shapes": [
+            {k: r[k] for k in train_keys if k in r}
+            for shape, r in by_shape.items() if shape != first]}
     paths = {"flash_attention_lse": ("train_kl_vae", klvae["launches"]),
+             "flash_lse_sm90": ("train_ldm", train["launches"]),
+             "flash_lse_wide": ("train_kl_vae", klvae["launches"]),
+             "flash_lse_combine": ("train_kl_vae", klvae["launches"]),
              "flash_bwd_dq": ("train_kl_vae", klvae["launches"]),
              "flash_bwd_dkv": ("train_kl_vae", klvae["launches"]),
              "flash_attention_pipelined": ("generate, opt-in", launches_optin),
@@ -2142,9 +2311,12 @@ def main() -> int:
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "bound_op": r["bound_op"],
                "library_ms": r["library_ms"], "shape": r["shape"]}
-        for key in ("generic_ms", "other_shapes", "kv_tile"):
+        for key in ("generic_ms", "other_shapes", "kv_tile", *device_keys):
             if key in r:
                 row[key] = r[key]
+        if name == "conv3x3_same":
+            row["launches_by_shape"] = [[list(c), n] for c, n in zip(DECODER_CONVS,
+                                                                     DECODER_CONV_LAUNCHES)]
         if name in train_rows:
             row.update(launches_by_path={"train_kl_vae": klvae["launches"][name],
                                          "train_ldm": train["launches"][name]},

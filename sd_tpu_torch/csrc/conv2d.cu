@@ -2,9 +2,13 @@
 // y[b, i, j, o] = bias[o] + sum_{dy, dx, c} x[b, i+dy-1, j+dx-1, c] * w[o, dy, dx, c]
 // with zero padding, fp32 accumulation and one bf16 rounding of the output.
 //
-// Replaces the TPU kernel `_conv3x3_kernel` (sd_tpu/kernels/conv2d.py:30, impl
-// :51, behind `conv3x3_same`), which streams input rows HBM->VMEM with the
-// one-pixel halo assembled on chip and runs the 9 taps as 9 matmuls.
+// Computes the TPU kernel `_conv3x3_kernel` (sd_tpu/kernels/conv2d.py:30,
+// impl :51, behind `conv3x3_same`), which streams input rows HBM->VMEM with
+// the one-pixel halo assembled on chip and runs the 9 taps as 9 matmuls.
+// `conv3x3_same` now launches the Hopper kernel `conv2d_sm90.cu`; this file
+// keeps the `PRO` form below (the fused GroupNorm -> SiLU -> conv, on no
+// path, as in sd_tpu) and the plain form as the yardstick the Hopper kernel
+// is timed against in the same run.
 //
 // What bounds it on the H100: at the VAE decoder shapes (128^2 x 512 -> 512,
 // 256^2 x 512/256 -> 256, 512^2 x 256/128 -> 128) a conv does 18*C*O flops

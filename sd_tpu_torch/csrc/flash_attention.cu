@@ -1,11 +1,11 @@
 // Flash-attention forward (bf16 in, bf16 out, fp32 softmax state) on
-// `mma.sync`, the template of the flash forwards the Hopper kernels do not
-// serve: the LSE (training) forward and the pipelined sweep at head dims up
-// to 128 (the wrapper's `launch_plan` decides). The serial sweep at every
-// head dim, the int8 PV and the pipelined sweep above 128 now run
+// `mma.sync`, the template of the flash forwards. On the path it now serves
+// only the pipelined sweep at head dims up to 128 (the wrapper's
+// `launch_plan` decides). The serial sweep at every head dim, the int8 PV,
+// the pipelined sweep above 128 and the LSE (training) forward run
 // `flash_attention_sm90.cu`, `flash_attention_sm90_pv8.cu` and
 // `flash_attention_wide.cu`; their instantiations here remain as the
-// yardstick those kernels are timed against in the same run.
+// yardsticks those kernels are timed against in the same run.
 //
 // Replaces the TPU kernels `_flash_kernel` (sd_tpu/kernels/flash_attention.py:66,
 // the [B*H, S, D] forward behind `flash_attention`) and `_flash_hpacked_kernel`
@@ -13,10 +13,11 @@
 // `flash_attention_hpacked`) there. Both become this one kernel over strided
 // [B, S, H, D] views: the head stride is D for a [B, S, H*D] projection and
 // the row stride is H*D, so no layout copy enters or leaves either caller.
-// Compiled with LSE = true it also replaces `_flash_kernel_lse` (:421), the
+// Compiled with LSE = true it computes `_flash_kernel_lse` (:421), the
 // training forward: the same sweep, plus the base-2 row log-sum-exp
 // lse2 = m + log2(l) (NEG where l = 0) written to a [B*H, Sq] fp32 array for
-// the backward kernels (`flash_attention_bwd.cu`). Its bound is the same.
+// the backward kernels (`flash_attention_bwd.cu`). The training path runs
+// the Hopper forwards' LSE epilogue instead; this is its yardstick.
 // Compiled with PIPE = true it replaces `_flash_kernel_pipelined` (:123, the
 // opt-in `SD_TPU_FLASH_PIPE=1` variant of `_flash_kernel`): the kv sweep runs
 // one extra drain step, and step j issues Q K_j^T and the exp2 of tile j

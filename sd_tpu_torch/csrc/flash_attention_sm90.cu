@@ -9,10 +9,15 @@
 // through strided [B, S, H, D] views (head stride D and row stride H*D for a
 // head-packed projection), serial sweep, with the fp32 exponential or the
 // bf16 one (EXPB, `p_dtype = bfloat16`: exp(bf16(bf16(x) * bf16(ln 2))) in
-// fp32, as XLA lowers jnp.exp2 on a bf16 operand). The int8 PV forward at
-// these head dims is `flash_attention_sm90_pv8.cu`, head dims above 128
-// `flash_attention_wide.cu`; the pipelined sweep at d <= 128 and the LSE
-// forward stay on `flash_attention.cu`.
+// fp32, as XLA lowers jnp.exp2 on a bf16 operand). With LSE (fp32
+// exponential only, as `sd_tpu`'s `_fwd` ignores `p_dtype`) it also replaces
+// `_flash_kernel_lse` (:421), the training forward: the same sweep, and at
+// its end, where O is divided by l, lse2 = m + log2(l) (-1e30 where l = 0)
+// into a [B*H, Sq] fp32 array for the backward kernels, one lane of each
+// row's quad writing it (m is already in scaled base-2 units). The int8 PV
+// forward at these head dims is `flash_attention_sm90_pv8.cu`, head dims
+// above 128 `flash_attention_wide.cu`; the pipelined sweep at d <= 128
+// stays on `flash_attention.cu`.
 //
 // Math (the TPU kernel's): non-causal softmax(q k^T * scale) v in base 2
 // (log2(e) folded into the scale), running max m, running sum l and the
@@ -59,6 +64,7 @@ namespace {
 constexpr int BQ = 128;        // q rows per block: two warpgroups of 64
 constexpr int STAGES = 4;      // K/V ring depth
 constexpr int THREADS = 256;
+constexpr float NEG_LSE = -1e30f;   // lse2 of a row whose sum is 0 (`NEG_INF`)
 
 template <int DP>
 struct Cfg90 {
@@ -70,13 +76,14 @@ struct Cfg90 {
   static_assert(DP % 16 == 0 && DP <= 128, "head tiling");
 };
 
-template <int DP, bool EXPB>
+template <int DP, bool EXPB, bool LSE>
 __global__ void __launch_bounds__(THREADS, Cfg90<DP>::MINB)
 flash_fwd_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_constant__ ViewMap mk,
-                      const __grid_constant__ ViewMap mv, bf16* __restrict__ o, int H, int Sq,
-                      int Skv, int D, long long o_sb, long long o_ss, long long o_sh,
-                      float scale_log2) {
+                      const __grid_constant__ ViewMap mv, bf16* __restrict__ o,
+                      float* __restrict__ lse, int H, int Sq, int Skv, int D, long long o_sb,
+                      long long o_ss, long long o_sh, float scale_log2) {
   using C = Cfg90<DP>;
+  static_assert(!(LSE && EXPB), "the training forward takes the fp32 exponential");
   constexpr int BK = C::BK, TILE = C::TILE, ST = STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -229,6 +236,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
   const int r_lo = q0 + 64 * wg + 16 * wl + g, r_hi = r_lo + 8;
+  if (LSE && t == 0) {
+    // the training epilogue: lse2 = m + log2(l) (m is in scaled base-2 units)
+    float* lrow = lse + (long long)blockIdx.y * Sq;
+    if (r_lo < Sq) lrow[r_lo] = l_lo > 0.f ? m_lo + log2f(l_lo) : NEG_LSE;
+    if (r_hi < Sq) lrow[r_hi] = l_hi > 0.f ? m_hi + log2f(l_hi) : NEG_LSE;
+  }
 #pragma unroll
   for (int nt = 0; nt < DP / 8; ++nt) {
     const int col = nt * 8 + 2 * t;
@@ -243,30 +256,31 @@ flash_fwd_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
   }
 }
 
-template <int DP, bool EXPB>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int Sq,
-           int Skv, int D, const long long* st, float scale_log2, cudaStream_t stream) {
+template <int DP, bool EXPB, bool LSE>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
+           int Sq, int Skv, int D, const long long* st, float scale_log2, cudaStream_t stream) {
   using C = Cfg90<DP>;
   ViewMap mq, mk, mv;
   int e = make_view_map(&mq, q, B, Sq, H, D, st[0], st[1], st[2], BQ);
   if (!e) e = make_view_map(&mk, k, B, Skv, H, D, st[3], st[4], st[5], C::BK);
   if (!e) e = make_view_map(&mv, v, B, Skv, H, D, st[6], st[7], st[8], C::BK);
   if (e) return e;
-  auto kern = flash_fwd_sm90_kernel<DP, EXPB>;
+  auto kern = flash_fwd_sm90_kernel<DP, EXPB, LSE>;
   SDK_SET_SMEM(kern, C::SMEM);
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, o, H, Sq, Skv, D, st[9], st[10], st[11],
-                                           scale_log2);
+  kern<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, o, lse, H, Sq, Skv, D, st[9], st[10],
+                                           st[11], scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <bool EXPB>
-int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, int B, int H, int Sq, int Skv,
-        int D, const long long* strides, float scale_log2, cudaStream_t s) {
+
+template <bool EXPB, bool LSE>
+int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, float* L, int B, int H, int Sq,
+        int Skv, int D, const long long* strides, float scale_log2, cudaStream_t s) {
   switch ((D + 15) / 16 * 16) {
 #define SDK_DP(DPV) \
   case DPV:         \
-    return launch<DPV, EXPB>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
+    return launch<DPV, EXPB, LSE>(Q, K, V, O, L, B, H, Sq, Skv, D, strides, scale_log2, s);
     SDK_DP(16)
     SDK_DP(32)
     SDK_DP(48)
@@ -298,8 +312,22 @@ extern "C" int sd_flash_fwd_sm90(const void* q, const void* k, const void* v, vo
   const bf16* V = static_cast<const bf16*>(v);
   bf16* O = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return exp_bf16 ? fwd<true>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s)
-                  : fwd<false>(Q, K, V, O, B, H, Sq, Skv, D, strides, scale_log2, s);
+  return exp_bf16 ? fwd<true, false>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2, s)
+                  : fwd<false, false>(Q, K, V, O, nullptr, B, H, Sq, Skv, D, strides, scale_log2,
+                                      s);
+}
+
+// The training forward (`_flash_kernel_lse`): as sd_flash_fwd_sm90 with the
+// fp32 exponential, plus lse2 [B*H, Sq] fp32 (row b*H + h), NEG_LSE where a
+// row's sum is 0.
+extern "C" int sd_flash_fwd_sm90_lse(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int B, int H, int Sq, int Skv, int D,
+                                     const long long* strides, float scale_log2, void* stream) {
+  if (D % 8 || D > 128 || D <= 0) return (int)cudaErrorInvalidValue;
+  return fwd<false, true>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                          static_cast<float*>(lse), B, H, Sq, Skv, D, strides, scale_log2,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory (bytes) of the launch for head dim D (the build report).

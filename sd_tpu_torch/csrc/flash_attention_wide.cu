@@ -7,7 +7,18 @@
 // `_flash_kernel_pipelined` (:123, PIPE: the same bits), with the fp32
 // exponential or the bf16 one (EXPB, `p_dtype = bfloat16`, as in
 // `flash_attention_sm90.cu`), and their int8 PV variant (PV8, `_pv_int8`
-// :44) over strided [B, S, H, D] views.
+// :44) over strided [B, S, H, D] views. With LSE (the serial sweep, fp32
+// exponential: `sd_tpu`'s `_fwd` ignores `p_dtype` and `pv_quant`) it also
+// replaces `_flash_kernel_lse` (:421), the training forward at the codec's
+// d = 512: at the end of the sweep lse2 = m + log2(l) (-1e30 where l = 0)
+// goes to a [B*H, Sq] fp32 array; both warpgroups hold the same m and l, so
+// one lane of each row's quad in warpgroup 0 writes it. At train_kl_vae's
+// [4, 1024, 1, 512] the grid is 64 blocks, half the SMs, so the time is one
+// block's sweep of 16 kv steps: there the wrapper splits each row's sweep in
+// two (`lse_split`, grid.z = 2: 128 blocks of 8 steps), each part leaves its
+// unnormalized fp32 O, m and l, and a second launch (`lse_combine_kernel`,
+// one block per row) rescales the parts to the common max and writes o and
+// lse2.
 //
 // Math (the TPU kernel's): non-causal softmax(q k^T * scale) v in base 2
 // (log2(e) folded into the scale), running max m, running sum l and the
@@ -59,6 +70,8 @@ constexpr int BQ = 64;         // q rows per block
 constexpr int BK = 64;         // kv rows per step
 constexpr int THREADS = 256;   // two warpgroups
 constexpr int XV = BK / 2;     // S values a thread holds
+constexpr float NEG_LSE = -1e30f;   // lse2 of a row whose sum is 0 (`NEG_INF`)
+constexpr int MAX_SPLIT = 2;        // the most parts a training forward's kv sweep is split into
 
 template <int DP, bool PV8>
 struct CfgWide {
@@ -103,16 +116,18 @@ __device__ __forceinline__ void s_gather(float (&s)[XV], const float* Sx, int wg
   }
 }
 
-template <int DP, bool EXPB, bool PIPE, bool PV8>
+template <int DP, bool EXPB, bool PIPE, bool PV8, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wide_kernel(const __grid_constant__ ViewMap mq, const __grid_constant__ ViewMap mk,
                       const __grid_constant__ ViewMap mv, const int8_t* __restrict__ codes,
-                      const float* __restrict__ vmul, bf16* __restrict__ o, int H, int Sq,
-                      int Skv, int D, int T, long long o_sb, long long o_ss, long long o_sh,
+                      const float* __restrict__ vmul, bf16* __restrict__ o,
+                      float* __restrict__ lse, float* __restrict__ part, int H, int Sq, int Skv,
+                      int D, int T, long long o_sb, long long o_ss, long long o_sh,
                       float scale_log2) {
   using C = CfgWide<DP, PV8>;
   constexpr int HALF = C::HALF;
   static_assert(!(PIPE && PV8), "the pipelined sweep has no int8 PV");
+  static_assert(!(LSE && (EXPB || PIPE || PV8)), "the training forward is the fp32 serial sweep");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + C::QBYTES);
@@ -129,7 +144,11 @@ flash_fwd_wide_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int dv = D / 8;
-  const int n_kv = (Skv + BK - 1) / BK;
+  // LSE with a kv split: part blockIdx.z of gridDim.z sweeps its share of
+  // the kv tiles (the parts are combined by `lse_combine_kernel`)
+  const int n_split = gridDim.z, kv_all = (Skv + BK - 1) / BK;
+  const int kv_per = (kv_all + n_split - 1) / n_split, kv0 = blockIdx.z * kv_per;
+  const int n_kv = min(kv_per, kv_all - kv0);
   // PV8: each sub-tile twice per super-tile (the max pass, the product pass)
   const int spt = PV8 ? T / BK : 1;
   const int n_st = PV8 ? (Skv + T - 1) / T : 1;
@@ -158,7 +177,7 @@ flash_fwd_wide_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
   // step i: kv tile j; returns whether the step runs the PV product
   auto step_of = [&](int i, int& j) -> bool {
     if (!PV8) {
-      j = i;
+      j = kv0 + i;
       return true;
     }
     const int st = i / (2 * spt), r = i - st * 2 * spt;
@@ -399,6 +418,36 @@ flash_fwd_wide_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
   const int r_lo = q0 + 16 * wl + g, r_hi = r_lo + 8;
+  if (LSE && n_split > 1) {
+    // a part of a split sweep: unnormalized O, m and l for the combine launch
+    const long long rows = (long long)gridDim.y * Sq, row0 = (long long)bh * Sq;
+    float* po = part + (blockIdx.z * rows + row0) * D;
+    float* pml = part + n_split * rows * D + (blockIdx.z * rows + row0) * 2;
+#pragma unroll
+    for (int nt = 0; nt < HALF / 8; ++nt) {
+      const int col = wg * HALF + nt * 8 + 2 * t;
+      if (col < D) {
+        if (r_lo < Sq)
+          *reinterpret_cast<float2*>(po + (long long)r_lo * D + col) =
+              make_float2(oacc[4 * nt], oacc[4 * nt + 1]);
+        if (r_hi < Sq)
+          *reinterpret_cast<float2*>(po + (long long)r_hi * D + col) =
+              make_float2(oacc[4 * nt + 2], oacc[4 * nt + 3]);
+      }
+    }
+    if (wg == 0 && t == 0) {
+      if (r_lo < Sq) *reinterpret_cast<float2*>(pml + 2 * r_lo) = make_float2(m_lo, l_lo);
+      if (r_hi < Sq) *reinterpret_cast<float2*>(pml + 2 * r_hi) = make_float2(m_hi, l_hi);
+    }
+    return;
+  }
+  if (LSE && wg == 0 && t == 0) {
+    // the training epilogue: lse2 = m + log2(l) (m is in scaled base-2 units);
+    // both warpgroups hold the same m and l, warpgroup 0 writes them
+    float* lrow = lse + (long long)bh * Sq;
+    if (r_lo < Sq) lrow[r_lo] = l_lo > 0.f ? m_lo + log2f(l_lo) : NEG_LSE;
+    if (r_hi < Sq) lrow[r_hi] = l_hi > 0.f ? m_hi + log2f(l_hi) : NEG_LSE;
+  }
 #pragma unroll
   for (int nt = 0; nt < HALF / 8; ++nt) {
     const int col = wg * HALF + nt * 8 + 2 * t;
@@ -413,10 +462,10 @@ flash_fwd_wide_kernel(const __grid_constant__ ViewMap mq, const __grid_constant_
   }
 }
 
-template <int DP, bool EXPB, bool PIPE, bool PV8>
+template <int DP, bool EXPB, bool PIPE, bool PV8, bool LSE = false>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int8_t* codes, float* vmul,
-           int B, int H, int Sq, int Skv, int D, int T, const long long* st, float scale_log2,
-           cudaStream_t stream) {
+           float* lse, float* part, int n_split, int B, int H, int Sq, int Skv, int D, int T,
+           const long long* st, float scale_log2, cudaStream_t stream) {
   using C = CfgWide<DP, PV8>;
   int e = PV8 ? launch_v_codes<DP>(v, codes, vmul, B, H, Skv, D, T, st + 6, stream) : 0;
   ViewMap mq, mk, mv;
@@ -424,20 +473,58 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int8_t* codes, 
   if (!e) e = make_view_map(&mk, k, B, Skv, H, D, st[3], st[4], st[5], BK);
   if (!e) e = make_view_map(&mv, v, B, Skv, H, D, st[6], st[7], st[8], BK);
   if (e) return e;
-  auto kern = flash_fwd_wide_kernel<DP, EXPB, PIPE, PV8>;
+  auto kern = flash_fwd_wide_kernel<DP, EXPB, PIPE, PV8, LSE>;
   SDK_SET_SMEM(kern, C::SMEM);
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, codes, vmul, o, H, Sq, Skv, D, T, st[9],
-                                           st[10], st[11], scale_log2);
+  dim3 grid((Sq + BQ - 1) / BQ, B * H, n_split);
+  kern<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, codes, vmul, o, lse, part, H, Sq, Skv, D,
+                                           T, st[9], st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
+}
+
+// The training forward's kv split: part z of a row's sweep left its
+// unnormalized fp32 O, its max m and its sum l in `part`
+// [n_split][B*H][Sq][D] and `ml` [n_split][B*H][Sq][2]; one block per row
+// rescales the parts to the common max and writes
+// o = sum_z 2^(m_z - m) O_z / max(l, 1e-30) (bf16, strided) and
+// lse2 = m + log2(l), l = sum_z 2^(m_z - m) l_z (NEG_LSE where l = 0).
+__global__ void __launch_bounds__(64)
+lse_combine_kernel(const float* __restrict__ part, const float* __restrict__ ml,
+                   bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int D,
+                   int n_split, long long o_sb, long long o_ss, long long o_sh) {
+  const long long rows = gridDim.x, row = blockIdx.x;   // row = (b*H + h)*Sq + r
+  const int bh = (int)(row / Sq), r = (int)(row % Sq);
+  float m = -INFINITY;
+  for (int z = 0; z < n_split; ++z) m = fmaxf(m, ml[(z * rows + row) * 2]);
+  float c[MAX_SPLIT], l = 0.f;
+#pragma unroll
+  for (int z = 0; z < MAX_SPLIT; ++z) {
+    c[z] = z < n_split ? exp2f(ml[(z * rows + row) * 2] - m) : 0.f;
+    if (z < n_split) l += c[z] * ml[(z * rows + row) * 2 + 1];
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  bf16* orow = o + (bh / H) * o_sb + (bh % H) * o_sh + r * o_ss;
+  for (int col = 2 * threadIdx.x; col < D; col += 2 * blockDim.x) {
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int z = 0; z < MAX_SPLIT; ++z) {
+      if (z < n_split) {
+        const float2 p = *reinterpret_cast<const float2*>(part + (z * rows + row) * D + col);
+        a0 += c[z] * p.x;
+        a1 += c[z] * p.y;
+      }
+    }
+    sdk::st32(orow + col, a0 * inv, a1 * inv);
+  }
+  if (threadIdx.x == 0) lse[row] = l > 0.f ? m + log2f(l) : NEG_LSE;
 }
 
 template <int DP>
 int fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O, int8_t* codes, float* vmul, int B,
         int H, int Sq, int Skv, int D, int T, const long long* strides, float scale_log2,
         int pipelined, int exp_bf16, int pv_int8, cudaStream_t s) {
-#define SDK_WIDE(E, P, I) \
-  launch<DP, E, P, I>(Q, K, V, O, codes, vmul, B, H, Sq, Skv, D, T, strides, scale_log2, s)
+#define SDK_WIDE(E, P, I)                                                                  \
+  launch<DP, E, P, I>(Q, K, V, O, codes, vmul, nullptr, nullptr, 1, B, H, Sq, Skv, D, T, strides, \
+                      scale_log2, s)
   if (pv_int8) return exp_bf16 ? SDK_WIDE(true, false, true) : SDK_WIDE(false, false, true);
   if (pipelined) return exp_bf16 ? SDK_WIDE(true, true, false) : SDK_WIDE(false, true, false);
   return exp_bf16 ? SDK_WIDE(true, false, false) : SDK_WIDE(false, false, false);
@@ -474,6 +561,50 @@ extern "C" int sd_flash_fwd_wide(const void* q, const void* k, const void* v, vo
                              pipelined, exp_bf16, pv_int8, s)
                   : fwd<512>(Q, K, V, O, C8, VM, B, H, Sq, Skv, D, block_k, strides, scale_log2,
                              pipelined, exp_bf16, pv_int8, s);
+}
+
+// The training forward (`_flash_kernel_lse`): the serial sweep with the fp32
+// exponential over the same views, 128 < D <= 512, plus lse2 [B*H, Sq] fp32
+// (row b*H + h), NEG_LSE where a row's sum is 0. n_split > 1 (at most
+// MAX_SPLIT) splits each row's kv sweep into that many parts, written to
+// `part`, fp32 scratch of n_split * B * H * Sq * (D + 2) values (unused for
+// n_split = 1), and leaves o and lse to `sd_flash_lse_combine`. Returns the
+// CUDA error code of the launch.
+extern "C" int sd_flash_fwd_wide_lse(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, void* part, int B, int H, int Sq, int Skv, int D,
+                                     const long long* strides, float scale_log2, int n_split,
+                                     void* stream) {
+  if (D % 8 || D <= 128 || D > 512 || n_split < 1 || n_split > MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
+  bf16* O = static_cast<bf16*>(o);
+  float* L = static_cast<float*>(lse);
+  float* P = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 256 ? launch<256, false, false, false, true>(Q, K, V, O, nullptr, nullptr, L, P,
+                                                           n_split, B, H, Sq, Skv, D, 0, strides,
+                                                           scale_log2, s)
+                  : launch<512, false, false, false, true>(Q, K, V, O, nullptr, nullptr, L, P,
+                                                           n_split, B, H, Sq, Skv, D, 0, strides,
+                                                           scale_log2, s);
+}
+
+// The combine launch of a split training forward: o and lse2 from the
+// n_split parts in `part` (as sd_flash_fwd_wide_lse leaves them);
+// `o_strides` holds o's (batch, row, head) strides in elements. Returns the
+// CUDA error code of the launch.
+extern "C" int sd_flash_lse_combine(const void* part, void* o, void* lse, int B, int H, int Sq,
+                                    int D, int n_split, const long long* o_strides,
+                                    void* stream) {
+  if (D % 8 || D <= 0 || n_split < 2 || n_split > MAX_SPLIT) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * H * Sq;
+  const float* P = static_cast<const float*>(part);
+  lse_combine_kernel<<<(unsigned)rows, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, P + n_split * rows * D, static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, D,
+      n_split, o_strides[0], o_strides[1], o_strides[2]);
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory (bytes) of the sweep for head dim D (the build report).

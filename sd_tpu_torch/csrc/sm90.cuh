@@ -1,10 +1,11 @@
-// Hopper building blocks shared by the flash-attention forwards written for
-// sm_90a (`flash_attention_sm90.cu`, `flash_attention_sm90_pv8.cu`,
-// `flash_attention_wide.cu`): warpgroup products (wgmma, bf16 and int8),
+// Hopper building blocks shared by the kernels written for sm_90a (the
+// flash-attention forwards `flash_attention_sm90.cu`,
+// `flash_attention_sm90_pv8.cu`, `flash_attention_wide.cu` and the direct
+// 3x3 conv `conv2d_sm90.cu`): warpgroup products (wgmma, bf16 and int8),
 // shared-memory matrix descriptors in the no-swizzle core-matrix layout,
-// mbarriers, TMA tile loads over strided [B, S, H, D] views and 1-D bulk
-// copies, named barriers, and the int8 PV pre-pass that writes V's column
-// scales and codes once per kv super-tile.
+// mbarriers, TMA tile loads over strided [B, S, H, D] views and NHWC
+// windows, 1-D bulk copies, named barriers, and the int8 PV pre-pass
+// that writes V's column scales and codes once per kv super-tile.
 #pragma once
 
 #include <cuda.h>
@@ -546,6 +547,10 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// all but the most recent committed group of products done
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // generic-proxy writes (zeroed pad chunks) made visible to TMA and wgmma
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -652,6 +657,28 @@ inline int make_view_map(ViewMap* m, const bf16* base, int B, int S, int H, int 
                             const_cast<bf16*>(base), dims, strides, box, estr,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The input tensor map of the direct 3x3 conv (`conv2d_sm90.cu`); 0 or an
+// error code. It reads a contiguous NHWC [B, H, W, C] bf16 tensor as
+// 4-D (c, x, y, b) in boxes of 8 channels x `box_w` pixels x `box_h` rows:
+// each pixel's 8 channels land as 16 contiguous bytes, pixel after pixel and
+// row after row, and coordinates outside the image (-1 included) arrive as
+// zeros, so one box is a zero-padded window with its halo.
+inline int make_nhwc_window_map(CUtensorMap* m, const bf16* x, int B, int H, int W, int C,
+                                int box_w, int box_h) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {8u, (cuuint32_t)box_w, (cuuint32_t)box_h, 1u};
+  const cuuint32_t estr[4] = {1u, 1u, 1u, 1u};
+  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims,
+                            strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,13 @@
 Each wrapper launches its CUDA kernel for a tensor on the card and runs the
 plain version for a tensor anywhere else. `LAUNCHES` counts kernel launches
 per wrapper (a wrapper adds one where it launches, nowhere else), so a run
-can show which kernels its main path went through.
+can show which kernels its main path went through. Where one wrapper runs
+one of several sources, a route counter counts beside its own: the inference
+flash forward's `flash_fwd_sm90`, `flash_fwd_sm90_pv8` and `flash_fwd_wide`,
+and the training forward's `flash_lse_sm90` and `flash_lse_wide` (the LSE
+epilogue of `flash_attention_sm90.cu` and `flash_attention_wide.cu`), with
+`flash_lse_combine` for the second launch of a split kv sweep. The 3×3 conv
+(`conv3x3_same`) runs `csrc/conv2d_sm90.cu`.
 
 Only flash attention has backward kernels (`flash_attention.py`, an
 autograd Function). GEGLU, the 3×3 conv, GroupNorm and the fused
@@ -41,6 +47,14 @@ LAUNCHES: dict[str, int] = {
     "flash_fwd_sm90": 0,
     "flash_fwd_sm90_pv8": 0,
     "flash_fwd_wide": 0,
+    # ... and training-forward launches (`flash_attention_lse`) served by the
+    # LSE epilogue of flash_attention_sm90.cu (head dims up to 128) and of
+    # flash_attention_wide.cu (129-512)
+    "flash_lse_sm90": 0,
+    "flash_lse_wide": 0,
+    # ... and the combine launch of a training forward whose kv sweep is split
+    # (`flash_attention.lse_split`)
+    "flash_lse_combine": 0,
 }
 
 

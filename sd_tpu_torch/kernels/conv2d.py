@@ -1,6 +1,9 @@
 """Direct 3×3 SAME convolution and the fused GroupNorm → SiLU → 3×3 conv:
-hand-written CUDA kernels (`csrc/conv2d.cu`) and their plain PyTorch
-versions.
+hand-written CUDA kernels and their plain PyTorch versions. `conv3x3_same`
+launches `csrc/conv2d_sm90.cu` (wgmma on TMA-loaded windows and weights);
+the fused form launches `csrc/conv2d.cu`'s `PRO` form, whose plain form is
+the Hopper conv's yardstick on the card. `_conv_window_ref` is a plain
+version that follows the Hopper kernel's tiling and index arithmetic.
 
 Counterpart of `sd_tpu/kernels/conv2d.py` (`conv3x3_same`, `_xla_conv3x3`,
 `conv3x3_same_trainable`, `conv3x3_wants_pallas`, `training_trace`,
@@ -89,25 +92,93 @@ def _conv_operands(name: str, x: torch.Tensor, w: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous NHWC")
     # the kernel reads the weight as [O][3][3][C]: OIHW in channels_last
-    return (w.contiguous(memory_format=torch.channels_last), b.contiguous(),
-            torch.empty((B, H, W, O), dtype=x.dtype, device=x.device))
+    wk = w.contiguous(memory_format=torch.channels_last)
+    if x.data_ptr() % 16 or wk.data_ptr() % 16:
+        raise ValueError(f"{name}: x and w must be 16-byte aligned")
+    return wk, b.contiguous(), torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
+
+
+# the C entry point of each source of the plain 3×3 conv: the Hopper kernel
+# `conv3x3_same` launches, and conv2d.cu's, the yardstick it is timed against
+_CONV_ENTRY = {"sm90": ("conv2d_sm90", "sd_conv3x3_fwd_sm90"),
+               "template": ("conv2d", "sd_conv3x3_fwd")}
+
+
+def _launch_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 source: str = "sm90") -> torch.Tensor:
+    """One launch of the 3×3 conv on `source` (see `_CONV_ENTRY`); the
+    Hopper kernel's pre-pass writes the weights into a scratch of the
+    weight's size, in the order its stages read them."""
+    wk, bk, y = _conv_operands("conv3x3_same", x, w, b)
+    lib, symbol = _CONV_ENTRY[source]
+    ptrs = [x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr()]
+    scratch = torch.empty_like(wk) if source == "sm90" else None   # alive past the launch
+    if scratch is not None:
+        ptrs.append(scratch.data_ptr())
+    fn = _build.function(lib, symbol,
+                         [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    code = fn(*ptrs, *x.shape, y.shape[-1], _build.stream_ptr(x.device))
+    _build.check(code, symbol)
+    return y
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Stride-1 SAME 3×3 conv of x [B, H, W, C] with w [O, C, 3, 3] and
-    b [O]; fp32 accumulation, output in x's dtype. Forward only: on the card
-    an input that needs a gradient raises."""
+    b [O]; fp32 accumulation, the bias added in fp32, output in x's dtype.
+    On the card the Hopper kernel (`csrc/conv2d_sm90.cu`), which takes
+    C % 32 == 0 and O % 128 == 0. Forward only: on the card an input that
+    needs a gradient raises."""
     if not x.is_cuda:
         return _xla_conv3x3(x, w, b)
     kernels.refuse_grad("conv3x3_same", x, w, b)
-    wk, bk, y = _conv_operands("conv3x3_same", x, w, b)
-    fn = _build.function("conv2d", "sd_conv3x3_fwd",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-              *x.shape, y.shape[-1], _build.stream_ptr(x.device))
-    _build.check(code, "sd_conv3x3_fwd")
+    y = _launch_conv(x, w, b)
     kernels.LAUNCHES["conv3x3_same"] += 1
+    return y
+
+
+# the Hopper kernel's tile: output rows and pixels of a block, and the
+# channels of one TMA box (`csrc/conv2d_sm90.cu` TH, TW)
+CONV_TILE = (2, 128)
+CONV_BOX_CHANNELS = 8
+
+
+def _conv_window_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     tile: tuple[int, int] = CONV_TILE) -> torch.Tensor:
+    """Plain version of the Hopper conv that repeats its index arithmetic:
+    for each block of tile = (rows, pixels) outputs, the zero-filled input
+    window as the TMA boxes land it, [box][row][pixel][8 channels] over rows
+    y0 - 1 … y0 + rows and pixels x0 - 1 … x0 + pixels; each tap's A rows
+    taken at the flat offset (r + dy)·(pixels + 2) + px + dx of that window;
+    the nine products of each box accumulated in fp32, the bias added in
+    fp32, one rounding to x's dtype; outputs past H or W dropped. x
+    [B, H, W, C] with C % 8 == 0, w [O, C, 3, 3], b [O]."""
+    TH, TW = tile
+    B, H, W, C = x.shape
+    O = w.shape[0]
+    G = CONV_BOX_CHANNELS
+    WH, WW = TH + 2, TW + 2
+    # the B operand of tap (dy, dx) and box j: [O][8] rows of w[o, 8j:8j+8, dy, dx]
+    wk = w.float().permute(2, 3, 1, 0).reshape(9, C // G, G, O)
+    r, px = torch.meshgrid(torch.arange(TH), torch.arange(TW), indexing="ij")
+    y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
+    xf = x.float()
+    for y0 in range(0, H, TH):
+        for x0 in range(0, W, TW):
+            win = torch.zeros((B, C // G, WH, WW, G), device=x.device)
+            ys, xs = max(y0 - 1, 0), max(x0 - 1, 0)
+            ye, xe = min(y0 - 1 + WH, H), min(x0 - 1 + WW, W)
+            win[:, :, ys - (y0 - 1):ye - (y0 - 1), xs - (x0 - 1):xe - (x0 - 1)] = (
+                xf[:, ys:ye, xs:xe].unflatten(-1, (C // G, G)).permute(0, 3, 1, 2, 4))
+            flat = win.reshape(B, C // G, WH * WW, G)
+            acc = torch.zeros((B, TH * TW, O), device=x.device)
+            for j in range(C // G):
+                for tap in range(9):
+                    dy, dx = divmod(tap, 3)
+                    rows = ((r + dy) * WW + px + dx).flatten()
+                    acc += flat[:, j, rows] @ wk[tap, j]
+            out = (acc + b.float()).to(x.dtype).view(B, TH, TW, O)
+            y[:, y0:y0 + TH, x0:x0 + TW] = out[:, :min(TH, H - y0), :min(TW, W - x0)]
     return y
 
 

@@ -12,11 +12,15 @@ sweep at head dims up to 128 runs `flash_attention_sm90.cu` (route counter
 `flash_fwd_sm90`) or, with the int8 PV, `flash_attention_sm90_pv8.cu`
 (`flash_fwd_sm90_pv8`); every sweep above 128 (serial, pipelined, int8 PV)
 runs `flash_attention_wide.cu` (`flash_fwd_wide`); the pipelined sweep at
-head dims up to 128 runs the template of `flash_attention.cu`. A route
-counter counts beside the wrapper's own counter.
+head dims up to 128 runs the template of `flash_attention.cu`, whose other
+instantiations are only the yardstick the Hopper kernels are timed against.
+A route counter counts beside the wrapper's own counter.
 `flash_attention` is differentiable, as the TPU package's `jax.custom_vjp`
 is: with grad off it runs the inference forward; with grad on, the training
-forward that also keeps the base-2 row log-sum-exp, and a backward of a dQ
+forward that also keeps the base-2 row log-sum-exp (the Hopper forwards'
+`LSE` epilogue, `lse_route`: `flash_attention_sm90.cu` up to head dim 128,
+route counter `flash_lse_sm90`, `flash_attention_wide.cu` above,
+`flash_lse_wide`), and a backward of a dQ
 kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel, at every
 head dim the forward takes (multiples of 8 up to 512: the SD UNet's 40-160
 and the codec's single-head 512). Non-causal only. With
@@ -480,23 +484,132 @@ def use_pallas_bwd() -> bool:
     return os.environ.get("SD_TPU_FLASH_BWD", "pallas") == "pallas"
 
 
-def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Training forward over q [B, Sq, H, D], k/v [B, Skv, H, D]: (o, lse2
-    [B, H, Sq] fp32). On the card the kernel, else the plain version."""
-    if not q.is_cuda:
-        return _flash_lse_ref(q, k, v, scale)
+# the route counter of each source the training forward runs on (the
+# template, flash_attention.cu, is the yardstick only and has none), and the
+# counter of the combine launch of a split sweep
+LSE_ROUTE_COUNTERS = {"sm90": "flash_lse_sm90", "wide": "flash_lse_wide"}
+LSE_COMBINE_COUNTER = "flash_lse_combine"
+# what `lse_split` reads of the wide kernel (`CfgWide`: 64 q rows per block,
+# 64 kv rows per step, one block per SM) and the H100's SM count
+_WIDE_BQ = _WIDE_BK = 64
+H100_SMS = 132
+# the C entry point of each training-forward source
+_LSE_ENTRY = {"sm90": ("flash_attention_sm90", "sd_flash_fwd_sm90_lse"),
+              "wide": ("flash_attention_wide", "sd_flash_fwd_wide_lse"),
+              "template": ("flash_attention", "sd_flash_fwd_lse")}
+
+
+def lse_route(d: int) -> str:
+    """The source of the training forward at head dim d, decided from the
+    shape alone, so a CPU or meta run makes the card's choice: the Hopper
+    forward (`flash_attention_sm90.cu`) up to 128, the wide kernel
+    (`flash_attention_wide.cu`) from 129 to 512, with the LSE epilogue."""
+    if d <= 0 or d > 512:
+        raise ValueError(f"flash attention (training): head dim {d} is not in 1..512")
+    return "sm90" if d <= 128 else "wide"
+
+
+def lse_split(b: int, sq: int, skv: int, h: int, d: int) -> int:
+    """Into how many parts the training forward splits each row's kv sweep,
+    decided from the shape alone on every device: 2 on the wide route where
+    its grid, doubled, still fits in one wave of the H100 (alone it would
+    leave half the SMs or more idle) and the sweep has at least two kv
+    steps; else 1. At d ≤ 128 the sweep is never split: its kernels take
+    tens of microseconds, and a second launch costs the host more than the
+    split saves the card."""
+    if lse_route(d) != "wide":
+        return 1
+    blocks = -(-sq // _WIDE_BQ) * b * h
+    return 2 if 2 * blocks <= H100_SMS and skv > _WIDE_BK else 1
+
+
+def _lse_combine_ref(part: torch.Tensor, B: int, H: int, Sq: int, D: int, n_split: int,
+                     dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split sweep's combine: `part` holds n_split
+    unnormalized fp32 O [B·H·Sq, D] then their (m, l) [B·H·Sq, 2]; returns
+    (o [B, Sq, H, D] in `dtype`, lse2 [B, H, Sq])."""
+    rows = B * H * Sq
+    po = part[:n_split * rows * D].view(n_split, rows, D)
+    ml = part[n_split * rows * D:n_split * rows * (D + 2)].view(n_split, rows, 2)
+    m = ml[..., 0].amax(dim=0)
+    c = torch.exp2(ml[..., 0] - m)
+    l = (c * ml[..., 1]).sum(dim=0)
+    o = (c[..., None] * po).sum(dim=0) / torch.clamp(l, min=1e-30)[:, None]
+    lse = torch.where(l > 0, m + torch.log2(l), torch.full_like(l, NEG_INF))
+    return o.view(B, H, Sq, D).transpose(1, 2).to(dtype), lse.view(B, H, Sq)
+
+
+def lse_combine(part: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                n_split: int) -> None:
+    """The combine launch of a split training forward: o (a [B, Sq, H, D]
+    view, written in place) and lse2 [B, H, Sq] from the parts in `part`
+    (fp32, n_split·B·H·Sq·(D + 2) values)."""
+    B, Sq, H, D = out.shape
+    if (part.dtype != torch.float32 or part.numel() != n_split * B * H * Sq * (D + 2)
+            or not part.is_contiguous() or lse.shape != (B, H, Sq)):
+        raise ValueError(f"flash attention: parts {tuple(part.shape)} {part.dtype} do not "
+                         f"fit {n_split} x o {tuple(out.shape)}, lse {tuple(lse.shape)}")
+    fn = _build.function("flash_attention_wide", "sd_flash_lse_combine",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    code = fn(part.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Sq, D, n_split,
+              (ctypes.c_longlong * 3)(*out.stride()[:3]), _build.stream_ptr(out.device))
+    _build.check(code, "sd_flash_lse_combine")
+    kernels.LAUNCHES[LSE_COMBINE_COUNTER] += 1
+
+
+def _launch_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                route: str, n_split: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward on `route` ("sm90", "wide", or the template's
+    `LSE` instantiation, the yardstick) over [B, S, H, D] views: (o, lse2
+    [B, H, Sq] fp32). With n_split > 1 (the wide route) the sweep writes its
+    parts and `lse_combine` writes o and lse2."""
+    out, lse, part = _lse_sweep(q, k, v, scale, route, n_split)
+    if part is not None:
+        lse_combine(part, out, lse, n_split)
+    return out, lse
+
+
+def _lse_sweep(q, k, v, scale: float, route: str, n_split: int = 1):
+    """The training forward's sweep launch alone: (o, lse2, part), part None
+    unless the sweep is split (then o and lse2 are not written yet)."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (out, "out", q))
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention", "sd_flash_fwd_lse",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                            ctypes.c_void_p])
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              lse.data_ptr(), B, H, Sq, Skv, D, _strides(q, k, v, out),
-              float(scale) * LOG2E, _build.stream_ptr(q.device))
-    _build.check(code, "sd_flash_fwd_lse")
+    lib, symbol = _LSE_ENTRY[route]
+    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+    args = [B, H, Sq, Skv, D, _strides(q, k, v, out), float(scale) * LOG2E]
+    part = None
+    if route != "wide":
+        fn = _build.function(lib, symbol,
+                             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + tail + [ctypes.c_void_p])
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  *args, _build.stream_ptr(q.device))
+    else:
+        part = (torch.empty(n_split * B * H * Sq * (D + 2), dtype=torch.float32, device=q.device)
+                if n_split > 1 else None)
+        fn = _build.function(lib, symbol, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + tail
+                             + [ctypes.c_int, ctypes.c_void_p])
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  None if part is None else part.data_ptr(), *args, n_split,
+                  _build.stream_ptr(q.device))
+    _build.check(code, symbol)
+    return out, lse, part
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward over q [B, Sq, H, D], k/v [B, Skv, H, D]: (o, lse2
+    [B, H, Sq] fp32). On the card the kernel `lse_route` names (counted
+    under its route beside `flash_attention_lse`), its kv sweep split as
+    `lse_split` says (the combine launch counted under `flash_lse_combine`);
+    else the plain version."""
+    route = lse_route(q.shape[-1])
+    if not q.is_cuda:
+        return _flash_lse_ref(q, k, v, scale)
+    B, Sq, H, D = q.shape
+    out, lse = _launch_lse(q, k, v, scale, route, lse_split(B, Sq, k.shape[1], H, D))
+    kernels.LAUNCHES[LSE_ROUTE_COUNTERS[route]] += 1
     kernels.LAUNCHES["flash_attention_lse"] += 1
     return out, lse
 

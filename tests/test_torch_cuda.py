@@ -9,7 +9,10 @@ Hopper flash forwards (`flash_attention_sm90.cu` and its int8-PV form
 `flash_attention_sm90_pv8.cu` at d ≤ 128, `flash_attention_wide.cu` above)
 are counted under their routes and give the same bits twice; the int8-PV
 variants are held against the plain sweep at the TPU package's kv tile.
-The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
+The training forward runs the LSE epilogue of the Hopper forwards (counted
+under `flash_lse_sm90` / `flash_lse_wide`), the 3×3 conv the Hopper kernel
+`conv2d_sm90.cu` (held against `conv2d.cu`'s too), each giving the same
+bits twice. The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
 and the sums run over up to 4096 rows). Every test needs a CUDA device and
 skips without one. This
@@ -195,6 +198,55 @@ def test_conv3x3_kernel_on_card(cuda, shape):
     b = _rnd(cuda, O, scale=0.1)
     ref = conv2d._xla_conv3x3(x.float(), w.float(), b.float())
     _within(conv2d.conv3x3_same(x, w, b), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 256, 512, 256), (1, 137, 200, 128, 128),
+                                   (1, 3, 5, 32, 128)])
+def test_hopper_conv3x3_kernel_on_card(cuda, shape):
+    """The Hopper conv (conv2d_sm90.cu) at a decoder shape and ragged ones
+    (H, W not multiples of the 2 x 128 tile; a map smaller than one tile):
+    one launch, within 1e-2·max|ref|, the same bits twice, and within
+    1e-2 of conv2d.cu's kernel."""
+    B, H, W, C, O = shape
+    x = _rnd(cuda, B, H, W, C)
+    w = _rnd(cuda, O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
+        memory_format=torch.channels_last)
+    b = _rnd(cuda, O, scale=0.1)
+    kernels.reset_launches()
+    out = conv2d.conv3x3_same(x, w, b)
+    assert kernels.LAUNCHES["conv3x3_same"] == 1
+    _within(out, conv2d._xla_conv3x3(x.float(), w.float(), b.float()))
+    assert torch.equal(out, conv2d.conv3x3_same(x, w, b))
+    _within(out, conv2d._launch_conv(x, w, b, "template"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d", [(1, 1024, 1024, 8, 80), (1, 200, 333, 3, 40),
+                                          (2, 256, 300, 1, 136), (4, 1024, 1024, 1, 512),
+                                          (1, 1000, 1300, 1, 512)])
+def test_lse_forward_routes_on_card(cuda, b, sq, skv, h, d):
+    """The training forward on the Hopper route its shape rule picks (the
+    LSE epilogue of flash_attention_sm90.cu or flash_attention_wide.cu, its
+    kv sweep split where `lse_split` says): one launch on that route's
+    counter and one combine launch per split, o within 1e-2·max|ref|, lse2
+    within 1e-3, the same bits twice, and within those of the unsplit sweep."""
+    q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    kernels.reset_launches()
+    o, lse = fa.flash_attention_lse(q, k, v, d**-0.5)
+    route, n_split = fa.lse_route(d), fa.lse_split(b, sq, skv, h, d)
+    counters = (*fa.LSE_ROUTE_COUNTERS.values(), fa.LSE_COMBINE_COUNTER)
+    assert {c: kernels.LAUNCHES[c] for c in counters} == {
+        **{c: int(r == route) for r, c in fa.LSE_ROUTE_COUNTERS.items()},
+        fa.LSE_COMBINE_COUNTER: int(n_split > 1)}
+    o1, lse1 = fa._launch_lse(q, k, v, d**-0.5, route, 1)
+    _within(o, o1)
+    assert (lse - lse1).abs().max().item() <= 1e-3
+    o_ref, lse_ref = fa._flash_lse_ref(q.float(), k.float(), v.float(), d**-0.5)
+    _within(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    o2, lse2 = fa.flash_attention_lse(q, k, v, d**-0.5)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

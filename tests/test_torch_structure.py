@@ -582,7 +582,10 @@ def test_conv_switch_agrees_with_the_tpu_gate(tpu_gates, monkeypatch):
 
 def _count_kernel_calls(monkeypatch) -> Counter:
     """Count the calls of every kernel wrapper (on `meta` tensors each runs
-    its plain version, so a call is where a launch would be on the card)."""
+    its plain version, so a call is where a launch would be on the card),
+    and each training-forward call under the route counter of the source its
+    shape rule (`fa.lse_route`) picks and, where `fa.lse_split` splits its kv
+    sweep, under the combine launch's counter, as the card counts them."""
     calls = Counter()
     for module, name in ((fa, "flash_attention_lse"), (fa, "flash_bwd_dq"),
                          (fa, "flash_bwd_dkv"), (fa, "flash_attention_hpacked"),
@@ -591,6 +594,11 @@ def _count_kernel_calls(monkeypatch) -> Counter:
                          (xattn_k, "crossattn_kv")):
         def counted(*args, _fn=getattr(module, name), _name=name, **kw):
             calls[_name] += 1
+            if _name == "flash_attention_lse":
+                (b, sq, h, d), skv = args[0].shape, args[1].shape[1]
+                calls[fa.LSE_ROUTE_COUNTERS[fa.lse_route(d)]] += 1
+                if fa.lse_split(b, sq, skv, h, d) > 1:
+                    calls[fa.LSE_COMBINE_COUNTER] += 1
             return _fn(*args, **kw)
         monkeypatch.setattr(module, name, counted)
     return calls
@@ -635,8 +643,8 @@ def _training_step_launches(tpu_gates, monkeypatch):
         "conv3x3_wants_pallas": 0, "group_norm_wants_pallas": 0,
         "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 0}
     want = {k: v for k, v in chip_smoke.EXPECTED_TRAIN_LAUNCHES.items() if v}
-    assert dict(calls) == want == {"flash_attention_lse": 80, "flash_bwd_dq": 40,
-                                   "flash_bwd_dkv": 40}
+    assert dict(calls) == want == {"flash_attention_lse": 80, "flash_lse_sm90": 80,
+                                   "flash_bwd_dq": 40, "flash_bwd_dkv": 40}
 
 
 def test_training_step_gates_and_launches(tpu_gates, monkeypatch):
@@ -691,8 +699,8 @@ def test_kl_vae_step_gates_and_launches(tpu_gates, monkeypatch, optin):
             for name, args in tpu_gates.args if name == "flash_ok"] == [
         [((4, 1024, 1, 512), torch.bfloat16)] * 2] * 2
     want = {k: v for k, v in chip_smoke.EXPECTED_KLVAE_LAUNCHES.items() if v}
-    assert dict(calls) == want == {"flash_attention_lse": 2, "flash_bwd_dq": 2,
-                                   "flash_bwd_dkv": 2}
+    assert dict(calls) == want == {"flash_attention_lse": 2, "flash_lse_wide": 2,
+                                   "flash_lse_combine": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
 
 
 def test_launch_counters_are_chip_smokes_kernels():
