@@ -1862,8 +1862,10 @@ def variant_flash_registers() -> dict:
     """Registers and spills of the inference forwards' instantiations at the
     path's head dims (40 → 48, 80, 512): the Hopper kernels
     (`flash_fwd_sm90<DP>`, its int8-PV form `flash_fwd_sm90_pv8<DP>`, the
-    wide kernel `flash_fwd_wide<DP>`), the template's sweeps and its int8 PV
-    kernel (`flash_fwd_pv8<DP>`), variants included."""
+    wide kernel `flash_fwd_wide<DP>`; `lse` marks the training forward's
+    instantiations), the template's sweeps and its int8 PV kernel
+    (`flash_fwd_pv8<DP>`), variants included; and the 3×3 convs (the Hopper
+    kernel, `conv2d.cu`'s plain and `PRO` forms)."""
     import re
 
     from sd_tpu_torch.kernels import _build
@@ -2236,8 +2238,8 @@ def main() -> int:
                                        tpu + "flash_attention.py:421"),
                "flash_lse_sm90": (src + "flash_attention_sm90.cu", tpu + "flash_attention.py:421"),
                "flash_lse_wide": (src + "flash_attention_wide.cu", tpu + "flash_attention.py:421"),
-               # the combine launch of a split sweep (both routes)
-               "flash_lse_combine": (src + "flash_attention_sm90.cu",
+               # the combine launch of a split sweep (the wide route)
+               "flash_lse_combine": (src + "flash_attention_wide.cu",
                                      tpu + "flash_attention.py:421"),
                "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
                "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
