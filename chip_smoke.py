@@ -42,7 +42,14 @@ Phases, each printed as one JSON line:
            ragged one, `conv2d.cu` timed beside it, the same bits twice;
            the LSE rows also carry `device_ms` (torch.profiler's device
            time per call) beside the template's and SDPA's, since at tens
-           of microseconds the host's enqueue time sets `ms`;
+           of microseconds the host's enqueue time sets `ms`; the backward
+           at d ≤ 128 on `flash_attention_bwd_sm90.cu` (each route counter
+           moved once, dq, dk, dv within the gradient bounds of the fp32
+           plain version and of the template, the same bits twice), with
+           `device_ms`, the template's times (`generic_ms`,
+           `generic_device_ms`) and SDPA's backward on a pinned backend
+           (flash where it takes the shape, else memory-efficient) in host
+           and device time;
   attention_switches  one level-0 attention block under each value of
            `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`,
            `SD_TPU_FLASH_BWD`: which launch counters move, and the output (and
@@ -93,8 +100,8 @@ Phases, each printed as one JSON line:
            bucket-4 generate, and the same for one optimizer step of
            train_ldm and one step of train_kl_vae.
 The build line carries the registers and spills of the flash kernels' head
-dim 256 and 512 instantiations, of the inference forwards at the path's
-head dims, and their dynamic shared memory. The flash training kernels are also held at
+dim 256 and 512 instantiations, of the inference forwards and the Hopper
+backward at the path's head dims, and their dynamic shared memory. The flash training kernels are also held at
 head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
 and a ragged [1, 1000, 1300, 1, 512]), with the backend
 `scaled_dot_product_attention` ran there; their row in the kernel table is
@@ -143,7 +150,9 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "flash_fwd_sm90", "flash_fwd_sm90_pv8", "flash_fwd_wide",
            "flash_lse_sm90", "flash_lse_wide",
            # the combine launch of a training forward whose kv sweep is split
-           "flash_lse_combine")
+           "flash_lse_combine",
+           # backward launches served by flash_attention_bwd_sm90.cu
+           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 
 
 def launches_of(**nonzero) -> dict:
@@ -182,9 +191,11 @@ EXPECTED_SERVE_LAUNCHES = launches_of(
 # self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
 # remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
 # (tests/test_torch_structure.py derives these from the shape rules); the
-# training forward at d = 40 and 80 on flash_attention_sm90.cu's LSE epilogue
+# training forward at d = 40 and 80 on flash_attention_sm90.cu's LSE epilogue,
+# the backward on flash_attention_bwd_sm90.cu
 EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_lse_sm90=80,
-                                      flash_bwd_dq=40, flash_bwd_dkv=40)
+                                      flash_bwd_dq=40, flash_bwd_dkv=40,
+                                      flash_bwd_dq_sm90=40, flash_bwd_dkv_sm90=40)
 # launches of one step of train_kl_vae(kl_f8_256_train_config()), 256²: the
 # codec's two mid-block attentions (encoder, decoder; [4, 1024, 1, 512])
 # in the one generator forward and its backward, no inference kernel; the
@@ -267,6 +278,8 @@ ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
 ROUTE_COUNTERS = tuple(ROUTE_COUNTER.values())
 # ... and of the training forward (`kernels/flash_attention.py LSE_ROUTE_COUNTERS`)
 LSE_ROUTE_COUNTER = {"sm90": "flash_lse_sm90", "wide": "flash_lse_wide"}
+# ... and of the backward's Hopper route (`BWD_ROUTE_COUNTERS`)
+BWD_ROUTE_COUNTER = {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"}
 # the kv tile of the pipelined sweeps (csrc/flash_attention.cu's and
 # csrc/flash_attention_wide.cu's): its plain version runs at it, since its
 # bf16 p depends on the running max of each tile
@@ -861,6 +874,32 @@ def sdpa_backend(fn) -> dict:
     return {"backend": backend, "kernels": [n[:80] for _, n in names[:3]]}
 
 
+def pinned_sdpa(heads, do_h):
+    """`scaled_dot_product_attention` on one fixed backend: flash where it
+    takes the shape, else memory-efficient (`torch.nn.attention.sdpa_kernel`).
+    Returns (backend name, forward call, forward + backward call), or (None,
+    None, None) where neither takes it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        def fwd(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(*heads)
+
+        def fwd_bwd(backend=backend):
+            with sdpa_kernel(backend):
+                return torch.autograd.grad(F.scaled_dot_product_attention(*heads), heads, do_h)
+
+        try:
+            fwd_bwd()
+        except RuntimeError:
+            continue
+        return backend.name.lower(), fwd, fwd_bwd
+    return None, None, None
+
+
 def phase_train_kernels(gen) -> dict:
     """The flash training kernels (LSE forward, dQ, dK/dV) at the training
     paths' self-attention shapes: train_ldm's [1, 4096, 8, 40] at UNet
@@ -870,13 +909,18 @@ def phase_train_kernels(gen) -> dict:
     plain versions in fp32 from the same bf16 inputs; the LSE forward on its
     route (its counter and, where the sweep is split, the combine's moved by
     one) and the template's LSE sweep beside it (`generic_ms`), the combine
-    launch of a split sweep as its own row; the LSE forward and dK/dV run
-    twice must give the same bits. Library: `scaled_dot_product_attention`, its forward
-    for the LSE row and its backward (fwd+bwd − fwd) for the dQ and dK/dV
-    rows together, with the backend that ran it. Returns {name: {shape:
-    row}}."""
+    launch of a split sweep as its own row; the backward on its route
+    (`bwd_route`: at d ≤ 128 `flash_attention_bwd_sm90.cu`, each route
+    counter moved by one per call, dq, dk and dv within GRAD_TOL of the
+    template too, whose times stand beside it as `generic_ms` and
+    `generic_device_ms`); the LSE forward, dQ and dK/dV run twice must give
+    the same bits. Every kernel row carries `device_ms` (torch.profiler's
+    device time per call) beside its CUDA-event `ms`. Library:
+    `scaled_dot_product_attention` on one pinned backend (`pinned_sdpa`), its
+    forward for the LSE row and its backward (fwd+bwd − fwd, host clock as
+    `library_ms`, device time as `library_device_ms`) for the dQ and dK/dV
+    rows, which SDPA computes together. Returns {name: {shape: row}}."""
     import torch
-    import torch.nn.functional as F
 
     from sd_tpu_torch.kernels import flash_attention as fa
 
@@ -886,6 +930,7 @@ def phase_train_kernels(gen) -> dict:
     from sd_tpu_torch import kernels
 
     rows_by_shape = {}
+    bwd_counters = tuple(fa.BWD_ROUTE_COUNTERS.values())
     for b, sq, skv, h, d in TRAIN_KERNEL_SHAPES:
         scale = d**-0.5
         q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
@@ -906,8 +951,20 @@ def phase_train_kernels(gen) -> dict:
         o_t, lse_t = fa._launch_lse(q, k, v, scale, "template")
         vs_template = (rel_err(o_t, o)[1], (lse_t - lse).abs().max().item())
         del o2, lse2, o_t, lse_t
+        # the backward on its route: each call moves its route counter by one
+        # on the Hopper route, none on the wide one
+        b_route = fa.bwd_route(d)
+        hop = int(b_route == "sm90")
+        before = {c: kernels.LAUNCHES[c] for c in bwd_counters}
         dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+        moved_dq = {c: kernels.LAUNCHES[c] - before[c] for c in bwd_counters}
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        moved = {c: kernels.LAUNCHES[c] - before[c] for c in bwd_counters}
+        require(moved_dq == {"flash_bwd_dq_sm90": hop, "flash_bwd_dkv_sm90": 0}
+                and moved == {"flash_bwd_dq_sm90": hop, "flash_bwd_dkv_sm90": hop},
+                f"backward {[b, sq, skv, h, d]} on the {b_route} route: moved {moved_dq}, "
+                f"then {moved}")
+        dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
         dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
         torch.cuda.synchronize()
         o_ref, lse_ref = fa._flash_lse_ref(*f32(q, k, v), scale)
@@ -916,16 +973,35 @@ def phase_train_kernels(gen) -> dict:
                 "dv": rel_err(dv, dv_ref)}
         l2 = {"dq": l2_rel(dq, dq_ref), "dk": l2_rel(dk, dk_ref), "dv": l2_rel(dv, dv_ref)}
         lse_err = (lse - lse_ref).abs().max().item()
-        deterministic = torch.equal(dk, dk2) and torch.equal(dv, dv2)
-        del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dk2, dv2
+        same_dq = bool(torch.equal(dq, dq2) and torch.equal(delta, delta2))
+        same_dkv = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dq2, delta2, dk2, dv2
+        tpl = {}
+        if hop:
+            # the template (flash_attention_bwd.cu) on the same inputs, its
+            # dK/dV from the Hopper dQ's delta
+            t_dq, _ = fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
+            t_dk, t_dv = fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
+            tpl = {g: (rel_err(x, t)[1], l2_rel(x, t))
+                   for g, x, t in (("dq", dq, t_dq), ("dk", dk, t_dk), ("dv", dv, t_dv))}
+            del t_dq, t_dk, t_dv
 
         heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         do_h = do.transpose(1, 2)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(*heads))
-        lib_fwd_bwd = lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(*heads), heads, do_h)
-        lib_both = time_ms(lib_fwd_bwd)
-        backend = sdpa_backend(lib_fwd_bwd)
+        backend_name, lib_fwd_call, lib_fwd_bwd = pinned_sdpa(heads, do_h)
+        if backend_name is None:
+            lib_fwd = lib_both = lib_dev_fwd = lib_dev_both = None
+            backend = {"backend": None, "kernels": []}
+        else:
+            lib_fwd, lib_both = time_ms(lib_fwd_call), time_ms(lib_fwd_bwd)
+            lib_dev_fwd, lib_dev_both = device_ms(lib_fwd_call), device_ms(lib_fwd_bwd)
+            backend = {**sdpa_backend(lib_fwd_bwd), "pinned": backend_name}
+        lib_bwd = None if lib_both is None else lib_both - lib_fwd
+        lib_dev_bwd = None if lib_dev_both is None else lib_dev_both - lib_dev_fwd
+        dq_call = lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+        dkv_call = lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        lib_note = ("scaled_dot_product_attention backward (fwd+bwd - fwd), dq and dk/dv "
+                    "together: compare dQ + dK/dV with it")
         shape = [b, sq, skv, h, d]
         rows = {
             "flash_attention_lse": dict(
@@ -936,30 +1012,37 @@ def phase_train_kernels(gen) -> dict:
                 generic_ms=time_ms(lambda: fa._launch_lse(q, k, v, scale, "template")),
                 device_ms=device_ms(lambda: fa.flash_attention_lse(q, k, v, scale)),
                 generic_device_ms=device_ms(lambda: fa._launch_lse(q, k, v, scale, "template")),
-                library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(*heads)),
+                library_device_ms=lib_dev_fwd,
                 plain_ms=time_ms(lambda: fa._flash_lse_ref(q, k, v, scale), 3),
                 library_ms=lib_fwd, library_call="scaled_dot_product_attention forward",
                 library_backend=backend,
                 cost=attention_lse_cost(*shape)),
             "flash_bwd_dq": dict(
                 max_abs_err=errs["dq"][0], rel_err=errs["dq"][1], l2_rel=l2["dq"],
-                ms=time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale)),
+                route=b_route, same_bits_twice=same_dq,
+                ms=time_ms(dq_call), device_ms=device_ms(dq_call),
                 plain_ms=time_ms(lambda: fa._flash_bwd_dq_ref(q, k, v, o, lse, do, scale), 3),
-                library_ms=lib_both - lib_fwd,
-                library_call="scaled_dot_product_attention backward (fwd+bwd - fwd), "
-                             "dq and dk/dv together",
+                library_ms=lib_bwd, library_device_ms=lib_dev_bwd, library_call=lib_note,
                 library_backend=backend, cost=attention_dq_cost(*shape)),
             "flash_bwd_dkv": dict(
                 max_abs_err=max(errs["dk"][0], errs["dv"][0]),
                 rel_err=max(errs["dk"][1], errs["dv"][1]), l2_rel=max(l2["dk"], l2["dv"]),
-                deterministic=deterministic,
-                ms=time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)),
+                route=b_route, same_bits_twice=same_dkv, deterministic=same_dkv,
+                ms=time_ms(dkv_call), device_ms=device_ms(dkv_call),
                 plain_ms=time_ms(lambda: fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), 3),
-                library_ms=lib_both - lib_fwd,
-                library_call="scaled_dot_product_attention backward (fwd+bwd - fwd), "
-                             "dq and dk/dv together",
+                library_ms=lib_bwd, library_device_ms=lib_dev_bwd, library_call=lib_note,
                 library_backend=backend, cost=attention_dkv_cost(*shape)),
         }
+        if hop:
+            t_dq = lambda: fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
+            t_dkv = lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
+            rows["flash_bwd_dq"].update(
+                template_rel_err=tpl["dq"][0], template_l2_rel=tpl["dq"][1],
+                generic_ms=time_ms(t_dq), generic_device_ms=device_ms(t_dq))
+            rows["flash_bwd_dkv"].update(
+                template_rel_err=max(tpl["dk"][0], tpl["dv"][0]),
+                template_l2_rel=max(tpl["dk"][1], tpl["dv"][1]),
+                generic_ms=time_ms(t_dkv), generic_device_ms=device_ms(t_dkv))
         if n_split > 1:
             rows["flash_lse_combine"] = _lse_combine_case(fa, q, k, v, scale, route, n_split)
         for name, r in rows.items():
@@ -977,7 +1060,12 @@ def phase_train_kernels(gen) -> dict:
         for g in ("dq", "dk", "dv"):
             require(errs[g][1] <= GRAD_TOL["max_rel"] and l2[g] <= GRAD_TOL["l2_rel"],
                     f"{g} {shape}: max {errs[g][1]:.3g}·max|ref|, l2 {l2[g]:.3g}·‖ref‖")
-        require(deterministic, f"dK/dV {shape} gives the same bits twice")
+            if hop:
+                require(tpl[g][0] <= GRAD_TOL["max_rel"] and tpl[g][1] <= GRAD_TOL["l2_rel"],
+                        f"{g} {shape}: from the template max {tpl[g][0]:.3g}·max|tpl|, "
+                        f"l2 {tpl[g][1]:.3g}·‖tpl‖")
+        require(same_dq and same_dkv, f"dQ {shape} ({same_dq}) and dK/dV ({same_dkv}) give the "
+                f"same bits twice")
         del q, k, v, do, o, lse, dq, delta, dk, dv, heads
         torch.cuda.empty_cache()
     return rows_by_shape
@@ -1386,9 +1474,10 @@ ATTN_SWITCH_CASES = (
     ({}, "cross", {}),
     ({"SD_TPU_ATTN_IMPL": "pallas"}, "cross", {"flash_attention": 1, "flash_fwd_sm90": 1}),
     ({}, "train", {"flash_attention_lse": 1, "flash_lse_sm90": 1, "flash_bwd_dq": 1,
-                   "flash_bwd_dkv": 1}),
+                   "flash_bwd_dkv": 1, "flash_bwd_dq_sm90": 1, "flash_bwd_dkv_sm90": 1}),
     ({"SD_TPU_ATTN_PACKED": "1"}, "train",
-     {"flash_attention_lse": 1, "flash_lse_sm90": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+     {"flash_attention_lse": 1, "flash_lse_sm90": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+      "flash_bwd_dq_sm90": 1, "flash_bwd_dkv_sm90": 1}),
     ({"SD_TPU_FLASH_BWD": "chunked"}, "train", {"flash_attention": 1, "flash_fwd_sm90": 1}),
     ({"SD_TPU_ATTN_IMPL": "xla"}, "train", {}),
 )
@@ -1510,8 +1599,9 @@ def phase_train_parity() -> dict:
             f"attn1 q/k/v up to {max(per.values()):.3g}")
     # latent 32²: level 0 has 1024 tokens (5 self-attentions), level 1 256
     require(launches["flash_attention_lse"] == 5 and launches["flash_lse_sm90"] == 5
-            and launches["flash_bwd_dq"] == 5
-            and launches["flash_bwd_dkv"] == 5 and launches["flash_attention_hpacked"] == 0
+            and launches["flash_bwd_dq"] == 5 and launches["flash_bwd_dq_sm90"] == 5
+            and launches["flash_bwd_dkv"] == 5 and launches["flash_bwd_dkv_sm90"] == 5
+            and launches["flash_attention_hpacked"] == 0
             and launches["geglu_ff"] == 0, f"train parity launches {launches}")
     del cpu, gpu
     torch.cuda.empty_cache()
@@ -1913,6 +2003,29 @@ def variant_flash_registers() -> dict:
     return out
 
 
+def bwd_sm90_report() -> dict:
+    """Registers, spills and dynamic shared memory of the Hopper backward's
+    instantiations at the path's head dims (40 -> 48, 80), at 64 and 128
+    rows per block, from the build's log."""
+    import ctypes
+    import re
+
+    from sd_tpu_torch.kernels import _build
+
+    log = (_build.build_dir() / "flash_attention_bwd_sm90.log").read_text()
+    smem = _build.function("flash_attention_bwd_sm90", "sd_flash_bwd_sm90_smem",
+                           [ctypes.c_int] * 3)
+    out = {}
+    for mangled, vals in ptxas_report(log, lambda n: "_sm90_kernel" in n).items():
+        m = re.search(r"flash_bwd_(dq|dkv)_sm90_kernelILi(\d+)ELi(\d+)E", mangled)
+        kind, dp, rows = m.group(1), int(m.group(2)), 64 * int(m.group(3))
+        if dp in (48, 80):
+            out[f"{kind}<{dp}> rows {rows}"] = {
+                "registers": vals[0], "spill_stores": vals[1], "spill_loads": vals[2],
+                "smem_bytes": smem(dp, rows, int(kind == "dkv"))}
+    return out
+
+
 def flash_smem() -> dict:
     """Dynamic shared memory (bytes) of the inference forwards at the path's
     head dims: each Hopper kernel where it serves, and the template's
@@ -1936,6 +2049,11 @@ def flash_smem() -> dict:
 
 def _family(name: str) -> str:
     low = name.lower()
+    # before the "flash_bwd_dq" key below, which would swallow these
+    if "flash_bwd_dq_sm90_kernel" in name:
+        return "flash dQ, Hopper (port)"
+    if "flash_bwd_dkv_sm90_kernel" in name:
+        return "flash dK/dV, Hopper (port)"
     if "flash_fwd_sm90_kernel<" in name:
         # template arguments <DP, EXPB, LSE>
         lse = name.split("flash_fwd_sm90_kernel<")[1].split(">")[0].split(", ")[2] == "true"
@@ -2178,6 +2296,7 @@ def main() -> int:
           "wide_flash_registers": wide_flash_registers(),
           "flash_variant_registers": variant_flash_registers(),
           "flash_fwd_smem_bytes": flash_smem(),
+          "flash_bwd_sm90": bwd_sm90_report(),
           "conv3x3_sm90_smem_bytes": _build.function("conv2d_sm90", "sd_conv3x3_fwd_sm90_smem",
                                                      [])()})
 
@@ -2241,8 +2360,14 @@ def main() -> int:
                # the combine launch of a split sweep (the wide route)
                "flash_lse_combine": (src + "flash_attention_wide.cu",
                                      tpu + "flash_attention.py:421"),
+               # the backward: its rows are train_kl_vae's d = 512 (the wide
+               # kernels); the Hopper route's counters take train_ldm's d <= 128
                "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
                "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
+               "flash_bwd_dq_sm90": (src + "flash_attention_bwd_sm90.cu",
+                                     tpu + "flash_attention.py:465"),
+               "flash_bwd_dkv_sm90": (src + "flash_attention_bwd_sm90.cu",
+                                      tpu + "flash_attention.py:511"),
                "geglu_ff": (src + "geglu.cu", tpu + "geglu.py:48"),
                "conv3x3_same": (src + "conv2d_sm90.cu", tpu + "conv2d.py:30"),
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
@@ -2278,9 +2403,13 @@ def main() -> int:
     train_keys = ("shape", "route", "kv_split", "max_abs_err", "lse_abs_err", "ms", "generic_ms",
                   "plain_ms", "bound_ms", "bound_by", "bound_op", "library_ms",
                   "library_backend", *device_keys)
+    # SDPA computes dQ, dK and dV together: its backward stands on both rows
     lse_rows = train_rows["flash_attention_lse"]
     for route, counter in LSE_ROUTE_COUNTER.items():
         train_rows[counter] = {s_: r for s_, r in lse_rows.items() if r["route"] == route}
+    for part, counter in BWD_ROUTE_COUNTER.items():
+        train_rows[counter] = {s_: r for s_, r in train_rows["flash_bwd_" + part].items()
+                               if r["route"] == "sm90"}
     for name, by_shape in train_rows.items():
         first = KLVAE_ATTN_SHAPE if KLVAE_ATTN_SHAPE in by_shape else next(iter(by_shape))
         table[name] = {**by_shape[first], "other_shapes": [
@@ -2292,6 +2421,8 @@ def main() -> int:
              "flash_lse_combine": ("train_kl_vae", klvae["launches"]),
              "flash_bwd_dq": ("train_kl_vae", klvae["launches"]),
              "flash_bwd_dkv": ("train_kl_vae", klvae["launches"]),
+             "flash_bwd_dq_sm90": ("train_ldm", train["launches"]),
+             "flash_bwd_dkv_sm90": ("train_ldm", train["launches"]),
              "flash_attention_pipelined": ("generate, opt-in", launches_optin),
              "group_norm": ("generate, opt-in", launches_optin),
              "crossattn_kv": ("generate, opt-in", launches_optin),
@@ -2322,6 +2453,8 @@ def main() -> int:
         if name in train_rows:
             row.update(launches_by_path={"train_kl_vae": klvae["launches"][name],
                                          "train_ldm": train["launches"][name]},
+                       launches_per_step={"train_kl_vae": klvae["launches_per_step"][name],
+                                          "train_ldm": train["launches_per_step"][name]},
                        library_backend=r["library_backend"], other_shapes=r["other_shapes"])
         rows.append(row)
     emit({"kernels": rows})

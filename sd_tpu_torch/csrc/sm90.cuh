@@ -639,10 +639,22 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// The encoder checks the address against the calling thread's current
+// context, and a thread that has made no runtime call yet (autograd runs
+// the backward on its own threads) has none: make the primary context of
+// the thread's device current first. 0 or an error code.
+inline int bind_context() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  return (int)e;
+}
+
 // the tensor map of a strided [B, S, H, D] bf16 view (strides in elements),
 // boxes of 8 columns x `rows` rows of one head; 0 or an error code
 inline int make_view_map(ViewMap* m, const bf16* base, int B, int S, int H, int D, long long sb,
                          long long ss, long long sh, int rows) {
+  if (const int e = bind_context()) return e;
   auto encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   m->hfirst = sh <= ss;
@@ -668,6 +680,7 @@ inline int make_view_map(ViewMap* m, const bf16* base, int B, int S, int H, int 
 // zeros, so one box is a zero-padded window with its halo.
 inline int make_nhwc_window_map(CUtensorMap* m, const bf16* x, int B, int H, int W, int C,
                                 int box_w, int box_h) {
+  if (const int e = bind_context()) return e;
   auto encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};

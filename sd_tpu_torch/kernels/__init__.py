@@ -8,8 +8,10 @@ one of several sources, a route counter counts beside its own: the inference
 flash forward's `flash_fwd_sm90`, `flash_fwd_sm90_pv8` and `flash_fwd_wide`,
 and the training forward's `flash_lse_sm90` and `flash_lse_wide` (the LSE
 epilogue of `flash_attention_sm90.cu` and `flash_attention_wide.cu`), with
-`flash_lse_combine` for the second launch of a split kv sweep. The 3×3 conv
-(`conv3x3_same`) runs `csrc/conv2d_sm90.cu`.
+`flash_lse_combine` for the second launch of a split kv sweep, and the
+backward's `flash_bwd_dq_sm90` and `flash_bwd_dkv_sm90`
+(`flash_attention_bwd_sm90.cu`). The 3×3 conv (`conv3x3_same`) runs
+`csrc/conv2d_sm90.cu`.
 
 Only flash attention has backward kernels (`flash_attention.py`, an
 autograd Function). GEGLU, the 3×3 conv, GroupNorm and the fused
@@ -55,6 +57,10 @@ LAUNCHES: dict[str, int] = {
     # ... and the combine launch of a training forward whose kv sweep is split
     # (`flash_attention.lse_split`)
     "flash_lse_combine": 0,
+    # ... and the backward's launches (`flash_bwd_dq`, `flash_bwd_dkv`) served
+    # by flash_attention_bwd_sm90.cu (head dims up to 128)
+    "flash_bwd_dq_sm90": 0,
+    "flash_bwd_dkv_sm90": 0,
 }
 
 

@@ -1,7 +1,8 @@
 """Flash attention: hand-written CUDA kernels (`csrc/flash_attention_sm90.cu`,
 `csrc/flash_attention_sm90_pv8.cu`, `csrc/flash_attention_wide.cu`,
-`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`), their plain
-PyTorch versions, and the `torch.autograd.Function` that trains through them.
+`csrc/flash_attention.cu`, `csrc/flash_attention_bwd_sm90.cu`,
+`csrc/flash_attention_bwd.cu`), their plain PyTorch versions, and the
+`torch.autograd.Function` that trains through them.
 
 Counterpart of `sd_tpu/kernels/flash_attention.py`. The TPU package has two
 forward kernels, `flash_attention` over [B, S, H, D] (transposed to
@@ -23,7 +24,12 @@ route counter `flash_lse_sm90`, `flash_attention_wide.cu` above,
 `flash_lse_wide`), and a backward of a dQ
 kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel, at every
 head dim the forward takes (multiples of 8 up to 512: the SD UNet's 40-160
-and the codec's single-head 512). Non-causal only. With
+and the codec's single-head 512): `bwd_route` puts head dims up to 128 on
+`flash_attention_bwd_sm90.cu` (route counters `flash_bwd_dq_sm90`,
+`flash_bwd_dkv_sm90`, rows per block by `bwd_rows`) and 129-512 on the wide
+kernels of `flash_attention_bwd.cu`, whose d ≤ 128 instantiations are the
+yardstick (`_launch_bwd(..., "template")`); `_flash_bwd_tiled_ref` is the
+plain version of the Hopper kernels' tiling. Non-causal only. With
 `SD_TPU_FLASH_BWD=chunked` (any value but "pallas", as in the TPU package)
 the training forward is the inference forward and the backward a plain
 chunked recompute (`_bwd_chunked_ref`): no LSE, dQ or dK/dV kernel runs.
@@ -258,6 +264,81 @@ def _flash_bwd_ref(q, k, v, o, lse, do, scale: float):
     """Plain backward of the training forward: (dq, dk, dv, delta)."""
     dq, delta = _flash_bwd_dq_ref(q, k, v, o, lse, do, scale)
     return (dq, *_flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), delta)
+
+
+def _flash_bwd_tiled_ref(q, k, v, o, lse, do, scale: float, rows: tuple[int, int] = (64, 64),
+                         masks: bool = True):
+    """Plain version of the Hopper backward's tiling
+    (`csrc/flash_attention_bwd_sm90.cu`): (dq, dk, dv, delta). The dQ
+    kernel's blocks own rows[0] q rows and the dK/dV kernel's rows[1] kv
+    rows; each sweeps the other side in 64-row tiles, in order, summing in
+    fp32. Head dims are zero-padded to a multiple of 16 and every side to
+    whole blocks and tiles with zero rows, as TMA fills them; lse2 past Sq
+    reads NEG_INF and delta 0, as the kernels stage them. P = exp2(s2 −
+    lse2) and dS = P∘(dP − delta) are rounded to the operands' dtype (bf16
+    on the card) before the second products. `masks` applies the kernels'
+    index masks (kv columns past Skv in dQ, q columns past Sq in dK/dV) and
+    lse2 ≤ NEG_INF/2; without them a padded q column gives P = inf, and inf
+    times its zero row of dO or Q is NaN."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    dp, tile, s2c = _round_up(D, 16), 64, scale * LOG2E
+
+    def pad(x, n):     # [B, S, H, D] -> [B, H, n, dp] fp32, zeros past S and D
+        out = torch.zeros((B, H, n, dp), dtype=torch.float32, device=q.device)
+        out[:, :, :x.shape[1], :D] = x.float().transpose(1, 2)
+        return out
+
+    def rows_of(x, n, fill):   # [B, H, Sq] -> [B, H, n], `fill` past Sq
+        out = torch.full((B, H, n), fill, dtype=torch.float32, device=q.device)
+        out[..., :Sq] = x
+        return out
+
+    def p_ds(s, dpp, l, dl, ok):
+        p = torch.exp2(s * s2c - l)
+        ds = p * (dpp - dl)
+        if not masks:
+            return p, ds
+        ok = ok & (l > NEG_INF / 2)
+        return torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
+
+    rd = lambda t: t.to(q.dtype).float()
+    # the dQ kernel: delta of its own rows, then the kv sweep
+    nq, nk = _round_up(Sq, rows[0]), _round_up(Skv, tile)
+    qp, op, dop, kp, vp = pad(q, nq), pad(o, nq), pad(do, nq), pad(k, nk), pad(v, nk)
+    delta = (dop * op).sum(dim=-1)
+    lse_q = rows_of(lse, nq, NEG_INF)[..., None]
+    dq = torch.zeros((B, H, nq, dp), device=q.device)
+    for r0 in range(0, nq, rows[0]):
+        blk = slice(r0, r0 + rows[0])
+        for j0 in range(0, nk, tile):
+            kt, vt = kp[:, :, j0:j0 + tile], vp[:, :, j0:j0 + tile]
+            col = torch.arange(j0, j0 + tile, device=q.device) < Skv
+            _, ds = p_ds(qp[:, :, blk] @ kt.transpose(-1, -2), dop[:, :, blk] @ vt.transpose(-1, -2),
+                         lse_q[:, :, blk], delta[:, :, blk, None], col)
+            dq[:, :, blk] += rd(ds) @ kt
+
+    # the dK/dV kernel: the q sweep, lse2 and delta by column
+    nk2, nq2 = _round_up(Skv, rows[1]), _round_up(Sq, tile)
+    kp2, vp2, qp2, dop2 = pad(k, nk2), pad(v, nk2), pad(q, nq2), pad(do, nq2)
+    lse_c = rows_of(lse, nq2, NEG_INF)[:, :, None]
+    delta_c = rows_of(delta[..., :Sq], nq2, 0.0)[:, :, None]
+    dk = torch.zeros((B, H, nk2, dp), device=q.device)
+    dv = torch.zeros((B, H, nk2, dp), device=q.device)
+    for r0 in range(0, nk2, rows[1]):
+        blk = slice(r0, r0 + rows[1])
+        for i0 in range(0, nq2, tile):
+            cols = slice(i0, i0 + tile)
+            qt, dot = qp2[:, :, cols], dop2[:, :, cols]
+            col = torch.arange(i0, i0 + tile, device=q.device) < Sq
+            pt, dst = p_ds(kp2[:, :, blk] @ qt.transpose(-1, -2),
+                           vp2[:, :, blk] @ dot.transpose(-1, -2),
+                           lse_c[..., cols], delta_c[..., cols], col)
+            dv[:, :, blk] += rd(pt) @ dot
+            dk[:, :, blk] += rd(dst) @ qt
+    out = lambda x, n, like: x[:, :, :n, :D].transpose(1, 2).to(like.dtype)
+    return (out(dq * scale, Sq, q), out(dk * scale, Skv, k), out(dv, Skv, v),
+            delta[..., :Sq])
 
 
 def _bwd_chunked_ref(q, k, v, g, scale: float, block_q: int = 1024):
@@ -615,49 +696,97 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _BWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
-                ctypes.c_void_p])
+             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float])
+# the route counter of each backward kernel on the Hopper route (the wide
+# kernels of flash_attention_bwd.cu count under the wrappers' names alone)
+BWD_ROUTE_COUNTERS = {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"}
+# the C entry point of each backward kernel on each route ("template": the
+# d ≤ 128 instantiations of flash_attention_bwd.cu, the yardstick)
+_BWD_ENTRY = {("dq", "sm90"): ("flash_attention_bwd_sm90", "sd_flash_bwd_dq_sm90"),
+              ("dkv", "sm90"): ("flash_attention_bwd_sm90", "sd_flash_bwd_dkv_sm90"),
+              **{(kind, route): ("flash_attention_bwd", f"sd_flash_bwd_{kind}")
+                 for kind in ("dq", "dkv") for route in ("wide", "template")}}
+
+
+def bwd_route(d: int) -> str:
+    """The source of the dQ and dK/dV kernels at head dim d, decided from the
+    shape alone, so a CPU or meta run makes the card's choice: the Hopper
+    backward (`flash_attention_bwd_sm90.cu`) up to 128, the wide kernels of
+    `flash_attention_bwd.cu` from 129 to 512."""
+    if d <= 0 or d > 512:
+        raise ValueError(f"flash attention (backward): head dim {d} is not in 1..512")
+    return "sm90" if d <= 128 else "wide"
+
+
+def bwd_rows(b: int, s: int, h: int) -> int:
+    """Rows per block of a Hopper backward kernel over s own rows (q rows for
+    dQ, kv rows for dK/dV), decided from the shape alone: 128 (two consumer
+    warpgroups sharing each streamed tile) where that grid fills one wave of
+    the H100, else 64 (one warpgroup, twice the blocks). A block always
+    sweeps the whole other side: splitting a sweep would need atomics or a
+    second launch."""
+    return 128 if -(-s // 128) * b * h >= H100_SMS else 64
+
+
+def _launch_bwd(kind: str, q, k, v, a, lse, c, scale: float, route: str):
+    """One backward kernel on `route` ("sm90", "wide", or the template's
+    instantiation, the yardstick) over [B, S, H, D] views. kind "dq": (a, c)
+    = (o, do), returns (dq, delta [B, H, Sq] fp32); kind "dkv": (a, c) =
+    (do, delta), returns (dk, dv)."""
+    if kind == "dq":
+        o, do = a, c
+        out1 = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (o, "o", q), (do, "do", q),
+                                        (out1, "dq", q))
+        out2 = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        ptrs, strides, own = (o, do, lse, out1, out2), _strides(q, k, v, o, do, out1), Sq
+    else:
+        do, delta = a, c
+        out1 = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        out2 = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (do, "do", q), (out1, "dk", k),
+                                        (out2, "dv", k))
+        _check_rows(delta, "delta", B, H, Sq, q.device)
+        ptrs, strides, own = (do, lse, delta, out1, out2), _strides(q, k, v, do, out1, out2), Skv
+    _check_rows(lse, "lse", B, H, Sq, q.device)
+    lib, symbol = _BWD_ENTRY[kind, route]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in ptrs), B, H, Sq,
+            Skv, D, strides, float(scale) * LOG2E, float(scale)]
+    if route == "sm90":
+        fn = _build.function(lib, symbol, _BWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
+        args.append(bwd_rows(B, own, H))
+    else:
+        fn = _build.function(lib, symbol, _BWD_ARGS + [ctypes.c_void_p])
+    _build.check(fn(*args, _build.stream_ptr(q.device)), symbol)
+    return out1, out2
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
     """(dq, delta [B, H, Sq] fp32) from the training forward's o and lse2
-    and the output gradient do. On the card the dQ kernel, else the plain
-    version."""
+    and the output gradient do. On the card the dQ kernel `bwd_route` names
+    (counted under `flash_bwd_dq_sm90` beside `flash_bwd_dq` on the Hopper
+    route), else the plain version."""
+    route = bwd_route(q.shape[-1])
     if not q.is_cuda:
         return _flash_bwd_dq_ref(q, k, v, o, lse, do, scale)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (o, "o", q), (do, "do", q),
-                                    (dq, "dq", q))
-    _check_rows(lse, "lse", B, H, Sq, q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention_bwd", "sd_flash_bwd_dq", _BWD_ARGS)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), B, H, Sq, Skv, D,
-              _strides(q, k, v, o, do, dq), float(scale) * LOG2E, float(scale),
-              _build.stream_ptr(q.device))
-    _build.check(code, "sd_flash_bwd_dq")
+    dq, delta = _launch_bwd("dq", q, k, v, o, lse, do, scale, route)
+    if route == "sm90":
+        kernels.LAUNCHES[BWD_ROUTE_COUNTERS["dq"]] += 1
     kernels.LAUNCHES["flash_bwd_dq"] += 1
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     """(dk, dv) from lse2 and flash_bwd_dq's delta. On the card the dK/dV
-    kernel (no atomics: the same bits on every run), else the plain
-    version."""
+    kernel `bwd_route` names (counted under `flash_bwd_dkv_sm90` beside
+    `flash_bwd_dkv` on the Hopper route; no atomics: the same bits on every
+    run), else the plain version."""
+    route = bwd_route(q.shape[-1])
     if not q.is_cuda:
         return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    B, Sq, Skv, H, D = _check_views(q, k, (v, "v", k), (do, "do", q), (dk, "dk", k),
-                                    (dv, "dv", k))
-    _check_rows(lse, "lse", B, H, Sq, q.device)
-    _check_rows(delta, "delta", B, H, Sq, q.device)
-    fn = _build.function("flash_attention_bwd", "sd_flash_bwd_dkv", _BWD_ARGS)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              B, H, Sq, Skv, D, _strides(q, k, v, do, dk, dv),
-              float(scale) * LOG2E, float(scale), _build.stream_ptr(q.device))
-    _build.check(code, "sd_flash_bwd_dkv")
+    dk, dv = _launch_bwd("dkv", q, k, v, do, lse, delta, scale, route)
+    if route == "sm90":
+        kernels.LAUNCHES[BWD_ROUTE_COUNTERS["dkv"]] += 1
     kernels.LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 

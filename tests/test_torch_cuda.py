@@ -14,7 +14,9 @@ under `flash_lse_sm90` / `flash_lse_wide`), the 3×3 conv the Hopper kernel
 `conv2d_sm90.cu` (held against `conv2d.cu`'s too), each giving the same
 bits twice. The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
-and the sums run over up to 4096 rows). Every test needs a CUDA device and
+and the sums run over up to 4096 rows); at head dims up to 128 it runs
+`flash_attention_bwd_sm90.cu` (counted under `flash_bwd_dq_sm90` /
+`flash_bwd_dkv_sm90`), held against the template too, the same bits twice. Every test needs a CUDA device and
 skips without one. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
@@ -286,6 +288,43 @@ def test_flash_training_kernels_on_card(cuda, b, sq, skv, h, d):
     assert (delta - refs[3]).abs().max().item() <= 1e-3 * refs[3].abs().max().item()
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, d**-0.5)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)   # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,packed", [(1, 4096, 4096, 8, 40, False),
+                                                 (1, 1024, 1024, 8, 80, False),
+                                                 (1, 1000, 1300, 8, 40, False),
+                                                 (2, 1024, 1024, 8, 40, True)])
+def test_hopper_flash_bwd_on_card(cuda, b, sq, skv, h, d, packed):
+    """The backward at head dims up to 128 on flash_attention_bwd_sm90.cu:
+    each route counter moves once per call, dq, dk and dv within 2e-2·max|ref|
+    and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ of the fp32 plain version and of the template
+    (flash_attention_bwd.cu), the same bits twice. `packed`: q, k and v are
+    head views of one fused [B, S, 3·H·D] projection (row stride 3·H·D)."""
+    if packed:
+        qkv = _rnd(cuda, b, sq, 3 * h * d)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(2, (h, d)) for i in range(3))
+    else:
+        q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    do, scale = _rnd(cuda, b, sq, h, d), d**-0.5
+    assert fa.bwd_route(d) == "sm90"
+    o, lse = fa.flash_attention_lse(q, k, v, scale)
+    kernels.reset_launches()
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+    assert (kernels.LAUNCHES["flash_bwd_dq_sm90"], kernels.LAUNCHES["flash_bwd_dkv_sm90"]) == (1, 0)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+    assert (kernels.LAUNCHES["flash_bwd_dq_sm90"], kernels.LAUNCHES["flash_bwd_dkv_sm90"]) == (1, 1)
+    refs = fa._flash_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(), scale)
+    tq, td = fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
+    tk, tv = fa._launch_bwd("dkv", q, k, v, do, lse, td, scale, "template")
+    for got, ref, tpl in zip((dq, dk, dv), refs, (tq, tk, tv)):
+        _grad_within(got, ref)
+        _grad_within(got, tpl)
+    assert (delta - refs[3]).abs().max().item() <= 1e-3 * refs[3].abs().max().item()
+    dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+    assert all(torch.equal(x, y) for x, y in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+    assert (kernels.LAUNCHES["flash_bwd_dq_sm90"], kernels.LAUNCHES["flash_bwd_dkv_sm90"]) == (2, 2)
 
 
 @pytest.mark.cuda
