@@ -13,7 +13,7 @@ Phases, each printed as one JSON line:
            (bf16 output rounding at 2^-8 plus p rounded to bf16); the flash
            training kernels: lse2 within 1e-3 absolute, dq/dk/dv within
            2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16, sums
-           over up to 4096 rows), and dK/dV bitwise equal on a second run;
+           over up to 4096 rows), and dQ and dK/dV bitwise equal on a second run;
            the pipelined flash sweep against the serial kernel too (max|Δ|,
            same bits expected); the fused GroupNorm → SiLU → 3×3 conv, which
            no path calls, at the decoder's conv shapes;
@@ -1027,7 +1027,7 @@ def phase_train_kernels(gen) -> dict:
             "flash_bwd_dkv": dict(
                 max_abs_err=max(errs["dk"][0], errs["dv"][0]),
                 rel_err=max(errs["dk"][1], errs["dv"][1]), l2_rel=max(l2["dk"], l2["dv"]),
-                route=b_route, same_bits_twice=same_dkv, deterministic=same_dkv,
+                route=b_route, same_bits_twice=same_dkv,
                 ms=time_ms(dkv_call), device_ms=device_ms(dkv_call),
                 plain_ms=time_ms(lambda: fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), 3),
                 library_ms=lib_bwd, library_device_ms=lib_dev_bwd, library_call=lib_note,

@@ -47,8 +47,9 @@
 //     tile) where that grid fills a wave of the card, else 64
 //     (kernels/flash_attention.py `bwd_rows`); a sweep is never split;
 //   * masks by index: TMA fills rows past Sq and Skv with zeros, and a zero
-//     row gives p = exp2(-lse2), not 0, so kv columns past Skv (dQ) and q
-//     columns past Sq (dK/dV) are set to p = dS = 0 by their index; the lse2
+//     row gives p = exp2(-lse2), not 0, so kv columns past Skv (dQ's last
+//     tile) and q columns past Sq (dK/dV) take lse2 = +1e30 and delta 0 by
+//     their index, which makes p = dS = 0 with no select per element; the lse2
 //     and delta slices of a q tile arrive by one bulk copy each where their
 //     rows are 16-byte aligned (Sq a multiple of 4), else the producer warp
 //     stages them with plain loads (-1e30 and 0 past Sq).
@@ -65,8 +66,6 @@ struct BwdCfg {
   static constexpr int TILE = R * DP;                    // elements of a tile
   static constexpr int CONSUMERS = NWG * 4;              // consumer warps
   static constexpr int THREADS = CONSUMERS * 32 + 32;    // + the producer warp
-  // one-warpgroup blocks serve grids under one wave: two of them per SM
-  static constexpr int MINB = (NWG == 1 && DP <= 80) ? 2 : 1;
   // a stage: the two streamed tiles, and for dK/dV their lse2 and delta
   static constexpr int STAGE = 2 * TILE * 2 + (DKV ? 2 * R * 4 : 0);
   static constexpr size_t SMEM =
@@ -88,6 +87,52 @@ struct BwdArgs {
   int bulk;               // dK/dV: lse2 and delta slices by bulk copy
   float scale_log2, scale;
 };
+
+// P = 2^(s * scale_log2 - lse2) and dS = P (dP - delta) in place over one
+// 64-column tile of the dQ kernel: x holds S and y dP (rows g and g + 8 of
+// the thread's warp, columns 8n + 2t and + 1 of each n8 group n), lse2 and
+// delta are per row; with EDGE, columns at or past `lim` (kv rows past Skv)
+// take lse2 = +1e30 and delta 0, so P and dS are 0 there
+template <bool EDGE>
+__device__ __forceinline__ void p_ds_rows(float (&x)[R / 2], float (&y)[R / 2], float l_lo,
+                                          float l_hi, float d_lo, float d_hi, int lim, int t,
+                                          float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) {
+    float l = (i & 2) ? l_hi : l_lo, dd = (i & 2) ? d_hi : d_lo;
+    if (EDGE && 8 * (i >> 2) + 2 * t + (i & 1) >= lim) {
+      l = -NEG;
+      dd = 0.f;
+    }
+    const float p = fast_exp2(fmaf(x[i], scale_log2, -l));
+    x[i] = p;
+    y[i] = p * (y[i] - dd);
+  }
+}
+
+// ... of the dK/dV kernel: x holds S^T and y dP^T, lse2 and delta are per
+// column from the stage (`rl`: 64 lse2, then 64 delta); columns at or past
+// `valid` (q rows past Sq) or whose lse2 marks a zero sum take lse2 = +1e30
+// and delta 0, so P and dS are 0 there whatever the stage holds
+__device__ __forceinline__ void p_ds_cols(float (&x)[R / 2], float (&y)[R / 2], const float* rl,
+                                          int valid, int t, float scale_log2) {
+#pragma unroll
+  for (int n = 0; n < R / 8; ++n) {
+    const int cl = 8 * n + 2 * t;
+    const float2 lc = *reinterpret_cast<const float2*>(rl + cl);
+    const float2 dc = *reinterpret_cast<const float2*>(rl + R + cl);
+    const bool v0 = cl < valid && lc.x > NEG / 2, v1 = cl + 1 < valid && lc.y > NEG / 2;
+    const float l[2] = {v0 ? lc.x : -NEG, v1 ? lc.y : -NEG};
+    const float dd[2] = {v0 ? dc.x : 0.f, v1 ? dc.y : 0.f};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      const float p = fast_exp2(fmaf(x[i], scale_log2, -l[e & 1]));
+      x[i] = p;
+      y[i] = p * (y[i] - dd[e & 1]);
+    }
+  }
+}
 
 // mr1, mr2: the resident tensors (K, V for dK/dV; Q, dO for dQ); ms1, ms2:
 // the streamed ones (Q, dO; K, V)
@@ -205,7 +250,10 @@ __device__ __forceinline__ void bwd_body(const ViewMap& mr1, const ViewMap& mr2,
     if (row_lo < a.Sq) l_lo = a.lse[(long long)bh * a.Sq + row_lo];
     if (row_hi < a.Sq) l_hi = a.lse[(long long)bh * a.Sq + row_hi];
   }
-  const bool ok_lo = l_lo > NEG / 2, ok_hi = l_hi > NEG / 2;   // dQ's rows
+  // a row whose lse2 marks a zero sum (or lies past Sq) takes lse2 = +1e30:
+  // its p is then 0 with no select per element
+  if (!(l_lo > NEG / 2)) l_lo = -NEG;
+  if (!(l_hi > NEG / 2)) l_hi = -NEG;
 
   float acc1[DP / 2], acc2[DKV ? DP / 2 : 1];   // dQ or dK; dV
 #pragma unroll
@@ -240,33 +288,12 @@ __device__ __forceinline__ void bwd_body(const ViewMap& mr1, const ViewMap& mr2,
 
     // ---- P and dS in place, the masks by index ------------------------------
     const int c0 = j * R;
-#pragma unroll
-    for (int n = 0; n < R / 8; ++n) {
-      const int col = c0 + 8 * n + 2 * t;
-      float2 lc = make_float2(0.f, 0.f), dc = lc;
-      if constexpr (DKV) {   // per q column: the stage's lse2 and delta
-        lc = *reinterpret_cast<const float2*>(rl + 8 * n + 2 * t);
-        dc = *reinterpret_cast<const float2*>(rl + R + 8 * n + 2 * t);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * n + e;
-        bool ok;
-        float l, dd;
-        if constexpr (DKV) {
-          l = (e & 1) ? lc.y : lc.x;
-          dd = (e & 1) ? dc.y : dc.x;
-          ok = col + (e & 1) < a.Sq && l > NEG / 2;
-        } else {             // per q row, kv columns past Skv masked
-          l = (e & 2) ? l_hi : l_lo;
-          dd = (e & 2) ? d_hi : d_lo;
-          ok = col + (e & 1) < a.Skv && ((e & 2) ? ok_hi : ok_lo);
-        }
-        const float p = ok ? fast_exp2(fmaf(x[i], a.scale_log2, -l)) : 0.f;
-        x[i] = p;
-        y[i] = ok ? p * (y[i] - dd) : 0.f;
-      }
-    }
+    if constexpr (DKV)
+      p_ds_cols(x, y, rl, a.Sq - c0, t, a.scale_log2);
+    else if (c0 + R <= a.Skv)
+      p_ds_rows<false>(x, y, l_lo, l_hi, d_lo, d_hi, R, t, a.scale_log2);
+    else
+      p_ds_rows<true>(x, y, l_lo, l_hi, d_lo, d_hi, a.Skv - c0, t, a.scale_log2);
 #pragma unroll
     for (int kk = 0; kk < R / 16; ++kk) {
       if constexpr (DKV) {
@@ -323,7 +350,7 @@ __device__ __forceinline__ void bwd_body(const ViewMap& mr1, const ViewMap& mr2,
 }
 
 template <int DP, int NWG>
-__global__ void __launch_bounds__(BwdCfg<DP, NWG, false>::THREADS, BwdCfg<DP, NWG, false>::MINB)
+__global__ void __launch_bounds__(BwdCfg<DP, NWG, false>::THREADS, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_constant__ ViewMap mdo,
                          const __grid_constant__ ViewMap mk, const __grid_constant__ ViewMap mv,
                          const __grid_constant__ BwdArgs a) {
@@ -331,7 +358,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ ViewMap mq, const __grid_consta
 }
 
 template <int DP, int NWG>
-__global__ void __launch_bounds__(BwdCfg<DP, NWG, true>::THREADS, BwdCfg<DP, NWG, true>::MINB)
+__global__ void __launch_bounds__(BwdCfg<DP, NWG, true>::THREADS, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ ViewMap mk, const __grid_constant__ ViewMap mv,
                           const __grid_constant__ ViewMap mq, const __grid_constant__ ViewMap mdo,
                           const __grid_constant__ BwdArgs a) {

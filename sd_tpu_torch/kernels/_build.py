@@ -22,8 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_sm90_pv8",
            "flash_attention_wide", "flash_attention_bwd", "flash_attention_bwd_sm90", "geglu",
-           "conv2d", "conv2d_sm90",
-           "groupnorm", "cross_attention")
+           "conv2d", "conv2d_sm90", "groupnorm", "cross_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
