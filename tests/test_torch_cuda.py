@@ -294,13 +294,17 @@ def test_flash_training_kernels_on_card(cuda, b, sq, skv, h, d):
 @pytest.mark.parametrize("b,sq,skv,h,d,packed", [(1, 4096, 4096, 8, 40, False),
                                                  (1, 1024, 1024, 8, 80, False),
                                                  (1, 1000, 1300, 8, 40, False),
-                                                 (2, 1024, 1024, 8, 40, True)])
+                                                 (2, 1024, 1024, 8, 40, True),
+                                                 (1, 1001, 777, 2, 80, False)])
 def test_hopper_flash_bwd_on_card(cuda, b, sq, skv, h, d, packed):
     """The backward at head dims up to 128 on flash_attention_bwd_sm90.cu:
     each route counter moves once per call, dq, dk and dv within 2e-2·max|ref|
     and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ of the fp32 plain version and of the template
     (flash_attention_bwd.cu), the same bits twice. `packed`: q, k and v are
-    head views of one fused [B, S, 3·H·D] projection (row stride 3·H·D)."""
+    head views of one fused [B, S, 3·H·D] projection (row stride 3·H·D).
+    Sq = 1001 is not a multiple of 4: the dK/dV kernel's lse2 and delta rows
+    are not 16-byte aligned, so its producer warp stages them with plain
+    loads instead of bulk copies."""
     if packed:
         qkv = _rnd(cuda, b, sq, 3 * h * d)
         q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(2, (h, d)) for i in range(3))
