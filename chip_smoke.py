@@ -47,9 +47,12 @@ Phases, each printed as one JSON line:
            moved once, dq, dk, dv within the gradient bounds of the fp32
            plain version and of the template, the same bits twice), with
            `device_ms`, the template's times (`generic_ms`,
-           `generic_device_ms`) and SDPA's backward on a pinned backend
-           (flash where it takes the shape, else memory-efficient) in host
-           and device time;
+           `generic_device_ms`), at d ≤ 48 the other rows per block than
+           `bwd_rows` picks (`alt_rows_ms`), and SDPA's backward in host and device
+           time on PyTorch's default dispatch and pinned to one backend
+           (flash where it takes the shape, else memory-efficient), each
+           with the backend it ran; every training row's library time is
+           the faster of the two in device time;
   attention_switches  one level-0 attention block under each value of
            `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`,
            `SD_TPU_FLASH_BWD`: which launch counters move, and the output (and
@@ -900,6 +903,48 @@ def pinned_sdpa(heads, do_h):
     return None, None, None
 
 
+def sdpa_yardsticks(heads, do_h) -> dict:
+    """`scaled_dot_product_attention`'s forward and backward (fwd+bwd − fwd)
+    on [B, H, S, D] views, in host time (CUDA events) and device time
+    (`device_ms`), on PyTorch's default dispatch ("default") and pinned to
+    one backend ("pinned", `pinned_sdpa`), each with the backend it ran."""
+    import torch
+    import torch.nn.functional as F
+
+    def fwd():
+        return F.scaled_dot_product_attention(*heads)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), heads, do_h)
+
+    name, p_fwd, p_fwd_bwd = pinned_sdpa(heads, do_h)
+    out = {}
+    for kind, f, fb in (("default", fwd, fwd_bwd), ("pinned", p_fwd, p_fwd_bwd)):
+        if f is None:
+            continue
+        ms, both = time_ms(f), time_ms(fb)
+        dev, dev_both = device_ms(f), device_ms(fb)
+        backend = sdpa_backend(fb)
+        if kind == "pinned":
+            backend["pinned"] = name
+        out[kind] = {"fwd_ms": ms, "fwd_device_ms": dev, "bwd_ms": both - ms,
+                     "bwd_device_ms": dev_both - dev, "backend": backend}
+    return out
+
+
+def library_fields(sdpa: dict, part: str, call: str) -> dict:
+    """A training row's library keys from `sdpa_yardsticks` for its `part`
+    ("fwd" or "bwd"): `library_ms`, `library_device_ms` and
+    `library_backend` of the faster in device time of the default dispatch
+    and the pinned backend, both kept beside it."""
+    best = min(sdpa.values(), key=lambda y: y[part + "_device_ms"])
+    both = {kind: {"ms": y[part + "_ms"], "device_ms": y[part + "_device_ms"],
+                   "backend": y["backend"]["backend"]} for kind, y in sdpa.items()}
+    return {"library_ms": best[part + "_ms"], "library_device_ms": best[part + "_device_ms"],
+            "library_backend": best["backend"], "library_call": call,
+            "library_default": both.get("default"), "library_pinned": both.get("pinned")}
+
+
 def phase_train_kernels(gen) -> dict:
     """The flash training kernels (LSE forward, dQ, dK/dV) at the training
     paths' self-attention shapes: train_ldm's [1, 4096, 8, 40] at UNet
@@ -915,11 +960,16 @@ def phase_train_kernels(gen) -> dict:
     template too, whose times stand beside it as `generic_ms` and
     `generic_device_ms`); the LSE forward, dQ and dK/dV run twice must give
     the same bits. Every kernel row carries `device_ms` (torch.profiler's
-    device time per call) beside its CUDA-event `ms`. Library:
-    `scaled_dot_product_attention` on one pinned backend (`pinned_sdpa`), its
-    forward for the LSE row and its backward (fwd+bwd − fwd, host clock as
-    `library_ms`, device time as `library_device_ms`) for the dQ and dK/dV
-    rows, which SDPA computes together. Returns {name: {shape: row}}."""
+    device time per call) beside its CUDA-event `ms`; the Hopper backward
+    rows also, at head dims where both are built, the other rows per block
+    than `bwd_rows` picks (`alt_rows_ms`, `alt_rows_device_ms`). Library:
+    `scaled_dot_product_attention` on the default dispatch and on one
+    pinned backend (`sdpa_yardsticks`), its
+    forward for the LSE row and its backward (fwd+bwd − fwd) for the dQ and
+    dK/dV rows, which SDPA computes together; `library_ms` (host clock),
+    `library_device_ms` and `library_backend` are the faster's in device
+    time, both kept as `library_default` and `library_pinned`. Returns
+    {name: {shape: row}}."""
     import torch
 
     from sd_tpu_torch.kernels import flash_attention as fa
@@ -988,20 +1038,12 @@ def phase_train_kernels(gen) -> dict:
 
         heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         do_h = do.transpose(1, 2)
-        backend_name, lib_fwd_call, lib_fwd_bwd = pinned_sdpa(heads, do_h)
-        if backend_name is None:
-            lib_fwd = lib_both = lib_dev_fwd = lib_dev_both = None
-            backend = {"backend": None, "kernels": []}
-        else:
-            lib_fwd, lib_both = time_ms(lib_fwd_call), time_ms(lib_fwd_bwd)
-            lib_dev_fwd, lib_dev_both = device_ms(lib_fwd_call), device_ms(lib_fwd_bwd)
-            backend = {**sdpa_backend(lib_fwd_bwd), "pinned": backend_name}
-        lib_bwd = None if lib_both is None else lib_both - lib_fwd
-        lib_dev_bwd = None if lib_dev_both is None else lib_dev_both - lib_dev_fwd
+        sdpa = sdpa_yardsticks(heads, do_h)
         dq_call = lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
         dkv_call = lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
-        lib_note = ("scaled_dot_product_attention backward (fwd+bwd - fwd), dq and dk/dv "
-                    "together: compare dQ + dK/dV with it")
+        lib_bwd = library_fields(sdpa, "bwd", "scaled_dot_product_attention backward "
+                                 "(fwd+bwd - fwd), dq and dk/dv together: compare dQ + "
+                                 "dK/dV with it")
         shape = [b, sq, skv, h, d]
         rows = {
             "flash_attention_lse": dict(
@@ -1012,28 +1054,39 @@ def phase_train_kernels(gen) -> dict:
                 generic_ms=time_ms(lambda: fa._launch_lse(q, k, v, scale, "template")),
                 device_ms=device_ms(lambda: fa.flash_attention_lse(q, k, v, scale)),
                 generic_device_ms=device_ms(lambda: fa._launch_lse(q, k, v, scale, "template")),
-                library_device_ms=lib_dev_fwd,
                 plain_ms=time_ms(lambda: fa._flash_lse_ref(q, k, v, scale), 3),
-                library_ms=lib_fwd, library_call="scaled_dot_product_attention forward",
-                library_backend=backend,
+                **library_fields(sdpa, "fwd", "scaled_dot_product_attention forward"),
                 cost=attention_lse_cost(*shape)),
             "flash_bwd_dq": dict(
                 max_abs_err=errs["dq"][0], rel_err=errs["dq"][1], l2_rel=l2["dq"],
                 route=b_route, same_bits_twice=same_dq,
                 ms=time_ms(dq_call), device_ms=device_ms(dq_call),
                 plain_ms=time_ms(lambda: fa._flash_bwd_dq_ref(q, k, v, o, lse, do, scale), 3),
-                library_ms=lib_bwd, library_device_ms=lib_dev_bwd, library_call=lib_note,
-                library_backend=backend, cost=attention_dq_cost(*shape)),
+                **lib_bwd, cost=attention_dq_cost(*shape)),
             "flash_bwd_dkv": dict(
                 max_abs_err=max(errs["dk"][0], errs["dv"][0]),
                 rel_err=max(errs["dk"][1], errs["dv"][1]), l2_rel=max(l2["dk"], l2["dv"]),
                 route=b_route, same_bits_twice=same_dkv,
                 ms=time_ms(dkv_call), device_ms=device_ms(dkv_call),
                 plain_ms=time_ms(lambda: fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), 3),
-                library_ms=lib_bwd, library_device_ms=lib_dev_bwd, library_call=lib_note,
-                library_backend=backend, cost=attention_dkv_cost(*shape)),
+                **lib_bwd, cost=attention_dkv_cost(*shape)),
         }
         if hop:
+            for part, own, args in (("dq", sq, (q, k, v, o, lse, do)),
+                                    ("dkv", skv, (q, k, v, do, lse, delta))):
+                row = rows["flash_bwd_" + part]
+                row["rows"] = fa.bwd_rows(b, own, h, d)
+                if d > fa.BWD_ROWS_128_MAX_D:
+                    continue
+                # where both forms are built, the other rows per block than
+                # `bwd_rows` picks (64 <-> 128), on the same inputs
+                alt = 3 * 64 - row["rows"]
+                call = lambda: fa._launch_bwd(part, *args, scale, "sm90", alt)
+                got, ref = call(), ((dq, delta) if part == "dq" else (dk, dv))
+                row.update(alt_rows=alt,
+                           alt_rows_same_bits=all(map(torch.equal, got, ref)),
+                           alt_rows_ms=time_ms(call), alt_rows_device_ms=device_ms(call))
+                del got
             t_dq = lambda: fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
             t_dkv = lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
             rows["flash_bwd_dq"].update(
@@ -2005,8 +2058,8 @@ def variant_flash_registers() -> dict:
 
 def bwd_sm90_report() -> dict:
     """Registers, spills and dynamic shared memory of the Hopper backward's
-    instantiations at the path's head dims (40 -> 48, 80), at 64 and 128
-    rows per block, from the build's log."""
+    instantiations at the path's head dims (40 -> 48, 80), at 64 rows per
+    block and, at 48, at 128, from the build's log."""
     import ctypes
     import re
 
@@ -2400,9 +2453,13 @@ def main() -> int:
     # train_kl_vae's shape and launches, with train_ldm's beside them; the
     # training forward's route counters each take their own shapes
     device_keys = ("device_ms", "generic_device_ms", "library_device_ms")
+    # SDPA on the default dispatch and pinned (the library keys are the faster's),
+    # and the Hopper backward at the other rows per block
+    sdpa_keys = ("library_default", "library_pinned")
+    rows_keys = ("rows", "alt_rows", "alt_rows_ms", "alt_rows_device_ms")
     train_keys = ("shape", "route", "kv_split", "max_abs_err", "lse_abs_err", "ms", "generic_ms",
                   "plain_ms", "bound_ms", "bound_by", "bound_op", "library_ms",
-                  "library_backend", *device_keys)
+                  "library_backend", *device_keys, *sdpa_keys, *rows_keys)
     # SDPA computes dQ, dK and dV together: its backward stands on both rows
     lse_rows = train_rows["flash_attention_lse"]
     for route, counter in LSE_ROUTE_COUNTER.items():
@@ -2455,7 +2512,8 @@ def main() -> int:
                                          "train_ldm": train["launches"][name]},
                        launches_per_step={"train_kl_vae": klvae["launches_per_step"][name],
                                           "train_ldm": train["launches_per_step"][name]},
-                       library_backend=r["library_backend"], other_shapes=r["other_shapes"])
+                       library_backend=r["library_backend"], other_shapes=r["other_shapes"],
+                       **{k: r[k] for k in (*sdpa_keys, *rows_keys) if k in r})
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -44,8 +44,9 @@
 //     [B, S, H, D] tensor; the head dim pads to a multiple of 16 (40 -> 48:
 //     one chunk of zeros per tile, written once);
 //   * rows per block: 128 (two consumer warpgroups sharing every streamed
-//     tile) where that grid fills a wave of the card, else 64
-//     (kernels/flash_attention.py `bwd_rows`); a sweep is never split;
+//     tile) at padded head dims up to 48 where that grid fills a wave of the
+//     card, else 64 (kernels/flash_attention.py `bwd_rows`); a sweep is never
+//     split;
 //   * masks by index: TMA fills rows past Sq and Skv with zeros, and a zero
 //     row gives p = exp2(-lse2), not 0, so kv columns past Skv (dQ's last
 //     tile) and q columns past Sq (dK/dV) take lse2 = +1e30 and delta 0 by
@@ -383,23 +384,32 @@ int launch(const ViewMap& m1, const ViewMap& m2, const ViewMap& m3, const ViewMa
   return (int)cudaGetLastError();
 }
 
+// 128-row blocks (NWG 2) only up to this padded head dim: above it a 128-row
+// dK/dV block needs more registers than 288 threads leave each (at 80 it
+// spilled); kernels/flash_attention.py `BWD_ROWS_128_MAX_D`
+constexpr int DP_128_MAX = 48;
+
 template <bool DKV>
 int dispatch(int D, int rows, const ViewMap& m1, const ViewMap& m2, const ViewMap& m3,
              const ViewMap& m4, const BwdArgs& a, int B, cudaStream_t s) {
   switch ((D + 15) / 16 * 16) {
-#define SDK_DP(DPV)                                                         \
+#define SDK_DP2(DPV)                                                        \
   case DPV:                                                                 \
     return rows == 2 * R ? launch<DPV, 2, DKV>(m1, m2, m3, m4, a, B, s)     \
                          : launch<DPV, 1, DKV>(m1, m2, m3, m4, a, B, s);
-    SDK_DP(16)
-    SDK_DP(32)
-    SDK_DP(48)
+#define SDK_DP(DPV) \
+  case DPV:         \
+    return launch<DPV, 1, DKV>(m1, m2, m3, m4, a, B, s);
+    SDK_DP2(16)
+    SDK_DP2(32)
+    SDK_DP2(48)
     SDK_DP(64)
     SDK_DP(80)
     SDK_DP(96)
     SDK_DP(112)
     SDK_DP(128)
 #undef SDK_DP
+#undef SDK_DP2
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -407,13 +417,13 @@ int dispatch(int D, int rows, const ViewMap& m1, const ViewMap& m2, const ViewMa
 
 bool bad_shape(int B, int H, int Sq, int Skv, int D, int rows) {
   return B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D % 8 || D > 128 ||
-         (rows != R && rows != 2 * R) || B * H > 65535;
+         (rows != R && !(rows == 2 * R && (D + 15) / 16 * 16 <= DP_128_MAX)) || B * H > 65535;
 }
 
 }  // namespace
 
-// dQ and delta at head dims up to 128 (multiples of 8), `rows` (64 or 128)
-// q rows per block. The other arguments are sd_flash_bwd_dq's
+// dQ and delta at head dims up to 128 (multiples of 8), `rows` (64, or 128
+// up to head dim 48) q rows per block. The other arguments are sd_flash_bwd_dq's
 // (flash_attention_bwd.cu): q, k, v, o, dO, dq are [B, S, H, D] bf16 views
 // with unit stride along D, 16-byte aligned, strides multiples of 8
 // elements; `strides` holds (batch, row, head) for q, k, v, o, dO, dq in
@@ -440,7 +450,8 @@ extern "C" int sd_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
   return dispatch<false>(D, rows, mq, mdo, mk, mv, a, B, static_cast<cudaStream_t>(stream));
 }
 
-// dK and dV at head dims up to 128, `rows` (64 or 128) kv rows per block.
+// dK and dV at head dims up to 128, `rows` (64, or 128 up to head dim 48)
+// kv rows per block.
 // The other arguments are sd_flash_bwd_dkv's: q, k, v, dO, dk, dv views;
 // `strides`: (batch, row, head) for q, k, v, dO, dk, dv in that order; lse2
 // and delta (from sd_flash_bwd_dq_sm90): [B*H, Sq] fp32. Returns the CUDA
@@ -469,8 +480,10 @@ extern "C" int sd_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v
 }
 
 // Dynamic shared memory (bytes) of a launch at head dim D with `rows` rows
-// per block, of the dK/dV kernel (dkv = 1) or the dQ kernel (the build report).
+// per block, of the dK/dV kernel (dkv = 1) or the dQ kernel (the build
+// report); -1 where that form is not built.
 extern "C" int sd_flash_bwd_sm90_smem(int D, int rows, int dkv) {
+  if (bad_shape(1, 1, 1, 1, D, rows)) return -1;
   switch ((D + 15) / 16 * 16) {
 #define SDK_DP(DPV)                                                                   \
   case DPV:                                                                           \

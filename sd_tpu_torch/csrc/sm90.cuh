@@ -642,11 +642,16 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 // The encoder checks the address against the calling thread's current
 // context, and a thread that has made no runtime call yet (autograd runs
 // the backward on its own threads) has none: make the primary context of
-// the thread's device current first. 0 or an error code.
+// the thread's current device current, once per thread and device. The
+// wrappers make the tensors' device current around the call
+// (`kernels/_build.py on_device`). 0 or an error code.
 inline int bind_context() {
+  thread_local unsigned bound = 0;   // devices whose context this thread bound
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess || (dev < 32 && (bound >> dev & 1u))) return (int)e;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess && dev < 32) bound |= 1u << dev;
   return (int)e;
 }
 

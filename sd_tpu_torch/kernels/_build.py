@@ -118,6 +118,20 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 
 
+def on_device(device):
+    """The context a Hopper launch runs in: `device` (the tensors') made
+    current where it is not, since its stream is that device's and the
+    tensor maps are encoded against the current device's context
+    (`csrc/sm90.cuh bind_context`); no work where it already is."""
+    import contextlib
+
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 

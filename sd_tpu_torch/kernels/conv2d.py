@@ -117,7 +117,8 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         ptrs.append(scratch.data_ptr())
     fn = _build.function(lib, symbol,
                          [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(*ptrs, *x.shape, y.shape[-1], _build.stream_ptr(x.device))
+    with _build.on_device(x.device):
+        code = fn(*ptrs, *x.shape, y.shape[-1], _build.stream_ptr(x.device))
     _build.check(code, symbol)
     return y
 

@@ -465,41 +465,42 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq, Skv, D,
             _strides(q, k, v, out), float(scale) * LOG2E)
     stream = _build.stream_ptr(q.device)
-    if plan.route == "sm90":
-        fn = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90",
-                             _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
-        _build.check(fn(*args, int(plan.exp_bf16), stream), "sd_flash_fwd_sm90")
-    elif plan.route in ("sm90_pv8", "wide"):
-        # the int8 PV's scratch: V's codes and column factors per kv tile,
-        # written by the pre-pass launch
-        codes = vmul = None
-        if plan.pv_int8:
-            n_st, dp = -(-Skv // plan.block_k), _padded_dim(D)
-            codes = torch.empty((B * H, n_st * plan.block_k // 16, dp, 16), dtype=torch.int8,
-                                device=q.device)
-            vmul = torch.empty((B * H, n_st, dp), dtype=torch.float32, device=q.device)
-        scratch = (codes.data_ptr() if plan.pv_int8 else None,
-                   vmul.data_ptr() if plan.pv_int8 else None)
-        lead, rest = args[:4], args[4:]
-        if plan.route == "sm90_pv8":
-            fn = _build.function("flash_attention_sm90_pv8", "sd_flash_fwd_sm90_pv8",
-                                 _FWD_PV8_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-            code = fn(*lead, *scratch, *rest, int(plan.exp_bf16), plan.block_k, stream)
+    with _build.on_device(q.device):
+        if plan.route == "sm90":
+            fn = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90",
+                                 _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
+            _build.check(fn(*args, int(plan.exp_bf16), stream), "sd_flash_fwd_sm90")
+        elif plan.route in ("sm90_pv8", "wide"):
+            # the int8 PV's scratch: V's codes and column factors per kv tile,
+            # written by the pre-pass launch
+            codes = vmul = None
+            if plan.pv_int8:
+                n_st, dp = -(-Skv // plan.block_k), _padded_dim(D)
+                codes = torch.empty((B * H, n_st * plan.block_k // 16, dp, 16), dtype=torch.int8,
+                                    device=q.device)
+                vmul = torch.empty((B * H, n_st, dp), dtype=torch.float32, device=q.device)
+            scratch = (codes.data_ptr() if plan.pv_int8 else None,
+                       vmul.data_ptr() if plan.pv_int8 else None)
+            lead, rest = args[:4], args[4:]
+            if plan.route == "sm90_pv8":
+                fn = _build.function("flash_attention_sm90_pv8", "sd_flash_fwd_sm90_pv8",
+                                     _FWD_PV8_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                code = fn(*lead, *scratch, *rest, int(plan.exp_bf16), plan.block_k, stream)
+            else:
+                fn = _build.function("flash_attention_wide", "sd_flash_fwd_wide",
+                                     _FWD_PV8_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                code = fn(*lead, *scratch, *rest, int(plan.pipelined), int(plan.exp_bf16),
+                          int(plan.pv_int8), plan.block_k, stream)
+            _build.check(code, "sd_flash_fwd_" + plan.route)
         else:
-            fn = _build.function("flash_attention_wide", "sd_flash_fwd_wide",
-                                 _FWD_PV8_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            code = fn(*lead, *scratch, *rest, int(plan.pipelined), int(plan.exp_bf16),
-                      int(plan.pv_int8), plan.block_k, stream)
-        _build.check(code, "sd_flash_fwd_" + plan.route)
-    else:
-        # the int8 PV's column scales per kv tile: a pre-pass launch fills them
-        scales = (torch.empty((B * H, -(-Skv // plan.block_k), D), dtype=torch.float32,
-                              device=q.device) if plan.pv_int8 else None)
-        fn = _build.function("flash_attention", "sd_flash_fwd",
-                             _FWD_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-        code = fn(*args, int(plan.pipelined), int(plan.exp_bf16), int(plan.pv_int8),
-                  plan.block_k, scales.data_ptr() if plan.pv_int8 else None, stream)
-        _build.check(code, "sd_flash_fwd")
+            # the int8 PV's column scales per kv tile: a pre-pass launch fills them
+            scales = (torch.empty((B * H, -(-Skv // plan.block_k), D), dtype=torch.float32,
+                                  device=q.device) if plan.pv_int8 else None)
+            fn = _build.function("flash_attention", "sd_flash_fwd",
+                                 _FWD_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+            code = fn(*args, int(plan.pipelined), int(plan.exp_bf16), int(plan.pv_int8),
+                      plan.block_k, scales.data_ptr() if plan.pv_int8 else None, stream)
+            _build.check(code, "sd_flash_fwd")
     if plan.route in ROUTE_COUNTERS:
         kernels.LAUNCHES[ROUTE_COUNTERS[plan.route]] += 1
     kernels.LAUNCHES[plan.name] += 1
@@ -664,16 +665,16 @@ def _lse_sweep(q, k, v, scale: float, route: str, n_split: int = 1):
     if route != "wide":
         fn = _build.function(lib, symbol,
                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + tail + [ctypes.c_void_p])
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  *args, _build.stream_ptr(q.device))
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *args]
     else:
         part = (torch.empty(n_split * B * H * Sq * (D + 2), dtype=torch.float32, device=q.device)
                 if n_split > 1 else None)
         fn = _build.function(lib, symbol, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + tail
                              + [ctypes.c_int, ctypes.c_void_p])
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  None if part is None else part.data_ptr(), *args, n_split,
-                  _build.stream_ptr(q.device))
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                None if part is None else part.data_ptr(), *args, n_split]
+    with _build.on_device(q.device):
+        code = fn(*args, _build.stream_ptr(q.device))
     _build.check(code, symbol)
     return out, lse, part
 
@@ -718,21 +719,30 @@ def bwd_route(d: int) -> str:
     return "sm90" if d <= 128 else "wide"
 
 
-def bwd_rows(b: int, s: int, h: int) -> int:
+# the widest head dim with 128-row backward blocks: above it a 128-row dK/dV
+# block needs more registers than 288 threads leave each (at d = 80 it
+# spilled), and `flash_attention_bwd_sm90.cu` builds only 64-row blocks
+BWD_ROWS_128_MAX_D = 48
+
+
+def bwd_rows(b: int, s: int, h: int, d: int) -> int:
     """Rows per block of a Hopper backward kernel over s own rows (q rows for
-    dQ, kv rows for dK/dV), decided from the shape alone: 128 (two consumer
-    warpgroups sharing each streamed tile) where that grid fills one wave of
-    the H100, else 64 (one warpgroup, twice the blocks). A block always
-    sweeps the whole other side: splitting a sweep would need atomics or a
-    second launch."""
-    return 128 if -(-s // 128) * b * h >= H100_SMS else 64
+    dQ, kv rows for dK/dV) at head dim d, decided from the shape alone: 128
+    (two consumer warpgroups sharing each streamed tile) at head dims up to
+    `BWD_ROWS_128_MAX_D` where that grid fills one wave of the H100, else 64
+    (one warpgroup, twice the blocks). A block always sweeps the whole other
+    side: splitting a sweep would need atomics or a second launch."""
+    fills = -(-s // 128) * b * h >= H100_SMS
+    return 128 if d <= BWD_ROWS_128_MAX_D and fills else 64
 
 
-def _launch_bwd(kind: str, q, k, v, a, lse, c, scale: float, route: str):
+def _launch_bwd(kind: str, q, k, v, a, lse, c, scale: float, route: str,
+                rows: int | None = None):
     """One backward kernel on `route` ("sm90", "wide", or the template's
     instantiation, the yardstick) over [B, S, H, D] views. kind "dq": (a, c)
     = (o, do), returns (dq, delta [B, H, Sq] fp32); kind "dkv": (a, c) =
-    (do, delta), returns (dk, dv)."""
+    (do, delta), returns (dk, dv). `rows` overrides `bwd_rows` on the sm90
+    route (64, or 128 up to `BWD_ROWS_128_MAX_D`)."""
     if kind == "dq":
         o, do = a, c
         out1 = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -754,10 +764,12 @@ def _launch_bwd(kind: str, q, k, v, a, lse, c, scale: float, route: str):
             Skv, D, strides, float(scale) * LOG2E, float(scale)]
     if route == "sm90":
         fn = _build.function(lib, symbol, _BWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
-        args.append(bwd_rows(B, own, H))
+        args.append(bwd_rows(B, own, H, D) if rows is None else rows)
     else:
         fn = _build.function(lib, symbol, _BWD_ARGS + [ctypes.c_void_p])
-    _build.check(fn(*args, _build.stream_ptr(q.device)), symbol)
+    with _build.on_device(q.device):
+        code = fn(*args, _build.stream_ptr(q.device))
+    _build.check(code, symbol)
     return out1, out2
 
 

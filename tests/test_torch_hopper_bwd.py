@@ -6,8 +6,9 @@ decided by `bwd_route` from the shape alone: on a CPU tensor exactly as on
 the card. Each Hopper launch counts under its route counter
 (`flash_bwd_dq_sm90`, `flash_bwd_dkv_sm90`) beside the wrapper's, and
 `chip_smoke.py` expects 40 of each per `train_ldm` step and none per
-`train_kl_vae` step. `bwd_rows` picks the rows per block (128 where that
-grid fills a wave of the H100, else 64) from the shape alone.
+`train_kl_vae` step. `bwd_rows` picks the rows per block (128 at head dims
+up to 48 where that grid fills a wave of the H100, else 64) from the shape
+alone.
 
 `_flash_bwd_tiled_ref` repeats the Hopper kernels' tiling (blocks of own
 rows, 64-row tiles of the other side in order, the head dim padded to 16,
@@ -88,23 +89,30 @@ def test_bwd_route_is_decided_on_the_cpu(monkeypatch, d):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-# [B, S, H] of the two main-path shapes (train_ldm's UNet levels 0 and 1; Sq
-# = Skv, so the dQ and dK/dV grids are the same) and the rows a block takes:
-# 32 · 8 = 256 blocks of 128 rows fill a wave at level 0; at level 1, 8 · 8 =
-# 64 would leave half the SMs idle, so 128 blocks of 64
-@pytest.mark.parametrize("b,s,h,rows,blocks", [(1, 4096, 8, 128, 256), (1, 1024, 8, 64, 128)])
-def test_bwd_rows_at_the_main_path_shapes(b, s, h, rows, blocks):
-    assert fa.bwd_rows(b, s, h) == rows
+# [B, S, H, D] of the two main-path shapes (train_ldm's UNet levels 0 and 1;
+# Sq = Skv, so the dQ and dK/dV grids are the same) and the rows a block
+# takes: 32 · 8 = 256 blocks of 128 rows fill a wave at level 0; at level 1,
+# d = 80 has no 128-row form (and 8 · 8 = 64 blocks would leave half the SMs
+# idle), so 128 blocks of 64
+@pytest.mark.parametrize("b,s,h,d,rows,blocks", [(1, 4096, 8, 40, 128, 256),
+                                                 (1, 1024, 8, 80, 64, 128)])
+def test_bwd_rows_at_the_main_path_shapes(b, s, h, d, rows, blocks):
+    assert fa.bwd_rows(b, s, h, d) == rows
     assert -(-s // rows) * b * h == blocks
     assert (-(-s // 128) * b * h >= fa.H100_SMS) == (rows == 128)
 
 
-@pytest.mark.parametrize("b,s,h,rows", [(1, 1000, 8, 64), (4, 4096, 8, 128), (1, 16896, 1, 128),
-                                        (1, 16768, 1, 64), (2, 200, 3, 64)])
-def test_bwd_rows_rule(b, s, h, rows):
-    """128 rows exactly where a 128-row grid has at least one block per SM."""
-    assert fa.bwd_rows(b, s, h) == rows
-    assert (rows == 128) == (-(-s // 128) * b * h >= fa.H100_SMS)
+@pytest.mark.parametrize("b,s,h,d,rows", [(1, 1000, 8, 40, 64), (4, 4096, 8, 40, 128),
+                                          (1, 16896, 1, 48, 128), (1, 16768, 1, 40, 64),
+                                          (2, 200, 3, 16, 64), (4, 1024, 8, 80, 64),
+                                          (4, 4096, 8, 56, 64), (4, 4096, 8, 128, 64)])
+def test_bwd_rows_rule(b, s, h, d, rows):
+    """128 rows exactly where the head dim is at most `BWD_ROWS_128_MAX_D`
+    (48) and a 128-row grid has at least one block per SM."""
+    assert fa.BWD_ROWS_128_MAX_D == 48
+    assert fa.bwd_rows(b, s, h, d) == rows
+    fills = -(-s // 128) * b * h >= fa.H100_SMS
+    assert (rows == 128) == (fills and d <= fa.BWD_ROWS_128_MAX_D)
 
 
 def test_training_launches_carry_the_bwd_routes():
