@@ -52,7 +52,16 @@ Phases, each printed as one JSON line:
            time on PyTorch's default dispatch and pinned to one backend
            (flash where it takes the shape, else memory-efficient), each
            with the backend it ran; every training row's library time is
-           the faster of the two in device time;
+           the faster of the two in device time; the GEGLU feed-forward on
+           `geglu_sm90.cu` (both UNet shapes and a ragged one split over a
+           cluster of 4) and the cross-attention on
+           `cross_attention_sm90.cu` (the three UNet levels and a ragged
+           case), each within KERNEL_TOL of its fp32 plain version and of
+           its template (`geglu.cu`, `cross_attention.cu`), the same bits
+           twice, its route counter (`geglu_sm90`, `crossattn_sm90`) moved
+           once per call, with `device_ms`, the template's `generic_ms` and
+           `generic_device_ms`, and `unfused_ms`, the unfused bf16 PyTorch
+           form (several calls, so not a library time);
   attention_switches  one level-0 attention block under each value of
            `SD_TPU_ATTN_IMPL`, `SD_TPU_ATTN_HPACKED`, `SD_TPU_ATTN_PACKED`,
            `SD_TPU_FLASH_BWD`: which launch counters move, and the output (and
@@ -104,7 +113,9 @@ Phases, each printed as one JSON line:
            train_ldm and one step of train_kl_vae.
 The build line carries the registers and spills of the flash kernels' head
 dim 256 and 512 instantiations, of the inference forwards and the Hopper
-backward at the path's head dims, and their dynamic shared memory. The flash training kernels are also held at
+backward at the path's head dims, and of every instantiation of the Hopper
+GEGLU and cross-attention kernels (any spill there fails the run), and their
+dynamic shared memory. The flash training kernels are also held at
 head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
 and a ragged [1, 1000, 1300, 1, 512]), with the backend
 `scaled_dot_product_attention` ran there; their row in the kernel table is
@@ -155,7 +166,10 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            # the combine launch of a training forward whose kv sweep is split
            "flash_lse_combine",
            # backward launches served by flash_attention_bwd_sm90.cu
-           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+           # GEGLU launches served by geglu_sm90.cu, cross-attention calls by
+           # cross_attention_sm90.cu
+           "geglu_sm90", "crossattn_sm90")
 
 
 def launches_of(**nonzero) -> dict:
@@ -165,18 +179,20 @@ def launches_of(**nonzero) -> dict:
 # launches of one generate() at 512², 50 steps: 10 self-attention and 10
 # GEGLU calls per UNet step, the decoder's mid-block attention and 18 convs;
 # the head-packed launches (d = 40, 80) on the Hopper route, the decoder's
-# (d = 512) on the wide kernel
+# (d = 512) on the wide kernel, every GEGLU on geglu_sm90.cu
 EXPECTED_LAUNCHES = launches_of(flash_attention=1, flash_attention_hpacked=500,
                                 flash_fwd_sm90=500, flash_fwd_wide=1, geglu_ff=500,
-                                conv3x3_same=18)
+                                geglu_sm90=500, conv3x3_same=18)
 # the opt-in configuration: the TPU package's switches that reach kernels
 OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
 # ... and its launches per generate: 57 of the UNet's 61 GroupNorms and 15 of
 # its 16 cross-attentions per step, the decoder's mid-block attention through
-# the pipelined sweep (tests/test_torch_structure.py derives these)
+# the pipelined sweep (tests/test_torch_structure.py derives these); every
+# cross-attention call on cross_attention_sm90.cu
 EXPECTED_LAUNCHES_OPTIN = launches_of(
     flash_attention_pipelined=1, flash_attention_hpacked=500, flash_fwd_sm90=500,
-    flash_fwd_wide=1, geglu_ff=500, conv3x3_same=18, group_norm=2850, crossattn_kv=750)
+    flash_fwd_wide=1, geglu_ff=500, geglu_sm90=500, conv3x3_same=18, group_norm=2850,
+    crossattn_kv=750, crossattn_sm90=750)
 # the serving phase's switches, and the launches of one grouped batch of
 # requests (bucket 4, 30 DDIM steps, CFG, 512²): the variant kernels in place
 # of the head-packed and the decoder's flash kernel (the int8-PV Hopper
@@ -189,7 +205,8 @@ SERVE_UNET_CALLS = 31
 EXPECTED_SERVE_LAUNCHES = launches_of(
     flash_attention_hpacked_exp_bf16_pv_int8=10 * SERVE_UNET_CALLS,
     flash_fwd_sm90_pv8=10 * SERVE_UNET_CALLS, flash_attention_exp_bf16_pv_int8=1,
-    flash_fwd_wide=1, geglu_ff=10 * SERVE_UNET_CALLS, conv3x3_same=18)
+    flash_fwd_wide=1, geglu_ff=10 * SERVE_UNET_CALLS, geglu_sm90=10 * SERVE_UNET_CALLS,
+    conv3x3_same=18)
 # launches of one optimizer step of train_ldm(sd512_train_config()): 10
 # self-attentions (UNet levels 0 and 1) per microbatch forward, again in the
 # remat recompute, one dQ and one dK/dV each in backward, 4 microbatches
@@ -208,14 +225,14 @@ EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2,
                                       flash_lse_combine=2, flash_bwd_dq=2, flash_bwd_dkv=2)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
-    "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, group_norm=46,
-                        crossattn_kv=10),
+    "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
+                        group_norm=46, crossattn_kv=10, crossattn_sm90=10),
     "decoder": launches_of(flash_attention_pipelined=1, flash_fwd_wide=1, conv3x3_same=12,
                            group_norm=11)}
 # ... and of the serving parity runs, every flash call through its variant
 PARITY_SERVE_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked_exp_bf16_pv_int8=5, flash_fwd_sm90_pv8=5,
-                        geglu_ff=5),
+                        geglu_ff=5, geglu_sm90=5),
     "decoder": launches_of(flash_attention_exp_bf16_pv_int8=1, flash_fwd_wide=1,
                            conv3x3_same=12)}
 # [B, S, C] of every GroupNorm and [B, N, M, heads, d, C] of every fused
@@ -225,6 +242,13 @@ GN_SHAPES = [(4, 4096, 320), (4, 1024, 320), (4, 1024, 640), (4, 1024, 960),
              (4, 256, 2560), (4, 64, 1280), (4, 64, 2560)]
 XATTN_SHAPES = [(4, 4096, 77, 8, 40, 320), (4, 1024, 77, 8, 80, 640),
                 (4, 256, 77, 8, 160, 1280)]
+# ... and its ragged case: rows past a q tile, 33 tokens, d = 24
+XATTN_RAGGED = (1, 1000, 33, 4, 24, 96)
+# [N, C, inner] of every GEGLU feed-forward one generate launches (UNet levels 0
+# and 1, batch 4), and a ragged case: tokens past a 64-row tile, a half chunk
+# of 64 inner columns, the inner columns split over a cluster of 4
+GEGLU_SHAPES = [(16384, 320, 1280), (4096, 640, 2560)]
+GEGLU_RAGGED = (1000, 320, 1248)
 # the decoder's ResnetBlock convs at 128², 256², 512² (B, H = W, C, O), B = 2,
 # and the launches of each per generate (18 in all). models/codec.py Decoder
 # (ch 128, ch_mult (1, 2, 4, 4), 3 ResnetBlocks of 2 convs per up level) sends
@@ -279,6 +303,11 @@ VARIANTS = ((True, False), (False, True), (True, True))
 ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
                  "wide": "flash_fwd_wide"}
 ROUTE_COUNTERS = tuple(ROUTE_COUNTER.values())
+# the Hopper kernels of the GEGLU feed-forward and the cross-attention, each
+# wrapper's route counter (one count per call)
+KERNEL_ROUTE_COUNTER = {"geglu_ff": "geglu_sm90", "crossattn_kv": "crossattn_sm90"}
+# every counter a kernel case holds to one count, or none
+CASE_ROUTE_COUNTERS = ROUTE_COUNTERS + tuple(KERNEL_ROUTE_COUNTER.values())
 # ... and of the training forward (`kernels/flash_attention.py LSE_ROUTE_COUNTERS`)
 LSE_ROUTE_COUNTER = {"sm90": "flash_lse_sm90", "wide": "flash_lse_wide"}
 # ... and of the backward's Hopper route (`BWD_ROUTE_COUNTERS`)
@@ -516,19 +545,28 @@ def kernel_cases(gen):
             generic=lambda q=q, k=k, v=v: route_forward(q, k, v),
             view=lambda o: o, table=D == 512,
             cost=attention_cost(B, S, Skv, H, D)))
-    # row 7: GEGLU at UNet levels 0 and 1, tokens = 2B·S
-    for N, C in ((16384, 320), (4096, 640)):
-        I = 4 * C
+    # row 7: GEGLU at UNet levels 0 and 1, tokens = 2B·S, and a ragged case
+    # (tokens past a 64-row tile, a half chunk of inner columns, split in 4):
+    # the Hopper kernel (geglu_sm90.cu), with geglu.cu's timed beside it, and
+    # the unfused bf16 yardstick (two F.linear, F.gelu and the product)
+    for N, C, I in GEGLU_SHAPES + [GEGLU_RAGGED]:
         x = rnd(N, C)
         w1, b1 = rnd(2 * I, C, scale=C**-0.5), rnd(2 * I, scale=0.1)
         w2, b2 = rnd(C, I, scale=I**-0.5), rnd(C, scale=0.1)
         args = (x, w1, b1, w2, b2)
+
+        def unfused(a=args):
+            h_a, h_g = F.linear(a[0], a[1], a[2]).chunk(2, dim=-1)
+            return F.linear(h_a * F.gelu(h_g), a[3], a[4])
+
         cases.append(dict(
-            name="geglu_ff", shape=[N, C, I],
+            name="geglu_ff", shape=[N, C, I], counter="geglu_sm90", device=True,
+            table=(N, C, I) != GEGLU_RAGGED, split=geglu.geglu_plan(N, C, I).split,
             kernel=lambda a=args: geglu.geglu_ff(*a),
             plain=lambda a=args: geglu._geglu_xla(*a),
             ref=lambda a=args: geglu._geglu_xla(*(t.float() for t in a)),
-            library=None, view=lambda o: o,
+            generic=lambda a=args: geglu._launch_geglu(*a, source="template"),
+            unfused=unfused, library=None, view=lambda o: o,
             cost=geglu_cost(N, C, I)))
     # row 8: the decoder's ResnetBlock convs at 128², 256², 512², B = 2, and
     # a ragged case (H and W not multiples of the 2 x 128 tile): the Hopper
@@ -596,18 +634,33 @@ def kernel_cases(gen):
             library=(None if act else lambda x=x, sc=sc, bi=bi, G=G, eps=eps:
                      F.group_norm(x.transpose(1, 2), G, sc, bi, eps)),
             view=lambda o: o, table=table, cost=group_norm_cost(B, S, C, act == "silu")))
-    # row 11 (opt-in): the fused cross-attention at UNet levels 0-2 over the
-    # 77 CLIP tokens, and a ragged case (rows past a q tile, 33 tokens, d = 24)
-    for B, N, M, H, D, C in XATTN_SHAPES + [(1, 1000, 33, 4, 24, 96)]:
+    # row 11 (opt-in): the cross-attention at UNet levels 0-2 over the 77 CLIP
+    # tokens, and a ragged case (rows past a q tile, 33 tokens, d = 24): the
+    # Hopper kernels (cross_attention_sm90.cu), with cross_attention.cu's
+    # timed beside them, and the unfused bf16 yardstick (F.linear, SDPA over
+    # the context, F.linear)
+    for B, N, M, H, D, C in XATTN_SHAPES + [XATTN_RAGGED]:
         HD = H * D
         args = (rnd(B, N, C), rnd(HD, C, scale=C**-0.5), rnd(B, M, HD), rnd(B, M, HD),
                 rnd(C, HD, scale=HD**-0.5), rnd(C, scale=0.1))
+
+        def unfused(a=args, B=B, N=N, M=M, H=H, D=D):
+            heads = lambda t, n: t.view(B, n, H, D).transpose(1, 2)
+            o = F.scaled_dot_product_attention(heads(F.linear(a[0], a[1]), N), heads(a[2], M),
+                                               heads(a[3], M))
+            return F.linear(o.transpose(1, 2).reshape(B, N, H * D), a[4], a[5])
+
+        plan = xattn.xattn_plan(B, N, M, H, D, C)
         cases.append(dict(
-            name="crossattn_kv", shape=[B, N, M, H, D, C],
+            name="crossattn_kv", shape=[B, N, M, H, D, C], counter="crossattn_sm90",
+            device=True, table=(B, N, M, H, D, C) != XATTN_RAGGED,
+            plan={"rows": plan.rows},
             kernel=lambda a=args, H=H: xattn.crossattn_kv(*a, H),
             plain=lambda a=args, H=H: xattn.crossattn_kv_xla(*a, H),
             ref=lambda a=args, H=H: xattn.crossattn_kv_xla(*(t.float() for t in a), H),
-            library=None, view=lambda o: o, cost=crossattn_cost(B, N, M, H, D, C)))
+            generic=lambda a=args, H=H: xattn._launch_xattn(*a, H, None, source="template"),
+            unfused=unfused, library=None, view=lambda o: o,
+            cost=crossattn_cost(B, N, M, H, D, C)))
     # row 9 (no model path): GroupNorm → SiLU → 3×3 conv at the decoder's
     # conv shapes, and a ragged one
     for B, Hs, Ws, C, O in [(b, h, h, c, o) for b, h, c, o in DECODER_CONVS] + [
@@ -628,17 +681,20 @@ def kernel_cases(gen):
 
 
 def route_moves(run) -> tuple[object, dict]:
-    """(run(), how far each flash route counter moved in it)."""
+    """(run(), how far each flash route counter and each Hopper GEGLU and
+    cross-attention counter moved in it)."""
     from sd_tpu_torch import kernels
 
-    before = {c: kernels.LAUNCHES[c] for c in ROUTE_COUNTERS}
+    before = {c: kernels.LAUNCHES[c] for c in CASE_ROUTE_COUNTERS}
     out = run()
-    return out, {c: kernels.LAUNCHES[c] - before[c] for c in ROUTE_COUNTERS}
+    return out, {c: kernels.LAUNCHES[c] - before[c] for c in CASE_ROUTE_COUNTERS}
 
 
 def require_route(moved: dict, route: str, what: str) -> None:
-    """One launch on `route`'s counter (none on the template), none on another."""
-    want = {c: int(c == ROUTE_COUNTER.get(route)) for c in ROUTE_COUNTERS}
+    """One launch on `route`'s counter (a flash route's, none on the
+    template, or a counter's own name), none on another."""
+    counter = ROUTE_COUNTER.get(route, route)
+    want = {c: int(c == counter) for c in CASE_ROUTE_COUNTERS}
     require(moved == want, f"{what} on the {route} route: counters moved {moved}")
 
 
@@ -678,6 +734,16 @@ def _kernel_case(case, hopper_rows) -> dict:
     if "route" in case:
         row.update(route=case["route"], how=case.get("how", ""))
         require_route(moved, case["route"], f"{case['name']} {case['shape']}")
+    if "counter" in case:
+        row["route_counter"] = case["counter"]
+        row.update({k: case[k] for k in ("split", "plan") if k in case})
+        require_route(moved, case["counter"], f"{case['name']} {case['shape']}")
+    if case.get("device"):
+        # the profiler's device time beside the host's, for the kernel and the template
+        row["device_ms"] = device_ms(case["kernel"])
+        row["generic_device_ms"] = device_ms(case["generic"])
+    if "unfused" in case:
+        row["unfused_ms"] = time_ms(case["unfused"])
     if "generic" in case:
         row["generic_ms"] = time_ms(case["generic"])
         row["same_bits_twice"] = bool(torch.equal(out, case["view"](case["kernel"]())))
@@ -685,7 +751,8 @@ def _kernel_case(case, hopper_rows) -> dict:
                 and row["same_bits_twice"],
                 f"{case['shape']}: the template agrees with the Hopper kernel, which "
                 f"gives the same bits twice")
-        # each Hopper flash route's rows under its counter, the conv's under its name
+        # each Hopper flash route's rows under its counter, the conv's, GEGLU's
+        # and the cross-attention's under their names
         hopper_rows.setdefault(ROUTE_COUNTER.get(case.get("route"), case["name"]),
                                []).append(row)
     emit(row)
@@ -1233,7 +1300,8 @@ def phase_parity(optin: bool = False, serve: bool = False) -> None:
         return
     # latent 32² puts 1024 tokens through level 0: both UNet kernels run
     require(unet["flash_attention_hpacked"] == 5 and unet["flash_fwd_sm90"] == 5
-            and unet["geglu_ff"] == 5, f"UNet parity launches {unet}")
+            and unet["geglu_ff"] == 5 and unet["geglu_sm90"] == 5,
+            f"UNet parity launches {unet}")
     require(decoder["flash_attention"] == 1 and decoder["flash_fwd_wide"] == 1
             and decoder["conv3x3_same"] == 12, f"decoder parity launches {decoder}")
 
@@ -1503,8 +1571,8 @@ def phase_switch_combinations(pipe) -> dict:
         # the head-packed launches take the Hopper route (its int8-PV form with
         # the int8 PV), the decoder's (serial or pipelined) the wide kernel
         route = "flash_fwd_sm90_pv8" if hpacked.endswith("pv_int8") else "flash_fwd_sm90"
-        want = {hpacked: 10, decoder: 1, "geglu_ff": 10, "conv3x3_same": 18, route: 10,
-                "flash_fwd_wide": 1}
+        want = {hpacked: 10, decoder: 1, "geglu_ff": 10, "geglu_sm90": 10, "conv3x3_same": 18,
+                route: 10, "flash_fwd_wide": 1}
         require(launches == want
                 and bool(torch.isfinite(out).all() and torch.isfinite(img).all()),
                 f"switches {env}: launches {launches} == {want}")
@@ -2079,6 +2147,47 @@ def bwd_sm90_report() -> dict:
     return out
 
 
+def ff_xattn_report() -> dict:
+    """Registers, spills and dynamic shared memory of every instantiation of
+    the Hopper GEGLU (`geglu_sm90<C>`) and cross-attention kernels
+    (`xattn_gemm`, `xattn_attend<MP, warpgroups>`), from the
+    build's logs; raises on a spill."""
+    import ctypes
+    import re
+
+    from sd_tpu_torch.kernels import _build
+
+    ff_smem = _build.function("geglu_sm90", "sd_geglu_fwd_sm90_smem", [ctypes.c_int])
+    gemm_smem = _build.function("cross_attention_sm90", "sd_crossattn_gemm_sm90_smem", [])
+    attend_smem = _build.function("cross_attention_sm90", "sd_crossattn_sm90_smem",
+                                  [ctypes.c_int] * 3)
+    out = {}
+    patterns = {"geglu_sm90": r"geglu_sm90_kernelILi(\d+)E",
+                "xattn_gemm": r"xattn_gemm_kernel",
+                "xattn_attend": r"xattn_attend_kernelILi(\d+)ELi(\d+)E"}
+    for lib, kinds in (("geglu_sm90", ("geglu_sm90",)),
+                       ("cross_attention_sm90", ("xattn_gemm", "xattn_attend"))):
+        log = (_build.build_dir() / f"{lib}.log").read_text()
+        for kind in kinds:
+            found = ptxas_report(log, lambda n, kind=kind: re.search(patterns[kind], n))
+            for mangled, (regs, st, ld) in found.items():
+                m = re.search(patterns[kind], mangled)
+                if kind == "geglu_sm90":
+                    name, smem = f"geglu_sm90<{m.group(1)}>", ff_smem(int(m.group(1)))
+                elif kind == "xattn_gemm":
+                    name, smem = "xattn_gemm", gemm_smem()
+                else:   # the attention at head dim 160 (the largest UNet one)
+                    mp, nwg = int(m.group(1)), int(m.group(2))
+                    name, smem = f"xattn_attend<{mp}, {nwg}>", attend_smem(64 * nwg, mp, 160)
+                out[name] = {"registers": regs, "spill_stores": st, "spill_loads": ld,
+                             "smem_bytes": smem}
+                if kind == "geglu_sm90":   # the registers at entry; setmaxnreg moves them
+                    out[name]["setmaxnreg"] = {"producer": 40, "consumers": 232}
+    spills = {k: v for k, v in out.items() if v["spill_stores"] or v["spill_loads"]}
+    require(not spills, f"the Hopper GEGLU and cross-attention kernels spill: {spills}")
+    return out
+
+
 def flash_smem() -> dict:
     """Dynamic shared memory (bytes) of the inference forwards at the path's
     head dims: each Hopper kernel where it serves, and the template's
@@ -2117,6 +2226,12 @@ def _family(name: str) -> str:
         # template arguments <DP, EXPB, PIPE, PV8, LSE>
         lse = name.split("flash_fwd_wide_kernel<")[1].split(">")[0].split(", ")[4] == "true"
         return "flash LSE forward, wide (port)" if lse else "flash wide forward (port)"
+    if "geglu_sm90_kernel" in name:
+        return "geglu, Hopper (port)"
+    if "xattn_gemm_kernel" in name:
+        return "cross-attention projections, Hopper (port)"
+    if "xattn_attend_kernel" in name:
+        return "cross-attention, Hopper (port)"
     if "conv3x3_sm90_kernel" in name or "pack_weights_kernel" in name:
         return "conv3x3 Hopper (port)"
     if "lse_combine_kernel" in name:
@@ -2350,6 +2465,7 @@ def main() -> int:
           "flash_variant_registers": variant_flash_registers(),
           "flash_fwd_smem_bytes": flash_smem(),
           "flash_bwd_sm90": bwd_sm90_report(),
+          "ff_xattn_sm90": ff_xattn_report(),
           "conv3x3_sm90_smem_bytes": _build.function("conv2d_sm90", "sd_conv3x3_fwd_sm90_smem",
                                                      [])()})
 
@@ -2421,11 +2537,12 @@ def main() -> int:
                                      tpu + "flash_attention.py:465"),
                "flash_bwd_dkv_sm90": (src + "flash_attention_bwd_sm90.cu",
                                       tpu + "flash_attention.py:511"),
-               "geglu_ff": (src + "geglu.cu", tpu + "geglu.py:48"),
+               "geglu_ff": (src + "geglu_sm90.cu", tpu + "geglu.py:48"),
                "conv3x3_same": (src + "conv2d_sm90.cu", tpu + "conv2d.py:30"),
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
                "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
-               "crossattn_kv": (src + "cross_attention.cu", tpu + "cross_attention.py:41")}
+               "crossattn_kv": (src + "cross_attention_sm90.cu",
+                                tpu + "cross_attention.py:41")}
     # the inference variants: at d ≤ 128 on the Hopper kernel (the int8 PV
     # on its int8-PV form), the d = 512 rows on the wide kernel
     for exp_bf16, pv_int8 in VARIANTS:
@@ -2439,16 +2556,20 @@ def main() -> int:
     # each Hopper route's row: its first main-path shape, with every other
     # shape it was held at (the template's time beside each)
     keys = ("shape", "name", "how", "max_abs_err", "ms", "generic_ms", "plain_ms", "bound_ms",
-            "bound_by", "bound_op", "library_ms", "kv_tile")
+            "bound_by", "bound_op", "library_ms", "kv_tile", "device_ms", "generic_device_ms",
+            "unfused_ms", "split", "plan")
     for counter in ROUTE_COUNTERS:
         rows_ = hopper_rows[counter] + hopper_variant_rows[counter]
         table[counter] = {**rows_[0], "other_shapes": [
             {k: r[k] for k in keys if k in r} for r in rows_[1:]]}
     # the conv's row: its largest decoder shape, with the other shapes (and
     # conv2d.cu's time beside each)
-    table["conv3x3_same"]["other_shapes"] = [
-        {k: r[k] for k in keys if k in r} for r in hopper_rows["conv3x3_same"]
-        if r["shape"] != table["conv3x3_same"]["shape"]]
+    # ... and GEGLU's and the cross-attention's: the largest main-path shape,
+    # with the other shapes (the ragged case among them)
+    for name in ("conv3x3_same", "geglu_ff", "crossattn_kv"):
+        table[name]["other_shapes"] = [
+            {k: r[k] for k in keys if k in r} for r in hopper_rows[name]
+            if r["shape"] != table[name]["shape"]]
     # the flash training kernels (rows 4-6) run on two paths: their row is
     # train_kl_vae's shape and launches, with train_ldm's beside them; the
     # training forward's route counters each take their own shapes
@@ -2501,7 +2622,8 @@ def main() -> int:
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "bound_op": r["bound_op"],
                "library_ms": r["library_ms"], "shape": r["shape"]}
-        for key in ("generic_ms", "other_shapes", "kv_tile", *device_keys):
+        for key in ("generic_ms", "other_shapes", "kv_tile", *device_keys, "unfused_ms",
+                    "route_counter", "split", "plan"):
             if key in r:
                 row[key] = r[key]
         if name == "conv3x3_same":

@@ -10,8 +10,10 @@ and the training forward's `flash_lse_sm90` and `flash_lse_wide` (the LSE
 epilogue of `flash_attention_sm90.cu` and `flash_attention_wide.cu`), with
 `flash_lse_combine` for the second launch of a split kv sweep, and the
 backward's `flash_bwd_dq_sm90` and `flash_bwd_dkv_sm90`
-(`flash_attention_bwd_sm90.cu`). The 3×3 conv (`conv3x3_same`) runs
-`csrc/conv2d_sm90.cu`.
+(`flash_attention_bwd_sm90.cu`), and the GEGLU feed-forward's `geglu_sm90`
+(`csrc/geglu_sm90.cu`) and the cross-attention's `crossattn_sm90`
+(`csrc/cross_attention_sm90.cu`, one count per call of its three launches).
+The 3×3 conv (`conv3x3_same`) runs `csrc/conv2d_sm90.cu`.
 
 Only flash attention has backward kernels (`flash_attention.py`, an
 autograd Function). GEGLU, the 3×3 conv, GroupNorm and the fused
@@ -61,6 +63,11 @@ LAUNCHES: dict[str, int] = {
     # by flash_attention_bwd_sm90.cu (head dims up to 128)
     "flash_bwd_dq_sm90": 0,
     "flash_bwd_dkv_sm90": 0,
+    # ... and the GEGLU feed-forward's (`geglu_ff`) and the cross-attention's
+    # (`crossattn_kv`, one per call of its three launches) Hopper kernels,
+    # geglu_sm90.cu and cross_attention_sm90.cu
+    "geglu_sm90": 0,
+    "crossattn_sm90": 0,
 }
 
 

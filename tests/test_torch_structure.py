@@ -435,7 +435,10 @@ def _generate_launches(per_step, per_decode, steps=50):
             "geglu_ff": both("geglu_wants_pallas"),
             "conv3x3_same": both("conv3x3_wants_pallas"),
             "group_norm": both("group_norm_wants_pallas"),
-            "crossattn_kv": both("crossattn_kv_wants_pallas")}
+            "crossattn_kv": both("crossattn_kv_wants_pallas"),
+            # every GEGLU and cross-attention launch runs the Hopper kernel
+            "geglu_sm90": both("geglu_wants_pallas"),
+            "crossattn_sm90": both("crossattn_kv_wants_pallas")}
 
 
 @pytest.mark.parametrize("batch", [1, 2, 4])
@@ -461,7 +464,7 @@ def test_optin_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, monke
     assert {k: v for k, v in launches.items() if v} == {
         "flash_attention_pipelined": 1, "flash_attention_hpacked": 500, "flash_fwd_sm90": 500,
         "flash_fwd_wide": 1, "geglu_ff": 500, "conv3x3_same": 18, "group_norm": 2850,
-        "crossattn_kv": 750}
+        "crossattn_kv": 750, "geglu_sm90": 500, "crossattn_sm90": 750}
 
 
 def test_optin_kernel_shapes_of_chip_smoke_are_the_generate_shapes(tpu_gates, monkeypatch):
@@ -565,10 +568,11 @@ def test_served_generate_variant_launches(tpu_gates, monkeypatch, pipe):
     assert dict(routed) == {**unet, **decoder, "flash_fwd_sm90_pv8": 310, "flash_fwd_wide": 1}
     assert chip_smoke.EXPECTED_SERVE_LAUNCHES == chip_smoke.launches_of(
         flash_attention_hpacked_exp_bf16_pv_int8=310, flash_fwd_sm90_pv8=310,
-        flash_attention_exp_bf16_pv_int8=1, flash_fwd_wide=1, geglu_ff=310, conv3x3_same=18)
+        flash_attention_exp_bf16_pv_int8=1, flash_fwd_wide=1, geglu_ff=310, geglu_sm90=310,
+        conv3x3_same=18)
     if pipe == "0":
         assert chip_smoke.EXPECTED_SERVE_LAUNCHES == chip_smoke.launches_of(
-            **routed, geglu_ff=310, conv3x3_same=18)
+            **routed, geglu_ff=310, geglu_sm90=310, conv3x3_same=18)
 
 
 def test_conv_switch_agrees_with_the_tpu_gate(tpu_gates, monkeypatch):
