@@ -14,8 +14,20 @@ Phases, each printed as one JSON line:
            training kernels: lse2 within 1e-3 absolute, dq/dk/dv within
            2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16, sums
            over up to 4096 rows), and dQ and dK/dV bitwise equal on a second run;
-           the pipelined flash sweep against the serial kernel too (max|Δ|,
-           same bits expected); the fused GroupNorm → SiLU → 3×3 conv, which
+           the pipelined flash sweep against the serial sweep of its source
+           too (the same bits required): the wide kernel at d = 512, the PIPE
+           kernel of `flash_attention_sm90.cu` (counter `flash_fwd_sm90_pipe`)
+           at the UNet's [B, S, H, D] shapes (level 0 at batch 8, where the
+           switch combination's launches run, and 4; level 1 at batch 4)
+           and a ragged one, with the
+           template's pipelined sweep, the serial Hopper kernel and SDPA timed
+           beside it (`generic_ms`, `serial_ms`, `library_ms`, each also in
+           device time), both exponentials; GroupNorm on `groupnorm_sm90.cu`
+           (counter `group_norm_sm90`, the grid `gn_plan` picks) at the 11
+           opt-in shapes, with SiLU and a ragged case, `groupnorm.cu` and
+           `F.group_norm` timed beside it in host and device time, and its
+           bound summed over one opt-in generate's 2850 launches (under
+           `--profile`, the device time measured there beside it); the fused GroupNorm → SiLU → 3×3 conv, which
            no path calls, at the decoder's conv shapes;
            with the kernel's, the plain version's and one PyTorch library
            call's time (CUDA events) and the least time the card could take
@@ -40,9 +52,10 @@ Phases, each printed as one JSON line:
            sweep timed beside it (`generic_ms`), the same bits twice; the
            3×3 conv (`conv2d_sm90.cu`) at the decoder's five shapes and a
            ragged one, `conv2d.cu` timed beside it, the same bits twice;
-           the LSE rows also carry `device_ms` (torch.profiler's device
-           time per call) beside the template's and SDPA's, since at tens
-           of microseconds the host's enqueue time sets `ms`; the backward
+           the LSE rows, like every forward row of rows 1-3 and 10, also
+           carry `device_ms` (torch.profiler's device time per call) beside
+           the template's and the library call's, since at tens of
+           microseconds the host's enqueue time sets `ms`; the backward
            at d ≤ 128 on `flash_attention_bwd_sm90.cu` (each route counter
            moved once, dq, dk, dv within the gradient bounds of the fp32
            plain version and of the template, the same bits twice), with
@@ -82,6 +95,13 @@ Phases, each printed as one JSON line:
            environment for the phase (restored after it): image checks, the
            opt-in launch counts, and s/generate of the two configurations
            timed in turns (default, opt-in, opt-in, default).
+  serve, switches  the serving path over HTTP, then one serving UNet call
+           (batch 8) and one decode under each other combination of the
+           switches: the launches each reaches and a finite output; with
+           `SD_TPU_ATTN_HPACKED=0 SD_TPU_FLASH_PIPE=1 SD_TPU_PALLAS_GN=1`
+           the UNet's 5 level-0 self-attentions take the pipelined sweep's
+           PIPE kernel (`flash_fwd_sm90_pipe`), none the template, and its 57
+           GroupNorms `group_norm_sm90`.
   train_parity  the SD-v1-width UNet (latent 32², batch 1: level 0 has 1024
            tokens and trains through the flash kernels) under a training step,
            MSE to a fixed target: bf16 with the kernels on the card against
@@ -112,10 +132,12 @@ Phases, each printed as one JSON line:
            bucket-4 generate, and the same for one optimizer step of
            train_ldm and one step of train_kl_vae.
 The build line carries the registers and spills of the flash kernels' head
-dim 256 and 512 instantiations, of the inference forwards and the Hopper
-backward at the path's head dims, and of every instantiation of the Hopper
-GEGLU and cross-attention kernels (any spill there fails the run), and their
-dynamic shared memory. The flash training kernels are also held at
+dim 256 and 512 instantiations, of the inference forwards (the pipelined
+sweep's at d ≤ 128 among them) and the Hopper backward at the path's head
+dims, and of every instantiation of the Hopper GEGLU, cross-attention and
+GroupNorm kernels (any spill there, or a wgmma serialization warning in the
+pipelined sweep's or GroupNorm's source, fails the run), and their dynamic
+shared memory (GroupNorm's at each opt-in shape's plan). The flash training kernels are also held at
 head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
 and a ragged [1, 1000, 1300, 1, 512]), with the backend
 `scaled_dot_product_attention` ran there; their row in the kernel table is
@@ -169,7 +191,10 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
            # GEGLU launches served by geglu_sm90.cu, cross-attention calls by
            # cross_attention_sm90.cu
-           "geglu_sm90", "crossattn_sm90")
+           "geglu_sm90", "crossattn_sm90",
+           # the pipelined sweep at head dims up to 128 on the PIPE kernel of
+           # flash_attention_sm90.cu, GroupNorm on groupnorm_sm90.cu
+           "flash_fwd_sm90_pipe", "group_norm_sm90")
 
 
 def launches_of(**nonzero) -> dict:
@@ -188,11 +213,12 @@ OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIP
 # ... and its launches per generate: 57 of the UNet's 61 GroupNorms and 15 of
 # its 16 cross-attentions per step, the decoder's mid-block attention through
 # the pipelined sweep (tests/test_torch_structure.py derives these); every
-# cross-attention call on cross_attention_sm90.cu
+# cross-attention call on cross_attention_sm90.cu, every GroupNorm on
+# groupnorm_sm90.cu
 EXPECTED_LAUNCHES_OPTIN = launches_of(
     flash_attention_pipelined=1, flash_attention_hpacked=500, flash_fwd_sm90=500,
     flash_fwd_wide=1, geglu_ff=500, geglu_sm90=500, conv3x3_same=18, group_norm=2850,
-    crossattn_kv=750, crossattn_sm90=750)
+    group_norm_sm90=2850, crossattn_kv=750, crossattn_sm90=750)
 # the serving phase's switches, and the launches of one grouped batch of
 # requests (bucket 4, 30 DDIM steps, CFG, 512²): the variant kernels in place
 # of the head-packed and the decoder's flash kernel (the int8-PV Hopper
@@ -226,9 +252,9 @@ EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2,
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
-                        group_norm=46, crossattn_kv=10, crossattn_sm90=10),
+                        group_norm=46, group_norm_sm90=46, crossattn_kv=10, crossattn_sm90=10),
     "decoder": launches_of(flash_attention_pipelined=1, flash_fwd_wide=1, conv3x3_same=12,
-                           group_norm=11)}
+                           group_norm=11, group_norm_sm90=11)}
 # ... and of the serving parity runs, every flash call through its variant
 PARITY_SERVE_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked_exp_bf16_pv_int8=5, flash_fwd_sm90_pv8=5,
@@ -240,6 +266,8 @@ PARITY_SERVE_LAUNCHES = {
 GN_SHAPES = [(4, 4096, 320), (4, 1024, 320), (4, 1024, 640), (4, 1024, 960),
              (4, 1024, 1280), (4, 256, 640), (4, 256, 1280), (4, 256, 1920),
              (4, 256, 2560), (4, 64, 1280), (4, 64, 2560)]
+# ... the GroupNorm launches of one opt-in generate at each of GN_SHAPES (2850)
+GN_LAUNCHES = (650, 50, 550, 50, 50, 50, 550, 50, 100, 600, 150)
 XATTN_SHAPES = [(4, 4096, 77, 8, 40, 320), (4, 1024, 77, 8, 80, 640),
                 (4, 256, 77, 8, 160, 1280)]
 # ... and its ragged case: rows past a q tile, 33 tokens, d = 24
@@ -289,7 +317,13 @@ SERVE_HPACKED_SHAPES = ((8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80))
 SERVE_DECODER_SHAPE = (4, 4096, 4096, 1, 512)
 CONTRACT_SHAPE = (1, 256, 256, 2, 40)
 VARIANT_SHAPES = (SERVE_DECODER_SHAPE, (1, 512, 700, 1, 512), CONTRACT_SHAPE)
-PIPE_EXP_SHAPES = (SERVE_DECODER_SHAPE, (1, 1000, 1300, 8, 40))
+# ... the pipelined sweep with the bf16 exponential: the decoder's serving
+# shape, the UNet's level 0 under SD_TPU_ATTN_HPACKED=0 at the serving batch
+# (8, the switch combination's) and the UNet's [B, S, H, D] shapes at the
+# opt-in generate's batch (4), and a ragged case
+SERVE_PIPE_SHAPE = (8, 4096, 4096, 8, 40)
+PIPE_EXP_SHAPES = (SERVE_DECODER_SHAPE, SERVE_PIPE_SHAPE, (4, 4096, 4096, 8, 40),
+                   (4, 1024, 1024, 8, 80), (1, 1000, 1300, 8, 40))
 # against exact fp32 attention, stated before measuring: the mean error
 # everywhere, the worst element at CONTRACT_SHAPE (the TPU package's measured
 # contract); at the other shapes the kernel may not add more than KERNEL_TOL
@@ -300,12 +334,13 @@ EXACT_TOL = {"mean": 1e-2, "int8_max": 8e-2, "bf16_max": 1e-2}
 VARIANTS = ((True, False), (False, True), (True, True))
 # each Hopper route of the inference flash forward and its counter
 # (`kernels/flash_attention.py ROUTE_COUNTERS`); the template has none
-ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
-                 "wide": "flash_fwd_wide"}
+ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pipe": "flash_fwd_sm90_pipe",
+                 "sm90_pv8": "flash_fwd_sm90_pv8", "wide": "flash_fwd_wide"}
 ROUTE_COUNTERS = tuple(ROUTE_COUNTER.values())
-# the Hopper kernels of the GEGLU feed-forward and the cross-attention, each
-# wrapper's route counter (one count per call)
-KERNEL_ROUTE_COUNTER = {"geglu_ff": "geglu_sm90", "crossattn_kv": "crossattn_sm90"}
+# the Hopper kernels of the GEGLU feed-forward, the cross-attention and
+# GroupNorm, each wrapper's route counter (one count per call)
+KERNEL_ROUTE_COUNTER = {"geglu_ff": "geglu_sm90", "crossattn_kv": "crossattn_sm90",
+                        "group_norm": "group_norm_sm90"}
 # every counter a kernel case holds to one count, or none
 CASE_ROUTE_COUNTERS = ROUTE_COUNTERS + tuple(KERNEL_ROUTE_COUNTER.values())
 # ... and of the training forward (`kernels/flash_attention.py LSE_ROUTE_COUNTERS`)
@@ -475,6 +510,16 @@ def route_forward(q, k, v, route: str = "template", exp_bf16: bool = False,
 # ---------------------------------------------------------------------------
 
 
+def own_stream(shape):
+    """The generator of SERVE_PIPE_SHAPE's inputs in the kernel phases, a
+    stream of its own (None for every other shape: the phase's), so that
+    the shape, added after the others, left every other check's inputs as
+    they were."""
+    import torch
+
+    return torch.Generator("cuda").manual_seed(8) if tuple(shape) == SERVE_PIPE_SHAPE else None
+
+
 def kernel_cases(gen):
     """One case per main-path shape of every kernel: callables for the
     kernel, its plain version (bf16 in), the fp32 reference and the library
@@ -485,8 +530,8 @@ def kernel_cases(gen):
     from sd_tpu_torch.kernels import conv2d, cross_attention as xattn
     from sd_tpu_torch.kernels import flash_attention as fa, geglu, groupnorm as gn
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+    def rnd(*shape, scale=1.0, g=None):
+        return (torch.randn(shape, generator=g or gen, device="cuda") * scale).bfloat16()
 
     from sd_tpu_torch.kernels import attention as attn_k
 
@@ -499,7 +544,7 @@ def kernel_cases(gen):
         split = lambda t, S=S, H=H, D=D: t.view(4, S, H, D)
         heads = lambda t, split=split: split(t).transpose(1, 2)
         cases.append(dict(
-            name="flash_attention_hpacked", shape=[4, S, H * D, H], route="sm90",
+            name="flash_attention_hpacked", shape=[4, S, H * D, H], route="sm90", device=True,
             kernel=lambda q=q, k=k, v=v, H=H: fa.flash_attention_hpacked(q, k, v, H),
             plain=lambda q=q, k=k, v=v, s=split, D=D: fa._xla_ref(s(q), s(k), s(v), D**-0.5),
             ref=lambda q=q, k=k, v=v, s=split, D=D: fa._xla_ref(
@@ -517,7 +562,7 @@ def kernel_cases(gen):
         q, k, v = (rnd(B, n, H, wide * D)[..., :D] for n in (S, Skv, Skv))
         heads = lambda t: t.transpose(1, 2)
         cases.append(dict(
-            name="flash_attention", shape=[B, S, Skv, H, D], route="sm90", how=how,
+            name="flash_attention", shape=[B, S, Skv, H, D], route="sm90", how=how, device=True,
             kernel=(lambda q=q, k=k, v=v: attn_k.dot_product_attention(q, k, v, impl="pallas"))
             if how == "forced" else (lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)),
             plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
@@ -536,7 +581,7 @@ def kernel_cases(gen):
         q, k, v = rnd(B, S, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
         heads = lambda t: t.transpose(1, 2)
         cases.append(dict(
-            name="flash_attention", shape=[B, S, Skv, H, D], route="wide",
+            name="flash_attention", shape=[B, S, Skv, H, D], route="wide", device=True,
             kernel=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
             plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
             ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5),
@@ -587,53 +632,69 @@ def kernel_cases(gen):
             view=lambda o: o,
             cost=conv3x3_cost(B, Hs, Ws, C, O)))
     # row 2 (opt-in): the pipelined kv sweep, at the decoder's mid-block
-    # attention and two ragged cases; also held against the serial sweep of
-    # its source (the wide kernel at d = 512, the template at d = 40), with
-    # the template's pipelined sweep timed beside the wide kernel
+    # attention and a ragged case (the wide kernel, with the template's
+    # pipelined sweep timed beside it), and at head dims up to 128 on the PIPE
+    # kernel of flash_attention_sm90.cu: the UNet's level 0 under
+    # `SD_TPU_ATTN_HPACKED=0` at the switch combination's batch (8, the
+    # shape its launches run at, and the row's), the UNet's [B, S, H, D]
+    # shapes at batch 4 (at level 1 one TPU kv tile keeps the sweep serial,
+    # so that shape is launched through its plan) and a ragged case,
+    # with the template's pipelined sweep and the serial Hopper kernel timed
+    # beside it. Each is held against the serial sweep of its source: the
+    # same bits
     for B, S, Skv, H, D in ((2, 4096, 4096, 1, 512), (1, 512, 700, 1, 512),
-                            (1, 1000, 1300, 8, 40)):
-        q, k, v = rnd(B, S, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
+                            SERVE_PIPE_SHAPE, (4, 4096, 4096, 8, 40),
+                            (4, 1024, 1024, 8, 80), (1, 1000, 1300, 8, 40)):
+        g = own_stream((B, S, Skv, H, D))
+        q, k, v = rnd(B, S, H, D, g=g), rnd(B, Skv, H, D, g=g), rnd(B, Skv, H, D, g=g)
         heads = lambda t: t.transpose(1, 2)
-        route = "wide" if D > 128 else "template"
+        route, serial_route = ("wide", "wide") if D > 128 else ("sm90_pipe", "sm90")
 
-        def vs_serial(out, q=q, k=k, v=v, route=route):
+        def vs_serial(out, q=q, k=k, v=v, route=serial_route):
             serial = route_forward(q, k, v, route)
             return {"serial_max_abs_diff": rel_err(out, serial)[0],
                     "same_bits_as_serial": bool(torch.equal(out, serial))}
 
-        wide = {} if route == "template" else {"generic": lambda q=q, k=k, v=v: route_forward(
-            q, k, v, pipelined=True)}
+        gated = fa._tpu_kv_tiles(Skv, D) >= 2    # the TPU package's switch holds
+        kernel = ((lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)) if gated
+                  else (lambda q=q, k=k, v=v, r=route: route_forward(q, k, v, r, pipelined=True)))
         cases.append(dict(
-            name="flash_attention_pipelined", shape=[B, S, Skv, H, D],
-            kernel=lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
-            env={"SD_TPU_FLASH_PIPE": "1"}, route=route, **wide,
+            name="flash_attention_pipelined", shape=[B, S, Skv, H, D], kernel=kernel,
+            how="" if gated else "plan", env={"SD_TPU_FLASH_PIPE": "1"}, route=route,
+            generic=lambda q=q, k=k, v=v: route_forward(q, k, v, pipelined=True),
+            serial=lambda q=q, k=k, v=v, r=serial_route: route_forward(q, k, v, r),
             plain=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q, k, v, D**-0.5),
             ref=lambda q=q, k=k, v=v, D=D: fa._xla_ref(q.float(), k.float(), v.float(),
                                                        D**-0.5),
             library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 heads(q), heads(k), heads(v)),
-            view=lambda o: o, extra=vs_serial,
+            view=lambda o: o, extra=vs_serial, device=True, table=D > 128,
             cost=attention_cost(B, S, Skv, H, D)))
     # row 10 (opt-in): GroupNorm at every opt-in generate shape (eps 1e-5, the
     # resblocks'), the transformer norms' eps 1e-6, the SiLU epilogue (no
-    # model path uses it) and a ragged case with 8 groups
+    # model path uses it) and a ragged case with 8 groups (17 channels a
+    # group, rows past a block): the Hopper kernel (groupnorm_sm90.cu, the
+    # grid `gn_plan` picks), with groupnorm.cu's timed beside it
     gn_cases = [(b, s_, c, 32, 1e-5, None, True) for b, s_, c in GN_SHAPES]
     gn_cases += [(4, 4096, 320, 32, 1e-6, None, False), (4, 1024, 640, 32, 1e-6, None, False),
                  (4, 256, 1280, 32, 1e-6, None, False), (4, 4096, 320, 32, 1e-6, "silu", False),
-                 (3, 100, 136, 8, 1e-6, "silu", False)]
+                 (3, 100, 136, 8, 1e-6, "silu", False), (3, 100, 136, 8, 1e-5, None, False)]
     for B, S, C, G, eps, act, table in gn_cases:
         x = rnd(B, S, C, scale=3.0) + 0.5
         sc, bi = 1 + rnd(C, scale=0.2), rnd(C, scale=0.3)
         kw = dict(groups=G, eps=eps, act=act)
         cases.append(dict(
-            name="group_norm", shape=[B, S, C, G, eps, act],
+            name="group_norm", shape=[B, S, C, G, eps, act], counter="group_norm_sm90",
+            device=True, table=table, plan=gn.gn_plan(B, S, C, G)._asdict(),
             kernel=lambda x=x, sc=sc, bi=bi, kw=kw: gn.group_norm(x, sc, bi, **kw),
             plain=lambda x=x, sc=sc, bi=bi, kw=kw: gn.group_norm_xla(x, sc, bi, **kw),
             ref=lambda x=x, sc=sc, bi=bi, kw=kw: gn.group_norm_xla(
                 x.float(), sc.float(), bi.float(), **kw),
+            generic=lambda x=x, sc=sc, bi=bi, G=G, eps=eps, act=act: gn._launch_gn(
+                x, sc, bi, G, eps, act, source="template"),
             library=(None if act else lambda x=x, sc=sc, bi=bi, G=G, eps=eps:
                      F.group_norm(x.transpose(1, 2), G, sc, bi, eps)),
-            view=lambda o: o, table=table, cost=group_norm_cost(B, S, C, act == "silu")))
+            view=lambda o: o, cost=group_norm_cost(B, S, C, act == "silu")))
     # row 11 (opt-in): the cross-attention at UNet levels 0-2 over the 77 CLIP
     # tokens, and a ragged case (rows past a q tile, 33 tokens, d = 24): the
     # Hopper kernels (cross_attention_sm90.cu), with cross_attention.cu's
@@ -739,9 +800,18 @@ def _kernel_case(case, hopper_rows) -> dict:
         row.update({k: case[k] for k in ("split", "plan") if k in case})
         require_route(moved, case["counter"], f"{case['name']} {case['shape']}")
     if case.get("device"):
-        # the profiler's device time beside the host's, for the kernel and the template
+        # the profiler's device time beside the host's, for the kernel, the
+        # template and the library call
         row["device_ms"] = device_ms(case["kernel"])
         row["generic_device_ms"] = device_ms(case["generic"])
+        if case["library"]:
+            row["library_device_ms"] = device_ms(case["library"])
+    if "serial" in case:
+        # the pipelined sweep: the serial sweep of its source beside it
+        row["serial_ms"] = time_ms(case["serial"])
+        row["serial_device_ms"] = device_ms(case["serial"])
+        require(row["same_bits_as_serial"],
+                f"{case['shape']}: the pipelined sweep gives the serial sweep's bits")
     if "unfused" in case:
         row["unfused_ms"] = time_ms(case["unfused"])
     if "generic" in case:
@@ -786,8 +856,8 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
 
     from sd_tpu_torch.kernels import flash_attention as fa
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    def rnd(*shape, g=None):
+        return torch.randn(shape, generator=g or gen, device="cuda").bfloat16()
 
     best, hopper_rows = {}, {c: [] for c in ROUTE_COUNTERS}
     cases = [("flash_attention_hpacked", shape, True) for shape in SERVE_HPACKED_SHAPES]
@@ -802,7 +872,8 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
             split = lambda t: t
         exact = fa._xla_ref(*(split(t).float() for t in (q, k, v)), D**-0.5)
         heads = lambda t: split(t).transpose(1, 2)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
+        library = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+        library_ms, library_device_ms = time_ms(library), device_ms(library)
         for exp_bf16, pv_int8 in VARIANTS:
             kw = dict(softmax_dtype=torch.bfloat16 if exp_bf16 else torch.float32,
                       pv_quant="int8" if pv_int8 else "none")
@@ -829,14 +900,17 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
                    "max_abs_err": rel_err(out, ref)[0], "rel_err": vs_plain,
                    "vs_exact": {"max": worst, "mean": mean},
                    "plain_vs_exact": {"max": plain_worst, "mean": plain_mean},
-                   "ms": time_ms(kernel), "plain_ms": time_ms(plain, 2),
-                   "library_ms": library_ms, "library": "scaled_dot_product_attention (exact)",
+                   "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+                   "plain_ms": time_ms(plain, 2), "library_ms": library_ms,
+                   "library_device_ms": library_device_ms,
+                   "library": "scaled_dot_product_attention (exact)",
                    "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
                    "route": plan.route, "kv_tile": bk}
             if plan.route in ROUTE_COUNTER:
                 generic = lambda: route_forward(split(q), split(k), split(v), "template",
                                                 exp_bf16, pv_int8, block_k=bk)
                 row["generic_ms"] = time_ms(generic)
+                row["generic_device_ms"] = device_ms(generic)
                 row["same_bits_twice"] = bool(torch.equal(out, split(kernel())))
                 require(rel_err(generic(), out)[1] <= KERNEL_TOL and row["same_bits_twice"],
                         f"{name}: the template agrees with the Hopper kernel, which gives "
@@ -860,57 +934,67 @@ def phase_variant_kernels(gen) -> tuple[dict, list]:
         torch.cuda.empty_cache()
 
     # the pipelined sweep keeps the bf16 exponential and drops the int8 PV:
-    # the same bits as the serial kernel with the bf16 exponential alone
+    # the same bits as the serial sweep of its source with the bf16
+    # exponential alone (the wide kernel at d = 512, flash_attention_sm90.cu's
+    # serial kernel at d ≤ 128; the UNet's level-1 shape, one TPU kv tile,
+    # through its plan), against the plain sweep at the kernel's kv tile
     for B, Sq, Skv, H, D in PIPE_EXP_SHAPES:
-        q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
+        g = own_stream((B, Sq, Skv, H, D))
+        q, k, v = rnd(B, Sq, H, D, g=g), rnd(B, Skv, H, D, g=g), rnd(B, Skv, H, D, g=g)
         exact = fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5)
-
+        route, serial_route = ("wide", "wide") if D > 128 else ("sm90_pipe", "sm90")
+        gated = fa._tpu_kv_tiles(Skv, D) >= 2
         # (run under SD_TPU_FLASH_PIPE=1, set once around the calls below)
-        piped = lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, softmax_dtype=torch.bfloat16,
-                                                          pv_quant="int8")
-        plain = lambda q=q, k=k, v=v, D=D: fa._flash_tiled_ref(
-            q, k, v, D**-0.5, TEMPLATE_KV_TILE, torch.bfloat16, "none", pipelined=True)
+        piped = ((lambda q=q, k=k, v=v: fa.flash_attention(
+            q, k, v, softmax_dtype=torch.bfloat16, pv_quant="int8")) if gated
+                 else (lambda q=q, k=k, v=v: route_forward(q, k, v, route, True,
+                                                           pipelined=True)))
+        tile = TEMPLATE_KV_TILE if D > 128 else fa.sm90_block_k(D)
+        plain = lambda q=q, k=k, v=v, D=D, tile=tile: fa._flash_tiled_ref(
+            q, k, v, D**-0.5, tile, torch.bfloat16, "none", pipelined=True)
         before = kernels_launched("flash_attention_pipelined_exp_bf16")
-        route = "wide" if D > 128 else "template"
         with switches({"SD_TPU_FLASH_PIPE": "1"}):
             out, moved = route_moves(piped)
             launched = kernels_launched("flash_attention_pipelined_exp_bf16") - before
-            piped_ms = time_ms(piped)
+            piped_ms, piped_device_ms = time_ms(piped), device_ms(piped)
+            again = piped()
         require(launched == 1,
                 "SD_TPU_FLASH_PIPE=1 with both variants runs the pipelined bf16 sweep")
         require_route(moved, route, f"pipelined bf16 flash {[B, Sq, Skv, H, D]}")
-        # the serial sweep of the same source (the wide kernel at d = 512; at
-        # d = 40 the template, launched through its plan: the Hopper kernel
-        # serves the serial launch there)
-        serial = route_forward(q, k, v, route, exp_bf16=True)
+        serial = route_forward(q, k, v, serial_route, exp_bf16=True)
         ref = plain()
         _, vs_plain = rel_err(out, ref)
         worst, mean = _exact_errs(out, exact)
         plain_worst, plain_mean = _exact_errs(ref, exact)
         b_ms, b_by, b_op = variant_bound(B, Sq, Skv, H, D, False)
+        library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        generic = lambda q=q, k=k, v=v: route_forward(q, k, v, exp_bf16=True, pipelined=True)
+        serial_fn = lambda q=q, k=k, v=v, r=serial_route: route_forward(q, k, v, r, True)
         row = {"phase": "kernel", "name": "flash_attention_pipelined_exp_bf16",
-               "shape": [B, Sq, Skv, H, D], "max_abs_err": rel_err(out, ref)[0],
+               "shape": [B, Sq, Skv, H, D], "how": "" if gated else "plan",
+               "max_abs_err": rel_err(out, ref)[0],
                "rel_err": vs_plain, "vs_exact": {"max": worst, "mean": mean},
                "plain_vs_exact": {"max": plain_worst, "mean": plain_mean},
                "serial_exp_bf16_max_abs_diff": rel_err(out, serial)[0],
                "same_bits_as_serial_exp_bf16": bool(torch.equal(out, serial)),
-               "ms": piped_ms, "plain_ms": time_ms(plain, 2),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))),
+               "same_bits_twice": bool(torch.equal(out, again)),
+               "ms": piped_ms, "device_ms": piped_device_ms, "plain_ms": time_ms(plain, 2),
+               "serial_ms": time_ms(serial_fn), "serial_device_ms": device_ms(serial_fn),
+               "generic_ms": time_ms(generic), "generic_device_ms": device_ms(generic),
+               "library_ms": time_ms(library), "library_device_ms": device_ms(library),
                "library": "scaled_dot_product_attention (exact)",
-               "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op, "route": route}
-        if route in ROUTE_COUNTER:
-            generic = lambda q=q, k=k, v=v: route_forward(q, k, v, exp_bf16=True,
-                                                          pipelined=True)
-            row["generic_ms"] = time_ms(generic)
-            require(rel_err(generic(), out)[1] <= KERNEL_TOL,
-                    "the template's pipelined bf16 sweep agrees with the wide kernel's")
-            hopper_rows[ROUTE_COUNTER[route]].append(row)
+               "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op, "route": route,
+               "kv_tile": tile}
+        require(rel_err(generic(), out)[1] <= KERNEL_TOL,
+                "the template's pipelined bf16 sweep agrees with the Hopper one")
+        hopper_rows[ROUTE_COUNTER[route]].append(row)
         emit(row)
         require(vs_plain <= KERNEL_TOL and worst <= plain_worst + KERNEL_TOL
-                and mean < EXACT_TOL["mean"] and row["same_bits_as_serial_exp_bf16"],
+                and mean < EXACT_TOL["mean"] and row["same_bits_as_serial_exp_bf16"]
+                and row["same_bits_twice"],
                 f"pipelined bf16 flash {[B, Sq, Skv, H, D]}: within its gates, the same "
-                f"bits as the serial sweep")
+                f"bits as the serial sweep and twice")
         if (B, Sq, Skv, H, D) == SERVE_DECODER_SHAPE:
             best[row["name"]] = (0, row)
         del exact
@@ -1536,20 +1620,38 @@ def phase_serve(pipe, smi: str) -> dict:
 
 
 # the other switch combinations, each with the launches of one serving UNet
-# call (bucket 4: batch 8, 512²) and one decode (batch 4)
+# call (bucket 4: batch 8, 512²) and one decode (batch 4), and the kernels
+# whose rows take their launches from it. The head-packed launches take the
+# Hopper route (its int8-PV form with the int8 PV), the decoder's (serial or
+# pipelined) the wide kernel. The last reaches the pipelined sweep at d ≤ 128:
+# the [B, S, H, D] route takes the 5 level-0 self-attentions (4096 tokens,
+# d = 40: 4 of the TPU package's kv tiles) to the PIPE kernel and the 5 at
+# level 1 (1024 tokens: one tile) to the serial one, with the UNet's 57
+# GroupNorms (tests/test_torch_structure.py derives these)
+_SERVING_CALL = dict(geglu_ff=10, geglu_sm90=10, conv3x3_same=18, flash_fwd_wide=1)
 SWITCH_COMBINATIONS = (
-    ({"SD_TPU_FLASH_EXP": "bf16"}, "flash_attention_hpacked_exp_bf16",
-     "flash_attention_exp_bf16"),
-    ({"SD_TPU_FLASH_PV": "int8"}, "flash_attention_hpacked_pv_int8",
-     "flash_attention_pv_int8"),
+    ({"SD_TPU_FLASH_EXP": "bf16"},
+     launches_of(flash_attention_hpacked_exp_bf16=10, flash_fwd_sm90=10,
+                 flash_attention_exp_bf16=1, **_SERVING_CALL),
+     ("flash_attention_hpacked_exp_bf16", "flash_attention_exp_bf16")),
+    ({"SD_TPU_FLASH_PV": "int8"},
+     launches_of(flash_attention_hpacked_pv_int8=10, flash_fwd_sm90_pv8=10,
+                 flash_attention_pv_int8=1, **_SERVING_CALL),
+     ("flash_attention_hpacked_pv_int8", "flash_attention_pv_int8")),
     ({"SD_TPU_FLASH_EXP": "bf16", "SD_TPU_FLASH_PV": "int8", "SD_TPU_FLASH_PIPE": "1"},
-     "flash_attention_hpacked_exp_bf16_pv_int8", "flash_attention_pipelined_exp_bf16"))
+     launches_of(flash_attention_hpacked_exp_bf16_pv_int8=10, flash_fwd_sm90_pv8=10,
+                 flash_attention_pipelined_exp_bf16=1, **_SERVING_CALL),
+     ("flash_attention_hpacked_exp_bf16_pv_int8", "flash_attention_pipelined_exp_bf16")),
+    ({"SD_TPU_ATTN_HPACKED": "0", "SD_TPU_FLASH_PIPE": "1", "SD_TPU_PALLAS_GN": "1"},
+     launches_of(flash_attention_pipelined=6, flash_fwd_sm90_pipe=5, flash_attention=5,
+                 flash_fwd_sm90=5, group_norm=57, group_norm_sm90=57, **_SERVING_CALL),
+     ("flash_fwd_sm90_pipe",)))
 
 
 def phase_switch_combinations(pipe) -> dict:
     """One UNet call and one decode of the serving shapes under each other
     combination of the switches: which kernel each reaches, and a finite
-    output. Returns {kernel: launches} of the variants these reach."""
+    output. Returns {kernel: launches} of the rows these report."""
     import torch
 
     from sd_tpu_torch import kernels
@@ -1560,24 +1662,17 @@ def phase_switch_combinations(pipe) -> dict:
     t = torch.full((8,), 501, device="cuda")
     z = torch.randn((4,) + pipe.latent_shape, device="cuda").bfloat16()
     seen = {}
-    for env, hpacked, decoder in SWITCH_COMBINATIONS:
+    for env, want, reports in SWITCH_COMBINATIONS:
         with switches(env), torch.no_grad():
             kernels.reset_launches()
             out, img = pipe.unet(x, t, ctx), pipe.vae.decode(z)
             torch.cuda.synchronize()
             launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        emit({"phase": "switches", "switches": env, "launches": launches,
-              "finite": bool(torch.isfinite(out).all() and torch.isfinite(img).all())})
-        # the head-packed launches take the Hopper route (its int8-PV form with
-        # the int8 PV), the decoder's (serial or pipelined) the wide kernel
-        route = "flash_fwd_sm90_pv8" if hpacked.endswith("pv_int8") else "flash_fwd_sm90"
-        want = {hpacked: 10, decoder: 1, "geglu_ff": 10, "geglu_sm90": 10, "conv3x3_same": 18,
-                route: 10, "flash_fwd_wide": 1}
-        require(launches == want
-                and bool(torch.isfinite(out).all() and torch.isfinite(img).all()),
-                f"switches {env}: launches {launches} == {want}")
-        seen.setdefault(hpacked, 10)
-        seen[decoder] = 1
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(img).all())
+        emit({"phase": "switches", "switches": env, "launches": launches, "finite": finite})
+        want = {k: v for k, v in want.items() if v}
+        require(launches == want and finite, f"switches {env}: launches {launches} == {want}")
+        seen.update({name: launches[name] for name in reports})
     return seen
 
 
@@ -2188,6 +2283,54 @@ def ff_xattn_report() -> dict:
     return out
 
 
+def pipe_gn_report() -> dict:
+    """Registers, spills and dynamic shared memory of the pipelined sweep's
+    instantiations at the path's head dims (40 → 48, 80; `pipe<DP, nwg>`
+    and the exponential) and of the Hopper GroupNorm (its shared memory at
+    each opt-in shape's plan, the C entry point's against `gn_plan`'s), from
+    the build's logs; raises on a spill or a wgmma serialization warning
+    (ptxas C7515) in either source."""
+    import ctypes
+    import re
+
+    from sd_tpu_torch.kernels import _build, groupnorm as gn
+
+    out = {}
+    pipe_smem = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90_pipe_smem",
+                                [ctypes.c_int])
+    gn_smem = _build.function("groupnorm_sm90", "sd_group_norm_sm90_smem", [ctypes.c_int] * 4)
+    pattern = r"flash_fwd_sm90_pipe_kernelILi(\d+)ELb([01])E"
+    for lib, keep in (("flash_attention_sm90", lambda n: re.search(pattern, n)),
+                      ("groupnorm_sm90", lambda n: "gn_sm90_kernel" in n)):
+        log = (_build.build_dir() / f"{lib}.log").read_text()
+        serialized = [line for line in log.splitlines()
+                      if "C7515" in line or ("wgmma" in line and "serializ" in line)]
+        require(not serialized, f"{lib}: wgmma serialized: {serialized}")
+        for mangled, (regs, st, ld) in ptxas_report(log, keep).items():
+            m = re.search(pattern, mangled)
+            if m is None:
+                name = "group_norm_sm90" + (" silu" if "ILb1E" in mangled else "")
+                row = {"registers": regs, "spill_stores": st, "spill_loads": ld}
+            elif int(m.group(1)) in (48, 80):
+                # warpgroups a block: three at d <= 48, one block an SM (pipe_nwg)
+                dp = int(m.group(1))
+                name = f"pipe<{dp}>" + (" exp_bf16" if m.group(2) == "1" else "")
+                row = {"registers": regs, "spill_stores": st, "spill_loads": ld,
+                       "warpgroups": 3 if dp <= 48 else 2, "smem_bytes": pipe_smem(dp)}
+            else:
+                row = None
+            require(not (st or ld), f"{lib}: {mangled} spills {st} / {ld} bytes")
+            if row:
+                out[name] = row
+    plans = {}
+    for (B, S, C), n in zip(GN_SHAPES, GN_LAUNCHES):
+        p = gn.gn_plan(B, S, C, 32)
+        require(gn_smem(C, 32, p.cs, p.rows) == p.smem, f"gn_plan's shared memory at {B, S, C}")
+        plans[f"{B}x{S}x{C}"] = p._asdict()
+    out["group_norm_plans"] = plans
+    return out
+
+
 def flash_smem() -> dict:
     """Dynamic shared memory (bytes) of the inference forwards at the path's
     head dims: each Hopper kernel where it serves, and the template's
@@ -2216,6 +2359,10 @@ def _family(name: str) -> str:
         return "flash dQ, Hopper (port)"
     if "flash_bwd_dkv_sm90_kernel" in name:
         return "flash dK/dV, Hopper (port)"
+    if "flash_fwd_sm90_pipe_kernel<" in name:
+        return "flash Hopper pipelined forward (port)"
+    if "gn_sm90_kernel" in name:
+        return "groupnorm, Hopper (port)"
     if "flash_fwd_sm90_kernel<" in name:
         # template arguments <DP, EXPB, LSE>
         lse = name.split("flash_fwd_sm90_kernel<")[1].split(">")[0].split(", ")[2] == "true"
@@ -2263,13 +2410,13 @@ def _family(name: str) -> str:
     return "elementwise/other"
 
 
-def phase_profile(pipe, prompts, optin: bool = False) -> None:
+def phase_profile(pipe, prompts, optin: bool = False) -> dict:
     """Where one generate's time goes (`--profile`): the layers' times from
     CUDA events, and device time by kernel family from torch.profiler over
     a whole 50-step generate, against its wall time; with `optin`, under the
-    opt-in switches."""
+    opt-in switches. Returns the row it prints."""
     with switches(OPT_IN if optin else {}):
-        _profile_generate(pipe, prompts, "generate (opt-in)" if optin else "generate")
+        return _profile_generate(pipe, prompts, "generate (opt-in)" if optin else "generate")
 
 
 def phase_profile_serve(pipe, grouped) -> None:
@@ -2297,7 +2444,7 @@ def phase_profile_serve(pipe, grouped) -> None:
           "launches": launches, **_device_breakdown(prof, wall)})
 
 
-def _profile_generate(pipe, prompts, of: str) -> None:
+def _profile_generate(pipe, prompts, of: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2316,8 +2463,9 @@ def _profile_generate(pipe, prompts, of: str) -> None:
         pipe.generate(prompts, num_steps=50, guidance_scale=7.5, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    emit({"phase": "profile", "of": of, "layers": layers,
-          **_device_breakdown(prof, wall)})
+    row = {"phase": "profile", "of": of, "layers": layers, **_device_breakdown(prof, wall)}
+    emit(row)
+    return row
 
 
 def _device_breakdown(prof, wall: float) -> dict:
@@ -2466,6 +2614,7 @@ def main() -> int:
           "flash_fwd_smem_bytes": flash_smem(),
           "flash_bwd_sm90": bwd_sm90_report(),
           "ff_xattn_sm90": ff_xattn_report(),
+          "pipe_gn_sm90": pipe_gn_report(),
           "conv3x3_sm90_smem_bytes": _build.function("conv2d_sm90", "sd_conv3x3_fwd_sm90_smem",
                                                      [])()})
 
@@ -2483,9 +2632,11 @@ def main() -> int:
     launches_serve, grouped = phase_serve(pipe, smi)
     launches_switches = phase_switch_combinations(pipe)
     profiling = "--profile" in sys.argv[1:]
+    gn_profile_ms = None
     if profiling:
         phase_profile(pipe, prompts)
-        phase_profile(pipe, prompts, optin=True)
+        gn_profile_ms = phase_profile(pipe, prompts, optin=True)["families_ms"].get(
+            "groupnorm, Hopper (port)", 0.0)
         phase_profile_serve(pipe, grouped)
     del pipe
     torch.cuda.empty_cache()
@@ -2540,7 +2691,12 @@ def main() -> int:
                "geglu_ff": (src + "geglu_sm90.cu", tpu + "geglu.py:48"),
                "conv3x3_same": (src + "conv2d_sm90.cu", tpu + "conv2d.py:30"),
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
-               "group_norm": (src + "groupnorm.cu", tpu + "groupnorm.py:31"),
+               "group_norm": (src + "groupnorm_sm90.cu", tpu + "groupnorm.py:31"),
+               # the pipelined sweep at head dims up to 128 (its row: [8, 4096,
+               # 8, 40], the UNet's level 0 under SD_TPU_ATTN_HPACKED=0 at the
+               # switch combination's batch, where its launches run)
+               "flash_fwd_sm90_pipe": (src + "flash_attention_sm90.cu",
+                                       tpu + "flash_attention.py:123"),
                "crossattn_kv": (src + "cross_attention_sm90.cu",
                                 tpu + "cross_attention.py:41")}
     # the inference variants: at d ≤ 128 on the Hopper kernel (the int8 PV
@@ -2557,7 +2713,7 @@ def main() -> int:
     # shape it was held at (the template's time beside each)
     keys = ("shape", "name", "how", "max_abs_err", "ms", "generic_ms", "plain_ms", "bound_ms",
             "bound_by", "bound_op", "library_ms", "kv_tile", "device_ms", "generic_device_ms",
-            "unfused_ms", "split", "plan")
+            "library_device_ms", "serial_ms", "serial_device_ms", "unfused_ms", "split", "plan")
     for counter in ROUTE_COUNTERS:
         rows_ = hopper_rows[counter] + hopper_variant_rows[counter]
         table[counter] = {**rows_[0], "other_shapes": [
@@ -2566,10 +2722,20 @@ def main() -> int:
     # conv2d.cu's time beside each)
     # ... and GEGLU's and the cross-attention's: the largest main-path shape,
     # with the other shapes (the ragged case among them)
-    for name in ("conv3x3_same", "geglu_ff", "crossattn_kv"):
+    # ... and GroupNorm's, with its bound summed over the launches of one
+    # opt-in generate (and, under --profile, its measured device time there)
+    for name in ("conv3x3_same", "geglu_ff", "crossattn_kv", "group_norm"):
         table[name]["other_shapes"] = [
             {k: r[k] for k in keys if k in r} for r in hopper_rows[name]
             if r["shape"] != table[name]["shape"]]
+    gn_rows = {tuple(r["shape"][:3]): r for r in hopper_rows["group_norm"]
+               if r["shape"][3:] == [32, 1e-5, None]}
+    table["group_norm"]["per_generate"] = {
+        "launches_by_shape": [[list(s), n] for s, n in zip(GN_SHAPES, GN_LAUNCHES)],
+        "bound_ms": sum(n * gn_rows[s]["bound_ms"] for s, n in zip(GN_SHAPES, GN_LAUNCHES))}
+    if gn_profile_ms is not None:
+        # measured: the Hopper GroupNorm's device time in the profiled opt-in generate
+        table["group_norm"]["per_generate"]["profile_device_ms"] = gn_profile_ms
     # the flash training kernels (rows 4-6) run on two paths: their row is
     # train_kl_vae's shape and launches, with train_ldm's beside them; the
     # training forward's route counters each take their own shapes
@@ -2606,7 +2772,7 @@ def main() -> int:
              "crossattn_kv": ("generate, opt-in", launches_optin),
              "gn_silu_conv3x3": ("none: not wired, as in sd_tpu", launches_optin)}
     for name in launches_switches:
-        env = next(e for e, *names in SWITCH_COMBINATIONS if name in names)
+        env = next(e for e, _, names in SWITCH_COMBINATIONS if name in names)
         paths[name] = ("one serving UNet call + decode, " + " ".join(
             f"{k}={v}" for k, v in env.items()), launches_switches)
     for name, n in launches_serve.items():
@@ -2623,7 +2789,8 @@ def main() -> int:
                "bound_by": r["bound_by"], "bound_op": r["bound_op"],
                "library_ms": r["library_ms"], "shape": r["shape"]}
         for key in ("generic_ms", "other_shapes", "kv_tile", *device_keys, "unfused_ms",
-                    "route_counter", "split", "plan"):
+                    "route_counter", "split", "plan", "serial_ms", "serial_device_ms",
+                    "per_generate"):
             if key in r:
                 row[key] = r[key]
         if name == "conv3x3_same":

@@ -13,7 +13,10 @@ backward's `flash_bwd_dq_sm90` and `flash_bwd_dkv_sm90`
 (`flash_attention_bwd_sm90.cu`), and the GEGLU feed-forward's `geglu_sm90`
 (`csrc/geglu_sm90.cu`) and the cross-attention's `crossattn_sm90`
 (`csrc/cross_attention_sm90.cu`, one count per call of its three launches).
-The 3×3 conv (`conv3x3_same`) runs `csrc/conv2d_sm90.cu`.
+The pipelined sweep at head dims up to 128 counts under
+`flash_fwd_sm90_pipe` (the `PIPE` kernel of `csrc/flash_attention_sm90.cu`)
+and GroupNorm under `group_norm_sm90` (`csrc/groupnorm_sm90.cu`). The 3×3
+conv (`conv3x3_same`) runs `csrc/conv2d_sm90.cu`.
 
 Only flash attention has backward kernels (`flash_attention.py`, an
 autograd Function). GEGLU, the 3×3 conv, GroupNorm and the fused
@@ -49,6 +52,7 @@ LAUNCHES: dict[str, int] = {
     # flash_attention_sm90_pv8.cu and flash_attention_wide.cu (each also counts
     # under its wrapper's name above)
     "flash_fwd_sm90": 0,
+    "flash_fwd_sm90_pipe": 0,
     "flash_fwd_sm90_pv8": 0,
     "flash_fwd_wide": 0,
     # ... and training-forward launches (`flash_attention_lse`) served by the
@@ -68,6 +72,8 @@ LAUNCHES: dict[str, int] = {
     # geglu_sm90.cu and cross_attention_sm90.cu
     "geglu_sm90": 0,
     "crossattn_sm90": 0,
+    # ... and GroupNorm's (`group_norm`) Hopper kernel, groupnorm_sm90.cu
+    "group_norm_sm90": 0,
 }
 
 

@@ -11,11 +11,13 @@ projection-native [B, S, H*D]; here one kernel reads both through strides.
 `launch_plan` decides which source serves an inference call: the serial
 sweep at head dims up to 128 runs `flash_attention_sm90.cu` (route counter
 `flash_fwd_sm90`) or, with the int8 PV, `flash_attention_sm90_pv8.cu`
-(`flash_fwd_sm90_pv8`); every sweep above 128 (serial, pipelined, int8 PV)
-runs `flash_attention_wide.cu` (`flash_fwd_wide`); the pipelined sweep at
-head dims up to 128 runs the template of `flash_attention.cu`, whose other
-instantiations are only the yardstick the Hopper kernels are timed against.
-A route counter counts beside the wrapper's own counter.
+(`flash_fwd_sm90_pv8`), and the pipelined sweep there the `PIPE` kernel of
+`flash_attention_sm90.cu` (`flash_fwd_sm90_pipe`, the serial kernel's bits);
+every sweep above 128 (serial, pipelined, int8 PV) runs
+`flash_attention_wide.cu` (`flash_fwd_wide`). `flash_attention.cu` serves
+no route: its instantiations are the yardstick the Hopper kernels are timed
+against (`_launch` with a plan whose route is "template"). A route counter
+counts beside the wrapper's own counter.
 `flash_attention` is differentiable, as the TPU package's `jax.custom_vjp`
 is: with grad off it runs the inference forward; with grad on, the training
 forward that also keeps the base-2 row log-sum-exp (the Hopper forwards'
@@ -36,7 +38,8 @@ chunked recompute (`_bwd_chunked_ref`): no LSE, dQ or dK/dV kernel runs.
 `flash_attention_hpacked` is inference-only, as on the TPU. With
 `SD_TPU_FLASH_PIPE=1` (opt-in, as in the TPU package) the inference launch of
 `flash_attention` runs the software-pipelined kv sweep, which gives the same
-bits; the head-packed and training kernels never do.
+bits as the serial sweep of its source; the head-packed and training kernels
+never do.
 
 The inference forwards take the TPU kernels' two variants:
 `softmax_dtype=torch.bfloat16` (the softmax exponential in bf16, as
@@ -418,17 +421,18 @@ _FWD_PV8_ARGS = _FWD_ARGS[:4] + [ctypes.c_void_p] * 2 + _FWD_ARGS[4:]
 
 
 # the route counter of each source an inference call can run on (the
-# template, flash_attention.cu, has none: its launches count under their names)
-ROUTE_COUNTERS = {"sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8",
-                  "wide": "flash_fwd_wide"}
+# template, flash_attention.cu, the yardstick, has none)
+ROUTE_COUNTERS = {"sm90": "flash_fwd_sm90", "sm90_pipe": "flash_fwd_sm90_pipe",
+                  "sm90_pv8": "flash_fwd_sm90_pv8", "wide": "flash_fwd_wide"}
 
 
 class Plan(NamedTuple):
     """What one inference call launches on the card."""
     name: str          # its launch counter
-    route: str         # "sm90" (flash_attention_sm90.cu), "sm90_pv8"
-    #                    (flash_attention_sm90_pv8.cu), "wide" (flash_attention_wide.cu)
-    #                    or "template" (flash_attention.cu)
+    route: str         # "sm90" (flash_attention_sm90.cu, serial), "sm90_pipe"
+    #                    (its PIPE kernel), "sm90_pv8" (flash_attention_sm90_pv8.cu),
+    #                    "wide" (flash_attention_wide.cu) or, for the yardstick
+    #                    only, "template" (flash_attention.cu)
     pipelined: bool
     exp_bf16: bool
     pv_int8: bool
@@ -443,13 +447,13 @@ def launch_plan(sq: int, skv: int, heads: int, d: int, exp_bf16: bool, pv_int8: 
     the bf16 exponential and drops the int8 PV, as the TPU package's does.
     Above head dim 128 every sweep runs the wide kernel; up to 128 the serial
     sweep runs the Hopper kernel (its int8-PV form with the int8 PV) and the
-    pipelined sweep the template."""
+    pipelined sweep its PIPE kernel. No plan names the template."""
     pipelined = not hpacked and flash_pipelined_ok(skv, d)
     pv_int8 = pv_int8 and not pipelined
     base = ("flash_attention_hpacked" if hpacked
             else "flash_attention_pipelined" if pipelined else "flash_attention")
     block_k = (_tpu_hpacked_block_k(sq, skv, heads * d) if hpacked else _tpu_block_k(skv, d))
-    route = ("wide" if d > 128 else "template" if pipelined
+    route = ("wide" if d > 128 else "sm90_pipe" if pipelined
              else "sm90_pv8" if pv_int8 else "sm90")
     return Plan(launch_name(base, exp_bf16, pv_int8), route, pipelined, exp_bf16, pv_int8,
                 block_k)
@@ -466,10 +470,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
             _strides(q, k, v, out), float(scale) * LOG2E)
     stream = _build.stream_ptr(q.device)
     with _build.on_device(q.device):
-        if plan.route == "sm90":
-            fn = _build.function("flash_attention_sm90", "sd_flash_fwd_sm90",
+        if plan.route in ("sm90", "sm90_pipe"):
+            symbol = "sd_flash_fwd_" + plan.route
+            fn = _build.function("flash_attention_sm90", symbol,
                                  _FWD_ARGS + [ctypes.c_int, ctypes.c_void_p])
-            _build.check(fn(*args, int(plan.exp_bf16), stream), "sd_flash_fwd_sm90")
+            _build.check(fn(*args, int(plan.exp_bf16), stream), symbol)
         elif plan.route in ("sm90_pv8", "wide"):
             # the int8 PV's scratch: V's codes and column factors per kv tile,
             # written by the pre-pass launch
@@ -504,6 +509,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
     if plan.route in ROUTE_COUNTERS:
         kernels.LAUNCHES[ROUTE_COUNTERS[plan.route]] += 1
     kernels.LAUNCHES[plan.name] += 1
+
+
+def sm90_block_k(d: int) -> int:
+    """The kv rows a step of the Hopper forward at head dim d ≤ 128
+    (`flash_attention_sm90.cu Cfg90::BK`): 128 where the padded head dim is
+    at most 48, else 64. The bf16-exponential sweep's p depends on each
+    tile's running max, so its plain version runs at this tile."""
+    return 128 if _round_up(d, 16) <= 48 else 64
 
 
 def launch_name(base: str, exp_bf16: bool, pv_int8: bool) -> str:

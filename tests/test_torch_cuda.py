@@ -4,7 +4,7 @@ bf16 inputs from a seed, the plain version computed in fp32 from the same
 inputs, max|Δ| ≤ 1e-2·max|ref| (bf16 output rounding plus p rounded to bf16
 in attention; q, p and the head outputs also round to bf16 in the fused
 cross-attention). The pipelined flash sweep gives the bits of the serial
-sweep of its source (the template at d ≤ 128, the wide kernel above). The
+sweep of its source (the Hopper kernel at d ≤ 128, the wide kernel above). The
 Hopper flash forwards (`flash_attention_sm90.cu` and its int8-PV form
 `flash_attention_sm90_pv8.cu` at d ≤ 128, `flash_attention_wide.cu` above)
 are counted under their routes and give the same bits twice; the int8-PV
@@ -367,11 +367,11 @@ def test_forward_only_kernels_refuse_inputs_that_need_grad(cuda):
                                           (1, 1000, 1300, 8, 40)])
 def test_pipelined_flash_kernel_on_card(cuda, monkeypatch, b, sq, skv, h, d):
     """The pipelined sweep gives the bits of the serial sweep of its own
-    source: the wide kernel above head dim 128, the template at d = 40
-    (launched here through its plan, the Hopper kernel serving the serial
-    launch there)."""
+    source: the wide kernel above head dim 128, the serial Hopper kernel of
+    flash_attention_sm90.cu at d = 40 (the pipelined sweep there is its PIPE
+    kernel, counted under `flash_fwd_sm90_pipe`)."""
     q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
-    route = "wide" if d > 128 else "template"
+    route = "wide" if d > 128 else "sm90"
     serial = torch.empty_like(q)
     fa._launch(q, k, v, serial, d**-0.5, fa.Plan("flash_attention", route, False, False,
                                                  False, 0))
@@ -380,6 +380,7 @@ def test_pipelined_flash_kernel_on_card(cuda, monkeypatch, b, sq, skv, h, d):
     out = fa.flash_attention(q, k, v)
     assert kernels.LAUNCHES["flash_attention_pipelined"] == 1
     assert kernels.LAUNCHES["flash_fwd_wide"] == (d > 128)
+    assert kernels.LAUNCHES["flash_fwd_sm90_pipe"] == (d <= 128)
     _within(out, fa._xla_ref(q.float(), k.float(), v.float(), d**-0.5))
     assert torch.equal(out, serial)
 

@@ -170,23 +170,23 @@ def test_launch_plan_routes(monkeypatch, d, hpacked, pipe, exp_bf16, pv_int8):
     """The source each inference launch runs on the card, decided on every
     device: above head dim 128 the wide kernel, whatever the sweep; up to
     128 the pipelined sweep (where `SD_TPU_FLASH_PIPE=1` holds: [B, S, H, D]
-    calls only) the template, the int8 PV the Hopper kernel's int8-PV form,
-    the rest the Hopper kernel. The pipelined sweep keeps the bf16
+    calls only) the Hopper kernel's PIPE form, the int8 PV its int8-PV
+    form, the rest the Hopper kernel; no plan names the template. The pipelined sweep keeps the bf16
     exponential and drops the int8 PV; the launch counter names the variant
     that runs."""
     monkeypatch.setenv("SD_TPU_FLASH_PIPE", pipe)
     plan = fa.launch_plan(4096, 4096, 8 if hpacked else 1, d, exp_bf16, pv_int8, hpacked)
     piped = pipe == "1" and not hpacked
-    route = ("wide" if d > 128 else "template" if piped else "sm90_pv8" if pv_int8
+    route = ("wide" if d > 128 else "sm90_pipe" if piped else "sm90_pv8" if pv_int8
              else "sm90")
     base = ("flash_attention_hpacked" if hpacked
             else "flash_attention_pipelined" if piped else "flash_attention")
     assert (plan.route, plan.pipelined, plan.exp_bf16, plan.pv_int8) == (
         route, piped, exp_bf16, pv_int8 and not piped)
     assert plan.name == fa.launch_name(base, exp_bf16, pv_int8 and not piped)
-    assert fa.ROUTE_COUNTERS.get(plan.route) == {
-        "sm90": "flash_fwd_sm90", "sm90_pv8": "flash_fwd_sm90_pv8", "wide": "flash_fwd_wide",
-        "template": None}[route]
+    assert fa.ROUTE_COUNTERS[plan.route] == {
+        "sm90": "flash_fwd_sm90", "sm90_pipe": "flash_fwd_sm90_pipe",
+        "sm90_pv8": "flash_fwd_sm90_pv8", "wide": "flash_fwd_wide"}[route]
 
 
 def _tpu_pv_int8_codes(v_tile: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -328,6 +328,47 @@ def test_generate_flash_launches_take_their_routes(tpu_gates, monkeypatch, hpack
                                   "flash_fwd_wide": 1}
 
 
+def test_pipelined_switch_combination_reaches_the_pipe_kernel(tpu_gates, monkeypatch):
+    """`SD_TPU_ATTN_HPACKED=0 SD_TPU_FLASH_PIPE=1 SD_TPU_PALLAS_GN=1`, the
+    combination through which a model reaches the pipelined sweep at d ≤ 128
+    (`chip_smoke.py`'s last switch combination): one serving UNet call (batch
+    8, 512²) and one decode (batch 4) on `meta` tensors, call by call. The
+    5 level-0 self-attentions (4096 tokens, d = 40: 4 of the TPU package's kv
+    tiles) take the PIPE kernel (`flash_fwd_sm90_pipe`), the 5 at level 1
+    (1024 tokens, d = 80: one tile) the serial Hopper kernel, the decoder's
+    the wide kernel's pipelined sweep; none the template; the UNet's 57
+    GroupNorms the Hopper GroupNorm. The gates agree with the JAX ones."""
+    env, want, reports = next(c for c in chip_smoke.SWITCH_COMBINATIONS
+                              if c[0].get("SD_TPU_ATTN_HPACKED") == "0")
+    assert env == {"SD_TPU_ATTN_HPACKED": "0", "SD_TPU_FLASH_PIPE": "1", "SD_TPU_PALLAS_GN": "1"}
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    plans = _spy_plans(monkeypatch)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    gates = GATES + OPT_IN_GATES
+    with torch.no_grad():
+        UNetModel(**UNET, **BF16)(meta(8, 64, 64, 4), meta(8, dtype=torch.long),
+                                  meta(8, 77, 768))
+        n_unet = len(plans)
+        unet = _launched(tpu_gates, gates)
+        tpu_gates.clear()
+        AutoencoderKL(**VAE, **BF16).decode(meta(4, 64, 64, 4))
+        decode = _launched(tpu_gates, gates)
+    assert [(p.name, p.route) for p in plans[:n_unet]] == (
+        [("flash_attention_pipelined", "sm90_pipe")] * 2 + [("flash_attention", "sm90")] * 2
+        + [("flash_attention", "sm90")] * 3 + [("flash_attention_pipelined", "sm90_pipe")] * 3)
+    assert [(p.name, p.route) for p in plans[n_unet:]] == [("flash_attention_pipelined", "wide")]
+    assert all(p.route != "template" for p in plans)
+    launches = _plan_launches(plans) + Counter(
+        group_norm=unet["group_norm_wants_pallas"], group_norm_sm90=unet["group_norm_wants_pallas"],
+        geglu_ff=unet["geglu_wants_pallas"], geglu_sm90=unet["geglu_wants_pallas"],
+        conv3x3_same=decode["conv3x3_wants_pallas"])
+    assert unet["group_norm_wants_pallas"] == 57 and decode["group_norm_wants_pallas"] == 0
+    assert unet["hpacked_flash_ok"] == 0 and unet["flash_ok"] == 10
+    assert dict(launches) == {k: v for k, v in want.items() if v}
+    assert reports == ("flash_fwd_sm90_pipe",) and want["flash_fwd_sm90_pipe"] == 5
+
+
 # each value of the TPU package's attention switches (None: all at their defaults)
 ATTN_SWITCH_VALUES = [(None, None), ("SD_TPU_ATTN_IMPL", "xla"), ("SD_TPU_ATTN_IMPL", "pallas"),
                       ("SD_TPU_ATTN_HPACKED", "0"), ("SD_TPU_ATTN_HPACKED", "1"),
@@ -436,9 +477,10 @@ def _generate_launches(per_step, per_decode, steps=50):
             "conv3x3_same": both("conv3x3_wants_pallas"),
             "group_norm": both("group_norm_wants_pallas"),
             "crossattn_kv": both("crossattn_kv_wants_pallas"),
-            # every GEGLU and cross-attention launch runs the Hopper kernel
+            # every GEGLU, cross-attention and GroupNorm launch runs the Hopper kernel
             "geglu_sm90": both("geglu_wants_pallas"),
-            "crossattn_sm90": both("crossattn_kv_wants_pallas")}
+            "crossattn_sm90": both("crossattn_kv_wants_pallas"),
+            "group_norm_sm90": both("group_norm_wants_pallas")}
 
 
 @pytest.mark.parametrize("batch", [1, 2, 4])
@@ -464,24 +506,26 @@ def test_optin_shape_rules_agree_with_tpu_gates_on_the_512_path(tpu_gates, monke
     assert {k: v for k, v in launches.items() if v} == {
         "flash_attention_pipelined": 1, "flash_attention_hpacked": 500, "flash_fwd_sm90": 500,
         "flash_fwd_wide": 1, "geglu_ff": 500, "conv3x3_same": 18, "group_norm": 2850,
-        "crossattn_kv": 750, "geglu_sm90": 500, "crossattn_sm90": 750}
+        "crossattn_kv": 750, "geglu_sm90": 500, "crossattn_sm90": 750, "group_norm_sm90": 2850}
 
 
 def test_optin_kernel_shapes_of_chip_smoke_are_the_generate_shapes(tpu_gates, monkeypatch):
     """`chip_smoke.py` holds the GroupNorm and cross-attention kernels at
-    exactly the shapes one opt-in generate of 2 prompts gives them."""
+    exactly the shapes one opt-in generate of 2 prompts gives them, and sums
+    GroupNorm's time and bound over its launches at each shape."""
     for var, val in OPT_IN.items():
         monkeypatch.setenv(var, val)
     _walk_512(tpu_gates, 2, GATES + OPT_IN_GATES)
-    gn_shapes, xattn_shapes = set(), set()
+    gn_shapes, xattn_shapes = Counter(), set()
     for name, args in tpu_gates.args:
         if name == "group_norm_wants_pallas":
             shape = args[0]
-            gn_shapes.add((shape[0], shape[1] * shape[2], shape[3]))
+            gn_shapes[shape[0], shape[1] * shape[2], shape[3]] += 50     # 50 UNet calls
         elif name == "crossattn_kv_wants_pallas":
             n, m, heads, d, c, _ = args
             xattn_shapes.add((4, n, m, heads, d, c))
-    assert gn_shapes == set(chip_smoke.GN_SHAPES)
+    assert dict(gn_shapes) == dict(zip(chip_smoke.GN_SHAPES, chip_smoke.GN_LAUNCHES))
+    assert sum(chip_smoke.GN_LAUNCHES) == chip_smoke.EXPECTED_LAUNCHES_OPTIN["group_norm"]
     assert xattn_shapes == set(chip_smoke.XATTN_SHAPES)
 
 
