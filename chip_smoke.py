@@ -56,7 +56,8 @@ Phases, each printed as one JSON line:
            carry `device_ms` (torch.profiler's device time per call) beside
            the template's and the library call's, since at tens of
            microseconds the host's enqueue time sets `ms`; the backward
-           at d ≤ 128 on `flash_attention_bwd_sm90.cu` (each route counter
+           at d ≤ 128 on `flash_attention_bwd_sm90.cu` and above on
+           `flash_attention_bwd_wide_sm90.cu` (each route counter
            moved once, dq, dk, dv within the gradient bounds of the fp32
            plain version and of the template, the same bits twice), with
            `device_ms`, the template's times (`generic_ms`,
@@ -135,11 +136,13 @@ The build line carries the registers and spills of the flash kernels' head
 dim 256 and 512 instantiations, of the inference forwards (the pipelined
 sweep's at d ≤ 128 among them) and the Hopper backward at the path's head
 dims, and of every instantiation of the Hopper GEGLU, cross-attention and
-GroupNorm kernels (any spill there, or a wgmma serialization warning in the
-pipelined sweep's or GroupNorm's source, fails the run), and their dynamic
-shared memory (GroupNorm's at each opt-in shape's plan). The flash training kernels are also held at
+GroupNorm kernels and of the wide Hopper backward (any spill there, or a
+wgmma serialization warning in the pipelined sweep's or GroupNorm's source,
+fails the run), and their dynamic shared memory (GroupNorm's at each opt-in
+shape's plan). The flash training kernels are also held at
 head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
-and a ragged [1, 1000, 1300, 1, 512]), with the backend
+and a ragged [1, 1000, 1300, 1, 512]) and 256 ([6, 1024, 1, 256]), the
+backward there on `flash_attention_bwd_wide_sm90.cu`, with the backend
 `scaled_dot_product_attention` ran there; their row in the kernel table is
 train_kl_vae's shape and launches, with train_ldm's launches and the other
 shapes beside them.
@@ -187,8 +190,10 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "flash_lse_sm90", "flash_lse_wide",
            # the combine launch of a training forward whose kv sweep is split
            "flash_lse_combine",
-           # backward launches served by flash_attention_bwd_sm90.cu
-           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+           # backward launches served by flash_attention_bwd_sm90.cu (head dims
+           # up to 128) and flash_attention_bwd_wide_sm90.cu (129-512)
+           "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_wide_sm90",
+           "flash_bwd_dkv_wide_sm90",
            # GEGLU launches served by geglu_sm90.cu, cross-attention calls by
            # cross_attention_sm90.cu
            "geglu_sm90", "crossattn_sm90",
@@ -246,9 +251,11 @@ EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_lse_sm90=80,
 # codec's two mid-block attentions (encoder, decoder; [4, 1024, 1, 512])
 # in the one generator forward and its backward, no inference kernel; the
 # training forward at d = 512 on flash_attention_wide.cu's LSE epilogue, its
-# kv sweep split (64 blocks) and combined
+# kv sweep split (64 blocks) and combined; the backward on
+# flash_attention_bwd_wide_sm90.cu
 EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2,
-                                      flash_lse_combine=2, flash_bwd_dq=2, flash_bwd_dkv=2)
+                                      flash_lse_combine=2, flash_bwd_dq=2, flash_bwd_dkv=2,
+                                      flash_bwd_dq_wide_sm90=2, flash_bwd_dkv_wide_sm90=2)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
@@ -298,10 +305,14 @@ TRAIN_GRAD_TOL = 0.1                             # ‖Δg‖₂ / ‖g‖₂, st
 TRAIN_STEPS = 3                                  # timed, after one warm-up step
 # [B, Sq, Skv, H, D] of the flash training kernels' checks: train_ldm's
 # self-attention at UNet levels 0 and 1, a ragged case, train_kl_vae's codec
-# mid-block at 256², a 512² codec's, and a ragged case at d = 512
+# mid-block at 256², a 512² codec's, a ragged case at d = 512, and the
+# 32² level of a bf16 train_ddpm (configs/ddpm_256_catdog.yaml, batch 6,
+# 256 channels; on no path yet), last so that it shifts no other check's
+# inputs
 KLVAE_ATTN_SHAPE = (4, 1024, 1024, 1, 512)
 TRAIN_KERNEL_SHAPES = ((1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80), (1, 1000, 1300, 8, 40),
-                       KLVAE_ATTN_SHAPE, (1, 4096, 4096, 1, 512), (1, 1000, 1300, 1, 512))
+                       KLVAE_ATTN_SHAPE, (1, 4096, 4096, 1, 512), (1, 1000, 1300, 1, 512),
+                       (6, 1024, 1024, 1, 256))
 # the KL-VAE parity gates, stated before measuring: each loss term within
 # 5e-2 relative, d_weight within 0.1 relative (a ratio of two bf16 gradient
 # norms), generator gradients ‖Δg‖₂ ≤ 0.1·‖g‖₂ (a dropped gradient reads ≈ 1.0)
@@ -345,8 +356,10 @@ KERNEL_ROUTE_COUNTER = {"geglu_ff": "geglu_sm90", "crossattn_kv": "crossattn_sm9
 CASE_ROUTE_COUNTERS = ROUTE_COUNTERS + tuple(KERNEL_ROUTE_COUNTER.values())
 # ... and of the training forward (`kernels/flash_attention.py LSE_ROUTE_COUNTERS`)
 LSE_ROUTE_COUNTER = {"sm90": "flash_lse_sm90", "wide": "flash_lse_wide"}
-# ... and of the backward's Hopper route (`BWD_ROUTE_COUNTERS`)
-BWD_ROUTE_COUNTER = {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"}
+# ... and of the backward's Hopper routes (`BWD_ROUTE_COUNTERS`: (kernel, route))
+BWD_ROUTE_COUNTER = {("dq", "sm90"): "flash_bwd_dq_sm90", ("dkv", "sm90"): "flash_bwd_dkv_sm90",
+                     ("dq", "wide"): "flash_bwd_dq_wide_sm90",
+                     ("dkv", "wide"): "flash_bwd_dkv_wide_sm90"}
 # the kv tile of the pipelined sweeps (csrc/flash_attention.cu's and
 # csrc/flash_attention_wide.cu's): its plain version runs at it, since its
 # bf16 p depends on the running max of each tile
@@ -1101,19 +1114,22 @@ def phase_train_kernels(gen) -> dict:
     paths' self-attention shapes: train_ldm's [1, 4096, 8, 40] at UNet
     level 0 and [1, 1024, 8, 80] at level 1 (microbatch 1), train_kl_vae's
     codec mid-block [4, 1024, 1, 512] (256², batch 4), a 512² codec's
-    [1, 4096, 1, 512], and ragged cases at d = 40 and 512; against their
-    plain versions in fp32 from the same bf16 inputs; the LSE forward on its
-    route (its counter and, where the sweep is split, the combine's moved by
-    one) and the template's LSE sweep beside it (`generic_ms`), the combine
-    launch of a split sweep as its own row; the backward on its route
-    (`bwd_route`: at d ≤ 128 `flash_attention_bwd_sm90.cu`, each route
-    counter moved by one per call, dq, dk and dv within GRAD_TOL of the
-    template too, whose times stand beside it as `generic_ms` and
-    `generic_device_ms`); the LSE forward, dQ and dK/dV run twice must give
-    the same bits. Every kernel row carries `device_ms` (torch.profiler's
-    device time per call) beside its CUDA-event `ms`; the Hopper backward
-    rows also, at head dims where both are built, the other rows per block
-    than `bwd_rows` picks (`alt_rows_ms`, `alt_rows_device_ms`). Library:
+    [1, 4096, 1, 512], ragged cases at d = 40 and 512, and a bf16
+    train_ddpm's [6, 1024, 1, 256]; against their plain versions in fp32
+    from the same bf16 inputs; the LSE forward on its route (its counter
+    and, where the sweep is split, the combine's moved by one) and the
+    template's LSE sweep beside it (`generic_ms`), the combine launch of a
+    split sweep as its own row; the backward on its route (`bwd_route`: at
+    d ≤ 128 `flash_attention_bwd_sm90.cu`, above `flash_attention_bwd_wide_sm90.cu`;
+    each route counter moved by one per call, dq, dk and dv within GRAD_TOL
+    of the template (`flash_attention_bwd.cu`) too, whose times stand beside
+    it as `generic_ms` and `generic_device_ms`); the LSE forward, dQ and
+    dK/dV run twice must give the same bits. Every kernel row carries
+    `device_ms` (torch.profiler's device time per call) beside its
+    CUDA-event `ms`; the Hopper backward rows also, at head dims where both
+    are built, the other rows per block than `bwd_rows` picks (`alt_rows_ms`,
+    `alt_rows_device_ms`), and on the wide route the blocks a slab
+    (`split`). Library:
     `scaled_dot_product_attention` on the default dispatch and on one
     pinned backend (`sdpa_yardsticks`), its
     forward for the LSE row and its backward (fwd+bwd − fwd) for the dQ and
@@ -1152,8 +1168,8 @@ def phase_train_kernels(gen) -> dict:
         o_t, lse_t = fa._launch_lse(q, k, v, scale, "template")
         vs_template = (rel_err(o_t, o)[1], (lse_t - lse).abs().max().item())
         del o2, lse2, o_t, lse_t
-        # the backward on its route: each call moves its route counter by one
-        # on the Hopper route, none on the wide one
+        # the backward on its route: each call moves that route's counter by
+        # one and no other
         b_route = fa.bwd_route(d)
         hop = int(b_route == "sm90")
         before = {c: kernels.LAUNCHES[c] for c in bwd_counters}
@@ -1161,8 +1177,9 @@ def phase_train_kernels(gen) -> dict:
         moved_dq = {c: kernels.LAUNCHES[c] - before[c] for c in bwd_counters}
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
         moved = {c: kernels.LAUNCHES[c] - before[c] for c in bwd_counters}
-        require(moved_dq == {"flash_bwd_dq_sm90": hop, "flash_bwd_dkv_sm90": 0}
-                and moved == {"flash_bwd_dq_sm90": hop, "flash_bwd_dkv_sm90": hop},
+        want_dq = {c: int(key == ("dq", b_route)) for key, c in fa.BWD_ROUTE_COUNTERS.items()}
+        want = {c: int(key[1] == b_route) for key, c in fa.BWD_ROUTE_COUNTERS.items()}
+        require(moved_dq == want_dq and moved == want,
                 f"backward {[b, sq, skv, h, d]} on the {b_route} route: moved {moved_dq}, "
                 f"then {moved}")
         dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
@@ -1177,15 +1194,13 @@ def phase_train_kernels(gen) -> dict:
         same_dq = bool(torch.equal(dq, dq2) and torch.equal(delta, delta2))
         same_dkv = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
         del o_ref, lse_ref, dq_ref, dk_ref, dv_ref, dq2, delta2, dk2, dv2
-        tpl = {}
-        if hop:
-            # the template (flash_attention_bwd.cu) on the same inputs, its
-            # dK/dV from the Hopper dQ's delta
-            t_dq, _ = fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
-            t_dk, t_dv = fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
-            tpl = {g: (rel_err(x, t)[1], l2_rel(x, t))
-                   for g, x, t in (("dq", dq, t_dq), ("dk", dk, t_dk), ("dv", dv, t_dv))}
-            del t_dq, t_dk, t_dv
+        # the template (flash_attention_bwd.cu) on the same inputs, its dK/dV
+        # from the Hopper dQ's delta
+        t_dq, _ = fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
+        t_dk, t_dv = fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
+        tpl = {g: (rel_err(x, t)[1], l2_rel(x, t))
+               for g, x, t in (("dq", dq, t_dq), ("dk", dk, t_dk), ("dv", dv, t_dv))}
+        del t_dq, t_dk, t_dv
 
         heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         do_h = do.transpose(1, 2)
@@ -1222,31 +1237,34 @@ def phase_train_kernels(gen) -> dict:
                 plain_ms=time_ms(lambda: fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale), 3),
                 **lib_bwd, cost=attention_dkv_cost(*shape)),
         }
-        if hop:
-            for part, own, args in (("dq", sq, (q, k, v, o, lse, do)),
-                                    ("dkv", skv, (q, k, v, do, lse, delta))):
-                row = rows["flash_bwd_" + part]
-                row["rows"] = fa.bwd_rows(b, own, h, d)
-                if d > fa.BWD_ROWS_128_MAX_D:
-                    continue
-                # where both forms are built, the other rows per block than
-                # `bwd_rows` picks (64 <-> 128), on the same inputs
-                alt = 3 * 64 - row["rows"]
-                call = lambda: fa._launch_bwd(part, *args, scale, "sm90", alt)
-                got, ref = call(), ((dq, delta) if part == "dq" else (dk, dv))
-                row.update(alt_rows=alt,
-                           alt_rows_same_bits=all(map(torch.equal, got, ref)),
-                           alt_rows_ms=time_ms(call), alt_rows_device_ms=device_ms(call))
-                del got
-            t_dq = lambda: fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
-            t_dkv = lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
-            rows["flash_bwd_dq"].update(
-                template_rel_err=tpl["dq"][0], template_l2_rel=tpl["dq"][1],
-                generic_ms=time_ms(t_dq), generic_device_ms=device_ms(t_dq))
-            rows["flash_bwd_dkv"].update(
-                template_rel_err=max(tpl["dk"][0], tpl["dv"][0]),
-                template_l2_rel=max(tpl["dk"][1], tpl["dv"][1]),
-                generic_ms=time_ms(t_dkv), generic_device_ms=device_ms(t_dkv))
+        for part, own, args in (("dq", sq, (q, k, v, o, lse, do)),
+                                ("dkv", skv, (q, k, v, do, lse, delta))):
+            row = rows["flash_bwd_" + part]
+            if not hop:
+                # the wide route: blocks of a cluster a slab (`bwd_wide_split`)
+                row["split"] = fa.bwd_wide_split(d)
+                continue
+            row["rows"] = fa.bwd_rows(b, own, h, d)
+            if d > fa.BWD_ROWS_128_MAX_D:
+                continue
+            # where both forms are built, the other rows per block than
+            # `bwd_rows` picks (64 <-> 128), on the same inputs
+            alt = 3 * 64 - row["rows"]
+            call = lambda: fa._launch_bwd(part, *args, scale, "sm90", alt)
+            got, ref = call(), ((dq, delta) if part == "dq" else (dk, dv))
+            row.update(alt_rows=alt,
+                       alt_rows_same_bits=all(map(torch.equal, got, ref)),
+                       alt_rows_ms=time_ms(call), alt_rows_device_ms=device_ms(call))
+            del got
+        t_dq = lambda: fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
+        t_dkv = lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, "template")
+        rows["flash_bwd_dq"].update(
+            template_rel_err=tpl["dq"][0], template_l2_rel=tpl["dq"][1],
+            generic_ms=time_ms(t_dq), generic_device_ms=device_ms(t_dq))
+        rows["flash_bwd_dkv"].update(
+            template_rel_err=max(tpl["dk"][0], tpl["dv"][0]),
+            template_l2_rel=max(tpl["dk"][1], tpl["dv"][1]),
+            generic_ms=time_ms(t_dkv), generic_device_ms=device_ms(t_dkv))
         if n_split > 1:
             rows["flash_lse_combine"] = _lse_combine_case(fa, q, k, v, scale, route, n_split)
         for name, r in rows.items():
@@ -1264,10 +1282,9 @@ def phase_train_kernels(gen) -> dict:
         for g in ("dq", "dk", "dv"):
             require(errs[g][1] <= GRAD_TOL["max_rel"] and l2[g] <= GRAD_TOL["l2_rel"],
                     f"{g} {shape}: max {errs[g][1]:.3g}·max|ref|, l2 {l2[g]:.3g}·‖ref‖")
-            if hop:
-                require(tpl[g][0] <= GRAD_TOL["max_rel"] and tpl[g][1] <= GRAD_TOL["l2_rel"],
-                        f"{g} {shape}: from the template max {tpl[g][0]:.3g}·max|tpl|, "
-                        f"l2 {tpl[g][1]:.3g}·‖tpl‖")
+            require(tpl[g][0] <= GRAD_TOL["max_rel"] and tpl[g][1] <= GRAD_TOL["l2_rel"],
+                    f"{g} {shape}: from the template max {tpl[g][0]:.3g}·max|tpl|, "
+                    f"l2 {tpl[g][1]:.3g}·‖tpl‖")
         require(same_dq and same_dkv, f"dQ {shape} ({same_dq}) and dK/dV ({same_dkv}) give the "
                 f"same bits twice")
         del q, k, v, do, o, lse, dq, delta, dk, dv, heads
@@ -2242,6 +2259,41 @@ def bwd_sm90_report() -> dict:
     return out
 
 
+def bwd_wide_sm90_report() -> dict:
+    """Registers (at entry: setmaxnreg gives the consumers 232), spills and
+    dynamic shared memory of every instantiation of the wide Hopper backward
+    (`flash_attention_bwd_wide_sm90.cu`; `dq<DP>`, `dkv<DP>` at padded head
+    dim DP, `split` blocks a slab), from the build's log; raises on a
+    spill."""
+    import ctypes
+    import re
+
+    from sd_tpu_torch.kernels import _build
+
+    log = (_build.build_dir() / "flash_attention_bwd_wide_sm90.log").read_text()
+    smem = _build.function("flash_attention_bwd_wide_sm90", "sd_flash_bwd_wide_sm90_smem",
+                           [ctypes.c_int] * 2)
+    pattern = r"flash_bwd_(dq|dkv)_wide_sm90_kernelILi(\d+)E"
+    out = {}
+    for mangled, (regs, st, ld) in ptxas_report(log, lambda n: re.search(pattern, n)).items():
+        m = re.search(pattern, mangled)
+        kind, split = m.group(1), int(m.group(2))
+        dp = 256 * split
+        out[f"{kind}<{dp}> split {split}"] = {
+            "registers": regs, "spill_stores": st, "spill_loads": ld,
+            "smem_bytes": smem(dp, int(kind == "dkv")), "setmaxnreg": {"producer": 40,
+                                                                       "consumers": 232}}
+    require(len(out) == 4, f"the wide Hopper backward's instantiations: {sorted(out)}")
+    spills = {k: v for k, v in out.items() if v["spill_stores"] or v["spill_loads"]}
+    require(not spills, f"the wide Hopper backward spills: {spills}")
+    # ptxas's notes that it serialized wgmma (C7510-C7519), by kernel
+    out["wgmma_serialized"] = sorted(
+        f"{m.group(1)}<{256 * int(m.group(2))}> split {m.group(2)}"
+        for line in log.splitlines() if re.search(r"C751\d", line)
+        for m in [re.search(pattern, line)] if m)
+    return out
+
+
 def ff_xattn_report() -> dict:
     """Registers, spills and dynamic shared memory of every instantiation of
     the Hopper GEGLU (`geglu_sm90<C>`) and cross-attention kernels
@@ -2359,6 +2411,10 @@ def _family(name: str) -> str:
         return "flash dQ, Hopper (port)"
     if "flash_bwd_dkv_sm90_kernel" in name:
         return "flash dK/dV, Hopper (port)"
+    if "flash_bwd_dq_wide_sm90_kernel" in name:
+        return "flash dQ, wide Hopper (port)"
+    if "flash_bwd_dkv_wide_sm90_kernel" in name:
+        return "flash dK/dV, wide Hopper (port)"
     if "flash_fwd_sm90_pipe_kernel<" in name:
         return "flash Hopper pipelined forward (port)"
     if "gn_sm90_kernel" in name:
@@ -2613,6 +2669,7 @@ def main() -> int:
           "flash_variant_registers": variant_flash_registers(),
           "flash_fwd_smem_bytes": flash_smem(),
           "flash_bwd_sm90": bwd_sm90_report(),
+          "flash_bwd_wide_sm90": bwd_wide_sm90_report(),
           "ff_xattn_sm90": ff_xattn_report(),
           "pipe_gn_sm90": pipe_gn_report(),
           "conv3x3_sm90_smem_bytes": _build.function("conv2d_sm90", "sd_conv3x3_fwd_sm90_smem",
@@ -2681,13 +2738,20 @@ def main() -> int:
                "flash_lse_combine": (src + "flash_attention_wide.cu",
                                      tpu + "flash_attention.py:421"),
                # the backward: its rows are train_kl_vae's d = 512 (the wide
-               # kernels); the Hopper route's counters take train_ldm's d <= 128
-               "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:465"),
-               "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:511"),
+               # Hopper kernels); the route counters take their own shapes,
+               # train_ldm's d <= 128 and train_kl_vae's d = 512
+               "flash_bwd_dq": (src + "flash_attention_bwd_wide_sm90.cu",
+                                tpu + "flash_attention.py:465"),
+               "flash_bwd_dkv": (src + "flash_attention_bwd_wide_sm90.cu",
+                                 tpu + "flash_attention.py:511"),
                "flash_bwd_dq_sm90": (src + "flash_attention_bwd_sm90.cu",
                                      tpu + "flash_attention.py:465"),
                "flash_bwd_dkv_sm90": (src + "flash_attention_bwd_sm90.cu",
                                       tpu + "flash_attention.py:511"),
+               "flash_bwd_dq_wide_sm90": (src + "flash_attention_bwd_wide_sm90.cu",
+                                          tpu + "flash_attention.py:465"),
+               "flash_bwd_dkv_wide_sm90": (src + "flash_attention_bwd_wide_sm90.cu",
+                                           tpu + "flash_attention.py:511"),
                "geglu_ff": (src + "geglu_sm90.cu", tpu + "geglu.py:48"),
                "conv3x3_same": (src + "conv2d_sm90.cu", tpu + "conv2d.py:30"),
                "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
@@ -2743,7 +2807,7 @@ def main() -> int:
     # SDPA on the default dispatch and pinned (the library keys are the faster's),
     # and the Hopper backward at the other rows per block
     sdpa_keys = ("library_default", "library_pinned")
-    rows_keys = ("rows", "alt_rows", "alt_rows_ms", "alt_rows_device_ms")
+    rows_keys = ("rows", "alt_rows", "alt_rows_ms", "alt_rows_device_ms", "split")
     train_keys = ("shape", "route", "kv_split", "max_abs_err", "lse_abs_err", "ms", "generic_ms",
                   "plain_ms", "bound_ms", "bound_by", "bound_op", "library_ms",
                   "library_backend", *device_keys, *sdpa_keys, *rows_keys)
@@ -2751,9 +2815,9 @@ def main() -> int:
     lse_rows = train_rows["flash_attention_lse"]
     for route, counter in LSE_ROUTE_COUNTER.items():
         train_rows[counter] = {s_: r for s_, r in lse_rows.items() if r["route"] == route}
-    for part, counter in BWD_ROUTE_COUNTER.items():
+    for (part, route), counter in BWD_ROUTE_COUNTER.items():
         train_rows[counter] = {s_: r for s_, r in train_rows["flash_bwd_" + part].items()
-                               if r["route"] == "sm90"}
+                               if r["route"] == route}
     for name, by_shape in train_rows.items():
         first = KLVAE_ATTN_SHAPE if KLVAE_ATTN_SHAPE in by_shape else next(iter(by_shape))
         table[name] = {**by_shape[first], "other_shapes": [
@@ -2767,6 +2831,8 @@ def main() -> int:
              "flash_bwd_dkv": ("train_kl_vae", klvae["launches"]),
              "flash_bwd_dq_sm90": ("train_ldm", train["launches"]),
              "flash_bwd_dkv_sm90": ("train_ldm", train["launches"]),
+             "flash_bwd_dq_wide_sm90": ("train_kl_vae", klvae["launches"]),
+             "flash_bwd_dkv_wide_sm90": ("train_kl_vae", klvae["launches"]),
              "flash_attention_pipelined": ("generate, opt-in", launches_optin),
              "group_norm": ("generate, opt-in", launches_optin),
              "crossattn_kv": ("generate, opt-in", launches_optin),

@@ -2,13 +2,16 @@
 // flash-attention forwards `flash_attention_sm90.cu`,
 // `flash_attention_sm90_pv8.cu`, `flash_attention_wide.cu`, the direct
 // 3x3 conv `conv2d_sm90.cu`, the GEGLU feed-forward `geglu_sm90.cu`, the
-// cross-attention `cross_attention_sm90.cu` and GroupNorm
-// `groupnorm_sm90.cu`): warpgroup products (wgmma, bf16 and int8),
-// shared-memory matrix descriptors in the no-swizzle core-matrix layout,
-// mbarriers, TMA tile loads over strided [B, S, H, D] views, row-major
-// matrices, NHWC windows and [B, S, C] activations, 1-D bulk copies, named barriers, cluster barriers (whole and split) and
-// distributed shared-memory reads, and the int8 PV pre-pass that writes V's
-// column scales and codes once per kv super-tile.
+// cross-attention `cross_attention_sm90.cu`, GroupNorm `groupnorm_sm90.cu`
+// and the flash backward above head dim 128
+// `flash_attention_bwd_wide_sm90.cu`): warpgroup products (wgmma, bf16 and
+// int8), shared-memory matrix descriptors (no swizzle, and the 128-byte
+// swizzle K- and MN-major), mbarriers, TMA tile loads over strided
+// [B, S, H, D] views, row-major matrices, NHWC windows and [B, S, C]
+// activations, 1-D bulk copies, named barriers, cluster barriers (whole and
+// split), distributed shared-memory reads and asynchronous writes counted on
+// the reader's mbarrier, and the int8 PV pre-pass that writes V's column
+// scales and codes once per kv super-tile.
 #pragma once
 
 #include <cuda.h>
@@ -110,6 +113,18 @@ struct Wgmma<32> {
                    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
                    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+                 : "memory");
+  }
+  // D[64x32] (+)= A[64x16] (shared, K-major) * B[16x32] (shared, K-major)
+  __device__ static void ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+                 " %16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "l"(desc_a), "l"(desc_b), "r"(accumulate)
                  : "memory");
   }
 };
@@ -686,6 +701,15 @@ __device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// ... and of an MN-major operand in the same layout: rows of 64 bf16 along
+// MN (128 bytes), one per K index, 8 K rows a 1024-byte swizzle atom; `lbo`
+// bytes from one 64-wide MN group to the next; p is the tile plus the offset
+// of its first K row (a multiple of 8 rows) and MN group
+__device__ __forceinline__ uint64_t gmma_desc_sw128_mn(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -730,16 +754,38 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// the address in block `rank`'s shared memory of `p`, an address of this
+// block's shared memory (for the remote accesses below)
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
 // four fp32 values at `p`, an address of this block's shared memory, read
 // from the shared memory of block `rank` of the cluster (16-byte aligned)
 __device__ __forceinline__ float4 ld_cluster_f4(const void* p, uint32_t rank) {
-  uint32_t remote;
   float4 v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote) : "memory");
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(cluster_addr(p, rank))
+               : "memory");
   return v;
+}
+// one fp32 value at `remote` (cluster_addr) in another block's shared memory
+__device__ __forceinline__ float ld_cluster_f32(uint32_t remote) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+// four fp32 values into the shared memory of another block of the cluster at
+// `remote` (cluster_addr, 16-byte aligned), not waited for: their 16 bytes
+// complete a transaction on that block's mbarrier at `remote_bar`, whose
+// waiter has posted the bytes it expects (mbar_expect_tx)
+__device__ __forceinline__ void st_async_f4(uint32_t remote, float a, float b, float c, float d,
+                                            uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(remote), "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -765,6 +811,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(a), "r"(parity) : "memory");
+  } while (!ok);
+}
+// mbar_wait for transactions from other blocks of the cluster (st_async_f4):
+// acquires at cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* b, uint32_t parity) {
+  const uint32_t a = smem_u32(b);
+  uint32_t ok;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(ok) : "r"(a), "r"(parity) : "memory");
   } while (!ok);
@@ -811,8 +870,8 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 }
 
 // A tensor map over a strided [B, S, H, D] view as 4-D (d, then s and h in
-// order of stride, b), boxes of 8 columns x R rows of one head; `hfirst`
-// says h comes before s.
+// order of stride, b), boxes of 8 columns x R rows of one head (or 64
+// columns in the 128-byte swizzle); `hfirst` says h comes before s.
 struct ViewMap {
   CUtensorMap map;
   int hfirst;
@@ -857,9 +916,12 @@ inline int bind_context() {
 }
 
 // the tensor map of a strided [B, S, H, D] bf16 view (strides in elements),
-// boxes of 8 columns x `rows` rows of one head; 0 or an error code
+// boxes of 8 columns x `rows` rows of one head, or with `sw128` 64 columns
+// landing as 128-byte rows in the 128-byte swizzle (`gmma_desc_sw128`,
+// `gmma_desc_sw128_mn`; the destination 1024-byte aligned); columns past D
+// arrive as zeros; 0 or an error code
 inline int make_view_map(ViewMap* m, const bf16* base, int B, int S, int H, int D, long long sb,
-                         long long ss, long long sh, int rows) {
+                         long long ss, long long sh, int rows, bool sw128 = false) {
   if (const int e = bind_context()) return e;
   auto encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -868,12 +930,13 @@ inline int make_view_map(ViewMap* m, const bf16* base, int B, int S, int H, int 
                               (cuuint64_t)(m->hfirst ? S : H), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(m->hfirst ? sh : ss) * 2,
                                  (cuuint64_t)(m->hfirst ? ss : sh) * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {8u, m->hfirst ? 1u : (cuuint32_t)rows,
+  const cuuint32_t box[4] = {sw128 ? 64u : 8u, m->hfirst ? 1u : (cuuint32_t)rows,
                              m->hfirst ? (cuuint32_t)rows : 1u, 1u};
   const cuuint32_t estr[4] = {1u, 1u, 1u, 1u};
   const CUresult r = encode(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                             const_cast<bf16*>(base), dims, strides, box, estr,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

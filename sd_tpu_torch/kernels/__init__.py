@@ -10,7 +10,9 @@ and the training forward's `flash_lse_sm90` and `flash_lse_wide` (the LSE
 epilogue of `flash_attention_sm90.cu` and `flash_attention_wide.cu`), with
 `flash_lse_combine` for the second launch of a split kv sweep, and the
 backward's `flash_bwd_dq_sm90` and `flash_bwd_dkv_sm90`
-(`flash_attention_bwd_sm90.cu`), and the GEGLU feed-forward's `geglu_sm90`
+(`flash_attention_bwd_sm90.cu`, head dims up to 128) and
+`flash_bwd_dq_wide_sm90` and `flash_bwd_dkv_wide_sm90`
+(`flash_attention_bwd_wide_sm90.cu`, 129-512), and the GEGLU feed-forward's `geglu_sm90`
 (`csrc/geglu_sm90.cu`) and the cross-attention's `crossattn_sm90`
 (`csrc/cross_attention_sm90.cu`, one count per call of its three launches).
 The pipelined sweep at head dims up to 128 counts under
@@ -64,9 +66,12 @@ LAUNCHES: dict[str, int] = {
     # (`flash_attention.lse_split`)
     "flash_lse_combine": 0,
     # ... and the backward's launches (`flash_bwd_dq`, `flash_bwd_dkv`) served
-    # by flash_attention_bwd_sm90.cu (head dims up to 128)
+    # by flash_attention_bwd_sm90.cu (head dims up to 128) and by
+    # flash_attention_bwd_wide_sm90.cu (129-512)
     "flash_bwd_dq_sm90": 0,
     "flash_bwd_dkv_sm90": 0,
+    "flash_bwd_dq_wide_sm90": 0,
+    "flash_bwd_dkv_wide_sm90": 0,
     # ... and the GEGLU feed-forward's (`geglu_ff`) and the cross-attention's
     # (`crossattn_kv`, one per call of its three launches) Hopper kernels,
     # geglu_sm90.cu and cross_attention_sm90.cu

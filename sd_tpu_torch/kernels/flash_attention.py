@@ -1,7 +1,8 @@
 """Flash attention: hand-written CUDA kernels (`csrc/flash_attention_sm90.cu`,
 `csrc/flash_attention_sm90_pv8.cu`, `csrc/flash_attention_wide.cu`,
 `csrc/flash_attention.cu`, `csrc/flash_attention_bwd_sm90.cu`,
-`csrc/flash_attention_bwd.cu`), their plain PyTorch versions, and the
+`csrc/flash_attention_bwd_wide_sm90.cu`, `csrc/flash_attention_bwd.cu`),
+their plain PyTorch versions, and the
 `torch.autograd.Function` that trains through them.
 
 Counterpart of `sd_tpu/kernels/flash_attention.py`. The TPU package has two
@@ -28,10 +29,13 @@ kernel (which writes delta = rowsum(dO∘O)) then a dK/dV kernel, at every
 head dim the forward takes (multiples of 8 up to 512: the SD UNet's 40-160
 and the codec's single-head 512): `bwd_route` puts head dims up to 128 on
 `flash_attention_bwd_sm90.cu` (route counters `flash_bwd_dq_sm90`,
-`flash_bwd_dkv_sm90`, rows per block by `bwd_rows`) and 129-512 on the wide
-kernels of `flash_attention_bwd.cu`, whose d ≤ 128 instantiations are the
-yardstick (`_launch_bwd(..., "template")`); `_flash_bwd_tiled_ref` is the
-plain version of the Hopper kernels' tiling. Non-causal only. With
+`flash_bwd_dkv_sm90`, rows per block by `bwd_rows`) and 129-512 on
+`flash_attention_bwd_wide_sm90.cu` (`flash_bwd_dq_wide_sm90`,
+`flash_bwd_dkv_wide_sm90`, the head dim split over a cluster of blocks by
+`bwd_wide_split`); `flash_attention_bwd.cu` serves no route, its
+instantiations are the yardstick at every head dim
+(`_launch_bwd(..., "template")`); `_flash_bwd_tiled_ref` is the plain
+version of both Hopper designs' tiling. Non-causal only. With
 `SD_TPU_FLASH_BWD=chunked` (any value but "pallas", as in the TPU package)
 the training forward is the inference forward and the backward a plain
 chunked recompute (`_bwd_chunked_ref`): no LSE, dQ or dK/dV kernel runs.
@@ -270,22 +274,34 @@ def _flash_bwd_ref(q, k, v, o, lse, do, scale: float):
 
 
 def _flash_bwd_tiled_ref(q, k, v, o, lse, do, scale: float, rows: tuple[int, int] = (64, 64),
-                         masks: bool = True):
+                         masks: bool = True, tile: int = 64, split: int = 1):
     """Plain version of the Hopper backward's tiling
-    (`csrc/flash_attention_bwd_sm90.cu`): (dq, dk, dv, delta). The dQ
-    kernel's blocks own rows[0] q rows and the dK/dV kernel's rows[1] kv
-    rows; each sweeps the other side in 64-row tiles, in order, summing in
-    fp32. Head dims are zero-padded to a multiple of 16 and every side to
-    whole blocks and tiles with zero rows, as TMA fills them; lse2 past Sq
-    reads NEG_INF and delta 0, as the kernels stage them. P = exp2(s2 −
-    lse2) and dS = P∘(dP − delta) are rounded to the operands' dtype (bf16
-    on the card) before the second products. `masks` applies the kernels'
-    index masks (kv columns past Skv in dQ, q columns past Sq in dK/dV) and
-    lse2 ≤ NEG_INF/2; without them a padded q column gives P = inf, and inf
-    times its zero row of dO or Q is NaN."""
+    (`csrc/flash_attention_bwd_sm90.cu`, and with `tile` 32 and `split`
+    `bwd_wide_split` picks `csrc/flash_attention_bwd_wide_sm90.cu`): (dq,
+    dk, dv, delta). The dQ kernel's blocks own rows[0] q rows and the dK/dV
+    kernel's rows[1] kv rows; each sweeps the other side in `tile`-row
+    tiles, in order, summing in fp32. Head dims are zero-padded as the
+    kernels tile them (`_padded_dim`) and every side to whole blocks and
+    tiles with zero rows, as TMA fills them; lse2 past Sq reads NEG_INF and
+    delta 0, as the kernels stage them. With `split` > 1 the head dim is cut
+    into `split` parts, one a block of a cluster: S, dP and delta are the
+    parts' partial products added in rank order, as the blocks exchange
+    them. P = exp2(s2 − lse2) and dS = P∘(dP − delta) are rounded to the
+    operands' dtype (bf16 on the card) before the second products. `masks`
+    applies the kernels' index masks (kv columns past Skv in dQ, q columns
+    past Sq in dK/dV) and lse2 ≤ NEG_INF/2; without them a padded q column
+    gives P = inf, and inf times its zero row of dO or Q is NaN."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    dp, tile, s2c = _round_up(D, 16), 64, scale * LOG2E
+    dp, s2c = _padded_dim(D), scale * LOG2E
+    part = dp // split
+
+    def prod(a, b):   # a @ bᵀ over the head dim: the parts' partials in rank order
+        out = a[..., :part] @ b[..., :part].transpose(-1, -2)
+        for r in range(1, split):
+            cols = slice(r * part, (r + 1) * part)
+            out = out + a[..., cols] @ b[..., cols].transpose(-1, -2)
+        return out
 
     def pad(x, n):     # [B, S, H, D] -> [B, H, n, dp] fp32, zeros past S and D
         out = torch.zeros((B, H, n, dp), dtype=torch.float32, device=q.device)
@@ -309,7 +325,10 @@ def _flash_bwd_tiled_ref(q, k, v, o, lse, do, scale: float, rows: tuple[int, int
     # the dQ kernel: delta of its own rows, then the kv sweep
     nq, nk = _round_up(Sq, rows[0]), _round_up(Skv, tile)
     qp, op, dop, kp, vp = pad(q, nq), pad(o, nq), pad(do, nq), pad(k, nk), pad(v, nk)
-    delta = (dop * op).sum(dim=-1)
+    terms = dop * op
+    delta = terms[..., :part].sum(dim=-1)
+    for r in range(1, split):
+        delta = delta + terms[..., r * part:(r + 1) * part].sum(dim=-1)
     lse_q = rows_of(lse, nq, NEG_INF)[..., None]
     dq = torch.zeros((B, H, nq, dp), device=q.device)
     for r0 in range(0, nq, rows[0]):
@@ -317,7 +336,7 @@ def _flash_bwd_tiled_ref(q, k, v, o, lse, do, scale: float, rows: tuple[int, int
         for j0 in range(0, nk, tile):
             kt, vt = kp[:, :, j0:j0 + tile], vp[:, :, j0:j0 + tile]
             col = torch.arange(j0, j0 + tile, device=q.device) < Skv
-            _, ds = p_ds(qp[:, :, blk] @ kt.transpose(-1, -2), dop[:, :, blk] @ vt.transpose(-1, -2),
+            _, ds = p_ds(prod(qp[:, :, blk], kt), prod(dop[:, :, blk], vt),
                          lse_q[:, :, blk], delta[:, :, blk, None], col)
             dq[:, :, blk] += rd(ds) @ kt
 
@@ -334,8 +353,7 @@ def _flash_bwd_tiled_ref(q, k, v, o, lse, do, scale: float, rows: tuple[int, int
             cols = slice(i0, i0 + tile)
             qt, dot = qp2[:, :, cols], dop2[:, :, cols]
             col = torch.arange(i0, i0 + tile, device=q.device) < Sq
-            pt, dst = p_ds(kp2[:, :, blk] @ qt.transpose(-1, -2),
-                           vp2[:, :, blk] @ dot.transpose(-1, -2),
+            pt, dst = p_ds(prod(kp2[:, :, blk], qt), prod(vp2[:, :, blk], dot),
                            lse_c[..., cols], delta_c[..., cols], col)
             dv[:, :, blk] += rd(pt) @ dot
             dk[:, :, blk] += rd(dst) @ qt
@@ -711,22 +729,27 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 _BWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float])
-# the route counter of each backward kernel on the Hopper route (the wide
-# kernels of flash_attention_bwd.cu count under the wrappers' names alone)
-BWD_ROUTE_COUNTERS = {"dq": "flash_bwd_dq_sm90", "dkv": "flash_bwd_dkv_sm90"}
-# the C entry point of each backward kernel on each route ("template": the
-# d ≤ 128 instantiations of flash_attention_bwd.cu, the yardstick)
+# the route counter of each backward kernel on each Hopper route (the
+# template, flash_attention_bwd.cu, is the yardstick only and has none)
+BWD_ROUTE_COUNTERS = {("dq", "sm90"): "flash_bwd_dq_sm90", ("dkv", "sm90"): "flash_bwd_dkv_sm90",
+                      ("dq", "wide"): "flash_bwd_dq_wide_sm90",
+                      ("dkv", "wide"): "flash_bwd_dkv_wide_sm90"}
+# the C entry point of each backward kernel on each route ("template":
+# flash_attention_bwd.cu at every head dim, the yardstick)
 _BWD_ENTRY = {("dq", "sm90"): ("flash_attention_bwd_sm90", "sd_flash_bwd_dq_sm90"),
               ("dkv", "sm90"): ("flash_attention_bwd_sm90", "sd_flash_bwd_dkv_sm90"),
-              **{(kind, route): ("flash_attention_bwd", f"sd_flash_bwd_{kind}")
-                 for kind in ("dq", "dkv") for route in ("wide", "template")}}
+              ("dq", "wide"): ("flash_attention_bwd_wide_sm90", "sd_flash_bwd_dq_wide_sm90"),
+              ("dkv", "wide"): ("flash_attention_bwd_wide_sm90", "sd_flash_bwd_dkv_wide_sm90"),
+              **{(kind, "template"): ("flash_attention_bwd", f"sd_flash_bwd_{kind}")
+                 for kind in ("dq", "dkv")}}
 
 
 def bwd_route(d: int) -> str:
     """The source of the dQ and dK/dV kernels at head dim d, decided from the
     shape alone, so a CPU or meta run makes the card's choice: the Hopper
-    backward (`flash_attention_bwd_sm90.cu`) up to 128, the wide kernels of
-    `flash_attention_bwd.cu` from 129 to 512."""
+    backward (`flash_attention_bwd_sm90.cu`) up to 128, its wide form
+    (`flash_attention_bwd_wide_sm90.cu`, the head dim split over a cluster)
+    from 129 to 512."""
     if d <= 0 or d > 512:
         raise ValueError(f"flash attention (backward): head dim {d} is not in 1..512")
     return "sm90" if d <= 128 else "wide"
@@ -747,6 +770,19 @@ def bwd_rows(b: int, s: int, h: int, d: int) -> int:
     side: splitting a sweep would need atomics or a second launch."""
     fills = -(-s // 128) * b * h >= H100_SMS
     return 128 if d <= BWD_ROWS_128_MAX_D and fills else 64
+
+
+def bwd_wide_split(d: int) -> int:
+    """Over how many blocks of a cluster the wide backward kernels
+    (`flash_attention_bwd_wide_sm90.cu`, head dims 129-512) split the head
+    dim of one 64-row slab, decided from the shape alone, as the C entry
+    points decide it: 2 at padded head dim 512 (the dK and dV accumulators
+    of 512 columns would fill an SM's registers; each block holds 256
+    columns and the pair exchange their partial S and dP), 1 at 256 (one
+    block holds all 256 columns: a 128-column half took as long a step)."""
+    if bwd_route(d) != "wide":
+        raise ValueError(f"flash attention (backward): head dim {d} is not on the wide route")
+    return 2 if _padded_dim(d) == 512 else 1
 
 
 def _launch_bwd(kind: str, q, k, v, a, lse, c, scale: float, route: str,
@@ -789,29 +825,28 @@ def _launch_bwd(kind: str, q, k, v, a, lse, c, scale: float, route: str,
 def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
     """(dq, delta [B, H, Sq] fp32) from the training forward's o and lse2
     and the output gradient do. On the card the dQ kernel `bwd_route` names
-    (counted under `flash_bwd_dq_sm90` beside `flash_bwd_dq` on the Hopper
-    route), else the plain version."""
+    (counted under its route counter, `flash_bwd_dq_sm90` or
+    `flash_bwd_dq_wide_sm90`, beside `flash_bwd_dq`), else the plain
+    version."""
     route = bwd_route(q.shape[-1])
     if not q.is_cuda:
         return _flash_bwd_dq_ref(q, k, v, o, lse, do, scale)
     dq, delta = _launch_bwd("dq", q, k, v, o, lse, do, scale, route)
-    if route == "sm90":
-        kernels.LAUNCHES[BWD_ROUTE_COUNTERS["dq"]] += 1
+    kernels.LAUNCHES[BWD_ROUTE_COUNTERS["dq", route]] += 1
     kernels.LAUNCHES["flash_bwd_dq"] += 1
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     """(dk, dv) from lse2 and flash_bwd_dq's delta. On the card the dK/dV
-    kernel `bwd_route` names (counted under `flash_bwd_dkv_sm90` beside
-    `flash_bwd_dkv` on the Hopper route; no atomics: the same bits on every
-    run), else the plain version."""
+    kernel `bwd_route` names (counted under `flash_bwd_dkv_sm90` or
+    `flash_bwd_dkv_wide_sm90` beside `flash_bwd_dkv`; no atomics: the same
+    bits on every run), else the plain version."""
     route = bwd_route(q.shape[-1])
     if not q.is_cuda:
         return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale)
     dk, dv = _launch_bwd("dkv", q, k, v, do, lse, delta, scale, route)
-    if route == "sm90":
-        kernels.LAUNCHES[BWD_ROUTE_COUNTERS["dkv"]] += 1
+    kernels.LAUNCHES[BWD_ROUTE_COUNTERS["dkv", route]] += 1
     kernels.LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 

@@ -16,7 +16,9 @@ bits twice. The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
 and the sums run over up to 4096 rows); at head dims up to 128 it runs
 `flash_attention_bwd_sm90.cu` (counted under `flash_bwd_dq_sm90` /
-`flash_bwd_dkv_sm90`), held against the template too, the same bits twice. Every test needs a CUDA device and
+`flash_bwd_dkv_sm90`) and above it `flash_attention_bwd_wide_sm90.cu`
+(`flash_bwd_dq_wide_sm90` / `flash_bwd_dkv_wide_sm90`), held against the
+template too, the same bits twice. Every test needs a CUDA device and
 skips without one. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
@@ -329,6 +331,54 @@ def test_hopper_flash_bwd_on_card(cuda, b, sq, skv, h, d, packed):
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
     assert all(torch.equal(x, y) for x, y in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
     assert (kernels.LAUNCHES["flash_bwd_dq_sm90"], kernels.LAUNCHES["flash_bwd_dkv_sm90"]) == (2, 2)
+
+
+# [B, Sq, Skv, H, D, head-packed] of the wide Hopper backward: train_kl_vae's
+# codec mid-block, a 512² codec's, a ragged d = 512 case, a bf16 train_ddpm's
+# 32² level (one block a slab), a ragged d = 136 (Sq not a multiple of 4:
+# lse2 and delta staged by plain loads), d = 200 and 384 (head columns past D
+# in a 64-column group) over several heads, and head views of one fused
+# projection
+WIDE_BWD_CASES = [(4, 1024, 1024, 1, 512, False), (1, 4096, 4096, 1, 512, False),
+                  (1, 1000, 1300, 1, 512, False), (6, 1024, 1024, 1, 256, False),
+                  (1, 1001, 777, 2, 136, False), (2, 256, 300, 3, 200, False),
+                  (1, 1024, 1024, 2, 384, False), (1, 500, 500, 2, 256, True),
+                  (2, 300, 257, 2, 512, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,packed", WIDE_BWD_CASES)
+def test_wide_hopper_flash_bwd_on_card(cuda, b, sq, skv, h, d, packed):
+    """The backward at head dims 129-512 on flash_attention_bwd_wide_sm90.cu
+    (a cluster of two blocks a slab at padded head dim 512, one at 256):
+    each route counter moves once per call; dq, dk and dv within
+    2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ of the fp32 plain version and of
+    the template (flash_attention_bwd.cu), delta within 1e-3·max|ref|, the
+    same bits twice."""
+    if packed:
+        qkv = _rnd(cuda, b, sq, 3 * h * d)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(2, (h, d)) for i in range(3))
+    else:
+        q, k, v = _rnd(cuda, b, sq, h, d), _rnd(cuda, b, skv, h, d), _rnd(cuda, b, skv, h, d)
+    do, scale = _rnd(cuda, b, sq, h, d), d**-0.5
+    assert fa.bwd_route(d) == "wide"
+    o, lse = fa.flash_attention_lse(q, k, v, scale)
+    kernels.reset_launches()
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+    counts = {n: kernels.LAUNCHES[n] for n in fa.BWD_ROUTE_COUNTERS.values()}
+    assert counts == {"flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0,
+                      "flash_bwd_dq_wide_sm90": 1, "flash_bwd_dkv_wide_sm90": 1}
+    refs = fa._flash_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(), scale)
+    tq, td = fa._launch_bwd("dq", q, k, v, o, lse, do, scale, "template")
+    tk, tv = fa._launch_bwd("dkv", q, k, v, do, lse, td, scale, "template")
+    for got, ref, tpl in zip((dq, dk, dv), refs, (tq, tk, tv)):
+        _grad_within(got, ref)
+        _grad_within(got, tpl)
+    assert (delta - refs[3]).abs().max().item() <= 1e-3 * refs[3].abs().max().item()
+    dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+    assert all(torch.equal(x, y) for x, y in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
 
 
 @pytest.mark.cuda

@@ -1,14 +1,14 @@
 """The Hopper flash backward's route, rows and tiling, on the CPU, before the card.
 
 The dQ and dK/dV kernels run `flash_attention_bwd_sm90.cu` up to head dim
-128 and the wide kernels of `flash_attention_bwd.cu` from 129 to 512,
-decided by `bwd_route` from the shape alone: on a CPU tensor exactly as on
-the card. Each Hopper launch counts under its route counter
-(`flash_bwd_dq_sm90`, `flash_bwd_dkv_sm90`) beside the wrapper's, and
-`chip_smoke.py` expects 40 of each per `train_ldm` step and none per
-`train_kl_vae` step. `bwd_rows` picks the rows per block (128 at head dims
-up to 48 where that grid fills a wave of the H100, else 64) from the shape
-alone.
+128 and `flash_attention_bwd_wide_sm90.cu` from 129 to 512, decided by
+`bwd_route` from the shape alone: on a CPU tensor exactly as on the card.
+Each Hopper launch counts under its route counter (`flash_bwd_dq_sm90`,
+`flash_bwd_dkv_sm90`; `flash_bwd_dq_wide_sm90`, `flash_bwd_dkv_wide_sm90`)
+beside the wrapper's, and `chip_smoke.py` expects 40 of each d ≤ 128 one
+per `train_ldm` step and 2 of each wide one per `train_kl_vae` step.
+`bwd_rows` picks the rows per block (128 at head dims up to 48 where that
+grid fills a wave of the H100, else 64) from the shape alone.
 
 `_flash_bwd_tiled_ref` repeats the Hopper kernels' tiling (blocks of own
 rows, 64-row tiles of the other side in order, the head dim padded to 16,
@@ -32,8 +32,10 @@ from sd_tpu.kernels import flash_attention as jfa
 from sd_tpu_torch import kernels
 from sd_tpu_torch.kernels import _build, flash_attention as fa
 
-# the source of each route, as PERF.md's kernel table names it (rows 5 and 6)
-BWD_SOURCE = {"sm90": "flash_attention_bwd_sm90", "wide": "flash_attention_bwd"}
+# the source of each route, as PERF.md's kernel table names it (rows 5 and 6),
+# and the suffix of its C entry points
+BWD_SOURCE = {"sm90": "flash_attention_bwd_sm90", "wide": "flash_attention_bwd_wide_sm90"}
+BWD_SUFFIX = {"sm90": "_sm90", "wide": "_wide_sm90"}
 
 
 def _want_route(d: int) -> str:
@@ -54,7 +56,7 @@ def test_bwd_route_at_head_dims(d):
     route = fa.bwd_route(d)
     assert route == _want_route(d)
     assert fa._BWD_ENTRY["dq", route] == (BWD_SOURCE[route], "sd_flash_bwd_dq"
-                                          + ("_sm90" if route == "sm90" else ""))
+                                          + BWD_SUFFIX[route])
     assert BWD_SOURCE[route] in _build.SOURCES
     assert (_build.CSRC / f"{BWD_SOURCE[route]}.cu").is_file()
     # the yardstick at every head dim is flash_attention_bwd.cu
@@ -119,17 +121,27 @@ def test_training_launches_carry_the_bwd_routes():
     train, klvae = chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES
     assert (train["flash_bwd_dq_sm90"], train["flash_bwd_dkv_sm90"]) == (40, 40)
     assert (klvae["flash_bwd_dq_sm90"], klvae["flash_bwd_dkv_sm90"]) == (0, 0)
-    assert train["flash_bwd_dq_sm90"] == train["flash_bwd_dq"]
-    assert train["flash_bwd_dkv_sm90"] == train["flash_bwd_dkv"]
+    assert (train["flash_bwd_dq_wide_sm90"], train["flash_bwd_dkv_wide_sm90"]) == (0, 0)
+    assert (klvae["flash_bwd_dq_wide_sm90"], klvae["flash_bwd_dkv_wide_sm90"]) == (2, 2)
+    # every wrapper launch counts under exactly one route on each path
+    for path in (train, klvae):
+        for kind in ("dq", "dkv"):
+            assert path[f"flash_bwd_{kind}"] == sum(
+                path[c] for (k, _), c in fa.BWD_ROUTE_COUNTERS.items() if k == kind)
     counters = set(fa.BWD_ROUTE_COUNTERS.values())
-    assert counters == {"flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"}
+    assert counters == {"flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_wide_sm90",
+                        "flash_bwd_dkv_wide_sm90"}
     assert counters <= set(kernels.LAUNCHES) & set(chip_smoke.KERNELS)
-    # the attention-switch phase's training cases move both, the chunked one neither
+    assert fa.BWD_ROUTE_COUNTERS == chip_smoke.BWD_ROUTE_COUNTER
+    # the attention-switch phase's training cases (d = 40) move both d ≤ 128
+    # counters, the chunked one neither, and none the wide ones
+    sm90 = {c for (_, route), c in fa.BWD_ROUTE_COUNTERS.items() if route == "sm90"}
     for env, call, want in chip_smoke.ATTN_SWITCH_CASES:
         if call == "train":
-            moved = {want.get(c, 0) for c in counters}
+            moved = {want.get(c, 0) for c in sm90}
             assert moved == ({0} if env.get("SD_TPU_FLASH_BWD") == "chunked"
                              or env.get("SD_TPU_ATTN_IMPL") == "xla" else {1}), env
+            assert all(want.get(c, 0) == 0 for c in counters - sm90), env
 
 
 def _inputs(b, sq, skv, h, d):

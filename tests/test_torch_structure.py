@@ -634,8 +634,8 @@ def _count_kernel_calls(monkeypatch) -> Counter:
     each training-forward call under the route counter of the source its
     shape rule (`fa.lse_route`) picks and, where `fa.lse_split` splits its kv
     sweep, under the combine launch's counter, and each dQ and dK/dV call
-    under the route counter `fa.bwd_route` picks (the Hopper route's; the
-    wide kernels have none), as the card counts them."""
+    under the route counter of the source `fa.bwd_route` picks, as the card
+    counts them."""
     calls = Counter()
     for module, name in ((fa, "flash_attention_lse"), (fa, "flash_bwd_dq"),
                          (fa, "flash_bwd_dkv"), (fa, "flash_attention_hpacked"),
@@ -649,9 +649,9 @@ def _count_kernel_calls(monkeypatch) -> Counter:
                 calls[fa.LSE_ROUTE_COUNTERS[fa.lse_route(d)]] += 1
                 if fa.lse_split(b, sq, skv, h, d) > 1:
                     calls[fa.LSE_COMBINE_COUNTER] += 1
-            if _name in ("flash_bwd_dq", "flash_bwd_dkv") and fa.bwd_route(
-                    args[0].shape[-1]) == "sm90":
-                calls[fa.BWD_ROUTE_COUNTERS[_name[len("flash_bwd_"):]]] += 1
+            if _name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                kind = _name[len("flash_bwd_"):]
+                calls[fa.BWD_ROUTE_COUNTERS[kind, fa.bwd_route(args[0].shape[-1])]] += 1
             return _fn(*args, **kw)
         monkeypatch.setattr(module, name, counted)
     return calls
@@ -754,8 +754,9 @@ def test_kl_vae_step_gates_and_launches(tpu_gates, monkeypatch, optin):
         [((4, 1024, 1, 512), torch.bfloat16)] * 2] * 2
     want = {k: v for k, v in chip_smoke.EXPECTED_KLVAE_LAUNCHES.items() if v}
     assert dict(calls) == want == {"flash_attention_lse": 2, "flash_lse_wide": 2,
-                                   "flash_lse_combine": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
-    # d = 512 takes the wide backward: the Hopper route's counters stay at 0
+                                   "flash_lse_combine": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                                   "flash_bwd_dq_wide_sm90": 2, "flash_bwd_dkv_wide_sm90": 2}
+    # d = 512 takes the wide backward: the d ≤ 128 route's counters stay at 0
     assert chip_smoke.EXPECTED_KLVAE_LAUNCHES["flash_bwd_dq_sm90"] == 0
     assert chip_smoke.EXPECTED_KLVAE_LAUNCHES["flash_bwd_dkv_sm90"] == 0
 
