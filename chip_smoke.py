@@ -27,8 +27,18 @@ Phases, each printed as one JSON line:
            opt-in shapes, with SiLU and a ragged case, `groupnorm.cu` and
            `F.group_norm` timed beside it in host and device time, and its
            bound summed over one opt-in generate's 2850 launches (under
-           `--profile`, the device time measured there beside it); the fused GroupNorm → SiLU → 3×3 conv, which
-           no path calls, at the decoder's conv shapes;
+           `--profile`, the device time measured there beside it); the fused
+           GroupNorm → SiLU → 3×3 conv, which no path calls, on
+           `conv2d_gn_sm90.cu` (counter `gn_silu_conv_sm90`) at the decoder's
+           five conv shapes and two ragged ones (GN_CONV_RAGGED), within
+           KERNEL_TOL of its fp32 plain version and of `conv2d.cu`'s `PRO`
+           form, the same bits twice, its statistics pass within
+           GN_STATS_TOL·max|ref| of their plain version and timed apart
+           (`stats_ms`, `stats_device_ms`, `stats_bound_ms`), with the unfused
+           library form (`unfused_ms`, `unfused_device_ms`) and the port's
+           own GroupNorm + conv pair (`pair_ms`, `pair_device_ms`; None where
+           `gn_plan` refuses the shape) timed beside it; the 3×3 conv rows
+           carry `device_ms` too;
            with the kernel's, the plain version's and one PyTorch library
            call's time (CUDA events) and the least time the card could take
            (bound: the larger of the bytes at 3.35 TB/s, the tensor
@@ -199,7 +209,9 @@ KERNELS = ("flash_attention", "flash_attention_pipelined", "flash_attention_hpac
            "geglu_sm90", "crossattn_sm90",
            # the pipelined sweep at head dims up to 128 on the PIPE kernel of
            # flash_attention_sm90.cu, GroupNorm on groupnorm_sm90.cu
-           "flash_fwd_sm90_pipe", "group_norm_sm90")
+           "flash_fwd_sm90_pipe", "group_norm_sm90",
+           # the fused GroupNorm → SiLU → 3×3 conv on conv2d_gn_sm90.cu
+           "gn_silu_conv_sm90")
 
 
 def launches_of(**nonzero) -> dict:
@@ -297,6 +309,13 @@ DECODER_CONVS = [(2, 128, 512, 512), (2, 256, 512, 256), (2, 256, 256, 256),
                  (2, 512, 256, 128), (2, 512, 128, 128)]
 DECODER_CONV_LAUNCHES = (6, 1, 5, 1, 5)
 KERNEL_TOL = 1e-2
+# the fused GroupNorm → SiLU → 3×3 conv's cases beyond the decoder's conv
+# shapes [B, H, W, C, O]: the ragged case, and C = 512 with H odd and W past a
+# 128-pixel tile (a block's last row and last pixel tile partial), O over two
+# blocks; its statistics pass within GN_STATS_TOL·max|ref| of its fp32 plain
+# version in the kernel's order of sums (stated before measuring)
+GN_CONV_RAGGED = [(1, 37, 50, 64, 128), (1, 75, 200, 512, 256)]
+GN_STATS_TOL = 1e-5
 LSE_TOL = 1e-3                                   # absolute, base-2 units
 GRAD_TOL = {"max_rel": 2e-2, "l2_rel": 1e-2}     # flash dq, dk, dv
 UNET_TOL = {"max_rel": 0.1, "l2_rel": 0.03}      # stated before measuring
@@ -348,10 +367,11 @@ VARIANTS = ((True, False), (False, True), (True, True))
 ROUTE_COUNTER = {"sm90": "flash_fwd_sm90", "sm90_pipe": "flash_fwd_sm90_pipe",
                  "sm90_pv8": "flash_fwd_sm90_pv8", "wide": "flash_fwd_wide"}
 ROUTE_COUNTERS = tuple(ROUTE_COUNTER.values())
-# the Hopper kernels of the GEGLU feed-forward, the cross-attention and
-# GroupNorm, each wrapper's route counter (one count per call)
+# the Hopper kernels of the GEGLU feed-forward, the cross-attention,
+# GroupNorm and the fused GroupNorm → SiLU → 3×3 conv, each wrapper's route
+# counter (one count per call)
 KERNEL_ROUTE_COUNTER = {"geglu_ff": "geglu_sm90", "crossattn_kv": "crossattn_sm90",
-                        "group_norm": "group_norm_sm90"}
+                        "group_norm": "group_norm_sm90", "gn_silu_conv3x3": "gn_silu_conv_sm90"}
 # every counter a kernel case holds to one count, or none
 CASE_ROUTE_COUNTERS = ROUTE_COUNTERS + tuple(KERNEL_ROUTE_COUNTER.values())
 # ... and of the training forward (`kernels/flash_attention.py LSE_ROUTE_COUNTERS`)
@@ -438,9 +458,15 @@ def conv3x3_cost(b, h, w, c, o):
 
 
 def gn_silu_conv_cost(b, h, w, c, o):
-    # the conv's, plus the GroupNorm scale and bias read
+    # the conv's, plus the GroupNorm scale and bias read and the statistics'
+    # read of x (a whole pass over x before the first output can be formed)
     flops, nbytes = conv3x3_cost(b, h, w, c, o)
-    return flops, nbytes + 4 * c
+    return flops, nbytes + 4 * c + 2 * b * h * w * c
+
+
+def gn_stats_cost(b, h, w, c):
+    # x read once (the sums' fp32 adds are far below the bytes' time)
+    return 0, 2 * b * h * w * c
 
 
 def group_norm_cost(b, s, c, silu):
@@ -523,14 +549,20 @@ def route_forward(q, k, v, route: str = "template", exp_bf16: bool = False,
 # ---------------------------------------------------------------------------
 
 
+# the shapes whose kernel-phase inputs come from a generator of their own,
+# and its seed
+OWN_STREAMS = {SERVE_PIPE_SHAPE: 8, GN_CONV_RAGGED[1]: 14}
+
+
 def own_stream(shape):
-    """The generator of SERVE_PIPE_SHAPE's inputs in the kernel phases, a
+    """The generator of a shape added to the kernel phases after the others
+    (`OWN_STREAMS`: SERVE_PIPE_SHAPE, the fused conv's second ragged case), a
     stream of its own (None for every other shape: the phase's), so that
-    the shape, added after the others, left every other check's inputs as
-    they were."""
+    every other check's inputs stay as they were."""
     import torch
 
-    return torch.Generator("cuda").manual_seed(8) if tuple(shape) == SERVE_PIPE_SHAPE else None
+    seed = OWN_STREAMS.get(tuple(shape))
+    return None if seed is None else torch.Generator("cuda").manual_seed(seed)
 
 
 def kernel_cases(gen):
@@ -642,7 +674,7 @@ def kernel_cases(gen):
             ref=lambda x=x, w=w, b=b: conv2d._xla_conv3x3(x.float(), w.float(), b.float()),
             library=lambda x=x, w=w, b=b: F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1),
             generic=lambda x=x, w=w, b=b: conv2d._launch_conv(x, w, b, "template"),
-            view=lambda o: o,
+            view=lambda o: o, device=True,
             cost=conv3x3_cost(B, Hs, Ws, C, O)))
     # row 2 (opt-in): the pipelined kv sweep, at the decoder's mid-block
     # attention and a ragged case (the wide kernel, with the template's
@@ -736,22 +768,69 @@ def kernel_cases(gen):
             unfused=unfused, library=None, view=lambda o: o,
             cost=crossattn_cost(B, N, M, H, D, C)))
     # row 9 (no model path): GroupNorm → SiLU → 3×3 conv at the decoder's
-    # conv shapes, and a ragged one
-    for B, Hs, Ws, C, O in [(b, h, h, c, o) for b, h, c, o in DECODER_CONVS] + [
-            (1, 37, 50, 64, 128)]:
-        x = rnd(B, Hs, Ws, C, scale=2.0) + 0.5
-        sc, bi = 1 + rnd(C, scale=0.1), rnd(C, scale=0.1)
-        w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
+    # conv shapes and the ragged ones (GN_CONV_RAGGED): the Hopper kernel
+    # (conv2d_gn_sm90.cu), with conv2d.cu's PRO form timed beside it, its
+    # statistics pass checked and timed apart, and two unfused yardsticks:
+    # the library's (F.group_norm, F.silu, F.conv2d in bf16 on the same NHWC
+    # data) and the port's own pair (group_norm with the SiLU epilogue, then
+    # conv3x3_same) where `gn_plan` takes the shape
+    for B, Hs, Ws, C, O in [(b, h, h, c, o) for b, h, c, o in DECODER_CONVS] + GN_CONV_RAGGED:
+        g = own_stream((B, Hs, Ws, C, O))
+        x = rnd(B, Hs, Ws, C, scale=2.0, g=g) + 0.5
+        sc, bi = 1 + rnd(C, scale=0.1, g=g), rnd(C, scale=0.1, g=g)
+        w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5, g=g).contiguous(
             memory_format=torch.channels_last)
-        b = rnd(O, scale=0.1)
+        b = rnd(O, scale=0.1, g=g)
         args = (x, sc, bi, w, b)
+
+        def unfused(a=args):
+            x, sc, bi, w, b = a
+            h = F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, sc, bi, 1e-6))
+            return F.conv2d(h, w, b, padding=1)
+
+        try:
+            gn.gn_plan(B, Hs * Ws, C, 32)
+
+            def pair(a=args, B=B, Hs=Hs, Ws=Ws, C=C):
+                x, sc, bi, w, b = a
+                h = gn.group_norm(x.view(B, Hs * Ws, C), sc, bi, groups=32, eps=1e-6,
+                                  act="silu")
+                return conv2d.conv3x3_same(h.view(B, Hs, Ws, C), w, b)
+        except ValueError:
+            pair = None
         cases.append(dict(
-            name="gn_silu_conv3x3", shape=[B, Hs, Ws, C, O],
+            name="gn_silu_conv3x3", shape=[B, Hs, Ws, C, O], counter="gn_silu_conv_sm90",
+            device=True, table=Hs == Ws,
+            plan=conv2d.gn_conv_plan((B, Hs, Ws, C), O, 32)._asdict(),
             kernel=lambda a=args: conv2d.gn_silu_conv3x3(*a),
             plain=lambda a=args: conv2d._gn_silu_conv_xla(*a),
             ref=lambda a=args: conv2d._gn_silu_conv_xla(*(t.float() for t in a)),
+            generic=lambda a=args: conv2d._launch_gn_silu_conv(*a, 32, 1e-6, "template"),
+            unfused=unfused, pair=pair, extra=lambda out, a=args: gn_stats_fields(*a),
             library=None, view=lambda o: o, cost=gn_silu_conv_cost(B, Hs, Ws, C, O)))
     return cases
+
+
+def gn_stats_fields(x, sc, bi, w, b) -> dict:
+    """The fused conv's statistics pass apart: (a, c) against their fp32
+    plain version in the kernel's order of sums (GN_STATS_TOL), the same
+    bits twice, its time in host and device time and its bound."""
+    import torch
+
+    from sd_tpu_torch.kernels import conv2d
+
+    run = lambda: conv2d._launch_gn_stats(x, sc, bi, 32, 1e-6)
+    got, again = run(), run()
+    ref = conv2d._gn_stats_tiled_ref(x, sc, bi, 32, 1e-6)
+    errs = [rel_err(g, r)[1] for g, r in zip(got, ref)]
+    same = all(torch.equal(u, v) for u, v in zip(got, again))
+    require(max(errs) <= GN_STATS_TOL and same,
+            f"gn statistics {list(x.shape)}: max|Δ|/max|ref| (a, c) = {errs}, "
+            f"same bits twice {same}")
+    return {"stats_rel_err": errs, "stats_same_bits_as_plain":
+            all(torch.equal(g, r) for g, r in zip(got, ref)),
+            "stats_ms": time_ms(run), "stats_device_ms": device_ms(run),
+            "stats_bound_ms": bound_ms(*gn_stats_cost(*x.shape))[0]}
 
 
 def route_moves(run) -> tuple[object, dict]:
@@ -827,6 +906,12 @@ def _kernel_case(case, hopper_rows) -> dict:
                 f"{case['shape']}: the pipelined sweep gives the serial sweep's bits")
     if "unfused" in case:
         row["unfused_ms"] = time_ms(case["unfused"])
+        if case.get("device"):
+            row["unfused_device_ms"] = device_ms(case["unfused"])
+    if "pair" in case:
+        # the port's own unfused pair, or None where its GroupNorm refuses the shape
+        row["pair_ms"] = time_ms(case["pair"]) if case["pair"] else None
+        row["pair_device_ms"] = device_ms(case["pair"]) if case["pair"] else None
     if "generic" in case:
         row["generic_ms"] = time_ms(case["generic"])
         row["same_bits_twice"] = bool(torch.equal(out, case["view"](case["kernel"]())))
@@ -2383,6 +2468,41 @@ def pipe_gn_report() -> dict:
     return out
 
 
+def gn_conv_report() -> dict:
+    """Registers, spills and dynamic shared memory of the fused GroupNorm →
+    SiLU → 3×3 conv's kernels (`conv2d_gn_sm90.cu`: the conv with its
+    prologue, the weights' pre-pass, the statistics pass's partials and
+    finalize launches), from the build's log; raises on a spill, a wgmma
+    serialization warning (ptxas C7515) or a statistics grid other than
+    `gn_stats_plan`'s."""
+    import ctypes
+
+    from sd_tpu_torch.kernels import _build, conv2d
+
+    log = (_build.build_dir() / "conv2d_gn_sm90.log").read_text()
+    serialized = [line for line in log.splitlines()
+                  if "C7515" in line or ("wgmma" in line and "serializ" in line)]
+    require(not serialized, f"conv2d_gn_sm90: wgmma serialized: {serialized}")
+    names = {"conv3x3_sm90_kernelILb1E": "conv3x3_sm90 pro",
+             "pack_weights_kernel": "pack_weights", "gnc_partials_kernel": "gn_stats partials",
+             "gnc_finalize_kernel": "gn_stats finalize"}
+    out = {}
+    for mangled, (regs, st, ld) in ptxas_report(
+            log, lambda n: any(k in n for k in names)).items():
+        name = next(v for k, v in names.items() if k in mangled)
+        out[name] = {"registers": regs, "spill_stores": st, "spill_loads": ld}
+        require(not (st or ld), f"conv2d_gn_sm90: {mangled} spills {st} / {ld} bytes")
+    require(set(out) == set(names.values()), f"conv2d_gn_sm90's kernels: {sorted(out)}")
+    out["conv3x3_sm90 pro"]["smem_bytes"] = _build.function(
+        "conv2d_gn_sm90", "sd_gn_silu_conv3x3_fwd_sm90_smem", [])()
+    # the statistics pass's grid: the C entry point's against `gn_stats_plan`'s
+    blocks = _build.function("conv2d_gn_sm90", "sd_gn_stats_sm90_blocks", [ctypes.c_int] * 2)
+    for B, H, W, C, O in [(b, h, h, c, o) for b, h, c, o in DECODER_CONVS] + GN_CONV_RAGGED:
+        require(blocks(H * W, C) == conv2d.gn_stats_plan(H * W, C, 32).blocks,
+                f"gn_stats_plan's blocks at {H * W} pixels, C = {C}")
+    return out
+
+
 def flash_smem() -> dict:
     """Dynamic shared memory (bytes) of the inference forwards at the path's
     head dims: each Hopper kernel where it serves, and the template's
@@ -2435,6 +2555,10 @@ def _family(name: str) -> str:
         return "cross-attention projections, Hopper (port)"
     if "xattn_attend_kernel" in name:
         return "cross-attention, Hopper (port)"
+    if "conv3x3_sm90_kernel<true>" in name:
+        return "GN-SiLU-conv3x3 Hopper (port)"
+    if "gnc_partials_kernel" in name or "gnc_finalize_kernel" in name:
+        return "GN-SiLU-conv3x3 statistics, Hopper (port)"
     if "conv3x3_sm90_kernel" in name or "pack_weights_kernel" in name:
         return "conv3x3 Hopper (port)"
     if "lse_combine_kernel" in name:
@@ -2672,6 +2796,7 @@ def main() -> int:
           "flash_bwd_wide_sm90": bwd_wide_sm90_report(),
           "ff_xattn_sm90": ff_xattn_report(),
           "pipe_gn_sm90": pipe_gn_report(),
+          "gn_conv_sm90": gn_conv_report(),
           "conv3x3_sm90_smem_bytes": _build.function("conv2d_sm90", "sd_conv3x3_fwd_sm90_smem",
                                                      [])()})
 
@@ -2754,7 +2879,8 @@ def main() -> int:
                                            tpu + "flash_attention.py:511"),
                "geglu_ff": (src + "geglu_sm90.cu", tpu + "geglu.py:48"),
                "conv3x3_same": (src + "conv2d_sm90.cu", tpu + "conv2d.py:30"),
-               "gn_silu_conv3x3": (src + "conv2d.cu", tpu + "conv2d.py:38"),
+               "gn_silu_conv3x3": (src + "conv2d_gn_sm90.cu",
+                                   tpu + "conv2d.py:38, _gn_stats_affine :297"),
                "group_norm": (src + "groupnorm_sm90.cu", tpu + "groupnorm.py:31"),
                # the pipelined sweep at head dims up to 128 (its row: [8, 4096,
                # 8, 40], the UNet's level 0 under SD_TPU_ATTN_HPACKED=0 at the
@@ -2775,9 +2901,13 @@ def main() -> int:
     sources["flash_attention_pipelined_exp_bf16"] = sources["flash_attention_pipelined"]
     # each Hopper route's row: its first main-path shape, with every other
     # shape it was held at (the template's time beside each)
+    # (the fused conv's statistics pass, unfused yardsticks and the port's pair)
+    gn_conv_keys = ("stats_rel_err", "stats_same_bits_as_plain", "stats_ms", "stats_device_ms",
+                    "stats_bound_ms", "unfused_device_ms", "pair_ms", "pair_device_ms")
     keys = ("shape", "name", "how", "max_abs_err", "ms", "generic_ms", "plain_ms", "bound_ms",
             "bound_by", "bound_op", "library_ms", "kv_tile", "device_ms", "generic_device_ms",
-            "library_device_ms", "serial_ms", "serial_device_ms", "unfused_ms", "split", "plan")
+            "library_device_ms", "serial_ms", "serial_device_ms", "unfused_ms", "split", "plan",
+            *gn_conv_keys)
     for counter in ROUTE_COUNTERS:
         rows_ = hopper_rows[counter] + hopper_variant_rows[counter]
         table[counter] = {**rows_[0], "other_shapes": [
@@ -2788,7 +2918,8 @@ def main() -> int:
     # with the other shapes (the ragged case among them)
     # ... and GroupNorm's, with its bound summed over the launches of one
     # opt-in generate (and, under --profile, its measured device time there)
-    for name in ("conv3x3_same", "geglu_ff", "crossattn_kv", "group_norm"):
+    # ... and the fused GroupNorm → SiLU → conv's (its largest decoder shape)
+    for name in ("conv3x3_same", "geglu_ff", "crossattn_kv", "group_norm", "gn_silu_conv3x3"):
         table[name]["other_shapes"] = [
             {k: r[k] for k in keys if k in r} for r in hopper_rows[name]
             if r["shape"] != table[name]["shape"]]
@@ -2856,7 +2987,7 @@ def main() -> int:
                "library_ms": r["library_ms"], "shape": r["shape"]}
         for key in ("generic_ms", "other_shapes", "kv_tile", *device_keys, "unfused_ms",
                     "route_counter", "split", "plan", "serial_ms", "serial_device_ms",
-                    "per_generate"):
+                    "per_generate", *gn_conv_keys):
             if key in r:
                 row[key] = r[key]
         if name == "conv3x3_same":

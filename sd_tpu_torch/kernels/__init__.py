@@ -18,7 +18,9 @@ backward's `flash_bwd_dq_sm90` and `flash_bwd_dkv_sm90`
 The pipelined sweep at head dims up to 128 counts under
 `flash_fwd_sm90_pipe` (the `PIPE` kernel of `csrc/flash_attention_sm90.cu`)
 and GroupNorm under `group_norm_sm90` (`csrc/groupnorm_sm90.cu`). The 3×3
-conv (`conv3x3_same`) runs `csrc/conv2d_sm90.cu`.
+conv (`conv3x3_same`) runs `csrc/conv2d_sm90.cu`, and the fused GroupNorm →
+SiLU → 3×3 conv (`gn_silu_conv3x3`) `csrc/conv2d_gn_sm90.cu`, counted under
+`gn_silu_conv_sm90` too.
 
 Only flash attention has backward kernels (`flash_attention.py`, an
 autograd Function). GEGLU, the 3×3 conv, GroupNorm and the fused
@@ -79,6 +81,9 @@ LAUNCHES: dict[str, int] = {
     "crossattn_sm90": 0,
     # ... and GroupNorm's (`group_norm`) Hopper kernel, groupnorm_sm90.cu
     "group_norm_sm90": 0,
+    # ... and the fused GroupNorm → SiLU → 3×3 conv's (`gn_silu_conv3x3`, one
+    # per call of its launches), conv2d_gn_sm90.cu
+    "gn_silu_conv_sm90": 0,
 }
 
 

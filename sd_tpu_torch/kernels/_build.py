@@ -23,8 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_sm90_pv8",
            "flash_attention_wide", "flash_attention_bwd", "flash_attention_bwd_sm90",
            "flash_attention_bwd_wide_sm90", "geglu",
-           "geglu_sm90", "conv2d", "conv2d_sm90", "groupnorm", "groupnorm_sm90",
-           "cross_attention", "cross_attention_sm90")
+           "geglu_sm90", "conv2d", "conv2d_sm90", "conv2d_gn_sm90", "groupnorm",
+           "groupnorm_sm90", "cross_attention", "cross_attention_sm90")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

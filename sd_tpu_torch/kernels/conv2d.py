@@ -1,9 +1,12 @@
 """Direct 3×3 SAME convolution and the fused GroupNorm → SiLU → 3×3 conv:
 hand-written CUDA kernels and their plain PyTorch versions. `conv3x3_same`
 launches `csrc/conv2d_sm90.cu` (wgmma on TMA-loaded windows and weights);
-the fused form launches `csrc/conv2d.cu`'s `PRO` form, whose plain form is
-the Hopper conv's yardstick on the card. `_conv_window_ref` is a plain
-version that follows the Hopper kernel's tiling and index arithmetic.
+the fused form launches `csrc/conv2d_gn_sm90.cu` (a statistics pass, then
+the same conv with each window normalized in shared memory as it lands).
+`csrc/conv2d.cu`'s plain and `PRO` forms are their yardsticks on the card.
+`_conv_window_ref` is a plain version that follows the Hopper conv's tiling
+and index arithmetic (with `prologue`, the fused form's window transform),
+`_gn_stats_tiled_ref` one that follows the statistics pass's order of sums.
 
 Counterpart of `sd_tpu/kernels/conv2d.py` (`conv3x3_same`, `_xla_conv3x3`,
 `conv3x3_same_trainable`, `conv3x3_wants_pallas`, `training_trace`,
@@ -18,6 +21,7 @@ from __future__ import annotations
 import contextvars
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -145,7 +149,8 @@ CONV_BOX_CHANNELS = 8
 
 
 def _conv_window_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     tile: tuple[int, int] = CONV_TILE) -> torch.Tensor:
+                     tile: tuple[int, int] = CONV_TILE,
+                     prologue: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """Plain version of the Hopper conv that repeats its index arithmetic:
     for each block of tile = (rows, pixels) outputs, the zero-filled input
     window as the TMA boxes land it, [box][row][pixel][8 channels] over rows
@@ -153,7 +158,11 @@ def _conv_window_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     taken at the flat offset (r + dy)·(pixels + 2) + px + dx of that window;
     the nine products of each box accumulated in fp32, the bias added in
     fp32, one rounding to x's dtype; outputs past H or W dropped. x
-    [B, H, W, C] with C % 8 == 0, w [O, C, 3, 3], b [O]."""
+    [B, H, W, C] with C % 8 == 0, w [O, C, 3, 3], b [O]. With `prologue` =
+    (a, c) [B, C] fp32, the fused form's transform of each landed window,
+    once per value: silu(x·a + c) in fp32 rounded to x's dtype at the
+    window positions inside the image, 0 at those outside it (rows y0 - 1 + r
+    or pixels x0 - 1 + p outside [0, H) × [0, W))."""
     TH, TW = tile
     B, H, W, C = x.shape
     O = w.shape[0]
@@ -162,6 +171,11 @@ def _conv_window_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     # the B operand of tap (dy, dx) and box j: [O][8] rows of w[o, 8j:8j+8, dy, dx]
     wk = w.float().permute(2, 3, 1, 0).reshape(9, C // G, G, O)
     r, px = torch.meshgrid(torch.arange(TH), torch.arange(TW), indexing="ij")
+    if prologue is not None:
+        # [B, box, 1, 1, 8]: the channels of box j are 8j … 8j + 7
+        pa, pc = (t.float().view(B, C // G, 1, 1, G) for t in prologue)
+        wr, wp = torch.meshgrid(torch.arange(WH, device=x.device),
+                                torch.arange(WW, device=x.device), indexing="ij")
     y = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
     xf = x.float()
     for y0 in range(0, H, TH):
@@ -171,6 +185,12 @@ def _conv_window_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             ye, xe = min(y0 - 1 + WH, H), min(x0 - 1 + WW, W)
             win[:, :, ys - (y0 - 1):ye - (y0 - 1), xs - (x0 - 1):xe - (x0 - 1)] = (
                 xf[:, ys:ye, xs:xe].unflatten(-1, (C // G, G)).permute(0, 3, 1, 2, 4))
+            if prologue is not None:
+                gy, gx = y0 - 1 + wr, x0 - 1 + wp
+                inside = ((gy >= 0) & (gy < H) & (gx >= 0) & (gx < W))[..., None]
+                t = win * pa + pc
+                t = (t * torch.sigmoid(t)).to(x.dtype).float()
+                win = torch.where(inside, t, torch.zeros((), device=x.device))
             flat = win.reshape(B, C // G, WH * WW, G)
             acc = torch.zeros((B, TH * TW, O), device=x.device)
             for j in range(C // G):
@@ -212,6 +232,94 @@ def _gn_stats_affine(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Ten
     return a, c
 
 
+# the fused form's statistics pass (`csrc/conv2d_gn_sm90.cu`): 256 threads a
+# block, each summing 8 channels over 32 pixels in order
+GN_STATS_THREADS = 256
+GN_STATS_STEPS = 32
+
+
+class GnStatsPlan(NamedTuple):
+    vpl: int      # threads across one pixel's 8-channel vectors
+    lanes: int    # pixel lanes of a block (GN_STATS_THREADS // vpl)
+    pixels: int   # pixels of a block (lanes × GN_STATS_STEPS)
+    blocks: int   # blocks of a batch row
+
+
+def gn_stats_plan(hw: int, c: int, groups: int) -> GnStatsPlan:
+    """The statistics pass's grid over hw pixels of c channels, from the
+    shape alone on every device (`csrc/conv2d_gn_sm90.cu stats_vpl`,
+    `stats_blocks`). Raises on what the pass does not take."""
+    if hw < 1 or c < 8 or c % 8 or groups < 1 or c % groups:
+        raise ValueError(f"gn_silu_conv3x3: the statistics take C % 8 == 0 and whole groups, "
+                         f"got {hw} pixels, C={c}, groups={groups}")
+    vpl = min(c // 8, GN_STATS_THREADS)
+    lanes = GN_STATS_THREADS // vpl
+    pixels = lanes * GN_STATS_STEPS
+    return GnStatsPlan(vpl, lanes, pixels, -(-hw // pixels))
+
+
+def gn_conv_plan(shape: tuple, c_out: int, groups: int) -> GnStatsPlan:
+    """What the fused kernel takes, decided from x's shape [B, H, W, C] alone
+    on every device before any CUDA call: C % 32 == 0, O % 128 == 0 (the
+    Hopper conv's rule, any H and W) and C % groups == 0; the statistics
+    pass's plan. Raises ValueError on anything else."""
+    B, H, W, C = shape
+    if C % 32 or c_out % 128 or c_out < 1 or groups < 1 or C % groups:
+        raise ValueError(f"gn_silu_conv3x3: kernel takes C % 32 == 0, O % 128 == 0 and "
+                         f"C % groups == 0, got C={C}, O={c_out}, groups={groups}")
+    return gn_stats_plan(H * W, C, groups)
+
+
+def _gn_stats_tiled_ref(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                        groups: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the statistics pass in its order of fp32 sums
+    (`_gn_stats_affine`'s function): in each block of `gn_stats_plan`, lane l
+    sums pixels l, l + lanes, … (32 of them, zeros past H·W) in order, then
+    the block adds its lanes in order and each group's channels in order; a
+    warp per (batch row, group) adds the blocks' partials, lane j those of
+    blocks j, j + 32, … in order, then a shuffle tree (16, 8, 4, 2, 1);
+    mean and mean of squares by one division each, the variance clamped at
+    0, 1/sqrt(var + eps), a = rinv·scale, c = bias − mean·a, each operation
+    rounded on its own. x [B, H, W, C]; (a, c) [B, C] fp32."""
+    B, H, W, C = x.shape
+    p = gn_stats_plan(H * W, C, groups)
+    cg = C // groups
+    xf = torch.zeros((B, p.blocks * p.pixels, C), dtype=torch.float32, device=x.device)
+    xf[:, :H * W] = x.float().reshape(B, H * W, C)
+    # [B, block, step, lane, C]: block p's pixel p·pixels + step·lanes + lane
+    xb = xf.view(B, p.blocks, GN_STATS_STEPS, p.lanes, C)
+    s = torch.zeros((B, p.blocks, p.lanes, C), device=x.device)
+    q = torch.zeros_like(s)
+    for k in range(GN_STATS_STEPS):
+        v = xb[:, :, k]
+        s, q = s + v, q + v * v
+    s1, s2 = s[:, :, 0], q[:, :, 0]
+    for lane in range(1, p.lanes):
+        s1, s2 = s1 + s[:, :, lane], s2 + q[:, :, lane]
+    s1, s2 = s1.view(B, p.blocks, groups, cg), s2.view(B, p.blocks, groups, cg)
+    g1, g2 = s1[..., 0], s2[..., 0]
+    for j in range(1, cg):
+        g1, g2 = g1 + s1[..., j], g2 + s2[..., j]
+    # the finalize warp: blocks strided over 32 lanes, then the shuffle tree
+    n32 = -(-p.blocks // 32) * 32
+    parts = torch.zeros((2, B, n32, groups), device=x.device)
+    parts[0, :, :p.blocks], parts[1, :, :p.blocks] = g1, g2
+    parts = parts.view(2, B, n32 // 32, 32, groups)
+    t = torch.zeros((2, B, 32, groups), device=x.device)
+    for i in range(n32 // 32):
+        t = t + parts[:, :, i]
+    for off in (16, 8, 4, 2, 1):
+        t = t[:, :, :off] + t[:, :, off:2 * off]
+    f32 = lambda v: torch.full((1,), v, dtype=torch.float32, device=x.device)
+    n = f32(float(H * W * cg))
+    mean, mean2 = t[0, :, 0] / n, t[1, :, 0] / n               # [B, groups]
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    rinv = f32(1.0) / torch.sqrt(var + f32(eps))
+    a = rinv.repeat_interleave(cg, -1) * gn_scale.float()[None]
+    c = gn_bias.float()[None] - mean.repeat_interleave(cg, -1) * a
+    return a, c
+
+
 def _gn_silu_conv_xla(x, gn_scale, gn_bias, w, b, groups: int = 32,
                       eps: float = 1e-6) -> torch.Tensor:
     """Plain version with the fused kernel's numerics: normalize and SiLU in
@@ -222,27 +330,88 @@ def _gn_silu_conv_xla(x, gn_scale, gn_bias, w, b, groups: int = 32,
     return _xla_conv3x3(y, w, b)
 
 
+def _gn_params(name: str, x: torch.Tensor, *params: torch.Tensor) -> list[torch.Tensor]:
+    """GroupNorm's scale and bias [C] as contiguous fp32 on x's device."""
+    C = x.shape[-1]
+    for t in params:
+        if t.shape != (C,) or t.device != x.device:
+            raise ValueError(f"{name}: GroupNorm scale and bias must be [{C}] on {x.device}")
+    return [t.float().contiguous() for t in params]
+
+
+def _launch_gn_stats(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                     groups: int, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused form's statistics pass alone on the card (its partials and
+    finalize launches): (a, c) [B, C] fp32 of x [B, H, W, C] bf16."""
+    B, H, W, C = x.shape
+    p = gn_stats_plan(H * W, C, groups)
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("gn_silu_conv3x3: x must be contiguous, 16-byte aligned bfloat16")
+    sc, bi = _gn_params("gn_silu_conv3x3", x, gn_scale, gn_bias)
+    part = torch.empty((B, p.blocks, groups, 2), dtype=torch.float32, device=x.device)
+    a, c = (torch.empty((B, C), dtype=torch.float32, device=x.device) for _ in range(2))
+    fn = _build.function("conv2d_gn_sm90", "sd_gn_stats_sm90",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                         + [ctypes.c_float, ctypes.c_void_p])
+    with _build.on_device(x.device):
+        code = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), part.data_ptr(), a.data_ptr(),
+                  c.data_ptr(), B, H * W, C, groups, float(eps), _build.stream_ptr(x.device))
+    _build.check(code, "sd_gn_stats_sm90")
+    return a, c
+
+
+# the C entry point of each source of the fused conv, given (a, c): the Hopper
+# kernel `gn_silu_conv3x3` launches, and conv2d.cu's PRO form, its yardstick
+_GN_CONV_ENTRY = {"sm90": ("conv2d_gn_sm90", "sd_gn_silu_conv3x3_fwd_sm90"),
+                  "template": ("conv2d", "sd_gn_silu_conv3x3_fwd")}
+
+
+def _launch_gn_silu_conv(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                         w: torch.Tensor, b: torch.Tensor, groups: int, eps: float,
+                         source: str = "sm90") -> torch.Tensor:
+    """One fused call on `source` (see `_GN_CONV_ENTRY`): the statistics (the
+    Hopper kernel's pass, `_launch_gn_stats`; for the template plain torch),
+    then the conv with the prologue (the Hopper kernel's pre-pass writes the
+    weights into a scratch of their size). The shape rule (`gn_conv_plan`)
+    and the operands are checked before any CUDA call."""
+    gn_conv_plan(x.shape, w.shape[0], groups)
+    wk, bk, y = _conv_operands("gn_silu_conv3x3", x, w, b)
+    sc, bi = _gn_params("gn_silu_conv3x3", x, gn_scale, gn_bias)
+    if source == "sm90":
+        a, c = _launch_gn_stats(x, sc, bi, groups, eps)
+    else:
+        a, c = _gn_stats_affine(x, sc, bi, groups, eps)
+    lib, symbol = _GN_CONV_ENTRY[source]
+    ptrs = [x.data_ptr(), wk.data_ptr(), bk.data_ptr(), a.data_ptr(), c.data_ptr(), y.data_ptr()]
+    scratch = torch.empty_like(wk) if source == "sm90" else None   # alive past the launch
+    if scratch is not None:
+        ptrs.append(scratch.data_ptr())
+    fn = _build.function(lib, symbol,
+                         [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with _build.on_device(x.device):
+        code = fn(*ptrs, *x.shape, y.shape[-1], _build.stream_ptr(x.device))
+    _build.check(code, symbol)
+    return y
+
+
 def gn_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
                     w: torch.Tensor, b: torch.Tensor, *, groups: int = 32,
                     eps: float = 1e-6) -> torch.Tensor:
-    """conv3x3(silu(GroupNorm(x))) of x [B, H, W, C]: the statistics in plain
-    torch (`_gn_stats_affine`, one read of x), then one kernel that applies
-    silu(x·a + c) to each input window as it lands and runs the 3×3 SAME conv,
-    so the normalized tensor never reaches device memory. Forward only: on
-    the card an input that needs a gradient raises."""
+    """conv3x3(silu(GroupNorm(x))) of x [B, H, W, C]. On the card the Hopper
+    kernel (`csrc/conv2d_gn_sm90.cu`, counted under `gn_silu_conv_sm90`
+    beside `gn_silu_conv3x3`): a statistics pass (one read of x) into (a, c),
+    then the 3×3 SAME conv, which applies silu(x·a + c) to each input window
+    in shared memory as it lands, so the normalized tensor never reaches
+    device memory. It takes C % 32 == 0, O % 128 == 0 and C % groups == 0
+    (`gn_conv_plan`) and raises ValueError on anything else; elsewhere the
+    plain version. Forward only: on the card an input that needs a gradient
+    raises."""
     if not x.is_cuda:
         return _gn_silu_conv_xla(x, gn_scale, gn_bias, w, b, groups, eps)
     kernels.refuse_grad("gn_silu_conv3x3", x, gn_scale, gn_bias, w, b)
-    if x.shape[-1] % groups:
-        raise ValueError(f"gn_silu_conv3x3: {x.shape[-1]} channels in {groups} groups")
-    wk, bk, y = _conv_operands("gn_silu_conv3x3", x, w, b)
-    a, c = _gn_stats_affine(x, gn_scale, gn_bias, groups, eps)
-    fn = _build.function("conv2d", "sd_gn_silu_conv3x3_fwd",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), a.data_ptr(), c.data_ptr(),
-              y.data_ptr(), *x.shape, y.shape[-1], _build.stream_ptr(x.device))
-    _build.check(code, "sd_gn_silu_conv3x3_fwd")
+    y = _launch_gn_silu_conv(x, gn_scale, gn_bias, w, b, groups, eps)
     kernels.LAUNCHES["gn_silu_conv3x3"] += 1
+    kernels.LAUNCHES["gn_silu_conv_sm90"] += 1
     return y
 
 

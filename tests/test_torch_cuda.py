@@ -11,8 +11,10 @@ are counted under their routes and give the same bits twice; the int8-PV
 variants are held against the plain sweep at the TPU package's kv tile.
 The training forward runs the LSE epilogue of the Hopper forwards (counted
 under `flash_lse_sm90` / `flash_lse_wide`), the 3×3 conv the Hopper kernel
-`conv2d_sm90.cu` (held against `conv2d.cu`'s too), each giving the same
-bits twice. The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
+`conv2d_sm90.cu` (held against `conv2d.cu`'s too), and the fused GroupNorm
+→ SiLU → 3×3 conv `conv2d_gn_sm90.cu` (counted under `gn_silu_conv_sm90`,
+held against `conv2d.cu`'s `PRO` form; its statistics within 1e-5·max|ref|),
+each giving the same bits twice. The flash backward: lse2 within 1e-3 absolute; dq, dk, dv
 within 2e-2·max|ref| and ‖Δ‖₂ ≤ 1e-2·‖ref‖₂ (p and dS round to bf16 at 2⁻⁸
 and the sums run over up to 4096 rows); at head dims up to 128 it runs
 `flash_attention_bwd_sm90.cu` (counted under `flash_bwd_dq_sm90` /
@@ -469,6 +471,45 @@ def test_gn_silu_conv_kernel_on_card(cuda, shape):
     b = _rnd(cuda, O, scale=0.1)
     ref = conv2d._gn_silu_conv_xla(*(t.float() for t in (x, s, sb, w, b)), 32, 1e-6)
     _within(conv2d.gn_silu_conv3x3(x, s, sb, w, b), ref)
+
+
+# [B, H, W, C, O] of the fused Hopper kernel (conv2d_gn_sm90.cu): a decoder
+# shape, the ragged case, and C = 512 with H odd and W past a 128-pixel tile
+# (a block's last row and last pixel tile partial), O over two blocks
+GN_CONV_SHAPES = [(2, 256, 256, 512, 256), (1, 37, 50, 64, 128), (1, 75, 200, 512, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GN_CONV_SHAPES)
+def test_hopper_gn_silu_conv_kernel_on_card(cuda, shape):
+    """The fused Hopper kernel: one call on its route counter, within
+    1e-2·max|ref| of the fp32 plain version and of conv2d.cu's PRO form, the
+    same bits twice; its statistics pass within 1e-5·max|ref| of their fp32
+    plain version in the kernel's order of sums."""
+    B, H, W, C, O = shape
+    x = _rnd(cuda, B, H, W, C, scale=2.0) + 0.5
+    s, sb = 1 + _rnd(cuda, C, scale=0.1), _rnd(cuda, C, scale=0.1)
+    w = _rnd(cuda, O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(
+        memory_format=torch.channels_last)
+    b = _rnd(cuda, O, scale=0.1)
+    kernels.reset_launches()
+    out = conv2d.gn_silu_conv3x3(x, s, sb, w, b)
+    assert kernels.LAUNCHES["gn_silu_conv3x3"] == kernels.LAUNCHES["gn_silu_conv_sm90"] == 1
+    _within(out, conv2d._gn_silu_conv_xla(*(t.float() for t in (x, s, sb, w, b)), 32, 1e-6))
+    assert torch.equal(out, conv2d.gn_silu_conv3x3(x, s, sb, w, b))
+    _within(out, conv2d._launch_gn_silu_conv(x, s, sb, w, b, 32, 1e-6, "template"))
+    for got, ref in zip(conv2d._launch_gn_stats(x, s, sb, 32, 1e-6),
+                        conv2d._gn_stats_tiled_ref(x, s, sb, 32, 1e-6)):
+        _within(got, ref, 1e-5)
+
+
+@pytest.mark.cuda
+def test_gn_silu_conv_kernel_refuses_what_it_cannot_take(cuda):
+    for C, O, groups in ((48, 128, 8), (64, 64, 8), (64, 128, 24)):
+        x = _rnd(cuda, 1, 8, 8, C)
+        with pytest.raises(ValueError):
+            conv2d.gn_silu_conv3x3(x, _rnd(cuda, C), _rnd(cuda, C), _rnd(cuda, O, C, 3, 3),
+                                   _rnd(cuda, O), groups=groups)
 
 
 @pytest.mark.cuda
