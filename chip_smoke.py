@@ -137,11 +137,38 @@ Phases, each printed as one JSON line:
            seeded 256² images, batch 4: 1 warm-up and 4 timed steps; checks
            finite losses, the dtype policy and 2/2/2 launches per step, and
            prints s/step, img/s and peak memory.
+  ddpm_parity  one step of train_ddpm's recipe (`make_ddpm_trainer`) of
+           ddpm_256_train_config() at full width, batch 1, fp32: on the card
+           (TF32 off) against the CPU, same weights (every parameter random),
+           t, noise and cosine lr; the loss within 1e-4 relative, grad_norm
+           within 1e-3, the parameters after the step ‖Δ‖₂ ≤ 1e-3·‖ref‖₂; no
+           kernel launches (the config is fp32: no kernel takes it);
+  ddpm_train  train_ddpm(ddpm_256_train_config()) on seeded 256² images,
+           batch 6: 1 warm-up and 3 timed steps; checks finite losses, the lr
+           of each step equal to cosine_annealing's, an EMA shadow that moved,
+           a conv_out that left zero and no launches, and prints s/step,
+           img/s and peak memory;
+  vq_parity  one VQ GAN step of the full-width vq_128 model (argmin codebook),
+           PatchGAN and random-VGG LPIPS at 128², batch 2, `disc_start` 0,
+           every weight random: bf16 parameters with the kernels on the card
+           against fp32 plain on the card, every run quantizing to the codes
+           the kernel run chose (own choices that differ counted); each loss
+           term within 5e-2 relative, d_weight within 0.1, and the generator's
+           gradients (global and each mid-block AttnBlock q/k/v/proj_out
+           weight) within ‖Δg‖₂ ≤ 0.1·‖g‖₂ in the step without LPIPS and
+           discriminator (whose input gradients move ~10% for a 0.17% change
+           of the reconstruction; the full step's gradients are printed), and
+           2/2/2 training-kernel launches at [2, 1024, 1, 256] plus 2 combines;
+  vq_train  train_vq(vq_128_train_config(), bf16 parameters) on seeded 128²
+           images, batch 8: 1 warm-up and 3 timed steps with 2/2/2 launches a
+           step at [8, 1024, 1, 256]; then train_vq(vq_64_train_config()) (the
+           EMA codebook, fp32) for 3 steps: a codebook that moved and
+           perplexity > 1; s/step, img/s and peak memory of both.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
            bucket-4 generate, and the same for one optimizer step of
-           train_ldm and one step of train_kl_vae.
+           train_ldm, train_kl_vae, train_ddpm and train_vq.
 The build line carries the registers and spills of the flash kernels' head
 dim 256 and 512 instantiations, of the inference forwards (the pipelined
 sweep's at d ≤ 128 among them) and the Hopper backward at the path's head
@@ -151,11 +178,12 @@ wgmma serialization warning in the pipelined sweep's or GroupNorm's source,
 fails the run), and their dynamic shared memory (GroupNorm's at each opt-in
 shape's plan). The flash training kernels are also held at
 head dim 512 ([4, 1024, 1, 512], train_kl_vae's shape, [1, 4096, 1, 512]
-and a ragged [1, 1000, 1300, 1, 512]) and 256 ([6, 1024, 1, 256]), the
-backward there on `flash_attention_bwd_wide_sm90.cu`, with the backend
+and a ragged [1, 1000, 1300, 1, 512]) and 256 ([6, 1024, 1, 256] and
+train_vq's [8, 1024, 1, 256]), the backward there on
+`flash_attention_bwd_wide_sm90.cu`, with the backend
 `scaled_dot_product_attention` ran there; their row in the kernel table is
-train_kl_vae's shape and launches, with train_ldm's launches and the other
-shapes beside them.
+train_kl_vae's shape and launches, with train_ldm's and train_vq's launches
+and the other shapes beside them.
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero; without
 a CUDA device, or without the repository beside it, it exits non-zero before
@@ -268,6 +296,19 @@ EXPECTED_TRAIN_LAUNCHES = launches_of(flash_attention_lse=80, flash_lse_sm90=80,
 EXPECTED_KLVAE_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2,
                                       flash_lse_combine=2, flash_bwd_dq=2, flash_bwd_dkv=2,
                                       flash_bwd_dq_wide_sm90=2, flash_bwd_dkv_wide_sm90=2)
+# launches of one step of train_vq(vq_128_train_config()) under the bf16
+# parameter policy, 128², batch 8: the codec's two mid-block attentions
+# (encoder, decoder; [8, 1024, 1, 256]: ch 64 × 4 channels over 32² tokens)
+# in the one generator forward and its backward, no inference kernel; the
+# training forward at d = 256 on flash_attention_wide.cu's LSE epilogue (128
+# blocks: its kv sweep is not split), the backward on
+# flash_attention_bwd_wide_sm90.cu, one block a 64-row slab
+# (tests/test_torch_structure.py derives these)
+EXPECTED_VQ_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2, flash_bwd_dq=2,
+                                   flash_bwd_dkv=2, flash_bwd_dq_wide_sm90=2,
+                                   flash_bwd_dkv_wide_sm90=2)
+# ... and of the VQ parity step at batch 2, whose LSE sweep (32 blocks) splits
+VQ_PARITY_LAUNCHES = {**EXPECTED_VQ_LAUNCHES, "flash_lse_combine": 2}
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
@@ -324,14 +365,16 @@ TRAIN_GRAD_TOL = 0.1                             # ‖Δg‖₂ / ‖g‖₂, st
 TRAIN_STEPS = 3                                  # timed, after one warm-up step
 # [B, Sq, Skv, H, D] of the flash training kernels' checks: train_ldm's
 # self-attention at UNet levels 0 and 1, a ragged case, train_kl_vae's codec
-# mid-block at 256², a 512² codec's, a ragged case at d = 512, and the
-# 32² level of a bf16 train_ddpm (configs/ddpm_256_catdog.yaml, batch 6,
-# 256 channels; on no path yet), last so that it shifts no other check's
-# inputs
+# mid-block at 256², a 512² codec's, a ragged case at d = 512, the 32² level
+# of configs/ddpm_256_catdog.yaml (batch 6, 256 channels; on no path: the
+# config is fp32 and the port has no bf16-compute policy for it), and
+# train_vq's codec mid-block under the bf16 policy (vq_128_train_config(),
+# batch 8); each added last, so that it shifts no other check's inputs
 KLVAE_ATTN_SHAPE = (4, 1024, 1024, 1, 512)
+VQ_ATTN_SHAPE = (8, 1024, 1024, 1, 256)
 TRAIN_KERNEL_SHAPES = ((1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80), (1, 1000, 1300, 8, 40),
                        KLVAE_ATTN_SHAPE, (1, 4096, 4096, 1, 512), (1, 1000, 1300, 1, 512),
-                       (6, 1024, 1024, 1, 256))
+                       (6, 1024, 1024, 1, 256), VQ_ATTN_SHAPE)
 # the KL-VAE parity gates, stated before measuring: each loss term within
 # 5e-2 relative, d_weight within 0.1 relative (a ratio of two bf16 gradient
 # norms), generator gradients ‖Δg‖₂ ≤ 0.1·‖g‖₂ (a dropped gradient reads ≈ 1.0)
@@ -339,6 +382,13 @@ KLVAE_LOSS_TOL = 5e-2
 KLVAE_DWEIGHT_TOL = 0.1
 KLVAE_GRAD_TOL = 0.1
 KLVAE_STEPS = 4                                  # timed, after one warm-up step
+# the DDPM parity gates (fp32 on the card, TF32 off, against fp32 on the CPU),
+# stated before measuring: the loss within 1e-4 relative, grad_norm within
+# 1e-3, the parameters after the step ‖Δ‖₂ ≤ 1e-3·‖ref‖₂
+DDPM_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "params_l2_rel": 1e-3}
+DDPM_STEPS = 3                                   # timed, after one warm-up step
+VQ_STEPS = 3                                     # timed, after one warm-up step
+VQ_EMA_STEPS = 3
 # the inference variants' kernel checks: the serving path's shapes (bucket 4:
 # the UNet at batch 8, the decoder at batch 4), a ragged d = 512 case, and
 # the shape where the TPU package states the int8 contract
@@ -2179,34 +2229,405 @@ def phase_klvae_train() -> dict:
     return row
 
 
-def phase_klvae_profile() -> None:
-    """Where one train_kl_vae step goes (`--profile`): the second step of a
-    two-step run under torch.profiler, by kernel family, and its busy
-    share."""
+def _profile_second_step(trainer, cfg: dict, of: str, seed: int) -> None:
+    """Where one step of `trainer(cfg, batches)` goes (`--profile`): the
+    second step of a two-step run under torch.profiler, by kernel family,
+    and its busy share."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sd_tpu_torch.train.runners import train_kl_vae
-
-    cfg = _klvae_config()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     start = []
 
     def batches():
-        first, second = _image_batches(cfg["train"], 2, np.random.default_rng(4))
+        first, second = _image_batches(cfg["train"], 2, np.random.default_rng(seed))
         yield first
         torch.cuda.synchronize()
         prof.start()
         start.append(time.perf_counter())
         yield second
 
-    _, hist = train_kl_vae(cfg, batches(), max_steps=2)
+    _, hist = trainer(cfg, batches(), max_steps=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start[0]
     prof.stop()
-    emit({"phase": "profile", "of": "train_kl_vae step", "step_seconds": hist[1]["seconds"],
+    emit({"phase": "profile", "of": of, "step_seconds": hist[1]["seconds"],
           **_device_breakdown(prof, wall)})
+
+
+def phase_trainer_profiles() -> None:
+    """The profiled step of train_kl_vae, train_ddpm and train_vq (the bf16
+    policy), each `_profile_second_step`."""
+    from sd_tpu_torch.core.config import ddpm_256_train_config
+    from sd_tpu_torch.train.runners import train_ddpm, train_kl_vae, train_vq
+
+    _profile_second_step(train_kl_vae, _klvae_config(), "train_kl_vae step", 4)
+    _profile_second_step(train_ddpm, ddpm_256_train_config(), "train_ddpm step", 8)
+    _profile_second_step(train_vq, _vq_config(), "train_vq step", 9)
+
+
+def phase_ddpm_parity() -> dict:
+    """One step of the train_ddpm recipe (`make_ddpm_trainer`) of
+    ddpm_256_train_config() at full width, batch 1, fp32: on the card (TF32
+    off) against the CPU, same weights (every parameter random, the
+    zero-initialised head too, so that the gradient reaches every layer), t,
+    noise and cosine lr. The loss, grad_norm and the parameters after clip
+    + Adam against DDPM_TOL; no kernel launches (the config is fp32)."""
+    import math
+
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import ddpm_256_train_config
+    from sd_tpu_torch.models.unet_ddpm import UNetDDPM
+    from sd_tpu_torch.train.runners import make_ddpm_trainer
+    from sd_tpu_torch.weights import randomize_params_
+
+    cfg = ddpm_256_train_config()
+    mp, px = cfg["model"]["params"], cfg["train"]["image_size"]
+    g = torch.Generator().manual_seed(6)
+    cpu = UNetDDPM(**mp, device="cpu")
+    randomize_params_(cpu, g)
+    gpu = UNetDDPM(**mp, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    batch = {"image": torch.rand(1, px, px, 3, generator=g) * 2 - 1,
+             "t": torch.tensor([500]), "noise": torch.randn(1, px, px, 3, generator=g)}
+
+    def run(model, dev):
+        state, step = make_ddpm_trainer(cfg, model)
+        logs = step(state, {k: v.to(dev) for k, v in batch.items()})
+        return ({k: float(v) for k, v in logs.items()},
+                {n: p.detach().cpu() for n, p in state.params.items()})
+
+    kernels.reset_launches()
+    logs_gpu, p_gpu = run(gpu, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    logs_cpu, p_cpu = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    norm = lambda ts: math.sqrt(sum(float((t.double() ** 2).sum()) for t in ts))
+    params_rel = norm(p_gpu[n] - p_cpu[n] for n in p_cpu) / norm(p_cpu.values())
+    update_rel = (norm((p_gpu[n] - init[n]) - (p_cpu[n] - init[n]) for n in p_cpu)
+                  / norm(p_cpu[n] - init[n] for n in p_cpu))
+    row = {"phase": "ddpm_parity", "images": [1, px, px, 3], "logs_gpu": logs_gpu,
+           "logs_cpu": logs_cpu, "loss_rel": rel(logs_gpu["loss"], logs_cpu["loss"]),
+           "grad_norm_rel": rel(logs_gpu["grad_norm"], logs_cpu["grad_norm"]),
+           "params_l2_rel": params_rel, "update_l2_rel": update_rel,
+           "params": sum(p.numel() for p in p_cpu.values()), "bounds": DDPM_TOL,
+           "launches": {k: v for k, v in launches.items() if v}, "cpu_seconds": cpu_s}
+    emit(row)
+    require(all(math.isfinite(v) for v in logs_gpu.values()), "finite DDPM logs on the card")
+    require(row["loss_rel"] <= DDPM_TOL["loss_rel"]
+            and row["grad_norm_rel"] <= DDPM_TOL["grad_norm_rel"]
+            and params_rel <= DDPM_TOL["params_l2_rel"],
+            f"DDPM step within {DDPM_TOL}: loss {row['loss_rel']:.3g}, grad_norm "
+            f"{row['grad_norm_rel']:.3g}, params {params_rel:.3g}")
+    require(not any(launches.values()), f"no kernel launches in the fp32 DDPM step: {launches}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ddpm_train() -> dict:
+    """train_ddpm(ddpm_256_train_config()) at full width (256², batch 6,
+    fp32, cosine lr), every weight random from the config's seed, on seeded
+    uint8-range images: 1 warm-up and DDPM_STEPS timed steps. Checks finite
+    losses, the lr of each step (the optimizer's calls of the schedule)
+    equal to `cosine_annealing`, an fp32 EMA shadow that moved, a
+    `conv_out` that left zero, and no kernel launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import ddpm_256_train_config
+    from sd_tpu_torch.models.unet_ddpm import UNetDDPM
+    from sd_tpu_torch.train import runners
+    from sd_tpu_torch.train.lr_schedules import cosine_annealing
+    from sd_tpu_torch.weights import init_params_
+
+    cfg = ddpm_256_train_config()
+    tc = cfg["train"]
+    steps = 1 + DDPM_STEPS
+    # the weights train_ddpm starts from: the same build from the same seed
+    model = UNetDDPM(**cfg["model"]["params"], device="cuda")
+    init_params_(model, torch.Generator("cuda").manual_seed(cfg["seed"]))
+    init = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model
+    lrs, make_lr = [], runners.make_lr
+
+    def recording_lr(train_cfg):
+        fn = make_lr(train_cfg)
+
+        def lr(step):
+            lrs.append((step, fn(step)))
+            return lrs[-1][1]
+        return lr
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(runners, "make_lr", recording_lr):
+        state, hist = runners.train_ddpm(cfg, _image_batches(tc, steps, np.random.default_rng(5)),
+                                         max_steps=steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    timed = [r["seconds"] for r in hist[1:]]
+    sec = sum(timed) / len(timed)
+    want_lr = cosine_annealing(tc["lr"], tc["total_steps"])
+    ema_moved = sum(int((s.cpu() != init[n]).sum()) for n, s in state.ema.shadow.items())
+    row = {"phase": "ddpm_train", "steps": len(hist), "timed_step_seconds": timed,
+           "seconds_per_step": sec, "images_per_second": tc["batch_size"] / sec,
+           "run_seconds": run_s, "peak_memory_gb": peak_gb,
+           "losses": [r["loss"] for r in hist], "grad_norms": [r["grad_norm"] for r in hist],
+           "lrs": lrs, "params": sum(p.numel() for p in state.params.values()),
+           "ema_elements_moved": ema_moved,
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(row)
+    require(len(hist) == steps, f"{steps} DDPM steps, ran {len(hist)}")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+                for r in hist), "finite losses and grad_norm > 0 on every step")
+    require(lrs == [(i, want_lr(i)) for i in range(steps)],
+            f"the lr of each step is cosine_annealing's: {lrs}")
+    require(all(s.dtype == torch.float32 for s in state.ema.shadow.values()) and ema_moved > 0,
+            "an fp32 EMA shadow that moved")
+    require(bool(state.params["conv_out.weight"].any()), "conv_out left zero")
+    require(not any(launches.values()), f"no kernel launches on the fp32 DDPM path: {launches}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def _vq_config() -> dict:
+    """vq_128_train_config() under the bf16 parameter policy."""
+    from sd_tpu_torch.core.config import vq_128_train_config
+
+    cfg = vq_128_train_config()
+    cfg["train"]["param_dtype"] = "bfloat16"
+    return cfg
+
+
+def phase_vq_parity() -> dict:
+    """One VQ GAN step of the full-width vq_128 model (argmin codebook),
+    PatchGAN and random-VGG LPIPS at 128², batch 2, `disc_start` 0, every
+    weight random (bf16-rounded): bf16 parameters with the kernels on the
+    card against fp32 plain on the card (TF32 off), same weights and images;
+    each loss term and d_weight against the KL-VAE parity's gates, the
+    launches of VQ_PARITY_LAUNCHES. The generator's gradients (global and at
+    each mid-block AttnBlock q/k/v/proj_out weight) are held to
+    KLVAE_GRAD_TOL in the same step without the two terms whose gradient
+    with respect to the reconstruction is ill-conditioned (the random-VGG
+    LPIPS and the discriminator: a 0.17% change of their input moves it by
+    ~10% and ~8%), which the KL step's clamped adaptive weight (1e4·0.5)
+    keeps small and the VQ step's mean nll does not; the full step's
+    gradients are reported beside them. Each step runs once more in bf16
+    with the attention on its plain version: what the bf16 policy alone
+    moves, and how far the kernels are from it."""
+    import contextlib
+    import copy
+    import math
+
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.losses.gan import GanLossConfig
+    from sd_tpu_torch.models import quantize
+    from sd_tpu_torch.models.autoencoder import VQModel
+    from sd_tpu_torch.models.discriminator import NLayerDiscriminator
+    from sd_tpu_torch.models.lpips import make_lpips_fn
+    from sd_tpu_torch.train.gan import init_gan_state, make_vq_gan_train_step
+    from sd_tpu_torch.weights import randomize_params_
+
+    cfg = _vq_config()
+    mp, B, px = cfg["model"]["params"], 2, cfg["train"]["image_size"]
+    g = torch.Generator("cuda").manual_seed(7)
+    vq = VQModel(**mp, dtype=torch.float32, device="cuda")
+    disc = NLayerDiscriminator(**cfg["discriminator"], dtype=torch.float32, device="cuda")
+    for module in (vq, disc):
+        randomize_params_(module, g)
+        with torch.no_grad():
+            for p in module.parameters():  # the bf16 runs' weights are these
+                p.copy_(p.bfloat16().float())
+    lpips_fn = make_lpips_fn(mode="random", device="cuda")
+    x = torch.rand(B, px, px, 3, generator=g, device="cuda") * 2 - 1
+    full = GanLossConfig(**{**cfg["loss"], "disc_start": 0})
+    # the reconstruction and codebook terms alone: no LPIPS, disc_factor 0
+    rec_only = GanLossConfig(**{**cfg["loss"], "perceptual_weight": 0.0, "disc_start": 1})
+
+    # every run quantizes to the codes the first kernel run chose (the
+    # argmin flips at near-ties under any rounding); each run's own choice
+    # differing from them is counted
+    own_nearest, codes, flips = quantize._nearest_code, [], []
+
+    def nearest(z, e):
+        own = own_nearest(z, e)
+        if not codes:
+            codes.append(own)
+            return own
+        flips.append(int((own != codes[0]).sum()))
+        return codes[0]
+
+    def run(param_dtype, loss_cfg, plain=False):
+        model, d = copy.deepcopy(vq), copy.deepcopy(disc)
+        opt_g, opt_d = _GradRecorder(), _GradRecorder()
+        state = init_gan_state(model, d, opt_g, opt_d, param_dtype=param_dtype)
+        step = make_vq_gan_train_step(
+            lambda x, _, temp: model(x, temp=temp, update=True, deterministic=False), d,
+            lpips_fn if loss_cfg.perceptual_weight > 0 else None, opt_g, opt_d, loss_cfg)
+        with (mock.patch("sd_tpu_torch.kernels.attention.flash_ok", lambda q, k: False)
+              if plain else contextlib.nullcontext()), \
+                mock.patch.object(quantize, "_nearest_code", nearest):
+            logs = {k: float(v) for k, v in step(state, x, None).items()}
+        return logs, dict(zip(state.params_g, opt_g.grads))
+
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    global_rel = lambda a, b: math.sqrt(sum(((a[n] - b[n]) ** 2).sum().item() for n in b)
+                                        / sum((b[n] ** 2).sum().item() for n in b))
+    attn_names = [n for n, _ in vq.named_parameters()
+                  if ".AttnBlock_0." in n and n.endswith(("q.weight", "k.weight", "v.weight",
+                                                          "proj_out.weight"))]
+    attn_rel = lambda a, b: {n: l2_rel(a[n], b[n]) for n in attn_names}
+    terms = ("total_loss", "nll_loss", "quant_loss", "g_loss", "rec_loss", "disc_loss")
+
+    kernels.reset_launches()
+    logs16, grads16 = run(torch.bfloat16, full)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    logs32, grads32 = run(None, full)
+    logs_plain, grads_plain = run(torch.bfloat16, full, plain=True)
+    rlogs16, rgrads16 = run(torch.bfloat16, rec_only)
+    rlogs32, rgrads32 = run(None, rec_only)
+    rlogs_plain, rgrads_plain = run(torch.bfloat16, rec_only, plain=True)
+    loss_rel = {t: rel(logs16[f"train/{t}"], logs32[f"train/{t}"]) for t in terms}
+    row = {"phase": "vq_parity", "images": [B, px, px, 3], "logs_bf16": logs16,
+           "logs_fp32": logs32, "loss_rel": loss_rel, "codes": codes[0].numel(),
+           # fp32, bf16 plain, bf16 rec-only, fp32 rec-only, bf16 plain rec-only
+           "own_code_flips": flips,
+           "d_weight_rel": rel(logs16["train/d_weight"], logs32["train/d_weight"]),
+           "launches": {k: v for k, v in launches.items() if v},
+           "rec_only": {"grad_l2_rel": global_rel(rgrads16, rgrads32),
+                        "attn_l2_rel": attn_rel(rgrads16, rgrads32),
+                        "loss_rel": {t: rel(rlogs16[f"train/{t}"], rlogs32[f"train/{t}"])
+                                     for t in ("total_loss", "nll_loss", "quant_loss")},
+                        "bf16_plain_vs_fp32": global_rel(rgrads_plain, rgrads32),
+                        "kernels_vs_bf16_plain": global_rel(rgrads16, rgrads_plain),
+                        "attn_kernels_vs_bf16_plain": attn_rel(rgrads16, rgrads_plain)},
+           "full_step_grads": {"grad_l2_rel": global_rel(grads16, grads32),
+                               "attn_l2_rel": attn_rel(grads16, grads32),
+                               "bf16_plain_vs_fp32": global_rel(grads_plain, grads32),
+                               "kernels_vs_bf16_plain": global_rel(grads16, grads_plain)},
+           "bf16_plain_vs_fp32_loss_rel": {
+               t: rel(logs_plain[f"train/{t}"], logs32[f"train/{t}"]) for t in terms},
+           "bounds": {"loss_rel": KLVAE_LOSS_TOL, "d_weight_rel": KLVAE_DWEIGHT_TOL,
+                      "rec_only_grad_l2_rel": KLVAE_GRAD_TOL}}
+    emit(row)
+    rec = row["rec_only"]
+    require(len(attn_names) == 8, f"8 mid-block AttnBlock q/k/v/proj_out weights: {attn_names}")
+    require(all(math.isfinite(v) for v in (*logs16.values(), *rlogs16.values())),
+            "finite bf16 logs")
+    require(max(loss_rel.values()) <= KLVAE_LOSS_TOL, f"loss terms within {KLVAE_LOSS_TOL}: {loss_rel}")
+    require(row["d_weight_rel"] <= KLVAE_DWEIGHT_TOL,
+            f"d_weight within {KLVAE_DWEIGHT_TOL}: {row['d_weight_rel']:.3g}")
+    require(rec["grad_l2_rel"] <= KLVAE_GRAD_TOL and max(rec["attn_l2_rel"].values())
+            <= KLVAE_GRAD_TOL, f"generator gradients within {KLVAE_GRAD_TOL}: global "
+            f"{rec['grad_l2_rel']:.3g}, attention up to {max(rec['attn_l2_rel'].values()):.3g}")
+    require(launches == VQ_PARITY_LAUNCHES, f"VQ parity launches {launches} == {VQ_PARITY_LAUNCHES}")
+    del vq, disc, lpips_fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_vq_train() -> dict:
+    """train_vq(vq_128_train_config(), bf16 parameters) at full width,
+    every weight random from the config's seed, on seeded uint8-range 128²
+    images, batch 8: 1 warm-up and VQ_STEPS timed steps, launch counts over
+    the whole run (EXPECTED_VQ_LAUNCHES a step); then train_vq(
+    vq_64_train_config()) (the EMA codebook, fp32 as written) for
+    VQ_EMA_STEPS steps: a codebook that moved, fp32 buffers no optimizer
+    sees, perplexity > 1 on every step. Prints s/step, img/s and peak memory
+    of both."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import vq_64_train_config
+    from sd_tpu_torch.models.autoencoder import VQModel
+    from sd_tpu_torch.train.runners import train_vq
+    from sd_tpu_torch.weights import init_params_
+
+    def run(cfg, steps, seed):
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist = train_vq(cfg, _image_batches(cfg["train"], steps,
+                                                   np.random.default_rng(seed)),
+                               max_steps=steps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        timed = [r["seconds"] for r in hist[1:]]
+        sec = sum(timed) / len(timed)
+        row = {"config": cfg["model"]["params"].get("quantizer_type", "vq"),
+               "images": [cfg["train"]["batch_size"], *[cfg["train"]["image_size"]] * 2, 3],
+               "param_dtype": cfg["train"].get("param_dtype") or "float32",
+               "steps": len(hist), "timed_step_seconds": timed, "seconds_per_step": sec,
+               "images_per_second": cfg["train"]["batch_size"] / sec, "run_seconds": run_s,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+               "losses": {k[len("train/"):]: [r[k] for r in hist] for k in hist[0]
+                          if k.startswith("train/")},
+               "params_g": sum(p.numel() for n, p in state.params_g.items() if n != "logvar"),
+               "launches": launches,
+               "launches_per_step": {k: v / steps for k, v in launches.items()}}
+        require(len(hist) == steps, f"{steps} VQ steps, ran {len(hist)}")
+        require(all(math.isfinite(v) for r in hist for v in r.values()), "finite VQ logs")
+        return state, hist, row
+
+    cfg = _vq_config()
+    steps = 1 + VQ_STEPS
+    state, _, row = run(cfg, steps, 6)
+    emit({"phase": "vq_train", **row})
+    gen_params = [p for n, p in state.params_g.items() if n != "logvar"]
+    moments = (state.opt_state_g.mu + state.opt_state_g.nu
+               + state.opt_state_d.mu + state.opt_state_d.nu)
+    require(all(p.dtype == torch.bfloat16 for p in gen_params + list(state.params_d.values()))
+            and state.params_g["quantize.weight"].dtype == torch.bfloat16,
+            "bf16 generator (codebook included) and discriminator parameters")
+    require(state.params_g["logvar"].dtype == torch.float32
+            and all(m.dtype == torch.float32 for m in moments), "fp32 logvar and Adam moments")
+    want = {k: v * steps for k, v in EXPECTED_VQ_LAUNCHES.items()}
+    require(row["launches"] == want, f"VQ train launches {row['launches']} == {want}")
+    del state
+    torch.cuda.empty_cache()
+
+    cfg64 = vq_64_train_config()
+    model = VQModel(**cfg64["model"]["params"], device="cuda")
+    init_params_(model, torch.Generator("cuda").manual_seed(cfg64["seed"]))
+    init = model.quantize.weight.detach().clone()
+    del model
+    state64, hist64, row64 = run(cfg64, VQ_EMA_STEPS, 7)
+    book = state64.model_state
+    row64["codebook_elements_moved"] = int((book["quantize.weight"] != init).sum())
+    row64["perplexity"] = [r["train/perplexity"] for r in hist64]
+    emit({"phase": "vq_train_ema", **row64})
+    require(sorted(book) == ["quantize.cluster_size", "quantize.embed_avg", "quantize.weight"]
+            and all(b.dtype == torch.float32 for b in book.values())
+            and not any(n.startswith("quantize.") for n in state64.params_g),
+            "the EMA codebook: fp32 buffers outside the optimizer")
+    require(row64["codebook_elements_moved"] > 0 and bool(book["quantize.cluster_size"].any()),
+            "an EMA codebook that moved")
+    require(all(p > 1 for p in row64["perplexity"]), f"perplexity > 1: {row64['perplexity']}")
+    del state64
+    torch.cuda.empty_cache()
+    return row
 
 
 def ptxas_report(log: str, keep) -> dict:
@@ -2828,8 +3249,12 @@ def main() -> int:
         phase_train_profile()
     phase_klvae_parity()
     klvae = phase_klvae_train()
+    phase_ddpm_parity()
+    phase_ddpm_train()
+    phase_vq_parity()
+    vq = phase_vq_train()
     if profiling:
-        phase_klvae_profile()
+        phase_trainer_profiles()
 
     # each kernel's launches on its main path: generate for the inference
     # kernels, the opt-in generate for the opt-in ones, the train_ldm run for
@@ -2995,9 +3420,11 @@ def main() -> int:
                                                                      DECODER_CONV_LAUNCHES)]
         if name in train_rows:
             row.update(launches_by_path={"train_kl_vae": klvae["launches"][name],
-                                         "train_ldm": train["launches"][name]},
+                                         "train_ldm": train["launches"][name],
+                                         "train_vq": vq["launches"][name]},
                        launches_per_step={"train_kl_vae": klvae["launches_per_step"][name],
-                                          "train_ldm": train["launches_per_step"][name]},
+                                          "train_ldm": train["launches_per_step"][name],
+                                          "train_vq": vq["launches_per_step"][name]},
                        library_backend=r["library_backend"], other_shapes=r["other_shapes"],
                        **{k: r[k] for k in (*sdpa_keys, *rows_keys) if k in r})
         rows.append(row)

@@ -2,10 +2,15 @@
 
 `sd_v1_config()` is `configs/sd_txt2img.yaml` (the SD-v1 text-to-image
 recipe), `sd512_train_config()` is `configs/sd512_catdog.yaml` (the SD-v1
-latent-diffusion training recipe at 512² pixels) and
+latent-diffusion training recipe at 512² pixels),
 `kl_f8_256_train_config()` is `configs/kl_f8_256_catdog.yaml` (the KL-f8
-first stage's GAN training at 256²) as dicts, so the port runs where PyYAML
-is not installed.
+first stage's GAN training at 256²), `ddpm_256_train_config()` is
+`configs/ddpm_256_catdog.yaml` (pixel-space DDPM at 256²),
+`vq_128_train_config()` and `vq_64_train_config()` are
+`configs/vq_128_catdog.yaml` and `configs/vq_64_catdog.yaml` (VQ-VAE GAN
+training, argmin and EMA codebooks), and `ddpm_smoke_config()` /
+`vq_smoke_config()` the tiny `configs/ddpm_smoke.yaml` / `vq_smoke.yaml`,
+as dicts, so the port runs where PyYAML is not installed.
 """
 
 from __future__ import annotations
@@ -87,6 +92,98 @@ def kl_f8_256_train_config() -> dict:
         "discriminator": {"ndf": 64, "n_layers": 3, "use_actnorm": False},
         "train": {"image_size": 256, "batch_size": 4, "lr": 1.0e-4, "ema_decay": None,
                   "total_steps": 2600, "eval_every": 250, "checkpoint_every": 1000},
+    }
+
+
+def ddpm_256_train_config() -> dict:
+    """`configs/ddpm_256_catdog.yaml`: the reference's pixel-space DDPM at
+    256², the 128-channel (1, 1, 2, 2, 4) UNet with attention at level 3
+    (32², 256 channels), plain linear β 1e-4 → 1e-2 over T = 1000, batch 6,
+    lr 1e-4 on a cosine schedule over 2000 steps, clip 1, EMA 0.999; fp32."""
+    return {
+        "task": "ddpm",
+        "seed": 42,
+        "model": {"target": "sd_tpu.models.unet_ddpm.UNetDDPM",
+                  "params": {"base_channels": 128, "ch_mult": [1, 1, 2, 2, 4],
+                             "attn_levels": [3], "num_res_blocks": 2, "out_channels": 3}},
+        "diffusion": {"timesteps": 1000, "beta_schedule": "sqrt_linear",
+                      "linear_start": 1.0e-4, "linear_end": 1.0e-2},
+        "train": {"image_size": 256, "batch_size": 6, "lr": 1.0e-4, "grad_clip": 1.0,
+                  "lr_schedule": "cosine", "total_steps": 2000, "ema_decay": 0.999,
+                  "eval_every": 500, "checkpoint_every": 1000},
+        "sample": {"num_images": 16},
+    }
+
+
+def ddpm_smoke_config() -> dict:
+    """`configs/ddpm_smoke.yaml`: a 16² DDPM, base 16, (1, 2), attention at
+    level 1, T = 50, batch 2, constant lr 1e-3."""
+    return {
+        "task": "ddpm",
+        "seed": 0,
+        "model": {"target": "sd_tpu.models.unet_ddpm.UNetDDPM",
+                  "params": {"base_channels": 16, "ch_mult": [1, 2], "attn_levels": [1],
+                             "num_res_blocks": 1, "out_channels": 3}},
+        "diffusion": {"timesteps": 50, "beta_schedule": "sqrt_linear",
+                      "linear_start": 1.0e-4, "linear_end": 1.0e-2},
+        "train": {"image_size": 16, "batch_size": 2, "lr": 1.0e-3, "grad_clip": 1.0,
+                  "total_steps": 10, "ema_decay": 0.999, "eval_every": 10,
+                  "checkpoint_every": 5},
+        "sample": {"num_images": 2},
+    }
+
+
+def _vq_gan_config(model_params: dict, image_size: int) -> dict:
+    """The cat/dog VQ-VAE GAN recipe around `model_params`: L1 + LPIPS +
+    codebook loss and a hinge PatchGAN (ndf 64, 3 layers, BatchNorm) from
+    step 2000, batch 8, lr 1e-4."""
+    return {
+        "task": "vq",
+        "seed": 42,
+        "model": {"target": "sd_tpu.models.autoencoder.VQModel", "params": model_params},
+        "loss": {"disc_start": 2000, "disc_weight": 0.75, "codebook_weight": 1.0,
+                 "perceptual_weight": 1.0, "disc_loss": "hinge"},
+        "discriminator": {"ndf": 64, "n_layers": 3, "use_actnorm": False},
+        "train": {"image_size": image_size, "batch_size": 8, "lr": 1.0e-4, "ema_decay": None,
+                  "total_steps": 3000, "eval_every": 250, "checkpoint_every": 1000},
+    }
+
+
+def vq_128_train_config() -> dict:
+    """`configs/vq_128_catdog.yaml`: an f4 VQ model (ch 64, mult (1, 2, 4),
+    2 res blocks, embed 3, 1024 argmin codes, legacy β 0.25) at 128², whose
+    mid-block attention runs at 32² × 256 channels. fp32 as written; under
+    `train.param_dtype: bfloat16` that attention takes the flash training
+    kernels at d = 256."""
+    return _vq_gan_config({"n_embed": 1024, "embed_dim": 3, "ch": 64, "ch_mult": [1, 2, 4],
+                           "num_res_blocks": 2, "attn_resolutions": [], "resolution": 128,
+                           "z_channels": 3, "beta": 0.25, "legacy": True}, 128)
+
+
+def vq_64_train_config() -> dict:
+    """`configs/vq_64_catdog.yaml`: an f4 VQ model (ch 32, mult (1, 2, 4),
+    embed 3) with a 256-code EMA codebook (decay 0.99) at 64²; fp32."""
+    return _vq_gan_config({"quantizer_type": "ema", "n_embed": 256, "embed_dim": 3, "ch": 32,
+                           "ch_mult": [1, 2, 4], "num_res_blocks": 2, "attn_resolutions": [],
+                           "resolution": 64, "z_channels": 3, "beta": 0.25,
+                           "ema_decay": 0.99}, 64)
+
+
+def vq_smoke_config() -> dict:
+    """`configs/vq_smoke.yaml`: a 32² VQ model (ch 16, (1, 2), 64 codes of
+    width 4) with an ActNorm PatchGAN (ndf 8, 1 layer) from step 0."""
+    return {
+        "task": "vq",
+        "seed": 0,
+        "model": {"target": "sd_tpu.models.autoencoder.VQModel",
+                  "params": {"n_embed": 64, "embed_dim": 4, "ch": 16, "ch_mult": [1, 2],
+                             "num_res_blocks": 1, "attn_resolutions": [], "resolution": 32,
+                             "z_channels": 4}},
+        "loss": {"disc_start": 0, "disc_weight": 0.75, "codebook_weight": 1.0,
+                 "perceptual_weight": 0.0, "disc_loss": "hinge"},
+        "discriminator": {"ndf": 8, "n_layers": 1, "use_actnorm": True},
+        "train": {"image_size": 32, "batch_size": 2, "lr": 1.0e-4, "total_steps": 3,
+                  "checkpoint_every": 3},
     }
 
 

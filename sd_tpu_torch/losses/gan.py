@@ -3,7 +3,9 @@
 Counterpart of `sd_tpu/losses/gan.py`: the hinge and vanilla discriminator
 losses, the `adopt_weight` warm-up gate, the adaptive discriminator weight
 ‖∇nll‖ / ‖∇g‖ at the decoder's last layer, the loss configuration and the
-L1 + LPIPS reconstruction NLL under a learned global logvar. The last-layer
+L1 + LPIPS reconstruction NLL under a learned global logvar, summed over a
+sample and averaged over the batch (the KL trainer's) or averaged over every
+element (the VQ trainer's, the taming convention). The last-layer
 gradients come from `torch.autograd.grad` in `sd_tpu_torch.train.gan`.
 """
 
@@ -61,14 +63,30 @@ class GanLossConfig:
         return hinge_d_loss if self.disc_loss == "hinge" else vanilla_d_loss
 
 
+def _rec_map(x: torch.Tensor, recon: torch.Tensor, perceptual: torch.Tensor | None,
+             cfg: GanLossConfig) -> torch.Tensor:
+    """The weighted L1 map plus the LPIPS distance [B, 1, 1, 1], in fp32."""
+    rec = cfg.pixelloss_weight * (x.float() - recon.float()).abs()
+    if perceptual is not None and cfg.perceptual_weight > 0:
+        rec = rec + cfg.perceptual_weight * perceptual.float()
+    return rec
+
+
 def reconstruction_nll(x: torch.Tensor, recon: torch.Tensor, logvar: torch.Tensor,
                        perceptual: torch.Tensor | None, cfg: GanLossConfig
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(nll_loss, rec_loss_mean, weighted_nll): L1 plus the LPIPS map
     [B, 1, 1, 1] (or None) under the learned global logvar, in fp32."""
-    rec = cfg.pixelloss_weight * (x.float() - recon.float()).abs()
-    if perceptual is not None and cfg.perceptual_weight > 0:
-        rec = rec + cfg.perceptual_weight * perceptual.float()
+    rec = _rec_map(x, recon, perceptual, cfg)
     nll = rec / torch.exp(logvar) + logvar
     nll_loss = nll.sum() / x.shape[0]
     return nll_loss, rec.mean(), nll_loss
+
+
+def vq_reconstruction_nll(x: torch.Tensor, recon: torch.Tensor, logvar: torch.Tensor,
+                          perceptual: torch.Tensor | None, cfg: GanLossConfig
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nll_loss, rec_loss_mean) of the VQ trainer: the same L1 + LPIPS map
+    under the logvar, its MEAN over every element, in fp32."""
+    rec = _rec_map(x, recon, perceptual, cfg)
+    return (rec / torch.exp(logvar) + logvar).mean(), rec.mean()

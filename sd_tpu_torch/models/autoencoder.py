@@ -1,13 +1,18 @@
-"""KL autoencoder.
+"""First-stage autoencoders: the KL autoencoder and the VQ model.
 
-Counterpart of `sd_tpu/models/autoencoder.py` `AutoencoderKL`: `encode` is
+Counterpart of `sd_tpu/models/autoencoder.py` `AutoencoderKL` and `VQModel`.
+`AutoencoderKL`: `encode` is
 the encoder, then `quant_conv` to the posterior's moments, a
 `DiagonalGaussian`; `decode` is post_quant_conv followed by the decoder;
 calling the module runs encode → posterior sample (or mode) → decode and
 returns `(recon, posterior)`, as the TPU package's `__call__` does and as
 the GAN step (`sd_tpu_torch.train.gan`) uses it. The module holds the TPU
 package's whole KL tree (`encoder`, `decoder`, `quant_conv`,
-`post_quant_conv`). `VQModel` and `IdentityFirstStage` are not ported yet.
+`post_quant_conv`). `VQModel`: the encoder (single z), `quant_conv`, one of
+the three quantizer families (`models/quantize.py`), `post_quant_conv`, the
+decoder; calling it returns `(recon, codebook_loss, (perplexity, None,
+indices))`, the TPU package's contract. `IdentityFirstStage` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -20,7 +25,15 @@ from torch import nn
 from sd_tpu_torch.core.config import resolve_device
 from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.models.codec import Decoder, Encoder
+from sd_tpu_torch.models.quantize import EMAVectorQuantizer, GumbelQuantize, VectorQuantizer
 from sd_tpu_torch.nn.layers import Conv2d
+
+
+def _refuse_unported(attn_resolutions, dropout: float = 0.0) -> None:
+    if tuple(attn_resolutions):
+        raise NotImplementedError("per-level codec attention is not ported")
+    if dropout:
+        raise NotImplementedError("codec dropout > 0 is not ported yet (ROADMAP Queue 1)")
 
 
 class AutoencoderKL(nn.Module):
@@ -36,8 +49,7 @@ class AutoencoderKL(nn.Module):
         # `resolution` only places per-level attention (`attn_resolutions`),
         # which SD-v1 does not use and the port does not have yet
         del resolution
-        if tuple(attn_resolutions):
-            raise NotImplementedError("per-level codec attention is not ported")
+        _refuse_unported(attn_resolutions)
         kw = dict(dtype=dtype, device=resolve_device(device))
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
                                z_channels=z_channels, double_z=True, **kw)
@@ -67,3 +79,76 @@ class AutoencoderKL(nn.Module):
         else:
             z = posterior.mode()
         return self.decode(z), posterior
+
+
+class VQModel(nn.Module):
+    """encoder → quant_conv → quantizer → post_quant_conv → decoder; built on
+    the card unless `device` names another. `quantizer_type` picks the
+    family: "vq" (argmin codebook trained by its gradient), "gumbel"
+    (Gumbel-softmax; its noise handed in) or "ema" (the EMA codebook, fp32
+    buffers updated when called with `update=True`)."""
+
+    def __init__(self, n_embed: int = 8192, embed_dim: int = 3, ch: int = 128,
+                 ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks: int = 2,
+                 attn_resolutions: Sequence[int] = (), resolution: int = 256,
+                 z_channels: int = 3, out_ch: int = 3, dropout: float = 0.0,
+                 beta: float = 0.25, legacy: bool = True, remap=None,
+                 sane_index_shape: bool = False, quantizer_type: str = "vq",
+                 kl_weight: float = 5e-4, temp_init: float = 1.0, ema_decay: float = 0.99,
+                 *, dtype=torch.float32, device=None):
+        super().__init__()
+        del resolution      # places per-level attention, which the port does not have
+        _refuse_unported(attn_resolutions, dropout)
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.quantizer_type = quantizer_type
+        self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                               z_channels=z_channels, double_z=False, **kw)
+        self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
+                               num_res_blocks=num_res_blocks, z_channels=z_channels, **kw)
+        if quantizer_type == "gumbel":
+            self.quantize = GumbelQuantize(n_embed, embed_dim, kl_weight=kl_weight,
+                                           temp_init=temp_init, remap=remap, **kw)
+        elif quantizer_type == "ema":
+            self.quantize = EMAVectorQuantizer(n_embed, embed_dim, beta=beta,
+                                               decay=ema_decay, device=kw["device"])
+        else:
+            self.quantize = VectorQuantizer(n_embed, embed_dim, beta=beta, legacy=legacy,
+                                            remap=remap, sane_index_shape=sane_index_shape,
+                                            **kw)
+        self.quant_conv = Conv2d(z_channels, embed_dim, 1, **kw)
+        self.post_quant_conv = Conv2d(embed_dim, z_channels, 1, **kw)
+
+    def _quantize(self, h, *, gumbel=None, temp=None, update=False, deterministic=True,
+                  generator=None):
+        """The three families' signatures made one."""
+        if self.quantizer_type == "gumbel":
+            return self.quantize(h, gumbel=gumbel, temp=temp, deterministic=deterministic,
+                                 generator=generator)
+        if self.quantizer_type == "ema":
+            return self.quantize(h, update=update)
+        return self.quantize(h)
+
+    def encode(self, x: torch.Tensor, **quantize_kw):
+        """image [B, H, W, 3] → (z_q, codebook_loss, (perplexity, None, indices))."""
+        return self._quantize(self.encode_pre_quant(x), **quantize_kw)
+
+    def encode_pre_quant(self, x: torch.Tensor) -> torch.Tensor:
+        """The latent before quantization (the latent-diffusion interface)."""
+        return self.quant_conv(self.encoder(x))
+
+    def decode(self, z_q: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z_q))
+
+    def decode_code(self, code_b: torch.Tensor, shape: tuple) -> torch.Tensor:
+        """Decode codebook indices, `shape` the latent's (B, h, w, embed_dim)."""
+        return self.decode(self.quantize.get_codebook_entry(code_b, shape))
+
+    def forward(self, x: torch.Tensor, *, gumbel: torch.Tensor | None = None,
+                temp: float | None = None, update: bool = False, deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        """(recon, codebook_loss, (perplexity, None, indices)). `gumbel`,
+        `generator`, `temp` and `deterministic` reach the Gumbel quantizer,
+        `update` the EMA codebook."""
+        z_q, diff, info = self.encode(x, gumbel=gumbel, temp=temp, update=update,
+                                      deterministic=deterministic, generator=generator)
+        return self.decode(z_q), diff, info

@@ -1,8 +1,10 @@
-"""LR schedules as `step -> multiplier` functions.
+"""LR schedules as functions of the step.
 
 Counterpart of `sd_tpu/train/lr_schedules.py` `lambda_linear_schedule` (the
-reference's LambdaLinearScheduler, the SD-v1 recipe's), computed in fp32 as
-the TPU package's jnp version is. The other schedules are not ported yet.
+reference's LambdaLinearScheduler, the SD-v1 recipe's; a multiplier) and
+`cosine_annealing` (torch's CosineAnnealingLR, the pixel-space DDPM
+recipe's; the learning rate itself), computed in fp32 as the TPU package's
+jnp versions are. The other schedules are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,5 +35,20 @@ def lambda_linear_schedule(
         if n < wu[c]:
             return float(fstart[c] + (fmax[c] - fstart[c]) * n / max(wu[c], one))
         return float(fmin[c] + (fmax[c] - fmin[c]) * (lengths[c] - n) / max(lengths[c], one))
+
+    return schedule
+
+
+def cosine_annealing(base_lr: float, total_steps: int,
+                     eta_min: float = 0.0) -> Callable[[int], float]:
+    """The absolute learning rate eta_min + ½(base_lr − eta_min)(1 + cos πt),
+    t = step / total_steps clipped to [0, 1]."""
+    f32 = np.float32
+    half_span, low = f32(0.5 * (base_lr - eta_min)), f32(eta_min)
+    total = f32(max(total_steps, 1))
+
+    def schedule(step: int) -> float:
+        t = np.clip(f32(step) / total, f32(0.0), f32(1.0))
+        return float(low + half_span * (f32(1.0) + np.cos(t * f32(np.pi))))
 
     return schedule

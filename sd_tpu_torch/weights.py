@@ -7,7 +7,10 @@ path maps onto a torch parameter name mechanically:
     drop out;
   * `kernel` becomes `weight`: a Dense kernel [in, out] is transposed to
     [out, in], a conv kernel HWIO is permuted to OIHW;
-  * `scale` (norms) and `embedding` (embeddings) become `weight`.
+  * `scale` (norms) and `embedding` (embeddings, the quantizers'
+    codebooks) become `weight`.
+Non-parameter collections map onto buffers the same way: the
+discriminator's `batch_stats` and the EMA quantizer's `codebook`.
 """
 
 from __future__ import annotations
@@ -69,6 +72,12 @@ def load_flax_batch_stats(module: nn.Module, batch_stats: Mapping) -> None:
     _load(dict(module.named_buffers()), batch_stats)
 
 
+def load_flax_codebook(module: nn.Module, codebook: Mapping) -> None:
+    """Fill `module`'s buffers from a flax `codebook` collection (the EMA
+    quantizer's `weight`, `cluster_size`, `embed_avg`), as strictly."""
+    _load(dict(module.named_buffers()), codebook)
+
+
 def _load(own: dict[str, torch.Tensor], params: Mapping) -> None:
     converted = {}
     for path, leaf in _flatten(params).items():
@@ -97,9 +106,13 @@ def _fan_in(p: torch.Tensor) -> int:
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:
     """The TPU package's initialisers: lecun-normal weights (std
     1/sqrt(fan_in)), zero biases, unit norm scales, zero weights for the
-    convs marked `zero_init`, N(0, 1/width) embeddings and N(0, 0.01)
-    position embeddings."""
+    convs marked `zero_init`, N(0, 1/width) embeddings, N(0, 0.01)
+    position embeddings, and each quantizer's codebook from its own
+    distribution (`reset_codebook_`)."""
     for mod in module.modules():
+        if hasattr(mod, "reset_codebook_"):
+            mod.reset_codebook_(generator)
+            continue
         for name, p in mod.named_parameters(recurse=False):
             if getattr(mod, "zero_init", False) or name == "bias":
                 p.zero_()
@@ -116,10 +129,13 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
 @torch.no_grad()
 def randomize_params_(module: nn.Module, generator: torch.Generator) -> None:
     """Every parameter random, zero-init ones included: weights N(0,
-    1/fan_in), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²). A model so
-    filled moves every residual branch, so a check on its output sees every
-    kernel's work."""
+    1/fan_in), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²); the EMA
+    quantizer's codebook buffers from their init. A model so filled moves
+    every residual branch, so a check on its output sees every kernel's
+    work."""
     for mod in module.modules():
+        if hasattr(mod, "reset_codebook_"):
+            mod.reset_codebook_(generator)
         for name, p in mod.named_parameters(recurse=False):
             if name == "bias":
                 _normal_(p, generator, 0.02)

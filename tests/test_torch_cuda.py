@@ -539,3 +539,66 @@ def test_new_forward_only_kernels_refuse_inputs_that_need_grad(cuda):
     with pytest.raises(RuntimeError, match="requires grad"):
         xattn.crossattn_kv(x, w, kv, kv, w, zero.bfloat16(), 4)
     assert xattn.crossattn_kv_trainable(x, w, kv, kv, w, zero.bfloat16(), 4).grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_vq_step_trains_through_the_wide_kernels_at_d256(cuda, monkeypatch):
+    """One VQ GAN step of `vq_128_train_config()` under the bf16 parameter
+    policy (batch 2, `disc_start` 0, every weight random): the codec's two
+    mid-block attentions at [2, 1024, 1, 256] launch the wide LSE forward
+    (its kv sweep split in two at this batch, then combined), dQ and dK/dV,
+    and no other kernel; each backward call's dq, dk and dv are held to the
+    dq/dk/dv bounds against the fp32 plain backward on the inputs the step
+    handed it."""
+    from sd_tpu_torch.core.config import vq_128_train_config
+    from sd_tpu_torch.losses.gan import GanLossConfig
+    from sd_tpu_torch.models.autoencoder import VQModel
+    from sd_tpu_torch.models.discriminator import NLayerDiscriminator
+    from sd_tpu_torch.models.lpips import make_lpips_fn
+    from sd_tpu_torch.train.gan import gan_adam, init_gan_state, make_vq_gan_train_step
+    from sd_tpu_torch.train.diffusion import float32_moments
+    from sd_tpu_torch.weights import randomize_params_
+
+    cfg = vq_128_train_config()
+    px = cfg["train"]["image_size"]
+    vq = VQModel(**cfg["model"]["params"], device="cuda")
+    disc = NLayerDiscriminator(**cfg["discriminator"], device="cuda")
+    for module in (vq, disc):
+        randomize_params_(module, cuda)
+    opt = float32_moments(gan_adam(cfg["train"]["lr"]))
+    state = init_gan_state(vq, disc, opt, opt, param_dtype=torch.bfloat16)
+    step = make_vq_gan_train_step(
+        lambda x, g, temp: vq(x, temp=temp, update=True, deterministic=False), disc,
+        make_lpips_fn(mode="random", device="cuda"), opt, opt,
+        GanLossConfig(**{**cfg["loss"], "disc_start": 0}))
+    calls = []
+    dq_fn, dkv_fn = fa.flash_bwd_dq, fa.flash_bwd_dkv
+
+    def dq_recorded(q, k, v, o, lse, do, scale):
+        dq, delta = dq_fn(q, k, v, o, lse, do, scale)
+        calls.append([(q, k, v, o, lse, do, scale), dq])
+        return dq, delta
+
+    def dkv_recorded(q, k, v, do, lse, delta, scale):
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, scale)
+        calls[-1] += [dk, dv]
+        return dk, dv
+
+    monkeypatch.setattr(fa, "flash_bwd_dq", dq_recorded)
+    monkeypatch.setattr(fa, "flash_bwd_dkv", dkv_recorded)
+    kernels.reset_launches()
+    x = torch.rand(2, px, px, 3, generator=cuda, device="cuda") * 2 - 1
+    logs = step(state, x, None)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in logs.values())
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
+        "flash_attention_lse": 2, "flash_lse_wide": 2, "flash_lse_combine": 2,
+        "flash_bwd_dq": 2, "flash_bwd_dkv": 2, "flash_bwd_dq_wide_sm90": 2,
+        "flash_bwd_dkv_wide_sm90": 2}
+    assert len(calls) == 2
+    for (q, k, v, o, lse, do, scale), dq, dk, dv in calls:
+        assert q.shape == (2, 1024, 1, 256) and q.dtype == torch.bfloat16
+        refs = fa._flash_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                 do.float(), scale)
+        for got, ref in zip((dq, dk, dv), refs):
+            _grad_within(got, ref)

@@ -105,16 +105,19 @@ def test_wide_split_refuses_other_routes(d):
 
 def test_klvae_launches_carry_the_wide_counters():
     train, klvae = chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES
+    vq = chip_smoke.EXPECTED_VQ_LAUNCHES
     for kind, counter in WIDE_COUNTERS.items():
         assert klvae[counter] == klvae[f"flash_bwd_{kind}"] == 2
+        assert vq[counter] == vq[f"flash_bwd_{kind}"] == 2
         assert train[counter] == 0
     assert set(WIDE_COUNTERS.values()) <= set(kernels.LAUNCHES) & set(chip_smoke.KERNELS)
-    # the kernel phase holds the new kernels at the codec's shapes and at a
-    # bf16 train_ddpm's d = 256
+    # the kernel phase holds the new kernels at the codec's shapes, at a
+    # bf16 train_ddpm's d = 256 and at train_vq's, each added last
     wide = [sh for sh in chip_smoke.TRAIN_KERNEL_SHAPES if fa.bwd_route(sh[-1]) == "wide"]
     assert wide == [(4, 1024, 1024, 1, 512), (1, 4096, 4096, 1, 512), (1, 1000, 1300, 1, 512),
-                    (6, 1024, 1024, 1, 256)]
-    assert chip_smoke.TRAIN_KERNEL_SHAPES[-1] == (6, 1024, 1024, 1, 256)
+                    (6, 1024, 1024, 1, 256), (8, 1024, 1024, 1, 256)]
+    assert chip_smoke.TRAIN_KERNEL_SHAPES[-2:] == ((6, 1024, 1024, 1, 256),
+                                                   chip_smoke.VQ_ATTN_SHAPE)
 
 
 def _inputs(b, sq, skv, h, d):

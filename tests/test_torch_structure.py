@@ -76,7 +76,7 @@ from sd_tpu.models.clip_text import ClipTextTransformer as JClip
 from sd_tpu.models.unet_sd import UNetModel as JUNet
 import chip_smoke
 from sd_tpu_torch.core.config import (kl_f8_256_train_config, sd512_train_config,
-                                     sd_v1_config)
+                                     sd_v1_config, vq_128_train_config)
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion
@@ -88,7 +88,7 @@ from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import geglu as geglu_k
 from sd_tpu_torch.kernels import groupnorm as gn_k
 from sd_tpu_torch.losses.gan import GanLossConfig
-from sd_tpu_torch.models.autoencoder import AutoencoderKL
+from sd_tpu_torch.models.autoencoder import AutoencoderKL, VQModel
 from sd_tpu_torch.models.clip_text import ClipTextConfig, ClipTextTransformer
 from sd_tpu_torch.models.discriminator import NLayerDiscriminator
 from sd_tpu_torch.models.lpips import LPIPS
@@ -761,11 +761,50 @@ def test_kl_vae_step_gates_and_launches(tpu_gates, monkeypatch, optin):
     assert chip_smoke.EXPECTED_KLVAE_LAUNCHES["flash_bwd_dkv_sm90"] == 0
 
 
+def test_vq_step_gates_and_launches(tpu_gates, monkeypatch):
+    """One full-width step of `vq_128_train_config()` (128², batch 8) under
+    the bf16 parameter policy, `disc_start` 0, on `meta` tensors: the
+    codec's two mid-block attentions ([8, 1024, 1, 256] bf16: ch 64 × 4,
+    32² tokens) pass the flash gate, and the step reaches 2 LSE forwards on
+    the wide route (no kv split at batch 8), 2 dQ and 2 dK/dV on the wide
+    backward and no other kernel."""
+    cfg = vq_128_train_config()
+    tc, mp = cfg["train"], cfg["model"]["params"]
+    calls = _count_kernel_calls(monkeypatch)
+    vq = VQModel(**mp, **BF16)
+    disc = NLayerDiscriminator(**cfg["discriminator"], **BF16)
+    lpips = LPIPS(device="meta")
+    lpips.requires_grad_(False)
+    opt = train.float32_moments(gan_train.gan_adam(tc["lr"]))
+    state = gan_train.init_gan_state(vq, disc, opt, opt, param_dtype=torch.bfloat16)
+    step = gan_train.make_vq_gan_train_step(
+        lambda x, g, temp: vq(x, update=True, deterministic=False), disc, lpips, opt, opt,
+        GanLossConfig(**{**cfg["loss"], "disc_start": 0}))
+    B, px = tc["batch_size"], tc["image_size"]
+    with jconv.training_trace():      # the JAX gates inside a traced train step
+        logs = step(state, torch.empty(B, px, px, 3, device="meta"), None)
+    assert logs["train/quant_loss"].shape == () and state.step == 1
+    assert state.params_g["quantize.weight"].dtype == torch.bfloat16
+    assert _launched(tpu_gates, GATES + OPT_IN_GATES) == {
+        "hpacked_flash_ok": 0, "flash_ok": 2, "geglu_wants_pallas": 0,
+        "conv3x3_wants_pallas": 0, "group_norm_wants_pallas": 0,
+        "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 0}
+    assert [[(tuple(t.shape), t.dtype) for t in args]
+            for name, args in tpu_gates.args if name == "flash_ok"] == [
+        [((8, 1024, 1, 256), torch.bfloat16)] * 2] * 2
+    want = {k: v for k, v in chip_smoke.EXPECTED_VQ_LAUNCHES.items() if v}
+    assert dict(calls) == want == {"flash_attention_lse": 2, "flash_lse_wide": 2,
+                                   "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                                   "flash_bwd_dq_wide_sm90": 2, "flash_bwd_dkv_wide_sm90": 2}
+    assert fa.bwd_wide_split(256) == 1 and fa.lse_split(8, 1024, 1024, 1, 256) == 1
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
     for want in (chip_smoke.EXPECTED_LAUNCHES, chip_smoke.EXPECTED_LAUNCHES_OPTIN,
-                 chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES):
+                 chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES,
+                 chip_smoke.EXPECTED_VQ_LAUNCHES):
         assert set(want) == set(kernels.LAUNCHES)
 
 
