@@ -164,6 +164,21 @@ Phases, each printed as one JSON line:
            step at [8, 1024, 1, 256]; then train_vq(vq_64_train_config()) (the
            EMA codebook, fp32) for 3 steps: a codebook that moved and
            perplexity > 1; s/step, img/s and peak memory of both.
+  train_run  the training run around the trainers, chained as the flagship
+           recipe (`configs/sd512_catdog.yaml`'s first stage is a KL-f8 run's
+           checkpoint), through `python -m sd_tpu_torch.train`'s `main` at full
+           width in a temporary directory: 8 synthetic 512² PNGs (a DataLoader
+           batch timed at 512² and resized to 256²); the KL-f8 run (bf16
+           policy) for 2 steps with a checkpoint and an eval, then resumed for a
+           third (the restored state bit for bit, metrics.jsonl, the eval grid,
+           the launches); the SD-v1 LDM run on its checkpoint for 2 steps (the
+           first stage bit for bit, calibration.json, the ≈ 12 GB checkpoint,
+           the launches); `from_run` + generate (2 prompts, 512², 50 steps, CFG
+           7.5) against a pipeline given the same weights by hand, bit for bit,
+           and its launches; the new shapes of the path's conv and inference
+           flash kernel held against their plain versions; checkpoint save and
+           restore seconds, GB and GB/s, the runs' seconds, peak memory and the
+           free disk, beside the card's name and power limit.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -309,6 +324,24 @@ EXPECTED_VQ_LAUNCHES = launches_of(flash_attention_lse=2, flash_lse_wide=2, flas
                                    flash_bwd_dkv_wide_sm90=2)
 # ... and of the VQ parity step at batch 2, whose LSE sweep (32 blocks) splits
 VQ_PARITY_LAUNCHES = {**EXPECTED_VQ_LAUNCHES, "flash_lse_combine": 2}
+# the train_run phase (a KL-f8 run, its resume, an SD-v1 LDM run on its
+# checkpoint, then `from_run` + generate, all through `python -m
+# sd_tpu_torch.train`'s `main` at full width; tests/test_torch_structure.py
+# derives these). The KL run (kl_f8_256_train_config() under the bf16
+# policy: its kernels take bf16 only) runs 2 steps, evaluates at step 2 and
+# saves, then resumes for a third step; its eval reconstructs the fixed
+# batch ([4, 256², 3], a posterior sample, no grad): the codec's two
+# mid-block attentions on the inference flash kernel at [4, 1024, 1, 512]
+# (the wide route) and 20 of its 3×3 convs on the Hopper conv
+TRAIN_RUN_KL_STEPS = (2, 3)                      # the first run, then the resumed one
+KL_RUN_EVAL_LAUNCHES = launches_of(flash_attention=2, flash_fwd_wide=2, conv3x3_same=20)
+# the LDM run's fp32 first stage (the trained KL weights, cast to fp32 as the
+# TPU package computes a bf16 tree under fp32 inputs) takes no kernel: its
+# encodes (one of the calibration batch, one a step of 4 microbatches) add 0
+FIRST_STAGE_ENCODE_LAUNCHES = launches_of()
+TRAIN_RUN_LDM_STEPS = 2
+TRAIN_RUN_IMAGES = 8                             # cat_0..3, dog_0..3, 512² RGB PNGs
+TRAIN_RUN_DISK_GB = 16                           # the LDM run's ≈ 12 GB state + the KL run's
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
@@ -2630,6 +2663,389 @@ def phase_vq_train() -> dict:
     return row
 
 
+class _Tee:
+    """stdout that is also kept: the trainers' printed lines, read back."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _flat(tree, path=""):
+    """{path: leaf} of a checkpoint tree (dicts, lists, tensors, numbers)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{path}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree) for k, v in _flat(sub, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def _cpu_tree(state) -> dict:
+    """A training state's checkpoint tree, every tensor copied to the CPU."""
+    from sd_tpu_torch.train.checkpoint import state_tree
+
+    return {k: (v.cpu().clone() if hasattr(v, "cpu") else v)
+            for k, v in _flat(state_tree(state)).items()}
+
+
+def _same_tree(a: dict, b: dict) -> list:
+    """The paths where two flattened trees differ (dtype, shape or any bit)."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    bad = []
+    for k, x in a.items():
+        y = b[k]
+        same = (torch.is_tensor(y) and x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(x, y)) if torch.is_tensor(x) else (x == y)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _write_train_run_images(root: str) -> list:
+    """TRAIN_RUN_IMAGES 512² RGB PNGs (`cat_0..3`, `dog_0..3`): a seeded
+    smooth field (8² noise resized bicubic) plus noise, through the port's
+    encoder. Their class label (the file name before its first dot) is the
+    stem, so each image has its own caption."""
+    import numpy as np
+
+    from sd_tpu_torch.data.image_io import resize, write_png
+
+    rng = np.random.default_rng(16)
+    paths = []
+    for i in range(TRAIN_RUN_IMAGES):
+        low = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+        field = resize(low, 512, 512).astype(np.int16) + rng.integers(-12, 13, (512, 512, 3))
+        path = os.path.join(root, f"{('cat', 'dog')[i // 4]}_{i % 4}.png")
+        write_png(path, np.clip(field, 0, 255).astype(np.uint8))
+        paths.append(path)
+    return paths
+
+
+def _hold_path_kernels(convs: set, flashes: set) -> list:
+    """Each conv shape [B, H, W, C, O] and inference flash shape [B, S, Skv,
+    H, D] a run of this phase gave its kernel that the kernel phase does not
+    hold: the kernel on random bf16 inputs (a generator of their own)
+    against its fp32 plain version, within KERNEL_TOL."""
+    import torch
+
+    from sd_tpu_torch.kernels import conv2d
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(16)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=g, device="cuda") * scale).bfloat16()
+    rows = []
+    for B, H, W, C, O in sorted(convs - {(b, h, h, c, o) for b, h, c, o in DECODER_CONVS}):
+        x, b = rnd(B, H, W, C), rnd(O, scale=0.1)
+        w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(memory_format=torch.channels_last)
+        _, rel = rel_err(conv2d.conv3x3_same(x, w, b),
+                         conv2d._xla_conv3x3(x.float(), w.float(), b.float()))
+        rows.append({"name": "conv3x3_same", "shape": [B, H, W, C, O], "rel_err": rel})
+    for B, S, Skv, H, D in sorted(flashes):
+        q, k, v = rnd(B, S, H, D), rnd(B, Skv, H, D), rnd(B, Skv, H, D)
+        _, rel = rel_err(fa.flash_attention(q, k, v),
+                         fa._xla_ref(q.float(), k.float(), v.float(), D**-0.5))
+        rows.append({"name": "flash_attention", "shape": [B, S, Skv, H, D], "rel_err": rel})
+    for r in rows:
+        require(r["rel_err"] <= KERNEL_TOL, f"{r['name']} {r['shape']} on the train_run path: "
+                f"max|Δ| = {r['rel_err']:.3g}·max|ref| > {KERNEL_TOL}")
+    return rows
+
+
+def phase_train_run(smi: str) -> dict:
+    """The training run around the trainers, chained as the flagship recipe
+    is (configs/sd512_catdog.yaml's first stage is a KL-f8 run's
+    checkpoint), through `python -m sd_tpu_torch.train`'s `main` at full
+    width, in a temporary directory removed at the end:
+      data     TRAIN_RUN_IMAGES synthetic 512² PNGs; one batch of 4 through
+               the DataLoader as-is (512²) and resized to 256², timed;
+      kl run   kl_f8_256_train_config() (bf16 policy), 2 steps with a
+               checkpoint and an eval at step 2, then `--max-steps 3`: it
+               resumes at step 2 with the saved state bit for bit,
+               metrics.jsonl holds 3 step records and the eval's
+               (eval_psnr, eval_ssim), samples/step_2.png decodes, and the
+               launches are EXPECTED_KLVAE_LAUNCHES × 3 + KL_RUN_EVAL_LAUNCHES;
+      ldm run  sd512_train_config() on the KL run's `ckpt`, 2 steps: its
+               first stage equals the KL run's params_g bit for bit,
+               calibration.json holds the printed scale factor, 2 records,
+               the final checkpoint (≈ 12 GB), EXPECTED_TRAIN_LAUNCHES × 2
+               (+ FIRST_STAGE_ENCODE_LAUNCHES × 3);
+      from_run `Text2ImagePipeline.from_run` of the LDM run, generate (2
+               prompts, 512², 50 steps, CFG 7.5): the images of a pipeline
+               given the same EMA shadow, first stage and scale factor by
+               hand, bit for bit, and EXPECTED_LAUNCHES.
+    The new shapes this path gives the conv and the inference flash kernel
+    (the KL eval's) are held against their plain versions. Prints the
+    checkpoints' save and restore seconds with GB and GB/s, each run's wall
+    seconds and s/step, peak memory and the free disk."""
+    import contextlib
+    import copy
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import sd512_train_config
+    from sd_tpu_torch.data.datasets import ImageFolderDataset
+    from sd_tpu_torch.data.image_io import decode_png
+    from sd_tpu_torch.data.loader import DataLoader
+    from sd_tpu_torch.kernels import conv2d
+    from sd_tpu_torch.kernels import flash_attention as fa
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+    from sd_tpu_torch.train import __main__ as train_cli
+    from sd_tpu_torch.train import runners
+    from sd_tpu_torch.train.checkpoint import restore_tree
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_train_run_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        require(free_gb >= TRAIN_RUN_DISK_GB, f"free disk under {root}: {free_gb:.1f} GB, the "
+                f"phase needs {TRAIN_RUN_DISK_GB} GB (the LDM run's ≈ 12 GB checkpoint)")
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _write_train_run_images(data)
+        loader_s = {}
+        for size in (512, 256):
+            loader = DataLoader(ImageFolderDataset(data, image_size=size), batch_size=4)
+            it = iter(loader)
+            t0 = time.perf_counter()
+            batch = next(it)
+            loader_s[size] = time.perf_counter() - t0
+            it.close()
+            require(batch["image"].shape == (4, size, size, 3)
+                    and np.isfinite(batch["image"]).all(), f"a [4, {size}², 3] batch")
+
+        # every checkpoint save and restore of the runs, timed; the state at
+        # each save and at each resume, on the CPU
+        saves, resumes = [], []
+        save0, resume0 = runners.save_checkpoint, runners.auto_resume
+
+        def save(ckpt_dir, state, step, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save0(ckpt_dir, state, step, **kw)
+            sec = time.perf_counter() - t0
+            gb = os.path.getsize(path) / 1e9
+            saves.append({"step": step, "seconds": sec, "gb": gb, "gb_per_s": gb / sec,
+                          "tree": _cpu_tree(state) if gb < 4 else None})
+            return path
+
+        def resume(ckpt_dir, fresh):
+            t0 = time.perf_counter()
+            state, start = resume0(ckpt_dir, fresh)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if start:
+                gb = os.path.getsize(os.path.join(ckpt_dir, f"step_{start}.pt")) / 1e9
+                resumes.append({"step": start, "seconds": sec, "gb": gb, "gb_per_s": gb / sec,
+                                "tree": _cpu_tree(state)})
+            return state, start
+
+        # shapes the conv and the inference flash kernel get on this path
+        convs, flashes = set(), set()
+        conv0, flash0 = conv2d.conv3x3_same, fa.flash_attention
+
+        def conv_spy(x, w, b):
+            convs.add((*x.shape, w.shape[0]))
+            return conv0(x, w, b)
+
+        def flash_spy(q, k, v, **kw):
+            flashes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))
+            return flash0(q, k, v, **kw)
+
+        fs_models, scale_factors = [], []
+        build0, calibrate0 = runners.build_first_stage, runners.calibrate_scale_factor
+
+        def build_first_stage(*a, **kw):
+            fs_models.append(build0(*a, **kw))
+            return fs_models[-1]
+
+        def calibrate(z):
+            scale_factors.append(calibrate0(z))
+            return scale_factors[-1]
+
+        histories = []
+        loop0 = runners._run_loop
+
+        def loop(*a, **kw):
+            histories.append(loop0(*a, **kw))
+            return histories[-1]
+
+        tee = _Tee(sys.stdout)
+        patches = contextlib.ExitStack()
+        for obj, name, fn in ((runners, "save_checkpoint", save), (runners, "auto_resume", resume),
+                              (runners, "_run_loop", loop),
+                              (runners, "build_first_stage", build_first_stage),
+                              (runners, "calibrate_scale_factor", calibrate),
+                              (conv2d, "conv3x3_same", conv_spy),
+                              (fa, "flash_attention", flash_spy)):
+            patches.enter_context(mock.patch.object(obj, name, fn))
+        patches.enter_context(contextlib.redirect_stdout(tee))
+
+        def run(cfg_path, out, *extra):
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            code = train_cli.main(["--config", cfg_path, "--data", data, "--out", out, *extra])
+            torch.cuda.synchronize()
+            require(code == 0, f"python -m sd_tpu_torch.train {cfg_path}: exit {code}")
+            return {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+        def records(out):
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        with patches:
+            # -- the KL-f8 run and its resume ----------------------------------
+            kl_cfg = _klvae_config()
+            kl_cfg["train"].update(total_steps=TRAIN_RUN_KL_STEPS[0],
+                                   checkpoint_every=TRAIN_RUN_KL_STEPS[0],
+                                   eval_every=TRAIN_RUN_KL_STEPS[0])
+            kl_json, kl_dir = os.path.join(root, "kl.json"), os.path.join(root, "kl")
+            with open(kl_json, "w") as f:
+                json.dump(kl_cfg, f)
+            kl1 = run(kl_json, kl_dir)
+            kl2 = run(kl_json, kl_dir, "--max-steps", str(TRAIN_RUN_KL_STEPS[1]))
+            kl_launches = {k: kl1["launches"][k] + kl2["launches"][k] for k in kl1["launches"]}
+            kl_saved = [s_ for s_ in saves if s_["step"] == TRAIN_RUN_KL_STEPS[0]][-1]
+            require(len(resumes) == 1 and resumes[0]["step"] == TRAIN_RUN_KL_STEPS[0],
+                    f"the KL run resumed at step {TRAIN_RUN_KL_STEPS[0]}: {resumes}")
+            differ = _same_tree(kl_saved["tree"], resumes[0]["tree"])
+            require(not differ, f"the restored KL state equals the saved one bit for bit: "
+                    f"{differ[:5]} differ")
+            kl_records = records(kl_dir)
+            steps_logged = [r["step"] for r in kl_records if "train/total_loss" in r]
+            evals = [r for r in kl_records if "eval_psnr" in r]
+            require(steps_logged == list(range(TRAIN_RUN_KL_STEPS[1])),
+                    f"metrics.jsonl: step records {steps_logged}")
+            require(len(evals) == 1 and evals[0]["step"] == TRAIN_RUN_KL_STEPS[0]
+                    and math.isfinite(evals[0]["eval_psnr"])
+                    and math.isfinite(evals[0]["eval_ssim"]), f"one eval record: {evals}")
+            with open(os.path.join(kl_dir, "samples", f"step_{TRAIN_RUN_KL_STEPS[0]}.png"),
+                      "rb") as f:
+                grid = decode_png(f.read())
+            require(grid.shape == (514, 514, 3), f"the eval grid decodes: {grid.shape}")
+            want = {k: TRAIN_RUN_KL_STEPS[1] * v + KL_RUN_EVAL_LAUNCHES[k]
+                    for k, v in EXPECTED_KLVAE_LAUNCHES.items()}
+            require(kl_launches == want, f"KL run launches {kl_launches} == {want}")
+            kl_tree = restore_tree(os.path.join(kl_dir, "ckpt"))
+            kl_params = {n: t for n, t in kl_tree["params_g"].items() if n != "logvar"}
+            saves[-1]["tree"] = kl_saved["tree"] = resumes[0]["tree"] = None
+            torch.cuda.empty_cache()
+
+            # -- the SD-v1 LDM run on the KL run's checkpoint -------------------
+            ldm_cfg = sd512_train_config()
+            ldm_cfg["first_stage"]["ckpt"] = os.path.join(kl_dir, "ckpt")
+            ldm_cfg["train"].update(total_steps=TRAIN_RUN_LDM_STEPS,
+                                    checkpoint_every=TRAIN_RUN_LDM_STEPS)
+            ldm_json, ldm_dir = os.path.join(root, "ldm.json"), os.path.join(root, "ldm")
+            with open(ldm_json, "w") as f:
+                json.dump(ldm_cfg, f)
+            ldm = run(ldm_json, ldm_dir)
+            fs = fs_models[-1]
+            fs_differ = [n for n, p in fs.named_parameters()
+                         if not (p.dtype == torch.float32
+                                 and torch.equal(p.detach().cpu(), kl_params[n].float())
+                                 and torch.equal(p.detach().cpu().to(kl_params[n].dtype),
+                                                 kl_params[n]))]
+            require(sorted(n for n, _ in fs.named_parameters()) == sorted(kl_params)
+                    and not fs_differ, f"the LDM run's first stage is the KL run's params_g "
+                    f"bit for bit: {fs_differ[:5]} differ")
+            with open(os.path.join(ldm_dir, "calibration.json")) as f:
+                sf = json.load(f)["scale_factor"]
+            printed = [line for line in "".join(tee.lines).splitlines()
+                       if line.startswith("[ldm] scale_factor (std-rescale):")]
+            require(scale_factors and sf == scale_factors[-1] and printed
+                    and printed[-1].endswith(f"{sf:.4f}"),
+                    f"calibration.json's scale factor {sf} is the printed one: {printed}")
+            ldm_records = records(ldm_dir)
+            require([r["step"] for r in ldm_records] == list(range(TRAIN_RUN_LDM_STEPS))
+                    and all(math.isfinite(r["loss"]) for r in ldm_records),
+                    f"metrics.jsonl: {TRAIN_RUN_LDM_STEPS} finite records")
+            ldm_ckpt = os.path.join(ldm_dir, "ckpt", f"step_{TRAIN_RUN_LDM_STEPS}.pt")
+            require(os.path.exists(ldm_ckpt), f"the final checkpoint {ldm_ckpt}")
+            want = {k: TRAIN_RUN_LDM_STEPS * v + (1 + TRAIN_RUN_LDM_STEPS)
+                    * FIRST_STAGE_ENCODE_LAUNCHES[k] for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+            require(ldm["launches"] == want, f"LDM run launches {ldm['launches']} == {want}")
+            del fs, fs_models[:]
+            torch.cuda.empty_cache()
+
+            # -- from_run, and the same pipeline built by hand ------------------
+            prompts = ["a photo of a cat", "a photo of a dog"]
+            gen_kw = dict(num_steps=50, guidance_scale=7.5, seed=16)
+            t0 = time.perf_counter()
+            pipe = Text2ImagePipeline.from_run(ldm_json, ldm_dir)
+            torch.cuda.synchronize()
+            from_run_load_s = time.perf_counter() - t0
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            images = pipe.generate(prompts, **gen_kw)
+            torch.cuda.synchronize()
+            generate_s = time.perf_counter() - t0
+            from_run_launches = dict(kernels.LAUNCHES)
+            del pipe
+            torch.cuda.empty_cache()
+            ldm_tree = restore_tree(os.path.join(ldm_dir, "ckpt"))
+            hand_cfg = copy.deepcopy(ldm_cfg)
+            del hand_cfg["first_stage"]["ckpt"]
+            hand = Text2ImagePipeline(hand_cfg)
+            with torch.no_grad():
+                for n, p in hand.unet.named_parameters():
+                    p.copy_(ldm_tree["ema"]["shadow"][n].to(p.dtype))
+                for n, p in hand.vae.named_parameters():
+                    p.copy_(kl_params[n].to(p.dtype))
+            hand.ld = dataclasses.replace(hand.ld, scale_factor=sf)
+            by_hand = hand.generate(prompts, **gen_kw)
+            del hand, ldm_tree
+            torch.cuda.empty_cache()
+        require(images.shape == (2, 512, 512, 3) and images.dtype == np.uint8
+                and images.std() > 0, f"from_run images {images.shape} {images.dtype}")
+        require(np.array_equal(images, by_hand), "from_run's images equal, bit for bit, those "
+                "of a pipeline given the same weights and scale factor by hand")
+        require(from_run_launches == EXPECTED_LAUNCHES,
+                f"from_run generate launches {from_run_launches} == {EXPECTED_LAUNCHES}")
+        held = _hold_path_kernels(convs, flashes)
+
+        strip = lambda recs: [{k: v for k, v in r.items() if k != "tree"} for r in recs]
+        row = {"phase": "train_run", "nvidia_smi": smi, "free_disk_gb": free_gb,
+               "loader_seconds_per_batch": {"512": loader_s[512], "256": loader_s[256]},
+               "checkpoint_saves": strip(saves), "checkpoint_restores": strip(resumes),
+               "kl_run": {"seconds": [kl1["seconds"], kl2["seconds"]],
+                          "steps": list(TRAIN_RUN_KL_STEPS),
+                          "peak_memory_gb": max(kl1["peak_memory_gb"], kl2["peak_memory_gb"]),
+                          "step_seconds": [r["seconds"] for h in histories[:2] for r in h],
+                          "eval": evals[0],
+                          "launches": {k: v for k, v in kl_launches.items() if v}},
+               "ldm_run": {"seconds": ldm["seconds"], "steps": TRAIN_RUN_LDM_STEPS,
+                           "peak_memory_gb": ldm["peak_memory_gb"], "scale_factor": sf,
+                           "losses": [r["loss"] for r in ldm_records],
+                           "step_seconds": [r["seconds"] for r in histories[2]],
+                           "checkpoint_gb": os.path.getsize(ldm_ckpt) / 1e9,
+                           "launches": {k: v for k, v in ldm["launches"].items() if v}},
+               "from_run": {"load_seconds": from_run_load_s, "generate_seconds": generate_s,
+                            "launches": {k: v for k, v in from_run_launches.items() if v}},
+               "path_kernels_held": held,
+               "phase_seconds": time.perf_counter() - t_phase}
+        emit(row)
+        return {"kl_run": kl_launches, "ldm_run": ldm["launches"], "from_run": from_run_launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -3253,6 +3669,7 @@ def main() -> int:
     phase_ddpm_train()
     phase_vq_parity()
     vq = phase_vq_train()
+    train_run = phase_train_run(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -3427,6 +3844,10 @@ def main() -> int:
                                           "train_vq": vq["launches_per_step"][name]},
                        library_backend=r["library_backend"], other_shapes=r["other_shapes"],
                        **{k: r[k] for k in (*sdpa_keys, *rows_keys) if k in r})
+        # the train_run phase's launches of this kernel, by stage
+        runs = {stage: counts[name] for stage, counts in train_run.items() if counts[name]}
+        if runs:
+            row["train_run_launches"] = runs
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

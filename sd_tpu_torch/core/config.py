@@ -11,9 +11,17 @@ first stage's GAN training at 256²), `ddpm_256_train_config()` is
 training, argmin and EMA codebooks), and `ddpm_smoke_config()` /
 `vq_smoke_config()` the tiny `configs/ddpm_smoke.yaml` / `vq_smoke.yaml`,
 as dicts, so the port runs where PyYAML is not installed.
+
+`load_config(spec)` takes the name of one of them (`sd_v1`, or
+`sd_v1_config`) or the path of a config file: `.json` through the standard
+library (JSON is YAML 1.2, so the TPU package's `load_yaml` reads the same
+file), `.yaml` through PyYAML where it is installed.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import torch
 
@@ -185,6 +193,38 @@ def vq_smoke_config() -> dict:
         "train": {"image_size": 32, "batch_size": 2, "lr": 1.0e-4, "total_steps": 3,
                   "checkpoint_every": 3},
     }
+
+
+def config_functions() -> dict:
+    """{name: config function} of every configuration above."""
+    fns = (sd_v1_config, sd512_train_config, kl_f8_256_train_config, ddpm_256_train_config,
+           ddpm_smoke_config, vq_128_train_config, vq_64_train_config, vq_smoke_config)
+    return {fn.__name__[:-len("_config")]: fn for fn in fns}
+
+
+def load_config(spec: str | os.PathLike) -> dict:
+    """The configuration named by `spec`: a config function's name (with or
+    without `_config`), a `.json` file, or a `.yaml` file (needs PyYAML)."""
+    spec = os.fspath(spec)
+    fns = config_functions()
+    name = spec[:-len("_config")] if spec.endswith("_config") else spec
+    if name in fns:
+        return fns[name]()
+    ext = os.path.splitext(spec)[1].lower()
+    if ext in (".yaml", ".yml"):
+        try:
+            import yaml
+        except ImportError:
+            raise RuntimeError(f"{spec}: reading YAML needs PyYAML, which is not installed; "
+                               "give the config as .json or by name "
+                               f"({', '.join(sorted(fns))})") from None
+        with open(spec) as f:
+            return yaml.safe_load(f)
+    if ext == ".json":
+        with open(spec) as f:
+            return json.load(f)
+    raise ValueError(f"config {spec!r}: not a config name ({', '.join(sorted(fns))}) "
+                     "nor a .json / .yaml file")
 
 
 def resolve_device(device=None) -> torch.device:

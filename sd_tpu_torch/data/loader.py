@@ -1,0 +1,118 @@
+"""Batching, shuffling and background prefetch.
+
+Counterpart of `sd_tpu/data/loader.py` `collate` and `DataLoader`: the same
+seed-and-epoch shuffle, `drop_last`, the split of each epoch's batches over
+`world` ranks (round-robin, the same list on every rank), a thread pool
+that reads a batch's items ahead of the step and a bounded prefetch queue
+whose producer stops when the consumer leaves early.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Iterator
+
+import numpy as np
+
+
+def collate(items: list[dict]) -> dict:
+    """Numeric fields stacked, strings and other objects collected as lists."""
+    out: dict[str, Any] = {}
+    for key in items[0]:
+        vals = [it[key] for it in items]
+        if isinstance(vals[0], np.ndarray) or (np.isscalar(vals[0])
+                                               and not isinstance(vals[0], str)):
+            out[key] = np.stack([np.asarray(v) for v in vals])
+        else:
+            out[key] = vals
+    return out
+
+
+class DataLoader:
+    """Shuffled, batched, prefetching loader over a map-style dataset. Each
+    `iter()` is one epoch: the epoch count advances (and reaches the
+    dataset's `set_epoch`) before the order is drawn."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 drop_last: bool = True, num_workers: int = 4, prefetch: int = 2,
+                 seed: int = 0, collate_fn: Callable = collate, rank: int = 0,
+                 world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside world {world}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.seed = seed
+        self.collate_fn = collate_fn
+        self.rank = rank
+        self.world = world
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        total = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return len(range(self.rank, total, self.world))
+
+    def _batch_indices(self) -> list[np.ndarray]:
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        batches = []
+        for s in range(0, n, self.batch_size):
+            b = idx[s:s + self.batch_size]
+            if len(b) < self.batch_size and self.drop_last:
+                break
+            batches.append(b)
+        return batches[self.rank::self.world]
+
+    def __iter__(self) -> Iterator[dict]:
+        self._epoch += 1
+        set_epoch = getattr(self.dataset, "set_epoch", None)
+        if callable(set_epoch):
+            set_epoch(self._epoch)
+        batches = self._batch_indices()
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # re-checks `stop`: a consumer that leaves mid-epoch must not
+            # strand this thread on a full queue
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in batches:
+                        if stop.is_set():
+                            return
+                        items = list(pool.map(self.dataset.__getitem__, b))
+                        if not put(self.collate_fn(items)):
+                            return
+                put(None)
+            except BaseException as e:    # handed to the consumer, raised there
+                put(e)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                if isinstance(batch, BaseException):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()

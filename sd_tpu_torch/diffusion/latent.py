@@ -47,8 +47,8 @@ def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class LatentDiffusion:
     """unet_apply(x, t, context) -> prediction; encode_fn(image) ->
-    DiagonalGaussian posterior (frozen); decode_fn(z) -> image (takes the
-    unscaled latent)."""
+    DiagonalGaussian posterior, or the latent itself (frozen); decode_fn(z)
+    -> image (takes the unscaled latent)."""
 
     process: DDPMProcess
     unet_apply: Callable
@@ -71,8 +71,12 @@ class LatentDiffusion:
     def encode_first_stage(self, x: torch.Tensor, noise: torch.Tensor | None = None,
                            generator: torch.Generator | None = None) -> torch.Tensor:
         """A posterior sample of the frozen first stage (before the scale
-        factor), with `noise` or a draw from `generator`."""
-        posterior: DiagonalGaussian = self.encode_fn(x)
+        factor), with `noise` or a draw from `generator`; a first stage whose
+        encode gives a tensor (a VQ model's latent before quantization) is
+        taken as it is."""
+        posterior: DiagonalGaussian | torch.Tensor = self.encode_fn(x)
+        if torch.is_tensor(posterior):
+            return posterior
         if noise is None:
             noise = torch.randn(posterior.mean.shape, generator=generator,
                                 device=posterior.mean.device)

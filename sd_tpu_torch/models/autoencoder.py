@@ -139,6 +139,11 @@ class VQModel(nn.Module):
     def decode(self, z_q: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z_q))
 
+    def decode_with_quantize(self, z: torch.Tensor) -> torch.Tensor:
+        """Quantize a continuous latent (deterministically, no codebook
+        update), then decode: the latent-diffusion decode of a VQ first stage."""
+        return self.decode(self._quantize(z)[0])
+
     def decode_code(self, code_b: torch.Tensor, shape: tuple) -> torch.Tensor:
         """Decode codebook indices, `shape` the latent's (B, h, w, embed_dim)."""
         return self.decode(self.quantize.get_codebook_entry(code_b, shape))

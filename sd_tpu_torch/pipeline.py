@@ -9,13 +9,17 @@ requested size → KL-f8 decode → uint8, optionally watermarked. Dtype policy
 the latent cast to bf16 at each UNet call, the sampler state and update in
 fp32, z / scale_factor cast to bf16 before decode.
 
-Weights are random from a seed (`init_params_`); loading a real SD
-checkpoint, img2img/inpainting, tiled decode, ControlNet, IP-Adapter and
-self-attention guidance are not ported yet.
+Weights are random from a seed (`init_params_`), the first stage's trained
+where the config's `first_stage.ckpt` names a KL or VQ run's checkpoint;
+`from_run` loads a `train_ldm` run (`sd_tpu/pipeline.py from_run`).
+Loading a real SD checkpoint, img2img/inpainting, tiled decode, ControlNet,
+IP-Adapter and self-attention guidance are not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
+import os
 from typing import Sequence
 
 import numpy as np
@@ -25,12 +29,12 @@ from sd_tpu_torch.core.config import resolve_device
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion
-from sd_tpu_torch.models.autoencoder import AutoencoderKL
 from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
                                            SimpleHashTokenizer)
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.utils.prompt_weights import (apply_prompt_weights, parse_weighted_prompt,
                                                tokenize_weighted)
+from sd_tpu_torch.train.runners import build_first_stage, first_stage_fns
 from sd_tpu_torch.utils.watermark import embed_watermark, str_to_bits
 from sd_tpu_torch.weights import init_params_
 
@@ -42,15 +46,18 @@ class Text2ImagePipeline:
         self.cfg = cfg
         self.dtype = param_dtype
         kw = dict(dtype=param_dtype, device=self.device)
+        gen = torch.Generator(self.device).manual_seed(cfg.get("seed", 0))
         ucfg = {k: v for k, v in cfg["unet"]["params"].items() if k != "dtype"}
         self.unet = UNetModel(**ucfg, **kw).eval()
-        self.vae = AutoencoderKL(**cfg["first_stage"]["params"], **kw).eval()
+        init_params_(self.unet, gen)
+        # the config's first stage (AutoencoderKL or VQModel), trained
+        # weights from `first_stage.ckpt` where it names a run's checkpoint
+        self.vae = build_first_stage(cfg["first_stage"], gen, **kw)
         self.clip_cfg = ClipTextConfig(**(cfg.get("cond_stage", {})
                                           .get("params") or {}))
         self.clip = ClipTextTransformer(self.clip_cfg, **kw).eval()
-        gen = torch.Generator(self.device).manual_seed(cfg.get("seed", 0))
-        for module in (self.unet, self.vae, self.clip):
-            init_params_(module, gen)
+        init_params_(self.clip, gen)
+        _, decode = first_stage_fns(self.vae)
         self.tokenizer = SimpleHashTokenizer(self.clip_cfg.max_length,
                                              self.clip_cfg.vocab_size)
         diff = dict(cfg.get("diffusion", {}))
@@ -60,10 +67,39 @@ class Text2ImagePipeline:
             process=DDPMProcess(DiffusionSchedule.create(**diff), clip_denoised=False,
                                 parameterization=diff.get("parameterization", "eps")),
             unet_apply=lambda x, t, ctx: self.unet(x.to(self.dtype), t, ctx),
-            decode_fn=lambda z: self.vae.decode(z.to(self.dtype)),
+            decode_fn=lambda z: decode(z.to(self.dtype)),
             conditioning_key=lat.get("conditioning_key", "crossattn"),
-            scale_factor=lat.get("scale_factor", 0.18215),
+            # "auto": the factor a training run calibrated (`from_run` reads it)
+            scale_factor=(1.0 if lat.get("scale_factor") == "auto"
+                          else lat.get("scale_factor", 0.18215)),
         )
+
+    @classmethod
+    def from_run(cls, config: dict | str, run_dir: str,
+                 param_dtype: torch.dtype | None = torch.bfloat16,
+                 device=None) -> "Text2ImagePipeline":
+        """The pipeline of a `train_ldm` run (`python -m sd_tpu_torch.train`'s
+        output directory): the UNet's EMA weights (else its parameters) from
+        the run's latest checkpoint, read on the CPU from the mapped file,
+        the first stage from the config's `first_stage.ckpt`, and the
+        `calibration.json` scale factor under `scale_factor: auto`; every
+        weight in `param_dtype` (None: fp32). The TPU package builds the
+        pipeline in fp32 and casts it; the port builds it in `param_dtype`
+        (its random draws are fp32, rounded once), which gives the same bits."""
+        from sd_tpu_torch.core.config import load_config
+        from sd_tpu_torch.train.checkpoint import restore_tree
+        from sd_tpu_torch.train.runners import apply_calibration, copy_named_
+
+        cfg = copy.deepcopy(config) if isinstance(config, dict) else load_config(config)
+        pipe = cls(cfg, device=device, param_dtype=param_dtype or torch.float32)
+        ckpt_dir = os.path.join(run_dir, "ckpt")
+        tree = restore_tree(ckpt_dir)
+        ema = tree.get("ema")
+        weights = (ema["shadow"] if isinstance(ema, dict) and ema.get("shadow") is not None
+                   else tree["params"])
+        copy_named_(dict(pipe.unet.named_parameters()), weights, f"UNet of {ckpt_dir}")
+        pipe.ld = apply_calibration(pipe.ld, cfg, ckpt_dir)
+        return pipe
 
     @property
     def latent_shape(self) -> tuple[int, int, int]:

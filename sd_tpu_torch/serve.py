@@ -20,33 +20,38 @@ Endpoints (JSON over HTTP; stdlib http.server):
 
 A request carrying "seed" is reproducible: the seed joins the batching key.
 Requests without one are assigned one and report it back. PNGs are written
-with zlib and struct from the standard library (no imaging package).
+by `data/image_io.py` (zlib and struct, no imaging package).
 
     python -m sd_tpu_torch.serve --config sd_v1 --port 8000 --max-batch 4
     curl -s localhost:8000/generate -d '{"prompt": "a photo of a cat",
         "steps": 30, "sampler": "dpm"}' | jq -r .image | base64 -d > cat.png
 
-Weights are random from the config's seed: loading a run or an SD
-checkpoint, LoRA, sharding, ToMe and FreeU are not ported yet.
+`--config` takes a config function's name or a .json / .yaml file
+(`core/config.py load_config`); `--run DIR` serves a `train_ldm` run
+(`Text2ImagePipeline.from_run`: its EMA UNet, the config's trained first
+stage, its calibrated scale factor), else the weights are random from the
+config's seed. Loading an SD checkpoint, LoRA, sharding, ToMe and FreeU
+are not ported yet.
+
+    python -m sd_tpu_torch.serve --config runs/ldm/config.json --run runs/ldm
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
-import binascii
 import json
 import queue
-import struct
 import sys
 import threading
 import time
-import zlib
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import numpy as np
+
+from sd_tpu_torch.data.image_io import decode_png, encode_png  # noqa: F401 (re-exported)
 
 ALLOWED_SAMPLERS = ("ddim", "dpm", "dpm_sde", "unipc", "plms", "euler",
                     "euler_a", "heun", "ddpm",
@@ -54,56 +59,6 @@ ALLOWED_SAMPLERS = ("ddim", "dpm", "dpm_sde", "unipc", "plms", "euler",
                     # model-family guards in LatentDiffusion.sample reject a
                     # mismatched request with a clear error
                     "lcm", "flow", "flow_midpoint")
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", binascii.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """uint8 [H, W] or [H, W, 1|3|4] → PNG bytes (8-bit, no filtering)."""
-    x = np.asarray(img, np.uint8)
-    if x.ndim == 2:
-        x = x[..., None]
-    h, w, c = x.shape
-    color = {1: 0, 3: 2, 4: 6}[c]
-    rows = np.zeros((h, 1 + w * c), np.uint8)      # filter byte 0 per row
-    rows[:, 1:] = x.reshape(h, w * c)
-    return (_PNG_SIGNATURE
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
-
-
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes as `encode_png` writes them → uint8 [H, W, C] (checks the
-    CRCs; filtered scanlines are not supported)."""
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError("not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if binascii.crc32(tag + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"PNG chunk {tag!r}: bad CRC")
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        pos += 12 + n
-    w, h, depth, color = hdr[:4]
-    c = {0: 1, 2: 3, 6: 4}[color]
-    if depth != 8:
-        raise ValueError(f"PNG bit depth {depth}")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    if rows[:, 0].any():
-        raise ValueError("filtered PNG scanlines are not supported")
-    return rows[:, 1:].reshape(h, w, c).copy()
-
 
 def _png_b64(img: np.ndarray) -> str:
     return base64.b64encode(encode_png(img)).decode("ascii")
@@ -382,21 +337,20 @@ def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def _configs() -> dict:
-    from sd_tpu_torch.core.config import sd_v1_config
-
-    return {"sd_v1": sd_v1_config}
-
-
-_NOT_PORTED = ("run", "sd_checkpoint", "lora", "shard", "tome", "freeu")
+_NOT_PORTED = ("sd_checkpoint", "lora", "shard", "tome", "freeu")
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m sd_tpu_torch.serve",
                                  description="Serve text-to-image over HTTP with "
                                              "request micro-batching, on the GPU.")
-    ap.add_argument("--config", required=True, choices=sorted(_configs()),
-                    help="the configuration function (sd_v1: sd_v1_config())")
+    ap.add_argument("--config", required=True,
+                    help="a configuration: a config function's name (sd_v1: "
+                         "sd_v1_config()) or a .json / .yaml file")
+    ap.add_argument("--run", default=None,
+                    help="a train_ldm run directory (ckpt/ + calibration.json); "
+                         "omit for random weights")
+    ap.add_argument("--device", default=None, help="cpu to serve from the CPU")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -408,7 +362,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--watermark", default=None,
                     help="invisible provenance mark on every output "
                          "(sd_tpu_torch.utils.watermark.verify_watermark checks it)")
-    for name in ("run", "sd-checkpoint", "lora", "freeu"):
+    for name in ("sd-checkpoint", "lora", "freeu"):
         ap.add_argument(f"--{name}", default=None, help="not ported yet")
     ap.add_argument("--shard", action="store_true", help="not ported yet")
     ap.add_argument("--tome", type=float, default=0.0, help="not ported yet")
@@ -419,9 +373,12 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
 
+    from sd_tpu_torch.core.config import load_config
     from sd_tpu_torch.pipeline import Text2ImagePipeline
 
-    pipe = Text2ImagePipeline(_configs()[args.config]())
+    cfg = load_config(args.config)
+    pipe = (Text2ImagePipeline.from_run(cfg, args.run, device=args.device) if args.run
+            else Text2ImagePipeline(cfg, device=args.device))
     batcher = BatchingServer(pipe, max_batch=args.max_batch,
                              batch_window_ms=args.batch_window_ms,
                              default_steps=args.steps, default_sampler=args.sampler,

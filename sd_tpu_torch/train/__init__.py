@@ -1,2 +1,3 @@
 """Training: the diffusion train step, its optimizer and EMA, remat, LR
-schedules and the config-driven latent-diffusion runner."""
+schedules, the GAN steps, checkpoints, metrics and the config-driven runs
+(`python -m sd_tpu_torch.train`)."""

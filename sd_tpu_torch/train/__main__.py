@@ -1,0 +1,60 @@
+"""Train a configuration: `python -m sd_tpu_torch.train`.
+
+Counterpart of `scripts/train.py`: dispatches on the config's `task` to
+`train_ddpm`, `train_kl_vae`, `train_vq` or `train_ldm`, reads images from
+`--data`, writes the run (checkpoints under `ckpt/`, `metrics.jsonl`,
+`samples/`, `calibration.json`, and the config it ran as `config.json`) to
+`--out` (default `runs/<task>`), and resumes from its latest checkpoint.
+Runs on the card unless `--device cpu` (the counterpart of `--platform`).
+
+    python -m sd_tpu_torch.train --config kl_f8_256_train --data imgs/ --out runs/kl
+    python -m sd_tpu_torch.train --config runs/ldm.json --data imgs/ --out runs/ldm
+
+`--config` is a config function's name (`core/config.py`) or a .json /
+.yaml file. The other tasks of `scripts/train.py` (ldm_sr, ldm_inpaint,
+textual_inversion, dreambooth, distill) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m sd_tpu_torch.train",
+                                 description="Train a configuration on the GPU.")
+    ap.add_argument("--config", required=True,
+                    help="a config function's name or a .json / .yaml file")
+    ap.add_argument("--data", required=True, help="image directory")
+    ap.add_argument("--annotations", default=None, help="COCO captions json (ldm task)")
+    ap.add_argument("--out", default=None, help="run directory (default runs/<task>)")
+    ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--device", default=None, help="cpu to run on the CPU")
+    args = ap.parse_args(argv)
+
+    from sd_tpu_torch.core.config import load_config
+    from sd_tpu_torch.train import runners
+
+    cfg = load_config(args.config)
+    if args.annotations:
+        cfg["annotation_file"] = args.annotations
+    task = cfg.get("task")
+    run = {"ddpm": runners.train_ddpm, "kl_vae": runners.train_kl_vae,
+           "vq": runners.train_vq, "ldm": runners.train_ldm}.get(task)
+    if run is None:
+        print(f"sd_tpu_torch.train: task {task!r} is not ported yet", file=sys.stderr)
+        return 2
+    out = args.out or f"runs/{task}"
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    run(cfg, args.data, out_dir=out, max_steps=args.max_steps, device=args.device)
+    print(f"[done] task={task} out={out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

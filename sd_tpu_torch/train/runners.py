@@ -1,46 +1,60 @@
-"""Config-driven training: latent diffusion, pixel-space DDPM and the KL
+"""Config-driven training runs: latent diffusion, pixel-space DDPM and the KL
 and VQ first stages.
 
-Counterpart of `sd_tpu/train/runners.py` `build_ldm` and `train_ldm` on its
-plain-UNet branch (the SD-v1 recipe, `configs/sd512_catdog.yaml`): CLIP
-text embedding with caption dropout, KL-f8 encode with a posterior sample,
-`scale_factor: auto` calibrated on the first batch, DDPM ε-loss through the
-UNet, gradient accumulation, global-norm clip, Adam (fp32 moments under
-bf16 parameters), fp32 EMA, remat.
+Counterpart of `sd_tpu/train/runners.py`: `train_ddpm`, `train_kl_vae`,
+`train_vq` and `train_ldm(config, data, out_dir, max_steps)` build the
+models of a config, resume from the latest checkpoint under
+`out_dir/ckpt`, and run the host loop (`_run_loop`) over a directory of
+images (the config's dataset through `data/loader.py DataLoader`, epoch
+after epoch): each step's randomness from a generator of its own derived
+from (seed, step) (the TPU package's `fold_in(rng, step)`), the step's
+logs appended to `out_dir/metrics.jsonl`, a checkpoint every
+`train.checkpoint_every` steps and at the end, and every `train.eval_every`
+steps the eval sampler's grid under `out_dir/samples/` (its generator from
+(seed, 0x5EED, step)): the EMA `p_sample_loop` of `train_ddpm`, the
+reconstruction of a fixed batch with its PSNR and SSIM (`eval_psnr`,
+`eval_ssim` in the metrics file) of the codec trainers. A resumed run draws
+at each step what an unbroken run draws there. Where the TPU runners are
+odd, the port keeps it: a resumed run's loader starts again at epoch 1, and
+`train_ldm`'s caption-dropout stream starts again from its seed.
 
-Differences from the TPU package: batches come from the caller as an
-iterable of {'image': [B, H, W, 3] in [-1, 1], 'txt_raw': [B captions]}
-(its image loaders decode files with PIL or a native loader); every weight
-is random from the config's seed (loading a trained first stage,
-`first_stage.ckpt`, is not ported); there is no checkpointing, metrics file
-or eval sampler. The LoRA, ControlNet, IP-Adapter and trainable-cond-stage
-branches are not ported yet.
+`data` may also be an iterable of batches ({'image': [B, H, W, 3] in
+[-1, 1]}, and 'txt_raw' captions for `train_ldm`), read once, with
+`out_dir=None`: no files, no resume, no eval. Every trainer returns the
+training state and one dict of floats per step: the step's logs and
+`seconds` (host clock, the step's results read back).
 
-`train_ddpm` is the TPU package's `train_ddpm` (capability config #1):
-the pixel-space UNetDDPM under the DDPM ε-loss, clip + Adam and EMA.
-`train_kl_vae` is its `train_kl_vae` (capability config #3): the KL
-autoencoder against L1 + LPIPS + KL + a PatchGAN, two Adam optimizers, the
-same bf16 parameter policy. `train_vq` is its `train_vq` (capability config
-#4): the VQ model (argmin, Gumbel or EMA codebook) against L1 + LPIPS + the
-codebook loss + a PatchGAN, under the same policy. Like `train_ldm` they
-step over the batches handed to them: the TPU runners' checkpoints, metrics
-file and eval samplers (the EMA sampler of `train_ddpm`, the
-reconstruction sampler of the codec trainers) are not ported yet. The other
-capability runners are not ported yet.
+`train_ldm` is the plain-UNet branch of the TPU package's (the SD-v1
+recipe, `configs/sd512_catdog.yaml`): CLIP text embedding with caption
+dropout, the frozen first stage (a KL posterior sample or a VQ model's
+latent before quantization; trained weights from `first_stage.ckpt`, a KL
+or VQ run's checkpoint directory), `scale_factor: auto` calibrated on the
+first batch and written to `out_dir/calibration.json`, DDPM ε-loss through
+the UNet, gradient accumulation, global-norm clip, Adam (fp32 moments under
+bf16 parameters), fp32 EMA, remat. Its LoRA, ControlNet, IP-Adapter and
+trainable-cond-stage branches are not ported yet. `train_ddpm` trains the
+pixel-space UNetDDPM under the DDPM ε-loss (capability config #1),
+`train_kl_vae` the KL autoencoder against L1 + LPIPS + KL + a PatchGAN
+(#3), `train_vq` the VQ model (argmin, Gumbel or EMA codebook) against L1 +
+LPIPS + the codebook loss + a PatchGAN (#4), both with two Adam optimizers
+under the same bf16 parameter policy. The other capability runners are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import itertools
+import json
+import os
 import time
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 
-from sd_tpu_torch.core.config import resolve_device
+from sd_tpu_torch.core.config import load_config, resolve_device
+from sd_tpu_torch.core.ema import ema_copy_to
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess, draw_training_noise
 from sd_tpu_torch.diffusion.latent import LatentDiffusion, calibrate_scale_factor
@@ -52,6 +66,7 @@ from sd_tpu_torch.models.discriminator import NLayerDiscriminator, init_discrimi
 from sd_tpu_torch.models.lpips import make_lpips_fn
 from sd_tpu_torch.models.unet_ddpm import UNetDDPM
 from sd_tpu_torch.models.unet_sd import UNetModel
+from sd_tpu_torch.train.checkpoint import auto_resume, restore_tree, save_checkpoint
 from sd_tpu_torch.train.diffusion import (TrainState, ddpm_optimizer,
                                           float32_moments, init_train_state,
                                           make_diffusion_train_step)
@@ -59,8 +74,13 @@ from sd_tpu_torch.train.gan import (GanTrainState, gan_adam, gumbel_temp_schedul
                                     init_gan_state, make_kl_gan_train_step,
                                     make_vq_gan_train_step)
 from sd_tpu_torch.train.lr_schedules import cosine_annealing, lambda_linear_schedule
+from sd_tpu_torch.train.metrics import (MetricsLogger, count_params, psnr,
+                                        save_image_grid, ssim)
 from sd_tpu_torch.train.remat import remat_apply
 from sd_tpu_torch.weights import init_params_
+
+# the eval sampler's generator is derived from (seed, EVAL_KEY, step)
+EVAL_KEY = 0x5EED
 
 
 def make_lr(train_cfg: dict) -> float | Callable[[int], float]:
@@ -77,6 +97,270 @@ def make_lr(train_cfg: dict) -> float | Callable[[int], float]:
         raise ValueError(f"unknown lr_schedule {sched!r}")
     lam = lambda_linear_schedule(**sched)
     return lambda step: lr * lam(step)
+
+
+def step_generator(device, *key: int) -> torch.Generator:
+    """A generator on `device` seeded from the integers `key`, e.g. (seed,
+    step): the counterpart of `jax.random.fold_in`."""
+    state = np.random.SeedSequence([int(k) & 0xFFFFFFFF for k in key]).generate_state(2)
+    return torch.Generator(device).manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
+
+
+def _load_cfg(config: dict | str) -> dict:
+    """A deep copy of a config dict, or the config `load_config` names."""
+    return copy.deepcopy(config) if isinstance(config, dict) else load_config(config)
+
+
+# -- data ---------------------------------------------------------------------------
+
+
+def _build_loader(data_dir: str, cfg: dict, batch_size: int):
+    """The config's dataset over `data_dir` (COCO captions with
+    `annotation_file`, class captions with `data.captions: class`, else the
+    image folder) in a DataLoader; under `torch.distributed` each rank
+    reads its own share of every epoch."""
+    from sd_tpu_torch.data.datasets import (ClassCaptionDataset, CocoCaptionDataset,
+                                            ImageFolderDataset)
+    from sd_tpu_torch.data.loader import DataLoader
+
+    ann = cfg.get("annotation_file")
+    size = cfg.get("train", {}).get("image_size", 256)
+    dcfg = cfg.get("data", {})
+    if ann:
+        ds = CocoCaptionDataset(data_dir, ann, image_size=size)
+    elif dcfg.get("sr"):
+        raise NotImplementedError("SRDataset is not ported yet (data/degradation.py)")
+    elif dcfg.get("captions") == "class":
+        ds = ClassCaptionDataset(data_dir, image_size=size,
+                                 label_from=dcfg.get("label_from", "filename_prefix"),
+                                 template=dcfg.get("template", "a photo of a {}"))
+    else:
+        ds = ImageFolderDataset(data_dir, image_size=size)
+    dist = torch.distributed
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_available() and dist.is_initialized() else (0, 1))
+    return DataLoader(ds, batch_size=batch_size, rank=rank, world=world)
+
+
+class _Batches:
+    """A run's data: a directory (the config's dataset, epoch after epoch)
+    or an iterable of batches (read once)."""
+
+    def __init__(self, data: str | os.PathLike | Iterable[dict], cfg: dict):
+        self.cfg = cfg
+        self.dir = os.fspath(data) if isinstance(data, (str, os.PathLike)) else None
+        if self.dir is None:
+            self._it = iter(data)
+            self._first = next(self._it, None)
+
+    def peek(self) -> dict:
+        """The run's fixed batch: a fresh loader's first batch of 4 (the
+        first epoch's order) for a directory, else the iterable's first."""
+        if self.dir is None:
+            if self._first is None:
+                raise RuntimeError("empty dataset")
+            return self._first
+        it = iter(_build_loader(self.dir, self.cfg, 4))
+        try:
+            return next(it)
+        except StopIteration:
+            raise RuntimeError(f"empty dataset: {self.dir}") from None
+        finally:
+            it.close()
+
+    def __iter__(self):
+        if self.dir is None:
+            if self._first is not None:
+                yield self._first
+                yield from self._it
+            return
+        loader = _build_loader(self.dir, self.cfg, self.cfg["train"].get("batch_size", 4))
+        while True:
+            n = 0
+            for batch in loader:
+                n += 1
+                yield batch
+            if n == 0:
+                raise RuntimeError(f"empty dataset: {self.dir}")
+
+
+def _image(batch: dict, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(batch["image"]), dtype=torch.float32).to(device)
+
+
+# -- the loop -----------------------------------------------------------------------
+
+
+def _run_loop(step_fn: Callable, state, cfg: dict, batches: _Batches, out_dir: str | None,
+              start_step: int, *, seed: int, device, max_steps: int | None = None,
+              sampler: Callable | None = None) -> list[dict]:
+    """Run `step_fn(state, batch, generator)` from `start_step` to
+    `max_steps` (default `train.total_steps`), fewer if an iterable of
+    batches runs out; each step's generator from (seed, step). With
+    `out_dir`: the logs to `metrics.jsonl`, a checkpoint every
+    `train.checkpoint_every` steps and at the end, and every
+    `train.eval_every` steps `sampler(state, generator)` (images, or
+    (images, {metric: value}) logged as `eval_<metric>`) as
+    `samples/step_<N>.png`, its generator from (seed, EVAL_KEY, step)."""
+    tc = cfg["train"]
+    total = max_steps if max_steps is not None else tc.get("total_steps", 1000)
+    ckpt_every = tc.get("checkpoint_every", 1000)
+    eval_every = tc.get("eval_every", ckpt_every)
+    ckpt_dir = os.path.join(out_dir, "ckpt") if out_dir else None
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl") if out_dir else None)
+    history, step, saved = [], start_step, None
+    it = iter(batches)
+    try:
+        while step < total:
+            batch = next(it, None)
+            if batch is None:
+                break
+            t0 = time.perf_counter()
+            logs = step_fn(state, batch, step_generator(device, seed, step))
+            row = {k: float(v) for k, v in logs.items()}
+            seconds = time.perf_counter() - t0
+            logger.log(step, row)
+            history.append({**row, "seconds": seconds})
+            step += 1
+            if ckpt_dir and step % ckpt_every == 0:
+                save_checkpoint(ckpt_dir, state, step)
+                saved = step
+            if out_dir and sampler is not None and step % eval_every == 0:
+                with torch.no_grad():
+                    imgs = sampler(state, step_generator(device, seed, EVAL_KEY, step))
+                if isinstance(imgs, tuple):
+                    imgs, eval_logs = imgs
+                    logger.log(step, {f"eval_{k}": v for k, v in eval_logs.items()})
+                save_image_grid(imgs.float().cpu().numpy(),
+                                os.path.join(out_dir, "samples", f"step_{step}.png"))
+    finally:
+        it.close()
+        logger.close()
+    if ckpt_dir and saved != step:
+        save_checkpoint(ckpt_dir, state, step)
+    return history
+
+
+def _resume(out_dir: str | None, fresh_state: Callable[[], Any]) -> tuple[Any, int]:
+    """auto_resume under `out_dir/ckpt`, or the fresh state without a run
+    directory."""
+    if not out_dir:
+        return fresh_state(), 0
+    return auto_resume(os.path.join(out_dir, "ckpt"), fresh_state)
+
+
+def ema_eval_params(state: TrainState) -> dict[str, torch.Tensor]:
+    """The EMA shadow cast to the parameters' dtypes where an EMA is kept,
+    else the parameters."""
+    if state.ema is not None:
+        return ema_copy_to(state.ema, state.params)
+    return state.params
+
+
+def _recon_eval_sampler(batches: _Batches, device, recon_fn: Callable) -> Callable:
+    """The codec trainers' eval: `recon_fn(state, x, generator)` of the
+    run's fixed batch, and its PSNR and SSIM against it."""
+    ref: list[torch.Tensor] = []
+
+    def sampler(state, generator):
+        if not ref:
+            ref.append(_image(batches.peek(), device))
+        out = recon_fn(state, ref[0], generator)
+        a, b = out.float().cpu().numpy(), ref[0].cpu().numpy()
+        return out, {"psnr": psnr(a, b), "ssim": ssim(a, b)}
+
+    return sampler
+
+
+# -- the first stage ----------------------------------------------------------------
+
+
+def first_stage_factor(fs_cfg: dict) -> int:
+    """The pixel / latent downsampling of a first-stage config: 2^(levels − 1)."""
+    return 2 ** (len(fs_cfg["params"].get("ch_mult", [1, 2, 4, 4])) - 1)
+
+
+def _first_stage_class(fs_cfg: dict):
+    target = fs_cfg.get("target", "AutoencoderKL")
+    for cls in (AutoencoderKL, VQModel):
+        if target.split(".")[-1] == cls.__name__:
+            return cls
+    raise NotImplementedError(f"first stage {target!r} is not ported "
+                              "(AutoencoderKL and VQModel are)")
+
+
+def copy_named_(own: dict[str, torch.Tensor], loaded: dict, what: str) -> None:
+    """Copy `loaded[name]` into each tensor of `own`, in place, cast to its
+    dtype; the names and shapes must match (a readable error names the
+    first that does not)."""
+    if sorted(loaded) != sorted(own):
+        raise ValueError(f"{what}: its tensors {sorted(set(loaded) ^ set(own))[:6]} differ "
+                         "from the model's — wrong checkpoint for this config?")
+    with torch.no_grad():
+        for name, t in own.items():
+            if tuple(loaded[name].shape) != tuple(t.shape):
+                raise ValueError(f"{what}: leaf {name} shape {tuple(loaded[name].shape)} != "
+                                 f"model shape {tuple(t.shape)} — wrong checkpoint for this "
+                                 "config?")
+            t.copy_(loaded[name].to(t.dtype))
+
+
+def load_first_stage_(model: torch.nn.Module, ckpt: str) -> None:
+    """Copy a trained first stage into `model`, in place: the autoencoder
+    parameters of a KL or VQ run's checkpoint directory (`params_g` without
+    its `logvar`; the generator's buffers, an EMA codebook, from
+    `model_state`), each checked against the model's shape and cast to its
+    dtype."""
+    tree = restore_tree(ckpt)
+    loaded = tree["params_g"] if "params_g" in tree else tree
+    loaded = {**{k: v for k, v in loaded.items() if k != "logvar"},
+              **tree.get("model_state", {})}
+    copy_named_({**dict(model.named_parameters()), **dict(model.named_buffers())}, loaded,
+                f"first-stage ckpt {ckpt}")
+
+
+def build_first_stage(fs_cfg: dict, generator: torch.Generator,
+                      dtype: torch.dtype = torch.float32, device=None) -> torch.nn.Module:
+    """The first stage of `first_stage` (`target` AutoencoderKL or VQModel),
+    in eval mode, every weight drawn from `generator`; the trained weights
+    of `ckpt` copied over them where the config names one (the draws are
+    made either way, so what is drawn after them does not move)."""
+    cls = _first_stage_class(fs_cfg)
+    params = {k: v for k, v in fs_cfg["params"].items() if k != "dtype"}
+    model = cls(**params, dtype=dtype, device=device).eval()
+    init_params_(model, generator)
+    if fs_cfg.get("ckpt"):
+        load_first_stage_(model, fs_cfg["ckpt"])
+        print(f"[ldm] first stage loaded from {fs_cfg['ckpt']}")
+    return model
+
+
+def first_stage_fns(model: torch.nn.Module) -> tuple[Callable, Callable]:
+    """(encode_fn, decode_fn) of a first stage: a KL model's posterior and
+    decode; a VQ model's latent before quantization, and quantize-then-decode."""
+    if isinstance(model, VQModel):
+        return model.encode_pre_quant, model.decode_with_quantize
+    return model.encode, model.decode
+
+
+def apply_calibration(ld: LatentDiffusion, cfg: dict, ckpt_dir: str | None) -> LatentDiffusion:
+    """`ld` with the scale factor `train_ldm` wrote to calibration.json
+    beside `ckpt_dir`, when the config says `scale_factor: auto`; a missing
+    file warns and keeps the factor."""
+    if not ckpt_dir or cfg["latent"].get("scale_factor") != "auto":
+        return ld
+    cal = os.path.join(os.path.dirname(str(ckpt_dir).rstrip("/")), "calibration.json")
+    if not os.path.exists(cal):
+        print(f"[sample] WARNING: scale_factor=auto but {cal} missing; "
+              f"using {ld.scale_factor} (decode will be mis-scaled)")
+        return ld
+    with open(cal) as f:
+        sf = float(json.load(f)["scale_factor"])
+    print(f"[sample] scale_factor from {cal}: {sf:.4f}")
+    return dataclasses.replace(ld, scale_factor=sf)
+
+
+# -- latent diffusion ---------------------------------------------------------------
 
 
 class TextEmbedder:
@@ -97,19 +381,18 @@ class TextEmbedder:
 def build_ldm(cfg: dict, generator: torch.Generator,
               param_dtype: torch.dtype = torch.float32, device=None):
     """The text-to-image latent-diffusion stack of `cfg`, every weight from
-    `generator`: (ld, unet, vae, embed_texts). The UNet holds its parameters
-    in `param_dtype`; the frozen first stage and text tower are fp32."""
+    `generator` (the first stage's trained ones from `first_stage.ckpt`):
+    (ld, unet, first_stage, embed_texts). The UNet holds its parameters in
+    `param_dtype`; the frozen first stage and text tower are fp32."""
     device = resolve_device(device)
-    if cfg["first_stage"].get("ckpt"):
-        raise NotImplementedError("loading a trained first stage is not ported yet")
     lat = cfg["latent"]
     ucfg = {k: v for k, v in cfg["unet"]["params"].items() if k != "dtype"}
     unet = UNetModel(**ucfg, dtype=param_dtype, device=device)
-    vae = AutoencoderKL(**cfg["first_stage"]["params"], device=device).eval()
+    init_params_(unet, generator)
+    vae = build_first_stage(cfg["first_stage"], generator, device=device)
     clip_cfg = ClipTextConfig(**(cfg.get("cond_stage", {}).get("params") or {}))
     clip = ClipTextTransformer(clip_cfg, device=device).eval()
-    for module in (unet, vae, clip):
-        init_params_(module, generator)
+    init_params_(clip, generator)
 
     diff = dict(cfg.get("diffusion", {}))
     min_snr = diff.pop("min_snr_gamma", None)
@@ -118,9 +401,9 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     process = DDPMProcess(DiffusionSchedule.create(**diff).to(device), clip_denoised=False,
                           parameterization=diff.get("parameterization", "eps"),
                           min_snr_gamma=min_snr)
+    encode_fn, decode_fn = first_stage_fns(vae)
     ld = LatentDiffusion(
-        process=process, unet_apply=unet, encode_fn=vae.encode,
-        decode_fn=vae.decode,
+        process=process, unet_apply=unet, encode_fn=encode_fn, decode_fn=decode_fn,
         conditioning_key=lat.get("conditioning_key", "crossattn"),
         # "auto": std-rescaled on the first batch, in train_ldm
         scale_factor=(1.0 if lat.get("scale_factor") == "auto"
@@ -130,13 +413,15 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     return ld, unet, vae, embed
 
 
-def train_ldm(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
-              device=None) -> tuple[TrainState, list[dict]]:
-    """Train the UNet of `cfg` on `batches` for `max_steps` optimizer steps
-    (default `train.total_steps`, fewer if the batches run out). Returns the
-    training state and one dict of floats per step: the step's losses,
-    `grad_norm` and `seconds` (host clock, the step's results read back)."""
-    cfg = copy.deepcopy(cfg)
+def train_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | None = None,
+              max_steps: int | None = None, device=None) -> tuple[TrainState, list[dict]]:
+    """Train the UNet of `config` on `data` (see the module docstring) for
+    `max_steps` optimizer steps (default `train.total_steps`). With
+    `scale_factor: auto` the factor is 1/std of the first batch's latents
+    (`calibration.json` under `out_dir`); a resumed run calibrates again on
+    the same batch. The caption-dropout stream starts from the seed on
+    every start, a resumed run's too, as in the TPU package."""
+    cfg = _load_cfg(config)
     tc = cfg["train"]
     for branch in ("lora", "controlnet", "ip_adapter"):
         if cfg.get(branch):
@@ -151,17 +436,19 @@ def train_ldm(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
     gen = torch.Generator(device).manual_seed(seed)
     param_dtype = getattr(torch, tc.get("param_dtype") or "float32")
     ld, unet, _, embed = build_ldm(cfg, gen, param_dtype, device)
+    print(f"[ldm] unet params: {count_params(unet) / 1e6:.1f}M"
+          + (f" ({tc['param_dtype']})" if tc.get("param_dtype") else ""))
+    batches = _Batches(data, cfg)
 
-    def image(batch):
-        return torch.as_tensor(np.asarray(batch["image"]), dtype=torch.float32).to(device)
-
-    batches = iter(batches)
-    first = next(batches)
-    batches = itertools.chain([first], batches)
     if cfg["latent"].get("scale_factor") == "auto":
         # std-rescaling on the first batch (the reference's scale_by_std)
-        z = ld.encode_first_stage(image(first), generator=gen)
+        z = ld.encode_first_stage(_image(batches.peek(), device), generator=gen)
         ld = dataclasses.replace(ld, scale_factor=calibrate_scale_factor(z))
+        print(f"[ldm] scale_factor (std-rescale): {ld.scale_factor:.4f}")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "calibration.json"), "w") as f:
+                json.dump({"scale_factor": float(ld.scale_factor)}, f)
 
     # classifier-free-guidance training: the empty caption at `cond_dropout`
     cond_dropout = float(tc.get("cond_dropout", 0.0))
@@ -171,29 +458,26 @@ def train_ldm(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
         texts = list(batch.get("txt_raw", [""] * len(batch["image"])))
         if cond_dropout > 0.0:
             texts = ["" if cd_rng.random() < cond_dropout else t for t in texts]
-        return {"image": image(batch), "txt_emb": embed(texts)}
+        return {"image": _image(batch, device), "txt_emb": embed(texts)}
 
     opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0))
     if param_dtype != torch.float32:
         opt = float32_moments(opt)
     if tc.get("remat", "none") != "none":
         ld = dataclasses.replace(ld, unet_apply=remat_apply(ld.unet_apply, tc["remat"]))
-    state = init_train_state(dict(unet.named_parameters()), opt,
-                             tc.get("ema_decay", 0.9999),
-                             num_timesteps=ld.schedule.num_timesteps)
+    state, start = _resume(out_dir, lambda: init_train_state(
+        dict(unet.named_parameters()), opt, tc.get("ema_decay", 0.9999),
+        num_timesteps=ld.schedule.num_timesteps))
     step_fn = make_diffusion_train_step(
         lambda b, g, logvar: ld.training_loss(b, g, learned_logvar=logvar),
         opt, grad_accum=tc.get("grad_accum", 1))
-
-    total = max_steps if max_steps is not None else tc.get("total_steps", 1000)
-    history = []
-    for batch in itertools.islice(batches, total):
-        t0 = time.perf_counter()
-        logs = step_fn(state, embed_batch(batch), gen)
-        row = {k: float(v) for k, v in logs.items()}
-        row["seconds"] = time.perf_counter() - t0
-        history.append(row)
+    history = _run_loop(lambda st, b, g: step_fn(st, embed_batch(b), g), state, cfg,
+                        batches, out_dir, start, seed=seed, device=device,
+                        max_steps=max_steps)
     return state, history
+
+
+# -- the GAN trainers ---------------------------------------------------------------
 
 
 def _resolve_lpips(loss_cfg: GanLossConfig, mode: str, device, tag: str):
@@ -216,8 +500,9 @@ def _gan_setup(cfg: dict, model, device, gen, tag: str):
     """The GAN trainers' common part: the discriminator of `cfg` and both
     networks initialised from `gen`, the loss configuration and perceptual
     function (the perceptual weight dropped to 0 with `perceptual: none`),
-    the two GAN Adams (fp32 moments under `train.param_dtype`) and the
-    training state. Returns (disc, loss_cfg, lpips_fn, opt_g, opt_d, state)."""
+    the two GAN Adams (fp32 moments under `train.param_dtype`) and a thunk
+    of the training state. Returns (disc, loss_cfg, lpips_fn, opt_g, opt_d,
+    fresh_state)."""
     tc = cfg["train"]
     param_dtype = getattr(torch, tc["param_dtype"]) if tc.get("param_dtype") else None
     disc = NLayerDiscriminator(**cfg.get("discriminator", {}), device=device)
@@ -232,35 +517,107 @@ def _gan_setup(cfg: dict, model, device, gen, tag: str):
     opt_g, opt_d = gan_adam(tc.get("lr", 4.5e-6)), gan_adam(tc.get("lr", 4.5e-6))
     if param_dtype not in (None, torch.float32):
         opt_g, opt_d = float32_moments(opt_g), float32_moments(opt_d)
-    state = init_gan_state(model, disc, opt_g, opt_d, param_dtype=param_dtype)
-    return disc, loss_cfg, lpips_fn, opt_g, opt_d, state
+    fresh = lambda: init_gan_state(model, disc, opt_g, opt_d, param_dtype=param_dtype)
+    return disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh
 
 
-def _run_steps(step_fn, state, batches: Iterable[dict], total: int, device,
-               generator: torch.Generator) -> list[dict]:
-    """`step_fn(state, image, generator)` over up to `total` batches of
-    {'image'}: one dict of floats per step, the step's logs and `seconds`
-    (host clock, the step's results read back)."""
-    history = []
-    for batch in itertools.islice(batches, total):
-        t0 = time.perf_counter()
-        x = torch.as_tensor(np.asarray(batch["image"]), dtype=torch.float32).to(device)
-        logs = step_fn(state, x, generator)
-        row = {k: float(v) for k, v in logs.items()}
-        row["seconds"] = time.perf_counter() - t0
-        history.append(row)
-    return history
+def _gan_params(state: GanTrainState) -> int:
+    return count_params({n: p for n, p in state.params_g.items() if n != "logvar"})
 
 
-def make_ddpm_trainer(cfg: dict, model: UNetDDPM):
-    """The pixel-space DDPM recipe of `cfg` over `model`: (state, step).
-    `state` is the training state over the model's parameters (Adam moments,
-    fp32 EMA at `train.ema_decay`); `step(state, batch, generator)` one
-    optimizer step on {'image': [B, H, W, 3]}: the ε-loss of
-    `DDPMProcess(clip_denoised=True)` on the config's schedule, clip + Adam
-    on the config's lr, `train.grad_accum` microbatches; its timesteps
-    (uniform in [0, T)) and noise from the batch's `t` and `noise` where it
-    has them, else from `generator`."""
+def train_kl_vae(config: dict | str, data: str | Iterable[dict], out_dir: str | None = None,
+                 max_steps: int | None = None, device=None
+                 ) -> tuple[GanTrainState, list[dict]]:
+    """Train the KL autoencoder of `config` (e.g. `kl_f8_256_train_config()`)
+    with its PatchGAN on `data` (see the module docstring). Every weight is
+    random from the config's seed, each step's posterior noise from the
+    step's generator. With `train.param_dtype` (e.g. "bfloat16") the
+    generator and discriminator parameters are stored in it and the Adam
+    moments are fp32. The eval reconstructs the run's fixed batch with a
+    posterior sample."""
+    cfg = _load_cfg(config)
+    target = cfg["model"].get("target", "")
+    if not target.endswith("AutoencoderKL"):
+        raise NotImplementedError(f"first stage {target!r} is not ported yet")
+    device = resolve_device(device)
+    seed = cfg.get("seed", 0)
+    gen = torch.Generator(device).manual_seed(seed)
+    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
+    vae = AutoencoderKL(**mp, device=device)
+    disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh = _gan_setup(cfg, vae, device, gen, "kl-vae")
+    state, start = _resume(out_dir, fresh)
+    print(f"[kl-vae] params: {_gan_params(state) / 1e6:.1f}M")
+
+    down = 2 ** (len(mp.get("ch_mult", (1, 2, 4, 4))) - 1)
+    embed_dim = mp.get("embed_dim", 4)
+
+    def ae_apply(x, generator):
+        b, h, w, _ = x.shape
+        noise = torch.randn((b, h // down, w // down, embed_dim), generator=generator,
+                            device=x.device)
+        return vae(x, noise)
+
+    step_fn = make_kl_gan_train_step(ae_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg)
+    batches = _Batches(data, cfg)
+    sampler = _recon_eval_sampler(batches, device, lambda st, x, g: ae_apply(x, g)[0])
+    history = _run_loop(lambda st, b, g: step_fn(st, _image(b, device), g), state, cfg,
+                        batches, out_dir, start, seed=seed, device=device,
+                        max_steps=max_steps, sampler=sampler)
+    return state, history
+
+
+def train_vq(config: dict | str, data: str | Iterable[dict], out_dir: str | None = None,
+             max_steps: int | None = None, device=None) -> tuple[GanTrainState, list[dict]]:
+    """Train the VQ model of `config` (e.g. `vq_128_train_config()`,
+    `vq_64_train_config()`) with its PatchGAN on `data` (see the module
+    docstring). Every weight is random from the config's seed.
+    `model.params.quantizer_type` picks the codebook: "vq" (argmin, trained
+    by its gradient), "gumbel" (its noise drawn from the step's generator,
+    its temperature `gumbel_temp_schedule(temp_init, **gumbel_schedule)` of
+    the step) or "ema" (fp32 buffers updated once a step, never seen by
+    Adam). With `train.param_dtype` (e.g. "bfloat16") the generator's and
+    the discriminator's parameters are stored in it and the Adam moments are
+    fp32. The eval reconstructs the run's fixed batch (deterministic
+    quantization at `temp_init`, no codebook update)."""
+    cfg = _load_cfg(config)
+    target = cfg["model"].get("target", "")
+    if not target.endswith("VQModel"):
+        raise NotImplementedError(f"first stage {target!r} is not a VQ model")
+    device = resolve_device(device)
+    seed = cfg.get("seed", 0)
+    gen = torch.Generator(device).manual_seed(seed)
+    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
+    vq = VQModel(**mp, device=device)
+    disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh = _gan_setup(cfg, vq, device, gen, "vq")
+    state, start = _resume(out_dir, fresh)
+    print(f"[vq] params: {_gan_params(state) / 1e6:.1f}M")
+
+    temp_fn = None
+    if vq.quantizer_type == "gumbel":
+        temp_fn = gumbel_temp_schedule(temp_init=mp.get("temp_init", 1.0),
+                                       **cfg.get("gumbel_schedule", {}))
+
+    def vq_apply(x, generator, temp):
+        return vq(x, temp=temp, update=True, deterministic=False, generator=generator)
+
+    def recon(st, x, generator):
+        return vq(x, temp=mp.get("temp_init", 1.0), update=False, deterministic=True)[0]
+
+    step_fn = make_vq_gan_train_step(vq_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg,
+                                     temp_fn=temp_fn)
+    batches = _Batches(data, cfg)
+    history = _run_loop(lambda st, b, g: step_fn(st, _image(b, device), g), state, cfg,
+                        batches, out_dir, start, seed=seed, device=device,
+                        max_steps=max_steps,
+                        sampler=_recon_eval_sampler(batches, device, recon))
+    return state, history
+
+
+# -- pixel-space DDPM ---------------------------------------------------------------
+
+
+def _ddpm_parts(cfg: dict, model: UNetDDPM):
+    """(fresh_state thunk, step, process) of `make_ddpm_trainer`."""
     tc = cfg["train"]
     diff = dict(cfg.get("diffusion", {}))
     min_snr = diff.pop("min_snr_gamma", None)
@@ -284,110 +641,57 @@ def make_ddpm_trainer(cfg: dict, model: UNetDDPM):
                                 learned_logvar=logvar)
 
     opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0))
-    state = init_train_state(dict(model.named_parameters()), opt, tc.get("ema_decay", 0.9999))
-    return state, make_diffusion_train_step(loss_fn, opt, grad_accum=tc.get("grad_accum", 1))
+    fresh = lambda: init_train_state(dict(model.named_parameters()), opt,
+                                     tc.get("ema_decay", 0.9999))
+    return fresh, make_diffusion_train_step(loss_fn, opt, grad_accum=tc.get("grad_accum", 1)), \
+        process
 
 
-def train_ddpm(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
-               device=None) -> tuple[TrainState, list[dict]]:
-    """Train the pixel-space DDPM of `cfg` (e.g. `ddpm_256_train_config()`)
-    on `batches` of {'image': [B, H, W, 3] in [-1, 1]} for `max_steps`
-    steps (default `train.total_steps`, fewer if the batches run out) with
-    `make_ddpm_trainer`. Every weight is random from the config's seed, as
-    are each step's timesteps and noise. fp32 parameters; the config's lr is
-    a constant or `lr_schedule: cosine`. Returns the training state and one
-    dict of floats per step: the step's losses, `grad_norm` and `seconds`
-    (host clock, the step's results read back)."""
-    cfg = copy.deepcopy(cfg)
+def make_ddpm_trainer(cfg: dict, model: UNetDDPM):
+    """The pixel-space DDPM recipe of `cfg` over `model`: (state, step).
+    `state` is the training state over the model's parameters (Adam moments,
+    fp32 EMA at `train.ema_decay`); `step(state, batch, generator)` one
+    optimizer step on {'image': [B, H, W, 3]}: the ε-loss of
+    `DDPMProcess(clip_denoised=True)` on the config's schedule, clip + Adam
+    on the config's lr, `train.grad_accum` microbatches; its timesteps
+    (uniform in [0, T)) and noise from the batch's `t` and `noise` where it
+    has them, else from `generator`."""
+    fresh, step, _ = _ddpm_parts(cfg, model)
+    return fresh(), step
+
+
+def train_ddpm(config: dict | str, data: str | Iterable[dict], out_dir: str | None = None,
+               max_steps: int | None = None, device=None) -> tuple[TrainState, list[dict]]:
+    """Train the pixel-space DDPM of `config` (e.g. `ddpm_256_train_config()`)
+    on `data` (see the module docstring) with `make_ddpm_trainer`. Every
+    weight is random from the config's seed, each step's timesteps and
+    noise from the step's generator. fp32 parameters; the config's lr is a
+    constant or `lr_schedule: cosine`. The eval samples `sample.num_images`
+    images (default 4) with `p_sample_loop` under the EMA weights, x_T from
+    the eval generator."""
+    cfg = _load_cfg(config)
     mp = dict(cfg["model"]["params"])
     if mp.pop("dtype", None) is not None:
         raise NotImplementedError(
             "model.params.dtype (fp32 master parameters, bf16 compute) is not ported yet "
             "(ROADMAP Queue 1)")
     device = resolve_device(device)
-    gen = torch.Generator(device).manual_seed(cfg.get("seed", 0))
+    seed = cfg.get("seed", 0)
     model = UNetDDPM(**mp, device=device)
-    init_params_(model, gen)
-    state, step_fn = make_ddpm_trainer(cfg, model)
-    total = max_steps if max_steps is not None else cfg["train"].get("total_steps", 1000)
-    history = _run_steps(lambda st, x, g: step_fn(st, {"image": x}, g), state, batches,
-                         total, device, gen)
+    init_params_(model, torch.Generator(device).manual_seed(seed))
+    fresh, step_fn, process = _ddpm_parts(cfg, model)
+    state, start = _resume(out_dir, fresh)
+    print(f"[ddpm] params: {count_params(state.params) / 1e6:.1f}M")
+    size = cfg["train"].get("image_size", 256)
+
+    def sample_with_ema(st, generator):
+        params = ema_eval_params(st)
+        shape = (cfg.get("sample", {}).get("num_images", 4), size, size, model.out_channels)
+        x_T = torch.randn(shape, generator=generator, device=device)
+        fn = lambda x, t, c: torch.func.functional_call(model, params, (x, t))
+        return process.p_sample_loop(fn, shape, x_T, generator=generator)
+
+    history = _run_loop(lambda st, b, g: step_fn(st, {"image": _image(b, device)}, g), state,
+                        cfg, _Batches(data, cfg), out_dir, start, seed=seed, device=device,
+                        max_steps=max_steps, sampler=sample_with_ema)
     return state, history
-
-
-def train_kl_vae(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
-                 device=None) -> tuple[GanTrainState, list[dict]]:
-    """Train the KL autoencoder of `cfg` (e.g. `kl_f8_256_train_config()`)
-    with its PatchGAN on `batches` of {'image': [B, H, W, 3] in [-1, 1]} for
-    `max_steps` steps (default `train.total_steps`, fewer if the batches run
-    out). Every weight is random from the config's seed. With
-    `train.param_dtype` (e.g. "bfloat16") the generator and discriminator
-    parameters are stored in it and the Adam moments are fp32. Returns the
-    training state and one dict of floats per step: the step's logs
-    (`train/...`) and `seconds` (host clock, the step's results read back).
-    Checkpointing, the metrics file and the reconstruction eval sampler of
-    the TPU package's runner are not ported yet."""
-    cfg = copy.deepcopy(cfg)
-    tc = cfg["train"]
-    target = cfg["model"].get("target", "")
-    if not target.endswith("AutoencoderKL"):
-        raise NotImplementedError(f"first stage {target!r} is not ported yet")
-    device = resolve_device(device)
-    gen = torch.Generator(device).manual_seed(cfg.get("seed", 0))
-    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
-    vae = AutoencoderKL(**mp, device=device)
-    disc, loss_cfg, lpips_fn, opt_g, opt_d, state = _gan_setup(cfg, vae, device, gen, "kl-vae")
-
-    down = 2 ** (len(mp.get("ch_mult", (1, 2, 4, 4))) - 1)
-    embed_dim = mp.get("embed_dim", 4)
-
-    def ae_apply(x, generator):
-        b, h, w, _ = x.shape
-        noise = torch.randn((b, h // down, w // down, embed_dim), generator=generator,
-                            device=x.device)
-        return vae(x, noise)
-
-    step_fn = make_kl_gan_train_step(ae_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg)
-    total = max_steps if max_steps is not None else tc.get("total_steps", 1000)
-    return state, _run_steps(step_fn, state, batches, total, device, gen)
-
-
-def train_vq(cfg: dict, batches: Iterable[dict], max_steps: int | None = None,
-             device=None) -> tuple[GanTrainState, list[dict]]:
-    """Train the VQ model of `cfg` (e.g. `vq_128_train_config()`,
-    `vq_64_train_config()`) with its PatchGAN on `batches` of {'image':
-    [B, H, W, 3] in [-1, 1]} for `max_steps` steps (default
-    `train.total_steps`, fewer if the batches run out). Every weight is
-    random from the config's seed. `model.params.quantizer_type` picks the
-    codebook: "vq" (argmin, trained by its gradient), "gumbel" (its noise
-    drawn from the run's generator, its temperature
-    `gumbel_temp_schedule(temp_init, **gumbel_schedule)` of the step) or
-    "ema" (fp32 buffers updated once a step, never seen by Adam). With
-    `train.param_dtype` (e.g. "bfloat16") the generator's and the
-    discriminator's parameters are stored in it and the Adam moments are
-    fp32. Returns the training state and one dict of floats per step: the
-    step's logs (`train/...`) and `seconds` (host clock, the step's results
-    read back)."""
-    cfg = copy.deepcopy(cfg)
-    tc = cfg["train"]
-    target = cfg["model"].get("target", "")
-    if not target.endswith("VQModel"):
-        raise NotImplementedError(f"first stage {target!r} is not a VQ model")
-    device = resolve_device(device)
-    gen = torch.Generator(device).manual_seed(cfg.get("seed", 0))
-    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
-    vq = VQModel(**mp, device=device)
-    disc, loss_cfg, lpips_fn, opt_g, opt_d, state = _gan_setup(cfg, vq, device, gen, "vq")
-
-    temp_fn = None
-    if vq.quantizer_type == "gumbel":
-        temp_fn = gumbel_temp_schedule(temp_init=mp.get("temp_init", 1.0),
-                                       **cfg.get("gumbel_schedule", {}))
-
-    def vq_apply(x, generator, temp):
-        return vq(x, temp=temp, update=True, deterministic=False, generator=generator)
-
-    step_fn = make_vq_gan_train_step(vq_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg,
-                                     temp_fn=temp_fn)
-    total = max_steps if max_steps is not None else tc.get("total_steps", 1000)
-    return state, _run_steps(step_fn, state, batches, total, device, gen)

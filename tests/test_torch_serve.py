@@ -335,7 +335,8 @@ def test_watermark_matches_tpu_package():
     assert not wm.verify_watermark(img, "sd-port", key=3)
 
 
-@pytest.mark.parametrize("flag", [["--run", "r"], ["--sd-checkpoint", "c.ckpt"], ["--lora", "l"],
+@pytest.mark.parametrize("flag", [["--run", "r", "--shard"], ["--sd-checkpoint", "c.ckpt"],
+                                  ["--lora", "l"],
                                   ["--shard"], ["--tome", "0.5"], ["--freeu", "1.1,1.2,0.9,0.2"]])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
     assert serve.main(["--config", "sd_v1", *flag]) == 2

@@ -799,12 +799,107 @@ def test_vq_step_gates_and_launches(tpu_gates, monkeypatch):
     assert fa.bwd_wide_split(256) == 1 and fa.lse_split(8, 1024, 1024, 1, 256) == 1
 
 
+# -- the train_run phase: the KL run's eval, the LDM run's encodes, from_run ------------
+
+
+def test_kl_run_eval_launches(tpu_gates, monkeypatch):
+    """The KL run's eval (`train_kl_vae`'s reconstruction sampler) at full
+    width under the bf16 policy: the fixed batch [4, 256², 3] (fp32 images)
+    through the bf16 codec with a posterior sample, no grad, on `meta`
+    tensors: its two mid-block attentions at [4, 1024, 1, 512] pass the
+    inference flash gate (the wide route) and 20 of its 3×3 convs the conv
+    gate, as the JAX gates decide; nothing else launches. With the run's 3
+    steps that is the phase's KL-run count."""
+    cfg = kl_f8_256_train_config()
+    mp, tc = cfg["model"]["params"], cfg["train"]
+    calls = _count_kernel_calls(monkeypatch)
+    plans = _spy_plans(monkeypatch)
+    vae = AutoencoderKL(**mp, **BF16)
+    B, px = tc["batch_size"], tc["image_size"]
+    with torch.no_grad():
+        recon, _ = vae(torch.empty(B, px, px, 3, device="meta"),
+                       torch.empty(B, px // 8, px // 8, mp["embed_dim"], device="meta"))
+    assert recon.shape == (B, px, px, 3)
+    assert _launched(tpu_gates, GATES + OPT_IN_GATES) == {
+        "hpacked_flash_ok": 0, "flash_ok": 2, "geglu_wants_pallas": 0,
+        "conv3x3_wants_pallas": 20, "group_norm_wants_pallas": 0,
+        "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 0}
+    assert [[tuple(t.shape) for t in args] for name, args in tpu_gates.args
+            if name == "flash_ok"] == [[(4, 1024, 1, 512)] * 2] * 2
+    want = {k: v for k, v in chip_smoke.KL_RUN_EVAL_LAUNCHES.items() if v}
+    got = {**{k: v for k, v in calls.items() if k != "_inference"},
+           **_plan_launches(plans)}
+    assert got == want == {"flash_attention": 2, "flash_fwd_wide": 2, "conv3x3_same": 20}
+    run = {k: chip_smoke.TRAIN_RUN_KL_STEPS[1] * v + chip_smoke.KL_RUN_EVAL_LAUNCHES[k]
+           for k, v in chip_smoke.EXPECTED_KLVAE_LAUNCHES.items()}
+    assert {k: v for k, v in run.items() if v} == {
+        "flash_attention_lse": 6, "flash_lse_wide": 6, "flash_lse_combine": 6,
+        "flash_bwd_dq": 6, "flash_bwd_dkv": 6, "flash_bwd_dq_wide_sm90": 6,
+        "flash_bwd_dkv_wide_sm90": 6, "flash_attention": 2, "flash_fwd_wide": 2,
+        "conv3x3_same": 20}
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_ldm_run_first_stage_encodes_launch_nothing(tpu_gates, monkeypatch, batch):
+    """The LDM run's first stage is fp32 (the KL run's bf16 weights cast up),
+    so its encodes, the calibration batch's (4 images) and each microbatch's
+    (1 image) at 512², pass no kernel gate: FIRST_STAGE_ENCODE_LAUNCHES."""
+    cfg = sd512_train_config()
+    calls = _count_kernel_calls(monkeypatch)
+    vae = AutoencoderKL(**cfg["first_stage"]["params"], dtype=torch.float32, device="meta")
+    px = cfg["train"]["image_size"]
+    with torch.no_grad():
+        post = vae.encode(torch.empty(batch, px, px, 3, device="meta"))
+    assert tuple(post.mean.shape) == (batch, px // 8, px // 8, 4)
+    assert not any(_launched(tpu_gates, GATES + OPT_IN_GATES).values())
+    assert dict(calls) == {k: v for k, v in chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES.items() if v}
+    assert not any(chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES.values())
+
+
+def test_from_run_generate_launches(tpu_gates, monkeypatch, tmp_path):
+    """`Text2ImagePipeline.from_run` of a full-width SD-v1 LDM run (its
+    checkpoint and the first stage's read as `meta` trees) builds the
+    modules `generate` walks: one CFG-batched UNet call of 2 prompts at 512²
+    and one decode give EXPECTED_LAUNCHES over 50 steps."""
+    from sd_tpu_torch.train import runners as port_runners
+
+    cfg = sd512_train_config()
+    cfg["first_stage"]["ckpt"] = str(tmp_path / "kl" / "ckpt")
+    (tmp_path / "calibration.json").write_text('{"scale_factor": 0.9}')
+
+    def meta_tree(module):
+        return {n: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                for n, p in module.named_parameters()}
+
+    trees = {"kl": {"params_g": meta_tree(AutoencoderKL(**VAE, device="meta")),
+                    "model_state": {}},
+             "run": {"ema": {"shadow": meta_tree(UNetModel(**UNET, device="meta"))}}}
+    monkeypatch.setattr(port_runners, "restore_tree", lambda d: trees["kl"])
+    # generators live on the CPU: the meta tensors take no draw
+    cpu_generator = torch.Generator
+    monkeypatch.setattr(torch, "Generator", lambda device=None: cpu_generator("cpu"))
+    monkeypatch.setattr("sd_tpu_torch.train.checkpoint.restore_tree",
+                        lambda d: trees["kl" if "kl" in str(d) else "run"])
+    pipe = Text2ImagePipeline.from_run(cfg, str(tmp_path), device="meta")
+    assert pipe.ld.scale_factor == 0.9 and pipe.dtype == torch.bfloat16
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    gates = GATES + OPT_IN_GATES
+    with torch.no_grad():
+        pipe.unet(meta(4, 64, 64, 4), meta(4, dtype=torch.long), meta(4, 77, 768))
+        per_step = _launched(tpu_gates, gates)
+        tpu_gates.clear()
+        pipe.vae.decode(meta(2, 64, 64, 4))
+        per_decode = _launched(tpu_gates, gates)
+    assert _generate_launches(per_step, per_decode) == chip_smoke.EXPECTED_LAUNCHES
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
     for want in (chip_smoke.EXPECTED_LAUNCHES, chip_smoke.EXPECTED_LAUNCHES_OPTIN,
                  chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES,
-                 chip_smoke.EXPECTED_VQ_LAUNCHES):
+                 chip_smoke.EXPECTED_VQ_LAUNCHES, chip_smoke.KL_RUN_EVAL_LAUNCHES,
+                 chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES):
         assert set(want) == set(kernels.LAUNCHES)
 
 

@@ -37,7 +37,7 @@ import optax
 import pytest
 import torch
 import yaml
-from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import MODULE_TOL, assert_close, flax_init, nprand, port, to_torch
 
 from sd_tpu.losses.gan import GanLossConfig as JGanLossConfig
 from sd_tpu.models import discriminator as jdisc
@@ -453,6 +453,112 @@ def test_one_vq_gan_step_matches(family):
                                s["mstate"]["codebook"]["quantize"]["weight"])
     else:
         assert state.model_state == {}
+
+
+# -- the bf16 parameter policy against the JAX package's --------------------------------
+
+# the bf16 step against the JAX package's bf16 step: the port's distance
+# from its own fp32 step (the bf16 policy's effect, e16) at most twice the
+# JAX package's, and the two bf16 steps no farther apart than BF16_SPREAD
+# times two independent draws of that effect, √(e_port² + e_jax²) (over 6
+# seeds the generator's were 0.65-0.83 of it, the discriminator's 0.92-0.99)
+BF16_SPREAD = 1.25
+
+
+class _GradRecorder:
+    """Keeps the gradients it is handed (fp32) and changes no parameter."""
+
+    def init(self, params):
+        return None
+
+    def update_(self, params, grads, state):
+        self.grads = [g.detach().float().clone() for g in grads]
+
+
+def _jax_grad_recorder():
+    """An optax transformation whose state is the last gradient (fp32)."""
+    return optax.GradientTransformation(
+        lambda p: jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32), p),
+        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g),
+                              jax.tree.map(lambda a: a.astype(jnp.float32), g)))
+
+
+def test_bf16_vq_step_matches_the_jax_packages_bf16_step():
+    """One step of `vq_smoke_config()`'s recipe (argmin codebook, ActNorm
+    PatchGAN from step 0) under the bf16 parameter policy in both packages,
+    and in fp32 in both, from the same bf16-rounded weights and images and on
+    the same codes: every run quantizes to the codes the port's bf16 run
+    chose (the argmin flips at near-ties under any rounding), by patching
+    each package's `_nearest_code`. The fp32 steps agree to 1e-4 of the
+    gradients' norm; each package's bf16 step is as far from its own fp32
+    step as at most twice the JAX package's is from its own, and the two
+    bf16 steps are no farther apart than two independent draws of those
+    distances (times BF16_SPREAD): what bf16 moves is the policy's, not a
+    fault of the port. (The JAX package's discriminator gradients move ~4×
+    the port's under bf16 on the CPU, where XLA runs the bf16 convs.)"""
+    bf16 = lambda tree: jax.tree.map(
+        lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)), tree)
+    x0 = jnp.zeros((1, PX, PX, 3))
+    vparams = bf16(flax_init(JVQModel(**VQ), x0, seed=50))
+    jd = jdisc.NLayerDiscriminator(**SMOKE["discriminator"])
+    dparams = bf16(flax_init(jd, x0, seed=150))
+    x = np.clip(nprand(2, PX, PX, 3, seed=250, scale=0.6), -1, 1)
+    loss_cfg = SMOKE["loss"]
+    codes = []
+
+    def torch_step(param_dtype):
+        tvq = port(VQModel(**VQ, device="cpu"), vparams)
+        td = port(NLayerDiscriminator(**SMOKE["discriminator"], device="cpu"), dparams)
+        opt_g, opt_d = _GradRecorder(), _GradRecorder()
+        state = gan_train.init_gan_state(tvq, td, opt_g, opt_d, param_dtype=param_dtype)
+        step = gan_train.make_vq_gan_train_step(
+            lambda x, g, temp: tvq(x, update=True, deterministic=False), td, None,
+            opt_g, opt_d, GanLossConfig(**loss_cfg))
+        own = q._nearest_code
+
+        def nearest(z, e):
+            if not codes:
+                codes.append(own(z, e))
+            return codes[0]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(q, "_nearest_code", nearest)
+            logs = step(state, to_torch(x), None)
+        grads = {**dict(zip(state.params_g, opt_g.grads)),
+                 **{"d/" + n: g for n, g in zip(state.params_d, opt_d.grads)}}
+        return {k: float(v) for k, v in logs.items()}, {k: g.numpy() for k, g in grads.items()}
+
+    def jax_step(dtype):
+        jvq = JVQModel(**VQ, dtype=dtype)
+        opt = _jax_grad_recorder()
+        state = jgan.init_gan_state(vparams, {"params": dparams}, opt, opt, param_dtype=dtype)
+        step = jgan.make_vq_gan_train_step(lambda p, x: jvq.apply({"params": p}, x), jd, None,
+                                           opt, opt, JGanLossConfig(**loss_cfg), jit=True)
+        fixed = jnp.asarray(codes[0].numpy().astype(np.int32))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jq, "_nearest_code", lambda z, e: fixed)
+            new, logs = step(state, jnp.asarray(x), jax.random.PRNGKey(0))
+        grads = _torch_flat(new.opt_state_g["model"])
+        grads["logvar"] = np.asarray(new.opt_state_g["logvar"])
+        grads.update({"d/" + n: g for n, g in _torch_flat(new.opt_state_d).items()})
+        return {k: float(v) for k, v in logs.items()}, grads
+
+    port16, port32 = torch_step(torch.bfloat16), torch_step(None)
+    jax16, jax32 = jax_step(jnp.bfloat16), jax_step(None)
+    assert sorted(port16[1]) == sorted(jax16[1])
+    for names in ([n for n in jax16[1] if not n.startswith("d/")],
+                  [n for n in jax16[1] if n.startswith("d/")]):
+        def dist(a, b):
+            num = sum(float(np.sum((a[1][n] - b[1][n]) ** 2)) for n in names)
+            return math.sqrt(num / sum(float(np.sum(b[1][n] ** 2)) for n in names))
+        assert dist(port32, jax32) <= 1e-4
+        e_port, e_jax = dist(port16, port32), dist(jax16, jax32)
+        assert e_port <= 2.0 * e_jax, (e_port, e_jax)
+        assert dist(port16, jax16) <= BF16_SPREAD * math.hypot(e_port, e_jax), (
+            dist(port16, jax16), e_port, e_jax)
+    assert sorted(port16[0]) == sorted(jax16[0])
+    for key, want in jax32[0].items():
+        assert abs(port32[0][key] - want) <= MODULE_TOL * max(1.0, abs(want)), key
 
 
 def test_gumbel_temp_schedule_matches():
