@@ -179,6 +179,22 @@ Phases, each printed as one JSON line:
            flash kernel held against their plain versions; checkpoint save and
            restore seconds, GB and GB/s, the runs' seconds, peak memory and the
            free disk, beside the card's name and power limit.
+  image_edit  Text2ImagePipeline's image-editing entry points at SD-v1 full
+           width (bf16, every weight random), 2 prompts, each twice through its
+           public method (the same bits required, the second run timed, the
+           first run's launches as IMAGE_EDIT_LAUNCHES): img2img at 512² (20
+           steps, strength 0.75), the DDIM-blend inpaint (20), the
+           mask-conditioned inpaint of configs/inpaint_128_catdog.yaml (random
+           first stage; the kept pixels bit for bit), generate at 1024² with
+           decode_tile 512 (its latent decoded whole too, within SEAM_TOL),
+           img2img at 1024² with encode_tile 512, generate_hires 512² → 1024²,
+           generate with a tile no smaller than the image and with
+           tome_ratio 0 (both the plain images bit for bit), with ToMe +
+           FreeU, and after load_textual_inversion; the bf16 encoder with its
+           kernels against an fp32 copy within DECODER_TOL; every kernel shape
+           the entry points launched held against its plain version (the same
+           bits twice, the route counter moved, its time beside its bound);
+           seconds and peak memory of each entry point.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -342,6 +358,63 @@ FIRST_STAGE_ENCODE_LAUNCHES = launches_of()
 TRAIN_RUN_LDM_STEPS = 2
 TRAIN_RUN_IMAGES = 8                             # cat_0..3, dog_0..3, 512² RGB PNGs
 TRAIN_RUN_DISK_GB = 16                           # the LDM run's ≈ 12 GB state + the KL run's
+# the image_edit phase: Text2ImagePipeline's image-editing entry points at
+# SD-v1 full width (bf16, every weight random), 2 prompts, each run twice
+# (the same bits required; the second run timed). Step counts divide 1000, so
+# the "uniform" DDIM striding gives as many UNet calls as steps.
+IMAGE_EDIT_SEED = 17
+EDIT_STEPS = 20                # img2img at strength 0.75 (15 UNet calls), the blend inpaint (20)
+EDIT_STRENGTH = 0.75
+EDIT_GENERATE_STEPS = 10       # generate: plain, ToMe + FreeU, after textual inversion
+EDIT_BIG_STEPS = 8             # at 1024²: generate (8 UNet calls), img2img (6)
+HIRES_STEPS = (8, 8)           # generate_hires 512² → 1024²: 8 base calls, then 5 refine
+HIRES_STRENGTH = 0.7
+EDIT_SIZE, EDIT_BIG = 512, 1024   # the SD-v1 entry points' image sizes
+INPAINT_SIZE = 128                # configs/inpaint_128_catdog.yaml's
+EDIT_TILE = 512                # decode_tile / encode_tile, pixels: 3 × 3 tiles of 512² at 1024²
+TOME_FREEU = {"tome_ratio": 0.5, "freeu": (1.2, 1.4, 0.9, 0.2)}
+TI_TOKEN = "<lighthouse-toy>"
+# the tiled decode against the whole decode of the same latent at 1024², as
+# uint8 images, stated before measuring: the mean |Δ| in levels, and the
+# share of pixels more than 32 levels apart (the seams' band)
+SEAM_TOL = {"mean_levels": 6.0, "far_share": 0.03}
+# launches of each entry point (tests/test_torch_structure.py derives them):
+# a UNet call at 64² (batch 4) takes 10 head-packed flash launches (d = 40,
+# 80) and 10 GEGLU; at 128² 15 head-packed (level 2's 1024 tokens, d = 160,
+# on the wide kernel) and 10 GEGLU (level 2's weights stay above the gate);
+# with ToMe the same counts at 2048 and 512 tokens. The KL-f8 encoder takes 1
+# flash launch (d = 512) and 12 convs at 512² (20 at 1024²), the decoder 1
+# and 18 at 512² (28 at 1024²), in tiles at batch 18 the same as at 512².
+# The inpainting model's UNet (16² and 8² attention) takes no kernel, its
+# f4 codec 1 flash launch each way (d = 256, 1024 tokens) and no conv.
+_EDIT_GENERATE = launches_of(flash_attention_hpacked=10 * EDIT_GENERATE_STEPS,
+                             flash_fwd_sm90=10 * EDIT_GENERATE_STEPS,
+                             geglu_ff=10 * EDIT_GENERATE_STEPS,
+                             geglu_sm90=10 * EDIT_GENERATE_STEPS,
+                             flash_attention=1, flash_fwd_wide=1, conv3x3_same=18)
+IMAGE_EDIT_LAUNCHES = {
+    "img2img": launches_of(flash_attention_hpacked=150, flash_fwd_sm90=150, geglu_ff=150,
+                           geglu_sm90=150, flash_attention=2, flash_fwd_wide=2,
+                           conv3x3_same=30),
+    "inpaint": launches_of(flash_attention_hpacked=200, flash_fwd_sm90=200, geglu_ff=200,
+                           geglu_sm90=200, flash_attention=2, flash_fwd_wide=2,
+                           conv3x3_same=30),
+    "inpaint_128": launches_of(flash_attention=2, flash_fwd_wide=2),
+    "generate_tiled": launches_of(flash_attention_hpacked=120, flash_fwd_sm90=80,
+                                  flash_fwd_wide=41, flash_attention=1, geglu_ff=80,
+                                  geglu_sm90=80, conv3x3_same=18),
+    "img2img_tiled": launches_of(flash_attention_hpacked=90, flash_fwd_sm90=60,
+                                 flash_fwd_wide=32, flash_attention=2, geglu_ff=60,
+                                 geglu_sm90=60, conv3x3_same=40),
+    "generate_hires": launches_of(flash_attention_hpacked=155, flash_fwd_sm90=130,
+                                  flash_fwd_wide=28, flash_attention=3, geglu_ff=130,
+                                  geglu_sm90=130, conv3x3_same=66),
+    "generate": _EDIT_GENERATE,
+    "generate_tome_freeu": _EDIT_GENERATE,
+    "generate_ti": _EDIT_GENERATE,
+}
+# the encoder's launches at 512², batch 2 (its bf16-vs-fp32 check)
+ENCODER_512_LAUNCHES = launches_of(flash_attention=1, flash_fwd_wide=1, conv3x3_same=12)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
@@ -3046,6 +3119,316 @@ def phase_train_run(smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _chunked_attention_ref(q, k, v, rows: int = 1024):
+    """The fp32 plain attention of [B, S, H, D] q against k, v, a block of
+    q rows at a time (the rows are independent; the whole S × S logits of
+    the 1024² shapes would not fit)."""
+    import torch
+
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    return torch.cat([fa._xla_ref(q[:, i:i + rows].float(), k.float(), v.float(), scale)
+                      for i in range(0, q.shape[1], rows)], dim=1)
+
+
+def _hold_edit_kernels(shapes: dict) -> list:
+    """Each shape the image_edit phase gave a kernel: the kernel on random
+    bf16 inputs (a generator of their own) against its fp32 plain version
+    within KERNEL_TOL·max|ref|, the same bits on a second call, its route
+    counter moved once a call, its time (CUDA events) beside its bound."""
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.kernels import conv2d, geglu
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(IMAGE_EDIT_SEED)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=g, device="cuda") * scale).bfloat16()
+    cases = []
+    for B, H, W, C, O in sorted(shapes["conv3x3_same"]):
+        x, b = rnd(B, H, W, C), rnd(O, scale=0.1)
+        w = rnd(O, C, 3, 3, scale=(9 * C) ** -0.5).contiguous(memory_format=torch.channels_last)
+        cases.append(("conv3x3_same", [B, H, W, C, O], None,
+                      lambda x=x, w=w, b=b: conv2d.conv3x3_same(x, w, b),
+                      lambda x=x, w=w, b=b: conv2d._xla_conv3x3(x.float(), w.float(), b.float()),
+                      conv3x3_cost(B, H, W, C, O) + (PEAK_FLOPS, 0)))
+    for B, S, Skv, Hh, D in sorted(shapes["flash_attention"]):
+        q, k, v = rnd(B, S, Hh, D), rnd(B, Skv, Hh, D), rnd(B, Skv, Hh, D)
+        cases.append(("flash_attention", [B, S, Skv, Hh, D],
+                      ROUTE_COUNTER["wide" if D > 128 else "sm90"],
+                      lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
+                      lambda q=q, k=k, v=v: _chunked_attention_ref(q, k, v),
+                      attention_cost(B, S, Skv, Hh, D)))
+    for B, S, Hh, D in sorted(shapes["flash_attention_hpacked"]):
+        q, k, v = rnd(B, S, Hh * D), rnd(B, S, Hh * D), rnd(B, S, Hh * D)
+        split = lambda t, Hh=Hh, D=D: t.unflatten(2, (Hh, D))
+        cases.append(("flash_attention_hpacked", [B, S, Hh, D],
+                      ROUTE_COUNTER["wide" if D > 128 else "sm90"],
+                      lambda q=q, k=k, v=v, Hh=Hh: fa.flash_attention_hpacked(q, k, v, Hh),
+                      lambda q=q, k=k, v=v, s=split: _chunked_attention_ref(
+                          s(q), s(k), s(v)).flatten(2),
+                      attention_cost(B, S, S, Hh, D)))
+    for N, C, I in sorted(shapes["geglu_ff"]):
+        args = (rnd(N, C), rnd(2 * I, C, scale=C ** -0.5), rnd(2 * I, scale=0.1),
+                rnd(C, I, scale=I ** -0.5), rnd(C, scale=0.1))
+        cases.append(("geglu_ff", [N, C, I], "geglu_sm90",
+                      lambda a=args: geglu.geglu_ff(*a),
+                      lambda a=args: geglu._geglu_xla(*(t.float() for t in a)),
+                      geglu_cost(N, C, I) + (PEAK_FLOPS, 0)))
+    rows = []
+    for name, shape, counter, kernel, ref, (flops, nbytes, peak, exps) in cases:
+        moved = kernels.LAUNCHES[counter] if counter else None
+        out = kernel()
+        again = kernel()
+        if counter:
+            moved = kernels.LAUNCHES[counter] - moved
+        err, rel = rel_err(out, ref())
+        bound, by, op = bound_ms(flops, nbytes, peak, exps)
+        rows.append({"name": name, "shape": shape, "max_abs_err": err, "rel_err": rel,
+                     "same_bits_twice": bool(torch.equal(out, again)),
+                     "route_counter": counter, "route_launches": moved,
+                     "ms": time_ms(kernel, reps=5), "bound_ms": bound, "bound_by": by,
+                     "bound_op": op})
+        del out, again
+    for r in rows:
+        what = f"{r['name']} {r['shape']} on the image_edit path"
+        require(r["rel_err"] <= KERNEL_TOL, f"{what}: max|Δ| = {r['rel_err']:.3g}·max|ref| "
+                f"> {KERNEL_TOL}")
+        require(r["same_bits_twice"], f"{what}: the same bits twice")
+        require(r["route_counter"] is None or r["route_launches"] == 2,
+                f"{what}: {r['route_counter']} moved {r['route_launches']} times in 2 calls")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _edit_images(n: int, size: int, seed: int):
+    """n uint8 [size, size, 3] pictures: a smooth seeded field (8² noise
+    resized bicubic) plus noise."""
+    import numpy as np
+
+    from sd_tpu_torch.data.image_io import resize
+
+    rng = np.random.default_rng(seed)
+    low = rng.integers(0, 256, (n, 8, 8, 3), dtype=np.uint8)
+    field = np.stack([resize(im, size, size) for im in low]).astype(np.int16)
+    return np.clip(field + rng.integers(-12, 13, field.shape), 0, 255).astype(np.uint8)
+
+
+def phase_image_edit(smi: str) -> dict:
+    """Text2ImagePipeline's image-editing entry points at SD-v1 full width
+    (bf16, every weight random from IMAGE_EDIT_SEED; 2 prompts), each run
+    twice through its public method, the same bits required, the launches of
+    the first run as IMAGE_EDIT_LAUNCHES:
+      img2img         512², EDIT_STEPS steps at strength 0.75;
+      inpaint         the SD-v1 model: img2img's DDIM blend at strength 1;
+      inpaint_128     configs/inpaint_128_catdog.yaml without its first-stage
+                      checkpoint (random weights): the mask-conditioned model,
+                      the kept pixels bit for bit;
+      generate_tiled  1024², decode_tile 512 (the decoder at batch 18); its
+                      latent decoded whole as well, the two within SEAM_TOL;
+      img2img_tiled   1024², encode_tile 512 (the encoder at batch 18);
+      generate_hires  512² → 1024² (bicubic), HIRES_STEPS;
+      generate        512², EDIT_GENERATE_STEPS: plain; with decode_tile 512
+                      (no smaller than the image: the same bits); with
+                      `tome_ratio=0` set (the same bits);
+      generate_tome_freeu  with set_unet_options(**TOME_FREEU);
+      generate_ti     after load_textual_inversion of an embedding the port's
+                      writer wrote, a prompt naming it.
+    The KL-f8 encoder (new on an inference path) in bf16 with its kernels
+    against an fp32 copy of it (TF32 off, no kernel) at 512² within
+    DECODER_TOL; every kernel shape the phase launched held against its
+    plain version (`_hold_edit_kernels`). Prints each entry point's seconds
+    and peak memory beside the card's name and power limit."""
+    import contextlib
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import inpaint_128_config, sd_v1_config
+    from sd_tpu_torch.kernels import conv2d, geglu
+    from sd_tpu_torch.kernels import flash_attention as fa
+    from sd_tpu_torch.pipeline import Text2ImagePipeline, to_uint8
+    from sd_tpu_torch.train.textual_inversion import save_embedding
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    prompts = ["a photograph of an astronaut riding a horse",
+               "a watercolor painting of a lighthouse at dusk"]
+
+    def build(cfg):
+        pipe = Text2ImagePipeline(cfg)
+        gen = torch.Generator("cuda").manual_seed(IMAGE_EDIT_SEED)
+        for module in (pipe.unet, pipe.vae, pipe.clip):
+            randomize_params_(module, gen)
+        return pipe
+
+    pipe, ipipe = build(sd_v1_config()), build(inpaint_128_config())
+    n, m = EDIT_SIZE, INPAINT_SIZE
+    init512, init1024 = _edit_images(2, n, 1), _edit_images(2, EDIT_BIG, 2)
+    init128 = _edit_images(2, m, 3)
+    keep512 = np.full((n, n), 255, np.uint8)          # a hole in the middle
+    keep512[n // 4:3 * n // 4, 5 * n // 16:13 * n // 16] = 0
+    keep128 = np.full((2, m, m), 255, np.uint8)       # a box; the lower half
+    keep128[0, m // 4:3 * m // 4, 5 * m // 16:25 * m // 32] = 0
+    keep128[1, m // 2:, :] = 0
+
+    # every shape the kernels get on this phase's entry points
+    shapes = {name: set() for name in ("conv3x3_same", "flash_attention",
+                                       "flash_attention_hpacked", "geglu_ff")}
+    conv0, flash0, hpacked0, geglu0 = (conv2d.conv3x3_same, fa.flash_attention,
+                                       fa.flash_attention_hpacked, geglu.geglu_ff)
+
+    def conv_spy(x, w, b):
+        shapes["conv3x3_same"].add((*x.shape, w.shape[0]))
+        return conv0(x, w, b)
+
+    def flash_spy(q, k, v, **kw):
+        shapes["flash_attention"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                                       q.shape[3]))
+        return flash0(q, k, v, **kw)
+
+    def hpacked_spy(q, k, v, heads, **kw):
+        shapes["flash_attention_hpacked"].add((q.shape[0], q.shape[1], heads,
+                                               q.shape[2] // heads))
+        return hpacked0(q, k, v, heads, **kw)
+
+    def geglu_spy(x, w1, b1, w2, b2):
+        shapes["geglu_ff"].add((x.numel() // x.shape[-1], x.shape[-1], w2.shape[1]))
+        return geglu0(x, w1, b1, w2, b2)
+
+    runs, checks = {}, {}
+
+    def run(name, fn):
+        """The entry point twice: the first run's launches and the images,
+        the second run's seconds, the peak memory of both."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        second = fn()
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": [first_s, time.perf_counter() - t0],
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "shape": list(first.shape),
+                      "launches": {k: v for k, v in launches.items() if v}}
+        require(first.dtype == np.uint8 and first.std() > 0, f"{name}: non-constant uint8 "
+                f"images, got {first.dtype} std {first.std()}")
+        require(np.array_equal(first, second), f"{name}: the same bits twice")
+        require(launches == IMAGE_EDIT_LAUNCHES[name],
+                f"{name} launches {runs[name]['launches']} == {IMAGE_EDIT_LAUNCHES[name]}")
+        return first
+
+    decoded = []
+    decode0 = pipe._decode
+
+    def decode_spy(z, tile=None):
+        decoded.append((z, tile))
+        return decode0(z, tile)
+
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_image_edit_")
+    try:
+        patches = contextlib.ExitStack()
+        for obj, name, fn in ((conv2d, "conv3x3_same", conv_spy), (fa, "flash_attention", flash_spy),
+                              (fa, "flash_attention_hpacked", hpacked_spy),
+                              (geglu, "geglu_ff", geglu_spy)):
+            patches.enter_context(mock.patch.object(obj, name, fn))
+        with patches:
+            run("img2img", lambda: pipe.img2img(prompts, init512, strength=EDIT_STRENGTH,
+                                                num_steps=EDIT_STEPS, seed=1))
+            run("inpaint", lambda: pipe.inpaint(prompts, init512, keep512,
+                                                num_steps=EDIT_STEPS, seed=2))
+            out = run("inpaint_128", lambda: ipipe.inpaint(prompts, init128, keep128,
+                                                           num_steps=EDIT_STEPS, seed=3))
+            kept = np.broadcast_to((keep128 > 127)[..., None], out.shape)
+            require(np.array_equal(out[kept], init128[kept]),
+                    "inpaint_128 keeps the kept pixels bit for bit")
+            checks["inpaint_128_kept_pixels"] = int(kept.sum())
+            with mock.patch.object(pipe, "_decode", decode_spy):
+                tiled = run("generate_tiled", lambda: pipe.generate(
+                    prompts, num_steps=EDIT_BIG_STEPS, height=EDIT_BIG, width=EDIT_BIG,
+                    decode_tile=EDIT_TILE, seed=4))
+            z, tile = decoded[0]
+            require(tile == EDIT_TILE // pipe._vae_factor(),
+                    f"generate's decode tile {tile} latent units")
+            with torch.no_grad():
+                require(np.array_equal(to_uint8(pipe._decode(z, tile)), tiled),
+                        "generate_tiled is the tiled decode of its latent")
+                whole = to_uint8(pipe._decode(z))
+            diff = np.abs(whole.astype(np.int16) - tiled.astype(np.int16))
+            checks["seam"] = {"mean_levels": float(diff.mean()),
+                              "far_share": float((diff > 32).mean()),
+                              "max_levels": int(diff.max()),
+                              "whole_std_levels": float(whole.std())}
+            require(checks["seam"]["mean_levels"] <= SEAM_TOL["mean_levels"]
+                    and checks["seam"]["far_share"] <= SEAM_TOL["far_share"],
+                    f"the tiled decode against the whole one {checks['seam']} within {SEAM_TOL}")
+            del z, whole, decoded[:]
+            run("img2img_tiled", lambda: pipe.img2img(prompts, init1024, strength=EDIT_STRENGTH,
+                                                      num_steps=EDIT_BIG_STEPS,
+                                                      encode_tile=EDIT_TILE, seed=5))
+            run("generate_hires", lambda: pipe.generate_hires(
+                prompts, num_steps=HIRES_STEPS[0], hires_steps=HIRES_STEPS[1],
+                denoising_strength=HIRES_STRENGTH, seed=6))
+            gen_kw = dict(num_steps=EDIT_GENERATE_STEPS, seed=7)
+            plain = run("generate", lambda: pipe.generate(prompts, **gen_kw))
+            require(np.array_equal(pipe.generate(prompts, decode_tile=EDIT_TILE, **gen_kw),
+                                   plain), "decode_tile no smaller than the image: the same "
+                    "bits as the whole decode")
+            pipe.set_unet_options(tome_ratio=0.0)
+            require(np.array_equal(pipe.generate(prompts, **gen_kw), plain),
+                    "tome_ratio = 0: the same bits as plain generate")
+            pipe.set_unet_options(**TOME_FREEU)
+            opts = run("generate_tome_freeu", lambda: pipe.generate(prompts, **gen_kw))
+            pipe.set_unet_options(tome_ratio=0.0, freeu=None)
+            checks["tome_freeu_levels_moved"] = float(np.abs(
+                opts.astype(np.int16) - plain.astype(np.int16)).mean())
+            require(checks["tome_freeu_levels_moved"] > 0, "ToMe + FreeU change the images")
+            path = os.path.join(root, "embedding.safetensors")
+            vec = torch.randn((2, pipe.clip_cfg.hidden_size), generator=torch.Generator()
+                              .manual_seed(IMAGE_EDIT_SEED)) * pipe.clip_cfg.hidden_size ** -0.5
+            save_embedding(path, TI_TOKEN, vec.numpy())
+            require(pipe.load_textual_inversion(path) == [TI_TOKEN], "the embedding loads")
+            run("generate_ti", lambda: pipe.generate(
+                [f"a photo of {TI_TOKEN} on a table", prompts[1]], **gen_kw))
+
+        # the encoder, new on an inference path: bf16 with its kernels against
+        # an fp32 copy of the same (bf16-rounded) weights, no kernel
+        x = torch.from_numpy(init512).cuda().float() / 127.5 - 1.0
+        ref_vae = copy.deepcopy(pipe.vae).float()
+        with torch.no_grad():
+            kernels.reset_launches()
+            got = pipe.vae.quant_conv(pipe.vae.encoder(x.bfloat16()))
+            enc_launches = dict(kernels.LAUNCHES)
+            ref = ref_vae.quant_conv(ref_vae.encoder(x.bfloat16().float()))
+        del ref_vae
+        _, max_rel = rel_err(got, ref)
+        checks["encoder_parity"] = {"max_rel": max_rel, "l2_rel": l2_rel(got, ref),
+                                    "launches": {k: v for k, v in enc_launches.items() if v}}
+        require(enc_launches == ENCODER_512_LAUNCHES,
+                f"encoder launches {checks['encoder_parity']['launches']}")
+        require(max_rel <= DECODER_TOL["max_rel"]
+                and checks["encoder_parity"]["l2_rel"] <= DECODER_TOL["l2_rel"],
+                f"the bf16 encoder against fp32: {checks['encoder_parity']} within {DECODER_TOL}")
+        del pipe, ipipe, got, ref
+        torch.cuda.empty_cache()
+        held = _hold_edit_kernels(shapes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "image_edit", "nvidia_smi": smi, "entry_points": runs, "checks": checks,
+          "kernel_shapes_held": held, "phase_seconds": time.perf_counter() - t_phase})
+    return {name: r_["launches"] for name, r_ in runs.items()}
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -3670,6 +4053,7 @@ def main() -> int:
     phase_vq_parity()
     vq = phase_vq_train()
     train_run = phase_train_run(smi)
+    image_edit = phase_image_edit(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -3848,6 +4232,11 @@ def main() -> int:
         runs = {stage: counts[name] for stage, counts in train_run.items() if counts[name]}
         if runs:
             row["train_run_launches"] = runs
+        # ... and the image_edit phase's, by entry point
+        edits = {entry: counts[name] for entry, counts in image_edit.items()
+                 if counts.get(name)}
+        if edits:
+            row["image_edit_launches"] = edits
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

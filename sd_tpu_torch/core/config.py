@@ -10,7 +10,10 @@ first stage's GAN training at 256²), `ddpm_256_train_config()` is
 `configs/vq_128_catdog.yaml` and `configs/vq_64_catdog.yaml` (VQ-VAE GAN
 training, argmin and EMA codebooks), and `ddpm_smoke_config()` /
 `vq_smoke_config()` the tiny `configs/ddpm_smoke.yaml` / `vq_smoke.yaml`,
-as dicts, so the port runs where PyYAML is not installed.
+and `inpaint_128_config()` is `configs/inpaint_128_catdog.yaml` (the
+mask-conditioned inpainting LDM over a KL-f4 first stage) without its
+first-stage checkpoint, as dicts, so the port runs where PyYAML is not
+installed.
 
 `load_config(spec)` takes the name of one of them (`sd_v1`, or
 `sd_v1_config`) or the path of a config file: `.json` through the standard
@@ -195,10 +198,43 @@ def vq_smoke_config() -> dict:
     }
 
 
+def inpaint_128_config() -> dict:
+    """`configs/inpaint_128_catdog.yaml` without `first_stage.ckpt` (the
+    trained KL-f4 run it names is not in the repository): 128² images →
+    KL-f4 (ch 64 × (1, 2, 4), 3 latent channels) → 32²×3 latents; the UNet
+    (128 × (1, 2, 4), attention at 16² and 8², 4 heads) sees [z_t | hole
+    mask | E(masked image)], 7 channels, with `hybrid` conditioning on a
+    64-wide, 16-token text tower; `scale_factor: auto`."""
+    return {
+        "task": "ldm_inpaint",
+        "seed": 42,
+        "diffusion": {"timesteps": 1000, "beta_schedule": "linear",
+                      "linear_start": 0.00085, "linear_end": 0.012},
+        "latent": {"image_size": 32, "channels": 3, "scale_factor": "auto",
+                   "conditioning_key": "hybrid"},
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {"in_channels": 7, "model_channels": 128, "out_channels": 3,
+                            "num_res_blocks": 2, "attention_resolutions": [2, 4],
+                            "channel_mult": [1, 2, 4], "num_heads": 4, "context_dim": 64}},
+        "first_stage": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                        "params": {"embed_dim": 3, "ch": 64, "ch_mult": [1, 2, 4],
+                                   "num_res_blocks": 2, "attn_resolutions": [],
+                                   "resolution": 128, "z_channels": 3}},
+        "cond_stage": {"target": "sd_tpu.models.clip_text.ClipTextConfig",
+                       "params": {"vocab_size": 8192, "hidden_size": 64, "num_layers": 2,
+                                  "num_heads": 4, "max_length": 16}},
+        "data": {"inpaint": {"full_prob": 0.15, "max_rects": 3, "max_strokes": 2}},
+        "train": {"image_size": 128, "batch_size": 16, "lr": 1.0e-4, "ema_decay": 0.999,
+                  "total_steps": 2500, "eval_every": 500, "checkpoint_every": 1250},
+        "sample": {"num_steps": 50, "guidance_scale": 1.0},
+    }
+
+
 def config_functions() -> dict:
     """{name: config function} of every configuration above."""
     fns = (sd_v1_config, sd512_train_config, kl_f8_256_train_config, ddpm_256_train_config,
-           ddpm_smoke_config, vq_128_train_config, vq_64_train_config, vq_smoke_config)
+           ddpm_smoke_config, vq_128_train_config, vq_64_train_config, vq_smoke_config,
+           inpaint_128_config)
     return {fn.__name__[:-len("_config")]: fn for fn in fns}
 
 

@@ -182,6 +182,16 @@ def to_rgb(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+def to_gray(img: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, C] → [H, W] as PIL's convert("L"): gray kept, alpha
+    dropped, RGB to ITU-R 601-2 luma in PIL's fixed point."""
+    if img.shape[-1] in (1, 2):
+        return np.ascontiguousarray(img[..., 0])
+    rgb = img[..., :3].astype(np.uint32)
+    luma = rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000
+    return (luma >> 16).astype(np.uint8)
+
+
 def read_rgb(path: str) -> np.ndarray:
     """The image file at `path` → uint8 [H, W, 3]. Only PNG is carried: any
     other file raises a ValueError naming it."""
@@ -211,7 +221,18 @@ def _bilinear(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, 1.0 - x, 0.0)
 
 
-_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+def _sinc(x: np.ndarray) -> np.ndarray:
+    px = np.pi * x
+    return np.where(x == 0.0, 1.0, np.sin(px) / np.where(x == 0.0, 1.0, px))
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """PIL's truncated sinc, a = 3: sinc(x)·sinc(x/3) on [−3, 3)."""
+    return np.where((x >= -3.0) & (x < 3.0), _sinc(x) * _sinc(x / 3.0), 0.0)
+
+
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0),
+            "lanczos": (_lanczos, 3.0)}
 
 
 @functools.lru_cache(maxsize=64)
@@ -220,7 +241,7 @@ def resample_weights(in_size: int, out_size: int, method: str = "bicubic") -> np
     input, PIL's window and normalisation (zero outside the window); cached
     and read-only."""
     if method not in _FILTERS:
-        raise ValueError(f"resampling {method!r}: only {sorted(_FILTERS)}")
+        raise ValueError(f"resampling {method!r}: only {sorted(_FILTERS)} (and nearest)")
     fn, support = _FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -247,11 +268,27 @@ def _to_uint8(v: np.ndarray) -> np.ndarray:
     return v.astype(np.uint8)
 
 
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's nearest source of each output pixel, ⌊(i + ½)·in/out⌋, with its
+    rounding: the position starts at in/out·½ and adds in/out per pixel, in
+    double precision."""
+    step = in_size / out_size
+    pos, idx = step * 0.5, np.empty(out_size, np.int64)
+    for i in range(out_size):
+        idx[i] = min(int(pos), in_size - 1)
+        pos += step
+    return idx
+
+
 def resize(img: np.ndarray, height: int, width: int, method: str = "bicubic") -> np.ndarray:
-    """uint8 [H, W, C] → uint8 [height, width, C]: the horizontal pass, then
-    the vertical, each rounded to uint8 (a pass whose size does not change
-    is skipped, as PIL skips it)."""
+    """uint8 [H, W, C] → uint8 [height, width, C]: for bicubic, bilinear and
+    lanczos the horizontal pass, then the vertical, each rounded to uint8 (a
+    pass whose size does not change is skipped, as PIL skips it); for
+    nearest each output pixel copies its source pixel."""
     x = np.asarray(img, np.uint8)
+    if method == "nearest":
+        return np.ascontiguousarray(x[_nearest_index(x.shape[0], height)][
+            :, _nearest_index(x.shape[1], width)])
     # each pass one batched product over the other axis, that axis outermost
     if x.shape[1] != width:
         wh = resample_weights(x.shape[1], width, method)

@@ -1,14 +1,18 @@
 """Latent diffusion glue: conditioning dispatch, the frozen first stage, the
 training loss, sampling and the scale-factor calibration.
 
-Counterpart of `sd_tpu/diffusion/latent.py` on the text-to-image path:
-`apply_conditioned` with the `crossattn` key, `get_input`,
-`training_loss` / `p_losses`, `LatentDiffusion.sample` with its sampler
-dispatch (ddim, dpm, dpm_sde, unipc, plms, euler, euler_a, heun, ddpm and
-`guidance_rescale`; the same errors for lcm / flow on an ε-model) followed
-by the decode, and `calibrate_scale_factor`. Self-attention guidance
-(`sag_scale`), the consistency sampler, flow models, the other conditioning
-keys and the patched (fold/unfold) paths are not ported yet.
+Counterpart of `sd_tpu/diffusion/latent.py` on the text-to-image and
+image-editing paths: `apply_conditioned` with the `crossattn`, `concat` and
+`hybrid` keys, `get_input`, `training_loss` / `p_losses`,
+`LatentDiffusion.sample` with its sampler dispatch (ddim, dpm, dpm_sde,
+unipc, plms, euler, euler_a, heun, ddpm and `guidance_rescale`; the same
+errors for lcm / flow on an ε-model) followed by the decode,
+`calibrate_scale_factor`, and the overlapping-tile apply (`patched_apply`:
+sliding windows, the apply on every tile as one batch, border-weighted
+overlap-add in fp32) that tiles the first stage's decode and encode.
+Self-attention guidance (`sag_scale`), the consistency sampler, flow models,
+the `adm` key, `get_input` for any key but `crossattn` and the
+coordinates-bbox patched apply are not ported yet.
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
 `torch.Generator`; a batch may carry the draws instead (`t`, `noise`, and
@@ -37,11 +41,17 @@ from sd_tpu_torch.diffusion.unipc import UniPCSampler
 def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
                       cond: dict, conditioning_key: str) -> torch.Tensor:
     """Route conditioning into the UNet: `crossattn` concatenates the
-    `c_crossattn` list along tokens and passes it as the context."""
-    if conditioning_key != "crossattn":
+    `c_crossattn` list along tokens and passes it as the context, `concat`
+    the `c_concat` list to the latent along channels (no context), `hybrid`
+    both."""
+    if conditioning_key not in ("crossattn", "concat", "hybrid"):
         raise NotImplementedError(
             f"conditioning key {conditioning_key!r} is not ported yet")
-    return unet_apply(x, t, torch.cat(list(cond["c_crossattn"]), dim=1))
+    if conditioning_key in ("concat", "hybrid"):
+        x = torch.cat([x, *(c.to(x.dtype) for c in cond["c_concat"])], dim=-1)
+    ctx = (None if conditioning_key == "concat"
+           else torch.cat(list(cond["c_crossattn"]), dim=1))
+    return unet_apply(x, t, ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +76,9 @@ class LatentDiffusion:
                                  self.conditioning_key)
 
     # -- first stage and training loss ------------------------------------
+
+    def get_first_stage_encoding(self, z: torch.Tensor) -> torch.Tensor:
+        return self.scale_factor * z
 
     @torch.no_grad()
     def encode_first_stage(self, x: torch.Tensor, noise: torch.Tensor | None = None,
@@ -167,6 +180,63 @@ class LatentDiffusion:
             z = self.process.p_sample_loop(self.apply_model, shape, x_T, cond,
                                            generator=generator, noise=noise)
         return self.decode_first_stage(z) if decode else z
+
+
+# -- overlapping tiles --------------------------------------------------------------
+
+
+def _tie_breaker_weights(ks: int, sigma_scale: float = 0.5, device=None) -> torch.Tensor:
+    """[ks, ks] border-falloff weights of the overlap-add: a Gaussian of
+    the centred coordinate over ks, clipped to [0.01, 1], in fp32."""
+    r = (torch.arange(ks, dtype=torch.float32, device=device) - (ks - 1) / 2) / ks
+    g = torch.exp(-(r**2) / (2 * sigma_scale**2))
+    return torch.clamp(g[:, None] * g[None, :], 0.01, 1.0)
+
+
+def extract_patches(x: torch.Tensor, ks: int, stride: int) -> torch.Tensor:
+    """[B, H, W, C] → [B, nH, nW, ks, ks, C] sliding windows (a view)."""
+    return x.unfold(1, ks, stride).unfold(2, ks, stride).permute(0, 1, 2, 4, 5, 3)
+
+
+def fold_patches(patches: torch.Tensor, out_hw: tuple[int, int], stride: int,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """Weighted overlap-add of [B, nH, nW, ks, ks, C] back to fp32 [B, H, W,
+    C], tile by tile in row-major order, normalized by the summed weights
+    (pixels no tile covers come out 0)."""
+    B, nh, nw, ks, _, C = patches.shape
+    H, W = out_hw
+    w = weights.to(patches.device)[None, :, :, None]
+    out = torch.zeros((B, H, W, C), dtype=torch.float32, device=patches.device)
+    norm = torch.zeros((1, H, W, 1), dtype=torch.float32, device=patches.device)
+    for ih in range(nh):
+        for iw in range(nw):
+            y, x = ih * stride, iw * stride
+            out[:, y:y + ks, x:x + ks] += patches[:, ih, iw].float() * w
+            norm[:, y:y + ks, x:x + ks] += w
+    return out / torch.clamp(norm, min=1e-8)
+
+
+def patched_apply(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, ks: int,
+                  stride: int, scale: int | None = None) -> torch.Tensor:
+    """`fn` on every ks×ks window of x [B, H, W, C] at `stride`, as one batch
+    of B·nH·nW tiles (flattened [B, nH, nW]), overlap-added back in fp32 and
+    returned in fn's dtype. `scale`, where given, is fn's spatial scaling
+    (the decoder's VAE factor), checked against its output; without it any
+    exact rational rescale is taken, downscaling too (the tiled encode)."""
+    B, H, W, C = x.shape
+    patches = extract_patches(x, ks, stride)
+    nh, nw = patches.shape[1], patches.shape[2]
+    out = fn(patches.reshape(B * nh * nw, ks, ks, C))
+    oks = out.shape[1]
+    if scale is not None and oks != ks * scale:
+        raise ValueError(f"fn changed patch size {ks}->{oks}, scale={scale}")
+    if (H * oks) % ks or (W * oks) % ks or (stride * oks) % ks:
+        raise ValueError(f"patched_apply: output patch {oks} does not evenly rescale "
+                         f"H={H}, W={W}, stride={stride} from ks={ks}")
+    out = out.reshape(B, nh, nw, oks, oks, out.shape[-1])
+    folded = fold_patches(out, (H * oks // ks, W * oks // ks), stride * oks // ks,
+                          _tie_breaker_weights(oks))
+    return folded.to(out.dtype)
 
 
 def calibrate_scale_factor(z: torch.Tensor) -> float:

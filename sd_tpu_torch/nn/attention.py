@@ -9,8 +9,9 @@ holds (`SD_TPU_PALLAS_XATTN=1`) and the plain einsum attention otherwise,
 self-attention through [B, H, S, D] projections where the opt-in packed
 route holds (`SD_TPU_ATTN_PACKED=1`, after the head-packed one), the
 GEGLU feed-forward through the fused kernel where the TPU package's shape
-rule sends it (their plain versions when a gradient is wanted). NHWC layout;
-LayerNorm and softmax in fp32.
+rule sends it (their plain versions when a gradient is wanted), and ToMe's
+token merging around the self-attention where `tome_ratio` asks for it
+(`nn/tome.py`). NHWC layout; LayerNorm and softmax in fp32.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ from sd_tpu_torch.kernels import attention as attn_k
 from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import geglu as geglu_k
 from sd_tpu_torch.nn.layers import Conv2d, Dense, GroupNorm32, LayerNorm
+from sd_tpu_torch.nn.tome import build_tome
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 class LayerNorm32(LayerNorm):
@@ -138,19 +144,27 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm32(dim, **kw)
         self.ff = FeedForwardGEGLU(dim, **kw)
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor | None = None) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                tome=None) -> torch.Tensor:
+        """`tome`: ToMe's (merge, unmerge): the self-attention runs on the
+        merged tokens, each merged token taking its destination's output;
+        the cross-attention and feed-forward stay at full resolution."""
+        merge, unmerge = tome if tome is not None else (_identity, _identity)
+        x = x + unmerge(self.attn1(merge(self.norm1(x))))
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
 
 class SpatialTransformer(nn.Module):
     """GN → 1×1 proj_in → `depth` transformer blocks over H·W tokens →
-    zero-init 1×1 proj_out → residual."""
+    zero-init 1×1 proj_out → residual. With `tome_ratio` > 0, each block
+    merges tokens around its self-attention (ToMe) where the grid has at
+    least `tome_min_tokens` tokens and 2 rows and columns; both are read at
+    every call."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
                  depth: int = 1, context_dim: int | None = None, *,
+                 tome_ratio: float = 0.0, tome_min_tokens: int = 1024,
                  dtype=torch.float32, device=None):
         super().__init__()
         inner = heads * dim_head
@@ -158,6 +172,7 @@ class SpatialTransformer(nn.Module):
         self.norm = GroupNorm32(channels, 32, eps=1e-6, **kw)
         self.proj_in = Conv2d(channels, inner, 1, **kw)
         self.depth = depth
+        self.tome_ratio, self.tome_min_tokens = tome_ratio, tome_min_tokens
         for i in range(depth):
             setattr(self, f"block_{i}", BasicTransformerBlock(
                 inner, heads, dim_head, context_dim, **kw))
@@ -170,6 +185,10 @@ class SpatialTransformer(nn.Module):
         h = self.proj_in(self.norm(x))
         inner = h.shape[-1]
         h = h.reshape(B, H * W, inner)
+        use_tome = (self.tome_ratio > 0.0 and H * W >= self.tome_min_tokens
+                    and H >= 2 and W >= 2)
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, context)
+            built = build_tome(h, H, W, self.tome_ratio) if use_tome else None
+            h = getattr(self, f"block_{i}")(h, context,
+                                            tome=None if built is None else built[:2])
         return x + self.proj_out(h.reshape(B, H, W, inner))

@@ -87,7 +87,8 @@ def test_resnet_block_refuses_dropout_in_training():
 
 def test_unet_ddpm_matches(unet_weights):
     x, t = nprand(2, PX, PX, 3, seed=4), np.array([3, 41])
-    ref = JUNetDDPM(**UNET).apply({"params": unet_weights}, jnp.asarray(x), jnp.asarray(t))
+    ref = jax.jit(JUNetDDPM(**UNET).apply)({"params": unet_weights}, jnp.asarray(x),
+                                           jnp.asarray(t))
     got = _port_unet(unet_weights)(to_torch(x), torch.from_numpy(t))
     assert_close(got, ref)
 

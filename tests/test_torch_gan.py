@@ -111,7 +111,8 @@ def _disc_pair(use_actnorm: bool, seed: int = 0):
 def test_discriminator_batchnorm_logits_and_running_stats():
     jd, variables, td = _disc_pair(use_actnorm=False)
     x = nprand(2, 32, 32, 3, seed=8, scale=2.0) + 0.3
-    want, mut = jd.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    want, mut = jax.jit(lambda v, x: jd.apply(v, x, mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
     got = td(to_torch(x), update_stats=True)
     assert_close(got, want)
     assert got.shape == (2, 6, 6, 1)
@@ -121,7 +122,8 @@ def test_discriminator_batchnorm_logits_and_running_stats():
             assert buffers[f"{norm}.{key}"].dtype == torch.float32
             assert_close(buffers[f"{norm}.{key}"], val)
     # on the running statistics (eval mode) the logits follow them
-    want_eval = jd.apply({**variables, **mut}, jnp.asarray(x), train=False)
+    want_eval = jax.jit(lambda v, x: jd.apply(v, x, train=False))(
+        {**variables, **mut}, jnp.asarray(x))
     assert_close(td(to_torch(x), train=False), want_eval)
 
 
@@ -135,7 +137,7 @@ def test_discriminator_leaves_running_stats_unless_asked():
 def test_discriminator_actnorm():
     jd, variables, td = _disc_pair(use_actnorm=True, seed=3)
     x = nprand(2, 32, 32, 3, seed=10)
-    assert_close(td(to_torch(x)), jd.apply(variables, jnp.asarray(x)))
+    assert_close(td(to_torch(x)), jax.jit(jd.apply)(variables, jnp.asarray(x)))
     assert list(td.named_buffers()) == []
     # data-dependent init: scale·(x + loc) has zero mean, unit std per channel
     batch = nprand(4, 6, 6, 16, seed=11, scale=3.0) + 1.0

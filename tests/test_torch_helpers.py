@@ -59,6 +59,46 @@ def port(module: torch.nn.Module, params) -> torch.nn.Module:
     return module.eval()
 
 
+def jax_pipeline(cfg: dict, seed: int = 0):
+    """The JAX package's `Text2ImagePipeline` of `cfg` in fp32 (its own
+    `build_ldm` process, first-stage closures and programs) with every
+    parameter random (`randomize_tree`). While it is built, its modules'
+    `init` is only traced (`jax.eval_shape`): eager flax initialisation
+    compiles one program per op, tens of seconds at these widths, and its
+    values would be replaced anyway."""
+    from unittest import mock
+
+    import flax.linen as nn
+
+    from sd_tpu.pipeline import Text2ImagePipeline as JPipeline
+
+    real_init = nn.Module.init
+
+    def traced_init(self, rngs, *args, **kw):
+        shapes = jax.eval_shape(lambda r: real_init(self, r, *args, **kw), rngs)
+        return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+
+    with mock.patch.object(nn.Module, "init", traced_init):
+        jp = JPipeline(cfg, rng=jax.random.PRNGKey(seed), param_dtype=None)
+    rand = lambda tree, s: jax.tree_util.tree_map(jax.numpy.asarray,
+                                                 randomize_tree(_plain(tree), s))
+    jp.unet_params = rand(jp.unet_params, seed)
+    jp.vae_params = rand(jp.vae_params, seed + 1)
+    jp.clip.params = rand(jp.clip.params, seed + 2)
+    return jp
+
+
+def port_pipeline(cfg: dict, jpipe):
+    """The port's pipeline of `cfg` on the CPU in fp32 with `jpipe`'s weights."""
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+
+    pipe = Text2ImagePipeline(cfg, device="cpu", param_dtype=torch.float32)
+    port(pipe.unet, jpipe.unet_params)
+    port(pipe.vae, jpipe.vae_params)
+    port(pipe.clip, jpipe.clip.params)
+    return pipe
+
+
 def to_torch(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 

@@ -7,6 +7,7 @@ posterior moments of `AutoencoderKL.encode`.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -39,7 +40,8 @@ def test_unet():
     params = unet_params()
     x, ctx = nprand(2, 16, 16, 4, seed=1), nprand(2, 16, 32, seed=2)
     t = np.array([981, 1], np.int32)
-    ref = junet.UNetModel(**TINY_UNET).apply(
+    # jitted: one compile (eager flax compiles one program per op)
+    ref = jax.jit(junet.UNetModel(**TINY_UNET).apply)(
         {"params": params}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx))
     mod = port(unet_sd.UNetModel(**TINY_UNET, device="cpu"), params)
     with torch.no_grad():
@@ -50,8 +52,8 @@ def test_unet():
 def test_autoencoder_decode():
     params = vae_params()
     z = nprand(2, 16, 16, 4, seed=1)
-    ref = jae.AutoencoderKL(**TINY_VAE).apply(
-        {"params": params}, jnp.asarray(z), method=jae.AutoencoderKL.decode)
+    ref = jax.jit(lambda p, z: jae.AutoencoderKL(**TINY_VAE).apply(
+        {"params": p}, z, method=jae.AutoencoderKL.decode))(params, jnp.asarray(z))
     mod = port(autoencoder.AutoencoderKL(**TINY_VAE, device="cpu"), params)
     with torch.no_grad():
         got = mod.decode(to_torch(z))
@@ -62,8 +64,8 @@ def test_autoencoder_decode():
 def test_encoder():
     params = vae_params(seed=2)["encoder"]
     x = nprand(2, 32, 32, 3, seed=1)
-    ref = jcodec.Encoder(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
-                         z_channels=4).apply({"params": params}, jnp.asarray(x))
+    ref = jax.jit(jcodec.Encoder(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+                                 z_channels=4).apply)({"params": params}, jnp.asarray(x))
     mod = port(codec.Encoder(ch=16, ch_mult=(1, 2), num_res_blocks=1, z_channels=4), params)
     with torch.no_grad():
         got = mod(to_torch(x))
@@ -74,10 +76,14 @@ def test_encoder():
 def test_autoencoder_encode():
     params = vae_params(seed=3)
     x = nprand(2, 32, 32, 3, seed=1)
-    ref = jae.AutoencoderKL(**TINY_VAE).apply(
-        {"params": params}, jnp.asarray(x), method=jae.AutoencoderKL.encode)
+    def moments(p, x):
+        post = jae.AutoencoderKL(**TINY_VAE).apply({"params": p}, x,
+                                                  method=jae.AutoencoderKL.encode)
+        return post.mean, post.logvar
+
+    ref_mean, ref_logvar = jax.jit(moments)(params, jnp.asarray(x))
     mod = port(autoencoder.AutoencoderKL(**TINY_VAE, device="cpu"), params)
     with torch.no_grad():
         got = mod.encode(to_torch(x))
-    assert_close(got.mean, ref.mean)
-    assert_close(got.logvar, ref.logvar)
+    assert_close(got.mean, ref_mean)
+    assert_close(got.logvar, ref_logvar)

@@ -34,7 +34,10 @@ def _run(flax_mod, torch_mod, *args, seed=0, **kw):
     outputs (flax, torch)."""
     jargs = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
     params = flax_init(flax_mod, *jargs, seed=seed, **kw)
-    ref = flax_mod.apply({"params": params}, *jargs, **kw)
+    # jitted over the array arguments (one compile, not one per eager op)
+    arrays = {i: a for i, a in enumerate(jargs) if isinstance(a, jax.Array)}
+    ref = jax.jit(lambda p, arr: flax_mod.apply(
+        {"params": p}, *(arr.get(i, a) for i, a in enumerate(jargs)), **kw))(params, arrays)
     tmod = port(torch_mod, params)
     with torch.no_grad():
         got = tmod(*(to_torch(a) if isinstance(a, np.ndarray) else a for a in args))
@@ -287,16 +290,24 @@ def test_ddim_sample_with_cfg_and_injected_noise():
 
 
 def test_apply_conditioned_crossattn_concatenates_tokens():
+    """`crossattn` concatenates the context along tokens; `concat` the
+    latent's conditioning along channels (no context); `hybrid` both (the
+    inpainting model); `adm` is not ported yet."""
     seen = {}
 
     def unet(x, t, ctx):
-        seen["ctx"] = ctx
+        seen["x"], seen["ctx"] = x, ctx
         return x
 
     a, b = torch.randn(2, 3, 8), torch.randn(2, 5, 8)
     latent.apply_conditioned(unet, torch.zeros(2), torch.zeros(2),
                              {"c_crossattn": [a, b]}, "crossattn")
     assert torch.equal(seen["ctx"], torch.cat([a, b], dim=1))
+    x, m, z = torch.randn(2, 4, 4, 3), torch.randn(2, 4, 4, 1), torch.randn(2, 4, 4, 3)
+    latent.apply_conditioned(unet, x, torch.zeros(2), {"c_concat": [m, z]}, "concat")
+    assert torch.equal(seen["x"], torch.cat([x, m, z], dim=-1)) and seen["ctx"] is None
+    latent.apply_conditioned(unet, x, torch.zeros(2),
+                             {"c_concat": [m], "c_crossattn": [a]}, "hybrid")
+    assert torch.equal(seen["x"], torch.cat([x, m], dim=-1)) and torch.equal(seen["ctx"], a)
     with pytest.raises(NotImplementedError):
-        latent.apply_conditioned(unet, torch.zeros(2), torch.zeros(2),
-                                 {"c_concat": [a]}, "concat")
+        latent.apply_conditioned(unet, x, torch.zeros(2), {"c_adm": a}, "adm")

@@ -281,7 +281,8 @@ def test_optin_generate_matches_the_tpu_package(monkeypatch):
     x_T = nprand(2, 16, 16, 4, seed=6)
 
     tok = SimpleHashTokenizer(16, 1000)
-    emb = clip.apply({"params": cparams}, jnp.concatenate([tok([""] * 2), tok(PROMPTS)]))
+    emb = jax.jit(clip.apply)({"params": cparams},
+                              jnp.concatenate([tok([""] * 2), tok(PROMPTS)]))
     uc, c = jnp.split(emb, 2, axis=0)
     unet = JUNet(**OPTIN_UNET)
     start = len(decided["jax"])          # the param inits above traced the gates too
@@ -291,8 +292,8 @@ def test_optin_generate_matches_the_tpu_package(monkeypatch):
         jax.random.PRNGKey(0), x_T.shape, num_steps=4, cond=c, uncond=uc,
         guidance_scale=7.5, eta=0.0, x_T=jnp.asarray(x_T))
     n_unet = len(decided["jax"])
-    ref = JAutoencoderKL(**TINY_VAE).apply({"params": vparams}, z / 0.18215,
-                                           method=JAutoencoderKL.decode)
+    ref = jax.jit(lambda p, z: JAutoencoderKL(**TINY_VAE).apply(
+        {"params": p}, z, method=JAutoencoderKL.decode))(vparams, z / 0.18215)
 
     cfg = tiny_config()
     cfg["unet"]["params"].update(OPTIN_UNET)

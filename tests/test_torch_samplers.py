@@ -255,25 +255,20 @@ def test_latent_sample_errors(data):
 def test_pipeline_ddpm_generate_matches_sd_tpu():
     """`generate(sampler="ddpm")` at the pipeline level: the JAX pipeline's
     own process (built by `build_ldm`, x0 unclamped) against the port's
-    pipeline, the same weights (`load_flax_params`), fp32 on the CPU, a
+    pipeline, the same weights (every one random, `jax_pipeline`, carried by
+    `load_flax_params`), fp32 on the CPU, a
     6-step schedule, x_T and every step's draw injected from the JAX key
     stream. x_T is N(0, 2²) and ᾱ stays near 1 over 6 steps, so the
     predicted x0 leaves [-1, 1] and a clamp would show."""
-    from test_torch_helpers import SLICE_TOL, port
+    from test_torch_helpers import SLICE_TOL, jax_pipeline, port_pipeline
     from test_torch_slice import PROMPTS, tiny_config
-
-    from sd_tpu.pipeline import Text2ImagePipeline as JPipeline
-    from sd_tpu_torch.pipeline import Text2ImagePipeline
 
     cfg = tiny_config()
     cfg["diffusion"]["timesteps"] = T = 6
-    jpipe = JPipeline(cfg, rng=jax.random.PRNGKey(3), param_dtype=None)
+    jpipe = jax_pipeline(cfg, seed=3)
     assert not jpipe.ld.process.clip_denoised
-    pipe = Text2ImagePipeline(cfg, device="cpu", param_dtype=torch.float32)
+    pipe = port_pipeline(cfg, jpipe)
     assert not pipe.ld.process.clip_denoised
-    port(pipe.unet, jpipe.unet_params)
-    port(pipe.vae, jpipe.vae_params)
-    port(pipe.clip, jpipe.clip.params)
 
     shape = (2, 16, 16, 4)
     x_T = nprand(*shape, seed=11, scale=2.0)

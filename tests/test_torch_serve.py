@@ -398,9 +398,10 @@ def test_served_generate_with_variants_matches_tpu_package(monkeypatch):
     tok = SimpleHashTokenizer(16, 1000)
     ids, wts = jpw.tokenize_weighted(prompts, tok.encode_chunk, 16, tok.bos_token_id,
                                      tok.eos_token_id)
-    c = jpw.apply_prompt_weights(clip.apply({"params": cparams}, jnp.asarray(ids)),
+    encode = jax.jit(clip.apply)
+    c = jpw.apply_prompt_weights(encode({"params": cparams}, jnp.asarray(ids)),
                                  jnp.asarray(wts))
-    uc = clip.apply({"params": cparams}, jnp.asarray(tok([""] * 2)))
+    uc = encode({"params": cparams}, jnp.asarray(tok([""] * 2)))
     unet = JUNet(**TINY_UNET)
     z = DDIMSampler(DiffusionSchedule.create(1000, "linear", 0.00085, 0.012)).sample(
         lambda x, t, ctx: unet.apply({"params": uparams}, x, t, ctx),

@@ -50,8 +50,8 @@ def test_text_to_image_slice(weights):
     x_T = nprand(2, 16, 16, 4, seed=6)
 
     tok = SimpleHashTokenizer(16, 1000)
-    emb = clip.apply({"params": cparams},
-                     jnp.concatenate([tok([""] * 2), tok(PROMPTS)], axis=0))
+    emb = jax.jit(clip.apply)({"params": cparams},
+                              jnp.concatenate([tok([""] * 2), tok(PROMPTS)], axis=0))
     uc, c = jnp.split(emb, 2, axis=0)
     unet = UNetModel(**TINY_UNET)
     sched = DiffusionSchedule.create(1000, "linear", 0.00085, 0.012)
@@ -59,8 +59,8 @@ def test_text_to_image_slice(weights):
         lambda x, t, ctx: unet.apply({"params": uparams}, x, t, ctx),
         jax.random.PRNGKey(0), x_T.shape, num_steps=4, cond=c, uncond=uc,
         guidance_scale=7.5, eta=0.0, x_T=jnp.asarray(x_T))
-    ref = AutoencoderKL(**TINY_VAE).apply({"params": vparams}, z / 0.18215,
-                                          method=AutoencoderKL.decode)
+    ref = jax.jit(lambda p, z: AutoencoderKL(**TINY_VAE).apply(
+        {"params": p}, z, method=AutoencoderKL.decode))(vparams, z / 0.18215)
 
     pipe = Text2ImagePipeline(tiny_config(), device="cpu", param_dtype=torch.float32)
     port(pipe.clip, cparams)
@@ -83,7 +83,8 @@ def test_generate_returns_uint8_images(weights):
 def test_weighting_syntax_is_refused(weights):
     """Weighting syntax is ported now: a weighted prompt runs and its emphasis
     changes the image. What `generate` still refuses is the options whose
-    modules are not ported (tiled decode, ControlNet, IP-Adapter, SAG).
+    modules are not ported (ControlNet, IP-Adapter, SAG); the tiled decode
+    is ported, and a tile no smaller than the image is the whole decode.
     (The JAX package's weights: the port's own initialisation zeroes the
     transformer blocks' output projections, so the text would not reach
     the image.)"""
@@ -96,7 +97,9 @@ def test_weighting_syntax_is_refused(weights):
     plain = pipe.generate(["a very red cube"], num_steps=4)
     assert weighted.shape == plain.shape == (1, 32, 32, 3)
     assert not np.array_equal(weighted, plain)
-    for option in (dict(decode_tile=16), dict(control_image=np.zeros((32, 32, 3))),
+    np.testing.assert_array_equal(pipe.generate(["a very red cube"], num_steps=4,
+                                                decode_tile=32), plain)
+    for option in (dict(control_image=np.zeros((32, 32, 3))),
                    dict(ip_image=np.zeros((32, 32, 3))), dict(sag_scale=0.5)):
         with pytest.raises(NotImplementedError):
             pipe.generate(["a red cube"], num_steps=4, **option)

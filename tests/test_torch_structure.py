@@ -893,13 +893,105 @@ def test_from_run_generate_launches(tpu_gates, monkeypatch, tmp_path):
     assert _generate_launches(per_step, per_decode) == chip_smoke.EXPECTED_LAUNCHES
 
 
+# -- the image_edit phase: the image-editing entry points at full width -----------------
+
+
+def _ddim_calls(steps: int, strength: float | None = None) -> int:
+    """UNet calls of a DDIM pass of `steps` steps on the SD schedule (the
+    "uniform" striding's table length), or of img2img's decode from
+    `strength` (t_start, as both packages' img2img take it)."""
+    from sd_tpu_torch.core.schedules import DDIMSchedule
+
+    n = DDIMSchedule.create(DiffusionSchedule.create(**CFG["diffusion"]), steps).num_steps
+    return n if strength is None else max(1, min(int(strength * steps), steps))
+
+
+def test_image_edit_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s image_edit launches, piece by piece on `meta`
+    tensors with every gate checked against the JAX package's: a CFG UNet
+    call (batch 4) at 64² and 128² and with ToMe + FreeU at 64², the
+    inpainting model's UNet at 32², the KL-f8 encoder and decoder at each
+    batch and size the entry points give them (the tiles at batch 18: a 3 ×
+    3 grid of `_cover_stride`), the f4 codec's; each entry point's total
+    from its UNet calls (the DDIM table, img2img's t_start) equals
+    IMAGE_EDIT_LAUNCHES, and the encoder's alone ENCODER_512_LAUNCHES."""
+    from sd_tpu_torch.core.config import inpaint_128_config
+
+    calls = _count_kernel_calls(monkeypatch)
+    plans = _spy_plans(monkeypatch)
+    flash = {"_inference", "flash_attention_hpacked"}
+
+    def piece(fn) -> Counter:
+        before, n = Counter(calls), len(plans)
+        with torch.no_grad():
+            fn()
+        got = Counter({k: v - before[k] for k, v in calls.items() if k not in flash})
+        got["geglu_sm90"] = got["geglu_ff"]          # every GEGLU launch runs geglu_sm90.cu
+        return +got + _plan_launches(plans[n:])
+
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    unet, vae = UNetModel(**UNET, **BF16), AutoencoderKL(**VAE, **BF16)
+    icfg = inpaint_128_config()
+    iunet = UNetModel(**icfg["unet"]["params"], **BF16)
+    ivae = AutoencoderKL(**icfg["first_stage"]["params"], **BF16)
+    call = lambda net, hw, c: lambda: net(meta(4, hw, hw, c), meta(4, dtype=torch.long),
+                                          meta(4, 16 if net is iunet else 77,
+                                               64 if net is iunet else 768))
+    f, size, big, tile = 8, chip_smoke.EDIT_SIZE, chip_smoke.EDIT_BIG, chip_smoke.EDIT_TILE
+    stride = Text2ImagePipeline._cover_stride(tile, big, big, step=f)
+    tiles = 2 * ((big - tile) // stride + 1) ** 2
+    assert tiles == 18 and Text2ImagePipeline._cover_stride(tile // f, big // f,
+                                                            big // f) == stride // f
+    p = {"unet64": piece(call(unet, size // f, 4)), "unet128": piece(call(unet, big // f, 4)),
+         "iunet": piece(call(iunet, chip_smoke.INPAINT_SIZE // 4, 7)),
+         "enc": piece(lambda: vae.encode(meta(2, size, size, 3))),
+         "enc_tiles": piece(lambda: vae.encode(meta(tiles, tile, tile, 3))),
+         "enc_big": piece(lambda: vae.encode(meta(2, big, big, 3))),
+         "dec": piece(lambda: vae.decode(meta(2, size // f, size // f, 4))),
+         "dec_tiles": piece(lambda: vae.decode(meta(tiles, tile // f, tile // f, 4))),
+         "dec_big": piece(lambda: vae.decode(meta(2, big // f, big // f, 4))),
+         "ienc": piece(lambda: ivae.encode(meta(2, 128, 128, 3))),
+         "idec": piece(lambda: ivae.decode(meta(2, 32, 32, 3)))}
+    unet.set_options(**chip_smoke.TOME_FREEU)
+    p["unet64_tome"] = piece(call(unet, size // f, 4))
+    # the head-packed shapes: ToMe's merged sequences pass the gate
+    hp = [args for name, args in tpu_gates.args if name == "hpacked_flash_ok"]
+    assert {a[:2] for a in hp[-10:]} == {(2048, 2048), (512, 512)}
+    assert {a[3] for a in hp} == {40, 80, 160}
+
+    times = lambda n, c: Counter({k: n * v for k, v in c.items()})
+    i2i, hires = _ddim_calls(chip_smoke.EDIT_STEPS, chip_smoke.EDIT_STRENGTH), _ddim_calls(
+        chip_smoke.HIRES_STEPS[1], chip_smoke.HIRES_STRENGTH)
+    big_i2i = _ddim_calls(chip_smoke.EDIT_BIG_STEPS, chip_smoke.EDIT_STRENGTH)
+    steps, gen = _ddim_calls(chip_smoke.EDIT_STEPS), _ddim_calls(chip_smoke.EDIT_GENERATE_STEPS)
+    assert (i2i, hires, big_i2i, steps, gen) == (15, 5, 6, 20, 10)
+    derived = {
+        "img2img": times(i2i, p["unet64"]) + p["enc"] + p["dec"],
+        "inpaint": times(steps, p["unet64"]) + p["enc"] + p["dec"],
+        "inpaint_128": times(steps, p["iunet"]) + p["ienc"] + p["idec"],
+        "generate_tiled": times(_ddim_calls(chip_smoke.EDIT_BIG_STEPS), p["unet128"])
+        + p["dec_tiles"],
+        "img2img_tiled": times(big_i2i, p["unet128"]) + p["enc_tiles"] + p["dec_big"],
+        "generate_hires": times(_ddim_calls(chip_smoke.HIRES_STEPS[0]), p["unet64"]) + p["dec"]
+        + times(hires, p["unet128"]) + p["enc_big"] + p["dec_big"],
+        "generate": times(gen, p["unet64"]) + p["dec"],
+        "generate_tome_freeu": times(gen, p["unet64_tome"]) + p["dec"],
+        "generate_ti": times(gen, p["unet64"]) + p["dec"]}
+    want = {name: {k: v for k, v in counts.items() if v}
+            for name, counts in chip_smoke.IMAGE_EDIT_LAUNCHES.items()}
+    assert {name: dict(c) for name, c in derived.items()} == want
+    assert dict(p["enc"]) == {k: v for k, v in chip_smoke.ENCODER_512_LAUNCHES.items() if v}
+    assert not p["iunet"] and dict(p["ienc"]) == {"flash_attention": 1, "flash_fwd_wide": 1}
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
     for want in (chip_smoke.EXPECTED_LAUNCHES, chip_smoke.EXPECTED_LAUNCHES_OPTIN,
                  chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES,
                  chip_smoke.EXPECTED_VQ_LAUNCHES, chip_smoke.KL_RUN_EVAL_LAUNCHES,
-                 chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES):
+                 chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES, chip_smoke.ENCODER_512_LAUNCHES,
+                 *chip_smoke.IMAGE_EDIT_LAUNCHES.values()):
         assert set(want) == set(kernels.LAUNCHES)
 
 
@@ -970,6 +1062,15 @@ def test_sd512_train_config_is_the_yaml():
         want = yaml.safe_load(f)
     del want["first_stage"]["ckpt"]    # no trained first stage in the repository
     assert sd512_train_config() == want
+
+
+def test_inpaint_128_config_is_the_yaml():
+    from sd_tpu_torch.core.config import inpaint_128_config
+
+    with open(REPO / "configs" / "inpaint_128_catdog.yaml") as f:
+        want = yaml.safe_load(f)
+    del want["first_stage"]["ckpt"]    # the trained KL-f4 run is not in the repository
+    assert inpaint_128_config() == want
 
 
 def test_kl_f8_256_train_config_is_the_yaml():

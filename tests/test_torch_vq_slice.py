@@ -110,7 +110,9 @@ def test_vector_quantizer_matches(legacy):
     z, w = nprand(2, 4, 4, D, seed=1), nprand(2, 4, 4, D, seed=2)
     codebook = nprand(K, D, seed=3, scale=0.7)
     jmod = jq.VectorQuantizer(n_e=K, e_dim=D, beta=0.25, legacy=legacy)
-    (zq, loss, (ppl, _, idx)) = jmod.apply({"params": {"embedding": codebook}}, jnp.asarray(z))
+    # the JAX side jitted throughout: one compile, not one per eager op
+    (zq, loss, (ppl, _, idx)) = jax.jit(jmod.apply)({"params": {"embedding": codebook}},
+                                                    jnp.asarray(z))
     mod = port(q.VectorQuantizer(K, D, beta=0.25, legacy=legacy, device="cpu"),
                {"embedding": codebook})
     tzq, tloss, (tppl, _, tidx) = mod(to_torch(z))
@@ -126,7 +128,7 @@ def test_vector_quantizer_matches(legacy):
         zq, loss, _ = jmod.apply({"params": {"embedding": e}}, z)
         return jnp.sum(zq * w) + loss
 
-    jgz, jge = jax.grad(jfn, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(codebook))
+    jgz, jge = jax.jit(jax.grad(jfn, argnums=(0, 1)))(jnp.asarray(z), jnp.asarray(codebook))
 
     mod.requires_grad_(True)
     tz = to_torch(z).requires_grad_()
@@ -159,9 +161,9 @@ def test_gumbel_quantize_matches(deterministic):
                                deterministic=deterministic)
         return jnp.sum(zq * w) + kl
 
-    zq, kl, (ppl, _, idx) = jmod.apply({"params": params}, jnp.asarray(z), rng=key, temp=temp,
-                                       deterministic=deterministic)
-    jgz, jgp = jax.grad(jfn, argnums=(0, 1))(jnp.asarray(z), params)
+    zq, kl, (ppl, _, idx) = jax.jit(lambda p, z: jmod.apply(
+        {"params": p}, z, rng=key, temp=temp, deterministic=deterministic))(params, jnp.asarray(z))
+    jgz, jgp = jax.jit(jax.grad(jfn, argnums=(0, 1)))(jnp.asarray(z), params)
     mod = port(q.GumbelQuantize(K, D, kl_weight=5e-3, device="cpu"), params)
     mod.requires_grad_(True)
     tz = to_torch(z).requires_grad_()
@@ -186,10 +188,10 @@ def test_ema_vector_quantizer_matches():
     z, w = nprand(2, 4, 4, D, seed=10), nprand(2, 4, 4, D, seed=11)
     cb = _codebook(12)
     jmod = jq.EMAVectorQuantizer(n_e=K, e_dim=D, beta=0.25, decay=0.9)
-    (zq, loss, (ppl, _, idx)), mut = jmod.apply({"codebook": cb}, jnp.asarray(z), update=True,
-                                                mutable=["codebook"])
-    jgz = jax.grad(lambda z: jnp.sum(jmod.apply({"codebook": cb}, z)[0] * w)
-                   + jmod.apply({"codebook": cb}, z)[1])(jnp.asarray(z))
+    (zq, loss, (ppl, _, idx)), mut = jax.jit(lambda z: jmod.apply(
+        {"codebook": cb}, z, update=True, mutable=["codebook"]))(jnp.asarray(z))
+    jgz = jax.jit(jax.grad(lambda z: jnp.sum(jmod.apply({"codebook": cb}, z)[0] * w)
+                           + jmod.apply({"codebook": cb}, z)[1]))(jnp.asarray(z))
     mod = q.EMAVectorQuantizer(K, D, beta=0.25, decay=0.9, device="cpu")
     load_flax_codebook(mod, cb)
     assert not any(b.requires_grad for b in mod.buffers()) and not list(mod.parameters())
@@ -308,8 +310,8 @@ def test_vq_model_decode_code_and_pre_quant():
     with torch.no_grad():
         h = tvq.encode_pre_quant(to_torch(x))
         zq, _, (_, _, idx) = tvq.encode(to_torch(x))
-        assert_close(h, jvq.apply({"params": params}, jnp.asarray(x),
-                                  method=JVQModel.encode_pre_quant))
+        assert_close(h, jax.jit(lambda p, x: jvq.apply(
+            {"params": p}, x, method=JVQModel.encode_pre_quant))(params, jnp.asarray(x)))
         shape = (1, PX // 2, PX // 2, D)
         codes = tvq.quantize.get_codebook_entry(idx, shape)
         torch.testing.assert_close(codes, zq, rtol=0, atol=1e-6)
