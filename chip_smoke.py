@@ -195,6 +195,17 @@ Phases, each printed as one JSON line:
            the entry points launched held against its plain version (the same
            bits twice, the route counter moved, its time beside its bound);
            seconds and peak memory of each entry point.
+  adapters  the loaded and steered served model at SD-v1 full width (bf16,
+           every weight random), 2 prompts at 512², ADAPTER_STEPS DDIM steps:
+           to_sd_checkpoint as .safetensors and .ckpt (fp32, ≈ 3.8 GB each) and
+           from_sd_checkpoint of each, generate on the source's bits, save and
+           load GB/s, merge_checkpoints at α = 0; LoRA (scale 0: plain bits;
+           scale 1: the merged weights within 1 bf16 ulp of a float64 merge);
+           ControlNet (zero projections: plain bits; then random ones); SAG
+           (the probe at mid_attn, no flash launch there); IP-Adapter (scale 0
+           within 1 level of plain); each steered entry point twice (the same
+           bits, ADAPTER_LAUNCHES), every kernel shape held against its plain
+           version; seconds and peak memory beside the card.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -412,6 +423,38 @@ IMAGE_EDIT_LAUNCHES = {
     "generate": _EDIT_GENERATE,
     "generate_tome_freeu": _EDIT_GENERATE,
     "generate_ti": _EDIT_GENERATE,
+}
+# the adapters phase: the loaded and steered served model at SD-v1 full width
+# (bf16, every weight random), 2 prompts at 512², ADAPTER_STEPS DDIM steps
+ADAPTERS_SEED = 18
+ADAPTER_STEPS = 10
+SAG_SCALE = 0.75
+LORA_RANK = 4
+LORA_B_STD = 4e-3              # the b factors' N(0, σ²): deltas ~10% of the weights
+# launches of each entry point (tests/test_torch_structure.py derives them):
+# a CFG UNet call (batch 4) takes 10 head-packed flash launches and 10 GEGLU,
+# the ControlNet branch (batch 4) 4 and 4 (its level-0 and level-1
+# transformers), SAG's degraded pass (the unconditional batch 2) 10 and 10;
+# the probed mid-block attention (64 tokens) takes none, as under CFG alone;
+# the image embedder (ViT-B/32, 50 tokens) none; the decoder 1 flash
+# launch (d = 512) and 18 convs
+_ADAPTER_GENERATE = launches_of(flash_attention_hpacked=10 * ADAPTER_STEPS,
+                                flash_fwd_sm90=10 * ADAPTER_STEPS,
+                                geglu_ff=10 * ADAPTER_STEPS, geglu_sm90=10 * ADAPTER_STEPS,
+                                flash_attention=1, flash_fwd_wide=1, conv3x3_same=18)
+ADAPTER_LAUNCHES = {
+    "generate": _ADAPTER_GENERATE,
+    "generate_lora": _ADAPTER_GENERATE,
+    "generate_controlnet": launches_of(flash_attention_hpacked=14 * ADAPTER_STEPS,
+                                       flash_fwd_sm90=14 * ADAPTER_STEPS,
+                                       geglu_ff=14 * ADAPTER_STEPS,
+                                       geglu_sm90=14 * ADAPTER_STEPS,
+                                       flash_attention=1, flash_fwd_wide=1, conv3x3_same=18),
+    "generate_sag": launches_of(flash_attention_hpacked=20 * ADAPTER_STEPS,
+                                flash_fwd_sm90=20 * ADAPTER_STEPS,
+                                geglu_ff=20 * ADAPTER_STEPS, geglu_sm90=20 * ADAPTER_STEPS,
+                                flash_attention=1, flash_fwd_wide=1, conv3x3_same=18),
+    "generate_ip": _ADAPTER_GENERATE,
 }
 # the encoder's launches at 512², batch 2 (its bf16-vs-fp32 check)
 ENCODER_512_LAUNCHES = launches_of(flash_attention=1, flash_fwd_wide=1, conv3x3_same=12)
@@ -3132,18 +3175,93 @@ def _chunked_attention_ref(q, k, v, rows: int = 1024):
                       for i in range(0, q.shape[1], rows)], dim=1)
 
 
-def _hold_edit_kernels(shapes: dict) -> list:
-    """Each shape the image_edit phase gave a kernel: the kernel on random
-    bf16 inputs (a generator of their own) against its fp32 plain version
-    within KERNEL_TOL·max|ref|, the same bits on a second call, its route
-    counter moved once a call, its time (CUDA events) beside its bound."""
+def _kernel_shape_spies(shapes: dict):
+    """Patches (an ExitStack to enter) that record into `shapes` every shape
+    the 3×3 conv, flash, head-packed flash and GEGLU wrappers are called at,
+    and call through."""
+    import contextlib
+
+    from sd_tpu_torch.kernels import conv2d, geglu
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    for name in ("conv3x3_same", "flash_attention", "flash_attention_hpacked", "geglu_ff"):
+        shapes.setdefault(name, set())
+    conv0, flash0, hpacked0, geglu0 = (conv2d.conv3x3_same, fa.flash_attention,
+                                       fa.flash_attention_hpacked, geglu.geglu_ff)
+
+    def conv_spy(x, w, b):
+        shapes["conv3x3_same"].add((*x.shape, w.shape[0]))
+        return conv0(x, w, b)
+
+    def flash_spy(q, k, v, **kw):
+        shapes["flash_attention"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                                       q.shape[3]))
+        return flash0(q, k, v, **kw)
+
+    def hpacked_spy(q, k, v, heads, **kw):
+        shapes["flash_attention_hpacked"].add((q.shape[0], q.shape[1], heads,
+                                               q.shape[2] // heads))
+        return hpacked0(q, k, v, heads, **kw)
+
+    def geglu_spy(x, w1, b1, w2, b2):
+        shapes["geglu_ff"].add((x.numel() // x.shape[-1], x.shape[-1], w2.shape[1]))
+        return geglu0(x, w1, b1, w2, b2)
+
+    patches = contextlib.ExitStack()
+    for obj, name, fn in ((conv2d, "conv3x3_same", conv_spy), (fa, "flash_attention", flash_spy),
+                          (fa, "flash_attention_hpacked", hpacked_spy),
+                          (geglu, "geglu_ff", geglu_spy)):
+        patches.enter_context(mock.patch.object(obj, name, fn))
+    return patches
+
+
+def _run_twice(runs: dict, name: str, fn, expected: dict):
+    """An entry point returning uint8 images, twice: the first run's
+    launches (required to be `expected`) and images, the second run's
+    seconds, the peak memory of both, the same bits required. Returns the
+    first run's images."""
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    first = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    second = fn()
+    torch.cuda.synchronize()
+    runs[name] = {"seconds": [first_s, time.perf_counter() - t0],
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                  "shape": list(first.shape),
+                  "launches": {k: v for k, v in launches.items() if v}}
+    require(first.dtype == np.uint8 and first.std() > 0, f"{name}: non-constant uint8 "
+            f"images, got {first.dtype} std {first.std()}")
+    require(np.array_equal(first, second), f"{name}: the same bits twice")
+    require(launches == expected, f"{name} launches {runs[name]['launches']} == "
+            f"{ {k: v for k, v in expected.items() if v} }")
+    return first
+
+
+def _hold_edit_kernels(shapes: dict, seed: int = IMAGE_EDIT_SEED,
+                       path: str = "image_edit") -> list:
+    """Each shape a phase gave a kernel: the kernel on random bf16 inputs
+    (a generator of their own, seeded with `seed`) against its fp32 plain
+    version within KERNEL_TOL·max|ref|, the same bits on a second call, its
+    route counter moved once a call, its time (CUDA events) beside its
+    bound."""
     import torch
 
     from sd_tpu_torch import kernels
     from sd_tpu_torch.kernels import conv2d, geglu
     from sd_tpu_torch.kernels import flash_attention as fa
 
-    g = torch.Generator("cuda").manual_seed(IMAGE_EDIT_SEED)
+    g = torch.Generator("cuda").manual_seed(seed)
     rnd = lambda *s, scale=1.0: (torch.randn(s, generator=g, device="cuda") * scale).bfloat16()
     cases = []
     for B, H, W, C, O in sorted(shapes["conv3x3_same"]):
@@ -3192,7 +3310,7 @@ def _hold_edit_kernels(shapes: dict) -> list:
                      "bound_op": op})
         del out, again
     for r in rows:
-        what = f"{r['name']} {r['shape']} on the image_edit path"
+        what = f"{r['name']} {r['shape']} on the {path} path"
         require(r["rel_err"] <= KERNEL_TOL, f"{what}: max|Δ| = {r['rel_err']:.3g}·max|ref| "
                 f"> {KERNEL_TOL}")
         require(r["same_bits_twice"], f"{what}: the same bits twice")
@@ -3240,7 +3358,6 @@ def phase_image_edit(smi: str) -> dict:
     DECODER_TOL; every kernel shape the phase launched held against its
     plain version (`_hold_edit_kernels`). Prints each entry point's seconds
     and peak memory beside the card's name and power limit."""
-    import contextlib
     import copy
     import shutil
     import tempfile
@@ -3250,8 +3367,6 @@ def phase_image_edit(smi: str) -> dict:
 
     from sd_tpu_torch import kernels
     from sd_tpu_torch.core.config import inpaint_128_config, sd_v1_config
-    from sd_tpu_torch.kernels import conv2d, geglu
-    from sd_tpu_torch.kernels import flash_attention as fa
     from sd_tpu_torch.pipeline import Text2ImagePipeline, to_uint8
     from sd_tpu_torch.train.textual_inversion import save_embedding
     from sd_tpu_torch.weights import randomize_params_
@@ -3278,55 +3393,11 @@ def phase_image_edit(smi: str) -> dict:
     keep128[1, m // 2:, :] = 0
 
     # every shape the kernels get on this phase's entry points
-    shapes = {name: set() for name in ("conv3x3_same", "flash_attention",
-                                       "flash_attention_hpacked", "geglu_ff")}
-    conv0, flash0, hpacked0, geglu0 = (conv2d.conv3x3_same, fa.flash_attention,
-                                       fa.flash_attention_hpacked, geglu.geglu_ff)
-
-    def conv_spy(x, w, b):
-        shapes["conv3x3_same"].add((*x.shape, w.shape[0]))
-        return conv0(x, w, b)
-
-    def flash_spy(q, k, v, **kw):
-        shapes["flash_attention"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                                       q.shape[3]))
-        return flash0(q, k, v, **kw)
-
-    def hpacked_spy(q, k, v, heads, **kw):
-        shapes["flash_attention_hpacked"].add((q.shape[0], q.shape[1], heads,
-                                               q.shape[2] // heads))
-        return hpacked0(q, k, v, heads, **kw)
-
-    def geglu_spy(x, w1, b1, w2, b2):
-        shapes["geglu_ff"].add((x.numel() // x.shape[-1], x.shape[-1], w2.shape[1]))
-        return geglu0(x, w1, b1, w2, b2)
-
+    shapes: dict = {}
     runs, checks = {}, {}
 
     def run(name, fn):
-        """The entry point twice: the first run's launches and the images,
-        the second run's seconds, the peak memory of both."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        first = fn()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        second = fn()
-        torch.cuda.synchronize()
-        runs[name] = {"seconds": [first_s, time.perf_counter() - t0],
-                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
-                      "shape": list(first.shape),
-                      "launches": {k: v for k, v in launches.items() if v}}
-        require(first.dtype == np.uint8 and first.std() > 0, f"{name}: non-constant uint8 "
-                f"images, got {first.dtype} std {first.std()}")
-        require(np.array_equal(first, second), f"{name}: the same bits twice")
-        require(launches == IMAGE_EDIT_LAUNCHES[name],
-                f"{name} launches {runs[name]['launches']} == {IMAGE_EDIT_LAUNCHES[name]}")
-        return first
+        return _run_twice(runs, name, fn, IMAGE_EDIT_LAUNCHES[name])
 
     decoded = []
     decode0 = pipe._decode
@@ -3337,12 +3408,7 @@ def phase_image_edit(smi: str) -> dict:
 
     root = tempfile.mkdtemp(prefix="sd_tpu_torch_image_edit_")
     try:
-        patches = contextlib.ExitStack()
-        for obj, name, fn in ((conv2d, "conv3x3_same", conv_spy), (fa, "flash_attention", flash_spy),
-                              (fa, "flash_attention_hpacked", hpacked_spy),
-                              (geglu, "geglu_ff", geglu_spy)):
-            patches.enter_context(mock.patch.object(obj, name, fn))
-        with patches:
+        with _kernel_shape_spies(shapes):
             run("img2img", lambda: pipe.img2img(prompts, init512, strength=EDIT_STRENGTH,
                                                 num_steps=EDIT_STEPS, seed=1))
             run("inpaint", lambda: pipe.inpaint(prompts, init512, keep512,
@@ -3426,6 +3492,212 @@ def phase_image_edit(smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "image_edit", "nvidia_smi": smi, "entry_points": runs, "checks": checks,
           "kernel_shapes_held": held, "phase_seconds": time.perf_counter() - t_phase})
+    return {name: r_["launches"] for name, r_ in runs.items()}
+
+
+def _bf16_ulp(x):
+    """The bf16 spacing at |x| (float64 in, float64 out; the smallest normal
+    spacing below 2^-126)."""
+    import torch
+
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def phase_adapters(smi: str) -> dict:
+    """The loaded and steered served model at SD-v1 full width (bf16, every
+    weight random from ADAPTERS_SEED), 2 prompts at 512², ADAPTER_STEPS DDIM
+    steps, CFG 7.5; the entry points run twice (the same bits, launches as
+    ADAPTER_LAUNCHES, the second run timed, peak memory):
+      checkpoints  to_sd_checkpoint in fp32 as .safetensors and .ckpt (≈ 3.8
+                   GB each), from_sd_checkpoint of each: generate gives the
+                   source pipeline's bits (bf16 → fp32 → bf16 is exact; the
+                   text encoder, not in the file, copied across); save and load
+                   s and GB/s; merge_checkpoints at α = 0 returns A's tensors,
+                   and the two files hold the same tensors;
+      LoRA         rank-LORA_RANK factors on lora_targets (b ~ N(0, LORA_B_STD²))
+                   through a .safetensors file: at scale 0 plain generate's
+                   bits; at scale 1 every merged weight within 1 bf16 ulp (of
+                   the larger of the result and the delta) of a float64 host
+                   merge of the bf16 factors, and the images change
+                   (`generate_lora`); then the base weights put back;
+      ControlNet   init_controlnet_from_unet (zero projections): plain
+                   generate's bits; the zero projections randomised:
+                   `generate_controlnet` on an edge hint;
+      SAG          `generate_sag` at SAG_SCALE: the probe captured at
+                   mid_attn once per step, no flash launch below 512 tokens;
+      IP-Adapter   a random adapter (init_ip_adapter) and image embedder
+                   written as a run directory: at ip_scale 0 within 1 uint8
+                   level of plain generate; at 1 `generate_ip`.
+    Every kernel shape the phase launched held against its plain version
+    (`_hold_edit_kernels`). Prints each entry point's seconds and peak memory
+    beside the card's name and power limit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch.core.config import sd_v1_config
+    from sd_tpu_torch.data.hints import edge_hint
+    from sd_tpu_torch.models.conditioners import FrozenClipImageEmbedder
+    from sd_tpu_torch.models.controlnet import (controlnet_from_unet_config,
+                                                init_controlnet_from_unet)
+    from sd_tpu_torch.models.ip_adapter import init_ip_adapter
+    from sd_tpu_torch.models.sd_import import load_sd_checkpoint
+    from sd_tpu_torch.nn import attn_probe
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+    from sd_tpu_torch.train.checkpoint import save_checkpoint
+    from sd_tpu_torch.train.lora import (_key, dense_kernels, init_lora, lora_targets,
+                                         save_lora_safetensors)
+    from sd_tpu_torch.utils.merge import merge_checkpoints
+    from sd_tpu_torch.weights import init_params_, randomize_params_
+
+    t_phase = time.perf_counter()
+    prompts = ["a photograph of an astronaut riding a horse",
+               "a watercolor painting of a lighthouse at dusk"]
+    gen = torch.Generator("cuda").manual_seed(ADAPTERS_SEED)
+    pipe = Text2ImagePipeline(sd_v1_config())
+    for module in (pipe.unet, pipe.vae, pipe.clip):
+        randomize_params_(module, gen)
+    kw = dict(num_steps=ADAPTER_STEPS, seed=1)
+    shapes, runs, checks, io = {}, {}, {}, {}
+    levels = lambda a, b: int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+    def run(name, fn):
+        return _run_twice(runs, name, fn, ADAPTER_LAUNCHES[name])
+
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_adapters_")
+    try:
+        with _kernel_shape_spies(shapes):
+            plain = run("generate", lambda: pipe.generate(prompts, **kw))
+
+            paths = {ext: os.path.join(root, f"sd_v1.{ext}") for ext in ("safetensors", "ckpt")}
+            for ext, path in paths.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.to_sd_checkpoint(path)
+                save_s = time.perf_counter() - t0
+                gb = os.path.getsize(path) / 1e9
+                t0 = time.perf_counter()
+                loaded = Text2ImagePipeline.from_sd_checkpoint(sd_v1_config(), path)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                loaded.clip.load_state_dict(pipe.clip.state_dict())
+                same = np.array_equal(loaded.generate(prompts, **kw), plain)
+                io[ext] = {"gb": gb, "save_s": save_s, "save_gb_per_s": gb / save_s,
+                           "load_s": load_s, "load_gb_per_s": gb / load_s,
+                           "same_bits_as_source": same}
+                require(same, f"from_sd_checkpoint of the {ext} export: the source's bits")
+                del loaded
+                torch.cuda.empty_cache()
+            a, b = load_sd_checkpoint(paths["safetensors"]), load_sd_checkpoint(paths["ckpt"])
+            t0 = time.perf_counter()
+            merged, skipped = merge_checkpoints(a, b, alpha=0.0)
+            io["merge"] = {"seconds": time.perf_counter() - t0, "tensors": len(merged),
+                           "skipped": len(skipped),
+                           "alpha_0_is_a": all(torch.equal(merged[k], a[k]) for k in a),
+                           "files_agree": sorted(a) == sorted(b)
+                           and all(torch.equal(a[k], b[k]) for k in a)}
+            require(io["merge"]["alpha_0_is_a"] and not skipped, "merge at α = 0 returns A")
+            require(io["merge"]["files_agree"], "the .safetensors and .ckpt exports agree")
+            del a, b, merged
+
+            targets = lora_targets(pipe.unet)
+            lora = init_lora(pipe.unet, LORA_RANK, gen)
+            for pair in lora.values():
+                pair["b"].normal_(0.0, LORA_B_STD, generator=gen)
+            lora_path = os.path.join(root, "lora.safetensors")
+            save_lora_safetensors(lora_path, lora)
+            weights = dense_kernels(pipe.unet)
+            before = {t: weights[t][1].detach().clone() for t in targets}
+            pipe.load_lora(lora_path, scale=0.0)
+            require(np.array_equal(pipe.generate(prompts, **kw), plain),
+                    "LoRA at scale 0: plain generate's bits")
+            pipe.load_lora(lora_path, scale=1.0)
+            worst = 0.0
+            for t in targets:
+                pair = lora[_key(t)]
+                delta = (pair["a"].bfloat16().double() @ pair["b"].bfloat16().double()).T.cpu()
+                ref = before[t].double().cpu() + delta
+                err = (weights[t][1].double().cpu() - ref).abs() / _bf16_ulp(
+                    torch.maximum(ref.abs(), delta.abs()))
+                worst = max(worst, float(err.max()))
+            checks["lora"] = {"targets": len(targets), "rank": LORA_RANK,
+                              "worst_ulps_from_float64": worst}
+            require(worst <= 1.0, f"LoRA merge within 1 bf16 ulp of float64: {worst}")
+            lora_img = run("generate_lora", lambda: pipe.generate(prompts, **kw))
+            checks["lora"]["levels_moved"] = float(np.abs(lora_img.astype(np.int16) - plain).mean())
+            require(not np.array_equal(lora_img, plain), "LoRA at scale 1 changes the images")
+            with torch.no_grad():
+                for t in targets:
+                    weights[t][1].copy_(before[t])
+            del before
+
+            cn = controlnet_from_unet_config(
+                pipe.cfg["unet"]["params"], hint_downsamples=pipe._vae_factor().bit_length() - 1,
+                dtype=torch.bfloat16)
+            init_params_(cn, gen)
+            pipe.load_controlnet(dict(init_controlnet_from_unet(cn, pipe.unet)
+                                      .named_parameters()))
+            del cn
+            hint = edge_hint(_edit_images(1, EDIT_SIZE, 4)[0])
+            require(np.array_equal(pipe.generate(prompts, control_image=hint, **kw), plain),
+                    "a ControlNet with zero projections: plain generate's bits")
+            for mod in pipe.controlnet.modules():
+                if getattr(mod, "zero_init", False):
+                    randomize_params_(mod, gen)
+            ctl = run("generate_controlnet",
+                      lambda: pipe.generate(prompts, control_image=hint, **kw))
+            checks["controlnet_levels_moved"] = float(np.abs(ctl.astype(np.int16) - plain).mean())
+            require(checks["controlnet_levels_moved"] > 0, "the ControlNet changes the images")
+            pipe.controlnet = None
+            torch.cuda.empty_cache()
+
+            probes, record0 = [], attn_probe.record
+
+            def record_spy(path, probs):
+                probes.append((path, tuple(probs.shape)))
+                record0(path, probs)
+
+            with mock.patch.object(attn_probe, "record", record_spy):
+                sag = run("generate_sag", lambda: pipe.generate(prompts, sag_scale=SAG_SCALE,
+                                                                 **kw))
+            checks["sag"] = {"probes": len(probes), "probed": sorted({p for p, _ in probes}),
+                             "probe_shapes": sorted({s_ for _, s_ in probes}),
+                             "levels_moved": float(np.abs(sag.astype(np.int16) - plain).mean())}
+            require(checks["sag"]["probed"] == ["mid_attn/block_0/attn1"]
+                    and len(probes) == 2 * ADAPTER_STEPS, f"SAG's probe {checks['sag']}")
+            require(all(s_[1] >= 512 for s_ in shapes["flash_attention_hpacked"]),
+                    "no flash launch below 512 tokens (the probed mid-block attention)")
+            require(checks["sag"]["levels_moved"] > 0, "SAG changes the images")
+
+            ip_run = os.path.join(root, "ip_adapter")
+            embedder = FrozenClipImageEmbedder()
+            randomize_params_(embedder, gen)
+            save_checkpoint(os.path.join(ip_run, "ckpt"),
+                            {"params": init_ip_adapter(pipe.unet, gen)}, 1)
+            save_checkpoint(os.path.join(ip_run, "ip_embedder"),
+                            dict(embedder.named_parameters()), 1)
+            del embedder
+            ip_image = _edit_images(1, 256, 5)[0]
+            pipe.load_ip_adapter(ip_run, ip_scale=0.0)
+            checks["ip_scale_0_levels"] = levels(pipe.generate(prompts, ip_image=ip_image, **kw),
+                                                 plain)
+            require(checks["ip_scale_0_levels"] <= 1,
+                    f"ip_scale 0 within 1 level of plain: {checks['ip_scale_0_levels']}")
+            pipe.load_ip_adapter(ip_run, ip_scale=1.0)
+            ipo = run("generate_ip", lambda: pipe.generate(prompts, ip_image=ip_image, **kw))
+            checks["ip_levels_moved"] = float(np.abs(ipo.astype(np.int16) - plain).mean())
+            require(checks["ip_levels_moved"] > 0, "the image prompt changes the images")
+        del pipe
+        torch.cuda.empty_cache()
+        held = _hold_edit_kernels(shapes, ADAPTERS_SEED, "adapters")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "adapters", "nvidia_smi": smi, "entry_points": runs, "checkpoints": io,
+          "checks": checks, "kernel_shapes_held": held,
+          "phase_seconds": time.perf_counter() - t_phase})
     return {name: r_["launches"] for name, r_ in runs.items()}
 
 
@@ -4054,6 +4326,7 @@ def main() -> int:
     vq = phase_vq_train()
     train_run = phase_train_run(smi)
     image_edit = phase_image_edit(smi)
+    adapters = phase_adapters(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -4237,6 +4510,11 @@ def main() -> int:
                  if counts.get(name)}
         if edits:
             row["image_edit_launches"] = edits
+        # ... and the adapters phase's
+        steered = {entry: counts[name] for entry, counts in adapters.items()
+                   if counts.get(name)}
+        if steered:
+            row["adapters_launches"] = steered
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -31,11 +31,12 @@ def apply_cfg(e_uncond: torch.Tensor, e_cond: torch.Tensor,
 
 
 def cat_cond(uncond, cond):
-    """[uncond; cond] along the batch: tensors, or dicts of tensor lists
-    (the latent-diffusion conditioning)."""
+    """[uncond; cond] along the batch: tensors, or dicts of tensors and
+    tensor lists (the latent-diffusion conditioning)."""
     if isinstance(cond, dict):
-        return {key: [torch.cat([u, c]) for u, c in zip(uncond[key], cond[key])]
-                for key in cond}
+        return {key: cat_cond(uncond[key], cond[key]) for key in cond}
+    if isinstance(cond, (list, tuple)):
+        return [torch.cat([u, c]) for u, c in zip(uncond, cond)]
     return torch.cat([uncond, cond])
 
 

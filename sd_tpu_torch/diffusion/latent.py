@@ -9,9 +9,12 @@ unipc, plms, euler, euler_a, heun, ddpm and `guidance_rescale`; the same
 errors for lcm / flow on an ε-model) followed by the decode,
 `calibrate_scale_factor`, and the overlapping-tile apply (`patched_apply`:
 sliding windows, the apply on every tile as one batch, border-weighted
-overlap-add in fp32) that tiles the first stage's decode and encode.
-Self-attention guidance (`sag_scale`), the consistency sampler, flow models,
-the `adm` key, `get_input` for any key but `crossattn` and the
+overlap-add in fp32) that tiles the first stage's decode and encode; a
+conditioning dict's `c_control` (ControlNet's hint) reaches the UNet apply
+as `control=`, its `c_ip` (IP-Adapter's image embedding) as `ip_embed=`;
+`sag_scale` > 0 takes DDIM's Self-Attention Guidance through the probe
+apply `unet_apply_probs` (diffusion/sag.py). The consistency sampler, flow
+models, the `adm` key, `get_input` for any key but `crossattn` and the
 coordinates-bbox patched apply are not ported yet.
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
@@ -43,22 +46,28 @@ def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
     """Route conditioning into the UNet: `crossattn` concatenates the
     `c_crossattn` list along tokens and passes it as the context, `concat`
     the `c_concat` list to the latent along channels (no context), `hybrid`
-    both."""
+    both. A `c_control` entry goes to the apply as `control=`, a `c_ip`
+    entry as `ip_embed=`."""
     if conditioning_key not in ("crossattn", "concat", "hybrid"):
         raise NotImplementedError(
             f"conditioning key {conditioning_key!r} is not ported yet")
+    kw = {"control": cond["c_control"]} if "c_control" in cond else {}
+    if "c_ip" in cond:
+        kw["ip_embed"] = cond["c_ip"]
     if conditioning_key in ("concat", "hybrid"):
         x = torch.cat([x, *(c.to(x.dtype) for c in cond["c_concat"])], dim=-1)
     ctx = (None if conditioning_key == "concat"
            else torch.cat(list(cond["c_crossattn"]), dim=1))
-    return unet_apply(x, t, ctx)
+    return unet_apply(x, t, ctx, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
 class LatentDiffusion:
     """unet_apply(x, t, context) -> prediction; encode_fn(image) ->
     DiagonalGaussian posterior, or the latent itself (frozen); decode_fn(z)
-    -> image (takes the unscaled latent)."""
+    -> image (takes the unscaled latent); unet_apply_probs(x, t, context)
+    -> (prediction, SAG salience mask), the probe Self-Attention Guidance
+    needs (`sag.make_probs_apply`)."""
 
     process: DDPMProcess
     unet_apply: Callable
@@ -66,6 +75,7 @@ class LatentDiffusion:
     decode_fn: Callable | None = None
     conditioning_key: str = "crossattn"
     scale_factor: float = 0.18215
+    unet_apply_probs: Callable | None = None
 
     @property
     def schedule(self) -> DiffusionSchedule:
@@ -74,6 +84,15 @@ class LatentDiffusion:
     def apply_model(self, x, t, cond):
         return apply_conditioned(self.unet_apply, x, t, cond,
                                  self.conditioning_key)
+
+    def model_probs_fn(self) -> Callable:
+        """(x, t, cond) -> (prediction, SAG salience mask): the probe apply
+        with the conditioning routed."""
+        if self.unet_apply_probs is None:
+            raise ValueError("SAG needs unet_apply_probs — attach "
+                             "sag.make_probs_apply(unet) to this LatentDiffusion")
+        return lambda x, t, cond: apply_conditioned(self.unet_apply_probs, x, t, cond,
+                                                    self.conditioning_key)
 
     # -- first stage and training loss ------------------------------------
 
@@ -144,12 +163,12 @@ class LatentDiffusion:
         param = self.process.parameterization
         kw = dict(num_steps=num_steps, cond=cond, uncond=uncond,
                   guidance_scale=guidance_scale, guidance_rescale=guidance_rescale)
+        sag = {}
         if sag_scale > 0.0:
             if sampler != "ddim":
                 raise ValueError(f"sag_scale is only supported by the ddim sampler, "
                                  f"got sampler={sampler!r}")
-            raise NotImplementedError("SAG is not ported yet (diffusion/sag.py, "
-                                      "nn/attn_probe.py)")
+            sag = dict(sag_scale=sag_scale, sag_probs_fn=self.model_probs_fn())
         if sampler in ("flow", "flow_midpoint"):
             raise ValueError("sampler='flow' needs a FlowProcess model "
                              "(diffusion.type: flow)")
@@ -174,7 +193,8 @@ class LatentDiffusion:
                 self.apply_model, shape, x_T, **kw)
         elif sampler == "ddim":
             z = DDIMSampler(self.schedule, parameterization=param).sample(
-                self.apply_model, shape, x_T, eta=eta, generator=generator, noise=noise, **kw)
+                self.apply_model, shape, x_T, eta=eta, generator=generator, noise=noise,
+                **kw, **sag)
         else:
             # ancestral sampling has no CFG path
             z = self.process.p_sample_loop(self.apply_model, shape, x_T, cond,

@@ -51,6 +51,8 @@ class AutoencoderKL(nn.Module):
         del resolution
         _refuse_unported(attn_resolutions)
         kw = dict(dtype=dtype, device=resolve_device(device))
+        # the block layout, which the SD checkpoint walk reads
+        self.ch_mult, self.num_res_blocks = tuple(ch_mult), num_res_blocks
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
                                z_channels=z_channels, double_z=True, **kw)
         self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,

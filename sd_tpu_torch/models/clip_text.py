@@ -3,8 +3,10 @@
 Counterpart of `sd_tpu/models/clip_text.py`: the ViT-L/14 text tower
 (vocab 49408, width 768, 12 layers, 12 heads, quick-gelu, causal mask with
 a -1e9 bias, LayerNorm eps 1e-5 in fp32, final LayerNorm) with the
-`clip_skip` knob, and the deterministic hashing tokenizer that stands in
-for the CLIP BPE when its vocab files are absent. Attention over 77 tokens
+`clip_skip` knob, the deterministic hashing tokenizer that stands in
+for the CLIP BPE when its vocab files are absent, and `import_torch_clip_text`
+(a Hugging Face `CLIPTextModel` state dict into the encoder; as in the TPU
+package, `from_sd_checkpoint` does not call it). Attention over 77 tokens
 is plain einsum attention, as in the TPU package.
 """
 
@@ -132,3 +134,35 @@ class SimpleHashTokenizer:
                    + [self.eos_token_id])
             out[i, : len(ids)] = ids
         return out
+
+
+_HF_LAYER = (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+             ("v_proj", "self_attn.v_proj"), ("out_proj", "self_attn.out_proj"),
+             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"), ("layer_norm1", "layer_norm1"),
+             ("layer_norm2", "layer_norm2"))
+
+
+@torch.no_grad()
+def import_torch_clip_text(model: ClipTextTransformer, state_dict: dict,
+                           prefix: str = "text_model.") -> ClipTextTransformer:
+    """A Hugging Face `CLIPTextModel` state dict into `model`, in place:
+    `{prefix}embeddings.{token,position}_embedding.weight`,
+    `{prefix}encoder.layers.{i}.self_attn.{q,k,v,out}_proj.*`, `.mlp.fc{1,2}.*`,
+    `.layer_norm{1,2}.*` and `{prefix}final_layer_norm.*`; both sides keep
+    torch's [out, in] layout, so nothing is transposed."""
+    pairs = [("token_embedding.weight", "embeddings.token_embedding.weight"),
+             ("position_embedding", "embeddings.position_embedding.weight")]
+    for i in range(model.cfg.num_layers):
+        for ours, theirs in _HF_LAYER:
+            pairs += [(f"layer_{i}.{ours}.{leaf}", f"encoder.layers.{i}.{theirs}.{leaf}")
+                      for leaf in ("weight", "bias")]
+    pairs += [(f"final_layer_norm.{leaf}", f"final_layer_norm.{leaf}")
+              for leaf in ("weight", "bias")]
+    own = dict(model.named_parameters())
+    for ours, theirs in pairs:
+        src = torch.as_tensor(state_dict[prefix + theirs]).float()
+        if tuple(src.shape) != tuple(own[ours].shape):
+            raise ValueError(f"{prefix}{theirs}: shape {tuple(src.shape)} != {ours} "
+                             f"{tuple(own[ours].shape)}")
+        own[ours].copy_(src)
+    return model

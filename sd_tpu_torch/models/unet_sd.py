@@ -8,9 +8,11 @@ mechanically. The parameter-free serving options, read at every call and
 set by `set_options`: ToMe (`tome_ratio`, `tome_min_tokens`, in every
 SpatialTransformer, `nn/tome.py`) and FreeU (`freeu` = (b1, b2, s1, s2):
 the decoder's backbone channels amplified and its skips low-pass filtered at
-the two deepest widths, arXiv:2309.11497). ControlNet/IP-Adapter inputs,
-class labels, the codebook head, `num_head_channels`, `resblock_updown` and
-`conv_resample=False` are not ported yet.
+the two deepest widths, arXiv:2309.11497). `forward` takes ControlNet's
+residuals (`control=`, models/controlnet.py) and IP-Adapter's image payload
+(`ip=`, models/ip_adapter.py). Class labels, the codebook head,
+`num_head_channels`, `resblock_updown` and `conv_resample=False` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -88,8 +90,11 @@ class UNetModel(nn.Module):
         mc = model_channels
         self.model_channels = mc
         self.freeu = None if freeu is None else tuple(freeu)
+        # the block layout, which the SD checkpoint walk reads
         self.num_res_blocks = num_res_blocks
         self.channel_mult = tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.transformer_depth = transformer_depth
         emb_ch = mc * 4
 
         def attn(ch, name):
@@ -151,8 +156,16 @@ class UNetModel(nn.Module):
                         setattr(mod, name, updates[name])
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor | None = None) -> torch.Tensor:
-        """x [B, H, W, C_in] latent, timesteps [B], context [B, 77, Cc]."""
+                context: torch.Tensor | None = None,
+                control: Sequence[torch.Tensor] | None = None,
+                ip: dict | None = None) -> torch.Tensor:
+        """x [B, H, W, C_in] latent, timesteps [B], context [B, 77, Cc].
+        `control`: ControlNet's residuals, one per input-block output in
+        order and a last one for the middle block (len(hs) + 1): the last is
+        added to the middle block's output, each other to its skip before
+        FreeU. `ip`: IP-Adapter's {"layers": {attn_name: {block_name:
+        {to_k_ip, to_v_ip}}}, "tokens": [B, n, Cc], "scale": float}, read
+        by each listed cross-attention."""
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_2(F.silu(self.time_embed_1(emb)))
 
@@ -163,7 +176,10 @@ class UNetModel(nn.Module):
             if isinstance(mod, ResBlockSD):
                 return mod(h, emb)
             if isinstance(mod, SpatialTransformer):
-                return mod(h, context)
+                entry = None
+                if ip is not None and name in ip["layers"]:
+                    entry = (ip["layers"][name], ip["tokens"], ip["scale"])
+                return mod(h, context, ip=entry)
             return mod(h)
 
         levels = len(self.channel_mult)
@@ -181,9 +197,17 @@ class UNetModel(nn.Module):
         h = block("mid_attn", block("mid_res1", h))
         h = block("mid_res2", h)
 
+        ctrl = list(control) if control is not None else None
+        if ctrl is not None:
+            if len(ctrl) != len(hs) + 1:
+                raise ValueError(f"control expects {len(hs) + 1} residuals, got {len(ctrl)}")
+            h = h + ctrl.pop()
+
         for level in reversed(range(levels)):
             for i in range(self.num_res_blocks + 1):
                 skip = hs.pop()
+                if ctrl is not None:
+                    skip = skip + ctrl.pop()
                 if self.freeu is not None:
                     h, skip = _apply_freeu(h, skip, self.model_channels, self.freeu)
                 h = torch.cat([h, skip], dim=-1)

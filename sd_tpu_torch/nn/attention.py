@@ -11,7 +11,14 @@ route holds (`SD_TPU_ATTN_PACKED=1`, after the head-packed one), the
 GEGLU feed-forward through the fused kernel where the TPU package's shape
 rule sends it (their plain versions when a gradient is wanted), and ToMe's
 token merging around the self-attention where `tome_ratio` asks for it
-(`nn/tome.py`). NHWC layout; LayerNorm and softmax in fp32.
+(`nn/tome.py`). Two inference additions: the probe path, explicit fp32
+softmax probabilities recorded for Self-Attention Guidance at the calls
+`nn/attn_probe.py` captures; and IP-Adapter's decoupled cross-attention
+(`models/ip_adapter.py`, arXiv:2308.06721), a second attention read over
+projected image tokens with adapter-owned K/V kernels ([in, out], the TPU
+package's layout), summed before the output projection; a call with an
+image payload stays off the fused cross-attention kernel, as in the TPU
+package. NHWC layout; LayerNorm and softmax in fp32.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from torch import nn
 from sd_tpu_torch.kernels import attention as attn_k
 from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import geglu as geglu_k
+from sd_tpu_torch.nn import attn_probe
 from sd_tpu_torch.nn.layers import Conv2d, Dense, GroupNorm32, LayerNorm
 from sd_tpu_torch.nn.tome import build_tome
 
@@ -74,18 +82,30 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(context_dim, inner, bias=False, **kw)
         self.to_out = Dense(inner, query_dim, **kw)
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                ip_kv: tuple | None = None) -> torch.Tensor:
+        """`ip_kv`: IP-Adapter's (to_k_ip, to_v_ip, image tokens [B, n, Cc],
+        scale), read by a cross-attention call only."""
         B, N, C = x.shape
         ctx = x if context is None else context
         M = ctx.shape[1]
         h, d = self.heads, self.dim_head
         dt = self.to_q.weight.dtype
+        ip = ip_kv if context is not None else None
+        probe = attn_probe.wants_capture(self, N) if context is None else None
+        if probe is not None:
+            # explicit softmax from fp32 logits, recorded for the caller
+            q, k, v = (f(x).reshape(B, N, h, d).float() for f in (self.to_q, self.to_k, self.to_v))
+            probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5, dim=-1)
+            attn_probe.record(probe, probs)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt).float(), v).to(dt)
+            return self.to_out(out.reshape(B, N, h * d))
         if context is None and attn_k.hpacked_flash_ok(N, M, h, d, dt):
             # projection-native [B, N, H·D] straight into the kernel
             out = attn_k.hpacked_flash_attention(self.to_q(x), self.to_k(x), self.to_v(x), h)
             return self.to_out(out)
-        if context is not None and xattn_k.crossattn_kv_wants_pallas(N, M, h, d, C, dt):
+        if (context is not None and ip is None
+                and xattn_k.crossattn_kv_wants_pallas(N, M, h, d, C, dt)):
             # K/V projected plainly (77 tokens), then q-projection, softmax
             # and out-projection in one kernel
             return xattn_k.crossattn_kv_trainable(
@@ -99,11 +119,16 @@ class CrossAttention(nn.Module):
                                                 proj(self.to_v))
             return (torch.einsum("bhsd,chd->bsc", out, self.to_out.weight.view(C, h, d))
                     + self.to_out.bias)
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        out = attn_k.dot_product_attention(
-            q.reshape(B, N, h, d), k.reshape(B, M, h, d),
-            v.reshape(B, M, h, d)).reshape(B, N, h * d)
-        return self.to_out(out)
+        q = self.to_q(x).reshape(B, N, h, d)
+        out = attn_k.dot_product_attention(q, self.to_k(ctx).reshape(B, M, h, d),
+                                           self.to_v(ctx).reshape(B, M, h, d))
+        if ip is not None:
+            # the image read over the adapter's K/V, summed before to_out
+            wk, wv, tok, scale = ip
+            k_i = (tok.to(dt) @ wk.to(dt)).reshape(B, tok.shape[1], h, d)
+            v_i = (tok.to(dt) @ wv.to(dt)).reshape(B, tok.shape[1], h, d)
+            out = out + scale * attn_k.dot_product_attention(q, k_i, v_i).to(out.dtype)
+        return self.to_out(out.reshape(B, N, h * d))
 
 
 class FeedForwardGEGLU(nn.Module):
@@ -145,13 +170,14 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForwardGEGLU(dim, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
-                tome=None) -> torch.Tensor:
+                tome=None, ip_kv: tuple | None = None) -> torch.Tensor:
         """`tome`: ToMe's (merge, unmerge): the self-attention runs on the
         merged tokens, each merged token taking its destination's output;
-        the cross-attention and feed-forward stay at full resolution."""
+        the cross-attention and feed-forward stay at full resolution.
+        `ip_kv`: IP-Adapter's image read for the cross-attention."""
         merge, unmerge = tome if tome is not None else (_identity, _identity)
         x = x + unmerge(self.attn1(merge(self.norm1(x))))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, ip_kv=ip_kv)
         return x + self.ff(self.norm3(x))
 
 
@@ -179,8 +205,10 @@ class SpatialTransformer(nn.Module):
         self.proj_out = Conv2d(inner, channels, 1, **kw)
         self.proj_out.zero_init = True
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                ip: tuple | None = None) -> torch.Tensor:
+        """`ip`: IP-Adapter's ({block_name: {to_k_ip, to_v_ip}}, image
+        tokens, scale) for this transformer's blocks."""
         B, H, W, C = x.shape
         h = self.proj_in(self.norm(x))
         inner = h.shape[-1]
@@ -189,6 +217,11 @@ class SpatialTransformer(nn.Module):
                     and H >= 2 and W >= 2)
         for i in range(self.depth):
             built = build_tome(h, H, W, self.tome_ratio) if use_tome else None
+            ip_kv = None
+            if ip is not None and f"block_{i}" in ip[0]:
+                entry = ip[0][f"block_{i}"]
+                ip_kv = (entry["to_k_ip"], entry["to_v_ip"], ip[1], ip[2])
             h = getattr(self, f"block_{i}")(h, context,
-                                            tome=None if built is None else built[:2])
+                                            tome=None if built is None else built[:2],
+                                            ip_kv=ip_kv)
         return x + self.proj_out(h.reshape(B, H, W, inner))

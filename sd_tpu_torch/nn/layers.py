@@ -42,16 +42,18 @@ class Dense(nn.Module):
 
 class Conv2d(nn.Module):
     """`nn.Conv` over NHWC input; weight stored OIHW in channels_last memory
-    format (physically [O, kh, kw, C])."""
+    format (physically [O, kh, kw, C]). Padding kernel_size // 2 on each
+    side unless `padding` is given (0 for a patch embedding)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, *, dtype=torch.float32, device=None):
+                 stride: int = 1, *, bias: bool = True, padding: int | None = None,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.weight = _empty((out_channels, in_channels, kernel_size, kernel_size),
                              dtype, device, channels_last=True)
-        self.bias = _empty((out_channels,), dtype, device)
+        self.bias = _empty((out_channels,), dtype, device) if bias else None
         self.stride = stride
-        self.padding = kernel_size // 2
+        self.padding = kernel_size // 2 if padding is None else padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_k.conv_nhwc(x.to(self.weight.dtype), self.weight, self.bias,

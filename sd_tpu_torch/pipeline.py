@@ -15,7 +15,16 @@ Counterpart of `sd_tpu/pipeline.py` `Text2ImagePipeline`:
     image)] and the kept pixels are composited back bit for bit; otherwise
     the blend of `img2img` at strength 1;
   * `generate_hires`: a base pass, a host-side upscale, an img2img pass;
-  * `set_unet_options` (ToMe, FreeU) and `load_textual_inversion`.
+  * `set_unet_options` (ToMe, FreeU) and `load_textual_inversion`;
+  * weights in and out: `from_sd_checkpoint` (an SD-v1 `.ckpt` or
+    `.safetensors`: UNet and first stage), `to_sd_checkpoint`, `from_run`;
+  * adapters: `load_lora` (merged into the UNet), `load_controlnet` and
+    `generate(control_image=…)`, `load_ip_adapter` and
+    `generate(ip_image=…)`; `generate(sag_scale=…)` (Self-Attention
+    Guidance, DDIM only). The TPU package's combination rules hold:
+    `sag_scale` or `ip_image` with `control_image` raise ValueError;
+    `sag_scale` with `ip_image`, which the TPU package fails inside its
+    probe pass, raises ValueError before any work.
 Dtype policy (the TPU benchmark's): UNet, VAE and CLIP parameters and
 compute in bf16, the latent cast to bf16 at each UNet call, the sampler
 state and update in fp32, z / scale_factor cast to bf16 before decode, the
@@ -27,14 +36,15 @@ give the port and the TPU package the same numbers.
 
 Weights are random from a seed (`init_params_`), the first stage's trained
 where the config's `first_stage.ckpt` names a KL or VQ run's checkpoint;
-`from_run` loads a `train_ldm` run (`sd_tpu/pipeline.py from_run`).
-Loading a real SD checkpoint, ControlNet, IP-Adapter and self-attention
-guidance are not ported yet.
+`from_run` loads a `train_ldm` run and `from_sd_checkpoint` an SD-v1
+checkpoint. No state of the pipeline depends on the weights beyond the
+modules themselves, so loading an adapter needs no cache reset.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 from typing import Sequence
 
@@ -48,17 +58,52 @@ from sd_tpu_torch.diffusion.ddim import DDIMSampler
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.guidance import NoiseFn
 from sd_tpu_torch.diffusion.latent import LatentDiffusion, patched_apply
+from sd_tpu_torch.diffusion.sag import make_probs_apply
 from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
                                            SimpleHashTokenizer)
+from sd_tpu_torch.models.conditioners import FrozenClipImageEmbedder
+from sd_tpu_torch.models.controlnet import controlled_apply_fn, controlnet_from_unet_config
+from sd_tpu_torch.models.ip_adapter import ip_apply_fn
+from sd_tpu_torch.models.sd_export import export_sd_unet, export_sd_vae, save_sd_checkpoint
+from sd_tpu_torch.models.sd_import import import_sd_unet, import_sd_vae, load_sd_checkpoint
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.utils.prompt_weights import (apply_prompt_weights, parse_weighted_prompt,
                                                tokenize_weighted)
-from sd_tpu_torch.train.runners import build_first_stage, first_stage_fns
+from sd_tpu_torch.train import checkpoint
+from sd_tpu_torch.train.lora import load_lora_safetensors, merge_lora
+from sd_tpu_torch.train.runners import build_first_stage, copy_named_, first_stage_fns
 from sd_tpu_torch.train.textual_inversion import (expand_placeholder, patch_embedding_rows,
                                                   placeholder_ids)
 from sd_tpu_torch.utils.safetensors_io import load_safetensors
 from sd_tpu_torch.utils.watermark import embed_watermark, str_to_bits
-from sd_tpu_torch.weights import init_params_
+from sd_tpu_torch.weights import init_params_, load_flax_params
+
+
+def trained_weights(tree: dict):
+    """A run checkpoint's weights: the EMA shadow where it keeps one, else
+    its parameters."""
+    ema = tree.get("ema")
+    return (ema["shadow"] if isinstance(ema, dict) and ema.get("shadow") is not None
+            else tree["params"])
+
+
+def load_weights_(module: torch.nn.Module, tree: dict, what: str) -> None:
+    """Fill `module` from `tree`, in place and strictly: a flat {parameter
+    name: tensor} (the port's checkpoints), else a param tree in the TPU
+    package's flax layout (nested dicts, `kernel`s [in, out])."""
+    own = dict(module.named_parameters())
+    if set(tree) == set(own):
+        copy_named_(own, tree, what)
+    else:
+        load_flax_params(module, tree)
+
+
+def _tree_to(tree, dtype: torch.dtype, device):
+    """Every floating tensor (or array) of a nested dict in `dtype` on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dtype, device) for k, v in tree.items()}
+    t = torch.as_tensor(tree)
+    return t.to(device, dtype) if t.is_floating_point() else t.to(device)
 
 
 class Text2ImagePipeline:
@@ -83,13 +128,16 @@ class Text2ImagePipeline:
         self.tokenizer = SimpleHashTokenizer(self.clip_cfg.max_length,
                                              self.clip_cfg.vocab_size)
         self._ti_expansions: dict[str, str] = {}      # load_textual_inversion
+        self.controlnet, self.control_scale = None, 1.0           # load_controlnet
+        self.ip_params, self.ip_scale, self.ip_embedder = None, 1.0, None  # load_ip_adapter
         diff = dict(cfg.get("diffusion", {}))
         lat = cfg["latent"]
         self.ld = LatentDiffusion(
             # x0 unclamped, as sd_tpu's pipeline process (`build_ldm`)
             process=DDPMProcess(DiffusionSchedule.create(**diff), clip_denoised=False,
                                 parameterization=diff.get("parameterization", "eps")),
-            unet_apply=lambda x, t, ctx: self.unet(x.to(self.dtype), t, ctx),
+            unet_apply=self._in_dtype(self.unet),
+            unet_apply_probs=self._in_dtype(make_probs_apply(self.unet)),
             encode_fn=lambda x: encode(x.to(self.dtype)),
             decode_fn=lambda z: decode(z.to(self.dtype)),
             conditioning_key=lat.get("conditioning_key", "crossattn"),
@@ -111,19 +159,57 @@ class Text2ImagePipeline:
         pipeline in fp32 and casts it; the port builds it in `param_dtype`
         (its random draws are fp32, rounded once), which gives the same bits."""
         from sd_tpu_torch.core.config import load_config
-        from sd_tpu_torch.train.checkpoint import restore_tree
-        from sd_tpu_torch.train.runners import apply_calibration, copy_named_
+        from sd_tpu_torch.train.runners import apply_calibration
 
         cfg = copy.deepcopy(config) if isinstance(config, dict) else load_config(config)
         pipe = cls(cfg, device=device, param_dtype=param_dtype or torch.float32)
         ckpt_dir = os.path.join(run_dir, "ckpt")
-        tree = restore_tree(ckpt_dir)
-        ema = tree.get("ema")
-        weights = (ema["shadow"] if isinstance(ema, dict) and ema.get("shadow") is not None
-                   else tree["params"])
-        copy_named_(dict(pipe.unet.named_parameters()), weights, f"UNet of {ckpt_dir}")
+        copy_named_(dict(pipe.unet.named_parameters()),
+                    trained_weights(checkpoint.restore_tree(ckpt_dir)), f"UNet of {ckpt_dir}")
         pipe.ld = apply_calibration(pipe.ld, cfg, ckpt_dir)
         return pipe
+
+    @classmethod
+    def from_sd_checkpoint(cls, config: dict | str, ckpt_path: str,
+                           param_dtype: torch.dtype | None = torch.bfloat16,
+                           device=None) -> "Text2ImagePipeline":
+        """The pipeline of `config` with its UNet and first stage from a
+        Stable-Diffusion v1 `.ckpt` or `.safetensors` (`models/sd_import.py`;
+        the config must match the checkpoint), read on the CPU in fp32 and
+        copied into weights of `param_dtype` (None: fp32). The text encoder
+        stays as built: its Hugging Face weights load apart
+        (`models/clip_text.py import_torch_clip_text`)."""
+        from sd_tpu_torch.core.config import load_config
+
+        cfg = copy.deepcopy(config) if isinstance(config, dict) else load_config(config)
+        pipe = cls(cfg, device=device, param_dtype=param_dtype or torch.float32)
+        sd = load_sd_checkpoint(ckpt_path)
+        import_sd_unet(pipe.unet, sd, **pipe._unet_walk())
+        import_sd_vae(pipe.vae, sd, **pipe._vae_walk())
+        return pipe
+
+    def _unet_walk(self) -> dict:
+        u = self.unet
+        return dict(channel_mult=u.channel_mult, num_res_blocks=u.num_res_blocks,
+                    attention_resolutions=u.attention_resolutions,
+                    transformer_depth=u.transformer_depth)
+
+    def _vae_walk(self) -> dict:
+        # the port's KL first stage has no per-level attention
+        # (`attn_resolutions` is refused when it is built)
+        return dict(ch_mult=self.vae.ch_mult, num_res_blocks=self.vae.num_res_blocks)
+
+    def to_sd_checkpoint(self, path: str, half: bool = False) -> None:
+        """The UNet and first stage as a Stable-Diffusion v1 checkpoint
+        (`.safetensors`, else a torch `.ckpt` {"state_dict": ...}; fp16 with
+        `half`): the inverse of `from_sd_checkpoint`."""
+        sd = export_sd_unet(self.unet, **self._unet_walk())
+        sd.update(export_sd_vae(self.vae, **self._vae_walk()))
+        save_sd_checkpoint(path, sd, half=half)
+
+    def _in_dtype(self, apply):
+        """A UNet apply that sees the latent in the weights' dtype."""
+        return lambda x, t, ctx, **kw: apply(x.to(self.dtype), t, ctx, **kw)
 
     @property
     def latent_shape(self) -> tuple[int, int, int]:
@@ -161,6 +247,55 @@ class Text2ImagePipeline:
             pipe.set_unet_options(tome_ratio=0.5, freeu=(1.2, 1.4, 0.9, 0.2))
         """
         self.unet.set_options(**updates)
+
+    def load_lora(self, lora, scale: float = 1.0) -> None:
+        """LoRA factors merged into the UNet's weights, in place
+        (`train/lora.py`): a factor tree, a `.safetensors` LoRA file, or a
+        checkpoint directory (its EMA shadow where it keeps one). The
+        factors are cast to the weights' dtype first, as the TPU package
+        casts them."""
+        if isinstance(lora, str) and lora.endswith(".safetensors"):
+            lora = load_lora_safetensors(lora)
+        elif isinstance(lora, str):
+            lora = trained_weights(checkpoint.restore_tree(lora))
+        merged = merge_lora(self.unet, _tree_to(lora, self.dtype, self.device), scale)
+        with torch.no_grad():
+            for name, p in self.unet.named_parameters():
+                if merged[name] is not p:
+                    p.copy_(merged[name])
+
+    def load_controlnet(self, source, control_scale: float = 1.0) -> None:
+        """A ControlNet branch (`models/controlnet.py`, arXiv:2302.05543) for
+        `generate(control_image=…)`: `source` is a run directory (its
+        `ckpt/`), a checkpoint directory (EMA weights preferred), or a tree
+        — the branch's parameters by name, or the TPU package's flax tree.
+        Calls without a control image are unchanged."""
+        f_vae = self._vae_factor()
+        cn = controlnet_from_unet_config(self.cfg["unet"]["params"],
+                                         hint_downsamples=f_vae.bit_length() - 1,
+                                         dtype=self.dtype, device=self.device).eval()
+        what = "ControlNet"
+        if isinstance(source, str):
+            if os.path.isdir(os.path.join(source, "ckpt")):
+                source = os.path.join(source, "ckpt")
+            what = f"ControlNet of {source}"
+            source = trained_weights(checkpoint.restore_tree(source))
+        load_weights_(cn, source, what)
+        self.controlnet, self.control_scale = cn, float(control_scale)
+
+    def load_ip_adapter(self, run_dir: str, ip_scale: float = 1.0) -> None:
+        """An IP-Adapter (`models/ip_adapter.py`, arXiv:2308.06721) for
+        `generate(ip_image=…)`: the adapter tree from `run_dir/ckpt` (EMA
+        preferred) in the weights' dtype, and the frozen image embedder
+        (`FrozenClipImageEmbedder`, fp32) from `run_dir/ip_embedder`, by
+        parameter name or as the TPU package's flax tree. Calls without an
+        image are unchanged."""
+        ip = trained_weights(checkpoint.restore_tree(os.path.join(run_dir, "ckpt")))
+        embedder = FrozenClipImageEmbedder(device=self.device).eval()
+        load_weights_(embedder, checkpoint.restore_tree(os.path.join(run_dir, "ip_embedder")),
+                      f"image embedder of {run_dir}")
+        self.ip_params = _tree_to(ip, self.dtype, self.device)
+        self.ip_scale, self.ip_embedder = float(ip_scale), embedder
 
     def load_textual_inversion(self, path: str) -> list[str]:
         """Learned concept embeddings (textual inversion, arXiv:2208.01618)
@@ -270,17 +405,31 @@ class Text2ImagePipeline:
                generator: torch.Generator | None = None, sampler: str = "ddim",
                guidance_rescale: float = 0.0, clip_skip: int | None = None,
                sag_scale: float = 0.0, noise=None,
-               decode_tile: int | None = None) -> torch.Tensor:
+               decode_tile: int | None = None, control: torch.Tensor | None = None,
+               ip_embed: torch.Tensor | None = None) -> torch.Tensor:
         """Prompts and initial noise x_T [B, h, w, 4] → decoded images
         [B, 8h, 8w, 3] in the model dtype, range about [-1, 1];
-        `decode_tile` in latent units (`_decode`)."""
+        `decode_tile` in latent units (`_decode`). `control`: ControlNet's
+        hint [B, H, W, C] (`control_hint`), on both CFG branches; `ip_embed`:
+        the image embedding [B, 512] (`embed_ip_image`), the unconditional
+        branch taking zeros (the adapter's image-free state)."""
         c, uc = self.encode_prompts(prompts, negative_prompt, clip_skip)
-        z = self.ld.sample(
-            tuple(x_T.shape), x_T.float(), cond={"c_crossattn": [c]},
-            uncond={"c_crossattn": [uc]}, guidance_scale=guidance_scale,
-            num_steps=num_steps, eta=eta, generator=generator, sampler=sampler,
-            guidance_rescale=guidance_rescale, sag_scale=sag_scale, noise=noise,
-            decode=False)
+        cond, uncond = {"c_crossattn": [c]}, {"c_crossattn": [uc]}
+        ld = self.ld
+        if control is not None:
+            ld = dataclasses.replace(ld, unet_apply=self._in_dtype(
+                controlled_apply_fn(self.unet, self.controlnet, self.control_scale)))
+            cond["c_control"] = uncond["c_control"] = control.to(self.device)
+        if ip_embed is not None:
+            ld = dataclasses.replace(ld, unet_apply=self._in_dtype(
+                ip_apply_fn(self.unet, self.ip_params, self.ip_scale)))
+            cond["c_ip"] = ip_embed.to(self.device)
+            uncond["c_ip"] = torch.zeros_like(cond["c_ip"])
+        z = ld.sample(
+            tuple(x_T.shape), x_T.float(), cond=cond, uncond=uncond,
+            guidance_scale=guidance_scale, num_steps=num_steps, eta=eta, generator=generator,
+            sampler=sampler, guidance_rescale=guidance_rescale, sag_scale=sag_scale,
+            noise=noise, decode=False)
         return self._decode(z / self.ld.scale_factor, decode_tile)
 
     def generate(self, prompts: Sequence[str],
@@ -301,11 +450,24 @@ class Text2ImagePipeline:
         bounding the decoder's memory at any size; `watermark` embeds a
         blind DCT mark (utils/watermark.py) in every image. The noise x_T
         and every stochastic sampler's draws come from one torch.Generator
-        seeded with `seed`."""
-        for name, value, module in (("control_image", control_image, "models/controlnet.py"),
-                                    ("ip_image", ip_image, "models/ip_adapter.py")):
-            if value is not None:
-                raise NotImplementedError(f"{name}: {module} is not ported yet")
+        seeded with `seed`. `control_image` (after `load_controlnet`): the
+        hint at the output's pixel size, [B or none, H, W, C] uint8 or float
+        in [0, 1] (e.g. `data/hints.py edge_hint`); `ip_image` (after
+        `load_ip_adapter`): the image prompt, uint8 or float in [-1, 1];
+        `sag_scale`: Self-Attention Guidance (typical 0.5–0.75; one more UNet
+        call a step; ddim only)."""
+        if sag_scale > 0.0 and control_image is not None:
+            raise ValueError("sag_scale and control_image cannot combine: "
+                             "the SAG probe pass has no control branch")
+        if ip_image is not None and control_image is not None:
+            raise ValueError("ip_image and control_image cannot combine "
+                             "(one params wrapper each); pick one")
+        if sag_scale > 0.0 and ip_image is not None:
+            raise ValueError("sag_scale and ip_image cannot combine: "
+                             "the SAG probe pass has no IP-Adapter payload")
+        ip_embed = None if ip_image is None else self.embed_ip_image(ip_image, len(prompts))
+        hint = (None if control_image is None
+                else self.control_hint(control_image, len(prompts), height, width))
         h, w = self.latent_hw(height, width)
         gen = torch.Generator(self.device).manual_seed(seed)
         x_T = torch.randn((len(prompts), h, w, self.cfg["latent"]["channels"]),
@@ -313,12 +475,47 @@ class Text2ImagePipeline:
         img = self.sample(prompts, x_T, negative_prompt, num_steps, guidance_scale, eta,
                           generator=gen, sampler=sampler, guidance_rescale=guidance_rescale,
                           clip_skip=clip_skip, sag_scale=sag_scale,
-                          decode_tile=self._latent_tile(decode_tile))
+                          decode_tile=self._latent_tile(decode_tile), control=hint,
+                          ip_embed=ip_embed)
         out = to_uint8(img)
         if watermark is not None:
             bits = str_to_bits(watermark, watermark_bits)
             out = np.stack([embed_watermark(o, bits, key=watermark_key) for o in out])
         return out
+
+    @torch.no_grad()
+    def embed_ip_image(self, ip_image, batch: int) -> torch.Tensor:
+        """The loaded image embedder's embedding [batch, 512] of an image
+        prompt ([H, W, 3] or [1 or batch, H, W, 3], uint8 or float in [-1,
+        1]), in the weights' dtype."""
+        if self.ip_params is None:
+            raise ValueError("call load_ip_adapter() before passing ip_image")
+        x = self._to_model_range(ip_image)
+        if x.ndim == 3:
+            x = x[None]
+        if x.shape[0] == 1 and batch > 1:
+            x = np.broadcast_to(x, (batch,) + x.shape[1:])
+        return self.ip_embedder(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                                ).to(self.dtype)
+
+    def control_hint(self, control_image, batch: int, height: int | None = None,
+                     width: int | None = None) -> torch.Tensor:
+        """A control image as ControlNet's hint: float32 [batch, H, W, C] on the
+        device (uint8 / 255; one image broadcast over the batch), checked
+        against the output's pixel size."""
+        if self.controlnet is None:
+            raise ValueError("call load_controlnet() before passing control_image")
+        hint = np.asarray(control_image)
+        hint = (hint.astype(np.float32) / 255.0 if hint.dtype == np.uint8
+                else hint.astype(np.float32))
+        if hint.ndim == 3:
+            hint = np.broadcast_to(hint[None], (batch,) + hint.shape)
+        lh, lw = self.latent_hw(height, width)
+        f = self._vae_factor()
+        if hint.shape[1:3] != (lh * f, lw * f):
+            raise ValueError(f"control_image must be {(lh * f, lw * f)} pixels, "
+                             f"got {hint.shape[1:3]}")
+        return torch.from_numpy(np.ascontiguousarray(hint)).to(self.device)
 
     def _latent_tile(self, pixels: int | None) -> int | None:
         return None if pixels is None else max(1, pixels // self._vae_factor())

@@ -11,9 +11,12 @@ port's own PNG codec. Runs on the card unless `--device cpu`.
 
     python -m sd_tpu_torch.sample --config sd_v1 --prompt "a red cube" --steps 30
 
-ControlNet (`--controlnet`, `--control-image`), IP-Adapter (`--ip-adapter`,
-`--ip-image`) and self-attention guidance (`--sag-scale` > 0) are not ported
-yet: they exit 2.
+ControlNet: `--controlnet RUN --control-image FILE` (the image resized to
+the output size with the bicubic filter, then `edge_hint` unless
+`--control-extract none`; `--control-scale`). IP-Adapter: `--ip-adapter RUN
+--ip-image FILE` (`--ip-scale`). Self-attention guidance: `--sag-scale`
+(ddim). Each goes through `Text2ImagePipeline` (`load_controlnet`,
+`load_ip_adapter`, `generate`); images are read by the port's PNG decoder.
 """
 
 from __future__ import annotations
@@ -43,23 +46,35 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--guidance-scale", type=float, default=None)
     ap.add_argument("--guidance-rescale", type=float, default=0.0)
     ap.add_argument("--eta", type=float, default=None)
-    ap.add_argument("--sag-scale", type=float, default=0.0)
+    ap.add_argument("--sag-scale", type=float, default=0.0,
+                    help="Self-Attention Guidance strength (typical 0.5-0.75, ddim only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--device", default=None, help="cpu to run on the CPU")
-    for flag in ("--controlnet", "--ip-adapter", "--ip-image", "--control-image"):
-        ap.add_argument(flag, default=None)
+    ap.add_argument("--controlnet", default=None,
+                    help="a ControlNet run directory (ldm task): the controlled UNet")
+    ap.add_argument("--ip-adapter", default=None,
+                    help="an IP-Adapter run directory (ldm task); needs --ip-image")
+    ap.add_argument("--ip-image", default=None, help="the image prompt (PNG) for --ip-adapter")
     ap.add_argument("--ip-scale", type=float, default=1.0)
-    ap.add_argument("--control-extract", default="canny", choices=["canny", "none"])
+    ap.add_argument("--control-image", default=None,
+                    help="the conditioning image (PNG) for --controlnet; by default "
+                         "edge_hint() extracts edges from it first")
+    ap.add_argument("--control-extract", default="canny", choices=["canny", "none"],
+                    help="hint extraction applied to --control-image ('none': the file "
+                         "already is the hint map)")
     ap.add_argument("--control-scale", type=float, default=1.0)
     args = ap.parse_args(argv)
-
-    for flag, value in (("--controlnet", args.controlnet), ("--ip-adapter", args.ip_adapter),
-                        ("--ip-image", args.ip_image), ("--control-image", args.control_image),
-                        ("--sag-scale", args.sag_scale or None)):
-        if value is not None:
-            print(f"sd_tpu_torch.sample: {flag} is not ported yet", file=sys.stderr)
-            return 2
+    if args.controlnet and not args.control_image:
+        print("sd_tpu_torch.sample: --controlnet needs --control-image", file=sys.stderr)
+        return 2
+    if args.controlnet and args.sag_scale > 0.0:
+        print("sd_tpu_torch.sample: --sag-scale cannot combine with --controlnet (the SAG "
+              "probe pass has no control branch)", file=sys.stderr)
+        return 2
+    if args.ip_adapter and not args.ip_image:
+        print("sd_tpu_torch.sample: --ip-adapter needs --ip-image", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -88,9 +103,26 @@ def main(argv: list[str] | None = None) -> int:
                                                                              7.5)
     eta = args.eta if args.eta is not None else sc.get("eta", 0.0)
     sampler = args.sampler or sc.get("sampler", "ddim")
+    adapters = {}
+    if args.controlnet:
+        from sd_tpu_torch.data.hints import edge_hint
+        from sd_tpu_torch.data.image_io import read_rgb, resize
+
+        pix = cfg["latent"]["image_size"] * pipe._vae_factor()
+        im = resize(read_rgb(args.control_image), pix, pix, method="bicubic")
+        hint = edge_hint(im) if args.control_extract == "canny" else im.astype("float32") / 255.0
+        pipe.load_controlnet(args.controlnet, control_scale=args.control_scale)
+        adapters["control_image"] = hint
+    if args.ip_adapter:
+        from sd_tpu_torch.data.image_io import read_rgb
+
+        pipe.load_ip_adapter(args.ip_adapter, ip_scale=args.ip_scale)
+        adapters["ip_image"] = read_rgb(args.ip_image)
+    if args.sag_scale > 0.0:
+        adapters["sag_scale"] = args.sag_scale
     images = pipe.generate(prompts, negative_prompt=args.negative_prompt, num_steps=steps,
                            guidance_scale=gs, eta=eta, seed=args.seed, sampler=sampler,
-                           guidance_rescale=args.guidance_rescale)
+                           guidance_rescale=args.guidance_rescale, **adapters)
     write_png(args.out, make_grid(images))
     print(f"[done] wrote {args.out} ({len(prompts)} images, {steps} steps, cfg={gs}, "
           f"sampler={sampler})")

@@ -27,13 +27,17 @@ by `data/image_io.py` (zlib and struct, no imaging package).
         "steps": 30, "sampler": "dpm"}' | jq -r .image | base64 -d > cat.png
 
 `--config` takes a config function's name or a .json / .yaml file
-(`core/config.py load_config`); `--run DIR` serves a `train_ldm` run
-(`Text2ImagePipeline.from_run`: its EMA UNet, the config's trained first
-stage, its calibrated scale factor), else the weights are random from the
-config's seed. Loading an SD checkpoint, LoRA, sharding, ToMe and FreeU
-are not ported yet.
+(`core/config.py load_config`); `--sd-checkpoint FILE` serves an SD-v1
+`.ckpt` or `.safetensors` (`Text2ImagePipeline.from_sd_checkpoint`), `--run
+DIR` a `train_ldm` run (`Text2ImagePipeline.from_run`: its EMA UNet, the
+config's trained first stage, its calibrated scale factor), else the weights
+are random from the config's seed. `--lora FILE` merges a `.safetensors` LoRA
+(`load_lora`), `--tome` and `--freeu` set the UNet's serving options
+(`set_unet_options`). Sharding (`--shard`) is not ported yet.
 
     python -m sd_tpu_torch.serve --config runs/ldm/config.json --run runs/ldm
+    python -m sd_tpu_torch.serve --config sd_v1 --sd-checkpoint v1-5.safetensors \
+        --lora style.safetensors --tome 0.5 --freeu 1.2,1.4,0.9,0.2
 """
 
 from __future__ import annotations
@@ -337,10 +341,7 @@ def make_http_server(batcher: BatchingServer, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
-_NOT_PORTED = ("sd_checkpoint", "lora", "shard", "tome", "freeu")
-
-
-def main(argv: list[str] | None = None) -> int:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m sd_tpu_torch.serve",
                                  description="Serve text-to-image over HTTP with "
                                              "request micro-batching, on the GPU.")
@@ -350,6 +351,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--run", default=None,
                     help="a train_ldm run directory (ckpt/ + calibration.json); "
                          "omit for random weights")
+    ap.add_argument("--sd-checkpoint", default=None,
+                    help="an SD-v1 .ckpt or .safetensors to import instead of --run")
+    ap.add_argument("--lora", default=None,
+                    help="a LoRA file (.safetensors) to merge for serving")
     ap.add_argument("--device", default=None, help="cpu to serve from the CPU")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
@@ -362,23 +367,47 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--watermark", default=None,
                     help="invisible provenance mark on every output "
                          "(sd_tpu_torch.utils.watermark.verify_watermark checks it)")
-    for name in ("sd-checkpoint", "lora", "freeu"):
-        ap.add_argument(f"--{name}", default=None, help="not ported yet")
     ap.add_argument("--shard", action="store_true", help="not ported yet")
-    ap.add_argument("--tome", type=float, default=0.0, help="not ported yet")
-    args = ap.parse_args(argv)
-    asked = [n for n in _NOT_PORTED if getattr(args, n)]
-    if asked:
-        print(f"sd_tpu_torch.serve: --{asked[0].replace('_', '-')} is not ported yet",
-              file=sys.stderr)
-        return 2
+    ap.add_argument("--tome", type=float, default=0.0,
+                    help="ToMe token-merge ratio (0 = off; ~0.5 typical)")
+    ap.add_argument("--freeu", default=None,
+                    help='FreeU "b1,b2,s1,s2" (e.g. "1.2,1.4,0.9,0.2")')
+    return ap.parse_args(argv)
 
+
+def build_pipeline(args: argparse.Namespace):
+    """The pipeline the flags ask for, as `scripts/serve.py` builds it:
+    `--sd-checkpoint`, else `--run`, else random weights; then `--lora`,
+    `--tome`, `--freeu`."""
     from sd_tpu_torch.core.config import load_config
     from sd_tpu_torch.pipeline import Text2ImagePipeline
 
     cfg = load_config(args.config)
-    pipe = (Text2ImagePipeline.from_run(cfg, args.run, device=args.device) if args.run
-            else Text2ImagePipeline(cfg, device=args.device))
+    if args.sd_checkpoint:
+        pipe = Text2ImagePipeline.from_sd_checkpoint(cfg, args.sd_checkpoint,
+                                                     device=args.device)
+    elif args.run:
+        pipe = Text2ImagePipeline.from_run(cfg, args.run, device=args.device)
+    else:
+        pipe = Text2ImagePipeline(cfg, device=args.device)
+    if args.lora:
+        pipe.load_lora(args.lora)
+    opts = {}
+    if args.tome > 0:
+        opts["tome_ratio"] = args.tome
+    if args.freeu:
+        opts["freeu"] = tuple(float(v) for v in args.freeu.split(","))
+    if opts:
+        pipe.set_unet_options(**opts)
+    return pipe
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(argv)
+    if args.shard:
+        print("sd_tpu_torch.serve: --shard is not ported yet", file=sys.stderr)
+        return 2
+    pipe = build_pipeline(args)
     batcher = BatchingServer(pipe, max_batch=args.max_batch,
                              batch_window_ms=args.batch_window_ms,
                              default_steps=args.steps, default_sampler=args.sampler,

@@ -20,12 +20,14 @@ max|ref|)) for float outputs, 1 level for uint8 images. Covered:
 * the `nearest` and `lanczos` resamplers and the gray conversion against
   PIL;
 * `python -m sd_tpu_torch.img2img` and `python -m sd_tpu_torch.sample`
-  in-process, and their refusals.
+  in-process, the sample CLI's ControlNet, IP-Adapter and SAG flags
+  included.
 """
 
 from __future__ import annotations
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -396,11 +398,82 @@ def test_sample_cli_is_the_pipeline_and_reads_a_run(tmp_path):
     np.testing.assert_array_equal(read_rgb(out), make_grid(want))
 
 
+@pytest.fixture(scope="module")
+def adapter_runs(tmp_path_factory):
+    """A tiny config's files, a ControlNet run (the branch of a random
+    pipeline, its zero projections random too) and an IP-Adapter run (an
+    adapter and the ViT-B/32 image embedder, random), as checkpoint
+    directories of the port's format."""
+    from sd_tpu_torch.data.image_io import write_png
+    from sd_tpu_torch.models.conditioners import FrozenClipImageEmbedder
+    from sd_tpu_torch.models.controlnet import controlnet_from_unet_config
+    from sd_tpu_torch.models.ip_adapter import init_ip_adapter
+    from sd_tpu_torch.train.checkpoint import save_checkpoint
+    from sd_tpu_torch.weights import randomize_params_
+
+    root = tmp_path_factory.mktemp("sample_cli")
+    cfg, path = _tiny_run_files(root)
+    gen = torch.Generator().manual_seed(11)
+    pipe = Text2ImagePipeline(cfg, device="cpu", param_dtype=torch.float32)
+    randomize_params_(pipe.unet, gen)
+    save_checkpoint(str(root / "ldm" / "ckpt"), {"params": dict(pipe.unet.named_parameters())}, 1)
+    cn = controlnet_from_unet_config(cfg["unet"]["params"], hint_downsamples=1, device="cpu")
+    randomize_params_(cn, gen)
+    save_checkpoint(str(root / "cn" / "ckpt"), {"params": dict(cn.named_parameters())}, 1)
+    embedder = FrozenClipImageEmbedder(device="cpu")
+    randomize_params_(embedder, gen)
+    save_checkpoint(str(root / "ip" / "ckpt"), {"params": init_ip_adapter(pipe.unet, gen)}, 1)
+    save_checkpoint(str(root / "ip" / "ip_embedder"), dict(embedder.named_parameters()), 1)
+    write_png(str(root / "x.png"), _images(1, 24, seed=5)[0])
+    return cfg, path, {"ldm": str(root / "ldm" / "ckpt"), "cn": str(root / "cn"),
+                       "ip": str(root / "ip"), "x.png": str(root / "x.png"),
+                       "init": str(root / "init.png")}
+
+
 @pytest.mark.parametrize("flag", [["--controlnet", "run"], ["--ip-adapter", "run"],
                                   ["--ip-image", "x.png"], ["--control-image", "x.png"],
                                   ["--sag-scale", "0.5"]])
-def test_sample_cli_refuses_the_unported(tmp_path, capsys, flag):
+def test_sample_cli_refuses_the_unported(tmp_path, capsys, flag, adapter_runs):
+    """Nothing of these is refused now: each flag (with the flags it needs,
+    on a run's random UNet, `--ckpt`) writes the grid of the pipeline call it
+    stands for, which differs from plain generate's — `load_controlnet`
+    and `generate(control_image=…)` on the edge hint of the image resized
+    bicubic to the output size (or, with `--control-extract none`, the
+    image / 255), `load_ip_adapter` and `generate(ip_image=…)`,
+    `generate(sag_scale=…)`; a ControlNet without its image exits 2."""
     from sd_tpu_torch import sample as cli
+    from sd_tpu_torch.data.hints import edge_hint
+    from sd_tpu_torch.data.image_io import read_rgb, resize
+    from sd_tpu_torch.train.metrics import make_grid
 
-    assert cli.main(["--config", "sd_v1", "--device", "cpu", *flag]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    cfg, path, files = adapter_runs
+    out = str(tmp_path / "s.png")
+    base = ["--config", path, "--prompt", "a cube", "a cone", "--steps", "4", "--seed", "1",
+            "--out", out, "--device", "cpu", "--ckpt", files["ldm"]]
+    extra = {"--controlnet": ["--controlnet", files["cn"], "--control-image", files["init"]],
+             "--ip-adapter": ["--ip-adapter", files["ip"], "--ip-image", files["x.png"]],
+             "--ip-image": ["--ip-adapter", files["ip"], "--ip-image", files["x.png"],
+                            "--ip-scale", "0.5"],
+             "--control-image": ["--controlnet", files["cn"], "--control-image", files["x.png"],
+                                 "--control-extract", "none", "--control-scale", "0.5"],
+             "--sag-scale": flag}[flag[0]]
+    assert cli.main(base + extra) == 0
+    pipe = Text2ImagePipeline.from_run(cfg, str(Path(files["ldm"]).parent), param_dtype=None,
+                                       device="cpu")
+    kw = {}
+    if "--controlnet" in extra:
+        image = resize(read_rgb(extra[3]), 32, 32, method="bicubic")
+        none = "--control-extract" in extra
+        pipe.load_controlnet(files["cn"], control_scale=0.5 if none else 1.0)
+        kw["control_image"] = image.astype(np.float32) / 255.0 if none else edge_hint(image)
+    elif "--ip-adapter" in extra:
+        pipe.load_ip_adapter(files["ip"], ip_scale=0.5 if "--ip-scale" in extra else 1.0)
+        kw["ip_image"] = read_rgb(files["x.png"])
+    else:
+        kw["sag_scale"] = 0.5
+    want = pipe.generate(["a cube", "a cone"], num_steps=4, guidance_scale=7.5, seed=1, **kw)
+    np.testing.assert_array_equal(read_rgb(out), make_grid(want))
+    assert not np.array_equal(want, pipe.generate(["a cube", "a cone"], num_steps=4, seed=1))
+    if flag[0] == "--controlnet":
+        assert cli.main(base + ["--controlnet", files["cn"]]) == 2
+        assert "--control-image" in capsys.readouterr().err

@@ -13,6 +13,8 @@ timestep stridings, and `LatentDiffusion.sample`'s dispatch and errors.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -238,7 +240,8 @@ def test_latent_sample_dispatches(data, sampler):
 def test_latent_sample_errors(data):
     """The same kinds of error as the JAX package: flow and lcm-with-CFG raise
     ValueError on an SD (ε) model, SAG with another sampler ValueError, and
-    SAG itself is not ported (NotImplementedError)."""
+    SAG without a probe apply (`unet_apply_probs`) ValueError; with one it
+    runs, and is DDIM's SAG sample on the routed probe."""
     x_T, cond, uncond = (to_torch(a) for a in data)
     ld = _latent()
     args = (SHAPE, x_T, {"c_crossattn": [cond]}, {"c_crossattn": [uncond]})
@@ -248,8 +251,17 @@ def test_latent_sample_errors(data):
         ld.sample(*args, guidance_scale=5.0, sampler="lcm", decode=False)
     with pytest.raises(ValueError, match="only supported by the ddim"):
         ld.sample(*args, sampler="euler", sag_scale=0.5, decode=False)
-    with pytest.raises(NotImplementedError, match="SAG"):
+    with pytest.raises(ValueError, match="unet_apply_probs"):
         ld.sample(*args, sampler="ddim", sag_scale=0.5, decode=False)
+    mask = (torch.arange(SHAPE[1] * SHAPE[2]).reshape(1, SHAPE[1], SHAPE[2], 1) % 3 == 0).float()
+    probes = lambda x, t, ctx: (torch_model(x, t, ctx), mask.expand(x.shape[0], -1, -1, -1))
+    ld = dataclasses.replace(ld, unet_apply_probs=probes)
+    got = ld.sample(*args, sampler="ddim", sag_scale=0.5, guidance_scale=5.0, decode=False)
+    want = ddim.DDIMSampler(ld.schedule).sample(
+        ld.apply_model, SHAPE, x_T, num_steps=50, cond={"c_crossattn": [cond]},
+        uncond={"c_crossattn": [uncond]}, guidance_scale=5.0, sag_scale=0.5,
+        sag_probs_fn=ld.model_probs_fn())
+    assert torch.equal(got, want)
 
 
 def test_pipeline_ddpm_generate_matches_sd_tpu():

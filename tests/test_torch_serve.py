@@ -238,8 +238,9 @@ def test_max_batch_respected():
 
 
 def test_sag_scale_keys_batches_and_validates():
-    """sag_scale joins the key and reaches generate() (where the port raises
-    NotImplementedError); a non-ddim sampler is refused at validation."""
+    """sag_scale joins the key and reaches generate() (where the port runs
+    Self-Attention Guidance: `test_served_sag_request_is_answered`); a
+    non-ddim sampler is refused at validation."""
     stub = StubPipeline()
     batcher = BatchingServer(stub, max_batch=4, batch_window_ms=WINDOW_MS)
     batcher.start()
@@ -335,12 +336,87 @@ def test_watermark_matches_tpu_package():
     assert not wm.verify_watermark(img, "sd-port", key=3)
 
 
+@pytest.fixture(scope="module")
+def cli_files(tmp_path_factory):
+    """A tiny config (fp32 for the CPU), an SD-v1 checkpoint of a random
+    pipeline of it, and a LoRA file of random factors for it."""
+    from sd_tpu_torch.train.lora import init_lora, save_lora_safetensors
+    from sd_tpu_torch.weights import randomize_params_
+
+    root = tmp_path_factory.mktemp("serve_cli")
+    cfg = tiny_config()
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    src = Text2ImagePipeline(cfg, device="cpu", param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(8)
+    for module in (src.unet, src.vae):
+        randomize_params_(module, gen)
+    src.to_sd_checkpoint(str(root / "c.ckpt"))
+    factors = init_lora(src.unet, 2, gen)
+    for pair in factors.values():
+        pair["b"].normal_(0.0, 0.05, generator=gen)
+    save_lora_safetensors(str(root / "l.safetensors"), factors)
+    return {"cfg": str(root / "cfg.json"), "c.ckpt": str(root / "c.ckpt"),
+            "l": str(root / "l.safetensors"), "config": cfg}
+
+
 @pytest.mark.parametrize("flag", [["--run", "r", "--shard"], ["--sd-checkpoint", "c.ckpt"],
                                   ["--lora", "l"],
                                   ["--shard"], ["--tome", "0.5"], ["--freeu", "1.1,1.2,0.9,0.2"]])
-def test_cli_refuses_what_is_not_ported(flag, capsys):
-    assert serve.main(["--config", "sd_v1", *flag]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_cli_refuses_what_is_not_ported(flag, capsys, cli_files):
+    """Only `--shard` is not ported: it exits 2 before building anything. The
+    other flags build the pipeline `scripts/serve.py` builds — the imported
+    checkpoint, the merged LoRA, the UNet options — whose weights, options
+    and images are the pipeline calls' they stand for."""
+    if "--shard" in flag:
+        assert serve.main(["--config", "sd_v1", *flag]) == 2
+        assert "not ported yet" in capsys.readouterr().err
+        return
+    args = serve.parse_args(["--config", cli_files["cfg"], "--device", "cpu",
+                             *(cli_files.get(v, v) for v in flag)])
+    got = serve.build_pipeline(args)
+    cfg = cli_files["config"]
+    if flag[0] == "--sd-checkpoint":
+        want = Text2ImagePipeline.from_sd_checkpoint(cfg, cli_files["c.ckpt"], device="cpu")
+    else:
+        want = Text2ImagePipeline(cfg, device="cpu")
+    plain = dict(want.unet.named_parameters())
+    if flag[0] == "--lora":
+        plain = {n: p.clone() for n, p in plain.items()}
+        want.load_lora(cli_files["l"])
+    elif flag[0] == "--tome":
+        want.set_unet_options(tome_ratio=0.5)
+    elif flag[0] == "--freeu":
+        want.set_unet_options(freeu=(1.1, 1.2, 0.9, 0.2))
+    mine = dict(got.unet.named_parameters())
+    assert all(torch.equal(p, mine[n]) for n, p in want.unet.named_parameters())
+    assert (flag[0] != "--lora"
+            or any(not torch.equal(p, mine[n]) for n, p in plain.items()))
+    assert got.unet.freeu == want.unet.freeu and got.unet.mid_attn.tome_ratio == (
+        0.5 if flag[0] == "--tome" else 0.0)
+    np.testing.assert_array_equal(got.generate(PROMPTS, num_steps=2, seed=3),
+                                  want.generate(PROMPTS, num_steps=2, seed=3))
+
+
+def test_served_sag_request_is_answered():
+    """A request with `sag_scale` (the JAX package's server answers it) is
+    answered with the image of the pipeline's generate(sag_scale=…)."""
+    from sd_tpu_torch.weights import randomize_params_
+
+    pipe = Text2ImagePipeline(tiny_config(), device="cpu", param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(9)
+    for module in (pipe.unet, pipe.vae, pipe.clip):
+        randomize_params_(module, gen)
+    batcher = BatchingServer(pipe, max_batch=2, batch_window_ms=WINDOW_MS)
+    batcher.start()
+    try:
+        out = batcher.submit({"prompt": "a red cube", "steps": 4, "seed": 3,
+                              "sag_scale": 0.75})
+    finally:
+        batcher.stop()
+    want = pipe.generate(["a red cube"], negative_prompt=[""], num_steps=4, seed=3,
+                         sag_scale=0.75)
+    np.testing.assert_array_equal(_png(out["image"]), want[0])
+    assert not np.array_equal(want, pipe.generate(["a red cube"], num_steps=4, seed=3))
 
 
 class Recording:

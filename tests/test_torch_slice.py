@@ -82,12 +82,13 @@ def test_generate_returns_uint8_images(weights):
 
 def test_weighting_syntax_is_refused(weights):
     """Weighting syntax is ported now: a weighted prompt runs and its emphasis
-    changes the image. What `generate` still refuses is the options whose
-    modules are not ported (ControlNet, IP-Adapter, SAG); the tiled decode
-    is ported, and a tile no smaller than the image is the whole decode.
-    (The JAX package's weights: the port's own initialisation zeroes the
-    transformer blocks' output projections, so the text would not reach
-    the image.)"""
+    changes the image. What `generate` still refuses is a control image or
+    an image prompt before its adapter is loaded (ValueError, as the TPU
+    package); self-attention guidance runs and changes the image; the tiled
+    decode is ported, and a tile no smaller than the image is the whole
+    decode. (The JAX package's weights: the port's own initialisation
+    zeroes the transformer blocks' output projections, so the text would not
+    reach the image.)"""
     clip, cparams, uparams, vparams = weights
     pipe = Text2ImagePipeline(tiny_config(), device="cpu", param_dtype=torch.float32)
     port(pipe.clip, cparams)
@@ -99,7 +100,9 @@ def test_weighting_syntax_is_refused(weights):
     assert not np.array_equal(weighted, plain)
     np.testing.assert_array_equal(pipe.generate(["a very red cube"], num_steps=4,
                                                 decode_tile=32), plain)
-    for option in (dict(control_image=np.zeros((32, 32, 3))),
-                   dict(ip_image=np.zeros((32, 32, 3))), dict(sag_scale=0.5)):
-        with pytest.raises(NotImplementedError):
+    for option, loader in ((dict(control_image=np.zeros((32, 32, 3))), "load_controlnet"),
+                           (dict(ip_image=np.zeros((32, 32, 3))), "load_ip_adapter")):
+        with pytest.raises(ValueError, match=loader):
             pipe.generate(["a red cube"], num_steps=4, **option)
+    sag = pipe.generate(["a very red cube"], num_steps=4, sag_scale=0.5)
+    assert sag.shape == plain.shape and not np.array_equal(sag, plain)

@@ -984,6 +984,65 @@ def test_image_edit_launches(tpu_gates, monkeypatch):
     assert not p["iunet"] and dict(p["ienc"]) == {"flash_attention": 1, "flash_fwd_wide": 1}
 
 
+def test_adapter_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s adapters launches, piece by piece on `meta` tensors
+    with every gate checked against the JAX package's: a CFG UNet call
+    (batch 4) at 64² plain, with the ControlNet branch in front of it (its
+    level-0 and level-1 transformers: 4 head-packed and 4 GEGLU launches),
+    as SAG's probe (the mid-block attention, 64 tokens, on the probe path:
+    no kernel) and as its degraded pass (batch 2: the same 10 and 10), and
+    with an IP-Adapter payload (the cross-attentions' image read takes no
+    kernel); the decoder at 512². Each entry point's total over
+    ADAPTER_STEPS DDIM steps equals ADAPTER_LAUNCHES."""
+    from sd_tpu_torch.diffusion.sag import make_probs_apply
+    from sd_tpu_torch.models.controlnet import controlled_apply_fn, controlnet_from_unet_config
+    from sd_tpu_torch.models.ip_adapter import init_ip_adapter, ip_apply_fn
+
+    calls = _count_kernel_calls(monkeypatch)
+    plans = _spy_plans(monkeypatch)
+    flash = {"_inference", "flash_attention_hpacked"}
+
+    def piece(fn) -> Counter:
+        before, n = Counter(calls), len(plans)
+        with torch.no_grad():
+            fn()
+        got = Counter({k: v - before[k] for k, v in calls.items() if k not in flash})
+        got["geglu_sm90"] = got["geglu_ff"]          # every GEGLU launch runs geglu_sm90.cu
+        return +got + _plan_launches(plans[n:])
+
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    unet, vae = UNetModel(**UNET, **BF16), AutoencoderKL(**VAE, **BF16)
+    cn = controlnet_from_unet_config(UNET, hint_downsamples=3, **BF16)
+    ip = init_ip_adapter(unet, torch.Generator())
+    ip["proj"] = {k: v.to("meta") for k, v in ip["proj"].items()}
+    size, f = chip_smoke.EDIT_SIZE, 8
+    args = lambda b: (meta(b, size // f, size // f, 4), meta(b, dtype=torch.long),
+                      meta(b, 77, 768))
+    probes = make_probs_apply(unet)
+    p = {"unet": piece(lambda: unet(*args(4))),
+         "controlled": piece(lambda: controlled_apply_fn(unet, cn)(
+             *args(4), control=meta(4, size, size, 3, dtype=torch.float32))),
+         "probe": piece(lambda: probes(*args(4))),
+         "degraded": piece(lambda: unet(*args(2))),
+         "ip": piece(lambda: ip_apply_fn(unet, ip)(*args(4), ip_embed=meta(4, 512))),
+         "dec": piece(lambda: vae.decode(meta(2, size // f, size // f, 4)))}
+    assert p["probe"] == p["unet"] == p["ip"] == p["degraded"]
+    times = lambda n, c: Counter({k: n * v for k, v in c.items()})
+    steps = _ddim_calls(chip_smoke.ADAPTER_STEPS)
+    assert steps == chip_smoke.ADAPTER_STEPS
+    derived = {"generate": times(steps, p["unet"]) + p["dec"],
+               "generate_lora": times(steps, p["unet"]) + p["dec"],
+               "generate_controlnet": times(steps, p["controlled"]) + p["dec"],
+               "generate_sag": times(steps, p["probe"] + p["degraded"]) + p["dec"],
+               "generate_ip": times(steps, p["ip"]) + p["dec"]}
+    want = {name: {k: v for k, v in counts.items() if v}
+            for name, counts in chip_smoke.ADAPTER_LAUNCHES.items()}
+    assert {name: dict(c) for name, c in derived.items()} == want
+    branch = p["controlled"] - p["unet"]
+    assert dict(branch) == {"flash_attention_hpacked": 4, "flash_fwd_sm90": 4, "geglu_ff": 4,
+                            "geglu_sm90": 4}
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
