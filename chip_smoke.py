@@ -206,6 +206,22 @@ Phases, each printed as one JSON line:
            within 1 level of plain); each steered entry point twice (the same
            bits, ADAPTER_LAUNCHES), every kernel shape held against its plain
            version; seconds and peak memory beside the card.
+  few_step  few-step and flow models at SD-v1 full width (bf16, every weight
+           random): a teacher run directory (the EMA shadow of a random UNet,
+           calibration.json); consistency distillation through `python -m
+           sd_tpu_torch.train`'s `main` on lcm512_distill_config() (CFG 7.5
+           baked in, batch 4 as 4 microbatches, remat "dots") for 2 steps with a
+           checkpoint and a 4-step eval grid: the student before step 1 is the
+           teacher bit for bit, the target's first update the warm-up decay's,
+           the launches FEW_STEP_LAUNCHES; the same as LCM-LoRA (rank 4: the
+           merged weights before step 1 are the teacher's; lora.safetensors
+           merges into a `from_run` of the teacher); `from_run` of the student
+           and generate(sampler="lcm", 4 steps) twice (the same bits, the
+           launches), a served lcm request (generate's image); train_ldm on
+           flow512_train_config() for 2 steps; generate with flow (8 steps,
+           CFG 7.5) and flow_midpoint (4) twice each, a served flow request;
+           every inference kernel shape held against its plain version; s/step,
+           s/generate (beside the e2e phase's), peak memory, checkpoint GB/s.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -455,6 +471,52 @@ ADAPTER_LAUNCHES = {
                                 geglu_ff=20 * ADAPTER_STEPS, geglu_sm90=20 * ADAPTER_STEPS,
                                 flash_attention=1, flash_fwd_wide=1, conv3x3_same=18),
     "generate_ip": _ADAPTER_GENERATE,
+}
+# the few_step phase: consistency distillation of a random SD-v1 teacher
+# (lcm512_distill_config(): configs/lcm_512_catdog.yaml) and its LCM-LoRA
+# through `python -m sd_tpu_torch.train`, the student served with `lcm`, and
+# the rectified-flow objective at SD-v1 width (flow512_train_config())
+# trained and served with `flow` / `flow_midpoint`
+FEW_STEP_SEED = 19
+FEW_STEP_STEPS = 2             # optimizer steps of each run
+LCM_STEPS = 4                  # the student's sampling steps (distill.sample_steps)
+FLOW_STEPS = 8                 # flow generate, CFG 7.5; flow_midpoint takes FLOW_STEPS // 2
+FEW_STEP_LORA_RANK = 4
+FEW_STEP_DISK_GB = 14          # the distill run's ≈ 10 GB state and the 1.7 GB teacher
+# launches (tests/test_torch_structure.py derives them on `meta` tensors): an
+# inference UNet call at 64² of 2 rows or more (the teacher's CFG pair at 8,
+# the samplers' 2 and 4) takes 10 head-packed flash launches and 10 GEGLU (at
+# 1 row, a served request's, level 1's 1024 tokens keep GEGLU plain);
+# the target network's no-grad forward inside a training step (a microbatch
+# of 1) 10 flash launches on the [B, S, H, D] route and 5 GEGLU (level 0's);
+# the student's forward and backward a train_ldm microbatch's 20 / 10 / 10;
+# the first stage of the distill run (fp32) none, the pipeline's decoder 1
+# flash launch and 18 convs
+_UNET_CALL = dict(flash_attention_hpacked=10, flash_fwd_sm90=10, geglu_ff=10, geglu_sm90=10)
+_DECODE = dict(flash_attention=1, flash_fwd_wide=1, conv3x3_same=18)
+
+
+def _unet_calls(n: int, decode: bool = False) -> dict:
+    out = launches_of(**{k: n * v for k, v in _UNET_CALL.items()})
+    for k, v in (_DECODE.items() if decode else ()):
+        out[k] += v
+    return out
+
+
+# one distillation step (batch 4 as 4 microbatches): the teacher's CFG step,
+# 4 target forwards, 4 student forwards and backwards
+_DISTILL_STEP = launches_of(flash_attention_hpacked=10, flash_attention=40, flash_fwd_sm90=50,
+                            geglu_ff=30, geglu_sm90=30, flash_attention_lse=80,
+                            flash_lse_sm90=80, flash_bwd_dq=40, flash_bwd_dkv=40,
+                            flash_bwd_dq_sm90=40, flash_bwd_dkv_sm90=40)
+FEW_STEP_LAUNCHES = {
+    "distill_step": _DISTILL_STEP,
+    "lora_step": _DISTILL_STEP,
+    "distill_eval": _unet_calls(LCM_STEPS),       # the eval grid: batch 4, fp32 decode
+    "flow_step": EXPECTED_TRAIN_LAUNCHES,
+    "generate_lcm": _unet_calls(LCM_STEPS, decode=True),
+    "generate_flow": _unet_calls(FLOW_STEPS, decode=True),
+    "generate_flow_midpoint": _unet_calls(2 * (FLOW_STEPS // 2), decode=True),
 }
 # the encoder's launches at 512², batch 2 (its bf16-vs-fp32 check)
 ENCODER_512_LAUNCHES = launches_of(flash_attention=1, flash_fwd_wide=1, conv3x3_same=12)
@@ -1730,7 +1792,7 @@ def _check_images(pipe, prompts, images, env: dict) -> dict:
             "uint8_mismatch_vs_rerun": int((to_uint8(pre) != images).sum())}
 
 
-def phase_e2e() -> dict:
+def phase_e2e() -> tuple:
     import torch
 
     from sd_tpu_torch.core.config import sd_v1_config
@@ -1758,7 +1820,7 @@ def phase_e2e() -> dict:
     total = launches["flash_attention"] + launches["flash_attention_hpacked"]
     require(launches == EXPECTED_LAUNCHES and total == 501,
             f"launches {launches} == {EXPECTED_LAUNCHES}")
-    return launches, pipe, prompts, images
+    return launches, pipe, prompts, images, secs
 
 
 def phase_e2e_optin(pipe, prompts, default_images) -> dict:
@@ -3701,6 +3763,329 @@ def phase_adapters(smi: str) -> dict:
     return {name: r_["launches"] for name, r_ in runs.items()}
 
 
+def _warm_decay_target(t0, p1):
+    """The target network after its first update from t0 toward the new
+    parameters p1: the warm-up decay at n = 1, min(0.95, 2 / 11), in fp32,
+    the product rounded to the shadow's dtype (the TPU package's rule)."""
+    import numpy as np
+
+    one_minus = float(np.float32(1) - min(np.float32(0.95), np.float32(2) / np.float32(11)))
+    return t0 - (one_minus * (t0 - p1.to(t0.dtype))).to(t0.dtype)
+
+
+def phase_few_step(smi: str, ddim50_seconds: float | None = None) -> dict:
+    """Few-step and flow models at SD-v1 full width (bf16, every weight
+    random from FEW_STEP_SEED), in a temporary directory removed at the end:
+      teacher  a teacher run directory: the smallest tree `load_teacher_params`
+               reads (the EMA shadow of a random UNet, bf16 ≈ 1.7 GB) and
+               calibration.json;
+      distill  `python -m sd_tpu_torch.train`'s `main` on
+               lcm512_distill_config() (configs/lcm_512_catdog.yaml: CFG 7.5
+               baked in, batch 4 as 4 microbatches, bf16, remat "dots") for
+               FEW_STEP_STEPS steps on TRAIN_RUN_IMAGES synthetic 512² PNGs,
+               a checkpoint and a LCM_STEPS-step eval grid at the last: the
+               student before step 1 equals the teacher bit for bit, the
+               target after step 1 is the warm-up decay's update toward the
+               new parameters (bit for bit on a subset), losses and
+               grad_norm finite, launches FEW_STEPS × distill_step +
+               distill_eval; s/step, peak memory, the checkpoint's GB/s;
+      lora     the same with distill.lora_rank FEW_STEP_LORA_RANK: before
+               step 1 the merged weights are the teacher's bit for bit;
+               lora.safetensors merges through `load_lora` into a
+               `from_run` of the teacher, which then samples with lcm;
+      serve    `from_run` of the distill run: generate(sampler="lcm",
+               LCM_STEPS steps, guidance 1) of 2 prompts at 512² twice (the
+               same bits, 4 UNet calls' launches and the decoder's); a
+               `BatchingServer` request with "sampler": "lcm" gives the
+               image of the same generate; s/generate and img/s beside the
+               e2e phase's 50-step DDIM + CFG (`ddim50_seconds`);
+      flow     train_ldm(flow512_train_config()) for FEW_STEP_STEPS steps
+               (losses finite, launches those of train_ldm's step); a
+               pipeline of that config: generate with flow (FLOW_STEPS
+               steps, CFG 7.5) and flow_midpoint (FLOW_STEPS // 2) twice each
+               (the same bits, launches as derived); a served "sampler":
+               "flow" request answered.
+    Every inference kernel shape the phase launched is held against its
+    plain version (`_hold_edit_kernels`)."""
+    import base64
+    import contextlib
+    import copy
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import flow512_train_config, lcm512_distill_config
+    from sd_tpu_torch.data.image_io import decode_png
+    from sd_tpu_torch.models.unet_sd import UNetModel
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+    from sd_tpu_torch.serve import BatchingServer
+    from sd_tpu_torch.train import __main__ as train_cli
+    from sd_tpu_torch.train import distill, runners
+    from sd_tpu_torch.train.checkpoint import save_checkpoint
+    from sd_tpu_torch.train.lora import (load_lora_safetensors, lora_targets, merged_kernels,
+                                         nest_lora)
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    prompts = ["a photo of a cat", "a photo of a dog"]
+    shapes, runs, checks, io = {}, {}, {}, {}
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_few_step_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        require(free_gb >= FEW_STEP_DISK_GB, f"free disk under {root}: {free_gb:.1f} GB, the "
+                f"phase needs {FEW_STEP_DISK_GB} GB (the distill run's ≈ 10 GB state)")
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _write_train_run_images(data)
+
+        # -- the teacher run -------------------------------------------------------
+        cfg = lcm512_distill_config()
+        tcfg = {k: v for k, v in copy.deepcopy(cfg).items() if k != "distill"}
+        tcfg["task"] = "ldm"
+        gen = torch.Generator("cuda").manual_seed(FEW_STEP_SEED)
+        unet = UNetModel(**{k: v for k, v in cfg["unet"]["params"].items() if k != "dtype"},
+                         dtype=torch.bfloat16, device="cuda")
+        randomize_params_(unet, gen)
+        teacher_run = os.path.join(root, "teacher")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(teacher_run, "ckpt"),
+                               {"ema": {"shadow": dict(unet.named_parameters())}}, 1)
+        gb = os.path.getsize(path) / 1e9
+        io["teacher_save"] = {"gb": gb, "seconds": time.perf_counter() - t0}
+        io["teacher_save"]["gb_per_s"] = gb / io["teacher_save"]["seconds"]
+        with open(os.path.join(teacher_run, "calibration.json"), "w") as f:
+            json.dump({"scale_factor": 0.18215}, f)
+        with open(os.path.join(root, "teacher.json"), "w") as f:
+            json.dump(tcfg, f)
+        teacher = {n: p.detach().cpu() for n, p in unet.named_parameters()}
+        del unet
+        torch.cuda.empty_cache()
+
+        # -- the distillation runs, spied ------------------------------------------
+        built, step_s, saves = [], [], []
+        build0, make0, save0 = distill.build_ldm, distill.make_consistency_train_step, \
+            runners.save_checkpoint
+
+        def build_ldm(*a, **kw):
+            built.append(build0(*a, **kw))
+            return built[-1]
+
+        def save(ckpt_dir, state, step, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save0(ckpt_dir, state, step, **kw)
+            sec = time.perf_counter() - t0
+            gb = os.path.getsize(out) / 1e9
+            saves.append({"step": step, "seconds": sec, "gb": gb, "gb_per_s": gb / sec})
+            return out
+
+        def make_step(loss_fn, opt, prep_fn=None, grad_accum=1):
+            step = make0(loss_fn, opt, prep_fn=prep_fn, grad_accum=grad_accum)
+
+            def spied(state, batch, generator=None):
+                first = state.step == 0
+                if first:
+                    unet = built[-1][1]
+                    own = dict(unet.named_parameters())
+                    checks.setdefault("teacher_bits", []).append(
+                        all(torch.equal(p.detach().cpu(), teacher[n]) for n, p in own.items()))
+                    if set(state.params) == set(own):
+                        subset = sorted(own)[::97]
+                    else:
+                        merged = merged_kernels(unet, nest_lora(state.params))
+                        checks.setdefault("lora_merged_is_teacher", []).append(
+                            bool(merged) and all(torch.equal(w.cpu(), teacher[n])
+                                                 for n, w in merged.items()))
+                        subset = sorted(state.params)
+                    before = {n: state.ema.shadow[n].clone() for n in subset}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs = step(state, batch, generator)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if first:
+                    checks.setdefault("target_is_warm_decay_update", []).append(all(
+                        torch.equal(state.ema.shadow[n],
+                                    _warm_decay_target(before[n], state.params[n].detach()))
+                        for n in subset))
+                    checks.setdefault("target_moved", []).append(any(
+                        not torch.equal(state.ema.shadow[n], before[n]) for n in subset))
+                return logs
+
+            return spied
+
+        def run(name, run_cfg, expected):
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(run_cfg, f)
+            out = os.path.join(root, name)
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            del step_s[:], saves[:]
+            t0 = time.perf_counter()
+            code = train_cli.main(["--config", path, "--data", data, "--out", out])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            require(code == 0, f"python -m sd_tpu_torch.train {name}: exit {code}")
+            launches = dict(kernels.LAUNCHES)
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            steps = [r for r in recs if "grad_norm" in r]
+            require(len(steps) == FEW_STEP_STEPS and all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps),
+                f"{name}: {FEW_STEP_STEPS} finite step records: {steps}")
+            require(os.path.exists(os.path.join(out, "samples", f"step_{FEW_STEP_STEPS}.png")),
+                    f"{name}: the eval grid at step {FEW_STEP_STEPS}")
+            require(launches == expected, f"{name} launches "
+                    f"{ {k: v for k, v in launches.items() if v} } == "
+                    f"{ {k: v for k, v in expected.items() if v} }")
+            runs[name] = {"seconds": seconds, "step_seconds": list(step_s),
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                          "losses": [r["loss"] for r in steps],
+                          "grad_norms": [r["grad_norm"] for r in steps],
+                          "checkpoint_saves": list(saves),
+                          "launches": {k: v for k, v in launches.items() if v}}
+            del built[:]
+            torch.cuda.empty_cache()
+            return out, launches
+
+        few = FEW_STEP_LAUNCHES
+        dcfg = copy.deepcopy(cfg)
+        dcfg["distill"]["teacher_run"] = teacher_run
+        dcfg["train"].update(total_steps=FEW_STEP_STEPS, checkpoint_every=FEW_STEP_STEPS,
+                             eval_every=FEW_STEP_STEPS)
+        require(dcfg["distill"]["sample_steps"] == LCM_STEPS, "the eval's LCM_STEPS")
+        lcfg = copy.deepcopy(dcfg)
+        lcfg["distill"]["lora_rank"] = FEW_STEP_LORA_RANK
+        patches = contextlib.ExitStack()
+        for obj, name, fn in ((distill, "build_ldm", build_ldm),
+                              (distill, "make_consistency_train_step", make_step),
+                              (runners, "save_checkpoint", save)):
+            patches.enter_context(mock.patch.object(obj, name, fn))
+        patches.enter_context(_kernel_shape_spies(shapes))
+        with patches:
+            want = {k: FEW_STEP_STEPS * v + few["distill_eval"][k]
+                    for k, v in few["distill_step"].items()}
+            distill_dir, distill_launches = run("distill", dcfg, want)
+            want = {k: FEW_STEP_STEPS * v + few["distill_eval"][k]
+                    for k, v in few["lora_step"].items()}
+            lora_dir, lora_launches = run("lora", lcfg, want)
+            require(checks["teacher_bits"] == [True, True],
+                    f"the student (and the LoRA base) before step 1 is the teacher bit for bit: "
+                    f"{checks['teacher_bits']}")
+            require(checks["lora_merged_is_teacher"] == [True],
+                    "the merged LCM-LoRA student before step 1 is the teacher bit for bit")
+            require(checks["target_is_warm_decay_update"] == [True, True]
+                    and checks["target_moved"] == [True, True],
+                    f"the target after step 1: the warm-up decay's update {checks}")
+
+            # -- LCM-LoRA into a from_run of the teacher ---------------------------
+            lora_file = os.path.join(lora_dir, "lora.safetensors")
+            factors = load_lora_safetensors(lora_file)
+            tpipe = Text2ImagePipeline.from_run(os.path.join(root, "teacher.json"), teacher_run)
+            require(len(factors) == len(lora_targets(tpipe.unet)) and all(
+                p["a"].shape[1] == FEW_STEP_LORA_RANK for p in factors.values()),
+                    "lora.safetensors holds a rank-4 pair for every target")
+            before = {n: p.detach().clone() for n, p in tpipe.unet.named_parameters()}
+            tpipe.load_lora(lora_file)
+            checks["lora_weights_changed"] = sum(
+                not torch.equal(p, before[n]) for n, p in tpipe.unet.named_parameters())
+            checks["lora_b_max_abs"] = max(float(p["b"].abs().max()) for p in factors.values())
+            del before
+            img = tpipe.generate(prompts, num_steps=LCM_STEPS, sampler="lcm",
+                                 guidance_scale=1.0, seed=3)
+            require(img.shape == (2, 512, 512, 3) and img.std() > 0,
+                    "the teacher with the LCM-LoRA samples with lcm")
+            del tpipe
+            torch.cuda.empty_cache()
+
+            # -- the student, served ------------------------------------------------
+            t0 = time.perf_counter()
+            pipe = Text2ImagePipeline.from_run(os.path.join(root, "distill.json"), distill_dir)
+            torch.cuda.synchronize()
+            io["from_run_seconds"] = time.perf_counter() - t0
+            lcm_kw = dict(num_steps=LCM_STEPS, sampler="lcm", guidance_scale=1.0, seed=1)
+            _run_twice(runs, "generate_lcm", lambda: pipe.generate(prompts, **lcm_kw),
+                       few["generate_lcm"])
+            batcher = BatchingServer(pipe, max_batch=2, batch_window_ms=10.0)
+            batcher.start()
+            try:
+                served = batcher.submit({"prompt": prompts[0], "steps": LCM_STEPS,
+                                         "sampler": "lcm", "guidance_scale": 1.0, "seed": 1})
+            finally:
+                batcher.stop()
+            alone = pipe.generate(prompts[:1], negative_prompt=[""], **lcm_kw)
+            require(np.array_equal(decode_png(base64.b64decode(served["image"])), alone[0]),
+                    "the served lcm request gives generate's image")
+            del pipe
+            torch.cuda.empty_cache()
+        gen_s = runs["generate_lcm"]["seconds"][1]
+        checks["lcm_seconds_per_generate"] = gen_s
+        checks["lcm_images_per_second"] = len(prompts) / gen_s
+        checks["ddim50_cfg_seconds_per_generate"] = ddim50_seconds
+
+        # -- the flow objective at SD-v1 width ------------------------------------
+        fcfg = flow512_train_config()
+        rng = np.random.default_rng(FEW_STEP_SEED)
+        batches = [{"image": rng.uniform(-1, 1, (4, 512, 512, 3)).astype(np.float32),
+                    "txt_raw": ["a photo of a cat", "a photo of a dog"] * 2}
+                   for _ in range(FEW_STEP_STEPS)]
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist = runners.train_ldm(fcfg, batches, max_steps=FEW_STEP_STEPS)
+        torch.cuda.synchronize()
+        flow_launches = dict(kernels.LAUNCHES)
+        runs["flow_train"] = {"seconds": time.perf_counter() - t0,
+                              "step_seconds": [h["seconds"] for h in hist],
+                              "losses": [h["loss"] for h in hist],
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                              "launches": {k: v for k, v in flow_launches.items() if v}}
+        del state
+        torch.cuda.empty_cache()
+        require(len(hist) == FEW_STEP_STEPS and all(math.isfinite(h["loss"]) for h in hist),
+                f"flow training: {FEW_STEP_STEPS} finite losses {hist}")
+        want = {k: FEW_STEP_STEPS * v for k, v in few["flow_step"].items()}
+        require(flow_launches == want, f"flow training launches "
+                f"{runs['flow_train']['launches']} == { {k: v for k, v in want.items() if v} }")
+        with _kernel_shape_spies(shapes):
+            fpipe = Text2ImagePipeline(fcfg)
+            for module in (fpipe.unet, fpipe.vae, fpipe.clip):
+                randomize_params_(module, gen)
+            _run_twice(runs, "generate_flow", lambda: fpipe.generate(
+                prompts, num_steps=FLOW_STEPS, sampler="flow", guidance_scale=7.5, seed=2),
+                few["generate_flow"])
+            _run_twice(runs, "generate_flow_midpoint", lambda: fpipe.generate(
+                prompts, num_steps=FLOW_STEPS // 2, sampler="flow_midpoint",
+                guidance_scale=7.5, seed=2), few["generate_flow_midpoint"])
+            batcher = BatchingServer(fpipe, max_batch=2, batch_window_ms=10.0)
+            batcher.start()
+            try:
+                served = batcher.submit({"prompt": prompts[1], "steps": FLOW_STEPS,
+                                         "sampler": "flow", "seed": 4})
+            finally:
+                batcher.stop()
+            flow_img = decode_png(base64.b64decode(served["image"]))
+            require(flow_img.shape == (512, 512, 3) and flow_img.std() > 0,
+                    "the served flow request is answered")
+            del fpipe
+            torch.cuda.empty_cache()
+        held = _hold_edit_kernels(shapes, FEW_STEP_SEED, "few_step")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "few_step", "nvidia_smi": smi, "free_disk_gb": free_gb, "runs": runs,
+          "io": io, "checks": checks, "kernel_shapes_held": held,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"distill_run": distill_launches, "lora_run": lora_launches,
+            "flow_train": flow_launches,
+            **{name: r_["launches"] for name, r_ in runs.items() if name.startswith("generate")}}
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -4301,7 +4686,7 @@ def main() -> int:
     phase_parity()
     phase_parity(optin=True)
     phase_parity(serve=True)
-    launches, pipe, prompts, images = phase_e2e()
+    launches, pipe, prompts, images, e2e_seconds = phase_e2e()
     launches_optin = phase_e2e_optin(pipe, prompts, images)
     launches_serve, grouped = phase_serve(pipe, smi)
     launches_switches = phase_switch_combinations(pipe)
@@ -4327,6 +4712,7 @@ def main() -> int:
     train_run = phase_train_run(smi)
     image_edit = phase_image_edit(smi)
     adapters = phase_adapters(smi)
+    few_step = phase_few_step(smi, e2e_seconds)
     if profiling:
         phase_trainer_profiles()
 
@@ -4515,6 +4901,10 @@ def main() -> int:
                    if counts.get(name)}
         if steered:
             row["adapters_launches"] = steered
+        # ... and the few_step phase's
+        few = {entry: counts[name] for entry, counts in few_step.items() if counts.get(name)}
+        if few:
+            row["few_step_launches"] = few
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -12,8 +12,14 @@ training, argmin and EMA codebooks), and `ddpm_smoke_config()` /
 `vq_smoke_config()` the tiny `configs/ddpm_smoke.yaml` / `vq_smoke.yaml`,
 and `inpaint_128_config()` is `configs/inpaint_128_catdog.yaml` (the
 mask-conditioned inpainting LDM over a KL-f4 first stage) without its
-first-stage checkpoint, as dicts, so the port runs where PyYAML is not
-installed.
+first-stage checkpoint, `lcm512_distill_config()` is
+`configs/lcm_512_catdog.yaml` (consistency distillation of the SD-v1
+teacher) without its teacher run and first-stage checkpoint,
+`distill_smoke_config()` / `flow_smoke_config()` the tiny
+`configs/distill_smoke.yaml` / `flow_smoke.yaml`, and
+`flow512_train_config()` the SD-v1 training recipe under the flow smoke
+config's rectified-flow objective, as dicts, so the port runs where PyYAML
+is not installed.
 
 `load_config(spec)` takes the name of one of them (`sd_v1`, or
 `sd_v1_config`) or the path of a config file: `.json` through the standard
@@ -230,11 +236,97 @@ def inpaint_128_config() -> dict:
     }
 
 
+def lcm512_distill_config() -> dict:
+    """`configs/lcm_512_catdog.yaml` without `distill.teacher_run` and
+    `first_stage.ckpt`, which a run fills in: consistency distillation of a
+    trained 512² SD-v1 teacher (the `sd512_train_config()` model) into a
+    4-step student with CFG 7.5 baked in, 50 boundaries, a bf16 target
+    network at decay 0.95; bf16 parameters, fp32 Adam moments, remat
+    "dots", batch 4 as 4 microbatches of 1, lr 1e-5, clip 1."""
+    cfg = sd_v1_config()
+    cfg.update(task="distill", seed=7)
+    cfg["distill"] = {"num_boundaries": 50, "guidance_scale": 7.5,
+                      "target_ema_decay": 0.95, "sample_steps": 4}
+    cfg["latent"]["scale_factor"] = "auto"
+    cfg["data"] = {"captions": "class", "label_from": "filename_prefix",
+                   "template": "a photo of a {}"}
+    cfg["train"] = {"image_size": 512, "batch_size": 4, "param_dtype": "bfloat16",
+                    "remat": "dots", "grad_accum": 4, "lr": 1.0e-5, "grad_clip": 1.0,
+                    "total_steps": 1200, "eval_every": 300, "checkpoint_every": 600}
+    del cfg["sample"]
+    return cfg
+
+
+def _smoke_ldm(diffusion: dict) -> dict:
+    """The tiny text-to-image LDM of `configs/distill_smoke.yaml` and
+    `configs/flow_smoke.yaml`: latent 8²×4, UNet 32 × (1, 2) with attention
+    at level 1 and a 32-wide context, a KL f4 first stage (ch 16, (1, 2,
+    4)), a 32-wide 2-layer text tower of 16 tokens; 32² images, batch 2."""
+    return {
+        "seed": 0,
+        "diffusion": diffusion,
+        "latent": {"image_size": 8, "channels": 4, "scale_factor": 0.18215,
+                   "conditioning_key": "crossattn"},
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {"in_channels": 4, "model_channels": 32, "out_channels": 4,
+                            "num_res_blocks": 1, "attention_resolutions": [1],
+                            "channel_mult": [1, 2], "num_heads": 4, "context_dim": 32}},
+        "first_stage": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                        "params": {"embed_dim": 4, "ch": 16, "ch_mult": [1, 2, 4],
+                                   "num_res_blocks": 1, "attn_resolutions": [],
+                                   "resolution": 32, "z_channels": 4}},
+        "cond_stage": {"target": "sd_tpu.models.clip_text.ClipTextConfig",
+                       "params": {"vocab_size": 1000, "hidden_size": 32, "num_layers": 2,
+                                  "num_heads": 4, "max_length": 16}},
+    }
+
+
+def distill_smoke_config() -> dict:
+    """`configs/distill_smoke.yaml`: consistency distillation of the tiny
+    LDM (T = 50) over 10 boundaries, no CFG, target decay 0.9, 2-step eval
+    samples; 4 steps at lr 1e-4. `distill.teacher_run` is the YAML's
+    placeholder, which a run sets."""
+    cfg = _smoke_ldm({"timesteps": 50, "beta_schedule": "linear",
+                      "linear_start": 0.00085, "linear_end": 0.012})
+    cfg["task"] = "distill"
+    cfg["distill"] = {"teacher_run": "runs/ldm_smoke", "num_boundaries": 10,
+                      "guidance_scale": 1.0, "target_ema_decay": 0.9, "sample_steps": 2}
+    cfg["train"] = {"image_size": 32, "batch_size": 2, "lr": 1.0e-4, "total_steps": 4,
+                    "checkpoint_every": 4, "eval_every": 4}
+    return cfg
+
+
+_FLOW_DIFFUSION = {"type": "flow", "timesteps": 50, "shift": 1.0,
+                   "timestep_density": "logit_normal"}
+
+
+def flow_smoke_config() -> dict:
+    """`configs/flow_smoke.yaml`: the tiny LDM under the rectified-flow
+    objective (T = 50 lattice, shift 1, logit-normal weights), 4 steps at lr
+    1e-3, EMA 0.999; sampled with `flow`, 4 steps, no CFG."""
+    cfg = _smoke_ldm(dict(_FLOW_DIFFUSION))
+    cfg["task"] = "ldm"
+    cfg["train"] = {"image_size": 32, "batch_size": 2, "lr": 1.0e-3, "ema_decay": 0.999,
+                    "total_steps": 4, "checkpoint_every": 4}
+    cfg["sample"] = {"num_steps": 4, "sampler": "flow", "guidance_scale": 1.0}
+    return cfg
+
+
+def flow512_train_config() -> dict:
+    """`sd512_train_config()` (the SD-v1 recipe at 512²) with
+    `configs/flow_smoke.yaml`'s `diffusion:` block: the rectified-flow
+    objective at SD-v1 width (T = 50 lattice, logit-normal weights)."""
+    cfg = sd512_train_config()
+    cfg["diffusion"] = dict(_FLOW_DIFFUSION)
+    return cfg
+
+
 def config_functions() -> dict:
     """{name: config function} of every configuration above."""
     fns = (sd_v1_config, sd512_train_config, kl_f8_256_train_config, ddpm_256_train_config,
            ddpm_smoke_config, vq_128_train_config, vq_64_train_config, vq_smoke_config,
-           inpaint_128_config)
+           inpaint_128_config, lcm512_distill_config, distill_smoke_config, flow_smoke_config,
+           flow512_train_config)
     return {fn.__name__[:-len("_config")]: fn for fn in fns}
 
 

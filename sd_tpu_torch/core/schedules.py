@@ -5,8 +5,9 @@ float64 numpy and stored as float32 tensors, so they match the TPU package's
 exactly. Ported: the tables and methods of sampling (DDIM sub-schedules
 with uniform / quad / trailing / Karras striding, the x0 / ε / v coordinate
 changes, the posterior of the ancestral sampler) and of the training loss
-(`q_sample`, `get_v`, `lvlb_weights`); zero-terminal-SNR rescaling and
-`given_betas` are not ported yet.
+(`q_sample`, `get_v`, `lvlb_weights`), with `given_betas` and the
+zero-terminal-SNR rescaling (`rescale_zero_terminal_snr`, which needs the v
+or x0 parameterization).
 """
 
 from __future__ import annotations
@@ -48,6 +49,20 @@ def make_beta_schedule(
     else:
         raise ValueError(f"unknown beta schedule {schedule!r}")
     return betas
+
+
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Betas rescaled so the terminal SNR is exactly zero (Lin et al.,
+    arXiv:2305.08891 Algorithm 1): √ᾱ shifted and scaled so √ᾱ_T = 0 with
+    √ᾱ_1 kept, in float64. ε-prediction is undefined at ᾱ = 0, so
+    `DiffusionSchedule.create` takes it only with v or x0."""
+    betas = np.asarray(betas, dtype=np.float64)
+    abar_sqrt = np.sqrt(np.cumprod(1.0 - betas))
+    s_0, s_T = abar_sqrt[0], abar_sqrt[-1]
+    abar_sqrt = (abar_sqrt - s_T) * s_0 / (s_0 - s_T)
+    abar = abar_sqrt**2
+    alphas = np.concatenate([abar[:1], abar[1:] / abar[:-1]])
+    return 1.0 - alphas
 
 
 def make_ddim_timesteps(
@@ -165,10 +180,22 @@ class DiffusionSchedule:
         linear_start: float = 1e-4,
         linear_end: float = 2e-2,
         cosine_s: float = 8e-3,
+        given_betas: np.ndarray | None = None,
         parameterization: str = "eps",
+        zero_terminal_snr: bool = False,
     ) -> "DiffusionSchedule":
-        betas = make_beta_schedule(
-            beta_schedule, timesteps, linear_start, linear_end, cosine_s)
+        if given_betas is not None:
+            betas = np.asarray(given_betas, dtype=np.float64)
+        else:
+            betas = make_beta_schedule(
+                beta_schedule, timesteps, linear_start, linear_end, cosine_s)
+        if zero_terminal_snr:
+            # ᾱ_T becomes exactly 0, where x0 = (x − σε)/√ᾱ is undefined
+            if parameterization == "eps":
+                raise ValueError(
+                    "zero_terminal_snr requires parameterization='v' (or "
+                    "'x0'); eps is undefined at the zero-SNR terminal step")
+            betas = rescale_zero_terminal_snr(betas)
         alphas = 1.0 - betas
         alphas_cumprod = np.cumprod(alphas, axis=0)
         alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
@@ -186,14 +213,18 @@ class DiffusionSchedule:
             lvlb_weights = np.ones_like(betas)
         else:
             raise ValueError(f"unknown parameterization {parameterization!r}")
+        with np.errstate(divide="ignore"):
+            # inf at a zero-SNR terminal step, whose ε tables the guard excludes
+            sqrt_recip = np.sqrt(1.0 / alphas_cumprod)
+            sqrt_recipm1 = np.sqrt(1.0 / alphas_cumprod - 1.0)
         return cls(
             betas=_f32(betas),
             alphas_cumprod=_f32(alphas_cumprod),
             alphas_cumprod_prev=_f32(alphas_cumprod_prev),
             sqrt_alphas_cumprod=_f32(np.sqrt(alphas_cumprod)),
             sqrt_one_minus_alphas_cumprod=_f32(np.sqrt(1.0 - alphas_cumprod)),
-            sqrt_recip_alphas_cumprod=_f32(np.sqrt(1.0 / alphas_cumprod)),
-            sqrt_recipm1_alphas_cumprod=_f32(np.sqrt(1.0 / alphas_cumprod - 1.0)),
+            sqrt_recip_alphas_cumprod=_f32(sqrt_recip),
+            sqrt_recipm1_alphas_cumprod=_f32(sqrt_recipm1),
             posterior_variance=_f32(posterior_variance),
             posterior_log_variance_clipped=_f32(np.log(np.maximum(posterior_variance, 1e-20))),
             # Ho et al. eq. 7 (the paper-correct coef2, as the TPU package)

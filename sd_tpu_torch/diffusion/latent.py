@@ -5,17 +5,18 @@ Counterpart of `sd_tpu/diffusion/latent.py` on the text-to-image and
 image-editing paths: `apply_conditioned` with the `crossattn`, `concat` and
 `hybrid` keys, `get_input`, `training_loss` / `p_losses`,
 `LatentDiffusion.sample` with its sampler dispatch (ddim, dpm, dpm_sde,
-unipc, plms, euler, euler_a, heun, ddpm and `guidance_rescale`; the same
-errors for lcm / flow on an ε-model) followed by the decode,
+unipc, plms, euler, euler_a, heun, ddpm and `guidance_rescale`; lcm, the
+consistency student's sampler; flow and flow_midpoint, a flow model's
+only samplers and its default) followed by the decode,
 `calibrate_scale_factor`, and the overlapping-tile apply (`patched_apply`:
 sliding windows, the apply on every tile as one batch, border-weighted
 overlap-add in fp32) that tiles the first stage's decode and encode; a
 conditioning dict's `c_control` (ControlNet's hint) reaches the UNet apply
 as `control=`, its `c_ip` (IP-Adapter's image embedding) as `ip_embed=`;
 `sag_scale` > 0 takes DDIM's Self-Attention Guidance through the probe
-apply `unet_apply_probs` (diffusion/sag.py). The consistency sampler, flow
-models, the `adm` key, `get_input` for any key but `crossattn` and the
-coordinates-bbox patched apply are not ported yet.
+apply `unet_apply_probs` (diffusion/sag.py). The `adm` key, `get_input`
+for any key but `crossattn` and the coordinates-bbox patched apply are not
+ported yet.
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
 `torch.Generator`; a batch may carry the draws instead (`t`, `noise`, and
@@ -32,9 +33,11 @@ import torch
 
 from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.core.schedules import DiffusionSchedule
+from sd_tpu_torch.diffusion.consistency import ConsistencyDistiller
 from sd_tpu_torch.diffusion.ddim import DDIMSampler
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess, draw_training_noise
 from sd_tpu_torch.diffusion.dpm_solver import DPMSolverSampler
+from sd_tpu_torch.diffusion.flow import FlowEulerSampler, FlowProcess, FlowSchedule
 from sd_tpu_torch.diffusion.guidance import NoiseFn
 from sd_tpu_torch.diffusion.k_samplers import KDiffusionSampler
 from sd_tpu_torch.diffusion.plms import PLMSSampler
@@ -69,7 +72,7 @@ class LatentDiffusion:
     -> (prediction, SAG salience mask), the probe Self-Attention Guidance
     needs (`sag.make_probs_apply`)."""
 
-    process: DDPMProcess
+    process: DDPMProcess | FlowProcess
     unet_apply: Callable
     encode_fn: Callable | None = None
     decode_fn: Callable | None = None
@@ -78,7 +81,7 @@ class LatentDiffusion:
     unet_apply_probs: Callable | None = None
 
     @property
-    def schedule(self) -> DiffusionSchedule:
+    def schedule(self) -> DiffusionSchedule | FlowSchedule:
         return self.process.schedule
 
     def apply_model(self, x, t, cond):
@@ -153,48 +156,72 @@ class LatentDiffusion:
     def sample(self, shape: tuple[int, ...], x_T: torch.Tensor, cond: dict,
                uncond: dict | None = None, guidance_scale: float = 1.0,
                num_steps: int = 50, eta: float = 0.0,
-               generator: torch.Generator | None = None, sampler: str = "ddim",
+               generator: torch.Generator | None = None, sampler: str | None = None,
                guidance_rescale: float = 0.0, sag_scale: float = 0.0,
-               noise: NoiseFn | None = None, decode: bool = True) -> torch.Tensor:
-        """Sampling from x_T with `sampler` (the CFG branches go through one
-        batched model call; `eta` reaches DDIM only, `guidance_rescale` the
-        CFG samplers; the stochastic ones draw from `generator` or
-        `noise`), then the first-stage decode."""
+               noise: NoiseFn | None = None, decode: bool = True, **kw) -> torch.Tensor:
+        """Sampling from x_T with `sampler` (default "flow" for a flow model,
+        else "ddim"; the CFG branches go through one batched model call;
+        `eta` reaches DDIM only, `guidance_rescale` the CFG samplers; the
+        stochastic ones, lcm's re-noising among them, draw from `generator`
+        or `noise`), then the first-stage decode. A flow model takes only
+        "flow" / "flow_midpoint", and those only a flow model; "lcm" (or
+        "consistency") has no CFG branch, and takes `sigma_data`,
+        `timestep_scaling` and `num_boundaries` (defaults 0.5, 10, 50)."""
         param = self.process.parameterization
-        kw = dict(num_steps=num_steps, cond=cond, uncond=uncond,
-                  guidance_scale=guidance_scale, guidance_rescale=guidance_rescale)
+        is_flow = isinstance(self.process, FlowProcess)
+        if is_flow:
+            sampler = sampler or "flow"
+            if sampler not in ("flow", "flow_midpoint"):
+                raise ValueError(f"a flow-matching model needs sampler='flow' or "
+                                 f"'flow_midpoint', got {sampler!r}")
+        sampler = sampler or "ddim"
+        kw_cfg = dict(num_steps=num_steps, cond=cond, uncond=uncond,
+                      guidance_scale=guidance_scale, guidance_rescale=guidance_rescale)
         sag = {}
         if sag_scale > 0.0:
             if sampler != "ddim":
                 raise ValueError(f"sag_scale is only supported by the ddim sampler, "
                                  f"got sampler={sampler!r}")
             sag = dict(sag_scale=sag_scale, sag_probs_fn=self.model_probs_fn())
+        if sampler not in ("lcm", "consistency") and kw:
+            raise TypeError(f"sampler {sampler!r} got unexpected arguments {sorted(kw)}")
         if sampler in ("flow", "flow_midpoint"):
-            raise ValueError("sampler='flow' needs a FlowProcess model "
-                             "(diffusion.type: flow)")
-        if sampler in ("euler", "euler_a", "heun"):
+            if not is_flow:
+                raise ValueError("sampler='flow' needs a FlowProcess model "
+                                 "(diffusion.type: flow)")
+            z = FlowEulerSampler(self.schedule, method=(
+                "midpoint" if sampler == "flow_midpoint" else "euler")).sample(
+                self.apply_model, shape, x_T, num_steps=num_steps, cond=cond, uncond=uncond,
+                guidance_scale=guidance_scale)
+        elif sampler in ("euler", "euler_a", "heun"):
             z = KDiffusionSampler(self.schedule, order=sampler, parameterization=param).sample(
-                self.apply_model, shape, x_T, generator=generator, noise=noise, **kw)
+                self.apply_model, shape, x_T, generator=generator, noise=noise, **kw_cfg)
         elif sampler in ("dpm", "dpm_sde"):
             z = DPMSolverSampler(self.schedule, parameterization=param,
                                  sde=sampler == "dpm_sde").sample(
-                self.apply_model, shape, x_T, generator=generator, noise=noise, **kw)
+                self.apply_model, shape, x_T, generator=generator, noise=noise, **kw_cfg)
         elif sampler == "unipc":
             z = UniPCSampler(self.schedule, parameterization=param).sample(
-                self.apply_model, shape, x_T, **kw)
+                self.apply_model, shape, x_T, **kw_cfg)
         elif sampler in ("lcm", "consistency"):
+            # a consistency-distilled student: guidance was baked in
             if uncond is not None and guidance_scale != 1.0:
                 raise ValueError("lcm sampling has no CFG branch — guidance was baked "
                                  "in at distillation (distill.guidance_scale)")
-            raise NotImplementedError("the consistency sampler is not ported yet "
-                                      "(diffusion/consistency.py)")
+            z = ConsistencyDistiller(
+                self.schedule, parameterization=param,
+                sigma_data=kw.pop("sigma_data", 0.5),
+                timestep_scaling=kw.pop("timestep_scaling", 10.0),
+                num_boundaries=kw.pop("num_boundaries", 50)).sample(
+                self.apply_model, shape, x_T, num_steps=num_steps, cond=cond,
+                generator=generator, noise=noise, **kw)
         elif sampler == "plms":
             z = PLMSSampler(self.schedule, parameterization=param).sample(
-                self.apply_model, shape, x_T, **kw)
+                self.apply_model, shape, x_T, **kw_cfg)
         elif sampler == "ddim":
             z = DDIMSampler(self.schedule, parameterization=param).sample(
                 self.apply_model, shape, x_T, eta=eta, generator=generator, noise=noise,
-                **kw, **sag)
+                **kw_cfg, **sag)
         else:
             # ancestral sampling has no CFG path
             z = self.process.p_sample_loop(self.apply_model, shape, x_T, cond,

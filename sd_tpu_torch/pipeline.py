@@ -17,7 +17,9 @@ Counterpart of `sd_tpu/pipeline.py` `Text2ImagePipeline`:
   * `generate_hires`: a base pass, a host-side upscale, an img2img pass;
   * `set_unet_options` (ToMe, FreeU) and `load_textual_inversion`;
   * weights in and out: `from_sd_checkpoint` (an SD-v1 `.ckpt` or
-    `.safetensors`: UNet and first stage), `to_sd_checkpoint`, `from_run`;
+    `.safetensors`: UNet and first stage), `to_sd_checkpoint`, `from_run`
+    (a `train_ldm` run, a flow model's included, or a consistency-distilled
+    student, served with `sampler="lcm"`);
   * adapters: `load_lora` (merged into the UNet), `load_controlnet` and
     `generate(control_image=…)`, `load_ip_adapter` and
     `generate(ip_image=…)`; `generate(sag_scale=…)` (Self-Attention
@@ -52,10 +54,8 @@ import numpy as np
 import torch
 
 from sd_tpu_torch.core.config import resolve_device
-from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.data.image_io import resize
 from sd_tpu_torch.diffusion.ddim import DDIMSampler
-from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.guidance import NoiseFn
 from sd_tpu_torch.diffusion.latent import LatentDiffusion, patched_apply
 from sd_tpu_torch.diffusion.sag import make_probs_apply
@@ -70,21 +70,15 @@ from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.utils.prompt_weights import (apply_prompt_weights, parse_weighted_prompt,
                                                tokenize_weighted)
 from sd_tpu_torch.train import checkpoint
+from sd_tpu_torch.train.checkpoint import trained_weights
 from sd_tpu_torch.train.lora import load_lora_safetensors, merge_lora
-from sd_tpu_torch.train.runners import build_first_stage, copy_named_, first_stage_fns
+from sd_tpu_torch.train.runners import (build_first_stage, build_process, copy_named_,
+                                        first_stage_fns)
 from sd_tpu_torch.train.textual_inversion import (expand_placeholder, patch_embedding_rows,
                                                   placeholder_ids)
 from sd_tpu_torch.utils.safetensors_io import load_safetensors
 from sd_tpu_torch.utils.watermark import embed_watermark, str_to_bits
 from sd_tpu_torch.weights import init_params_, load_flax_params
-
-
-def trained_weights(tree: dict):
-    """A run checkpoint's weights: the EMA shadow where it keeps one, else
-    its parameters."""
-    ema = tree.get("ema")
-    return (ema["shadow"] if isinstance(ema, dict) and ema.get("shadow") is not None
-            else tree["params"])
 
 
 def load_weights_(module: torch.nn.Module, tree: dict, what: str) -> None:
@@ -130,12 +124,11 @@ class Text2ImagePipeline:
         self._ti_expansions: dict[str, str] = {}      # load_textual_inversion
         self.controlnet, self.control_scale = None, 1.0           # load_controlnet
         self.ip_params, self.ip_scale, self.ip_embedder = None, 1.0, None  # load_ip_adapter
-        diff = dict(cfg.get("diffusion", {}))
         lat = cfg["latent"]
         self.ld = LatentDiffusion(
-            # x0 unclamped, as sd_tpu's pipeline process (`build_ldm`)
-            process=DDPMProcess(DiffusionSchedule.create(**diff), clip_denoised=False,
-                                parameterization=diff.get("parameterization", "eps")),
+            # the process `build_ldm` builds (a DDPM schedule, x0 unclamped,
+            # or the rectified-flow objective)
+            process=build_process(cfg),
             unet_apply=self._in_dtype(self.unet),
             unet_apply_probs=self._in_dtype(make_probs_apply(self.unet)),
             encode_fn=lambda x: encode(x.to(self.dtype)),
@@ -150,8 +143,9 @@ class Text2ImagePipeline:
     def from_run(cls, config: dict | str, run_dir: str,
                  param_dtype: torch.dtype | None = torch.bfloat16,
                  device=None) -> "Text2ImagePipeline":
-        """The pipeline of a `train_ldm` run (`python -m sd_tpu_torch.train`'s
-        output directory): the UNet's EMA weights (else its parameters) from
+        """The pipeline of a `train_ldm` or `distill_ldm` run (`python -m
+        sd_tpu_torch.train`'s output directory; a distill run's EMA is the
+        student's target network): the UNet's EMA weights (else its parameters) from
         the run's latest checkpoint, read on the CPU from the mapped file,
         the first stage from the config's `first_stage.ckpt`, and the
         `calibration.json` scale factor under `scale_factor: auto`; every
@@ -442,7 +436,10 @@ class Text2ImagePipeline:
                  sag_scale: float = 0.0, ip_image=None, watermark: str | None = None,
                  watermark_bits: int = 48, watermark_key: int = 0) -> np.ndarray:
         """prompts → uint8 images [B, H, W, 3]. `sampler`: ddim, dpm,
-        dpm_sde, unipc, plms, euler, euler_a, heun or ddpm; `height` /
+        dpm_sde, unipc, plms, euler, euler_a, heun or ddpm; lcm for a
+        consistency-distilled student (2–4 steps, `guidance_scale` 1: the
+        guidance was baked in at distillation); flow or flow_midpoint for a
+        flow model, which takes no other; `height` /
         `width` in pixels (multiples of 64 for SD-v1; default the config's
         square size); `clip_skip` conditions on an earlier CLIP hidden state;
         prompts may carry `(emphasis)` / `(word:1.3)` / `[de-emphasis]`;

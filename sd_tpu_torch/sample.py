@@ -38,7 +38,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="text prompt(s) (ldm task; ignored for task: ddpm)")
     ap.add_argument("--sampler", default=None, choices=SAMPLERS,
                     help="ddpm task: ancestral (default) or ddim; ldm task: ddim "
-                         "(default) or another of the pipeline's samplers")
+                         "(default; flow for a flow model) or another of the "
+                         "pipeline's samplers (lcm for a distilled student)")
     ap.add_argument("--negative-prompt", default="")
     ap.add_argument("--ckpt", default=None, help="a run's ckpt/ directory (else random)")
     ap.add_argument("--out", default="samples.png")
@@ -90,6 +91,7 @@ def main(argv: list[str] | None = None) -> int:
         save_image_grid(img.float().cpu().numpy(), args.out)
         return 0
 
+    from sd_tpu_torch.diffusion.flow import FlowProcess
     from sd_tpu_torch.img2img import load_pipeline
 
     pipe = load_pipeline(cfg, args.ckpt, dtype, args.device)
@@ -102,7 +104,8 @@ def main(argv: list[str] | None = None) -> int:
     gs = args.guidance_scale if args.guidance_scale is not None else sc.get("guidance_scale",
                                                                              7.5)
     eta = args.eta if args.eta is not None else sc.get("eta", 0.0)
-    sampler = args.sampler or sc.get("sampler", "ddim")
+    sampler = args.sampler or ("flow" if isinstance(pipe.ld.process, FlowProcess)
+                               else sc.get("sampler", "ddim"))
     adapters = {}
     if args.controlnet:
         from sd_tpu_torch.data.hints import edge_hint

@@ -36,6 +36,14 @@ are random from the config's seed. `--lora FILE` merges a `.safetensors` LoRA
 (`set_unet_options`). Sharding (`--shard`) is not ported yet.
 
     python -m sd_tpu_torch.serve --config runs/ldm/config.json --run runs/ldm
+
+A consistency-distilled student (`python -m sd_tpu_torch.train` with `task:
+distill`) serves its `--run` with `--sampler lcm` (requests at 2–4 steps,
+"guidance_scale": 1.0); a flow model (`diffusion.type: flow`) with
+`--sampler flow` or `flow_midpoint`:
+
+    python -m sd_tpu_torch.serve --config runs/lcm/config.json --run runs/lcm \
+        --sampler lcm --steps 4
     python -m sd_tpu_torch.serve --config sd_v1 --sd-checkpoint v1-5.safetensors \
         --lora style.safetensors --tome 0.5 --freeu 1.2,1.4,0.9,0.2
 """
@@ -59,9 +67,10 @@ from sd_tpu_torch.data.image_io import decode_png, encode_png  # noqa: F401 (re-
 
 ALLOWED_SAMPLERS = ("ddim", "dpm", "dpm_sde", "unipc", "plms", "euler",
                     "euler_a", "heun", "ddpm",
-                    # consistency students and flow-matching models: the
-                    # model-family guards in LatentDiffusion.sample reject a
-                    # mismatched request with a clear error
+                    # a consistency-distilled student (lcm, guidance_scale 1)
+                    # and a flow model (flow, flow_midpoint); the model-family
+                    # guards in LatentDiffusion.sample answer a mismatched
+                    # request with a ValueError
                     "lcm", "flow", "flow_midpoint")
 
 def _png_b64(img: np.ndarray) -> str:

@@ -1,18 +1,23 @@
 """Train a configuration: `python -m sd_tpu_torch.train`.
 
 Counterpart of `scripts/train.py`: dispatches on the config's `task` to
-`train_ddpm`, `train_kl_vae`, `train_vq` or `train_ldm`, reads images from
-`--data`, writes the run (checkpoints under `ckpt/`, `metrics.jsonl`,
+`train_ddpm`, `train_kl_vae`, `train_vq`, `train_ldm` (a flow model's
+too, `diffusion.type: flow`) or `distill_ldm` (`task: distill`: a
+finished LDM run, `distill.teacher_run`, distilled into a few-step
+consistency student, or into an LCM-LoRA with `distill.lora_rank`),
+reads images from `--data`, writes the run (checkpoints under `ckpt/`, `metrics.jsonl`,
 `samples/`, `calibration.json`, and the config it ran as `config.json`) to
 `--out` (default `runs/<task>`), and resumes from its latest checkpoint.
 Runs on the card unless `--device cpu` (the counterpart of `--platform`).
 
     python -m sd_tpu_torch.train --config kl_f8_256_train --data imgs/ --out runs/kl
     python -m sd_tpu_torch.train --config runs/ldm.json --data imgs/ --out runs/ldm
+    python -m sd_tpu_torch.train --config runs/lcm.json --data imgs/ --out runs/lcm
 
-`--config` is a config function's name (`core/config.py`) or a .json /
-.yaml file. The other tasks of `scripts/train.py` (ldm_sr, ldm_inpaint,
-textual_inversion, dreambooth, distill) are not ported yet.
+`--config` is a config function's name (`core/config.py`, e.g.
+`lcm512_distill`, whose `distill.teacher_run` a .json copy sets) or a .json
+/ .yaml file. The other tasks of `scripts/train.py` (ldm_sr, ldm_inpaint,
+textual_inversion, dreambooth) are not ported yet and exit with 2.
 """
 
 from __future__ import annotations
@@ -36,14 +41,15 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     from sd_tpu_torch.core.config import load_config
-    from sd_tpu_torch.train import runners
+    from sd_tpu_torch.train import distill, runners
 
     cfg = load_config(args.config)
     if args.annotations:
         cfg["annotation_file"] = args.annotations
     task = cfg.get("task")
     run = {"ddpm": runners.train_ddpm, "kl_vae": runners.train_kl_vae,
-           "vq": runners.train_vq, "ldm": runners.train_ldm}.get(task)
+           "vq": runners.train_vq, "ldm": runners.train_ldm,
+           "distill": distill.distill_ldm}.get(task)
     if run is None:
         print(f"sd_tpu_torch.train: task {task!r} is not ported yet", file=sys.stderr)
         return 2

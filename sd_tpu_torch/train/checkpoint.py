@@ -96,6 +96,14 @@ def restore_tree(ckpt_dir: str, step: int | None = None) -> dict:
     return torch.load(_path(ckpt_dir, step), map_location="cpu", weights_only=True, mmap=True)
 
 
+def trained_weights(tree: dict):
+    """A run checkpoint's weights: the EMA shadow where it keeps one, else
+    its parameters."""
+    ema = tree.get("ema")
+    return (ema["shadow"] if isinstance(ema, dict) and ema.get("shadow") is not None
+            else tree["params"])
+
+
 def _copy_into(live: Any, saved: Any, where: str) -> Any:
     """Copy `saved` into `live` in place where it holds tensors; returns
     the value the parent should hold (the saved number for numbers)."""

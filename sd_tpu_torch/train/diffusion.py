@@ -116,10 +116,16 @@ class TrainState:
 
 def init_train_state(params: dict[str, torch.Tensor], optimizer: Adam,
                      ema_decay: float | None = 0.9999,
-                     num_timesteps: int | None = None) -> TrainState:
-    """The training state over `params` (made to require grad), with an
-    fp32 EMA shadow and, when `num_timesteps` is given, the [T] logvar
-    table the loss reads (zeros, not trained: learning it is not ported)."""
+                     num_timesteps: int | None = None,
+                     param_dtype: torch.dtype | None = None,
+                     ema_dtype: torch.dtype = torch.float32) -> TrainState:
+    """The training state over `params` (made to require grad), with an EMA
+    shadow in `ema_dtype` and, when `num_timesteps` is given, the [T] logvar
+    table the loss reads (zeros, not trained: learning it is not ported).
+    With `param_dtype` the floating parameters are cast to it first (a
+    tensor already in that dtype is kept, so a module's own parameters stay
+    its own)."""
+    params = cast_floating(params, param_dtype)
     for p in params.values():
         p.requires_grad_(True)
     device = next(iter(params.values())).device
@@ -127,17 +133,22 @@ def init_train_state(params: dict[str, torch.Tensor], optimizer: Adam,
               else torch.zeros(num_timesteps, dtype=torch.float32, device=device))
     return TrainState(
         params=params, opt_state=optimizer.init(list(params.values())),
-        ema=ema_init(params, ema_decay) if ema_decay is not None else None,
+        ema=ema_init(params, ema_decay, dtype=ema_dtype) if ema_decay is not None else None,
         logvar=logvar)
 
 
-def _split(batch: dict, n: int) -> list[dict]:
-    """The batch as `n` microbatches along dim 0 (tensors and lists)."""
-    size = len(next(iter(batch.values())))
-    if size % n:
-        raise ValueError(f"batch of {size} does not split into grad_accum={n}")
-    m = size // n
-    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()} for i in range(n)]
+def _split(batch, n: int) -> list:
+    """The batch as `n` microbatches along dim 0: each tensor split by rows,
+    dicts and lists of tensors (a conditioning dict) leaf by leaf."""
+    if isinstance(batch, dict):
+        parts = {k: _split(v, n) for k, v in batch.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(batch, (list, tuple)):
+        parts = [_split(v, n) for v in batch]
+        return [[p[i] for p in parts] for i in range(n)]
+    if batch.shape[0] % n:
+        raise ValueError(f"batch of {batch.shape[0]} does not split into grad_accum={n}")
+    return list(batch.chunk(n))
 
 
 def make_diffusion_train_step(

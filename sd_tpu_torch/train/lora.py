@@ -1,11 +1,14 @@
-"""LoRA, the inference half: low-rank updates merged into a module's
-weights (Hu et al., arXiv:2106.09685).
+"""LoRA: low-rank updates merged into a module's weights (Hu et al.,
+arXiv:2106.09685).
 
 Counterpart of `sd_tpu/train/lora.py` (`lora_targets`, `init_lora`,
-`merge_lora`, `save_lora_safetensors`, `load_lora_safetensors`; the LoRA
-trainer is not ported yet). A factor tree maps each adapted kernel's
-checkpoint key to {"a": [in, r], "b": [r, out]}, in the TPU package's names
-and layout: the key is the flax path of the Dense kernel
+`merge_lora`, `count_lora_params`, `save_lora_safetensors`,
+`load_lora_safetensors`; `merged_kernels` is the merge that carries
+gradients to the factors, for the LCM-LoRA distillation of
+`train/distill.py`; `train_ldm`'s LoRA trainer is not ported yet). A factor
+tree maps each adapted kernel's checkpoint key to {"a": [in, r], "b": [r,
+out]}, in the TPU package's names and layout: the key is the flax path of
+the Dense kernel
 (`['in_0_0_attn']['block_0']['attn1']['to_q']['kernel']` →
 `in_0_0_attn_block_0_attn1_to_q_kernel`), and a·b is a flax kernel [in,
 out], so a file that either package wrote loads into the other. The port's
@@ -73,20 +76,47 @@ def init_lora(module: nn.Module, rank: int, generator: torch.Generator,
     return flat
 
 
+def merged_kernels(module: nn.Module, lora: Mapping[str, Mapping[str, torch.Tensor]],
+                   scale: float = 1.0) -> dict[str, torch.Tensor]:
+    """{parameter name: base + scale·(a·b)ᵀ} for every adapted kernel of
+    `module` (new tensors, differentiable in the factors: the LCM-LoRA
+    student's weights, applied with `torch.func.functional_call`)."""
+    out = {}
+    for path, (name, w) in dense_kernels(module).items():
+        pair = lora.get(_key(path))
+        if pair is None:
+            continue
+        a, b = pair["a"].to(w.device), pair["b"].to(w.device)
+        delta = (a.float() @ b.float()).to(a.dtype) * scale
+        out[name] = (w.detach().float() + delta.float().T).to(w.dtype)
+    return out
+
+
 def merge_lora(module: nn.Module, lora: Mapping[str, Mapping[str, torch.Tensor]],
                scale: float = 1.0) -> dict[str, torch.Tensor]:
     """{parameter name: tensor} of `module` with base + scale·(a·b)ᵀ on every
     adapted kernel (new tensors) and every other parameter as it is."""
-    out = dict(module.named_parameters())
     with torch.no_grad():
-        for path, (name, w) in dense_kernels(module).items():
-            pair = lora.get(_key(path))
-            if pair is None:
-                continue
-            a, b = pair["a"].to(w.device), pair["b"].to(w.device)
-            delta = (a.float() @ b.float()).to(a.dtype) * scale
-            out[name] = (w.float() + delta.float().T).to(w.dtype)
+        return {**dict(module.named_parameters()), **merged_kernels(module, lora, scale)}
+
+
+def flat_lora(lora: Mapping[str, Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """A factor tree as {"<key>.a": a, "<key>.b": b} (a training state's
+    parameters by name)."""
+    return {f"{k}.{leaf}": pair[leaf] for k, pair in lora.items() for leaf in ("a", "b")}
+
+
+def nest_lora(flat: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of `flat_lora`."""
+    out: dict = {}
+    for name, v in flat.items():
+        base, leaf = name.rsplit(".", 1)
+        out.setdefault(base, {})[leaf] = v
     return out
+
+
+def count_lora_params(lora: Mapping[str, Mapping[str, torch.Tensor]]) -> int:
+    return sum(t.numel() for pair in lora.values() for t in pair.values())
 
 
 def save_lora_safetensors(path: str, lora: Mapping[str, Mapping[str, torch.Tensor]],

@@ -29,8 +29,9 @@ recipe, `configs/sd512_catdog.yaml`): CLIP text embedding with caption
 dropout, the frozen first stage (a KL posterior sample or a VQ model's
 latent before quantization; trained weights from `first_stage.ckpt`, a KL
 or VQ run's checkpoint directory), `scale_factor: auto` calibrated on the
-first batch and written to `out_dir/calibration.json`, DDPM ε-loss through
-the UNet, gradient accumulation, global-norm clip, Adam (fp32 moments under
+first batch and written to `out_dir/calibration.json`, the process's loss
+through the UNet (the DDPM ε / v / x0 loss, or the rectified-flow velocity
+loss of `diffusion.type: flow`; `build_process`), gradient accumulation, global-norm clip, Adam (fp32 moments under
 bf16 parameters), fp32 EMA, remat. Its LoRA, ControlNet, IP-Adapter and
 trainable-cond-stage branches are not ported yet. `train_ddpm` trains the
 pixel-space UNetDDPM under the DDPM ε-loss (capability config #1),
@@ -57,6 +58,7 @@ from sd_tpu_torch.core.config import load_config, resolve_device
 from sd_tpu_torch.core.ema import ema_copy_to
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess, draw_training_noise
+from sd_tpu_torch.diffusion.flow import FlowProcess, FlowSchedule
 from sd_tpu_torch.diffusion.latent import LatentDiffusion, calibrate_scale_factor
 from sd_tpu_torch.losses.gan import GanLossConfig
 from sd_tpu_torch.models.autoencoder import AutoencoderKL, VQModel
@@ -378,6 +380,28 @@ class TextEmbedder:
         return self.clip(ids.to(device))
 
 
+def build_process(cfg: dict, device=None) -> DDPMProcess | FlowProcess:
+    """The latent-diffusion process of the config's `diffusion:` block, as
+    `build_ldm` and `Text2ImagePipeline` both build it: `type: flow` the
+    rectified-flow objective (`timesteps`, `shift`, `timestep_density`,
+    `logit_mean`, `logit_std`), else the DDPM schedule (`given_betas` and
+    `zero_terminal_snr` among its keys) with x0 unclamped and the optional
+    min-SNR-γ weight; the tables on `device` (default the CPU)."""
+    diff = dict(cfg.get("diffusion", {}))
+    min_snr = diff.pop("min_snr_gamma", None)
+    if diff.pop("type", "ddpm") == "flow":
+        return FlowProcess(
+            FlowSchedule(num_timesteps=diff.get("timesteps", 1000),
+                         shift=float(diff.get("shift", 1.0))),
+            timestep_density=diff.get("timestep_density", "uniform"),
+            logit_mean=float(diff.get("logit_mean", 0.0)),
+            logit_std=float(diff.get("logit_std", 1.0)))
+    sched = DiffusionSchedule.create(**diff)
+    return DDPMProcess(sched if device is None else sched.to(device), clip_denoised=False,
+                       parameterization=diff.get("parameterization", "eps"),
+                       min_snr_gamma=min_snr)
+
+
 def build_ldm(cfg: dict, generator: torch.Generator,
               param_dtype: torch.dtype = torch.float32, device=None):
     """The text-to-image latent-diffusion stack of `cfg`, every weight from
@@ -394,16 +418,9 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     clip = ClipTextTransformer(clip_cfg, device=device).eval()
     init_params_(clip, generator)
 
-    diff = dict(cfg.get("diffusion", {}))
-    min_snr = diff.pop("min_snr_gamma", None)
-    if diff.pop("type", "ddpm") != "ddpm":
-        raise NotImplementedError("the flow-matching objective is not ported yet")
-    process = DDPMProcess(DiffusionSchedule.create(**diff).to(device), clip_denoised=False,
-                          parameterization=diff.get("parameterization", "eps"),
-                          min_snr_gamma=min_snr)
     encode_fn, decode_fn = first_stage_fns(vae)
     ld = LatentDiffusion(
-        process=process, unet_apply=unet, encode_fn=encode_fn, decode_fn=decode_fn,
+        process=build_process(cfg, device), unet_apply=unet, encode_fn=encode_fn, decode_fn=decode_fn,
         conditioning_key=lat.get("conditioning_key", "crossattn"),
         # "auto": std-rescaled on the first batch, in train_ldm
         scale_factor=(1.0 if lat.get("scale_factor") == "auto"

@@ -8,7 +8,8 @@ own draws through the port's `noise(index, shape)` hook. Tolerance:
 max|Δ| ≤ 1e-4·max(1, max|ref|) (`MODULE_TOL`).
 
 Also: `apply_cfg` with `guidance_rescale`, the Karras and trailing
-timestep stridings, and `LatentDiffusion.sample`'s dispatch and errors.
+timestep stridings, and `LatentDiffusion.sample`'s dispatch and errors,
+the consistency (lcm) sampler on an ε-model among them.
 """
 
 from __future__ import annotations
@@ -239,7 +240,8 @@ def test_latent_sample_dispatches(data, sampler):
 
 def test_latent_sample_errors(data):
     """The same kinds of error as the JAX package: flow and lcm-with-CFG raise
-    ValueError on an SD (ε) model, SAG with another sampler ValueError, and
+    ValueError on an SD (ε) model (lcm without CFG runs:
+    `test_latent_sample_lcm_matches_sd_tpu`), SAG with another sampler ValueError, and
     SAG without a probe apply (`unet_apply_probs`) ValueError; with one it
     runs, and is DDIM's SAG sample on the routed probe."""
     x_T, cond, uncond = (to_torch(a) for a in data)
@@ -262,6 +264,31 @@ def test_latent_sample_errors(data):
         uncond={"c_crossattn": [uncond]}, guidance_scale=5.0, sag_scale=0.5,
         sag_probs_fn=ld.model_probs_fn())
     assert torch.equal(got, want)
+
+
+def test_latent_sample_lcm_matches_sd_tpu(data):
+    """`LatentDiffusion.sample(sampler="lcm")` without CFG (guidance 1, the
+    unconditional branch unused) on an ε-model against the JAX package's,
+    4 consistency steps over 50 boundaries, each call's fresh noise replayed
+    from the JAX key stream (the last call's drawn and unused)."""
+    from sd_tpu.diffusion import latent as jlatent
+
+    x_T, cond, uncond = data
+    js, _ = schedules()
+    jld = jlatent.LatentDiffusion(process=jddpm.DDPMProcess(js),
+                                  unet_apply=lambda p, x, t, ctx, **kw: jax_model(x, t, ctx))
+    rng = jax.random.PRNGKey(11)
+    ref = jld.sample(None, rng, SHAPE, cond={"c_crossattn": [jnp.asarray(cond)]},
+                     uncond={"c_crossattn": [jnp.asarray(uncond)]}, guidance_scale=1.0,
+                     num_steps=4, sampler="lcm", decode=False, x_T=jnp.asarray(x_T))
+    key, draws = _split2(rng)[0], []
+    for _ in range(4):
+        key, nkey = _split2(key)
+        draws.append(to_torch(np.asarray(_normal(nkey))))
+    got = _latent().sample(SHAPE, to_torch(x_T), {"c_crossattn": [to_torch(cond)]},
+                           {"c_crossattn": [to_torch(uncond)]}, guidance_scale=1.0, num_steps=4,
+                           sampler="lcm", noise=lambda k, shape: draws[k], decode=False)
+    assert_close(got, ref, MODULE_TOL)
 
 
 def test_pipeline_ddpm_generate_matches_sd_tpu():

@@ -419,6 +419,44 @@ def test_served_sag_request_is_answered():
     assert not np.array_equal(want, pipe.generate(["a red cube"], num_steps=4, seed=3))
 
 
+@pytest.mark.parametrize("family,sampler", [("eps", "lcm"), ("flow", "flow"),
+                                            ("flow", "flow_midpoint")])
+def test_served_few_step_requests_are_answered(family, sampler):
+    """A consistency student's `lcm` request (guidance 1: the guidance was
+    baked in) and a flow model's `flow` / `flow_midpoint` requests, over
+    HTTP, are answered with the image of the pipeline's generate; the
+    mismatched request (lcm on the flow model, flow on the ε-model) gets the
+    JAX package's ValueError."""
+    from sd_tpu_torch.weights import randomize_params_
+
+    cfg = tiny_config()
+    if family == "flow":
+        cfg["diffusion"] = {"type": "flow", "timesteps": 50, "shift": 3.0}
+    pipe = Text2ImagePipeline(cfg, device="cpu", param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(9)
+    for module in (pipe.unet, pipe.vae, pipe.clip):
+        randomize_params_(module, gen)
+    gs = 1.0 if sampler == "lcm" else 4.0
+    other = "flow" if sampler == "lcm" else "lcm"
+    batcher, server, url = _serve(pipe, max_batch=2)
+    batcher.start()
+    try:
+        ok = _post(url, {"prompt": "a red cube", "steps": 3, "seed": 3, "sampler": sampler,
+                         "guidance_scale": gs})
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(url, {"prompt": "a red cube", "steps": 3, "seed": 3, "sampler": other,
+                        "guidance_scale": 1.0})
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    assert err.value.code == 500 and "ValueError" in json.loads(err.value.read())["error"]
+    want = pipe.generate(["a red cube"], negative_prompt=[""], num_steps=3, seed=3,
+                         sampler=sampler, guidance_scale=gs)
+    np.testing.assert_array_equal(_png(ok["image"]), want[0])
+    assert want.std() > 0
+
+
 class Recording:
     """A pipeline wrapper that keeps the prompts of every batch it ran."""
 

@@ -46,7 +46,11 @@
   for the CPU;
 * `sd_v1_config()` is `configs/sd_txt2img.yaml`, `sd512_train_config()`
   is `configs/sd512_catdog.yaml` without the first-stage checkpoint and
-  `kl_f8_256_train_config()` is `configs/kl_f8_256_catdog.yaml`.
+  `kl_f8_256_train_config()` is `configs/kl_f8_256_catdog.yaml`; the few-step
+  configs are theirs;
+* the pieces of a consistency-distillation step and of the few-step
+  samplers at full width on `meta` tensors give the launches
+  `chip_smoke.py`'s few_step phase requires.
 """
 
 from __future__ import annotations
@@ -1043,6 +1047,80 @@ def test_adapter_launches(tpu_gates, monkeypatch):
                             "geglu_sm90": 4}
 
 
+def test_few_step_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s few_step launches, piece by piece on `meta` tensors
+    with every gate checked against the JAX package's: an inference UNet
+    call at the rows the phase gives it (the teacher's CFG pair of a
+    microbatch-4 batch: 8; the samplers' 2 and 4, `EXPECTED_LAUNCHES`), the
+    same 10 head-packed and 10 GEGLU launches; the target network's no-grad
+    forward inside the training step (1 row, the JAX training context
+    entered with the port's); the bf16 decoder and the fp32 first stage. A
+    distillation step of batch 4 in 4 microbatches is the teacher's call and
+    4 × (a target forward + a `train_ldm` microbatch's forward and backward,
+    `test_training_step_gates_and_launches`); a `flow512_train_config()` step
+    is `train_ldm`'s (the flow objective changes the loss's target, not the
+    UNet's passes). Each entry point's total equals FEW_STEP_LAUNCHES."""
+    from sd_tpu_torch.core.config import flow512_train_config, lcm512_distill_config
+    from sd_tpu_torch.kernels import conv2d as port_conv
+    from sd_tpu_torch.train import distill
+
+    calls = _count_kernel_calls(monkeypatch)
+    plans = _spy_plans(monkeypatch)
+    flash = {"_inference", "flash_attention_hpacked"}
+
+    def piece(fn) -> Counter:
+        before, n = Counter(calls), len(plans)
+        with torch.no_grad():
+            fn()
+        got = Counter({k: v - before[k] for k, v in calls.items() if k not in flash})
+        got["geglu_sm90"] = got["geglu_ff"]          # every GEGLU launch runs geglu_sm90.cu
+        return +got + _plan_launches(plans[n:])
+
+    meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+    cfg = lcm512_distill_config()
+    unet = UNetModel(**UNET, **BF16)
+    args = lambda b: (meta(b, 64, 64, 4, dtype=torch.bfloat16), meta(b, dtype=torch.long),
+                      {"c_crossattn": [meta(b, 77, 768)]})
+    calls_by_rows = {b: piece(lambda: distill.unet_fn(unet, dict(unet.named_parameters()))(
+        *args(b))) for b in (2, 8)}
+    shadow = {n: torch.empty_like(p) for n, p in unet.named_parameters()}
+
+    def target():
+        with port_conv.training_trace(), jconv.training_trace():
+            distill.unet_fn(unet, shadow)(*args(1))
+
+    target_call = piece(target)
+    decode = piece(lambda: AutoencoderKL(**VAE, **BF16).decode(meta(2, 64, 64, 4)))
+    fp32_vae = AutoencoderKL(**VAE, dtype=torch.float32, device="meta")
+    first_stage = (piece(lambda: fp32_vae.encode(meta(4, 512, 512, 3)))
+                   + piece(lambda: fp32_vae.decode(meta(4, 64, 64, 4))))
+    unet_call = calls_by_rows[2]
+    assert calls_by_rows[8] == unet_call and not first_stage
+    assert dict(target_call) == {"flash_attention": 10, "flash_fwd_sm90": 10, "geglu_ff": 5,
+                                 "geglu_sm90": 5}
+
+    times = lambda n, c: Counter({k: n * v for k, v in c.items()})
+    accum = cfg["train"]["grad_accum"]
+    train_step = Counter({k: v for k, v in chip_smoke.EXPECTED_TRAIN_LAUNCHES.items() if v})
+    assert accum == sd512_train_config()["train"]["grad_accum"]
+    assert flow512_train_config()["train"] == sd512_train_config()["train"]
+    steps, flow_steps = chip_smoke.LCM_STEPS, chip_smoke.FLOW_STEPS
+    assert steps == cfg["distill"]["sample_steps"]
+    distill_step = unet_call + times(accum, target_call) + train_step
+    derived = {"distill_step": distill_step,
+               # LCM-LoRA runs the same module on merged weights of the same
+               # shapes and dtype: the same launches
+               "lora_step": distill_step,
+               "distill_eval": times(steps, unet_call) + first_stage,
+               "flow_step": train_step,
+               "generate_lcm": times(steps, unet_call) + decode,
+               "generate_flow": times(flow_steps, unet_call) + decode,
+               "generate_flow_midpoint": times(2 * (flow_steps // 2), unet_call) + decode}
+    want = {name: {k: v for k, v in counts.items() if v}
+            for name, counts in chip_smoke.FEW_STEP_LAUNCHES.items()}
+    assert {name: dict(c) for name, c in derived.items()} == want
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
@@ -1050,7 +1128,8 @@ def test_launch_counters_are_chip_smokes_kernels():
                  chip_smoke.EXPECTED_TRAIN_LAUNCHES, chip_smoke.EXPECTED_KLVAE_LAUNCHES,
                  chip_smoke.EXPECTED_VQ_LAUNCHES, chip_smoke.KL_RUN_EVAL_LAUNCHES,
                  chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES, chip_smoke.ENCODER_512_LAUNCHES,
-                 *chip_smoke.IMAGE_EDIT_LAUNCHES.values()):
+                 *chip_smoke.IMAGE_EDIT_LAUNCHES.values(), *chip_smoke.ADAPTER_LAUNCHES.values(),
+                 *chip_smoke.FEW_STEP_LAUNCHES.values()):
         assert set(want) == set(kernels.LAUNCHES)
 
 
@@ -1130,6 +1209,31 @@ def test_inpaint_128_config_is_the_yaml():
         want = yaml.safe_load(f)
     del want["first_stage"]["ckpt"]    # the trained KL-f4 run is not in the repository
     assert inpaint_128_config() == want
+
+
+@pytest.mark.parametrize("name,drop", [("lcm_512_catdog", ("distill.teacher_run",
+                                                             "first_stage.ckpt")),
+                                       ("distill_smoke", ()), ("flow_smoke", ())])
+def test_few_step_configs_are_the_yaml(name, drop):
+    """`lcm512_distill_config()` is `configs/lcm_512_catdog.yaml` less what a
+    run fills in (its teacher run, the trained first stage);
+    `distill_smoke_config()` and `flow_smoke_config()` are their YAML;
+    `flow512_train_config()` is the SD-v1 recipe with the flow smoke
+    config's `diffusion:` block."""
+    from sd_tpu_torch.core import config
+
+    with open(REPO / "configs" / f"{name}.yaml") as f:
+        want = yaml.safe_load(f)
+    for key in drop:
+        block, leaf = key.split(".")
+        del want[block][leaf]
+    fn = {"lcm_512_catdog": config.lcm512_distill_config,
+          "distill_smoke": config.distill_smoke_config,
+          "flow_smoke": config.flow_smoke_config}[name]
+    assert fn() == want
+    if name == "flow_smoke":
+        assert config.flow512_train_config() == {**sd512_train_config(),
+                                                 "diffusion": want["diffusion"]}
 
 
 def test_kl_f8_256_train_config_is_the_yaml():
