@@ -518,6 +518,49 @@ FEW_STEP_LAUNCHES = {
     "generate_flow": _unet_calls(FLOW_STEPS, decode=True),
     "generate_flow_midpoint": _unet_calls(2 * (FLOW_STEPS // 2), decode=True),
 }
+# the fine_tune phase: train_ldm's LoRA, ControlNet, IP-Adapter and
+# trainable-text-encoder branches (bf16, batch 4 as 4 microbatches, remat
+# "dots") and the textual_inversion, dreambooth and ldm_inpaint tasks (fp32,
+# batch 1, as the TPU package builds them) at SD-v1 full width through
+# `python -m sd_tpu_torch.train`, each run's output served by its loader
+FINE_TUNE_SEED = 20
+FINE_TUNE_STEPS = 2            # optimizer steps of each run, one checkpoint at the end
+FINE_TUNE_LR = 1.0e-4          # constant: the recipe's warm-up starts at lr·1e-6
+FINE_TUNE_GENERATE_STEPS = 10  # each served check: 2 prompts, 512², DDIM + CFG 7.5
+FINE_TUNE_CLASS_IMAGES = 2     # DreamBooth's generated prior set ...
+FINE_TUNE_CLASS_STEPS = 4      # ... at this many DDIM steps
+FINE_TUNE_DISK_GB = 36         # two fp32 runs of ≈ 13.8 GB and a ControlNet run of ≈ 5 GB
+# launches (tests/test_torch_structure.py derives them on `meta` tensors):
+# the LoRA and trainable-text-encoder steps are train_ldm's (every attention
+# trains; the text tower's 77 tokens take no kernel); the ControlNet step
+# adds the frozen base encoder's no-grad passes (4 inference flash and 2
+# GEGLU launches a pass, twice with the remat recompute, per microbatch) to
+# the training kernels of its own encoder copy and the base decoder (10
+# attentions a pass); IP-Adapter's first self-attention runs before the
+# first image read (no gradient: 1 inference flash launch a pass), the
+# other 9 train; the fp32 trainers launch nothing; a served generate is 10
+# CFG UNet calls and the decoder, with the ControlNet branch 4 + 4 more
+# launches a call, and the mask-conditioned inpaint adds the masked images'
+# encode
+_FT_TRAIN = {k: v for k, v in EXPECTED_TRAIN_LAUNCHES.items() if v}
+FINE_TUNE_LAUNCHES = {
+    "lora_step": EXPECTED_TRAIN_LAUNCHES,
+    "controlnet_step": launches_of(**_FT_TRAIN, flash_attention=32, flash_fwd_sm90=32,
+                                   geglu_ff=16, geglu_sm90=16),
+    "ip_adapter_step": launches_of(flash_attention_lse=72, flash_lse_sm90=72, flash_bwd_dq=36,
+                                   flash_bwd_dq_sm90=36, flash_bwd_dkv=36,
+                                   flash_bwd_dkv_sm90=36, flash_attention=8, flash_fwd_sm90=8),
+    "cond_step": EXPECTED_TRAIN_LAUNCHES,
+    "fp32_step": launches_of(),
+    "generate": _unet_calls(FINE_TUNE_GENERATE_STEPS, decode=True),
+    "generate_controlnet": launches_of(
+        flash_attention_hpacked=14 * FINE_TUNE_GENERATE_STEPS,
+        flash_fwd_sm90=14 * FINE_TUNE_GENERATE_STEPS, geglu_ff=14 * FINE_TUNE_GENERATE_STEPS,
+        geglu_sm90=14 * FINE_TUNE_GENERATE_STEPS, **_DECODE),
+    "inpaint_conditioned": launches_of(
+        **{k: FINE_TUNE_GENERATE_STEPS * v for k, v in _UNET_CALL.items()},
+        flash_attention=2, flash_fwd_wide=2, conv3x3_same=30),
+}
 # the encoder's launches at 512², batch 2 (its bf16-vs-fp32 check)
 ENCODER_512_LAUNCHES = launches_of(flash_attention=1, flash_fwd_wide=1, conv3x3_same=12)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
@@ -4086,6 +4129,348 @@ def phase_few_step(smi: str, ddim50_seconds: float | None = None) -> dict:
             **{name: r_["launches"] for name, r_ in runs.items() if name.startswith("generate")}}
 
 
+def _fine_tune_configs(base_run: str) -> dict:
+    """The fine_tune phase's run configs (`base_run` is the DreamBooth run
+    directory, the base of the ControlNet and IP-Adapter runs): every
+    one `sd512_train_config()`'s model at FINE_TUNE_STEPS steps, a constant
+    FINE_TUNE_LR, one checkpoint at the end and no eval grid; the branches
+    at the recipe's batch 4 in 4 microbatches (bf16) and the fixed scale
+    0.18215 of the DreamBooth base; the fp32 tasks at batch 1."""
+    import copy
+
+    from sd_tpu_torch.core.config import sd512_inpaint_train_config, sd512_train_config
+
+    def base(task="ldm", fixed_scale=True, batch=None, **blocks):
+        cfg = copy.deepcopy(sd512_train_config())
+        cfg.update(task=task, seed=FINE_TUNE_SEED, **blocks)
+        cfg["train"].update(total_steps=FINE_TUNE_STEPS, checkpoint_every=FINE_TUNE_STEPS,
+                            eval_every=10**6, lr=FINE_TUNE_LR, lr_schedule=None)
+        if batch:
+            cfg["train"].update(batch_size=batch, grad_accum=1)
+        if fixed_scale:
+            cfg["latent"]["scale_factor"] = 0.18215
+        return cfg
+
+    cond = base()
+    cond["cond_stage"]["trainable"] = True
+    cond["train"].update(weight_decay=1e-2, noise_offset=0.1, learn_logvar=True)
+    inpaint = base(task="ldm_inpaint", fixed_scale=False, batch=1)
+    for block in ("unet", "latent", "data"):
+        inpaint[block] = sd512_inpaint_train_config()[block]
+    return {
+        "dreambooth": base(task="dreambooth", batch=1, dreambooth={
+            "instance_prompt": "a photo of sks cat", "class_prompt": "a photo of a cat",
+            "prior_weight": 1.0, "num_class_images": FINE_TUNE_CLASS_IMAGES,
+            "class_num_steps": FINE_TUNE_CLASS_STEPS}),
+        "lora": base(lora={"rank": 4}),
+        "controlnet": base(controlnet={"hint": "canny", "base_run": base_run}),
+        "ip_adapter": base(ip_adapter={"n_tokens": 4, "base_run": base_run}),
+        "cond": cond,
+        "textual_inversion": base(task="textual_inversion", batch=1, textual_inversion={
+            "placeholder": "<thing>", "num_vectors": 2, "initializer": "object"}),
+        "inpaint": inpaint,
+    }
+
+
+def phase_fine_tune(smi: str) -> dict:
+    """Fine-tuning at SD-v1 full width (every weight from the trainers' own
+    seeded init, the UNet's then randomized from FINE_TUNE_SEED; 512²
+    synthetic PNGs), each run `python -m
+    sd_tpu_torch.train`'s `main` on a `_fine_tune_configs` config, in a
+    temporary directory removed at the end:
+      dreambooth  fp32, 1 instance + 1 prior image a step, FINE_TUNE_CLASS_IMAGES
+                  class images at FINE_TUNE_CLASS_STEPS DDIM steps first; the
+                  base run of the next two;
+      lora        rank 4 over the frozen UNet, lora.safetensors at the end;
+      controlnet  canny hints over the DreamBooth run's EMA UNet: before step
+                  1 the controlled UNet's output is the base's bit for bit,
+                  after the run the base weights are unchanged bit for bit;
+      ip_adapter  4 image tokens over the same base, the embedder beside;
+      cond        the text encoder trained with the UNet, AdamW (1e-2), noise
+                  offset 0.1, learned logvar: the logvar entries at the drawn
+                  t moved and the rest stayed 0, the text tower moved, and
+                  `from_run` refuses the run;
+      textual_inversion  "<thing>" × 2 vectors from "object", fp32: the UNet
+                  and the text tower unchanged bit for bit;
+      inpaint     `sd512_inpaint_train_config()`, fp32, batch 1.
+    Each: losses and grad_norm finite, launches FINE_TUNE_STEPS × its step's
+    (FINE_TUNE_LAUNCHES), s/step, peak memory, the checkpoint's GB/s. Then
+    each output served twice (the same bits, launches as derived): `from_run`
+    of the DreamBooth run + generate, its `load_controlnet` + generate with
+    an edge hint, its `load_ip_adapter` + generate with an image prompt; a
+    fresh pipeline's `load_textual_inversion` + generate with the
+    placeholder, and `load_lora` + generate; `from_run` of the inpainting run
+    + its mask-conditioned inpaint. Every inference kernel shape the phase
+    launched is held against its plain version (`_hold_edit_kernels`); the
+    training kernels' shapes are the train phase's (held there)."""
+    import contextlib
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.data.hints import edge_hint
+    from sd_tpu_torch.diffusion.latent import LatentDiffusion
+    from sd_tpu_torch.kernels import flash_attention as fa
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+    from sd_tpu_torch.train import __main__ as train_cli
+    from sd_tpu_torch.train import dreambooth, runners
+    from sd_tpu_torch.train.checkpoint import restore_tree
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    prompts = ["a photo of a cat", "a photo of a dog"]
+    shapes, runs, checks, io = {}, {}, {}, {}
+    train_shapes: set = set()
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_fine_tune_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        require(free_gb >= FINE_TUNE_DISK_GB, f"free disk under {root}: {free_gb:.1f} GB, the "
+                f"phase needs {FINE_TUNE_DISK_GB} GB (two fp32 runs of ≈ 13.8 GB)")
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _write_train_run_images(data)
+        cfgs = _fine_tune_configs(os.path.join(root, "dreambooth"))
+
+        # -- spies: step times, checkpoint writes, the built stack, the branch --
+        step_s, saves, built, hooks, drawn_t = [], [], [], {}, []
+        loop0, save0, build0, branch0 = (runners._run_loop, runners.save_checkpoint,
+                                         runners.build_ldm, runners.ldm_branch)
+        lse0, p_losses0 = fa.flash_attention_lse, LatentDiffusion.p_losses
+
+        def run_loop(step_fn, *a, **kw):
+            def timed(state, batch, generator):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs = step_fn(state, batch, generator)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return logs
+            return loop0(timed, *a, **kw)
+
+        def save(ckpt_dir, state, step, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save0(ckpt_dir, state, step, **kw)
+            sec = time.perf_counter() - t0
+            gb = os.path.getsize(out) / 1e9
+            saves.append({"step": step, "seconds": sec, "gb": gb, "gb_per_s": gb / sec})
+            return out
+
+        def build(*a, **kw):
+            # a random UNet (its zero-init output conv would stop every
+            # gradient upstream of it at step 1): the trained tensors, the
+            # text tower and textual inversion's vectors all get gradients
+            built.append(build0(*a, **kw))
+            unet = built[-1][1]
+            randomize_params_(unet, torch.Generator(next(unet.parameters()).device)
+                              .manual_seed(FINE_TUNE_SEED))
+            if "built" in hooks:
+                hooks["built"](*built[-1])
+            return built[-1]
+
+        def branch(*a, **kw):
+            out = branch0(*a, **kw)
+            if "branch" in hooks:
+                hooks["branch"](out, a[2])
+            return out
+
+        def lse_spy(q, k, v, scale):
+            train_shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))
+            return lse0(q, k, v, scale)
+
+        def p_losses(self, z, cond, t, noise, learned_logvar=None):
+            drawn_t.extend(t.tolist())
+            return p_losses0(self, z, cond, t, noise, learned_logvar)
+
+        def run(name, step_launches):
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfgs[name], f)
+            out = os.path.join(root, name)
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            del step_s[:], saves[:], built[:]
+            t0 = time.perf_counter()
+            code = train_cli.main(["--config", path, "--data", data, "--out", out])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            require(code == 0, f"python -m sd_tpu_torch.train {name}: exit {code}")
+            launches = dict(kernels.LAUNCHES)
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                steps = [r for r in map(json.loads, f) if "grad_norm" in r]
+            require(len(steps) == FINE_TUNE_STEPS and all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps),
+                f"{name}: {FINE_TUNE_STEPS} finite step records: {steps}")
+            want = {k: FINE_TUNE_STEPS * v for k, v in step_launches.items()}
+            require(launches == want, f"{name} launches "
+                    f"{ {k: v for k, v in launches.items() if v} } == "
+                    f"{ {k: v for k, v in want.items() if v} }")
+            runs[name] = {"seconds": seconds, "step_seconds": list(step_s),
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                          "losses": [r["loss"] for r in steps],
+                          "grad_norms": [r["grad_norm"] for r in steps],
+                          "checkpoint_saves": list(saves),
+                          "launches": {k: v for k, v in launches.items() if v}}
+            print(f"[fine_tune] {name}: {seconds:.1f} s, steps {runs[name]['step_seconds']}, "
+                  f"peak {runs[name]['peak_memory_gb']:.2f} GB, saves {saves}", flush=True)
+            hooks.clear()
+            del built[:]
+            torch.cuda.empty_cache()
+            return out
+
+        ft = FINE_TUNE_LAUNCHES
+        patches = contextlib.ExitStack()
+        for obj, name, fn in ((runners, "_run_loop", run_loop), (dreambooth, "_run_loop", run_loop),
+                              (runners, "save_checkpoint", save), (runners, "build_ldm", build),
+                              (dreambooth, "build_ldm", build), (runners, "ldm_branch", branch),
+                              (fa, "flash_attention_lse", lse_spy)):
+            patches.enter_context(mock.patch.object(obj, name, fn))
+        patches.enter_context(_kernel_shape_spies(shapes))
+        with patches:
+            dirs = {"dreambooth": run("dreambooth", ft["fp32_step"])}
+            class_images = sorted(os.listdir(os.path.join(dirs["dreambooth"], "class_images")))
+            checks["class_images"] = class_images
+            require(len(class_images) == FINE_TUNE_CLASS_IMAGES, f"class images {class_images}")
+            dirs["lora"] = run("lora", ft["lora_step"])
+
+            base = []
+
+            def controlnet_hook(br, unet):
+                # before step 1: the zero projections give the base's output bit for
+                # bit (this check's launches are not the run's)
+                counted = dict(kernels.LAUNCHES)
+                w = next(unet.parameters())
+                c_cfg = cfgs["controlnet"]
+                n, px = c_cfg["latent"]["image_size"], c_cfg["train"]["image_size"]
+                g = torch.Generator(w.device).manual_seed(FINE_TUNE_SEED)
+                rnd = lambda *s_: torch.randn(s_, generator=g, device=w.device).to(w.dtype)
+                x = rnd(1, n, n, c_cfg["latent"]["channels"])
+                ctx = rnd(1, 77, c_cfg["unet"]["params"]["context_dim"])
+                hint = torch.rand((1, px, px, 3), generator=g, device=w.device)
+                t = torch.tensor([500], device=w.device)
+                with torch.no_grad():
+                    checks["controlnet_step0_is_base"] = torch.equal(
+                        br.ld.apply_model(x, t, {"c_crossattn": [ctx], "c_control": hint}),
+                        unet(x, t, ctx))
+                kernels.LAUNCHES.update(counted)
+                base.append((unet, {n: p.detach().clone() for n, p in unet.named_parameters()}))
+
+            hooks["branch"] = controlnet_hook
+            dirs["controlnet"] = run("controlnet", ft["controlnet_step"])
+            unet, before = base.pop()
+            checks["controlnet_base_unchanged"] = all(
+                torch.equal(p, before[n]) for n, p in unet.named_parameters())
+            del unet, before
+            require(checks["controlnet_step0_is_base"],
+                    "the controlled UNet before step 1 is the base bit for bit")
+            require(checks["controlnet_base_unchanged"], "the ControlNet run leaves the base "
+                    "weights unchanged bit for bit")
+            dirs["ip_adapter"] = run("ip_adapter", ft["ip_adapter_step"])
+            require(os.path.isdir(os.path.join(dirs["ip_adapter"], "ip_embedder")),
+                    "the IP-Adapter run writes its image embedder")
+
+            tower = []
+            hooks["branch"] = lambda br, unet: tower.append(
+                (br.modules["cond"], {n: p.detach().clone()
+                                      for n, p in br.modules["cond"].named_parameters()}))
+            with mock.patch.object(LatentDiffusion, "p_losses", p_losses):
+                dirs["cond"] = run("cond", ft["cond_step"])
+            clip, before = tower.pop()
+            logvar = restore_tree(os.path.join(dirs["cond"], "ckpt"))["logvar"]
+            moved = sorted(int(i) for i in torch.nonzero(logvar).flatten())
+            checks["cond"] = {"drawn_t": sorted(set(drawn_t)), "logvar_moved": moved,
+                              "tower_tensors_moved": sum(not torch.equal(p, before[n])
+                                                         for n, p in clip.named_parameters())}
+            del clip, before
+            require(moved and moved == sorted(set(drawn_t)),
+                    f"the logvar moved at the drawn t and nowhere else {checks['cond']}")
+            require(checks["cond"]["tower_tensors_moved"] > 0, "the text tower moved")
+            try:
+                Text2ImagePipeline.from_run(os.path.join(root, "cond.json"), dirs["cond"])
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+            checks["cond"]["from_run_refused"] = refused
+            require(refused is not None and "unet, cond" in refused,
+                    f"from_run refuses the {{unet, cond}} run: {refused}")
+            shutil.rmtree(dirs.pop("cond"))
+
+            frozen = []
+            hooks["built"] = lambda ld, unet, vae, embed: frozen.append(
+                [(m, {n: p.detach().clone() for n, p in m.named_parameters()})
+                 for m in (unet, embed.clip)])
+            dirs["textual_inversion"] = run("textual_inversion", ft["fp32_step"])
+            checks["ti_frozen_unchanged"] = all(torch.equal(p, snap[n]) for m, snap in frozen.pop()
+                                                for n, p in m.named_parameters())
+            require(checks["ti_frozen_unchanged"], "textual inversion leaves the UNet and the text "
+                    "tower unchanged bit for bit")
+            dirs["inpaint"] = run("inpaint", ft["fp32_step"])
+            torch.cuda.empty_cache()
+
+            # -- each output, served ------------------------------------------------------
+            kw = dict(num_steps=FINE_TUNE_GENERATE_STEPS, guidance_scale=7.5, seed=1)
+            t0 = time.perf_counter()
+            pipe = Text2ImagePipeline.from_run(os.path.join(root, "dreambooth.json"),
+                                               dirs["dreambooth"])
+            torch.cuda.synchronize()
+            io["from_run_dreambooth_seconds"] = time.perf_counter() - t0
+            _run_twice(runs, "generate_dreambooth", lambda: pipe.generate(prompts, **kw),
+                       ft["generate"])
+            pipe.load_controlnet(dirs["controlnet"])
+            hint = edge_hint(_edit_images(1, 512, FINE_TUNE_SEED)[0])
+            _run_twice(runs, "generate_controlnet",
+                       lambda: pipe.generate(prompts, control_image=hint, **kw),
+                       ft["generate_controlnet"])
+            pipe.controlnet = None
+            pipe.load_ip_adapter(dirs["ip_adapter"])
+            ip_image = _edit_images(1, 256, FINE_TUNE_SEED + 1)[0]
+            _run_twice(runs, "generate_ip", lambda: pipe.generate(prompts, ip_image=ip_image, **kw),
+                       ft["generate"])
+            del pipe
+            shutil.rmtree(dirs.pop("dreambooth"))
+            torch.cuda.empty_cache()
+
+            pipe = Text2ImagePipeline(cfgs["lora"])
+            loaded = pipe.load_textual_inversion(
+                os.path.join(dirs["textual_inversion"], "embedding.safetensors"))
+            require(loaded == ["<thing>"], f"the embedding file holds the placeholder: {loaded}")
+            _run_twice(runs, "generate_textual_inversion", lambda: pipe.generate(
+                ["a photo of a <thing>", "a <thing> on a table"], **kw), ft["generate"])
+            pipe.load_lora(os.path.join(dirs["lora"], "lora.safetensors"))
+            _run_twice(runs, "generate_lora", lambda: pipe.generate(prompts, **kw),
+                       ft["generate"])
+            del pipe
+            torch.cuda.empty_cache()
+
+            pipe = Text2ImagePipeline.from_run(os.path.join(root, "inpaint.json"),
+                                               dirs["inpaint"])
+            init = _edit_images(2, 512, FINE_TUNE_SEED + 2)
+            hgt, wid = init.shape[1:3]
+            keep = np.ones((hgt, wid), np.float32)
+            keep[hgt // 4:3 * hgt // 4, 5 * wid // 16:11 * wid // 16] = 0.0
+            got = _run_twice(runs, "inpaint_conditioned",
+                             lambda: pipe.inpaint(prompts, init, keep, **kw),
+                             ft["inpaint_conditioned"])
+            require(np.array_equal(got[:, keep == 1], init[:, keep == 1]),
+                    "inpaint keeps the kept pixels bit for bit")
+            del pipe
+            torch.cuda.empty_cache()
+        checks["training_kernel_shapes"] = sorted(train_shapes)
+        require(train_shapes <= set(TRAIN_KERNEL_SHAPES), f"the training kernels' shapes "
+                f"{sorted(train_shapes)} are the train phase's")
+        held = _hold_edit_kernels(shapes, FINE_TUNE_SEED, "fine_tune")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "fine_tune", "nvidia_smi": smi, "free_disk_gb": free_gb, "runs": runs,
+          "io": io, "checks": checks, "kernel_shapes_held": held,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {name: r_["launches"] for name, r_ in runs.items()}
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -4713,6 +5098,7 @@ def main() -> int:
     image_edit = phase_image_edit(smi)
     adapters = phase_adapters(smi)
     few_step = phase_few_step(smi, e2e_seconds)
+    fine_tune = phase_fine_tune(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -4905,6 +5291,11 @@ def main() -> int:
         few = {entry: counts[name] for entry, counts in few_step.items() if counts.get(name)}
         if few:
             row["few_step_launches"] = few
+        # ... and the fine_tune phase's, by run and served check
+        tuned = {entry: counts[name] for entry, counts in fine_tune.items()
+                 if counts.get(name)}
+        if tuned:
+            row["fine_tune_launches"] = tuned
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

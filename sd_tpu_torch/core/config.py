@@ -18,8 +18,14 @@ teacher) without its teacher run and first-stage checkpoint,
 `distill_smoke_config()` / `flow_smoke_config()` the tiny
 `configs/distill_smoke.yaml` / `flow_smoke.yaml`, and
 `flow512_train_config()` the SD-v1 training recipe under the flow smoke
-config's rectified-flow objective, as dicts, so the port runs where PyYAML
-is not installed.
+config's rectified-flow objective; the fine-tuning configs
+`controlnet_32_config()` (`configs/controlnet_32_catdog.yaml` without its
+base run and first-stage checkpoint), `ip_smoke_config()`,
+`ti_smoke_config()`, `dreambooth_smoke_config()` and
+`inpaint_smoke_config()` (their `configs/*_smoke.yaml`), and
+`sd512_inpaint_train_config()`, the SD-v1 training recipe as the
+SD-inpainting UNet (9 input channels, `hybrid`); as dicts, so the port runs
+where PyYAML is not installed.
 
 `load_config(spec)` takes the name of one of them (`sd_v1`, or
 `sd_v1_config`) or the path of a config file: `.json` through the standard
@@ -321,12 +327,101 @@ def flow512_train_config() -> dict:
     return cfg
 
 
+_SMOKE_DIFFUSION = {"timesteps": 50, "beta_schedule": "linear", "linear_start": 0.00085,
+                    "linear_end": 0.012}
+
+
+def controlnet_32_config() -> dict:
+    """`configs/controlnet_32_catdog.yaml` without `controlnet.base_run` and
+    `first_stage.ckpt`, which a run fills in: the canny-hint ControlNet over
+    the 32²×3-latent cat/dog LDM (UNet 128 × (1, 2, 4), attention at 16² and
+    8², KL-f4 first stage, 64-wide text tower), 128² images, batch 16, lr
+    1e-4, `scale_factor: auto` (the base run's calibration)."""
+    cfg = inpaint_128_config()
+    del cfg["data"]
+    cfg.update(task="ldm", controlnet={"hint": "canny"})
+    cfg["latent"]["conditioning_key"] = "crossattn"
+    cfg["unet"]["params"]["in_channels"] = 3
+    cfg["train"].update(total_steps=2000, eval_every=500, checkpoint_every=1000)
+    del cfg["sample"]
+    return cfg
+
+
+def _smoke_train(lr: float, ema_decay: float) -> dict:
+    return {"image_size": 32, "batch_size": 2, "lr": lr, "ema_decay": ema_decay,
+            "total_steps": 4, "checkpoint_every": 4}
+
+
+def ip_smoke_config() -> dict:
+    """`configs/ip_smoke.yaml`: an IP-Adapter (2 tokens, scale 1, image
+    dropout 0.5) over the frozen tiny LDM; 4 steps at lr 1e-3."""
+    cfg = _smoke_ldm(dict(_SMOKE_DIFFUSION))
+    cfg["task"] = "ldm"
+    cfg["ip_adapter"] = {"n_tokens": 2, "scale": 1.0, "image_dropout": 0.5}
+    cfg["train"] = _smoke_train(1.0e-3, 0.999)
+    cfg["sample"] = {"num_steps": 4, "guidance_scale": 3.0, "eta": 0.0}
+    return cfg
+
+
+def ti_smoke_config() -> dict:
+    """`configs/ti_smoke.yaml`: textual inversion of "<thing>" as 2 vectors
+    from the row of "object", over the frozen tiny LDM; 4 steps at lr 5e-3."""
+    cfg = _smoke_ldm(dict(_SMOKE_DIFFUSION))
+    cfg["task"] = "textual_inversion"
+    cfg["textual_inversion"] = {"placeholder": "<thing>", "num_vectors": 2,
+                                "initializer": "object"}
+    cfg["train"] = _smoke_train(5.0e-3, 0.99)
+    cfg["sample"] = {"num_steps": 4}
+    return cfg
+
+
+def dreambooth_smoke_config() -> dict:
+    """`configs/dreambooth_smoke.yaml`: DreamBooth of the tiny LDM's UNet on
+    "a photo of sks thing" with prior preservation (2 class images of "a
+    photo of a thing" at 2 DDIM steps, weight 1); 4 steps at lr 5e-3."""
+    cfg = _smoke_ldm(dict(_SMOKE_DIFFUSION))
+    cfg["task"] = "dreambooth"
+    cfg["dreambooth"] = {"instance_prompt": "a photo of sks thing",
+                         "class_prompt": "a photo of a thing", "prior_weight": 1.0,
+                         "num_class_images": 2, "class_num_steps": 2}
+    cfg["train"] = _smoke_train(5.0e-3, 0.99)
+    cfg["sample"] = {"num_steps": 4}
+    return cfg
+
+
+def inpaint_smoke_config() -> dict:
+    """`configs/inpaint_smoke.yaml`: the tiny LDM as a mask-conditioned
+    inpainting model (9 input channels, `hybrid`), 15% full masks, 10%
+    caption dropout; 4 steps at lr 1e-3."""
+    cfg = _smoke_ldm(dict(_SMOKE_DIFFUSION))
+    cfg["task"] = "ldm_inpaint"
+    cfg["latent"]["conditioning_key"] = "hybrid"
+    cfg["unet"]["params"]["in_channels"] = 9
+    cfg["data"] = {"inpaint": {"full_prob": 0.15}}
+    cfg["train"] = {**_smoke_train(1.0e-3, 0.999), "cond_dropout": 0.1}
+    cfg["sample"] = {"num_steps": 4, "guidance_scale": 3.0}
+    return cfg
+
+
+def sd512_inpaint_train_config() -> dict:
+    """`sd512_train_config()` as the SD-inpainting UNet: `task: ldm_inpaint`,
+    9 input channels ([z_t | hole mask | E(masked image)]), `hybrid`
+    conditioning, and `inpaint_128_config()`'s mask menu."""
+    cfg = sd512_train_config()
+    cfg["task"] = "ldm_inpaint"
+    cfg["unet"]["params"]["in_channels"] = 9
+    cfg["latent"]["conditioning_key"] = "hybrid"
+    cfg["data"]["inpaint"] = dict(inpaint_128_config()["data"]["inpaint"])
+    return cfg
+
+
 def config_functions() -> dict:
     """{name: config function} of every configuration above."""
     fns = (sd_v1_config, sd512_train_config, kl_f8_256_train_config, ddpm_256_train_config,
            ddpm_smoke_config, vq_128_train_config, vq_64_train_config, vq_smoke_config,
            inpaint_128_config, lcm512_distill_config, distill_smoke_config, flow_smoke_config,
-           flow512_train_config)
+           flow512_train_config, controlnet_32_config, ip_smoke_config, ti_smoke_config,
+           dreambooth_smoke_config, inpaint_smoke_config, sd512_inpaint_train_config)
     return {fn.__name__[:-len("_config")]: fn for fn in fns}
 
 

@@ -14,9 +14,11 @@ overlap-add in fp32) that tiles the first stage's decode and encode; a
 conditioning dict's `c_control` (ControlNet's hint) reaches the UNet apply
 as `control=`, its `c_ip` (IP-Adapter's image embedding) as `ip_embed=`;
 `sag_scale` > 0 takes DDIM's Self-Attention Guidance through the probe
-apply `unet_apply_probs` (diffusion/sag.py). The `adm` key, `get_input`
-for any key but `crossattn` and the coordinates-bbox patched apply are not
-ported yet.
+apply `unet_apply_probs` (diffusion/sag.py); `get_input` for `crossattn`,
+`concat` and `hybrid` (a batch's `concat_cond` the `c_concat` entry, its
+`hint` the `c_control` entry, its `ip_embed` the `c_ip` entry), and the
+noise offset of the training noise. The `adm` key and the coordinates-bbox
+patched apply are not ported yet.
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
 `torch.Generator`; a batch may carry the draws instead (`t`, `noise`, and
@@ -70,7 +72,8 @@ class LatentDiffusion:
     DiagonalGaussian posterior, or the latent itself (frozen); decode_fn(z)
     -> image (takes the unscaled latent); unet_apply_probs(x, t, context)
     -> (prediction, SAG salience mask), the probe Self-Attention Guidance
-    needs (`sag.make_probs_apply`)."""
+    needs (`sag.make_probs_apply`). `noise_offset` > 0 adds offset·ε_c,
+    one ε_c per (sample, channel), to the drawn training noise."""
 
     process: DDPMProcess | FlowProcess
     unet_apply: Callable
@@ -79,6 +82,7 @@ class LatentDiffusion:
     conditioning_key: str = "crossattn"
     scale_factor: float = 0.18215
     unet_apply_probs: Callable | None = None
+    noise_offset: float = 0.0
 
     @property
     def schedule(self) -> DiffusionSchedule | FlowSchedule:
@@ -118,14 +122,26 @@ class LatentDiffusion:
         return posterior.sample(noise)
 
     def get_input(self, batch: dict, generator: torch.Generator | None = None):
-        """batch {'image': [B, H, W, 3], 'txt_emb': [B, L, C], optional
-        'enc_noise'} → (z, cond), z scaled by the scale factor."""
-        if self.conditioning_key != "crossattn":
-            raise NotImplementedError(
-                f"conditioning key {self.conditioning_key!r} is not ported yet")
+        """batch {'image': [B, H, W, 3], 'txt_emb': [B, L, C] (`crossattn`,
+        `hybrid`), 'concat_cond': [B, h, w, c] (`concat`, `hybrid`),
+        optional 'enc_noise', 'hint' (ControlNet's pixel-space control
+        image) and 'ip_embed' (IP-Adapter's image embedding)} → (z, cond), z
+        scaled by the scale factor."""
+        key = self.conditioning_key
+        if key not in ("crossattn", "concat", "hybrid"):
+            raise NotImplementedError(f"conditioning key {key!r} is not ported yet")
         z = self.scale_factor * self.encode_first_stage(
             batch["image"], batch.get("enc_noise"), generator)
-        return z, {"c_crossattn": [batch["txt_emb"]]}
+        cond = {}
+        if key in ("crossattn", "hybrid"):
+            cond["c_crossattn"] = [batch["txt_emb"]]
+        if key in ("concat", "hybrid"):
+            cond["c_concat"] = [batch["concat_cond"]]
+        if "hint" in batch:
+            cond["c_control"] = batch["hint"]
+        if "ip_embed" in batch:
+            cond["c_ip"] = batch["ip_embed"]
+        return z, cond
 
     def p_losses(self, z: torch.Tensor, cond: dict, t: torch.Tensor,
                  noise: torch.Tensor, learned_logvar: torch.Tensor | None = None):
@@ -136,7 +152,7 @@ class LatentDiffusion:
                       learned_logvar: torch.Tensor | None = None):
         """encode → t → noise → q_sample → UNet → loss: (loss, logs). t and
         the noise come from the batch (`t`, `noise`) where it has them, else
-        from `generator`."""
+        from `generator` (the noise with the noise offset)."""
         z, cond = self.get_input(batch, generator)
         t = batch.get("t")
         if t is None:
@@ -144,8 +160,8 @@ class LatentDiffusion:
                               generator=generator, device=z.device)
         noise = batch.get("noise")
         if noise is None:
-            noise = draw_training_noise(tuple(z.shape), generator=generator,
-                                        device=z.device)
+            noise = draw_training_noise(tuple(z.shape), self.noise_offset,
+                                        generator=generator, device=z.device)
         return self.p_losses(z, cond, t, noise, learned_logvar)
 
     # -- sampling -------------------------------------------------------------

@@ -9,8 +9,9 @@ a zero conv, and a zero-init 1×1 projection of every residual: one per
 skip connection of the base UNet and one for its middle block, which
 `UNetModel.forward(control=...)` adds. With fresh (zero) projections the
 controlled forward is the base forward bit for bit. The branch's attention
-and feed-forward take the UNet's kernels at the UNet's shapes. The ControlNet
-trainer is not ported yet.
+and feed-forward take the UNet's kernels at the UNet's shapes. `train_ldm`'s
+ControlNet branch (`train/runners.py ldm_branch`) trains it over the frozen
+UNet.
 """
 
 from __future__ import annotations

@@ -11,8 +11,10 @@ summed with the text read before the shared output projection:
 The adapter tree keeps the TPU package's layout and names, so a tree that
 either package holds carries across as it is: {"proj": {kernel [E, n·Cc],
 bias, ln_scale, ln_bias}, "layers": {"in_1_0_attn/block_0/attn2":
-{"to_k_ip": [Cc, inner], "to_v_ip": [Cc, inner]}}}, kernels [in, out]. The
-IP-Adapter trainer is not ported yet.
+{"to_k_ip": [Cc, inner], "to_v_ip": [Cc, inner]}}}, kernels [in, out]. A
+training state holds it flat by name (`flat_ip`: "proj.kernel",
+"layers.in_1_0_attn/block_0/attn2.to_k_ip", ...; `nest_ip` is the inverse);
+`train/runners.py ldm_branch` trains it over the frozen UNet.
 """
 
 from __future__ import annotations
@@ -72,6 +74,35 @@ def init_ip_adapter(unet: nn.Module, generator: torch.Generator, embed_dim: int 
                                "to_v_ip": attn.to_v.weight.float().T.clone()}
     ctx_dim = attn.to_k.weight.shape[1]
     return {"proj": init_image_proj(generator, embed_dim, ctx_dim, n_tokens), "layers": layers}
+
+
+def count_ip_params(ip: dict) -> int:
+    """Elements of an adapter tree."""
+    return sum(t.numel() for t in flat_ip(ip).values())
+
+
+def flat_ip(ip: dict) -> dict[str, torch.Tensor]:
+    """The adapter tree as {"proj.<leaf>": t, "layers.<layer>.<leaf>": t}
+    (the same tensors)."""
+    return {**{f"proj.{k}": v for k, v in ip["proj"].items()},
+            **{f"layers.{layer}.{k}": v for layer, kernels in ip["layers"].items()
+               for k, v in kernels.items()}}
+
+
+def nest_ip(flat: dict) -> dict:
+    """The inverse of `flat_ip` (the same tensors); a nested tree is
+    returned as it is."""
+    if "proj" in flat and "layers" in flat:
+        return flat
+    out: dict = {"proj": {}, "layers": {}}
+    for name, v in flat.items():
+        top, rest = name.split(".", 1)
+        if top == "proj":
+            out["proj"][rest] = v
+        else:
+            layer, leaf = rest.rsplit(".", 1)
+            out["layers"].setdefault(layer, {})[leaf] = v
+    return out
 
 
 def nest_layers(layers: dict) -> dict:

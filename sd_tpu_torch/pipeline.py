@@ -63,7 +63,7 @@ from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
                                            SimpleHashTokenizer)
 from sd_tpu_torch.models.conditioners import FrozenClipImageEmbedder
 from sd_tpu_torch.models.controlnet import controlled_apply_fn, controlnet_from_unet_config
-from sd_tpu_torch.models.ip_adapter import ip_apply_fn
+from sd_tpu_torch.models.ip_adapter import ip_apply_fn, nest_ip
 from sd_tpu_torch.models.sd_export import export_sd_unet, export_sd_vae, save_sd_checkpoint
 from sd_tpu_torch.models.sd_import import import_sd_unet, import_sd_vae, load_sd_checkpoint
 from sd_tpu_torch.models.unet_sd import UNetModel
@@ -71,7 +71,7 @@ from sd_tpu_torch.utils.prompt_weights import (apply_prompt_weights, parse_weigh
                                                tokenize_weighted)
 from sd_tpu_torch.train import checkpoint
 from sd_tpu_torch.train.checkpoint import trained_weights
-from sd_tpu_torch.train.lora import load_lora_safetensors, merge_lora
+from sd_tpu_torch.train.lora import load_lora_safetensors, merge_lora, nest_lora
 from sd_tpu_torch.train.runners import (build_first_stage, build_process, copy_named_,
                                         first_stage_fns)
 from sd_tpu_torch.train.textual_inversion import (expand_placeholder, patch_embedding_rows,
@@ -149,17 +149,24 @@ class Text2ImagePipeline:
         the run's latest checkpoint, read on the CPU from the mapped file,
         the first stage from the config's `first_stage.ckpt`, and the
         `calibration.json` scale factor under `scale_factor: auto`; every
-        weight in `param_dtype` (None: fp32). The TPU package builds the
+        weight in `param_dtype` (None: fp32). A run that trained the text
+        encoder with the UNet ({unet, cond}) is refused, as the TPU
+        package cannot serve it either. The TPU package builds the
         pipeline in fp32 and casts it; the port builds it in `param_dtype`
         (its random draws are fp32, rounded once), which gives the same bits."""
         from sd_tpu_torch.core.config import load_config
         from sd_tpu_torch.train.runners import apply_calibration
 
         cfg = copy.deepcopy(config) if isinstance(config, dict) else load_config(config)
-        pipe = cls(cfg, device=device, param_dtype=param_dtype or torch.float32)
         ckpt_dir = os.path.join(run_dir, "ckpt")
-        copy_named_(dict(pipe.unet.named_parameters()),
-                    trained_weights(checkpoint.restore_tree(ckpt_dir)), f"UNet of {ckpt_dir}")
+        weights = trained_weights(checkpoint.restore_tree(ckpt_dir))
+        if any(n.startswith("cond.") for n in weights):
+            # the TPU package's from_run cannot serve this tree either
+            raise ValueError(f"{ckpt_dir} holds a {{unet, cond}} tree (the text encoder was "
+                             "trained with the UNet, cond_stage.trainable); from_run serves "
+                             "a run that trained the UNet alone")
+        pipe = cls(cfg, device=device, param_dtype=param_dtype or torch.float32)
+        copy_named_(dict(pipe.unet.named_parameters()), weights, f"UNet of {ckpt_dir}")
         pipe.ld = apply_calibration(pipe.ld, cfg, ckpt_dir)
         return pipe
 
@@ -251,7 +258,7 @@ class Text2ImagePipeline:
         if isinstance(lora, str) and lora.endswith(".safetensors"):
             lora = load_lora_safetensors(lora)
         elif isinstance(lora, str):
-            lora = trained_weights(checkpoint.restore_tree(lora))
+            lora = nest_lora(trained_weights(checkpoint.restore_tree(lora)))
         merged = merge_lora(self.unet, _tree_to(lora, self.dtype, self.device), scale)
         with torch.no_grad():
             for name, p in self.unet.named_parameters():
@@ -284,7 +291,7 @@ class Text2ImagePipeline:
         (`FrozenClipImageEmbedder`, fp32) from `run_dir/ip_embedder`, by
         parameter name or as the TPU package's flax tree. Calls without an
         image are unchanged."""
-        ip = trained_weights(checkpoint.restore_tree(os.path.join(run_dir, "ckpt")))
+        ip = nest_ip(trained_weights(checkpoint.restore_tree(os.path.join(run_dir, "ckpt"))))
         embedder = FrozenClipImageEmbedder(device=self.device).eval()
         load_weights_(embedder, checkpoint.restore_tree(os.path.join(run_dir, "ip_embedder")),
                       f"image embedder of {run_dir}")

@@ -2,22 +2,28 @@
 
 Counterpart of `scripts/train.py`: dispatches on the config's `task` to
 `train_ddpm`, `train_kl_vae`, `train_vq`, `train_ldm` (a flow model's
-too, `diffusion.type: flow`) or `distill_ldm` (`task: distill`: a
-finished LDM run, `distill.teacher_run`, distilled into a few-step
-consistency student, or into an LCM-LoRA with `distill.lora_rank`),
-reads images from `--data`, writes the run (checkpoints under `ckpt/`, `metrics.jsonl`,
-`samples/`, `calibration.json`, and the config it ran as `config.json`) to
-`--out` (default `runs/<task>`), and resumes from its latest checkpoint.
-Runs on the card unless `--device cpu` (the counterpart of `--platform`).
+too, `diffusion.type: flow`; its LoRA, ControlNet, IP-Adapter and
+trainable-text-encoder branches by the config's blocks), `distill_ldm`
+(`task: distill`: a finished LDM run, `distill.teacher_run`, distilled into
+a few-step consistency student, or into an LCM-LoRA with
+`distill.lora_rank`), `train_textual_inversion`, `train_dreambooth` or
+`train_ldm_inpaint`, reads images from `--data`, writes the run
+(checkpoints under `ckpt/`, `metrics.jsonl`, `samples/`,
+`calibration.json`, and the config it ran as `config.json`; a LoRA run's
+`lora.safetensors`, an IP-Adapter run's `ip_embedder/`, a textual
+inversion's `embedding.safetensors` and `ti.json`, DreamBooth's
+`class_images/`) to `--out` (default `runs/<task>`), and resumes from its
+latest checkpoint. Runs on the card unless `--device cpu` (the counterpart
+of `--platform`).
 
     python -m sd_tpu_torch.train --config kl_f8_256_train --data imgs/ --out runs/kl
     python -m sd_tpu_torch.train --config runs/ldm.json --data imgs/ --out runs/ldm
     python -m sd_tpu_torch.train --config runs/lcm.json --data imgs/ --out runs/lcm
+    python -m sd_tpu_torch.train --config ti_smoke --data concept/ --out runs/ti
 
 `--config` is a config function's name (`core/config.py`, e.g.
 `lcm512_distill`, whose `distill.teacher_run` a .json copy sets) or a .json
-/ .yaml file. The other tasks of `scripts/train.py` (ldm_sr, ldm_inpaint,
-textual_inversion, dreambooth) are not ported yet and exit with 2.
+/ .yaml file. `ldm_sr` is not ported yet and exits with 2.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     from sd_tpu_torch.core.config import load_config
-    from sd_tpu_torch.train import distill, runners
+    from sd_tpu_torch.train import distill, dreambooth, inpaint, runners, textual_inversion
 
     cfg = load_config(args.config)
     if args.annotations:
@@ -49,6 +55,9 @@ def main(argv: list[str] | None = None) -> int:
     task = cfg.get("task")
     run = {"ddpm": runners.train_ddpm, "kl_vae": runners.train_kl_vae,
            "vq": runners.train_vq, "ldm": runners.train_ldm,
+           "ldm_inpaint": inpaint.train_ldm_inpaint,
+           "textual_inversion": textual_inversion.train_textual_inversion,
+           "dreambooth": dreambooth.train_dreambooth,
            "distill": distill.distill_ldm}.get(task)
     if run is None:
         print(f"sd_tpu_torch.train: task {task!r} is not ported yet", file=sys.stderr)

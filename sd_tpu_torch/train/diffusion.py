@@ -1,5 +1,5 @@
 """Diffusion training: the train step with gradient accumulation, global-norm
-clipping, Adam, EMA and the per-timestep logvar.
+clipping, Adam(W), EMA and the per-timestep logvar.
 
 Counterpart of `sd_tpu/train/diffusion.py`. The TPU package's step is a pure
 function (state, batch, rng) -> (state, logs) that jit compiles with the
@@ -8,10 +8,17 @@ moments, EMA shadow), which is what the donation buys there: no second copy
 of the training state.
 
 The optimizer is a small one of plain tensor ops, optax's
-`chain(clip_by_global_norm, adam)` with optax's defaults, rather than
-`torch.optim.Adam`: under bf16 parameters `float32_moments` keeps the
-moments in fp32, computes the whole update in fp32, casts it to the
-parameter's dtype and then adds it, as the TPU package's wrapper does.
+`chain(clip_by_global_norm, adam)` (or `adamw` with `weight_decay`: the
+decay decoupled, −lr·(m̂/(√v̂ + ε) + wd·p)) with optax's defaults, rather
+than `torch.optim.Adam`: under bf16 parameters `float32_moments` keeps the
+moments in fp32, computes the whole update in fp32 (the decay's p too),
+casts it to the parameter's dtype and then adds it, as the TPU package's
+wrapper does.
+
+With `learn_logvar` the [T] logvar table is trained beside the parameters:
+the optimizer holds it after them (its gradient clipped with theirs and
+counted in `grad_norm`), the EMA does not shadow it, the checkpoint keeps
+it (`TrainState.logvar`).
 """
 
 from __future__ import annotations
@@ -53,8 +60,9 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 @dataclasses.dataclass(frozen=True)
 class Adam:
     """Clip by global norm (`grad_clip`; None: no clipping), then Adam with
-    betas `b1`, `b2`, then the step size `lr` (a float or a function of the
-    step count). `compute_dtype` None computes in each gradient's dtype, as
+    betas `b1`, `b2`, plus `weight_decay`·p where it is > 0 (optax's
+    `adamw`), then the step size `lr` (a float or a function of the step
+    count). `compute_dtype` None computes in each gradient's dtype, as
     optax does; `float32_moments` sets it to fp32."""
 
     lr: float | Callable[[int], float]
@@ -62,6 +70,7 @@ class Adam:
     compute_dtype: torch.dtype | None = None
     b1: float = B1
     b2: float = B2
+    weight_decay: float = 0.0
 
     def init(self, params: list[torch.Tensor]) -> AdamState:
         zeros = lambda p: torch.zeros(p.shape, dtype=self.compute_dtype or p.dtype,
@@ -87,13 +96,16 @@ class Adam:
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
             update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
+            if self.weight_decay > 0:
+                update = update + self.weight_decay * p.to(update.dtype)
             p.add_((update * -lr).to(p.dtype))
 
 
 def ddpm_optimizer(lr: float | Callable[[int], float] = 2e-5,
-                   grad_clip: float | None = 1.0) -> Adam:
-    """Adam + global-norm clipping: the DDPM/LDM recipe."""
-    return Adam(lr=lr, grad_clip=grad_clip)
+                   grad_clip: float | None = 1.0, weight_decay: float = 0.0) -> Adam:
+    """Adam (AdamW with `weight_decay` > 0) + global-norm clipping: the
+    DDPM/LDM recipe."""
+    return Adam(lr=lr, grad_clip=grad_clip, weight_decay=float(weight_decay or 0.0))
 
 
 def float32_moments(opt: Adam) -> Adam:
@@ -111,17 +123,19 @@ class TrainState:
     opt_state: AdamState
     ema: EmaState | None
     step: int = 0
-    logvar: torch.Tensor | None = None   # per-timestep logvar [T] (zeros) or None
+    logvar: torch.Tensor | None = None   # per-timestep logvar [T] (zeros at init) or None
 
 
 def init_train_state(params: dict[str, torch.Tensor], optimizer: Adam,
                      ema_decay: float | None = 0.9999,
                      num_timesteps: int | None = None,
                      param_dtype: torch.dtype | None = None,
-                     ema_dtype: torch.dtype = torch.float32) -> TrainState:
+                     ema_dtype: torch.dtype = torch.float32,
+                     learn_logvar: bool = False) -> TrainState:
     """The training state over `params` (made to require grad), with an EMA
-    shadow in `ema_dtype` and, when `num_timesteps` is given, the [T] logvar
-    table the loss reads (zeros, not trained: learning it is not ported).
+    shadow in `ema_dtype` and, when `num_timesteps` is given, the [T] fp32
+    logvar table the loss reads (zeros). With `learn_logvar` the table
+    requires grad and the optimizer's state covers it after the parameters.
     With `param_dtype` the floating parameters are cast to it first (a
     tensor already in that dtype is kept, so a module's own parameters stay
     its own)."""
@@ -131,8 +145,11 @@ def init_train_state(params: dict[str, torch.Tensor], optimizer: Adam,
     device = next(iter(params.values())).device
     logvar = (None if num_timesteps is None
               else torch.zeros(num_timesteps, dtype=torch.float32, device=device))
+    trained = list(params.values())
+    if learn_logvar and logvar is not None:
+        trained.append(logvar.requires_grad_(True))
     return TrainState(
-        params=params, opt_state=optimizer.init(list(params.values())),
+        params=params, opt_state=optimizer.init(trained),
         ema=ema_init(params, ema_decay, dtype=ema_dtype) if ema_decay is not None else None,
         logvar=logvar)
 
@@ -163,12 +180,17 @@ def make_diffusion_train_step(
     the gradients summed in the parameters' dtype, as the TPU package's scan
     sums them), and averaged into ONE optimizer and EMA update. The logs are
     the microbatches' mean, plus `grad_norm`, the fp32 global norm of the
-    averaged gradient before clipping. The whole step runs inside
+    averaged gradient before clipping. A state logvar table that requires
+    grad (`init_train_state(learn_logvar=True)`) trains too. Only
+    the trained tensors' gradients are read, so a frozen tensor the loss
+    runs through keeps no `.grad`. The whole step runs inside
     `training_trace()`."""
 
     def step(state: TrainState, batch: dict,
              generator: torch.Generator | None = None) -> dict:
         trained = list(state.params.values())
+        if state.logvar is not None and state.logvar.requires_grad:
+            trained.append(state.logvar)
         sums: dict[str, torch.Tensor] = {}
         with training_trace():
             for mb in (_split(batch, grad_accum) if grad_accum > 1 else [batch]):

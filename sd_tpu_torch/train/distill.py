@@ -43,7 +43,7 @@ from sd_tpu_torch.train.metrics import count_params
 from sd_tpu_torch.train.remat import remat_apply
 from sd_tpu_torch.train.runners import (_Batches, _image, _load_cfg, _resume, _run_loop,
                                         apply_calibration, build_ldm, copy_named_,
-                                        ema_eval_params, make_lr)
+                                        ema_eval_params, make_lr, params_apply)
 
 
 def load_teacher_params(cfg: dict, teacher_run: str,
@@ -83,15 +83,6 @@ def make_consistency_train_step(loss_fn: Callable, optimizer: Adam,
     return step
 
 
-def _params_apply(module: torch.nn.Module, params: dict[str, torch.Tensor]) -> Callable:
-    """`module`'s apply (x, t, ctx, **kw) with `params` in place of its own
-    (those it names); the module itself where `params` are its own."""
-    own = dict(module.named_parameters())
-    if params.keys() == own.keys() and all(params[n] is p for n, p in own.items()):
-        return module
-    return lambda x, t, ctx, **kw: torch.func.functional_call(module, params, (x, t, ctx), kw)
-
-
 def unet_fn(unet: torch.nn.Module, params: dict[str, torch.Tensor],
             conditioning_key: str = "crossattn", lora: bool = False,
             remat: str = "none") -> Callable:
@@ -102,7 +93,7 @@ def unet_fn(unet: torch.nn.Module, params: dict[str, torch.Tensor],
     the backward under that policy."""
     if lora:
         params = merged_kernels(unet, nest_lora(params))
-    apply = remat_apply(_params_apply(unet, params), remat)
+    apply = remat_apply(params_apply(unet, params), remat)
     return lambda x, t, c: apply_conditioned(apply, x, t, c, conditioning_key)
 
 
@@ -151,8 +142,6 @@ def distill_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | N
     if auto and not os.path.exists(os.path.join(teacher_run, "calibration.json")):
         raise ValueError(f"teacher run {teacher_run} has no calibration.json — "
                          "finish train_ldm first")
-    if tc.get("weight_decay"):
-        raise NotImplementedError("train.weight_decay is not ported yet")
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
@@ -220,7 +209,8 @@ def distill_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | N
         out.update({k: batch[k] for k in ("enc_noise", "i", "noise") if k in batch})
         return out
 
-    opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0))
+    opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0),
+                         weight_decay=tc.get("weight_decay", 0.0))
     if param_dtype not in (None, torch.float32):
         opt = float32_moments(opt)
     state, start = _resume(out_dir, lambda: init_train_state(

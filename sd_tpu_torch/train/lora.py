@@ -4,8 +4,9 @@ arXiv:2106.09685).
 Counterpart of `sd_tpu/train/lora.py` (`lora_targets`, `init_lora`,
 `merge_lora`, `count_lora_params`, `save_lora_safetensors`,
 `load_lora_safetensors`; `merged_kernels` is the merge that carries
-gradients to the factors, for the LCM-LoRA distillation of
-`train/distill.py`; `train_ldm`'s LoRA trainer is not ported yet). A factor
+gradients to the factors, for `train_ldm`'s LoRA branch
+(`train/runners.py ldm_branch`) and the LCM-LoRA distillation of
+`train/distill.py`). A factor
 tree maps each adapted kernel's checkpoint key to {"a": [in, r], "b": [r,
 out]}, in the TPU package's names and layout: the key is the flax path of
 the Dense kernel
@@ -107,7 +108,9 @@ def flat_lora(lora: Mapping[str, Mapping[str, torch.Tensor]]) -> dict[str, torch
 
 
 def nest_lora(flat: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse of `flat_lora`."""
+    """The inverse of `flat_lora`; a nested tree is returned as it is."""
+    if all(isinstance(v, Mapping) for v in flat.values()):
+        return dict(flat)
     out: dict = {}
     for name, v in flat.items():
         base, leaf = name.rsplit(".", 1)

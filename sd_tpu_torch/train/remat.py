@@ -62,7 +62,8 @@ def remat_apply(apply_fn: Callable, policy: str = "dots") -> Callable:
         return fwd, _stacked(recompute, train_ctx())
 
     @functools.wraps(apply_fn)
-    def wrapped(*args):
-        return checkpoint(apply_fn, *args, use_reentrant=False, context_fn=context_fn)
+    def wrapped(*args, **kwargs):
+        return checkpoint(apply_fn, *args, use_reentrant=False, context_fn=context_fn,
+                          **kwargs)
 
     return wrapped

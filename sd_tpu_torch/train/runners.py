@@ -24,16 +24,24 @@ odd, the port keeps it: a resumed run's loader starts again at epoch 1, and
 training state and one dict of floats per step: the step's logs and
 `seconds` (host clock, the step's results read back).
 
-`train_ldm` is the plain-UNet branch of the TPU package's (the SD-v1
-recipe, `configs/sd512_catdog.yaml`): CLIP text embedding with caption
-dropout, the frozen first stage (a KL posterior sample or a VQ model's
-latent before quantization; trained weights from `first_stage.ckpt`, a KL
-or VQ run's checkpoint directory), `scale_factor: auto` calibrated on the
-first batch and written to `out_dir/calibration.json`, the process's loss
-through the UNet (the DDPM ε / v / x0 loss, or the rectified-flow velocity
-loss of `diffusion.type: flow`; `build_process`), gradient accumulation, global-norm clip, Adam (fp32 moments under
-bf16 parameters), fp32 EMA, remat. Its LoRA, ControlNet, IP-Adapter and
-trainable-cond-stage branches are not ported yet. `train_ddpm` trains the
+`train_ldm` is the TPU package's (the SD-v1 recipe,
+`configs/sd512_catdog.yaml`): CLIP text embedding with caption dropout, the
+frozen first stage (a KL posterior sample or a VQ model's latent before
+quantization; trained weights from `first_stage.ckpt`, a KL or VQ run's
+checkpoint directory), `scale_factor: auto` calibrated on the first batch
+and written to `out_dir/calibration.json`, the process's loss through the
+UNet (the DDPM ε / v / x0 loss, or the rectified-flow velocity loss of
+`diffusion.type: flow`; `build_process`) with `train.noise_offset`,
+gradient accumulation, global-norm clip, Adam or AdamW
+(`train.weight_decay`; fp32 moments under bf16 parameters), fp32 EMA,
+remat, the learned logvar (`train.learn_logvar`). What it trains is one of
+`ldm_branch`'s: the UNet; LoRA factors over the frozen UNet (`lora:`,
+`lora.safetensors` from the EMA factors at the end); a ControlNet over it
+(`controlnet:`, its hint from `data/hints.py`); an IP-Adapter (`ip_adapter:`,
+the frozen image embedder saved to `out_dir/ip_embedder`); or the UNet and
+the text encoder together (`cond_stage.trainable`). A ControlNet or
+IP-Adapter run may start from a trained base UNet (`base_run`: a
+`train_ldm` run directory or its `ckpt/`, the EMA weights). `train_ddpm` trains the
 pixel-space UNetDDPM under the DDPM ε-loss (capability config #1),
 `train_kl_vae` the KL autoencoder against L1 + LPIPS + KL + a PatchGAN
 (#3), `train_vq` the VQ model (argmin, Gumbel or EMA codebook) against L1 +
@@ -68,8 +76,9 @@ from sd_tpu_torch.models.discriminator import NLayerDiscriminator, init_discrimi
 from sd_tpu_torch.models.lpips import make_lpips_fn
 from sd_tpu_torch.models.unet_ddpm import UNetDDPM
 from sd_tpu_torch.models.unet_sd import UNetModel
-from sd_tpu_torch.train.checkpoint import auto_resume, restore_tree, save_checkpoint
-from sd_tpu_torch.train.diffusion import (TrainState, ddpm_optimizer,
+from sd_tpu_torch.train.checkpoint import (auto_resume, restore_tree, save_checkpoint,
+                                           trained_weights)
+from sd_tpu_torch.train.diffusion import (TrainState, cast_floating, ddpm_optimizer,
                                           float32_moments, init_train_state,
                                           make_diffusion_train_step)
 from sd_tpu_torch.train.gan import (GanTrainState, gan_adam, gumbel_temp_schedule,
@@ -80,6 +89,10 @@ from sd_tpu_torch.train.metrics import (MetricsLogger, count_params, psnr,
                                         save_image_grid, ssim)
 from sd_tpu_torch.train.remat import remat_apply
 from sd_tpu_torch.weights import init_params_
+
+# the host-side numpy streams, seeded (seed, key) as in the TPU package
+CAPTION_DROPOUT_KEY = 0xCFD
+IP_DROPOUT_KEY = 0x1BAD2
 
 # the eval sampler's generator is derived from (seed, EVAL_KEY, step)
 EVAL_KEY = 0x5EED
@@ -407,15 +420,16 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     """The text-to-image latent-diffusion stack of `cfg`, every weight from
     `generator` (the first stage's trained ones from `first_stage.ckpt`):
     (ld, unet, first_stage, embed_texts). The UNet holds its parameters in
-    `param_dtype`; the frozen first stage and text tower are fp32."""
+    `param_dtype`; the first stage and text tower are fp32 and frozen
+    (`requires_grad` off)."""
     device = resolve_device(device)
     lat = cfg["latent"]
     ucfg = {k: v for k, v in cfg["unet"]["params"].items() if k != "dtype"}
     unet = UNetModel(**ucfg, dtype=param_dtype, device=device)
     init_params_(unet, generator)
-    vae = build_first_stage(cfg["first_stage"], generator, device=device)
+    vae = build_first_stage(cfg["first_stage"], generator, device=device).requires_grad_(False)
     clip_cfg = ClipTextConfig(**(cfg.get("cond_stage", {}).get("params") or {}))
-    clip = ClipTextTransformer(clip_cfg, device=device).eval()
+    clip = ClipTextTransformer(clip_cfg, device=device).eval().requires_grad_(False)
     init_params_(clip, generator)
 
     encode_fn, decode_fn = first_stage_fns(vae)
@@ -430,24 +444,247 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     return ld, unet, vae, embed
 
 
+def params_apply(module: torch.nn.Module, params: dict[str, torch.Tensor]) -> Callable:
+    """`module`'s apply (x, t, ctx, **kw) with `params` in place of its own
+    (those it names); the module itself where `params` are its own."""
+    own = dict(module.named_parameters())
+    if params.keys() == own.keys() and all(params[n] is p for n, p in own.items()):
+        return module
+    return lambda x, t, ctx, **kw: torch.func.functional_call(module, params, (x, t, ctx), kw)
+
+
+def load_base_unet_(unet: UNetModel, run: str) -> str:
+    """Copy a trained base UNet into `unet`, in place: the EMA weights (else
+    the parameters) of the latest checkpoint of `run`, a `train_ldm` run
+    directory or its `ckpt/`, read on the CPU from the mapped file, each
+    checked against the module's shape and cast to its dtype. Returns the
+    checkpoint directory (its calibration.json sits beside it)."""
+    ckpt_dir = os.path.join(run, "ckpt") if os.path.isdir(os.path.join(run, "ckpt")) else run
+    copy_named_(dict(unet.named_parameters()), trained_weights(restore_tree(ckpt_dir)),
+                f"base UNet of {ckpt_dir}")
+    return ckpt_dir
+
+
+def caption_dropper(cfg: dict) -> Callable[[list], list]:
+    """The caption dropout of `train.cond_dropout`: each caption the empty
+    one at that rate, drawn from the (seed, 0xCFD) numpy stream."""
+    rate = float(cfg["train"].get("cond_dropout", 0.0))
+    rng = np.random.default_rng((cfg.get("seed", 0), CAPTION_DROPOUT_KEY))
+
+    def drop(texts):
+        if rate <= 0.0:
+            return list(texts)
+        return ["" if rng.random() < rate else t for t in texts]
+
+    return drop
+
+
+@dataclasses.dataclass
+class LdmBranch:
+    """What `train_ldm` trains and how: `params` (the trained tensors, by
+    name), `loss_fn(batch, generator, logvar) -> (loss, logs)` over the
+    batches `embed_batch` makes from the loader's, the model `ld` the loss
+    runs, the branch's own modules, and `finish(state)` (the run's
+    distribution file at the end, or None)."""
+
+    params: dict[str, torch.Tensor]
+    loss_fn: Callable
+    embed_batch: Callable[[dict], dict]
+    ld: LatentDiffusion
+    modules: dict = dataclasses.field(default_factory=dict)
+    finish: Callable[[TrainState], None] | None = None
+
+
+def ldm_branch(cfg: dict, ld: LatentDiffusion, unet: UNetModel, embed: TextEmbedder,
+               out_dir: str | None = None, param_dtype: torch.dtype = torch.float32
+               ) -> LdmBranch:
+    """`train_ldm`'s branch of `cfg`: its trained tensors (in `param_dtype`),
+    loss and batch transform. Every branch embeds the captions with caption
+    dropout; the adapter branches freeze the UNet (`requires_grad` off) and
+    initialise their tensors from generators seeded as the TPU package's
+    keys: LoRA (seed ^ 0x10AA), ControlNet (seed ^ 0xC077), the IP-Adapter's
+    image embedder (seed ^ 0x1BAD) and adapter (seed ^ 0x1BAD1). `lora`,
+    `controlnet` and `ip_adapter` exclude each other and a trainable cond
+    stage. The loss runs the UNet under `train.remat`."""
+    from sd_tpu_torch.data.hints import HINT_FNS
+    from sd_tpu_torch.models.conditioners import FrozenClipImageEmbedder
+    from sd_tpu_torch.models.controlnet import (controlled_apply_fn,
+                                                controlnet_from_unet_config,
+                                                init_controlnet_from_unet)
+    from sd_tpu_torch.models.ip_adapter import (count_ip_params, flat_ip, init_ip_adapter,
+                                                ip_apply_fn, nest_ip)
+    from sd_tpu_torch.train.lora import (count_lora_params, flat_lora, init_lora,
+                                         merged_kernels, nest_lora, save_lora_safetensors)
+
+    tc = cfg["train"]
+    seed = cfg.get("seed", 0)
+    device = next(unet.parameters()).device
+    remat = tc.get("remat", "none")
+    cond_trainable = bool(cfg.get("cond_stage", {}).get(
+        "trainable", tc.get("cond_stage_trainable", False)))
+    lora_cfg, cn_cfg, ip_cfg = cfg.get("lora"), cfg.get("controlnet"), cfg.get("ip_adapter")
+    if sum(map(bool, (lora_cfg, cn_cfg, ip_cfg))) > 1:
+        raise ValueError("lora / controlnet / ip_adapter training are mutually exclusive")
+    drop = caption_dropper(cfg)
+    gen = lambda key: torch.Generator(device).manual_seed(seed ^ key)
+
+    def embed_texts(batch):
+        return {"image": _image(batch, device),
+                "txt_emb": embed(drop(batch.get("txt_raw", [""] * len(batch["image"]))))}
+
+    def base_from(run_cfg):
+        nonlocal ld
+        if run_cfg.get("base_run"):
+            # the paper's setup: control a TRAINED base model (its EMA weights)
+            ckpt_dir = load_base_unet_(unet, run_cfg["base_run"])
+            ld = apply_calibration(ld, cfg, ckpt_dir)
+            print(f"[ldm] base UNet loaded from {ckpt_dir} (scale_factor={ld.scale_factor:.4f})")
+
+    def plain_loss(model):
+        apply = remat_apply(model.unet_apply, remat)
+        model = dataclasses.replace(model, unet_apply=apply)
+        return lambda b, g, logvar: model.training_loss(b, g, logvar), model
+
+    if cn_cfg:
+        if cond_trainable:
+            raise ValueError("controlnet and cond_stage.trainable are exclusive")
+        base_from(cn_cfg)
+        hint_fn = HINT_FNS[cn_cfg.get("hint", "canny")]
+        f_vae = first_stage_factor(cfg["first_stage"])
+        cn = controlnet_from_unet_config(cfg["unet"]["params"],
+                                         hint_channels=int(cn_cfg.get("hint_channels", 3)),
+                                         hint_downsamples=f_vae.bit_length() - 1,
+                                         dtype=param_dtype, device=device)
+        init_params_(cn, gen(0xC077))
+        init_controlnet_from_unet(cn, unet)
+        unet.requires_grad_(False)
+        print(f"[ldm] controlnet: {count_params(cn) / 1e6:.1f}M trainable params "
+              f"(base frozen: {count_params(unet) / 1e6:.1f}M)")
+        loss_fn, model = plain_loss(dataclasses.replace(
+            ld, unet_apply=controlled_apply_fn(unet, cn)))
+
+        def embed_batch(batch):
+            out = embed_texts(batch)
+            out["hint"] = torch.as_tensor(hint_fn(np.asarray(batch["image"])),
+                                          dtype=torch.float32).to(device)
+            return out
+
+        return LdmBranch(dict(cn.named_parameters()), loss_fn, embed_batch, model,
+                         {"controlnet": cn})
+    if ip_cfg:
+        if cond_trainable:
+            raise ValueError("ip_adapter and cond_stage.trainable are exclusive")
+        base_from(ip_cfg)
+        embedder = FrozenClipImageEmbedder(device=device).eval().requires_grad_(False)
+        init_params_(embedder, gen(0x1BAD))
+        if out_dir:
+            # the frozen embedder beside the run, so serving embeds as training did
+            save_checkpoint(os.path.join(out_dir, "ip_embedder"),
+                            dict(embedder.named_parameters()), 0, max_to_keep=1)
+        pix = tc.get("image_size", 256)
+        with torch.no_grad():
+            embed_dim = int(embedder(torch.zeros((1, pix, pix, 3), device=device)).shape[-1])
+        ip = cast_floating(flat_ip(init_ip_adapter(
+            unet, gen(0x1BAD1), embed_dim=embed_dim, n_tokens=int(ip_cfg.get("n_tokens", 4)))),
+            param_dtype)
+        unet.requires_grad_(False)
+        print(f"[ldm] ip_adapter: {count_ip_params(nest_ip(ip)) / 1e6:.2f}M trainable params over "
+              f"{len(nest_ip(ip)['layers'])} cross-attn layers (base frozen: "
+              f"{count_params(unet) / 1e6:.1f}M)")
+        loss_fn, model = plain_loss(dataclasses.replace(
+            ld, unet_apply=ip_apply_fn(unet, nest_ip(ip), float(ip_cfg.get("scale", 1.0)))))
+        img_dropout = float(ip_cfg.get("image_dropout", 0.05))
+        ip_rng = np.random.default_rng((seed, IP_DROPOUT_KEY))
+
+        @torch.no_grad()
+        def embed_batch(batch):
+            out = embed_texts(batch)
+            emb = embedder(out["image"])
+            if img_dropout > 0.0:
+                keep = torch.as_tensor(ip_rng.random(emb.shape[0]) >= img_dropout)
+                emb = emb * keep.to(emb.dtype).to(device)[:, None]
+            out["ip_embed"] = emb
+            return out
+
+        return LdmBranch(ip, loss_fn, embed_batch, model, {"embedder": embedder})
+    if lora_cfg:
+        if cond_trainable:
+            raise ValueError("lora and cond_stage.trainable are exclusive")
+        scale = float(lora_cfg.get("scale", 1.0))
+        rank = int(lora_cfg.get("rank", 8))
+        factors = cast_floating(flat_lora(init_lora(unet, rank, gen(0x10AA),
+                                                    lora_cfg.get("targets"))), param_dtype)
+        unet.requires_grad_(False)
+        print(f"[ldm] lora: {count_lora_params(nest_lora(factors)) / 1e3:.1f}K trainable "
+              f"params over {len(factors) // 2} kernels (base frozen: "
+              f"{count_params(unet) / 1e6:.1f}M)")
+
+        def loss_fn(batch, generator, logvar):
+            # the merge inside the loss: the adapted weights carry gradients to the factors
+            merged = merged_kernels(unet, nest_lora(factors), scale)
+            model = dataclasses.replace(
+                ld, unet_apply=remat_apply(params_apply(unet, merged), remat))
+            return model.training_loss(batch, generator, logvar)
+
+        def finish(state):
+            # the distribution file beside the resume checkpoint: the EMA factors
+            save_lora_safetensors(os.path.join(out_dir, "lora.safetensors"),
+                                  nest_lora(ema_eval_params(state)),
+                                  metadata={"rank": str(rank), "scale": str(scale)})
+
+        return LdmBranch(factors, loss_fn, embed_texts, ld, finish=finish if out_dir else None)
+    if cond_trainable:
+        # the text encoder trains with the UNet, in the UNet's dtype; the
+        # optimizer, EMA and checkpoint hold {unet, cond}
+        clip = embed.clip.to(param_dtype).requires_grad_(True)
+        print(f"[ldm] cond-stage params in optimizer: {count_params(clip) / 1e6:.1f}M")
+        params = {**{f"unet.{n}": p for n, p in unet.named_parameters()},
+                  **{f"cond.{n}": p for n, p in clip.named_parameters()}}
+        loss, model = plain_loss(ld)
+
+        def loss_fn(batch, generator, logvar):
+            return loss({**batch, "txt_emb": clip(batch["txt_ids"])}, generator, logvar)
+
+        def embed_batch(batch):
+            texts = drop(batch.get("txt_raw", [""] * len(batch["image"])))
+            ids = torch.from_numpy(embed.tokenizer(texts).astype(np.int64))
+            return {"image": _image(batch, device), "txt_ids": ids.to(device)}
+
+        return LdmBranch(params, loss_fn, embed_batch, model, {"cond": clip})
+    loss_fn, model = plain_loss(ld)
+    return LdmBranch(dict(unet.named_parameters()), loss_fn, embed_texts, model)
+
+
+def auto_scale_factor(ld: LatentDiffusion, cfg: dict, batches: _Batches, out_dir: str | None,
+                      generator: torch.Generator, tag: str = "ldm") -> LatentDiffusion:
+    """`ld` at the config's scale factor: under `scale_factor: auto` 1/std of
+    the run's fixed batch's latents (the reference's scale_by_std), written
+    to `out_dir/calibration.json`; a resumed run calibrates again on the
+    same batch."""
+    if cfg["latent"].get("scale_factor") != "auto":
+        return ld
+    z = ld.encode_first_stage(_image(batches.peek(), generator.device), generator=generator)
+    ld = dataclasses.replace(ld, scale_factor=calibrate_scale_factor(z))
+    print(f"[{tag}] scale_factor (std-rescale): {ld.scale_factor:.4f}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "calibration.json"), "w") as f:
+            json.dump({"scale_factor": float(ld.scale_factor)}, f)
+    return ld
+
+
 def train_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | None = None,
               max_steps: int | None = None, device=None) -> tuple[TrainState, list[dict]]:
-    """Train the UNet of `config` on `data` (see the module docstring) for
-    `max_steps` optimizer steps (default `train.total_steps`). With
-    `scale_factor: auto` the factor is 1/std of the first batch's latents
-    (`calibration.json` under `out_dir`); a resumed run calibrates again on
-    the same batch. The caption-dropout stream starts from the seed on
-    every start, a resumed run's too, as in the TPU package."""
+    """Train `ldm_branch`'s tensors of `config` on `data` (see the module
+    docstring) for `max_steps` optimizer steps (default
+    `train.total_steps`). With `scale_factor: auto` the factor is 1/std of
+    the first batch's latents (`calibration.json` under `out_dir`; a
+    `base_run`'s own calibration replaces it); a resumed run calibrates
+    again on the same batch. The caption-dropout and image-dropout streams
+    start from the seed on every start, a resumed run's too, as in the TPU
+    package."""
     cfg = _load_cfg(config)
     tc = cfg["train"]
-    for branch in ("lora", "controlnet", "ip_adapter"):
-        if cfg.get(branch):
-            raise NotImplementedError(f"{branch} training is not ported yet")
-    if cfg.get("cond_stage", {}).get("trainable", tc.get("cond_stage_trainable")):
-        raise NotImplementedError("a trainable cond stage is not ported yet")
-    for key in ("weight_decay", "noise_offset", "learn_logvar"):
-        if tc.get(key):
-            raise NotImplementedError(f"train.{key} is not ported yet")
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
@@ -455,42 +692,26 @@ def train_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | Non
     ld, unet, _, embed = build_ldm(cfg, gen, param_dtype, device)
     print(f"[ldm] unet params: {count_params(unet) / 1e6:.1f}M"
           + (f" ({tc['param_dtype']})" if tc.get("param_dtype") else ""))
+    if tc.get("noise_offset"):
+        ld = dataclasses.replace(ld, noise_offset=float(tc["noise_offset"]))
     batches = _Batches(data, cfg)
+    ld = auto_scale_factor(ld, cfg, batches, out_dir, gen)
+    branch = ldm_branch(cfg, ld, unet, embed, out_dir, param_dtype)
 
-    if cfg["latent"].get("scale_factor") == "auto":
-        # std-rescaling on the first batch (the reference's scale_by_std)
-        z = ld.encode_first_stage(_image(batches.peek(), device), generator=gen)
-        ld = dataclasses.replace(ld, scale_factor=calibrate_scale_factor(z))
-        print(f"[ldm] scale_factor (std-rescale): {ld.scale_factor:.4f}")
-        if out_dir:
-            os.makedirs(out_dir, exist_ok=True)
-            with open(os.path.join(out_dir, "calibration.json"), "w") as f:
-                json.dump({"scale_factor": float(ld.scale_factor)}, f)
-
-    # classifier-free-guidance training: the empty caption at `cond_dropout`
-    cond_dropout = float(tc.get("cond_dropout", 0.0))
-    cd_rng = np.random.default_rng((seed, 0xCFD))
-
-    def embed_batch(batch):
-        texts = list(batch.get("txt_raw", [""] * len(batch["image"])))
-        if cond_dropout > 0.0:
-            texts = ["" if cd_rng.random() < cond_dropout else t for t in texts]
-        return {"image": _image(batch, device), "txt_emb": embed(texts)}
-
-    opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0))
+    opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0),
+                         weight_decay=tc.get("weight_decay", 0.0))
     if param_dtype != torch.float32:
         opt = float32_moments(opt)
-    if tc.get("remat", "none") != "none":
-        ld = dataclasses.replace(ld, unet_apply=remat_apply(ld.unet_apply, tc["remat"]))
+    learn_logvar = bool(tc.get("learn_logvar", False))
     state, start = _resume(out_dir, lambda: init_train_state(
-        dict(unet.named_parameters()), opt, tc.get("ema_decay", 0.9999),
-        num_timesteps=ld.schedule.num_timesteps))
-    step_fn = make_diffusion_train_step(
-        lambda b, g, logvar: ld.training_loss(b, g, learned_logvar=logvar),
-        opt, grad_accum=tc.get("grad_accum", 1))
-    history = _run_loop(lambda st, b, g: step_fn(st, embed_batch(b), g), state, cfg,
+        branch.params, opt, tc.get("ema_decay", 0.9999),
+        num_timesteps=branch.ld.schedule.num_timesteps, learn_logvar=learn_logvar))
+    step_fn = make_diffusion_train_step(branch.loss_fn, opt, grad_accum=tc.get("grad_accum", 1))
+    history = _run_loop(lambda st, b, g: step_fn(st, branch.embed_batch(b), g), state, cfg,
                         batches, out_dir, start, seed=seed, device=device,
                         max_steps=max_steps)
+    if branch.finish is not None:
+        branch.finish(state)
     return state, history
 
 

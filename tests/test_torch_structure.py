@@ -1121,6 +1121,137 @@ def test_few_step_launches(tpu_gates, monkeypatch):
     assert {name: dict(c) for name, c in derived.items()} == want
 
 
+def _fine_tune_piece(monkeypatch):
+    """`piece(fn, grad)`: the launches `fn` makes (on `meta` tensors), the
+    inference flash launches by their plans' routes."""
+    calls = _count_kernel_calls(monkeypatch)
+    plans = _spy_plans(monkeypatch)
+    flash = {"_inference", "flash_attention_hpacked"}
+
+    def piece(fn, grad=False) -> Counter:
+        before, n = Counter(calls), len(plans)
+        with torch.set_grad_enabled(grad):
+            fn()
+        got = Counter({k: v - before[k] for k, v in calls.items() if k not in flash})
+        got["geglu_sm90"] = got["geglu_ff"]          # every GEGLU launch runs geglu_sm90.cu
+        return +got + _plan_launches(plans[n:])
+
+    return piece
+
+
+def test_fine_tune_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s fine_tune launches of the bf16 branches and the
+    served checks, piece by piece on `meta` tensors with every gate checked
+    against the JAX package's. A training step (batch 4 as 4 microbatches
+    of 1, remat "dots") is 4 × one microbatch's forward and backward, built
+    as `ldm_branch` builds each: LoRA's merged kernels train every
+    attention, as `train_ldm`'s UNet does
+    (`test_training_step_gates_and_launches`), and so does the trainable
+    text encoder (the UNet trains; the tower's 77-token attention takes no
+    kernel); the ControlNet runs the frozen base encoder without a gradient
+    (its 4 self-attentions take the inference flash kernel and its level-0
+    GEGLUs the fused kernel, again in the remat recompute) and trains its
+    own copy; IP-Adapter's first self-attention sits before the first image
+    read (no gradient there). The served checks: `generate` (CFG, batch-4
+    UNet calls), with the ControlNet branch, and the mask-conditioned
+    `inpaint` (its UNet calls, the masked images' encode, the decode)."""
+    import dataclasses
+
+    from sd_tpu_torch.core.config import sd512_inpaint_train_config
+    from sd_tpu_torch.models.controlnet import controlled_apply_fn, controlnet_from_unet_config
+    from sd_tpu_torch.models.ip_adapter import flat_ip, init_ip_adapter, ip_apply_fn, nest_ip
+    from sd_tpu_torch.train.lora import flat_lora, init_lora, merged_kernels, nest_lora
+    from sd_tpu_torch.train.runners import params_apply
+
+    piece = _fine_tune_piece(monkeypatch)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    on_meta = lambda tree: {k: torch.empty(v.shape, dtype=torch.bfloat16, device="meta",
+                                           requires_grad=True) for k, v in tree.items()}
+    cfg = sd512_train_config()
+    unet = UNetModel(**UNET, **BF16).requires_grad_(False)
+    vae = AutoencoderKL(**VAE, dtype=torch.float32, device="meta")
+    ld = LatentDiffusion(
+        process=DDPMProcess(DiffusionSchedule.create(**cfg["diffusion"]).to("meta")),
+        unet_apply=unet, encode_fn=vae.encode, decode_fn=vae.decode)
+    batch = {"image": meta(1, 512, 512, 3, dtype=torch.float32), "txt_emb": meta(1, 77, 768),
+             "t": meta(1, dtype=torch.long), "noise": meta(1, 64, 64, 4),
+             "enc_noise": meta(1, 64, 64, 4)}
+
+    def microbatch(apply, extra=None):
+        """One microbatch's loss and backward in the training context."""
+        def run():
+            with conv_k.training_trace(), jconv.training_trace():
+                model = dataclasses.replace(ld, unet_apply=remat_apply(apply(), "dots"))
+                model.training_loss({**batch, **(extra or {})})[0].backward()
+
+        return piece(run, grad=True)
+
+    lora = on_meta(flat_lora(init_lora(unet, 4, torch.Generator())))
+    cn = controlnet_from_unet_config(UNET, hint_downsamples=3, **BF16).requires_grad_(True)
+    ip = init_ip_adapter(unet, torch.Generator())
+    ip = on_meta(flat_ip({"proj": ip["proj"], "layers": ip["layers"]}))
+    per_mb = {
+        "lora": microbatch(lambda: params_apply(unet, merged_kernels(unet, nest_lora(lora)))),
+        "controlnet": microbatch(lambda: controlled_apply_fn(unet, cn),
+                                 {"hint": meta(1, 512, 512, 3, dtype=torch.float32)}),
+        "ip_adapter": microbatch(lambda: ip_apply_fn(unet, nest_ip(ip)),
+                                 {"ip_embed": meta(1, 512)})}
+    clip = ClipTextTransformer(ClipTextConfig(), **BF16)
+    tower = piece(lambda: clip(meta(1, 77, dtype=torch.long)), grad=True)
+    times = lambda n, c: Counter({k: n * v for k, v in c.items()})
+    accum = cfg["train"]["grad_accum"]
+    train_step = Counter({k: v for k, v in chip_smoke.EXPECTED_TRAIN_LAUNCHES.items() if v})
+    assert times(accum, per_mb["lora"]) == train_step and not tower
+
+    unet.requires_grad_(False)
+    call = lambda: (meta(4, 64, 64, 4), meta(4, dtype=torch.long), meta(4, 77, 768))
+    unet_call = piece(lambda: unet(*call()))
+    controlled = piece(lambda: controlled_apply_fn(unet, cn)(
+        *call(), control=meta(4, 512, 512, 3, dtype=torch.float32)))
+    iunet = UNetModel(**sd512_inpaint_train_config()["unet"]["params"], **BF16)
+    inpaint_call = piece(lambda: iunet(meta(4, 64, 64, 9), *call()[1:]))
+    bvae = AutoencoderKL(**VAE, **BF16)
+    dec = piece(lambda: bvae.decode(meta(2, 64, 64, 4)))
+    enc = piece(lambda: bvae.encode(meta(2, 512, 512, 3)))
+    steps = _ddim_calls(chip_smoke.FINE_TUNE_GENERATE_STEPS)
+    assert steps == chip_smoke.FINE_TUNE_GENERATE_STEPS
+    derived = {**{f"{name}_step": times(accum, c) for name, c in per_mb.items()},
+               "cond_step": train_step + times(accum, tower),
+               "fp32_step": Counter(),
+               "generate": times(steps, unet_call) + dec,
+               "generate_controlnet": times(steps, controlled) + dec,
+               "inpaint_conditioned": times(steps, inpaint_call) + enc + dec}
+    want = {name: {k: v for k, v in counts.items() if v}
+            for name, counts in chip_smoke.FINE_TUNE_LAUNCHES.items()}
+    assert {name: dict(c) for name, c in derived.items()} == want
+
+
+def test_fine_tune_fp32_trainers_reach_no_kernel(monkeypatch):
+    """Textual inversion, DreamBooth (its class images too) and inpainting
+    train and sample in fp32 (`build_ldm` without a parameter dtype, as the
+    TPU package's trainers call it): the UNet at 4 and 9 input channels, the
+    text tower and the first stage reach no kernel (every port gate takes
+    bf16 only; the JAX package's shape rules would say yes, so its gates
+    are not consulted here), and a backward adds launches only through the
+    flash autograd Function an fp32 forward never enters."""
+    from sd_tpu_torch.core.config import sd512_inpaint_train_config
+
+    piece = _fine_tune_piece(monkeypatch)
+    fp32 = dict(dtype=torch.float32, device="meta")
+    meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+    t, ctx = meta(2, dtype=torch.long), meta(2, 77, 768)
+    got = (piece(lambda: UNetModel(**UNET, **fp32)(meta(2, 64, 64, 4), t, ctx))
+           + piece(lambda: UNetModel(**sd512_inpaint_train_config()["unet"]["params"], **fp32)(
+               meta(2, 64, 64, 9), t, ctx))
+           + piece(lambda: ClipTextTransformer(ClipTextConfig(), **fp32)(
+               meta(2, 77, dtype=torch.long)))
+           + piece(lambda: AutoencoderKL(**VAE, **fp32).encode(meta(1, 512, 512, 3)))
+           + piece(lambda: AutoencoderKL(**VAE, **fp32).decode(meta(2, 64, 64, 4))))
+    assert not got
+    assert not chip_smoke.FINE_TUNE_LAUNCHES["fp32_step"] or not any(
+        chip_smoke.FINE_TUNE_LAUNCHES["fp32_step"].values())
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
@@ -1129,7 +1260,8 @@ def test_launch_counters_are_chip_smokes_kernels():
                  chip_smoke.EXPECTED_VQ_LAUNCHES, chip_smoke.KL_RUN_EVAL_LAUNCHES,
                  chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES, chip_smoke.ENCODER_512_LAUNCHES,
                  *chip_smoke.IMAGE_EDIT_LAUNCHES.values(), *chip_smoke.ADAPTER_LAUNCHES.values(),
-                 *chip_smoke.FEW_STEP_LAUNCHES.values()):
+                 *chip_smoke.FEW_STEP_LAUNCHES.values(),
+                 *chip_smoke.FINE_TUNE_LAUNCHES.values()):
         assert set(want) == set(kernels.LAUNCHES)
 
 
