@@ -222,6 +222,22 @@ Phases, each printed as one JSON line:
            CFG 7.5) and flow_midpoint (4) twice each, a served flow request;
            every inference kernel shape held against its plain version; s/step,
            s/generate (beside the e2e phase's), peak memory, checkpoint GB/s.
+  fine_tune  train_ldm's fine-tuning branches and tasks at SD-v1 full width
+           through `python -m sd_tpu_torch.train`, each output served.
+  super_resolution  configs/ldm_sr_catdog.yaml at full width through the
+           command lines: the KL-f4 first stage's run (2 steps), the SR run over
+           its checkpoint (batch 16, bsrgan_light, 2 steps with an eval, then
+           resumed for a third), `python -m sd_tpu_torch.sample_sr` on it (20
+           steps); the LR batch the run trained on equal to a fresh loader's,
+           the SR UNet on the card against its CPU copy in fp32, no launch and
+           every attention's route (plain); s/step, peak GB, checkpoint GB/s,
+           the loader's seconds per batch of 16 degradations, sample_sr's
+           seconds. The device line reports PIL (and its JPEG support) and scipy.
+  codec_attention  kl_f32 and vq_gumbel_f8 (per-level attention) at full
+           width: one fp32 GAN step each through `python -m sd_tpu_torch.train`
+           (no launch, every attention plain), their encode → decode on the card
+           against a CPU copy in fp32, and in bf16 (vq_gumbel_f8's 32² level on
+           the wide flash kernel, its shapes held against the plain versions).
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -561,6 +577,24 @@ FINE_TUNE_LAUNCHES = {
         **{k: FINE_TUNE_GENERATE_STEPS * v for k, v in _UNET_CALL.items()},
         flash_attention=2, flash_fwd_wide=2, conv3x3_same=30),
 }
+# the super_resolution and codec_attention phases
+SR_SEED = 21
+SR_IMAGES = 16                 # synthetic 128² PNGs, one batch of the SR recipe
+SR_STEPS = (2, 3)              # the SR run's steps (eval at the first), then its resume
+SR_KL_STEPS = 2                # the KL-f4 first stage's run under it
+SR_SAMPLE_STEPS = 20           # sample_sr's DDIM steps (the config's own)
+SR_SAMPLE_IMAGES = 4
+SR_DISK_GB = 8                 # the runs' checkpoints (≈ 1.2 GB SR, ≈ 0.6 GB KL, 2 codecs)
+# card fp32 against CPU fp32 (TF32 off), forward: stated before measuring
+CARD_CPU_TOL = {"max_rel": 1e-3, "l2_rel": 1e-4}
+# fp32 throughout: every attention and conv the SR and codec runs make takes
+# the plain path (sq < 512 or 4-byte data, the TPU package's gates)
+SR_RUN_LAUNCHES = launches_of()
+# a bf16 forward of vq_gumbel_f8 at 256², batch 1: its 32² level (1024
+# tokens, d = 512) takes the wide flash kernel in 7 blocks (encoder 2
+# per-level + mid, decoder mid + 3 per-level); kl_f32's 16² and 8² (256 and
+# 64 tokens) stay plain
+CODEC_BF16_FLASH = {"kl_f32": 0, "vq_gumbel_f8": 7}
 # the encoder's launches at 512², batch 2 (its bf16-vs-fp32 check)
 ENCODER_512_LAUNCHES = launches_of(flash_attention=1, flash_fwd_wide=1, conv3x3_same=12)
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
@@ -712,6 +746,26 @@ def bound_ms(flops: int, nbytes: int, peak: float = PEAK_FLOPS,
         return t * 1e3, "bytes", None
     return t * 1e3, "operations", ("exp2" if t_exp > t_ops
                                    else "fp32" if peak == PEAK_FP32 else "tensor")
+
+
+def host_libraries() -> dict:
+    """The host libraries the super-resolution data path needs: PIL's and
+    scipy's versions and whether PIL can write JPEG (None where missing)."""
+    out = {"pil": None, "pil_jpeg": None, "scipy": None}
+    try:
+        import PIL
+        from PIL import features
+
+        out.update(pil=PIL.__version__, pil_jpeg=bool(features.check("jpg")))
+    except ImportError:
+        pass
+    try:
+        import scipy
+
+        out["scipy"] = scipy.__version__
+    except ImportError:
+        pass
+    return out
 
 
 def require(ok: bool, what: str) -> None:
@@ -3918,14 +3972,7 @@ def phase_few_step(smi: str, ddim50_seconds: float | None = None) -> dict:
             built.append(build0(*a, **kw))
             return built[-1]
 
-        def save(ckpt_dir, state, step, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = save0(ckpt_dir, state, step, **kw)
-            sec = time.perf_counter() - t0
-            gb = os.path.getsize(out) / 1e9
-            saves.append({"step": step, "seconds": sec, "gb": gb, "gb_per_s": gb / sec})
-            return out
+        save = _timed_save(save0, saves)
 
         def make_step(loss_fn, opt, prep_fn=None, grad_accum=1):
             step = make0(loss_fn, opt, prep_fn=prep_fn, grad_accum=grad_accum)
@@ -4241,24 +4288,8 @@ def phase_fine_tune(smi: str) -> dict:
                                          runners.build_ldm, runners.ldm_branch)
         lse0, p_losses0 = fa.flash_attention_lse, LatentDiffusion.p_losses
 
-        def run_loop(step_fn, *a, **kw):
-            def timed(state, batch, generator):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logs = step_fn(state, batch, generator)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                return logs
-            return loop0(timed, *a, **kw)
-
-        def save(ckpt_dir, state, step, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = save0(ckpt_dir, state, step, **kw)
-            sec = time.perf_counter() - t0
-            gb = os.path.getsize(out) / 1e9
-            saves.append({"step": step, "seconds": sec, "gb": gb, "gb_per_s": gb / sec})
-            return out
+        run_loop = _timed_loop(loop0, step_s)
+        save = _timed_save(save0, saves)
 
         def build(*a, **kw):
             # a random UNet (its zero-init output conv would stop every
@@ -4469,6 +4500,405 @@ def phase_fine_tune(smi: str) -> dict:
           "io": io, "checks": checks, "kernel_shapes_held": held,
           "phase_seconds": time.perf_counter() - t_phase})
     return {name: r_["launches"] for name, r_ in runs.items()}
+
+
+def _timed_save(save0, saves: list):
+    """`save_checkpoint` that appends each save's step, seconds, GB and GB/s
+    to `saves`."""
+    import torch
+
+    def save(ckpt_dir, state, step, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save0(ckpt_dir, state, step, **kw)
+        sec = time.perf_counter() - t0
+        gb = os.path.getsize(out) / 1e9
+        saves.append({"step": step, "seconds": sec, "gb": gb, "gb_per_s": gb / sec})
+        return out
+
+    return save
+
+
+def _timed_loop(loop0, step_s: list):
+    """`_run_loop` whose step function appends each step's seconds (to the
+    card's synchronize) to `step_s`."""
+    import torch
+
+    def run_loop(step_fn, *a, **kw):
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = step_fn(state, batch, generator)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return logs
+        return loop0(timed, *a, **kw)
+
+    return run_loop
+
+
+def _sr_images(root: str, n: int = SR_IMAGES, size: int = 128) -> None:
+    """n uint8 size² PNGs `im_<i>.png` (`_edit_images`' seeded fields)."""
+    from sd_tpu_torch.data.image_io import write_png
+
+    for i, im in enumerate(_edit_images(n, size, SR_SEED)):
+        write_png(os.path.join(root, f"im_{i}.png"), im)
+
+
+def _attention_routes(routes: dict):
+    """Patches (an ExitStack to enter) that record into `routes`, keyed by
+    the attention block (class and input shape) that made the call, the
+    route each `dot_product_attention` call takes (the flash kernel or the
+    plain path, by the port's shape rule) and how often; a LinearAttention
+    block, which has no such call, counts under "einsum"."""
+    import contextlib
+
+    import torch
+
+    from sd_tpu_torch.kernels import attention as attn_k
+    from sd_tpu_torch.models.unet_sd import SelfAttentionBlock2D
+    from sd_tpu_torch.nn.attention import AttnBlock, LinearAttention
+
+    blocks = (SelfAttentionBlock2D, AttnBlock, LinearAttention)
+    current: list = []
+    dpa0 = attn_k.dot_product_attention
+
+    def entry(key, **fields):
+        row = routes.setdefault(key, {**fields, "calls": 0})
+        row["calls"] += 1
+
+    def pre(mod, args):
+        if isinstance(mod, blocks):
+            key = f"{type(mod).__name__} {list(args[0].shape)} {str(args[0].dtype)[6:]}"
+            current.append(key)
+            if isinstance(mod, LinearAttention):
+                entry(key, route="einsum")
+
+    def post(mod, args, out):
+        if isinstance(mod, blocks):
+            current.pop()
+
+    def dpa(q, k, v, *, scale=None, impl=None):
+        how = impl or os.environ.get("SD_TPU_ATTN_IMPL")
+        flash = (q.dtype == torch.bfloat16 if how == "pallas"
+                 else how is None and attn_k.flash_ok(q, k))
+        entry(current[-1] if current else "outside a block", q=list(q.shape),
+              kv=list(k.shape), route="flash" if flash else "plain")
+        return dpa0(q, k, v, scale=scale, impl=impl)
+
+    stack = contextlib.ExitStack()
+    stack.callback(torch.nn.modules.module.register_module_forward_pre_hook(pre).remove)
+    stack.callback(torch.nn.modules.module.register_module_forward_hook(post).remove)
+    stack.enter_context(mock.patch.object(attn_k, "dot_product_attention", dpa))
+    return stack
+
+
+def _card_vs_cpu(name: str, module, fn, *inputs) -> dict:
+    """`fn(module, *inputs)` with `module` (fp32) on the card against the
+    same on a CPU copy of the module: max|Δ| and ‖Δ‖₂ relative to the CPU
+    output, within CARD_CPU_TOL."""
+    import copy
+
+    import torch
+
+    with torch.no_grad():
+        out = fn(module, *(t.cuda() for t in inputs))
+        torch.cuda.synchronize()
+        cpu = copy.deepcopy(module).cpu()
+        t0 = time.perf_counter()
+        ref = fn(cpu, *(t.cpu() for t in inputs))
+        cpu_s = time.perf_counter() - t0
+    del cpu
+    _, rel = rel_err(out.cpu(), ref)
+    row = {"name": name, "shape": list(out.shape), "max_rel": rel,
+           "l2_rel": l2_rel(out.cpu(), ref), "cpu_seconds": cpu_s}
+    require(torch.isfinite(out).all().item() and rel <= CARD_CPU_TOL["max_rel"]
+            and row["l2_rel"] <= CARD_CPU_TOL["l2_rel"],
+            f"{name}: card fp32 against CPU fp32 {row} within {CARD_CPU_TOL}")
+    return row
+
+
+def phase_super_resolution(smi: str) -> dict:
+    """Super-resolution (`task: ldm_sr`) at `configs/ldm_sr_catdog.yaml`'s
+    full width through the port's command lines, in a temporary directory
+    removed at the end: SR_IMAGES synthetic 128² PNGs; the KL-f4 first stage
+    (`kl_128_catdog_config()`, fp32) trained SR_KL_STEPS steps by `python -m
+    sd_tpu_torch.train`; `ldm_sr_catdog_config()` over its checkpoint (batch
+    16, bsrgan_light on the host) for SR_STEPS[0] steps with an eval (20
+    DDIM steps, PSNR / SSIM) and calibration.json, then resumed for a third;
+    `python -m sd_tpu_torch.sample_sr` on the run (SR_SAMPLE_IMAGES images,
+    SR_SAMPLE_STEPS steps). Checks: finite losses, the records, the eval
+    grid, the resume, the LR batch the run trained on equal bit for bit to a
+    fresh CPU run of the loader, the SR UNet (every weight random) on the
+    card against its CPU copy in fp32 (CARD_CPU_TOL), and the launches:
+    none (SR_RUN_LAUNCHES), every attention on the plain path, which the
+    route of each self-attention and of the first stage's mid-block
+    attention shows. Prints s/step, peak GB, checkpoint GB/s, the loader's
+    host seconds per batch of 16 degradations and sample_sr's seconds."""
+    import contextlib
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels, sample_sr
+    from sd_tpu_torch.core.config import kl_128_catdog_config, ldm_sr_catdog_config
+    from sd_tpu_torch.data.image_io import decode_png
+    from sd_tpu_torch.models.unet_sd import UNetModel
+    from sd_tpu_torch.train import __main__ as train_cli
+    from sd_tpu_torch.train import runners, sr
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_sr_")
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        require(free_gb >= SR_DISK_GB, f"free disk under {root}: {free_gb:.1f} GB, the phase "
+                f"needs {SR_DISK_GB} GB")
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _sr_images(data)
+        sr_cfg = ldm_sr_catdog_config()
+
+        # -- the loader: 16 degradations a batch on the host, twice the same bits --
+        loader_s = []
+        first = []
+        for _ in range(2):
+            it = iter(runners._build_loader(data, sr_cfg, sr_cfg["train"]["batch_size"]))
+            t0 = time.perf_counter()
+            first.append(next(it))
+            loader_s.append(time.perf_counter() - t0)
+            it.close()
+        require(first[0]["lr"].shape == (16, 32, 32, 3)
+                and np.array_equal(first[0]["lr"], first[1]["lr"]),
+                f"the loader's LR batch {first[0]['lr'].shape}, the same bits twice")
+
+        step_s, saves, trained_lr = [], [], []
+        run_loop = _timed_loop(runners._run_loop, step_s)
+        save = _timed_save(runners.save_checkpoint, saves)
+        batch0 = sr.sr_batch
+
+        def sr_batch(batch, size, device):
+            trained_lr.append(np.array(batch["lr"]))
+            return batch0(batch, size, device)
+
+        routes, runs = {}, {}
+
+        def run(name, cfg, *extra):
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            out = os.path.join(root, name)
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            del step_s[:], saves[:]
+            t0 = time.perf_counter()
+            code = train_cli.main(["--config", path, "--data", data, "--out", out, *extra])
+            torch.cuda.synchronize()
+            require(code == 0, f"python -m sd_tpu_torch.train {name}: exit {code}")
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            key = name if not extra else f"{name}_resumed"
+            runs[key] = {"seconds": time.perf_counter() - t0, "step_seconds": list(step_s),
+                         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                         "checkpoint_saves": list(saves), "launches": launches}
+            require(launches == {k: v for k, v in SR_RUN_LAUNCHES.items() if v},
+                    f"{key}: fp32 launches nothing, got {launches}")
+            print(f"[super_resolution] {key}: {runs[key]['seconds']:.1f} s, steps "
+                  f"{runs[key]['step_seconds']}, peak {runs[key]['peak_memory_gb']:.2f} GB, "
+                  f"saves {saves}", flush=True)
+            torch.cuda.empty_cache()
+            return out, path, recs
+
+        patches = contextlib.ExitStack()
+        for obj, name, fn in ((runners, "_run_loop", run_loop),
+                              (runners, "save_checkpoint", save), (sr, "sr_batch", sr_batch)):
+            patches.enter_context(mock.patch.object(obj, name, fn))
+        patches.enter_context(_attention_routes(routes))
+        with patches:
+            kl_cfg = kl_128_catdog_config()
+            kl_cfg["seed"] = SR_SEED
+            kl_cfg["train"].update(total_steps=SR_KL_STEPS, checkpoint_every=SR_KL_STEPS,
+                                   eval_every=10**6)
+            kl_dir, _, kl_recs = run("kl_f4", kl_cfg)
+            require(len(kl_recs) == SR_KL_STEPS and all(
+                math.isfinite(r["train/total_loss"]) for r in kl_recs), f"KL records {kl_recs}")
+
+            sr_cfg["seed"] = SR_SEED
+            sr_cfg["first_stage"]["ckpt"] = os.path.join(kl_dir, "ckpt")
+            sr_cfg["train"].update(total_steps=SR_STEPS[0], checkpoint_every=SR_STEPS[0],
+                                   eval_every=SR_STEPS[0])
+            sr_dir, sr_json, recs = run("ldm_sr", sr_cfg)
+            steps = [r for r in recs if "loss" in r]
+            evals = [r for r in recs if "eval_psnr" in r]
+            require([r["step"] for r in steps] == list(range(SR_STEPS[0])) and all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps),
+                f"SR step records {steps}")
+            require(len(evals) == 1 and math.isfinite(evals[0]["eval_psnr"])
+                    and math.isfinite(evals[0]["eval_ssim"]), f"one eval record {evals}")
+            with open(os.path.join(sr_dir, "samples", f"step_{SR_STEPS[0]}.png"), "rb") as f:
+                grid = decode_png(f.read())
+            with open(os.path.join(sr_dir, "calibration.json")) as f:
+                scale = json.load(f)["scale_factor"]
+            require(math.isfinite(scale) and scale > 0, f"calibration.json {scale}")
+            require(np.array_equal(trained_lr[0], first[0]["lr"]),
+                    "the LR batch the card run trained on is a CPU run's of the loader, "
+                    "bit for bit")
+            _, _, recs = run("ldm_sr", sr_cfg, "--max-steps", str(SR_STEPS[1]))
+            require([r["step"] for r in recs if "loss" in r] == list(range(SR_STEPS[1])),
+                    f"the resumed run's records {recs}")
+            require(os.path.exists(os.path.join(sr_dir, "ckpt", f"step_{SR_STEPS[1]}.pt")),
+                    "the resumed run's checkpoint")
+
+            out = os.path.join(root, "sr.png")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            code = sample_sr.main(["--config", sr_json, "--ckpt", os.path.join(sr_dir, "ckpt"),
+                                   "--input", data, "--n", str(SR_SAMPLE_IMAGES), "--steps",
+                                   str(SR_SAMPLE_STEPS), "--out", out])
+            torch.cuda.synchronize()
+            sample_s = time.perf_counter() - t0
+            require(code == 0, f"python -m sd_tpu_torch.sample_sr: exit {code}")
+            with open(out, "rb") as f:
+                sampled = decode_png(f.read())
+            require(sampled.shape == (3 * 128 + 4, SR_SAMPLE_IMAGES * 128 + 6, 3)
+                    and sampled.std() > 0, f"sample_sr's LR / SR / HR grid {sampled.shape}")
+            sample_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            require(not sample_launches, f"sample_sr launches nothing: {sample_launches}")
+
+        # -- the SR UNet on the card against its CPU copy, every weight random ---------
+        unet = UNetModel(**sr_cfg["unet"]["params"])
+        randomize_params_(unet, torch.Generator("cuda").manual_seed(SR_SEED))
+        g = torch.Generator().manual_seed(SR_SEED)
+        x = torch.randn((2, 32, 32, 6), generator=g)
+        t = torch.tensor([17, 803])
+        parity = _card_vs_cpu("sr_unet", unet, lambda m, x_, t_: m(x_, t_), x, t)
+        del unet
+        torch.cuda.empty_cache()
+        row = {"phase": "super_resolution", "nvidia_smi": smi, "free_disk_gb": free_gb,
+               "loader_seconds_per_batch_of_16": loader_s, "runs": runs,
+               "eval": evals[0], "scale_factor": scale, "eval_grid": list(grid.shape),
+               "sample_sr": {"seconds": sample_s, "images": SR_SAMPLE_IMAGES,
+                             "steps": SR_SAMPLE_STEPS, "grid": list(sampled.shape)},
+               "attention_routes": routes, "card_vs_cpu": parity,
+               "phase_seconds": time.perf_counter() - t_phase}
+        require(routes and all(r["route"] == "plain" for r in routes.values()),
+                f"every SR attention on the plain path: {routes}")
+        emit(row)
+        return {name: r_["launches"] for name, r_ in runs.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_codec_attention(smi: str) -> dict:
+    """The first stages with per-level attention at full width: `kl_f32`
+    (attention at 16² and 8²) and `vq_gumbel_f8` (32²), each one fp32 GAN
+    step at its own size (256², batch 4) through `python -m
+    sd_tpu_torch.train` on synthetic PNGs (finite losses, no launch: every
+    attention and conv plain), each one's encode → decode (every weight
+    random, 256², batch 1) on the card against its CPU copy in fp32
+    (CARD_CPU_TOL), and the same forward in bf16: vq_gumbel_f8's 32² level
+    takes the wide flash kernel (CODEC_BF16_FLASH launches), kl_f32's levels
+    stay plain; the kernel shapes it launched held against their plain
+    versions. Prints each attention block's route, s/step, peak GB and the
+    checkpoint GB/s beside the card's name and power limit."""
+    import contextlib
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import kl_f32_config, vq_gumbel_f8_config
+    from sd_tpu_torch.models.autoencoder import AutoencoderKL, VQModel
+    from sd_tpu_torch.train import __main__ as train_cli
+    from sd_tpu_torch.train import runners
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_codec_")
+    try:
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _sr_images(data, n=4, size=256)
+        saves, step_s, routes, runs, parity, bf16 = [], [], {}, {}, [], {}
+        save = _timed_save(runners.save_checkpoint, saves)
+        run_loop = _timed_loop(runners._run_loop, step_s)
+
+        shapes: dict = {}
+        for name, fn, cls in (("kl_f32", kl_f32_config, AutoencoderKL),
+                              ("vq_gumbel_f8", vq_gumbel_f8_config, VQModel)):
+            cfg = fn()
+            cfg["seed"] = SR_SEED
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            del saves[:], step_s[:]
+            run_routes: dict = {}
+            with mock.patch.object(runners, "save_checkpoint", save), \
+                    mock.patch.object(runners, "_run_loop", run_loop), \
+                    _attention_routes(run_routes):
+                t0 = time.perf_counter()
+                code = train_cli.main(["--config", path, "--data", data, "--out",
+                                       os.path.join(root, name), "--max-steps", "1"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            require(code == 0, f"python -m sd_tpu_torch.train {name}: exit {code}")
+            with open(os.path.join(root, name, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            require(len(recs) == 1 and all(math.isfinite(v) for k, v in recs[0].items()
+                                           if k != "step"), f"{name}: one finite record {recs}")
+            require(not launches, f"{name}: the fp32 step launches nothing, got {launches}")
+            require(run_routes and all(r["route"] == "plain" for r in run_routes.values()),
+                    f"{name}: every fp32 attention plain {run_routes}")
+            runs[name] = {"seconds": seconds, "step_seconds": list(step_s), "peak_memory_gb":
+                          torch.cuda.max_memory_allocated() / 2**30,
+                          "checkpoint_saves": list(saves), "record": recs[0]}
+            routes[name] = run_routes
+            shutil.rmtree(os.path.join(root, name))
+            torch.cuda.empty_cache()
+
+            # -- forward: card against CPU (fp32), then bf16 with the kernels ------------
+            model = cls(**cfg["model"]["params"]).eval()
+            randomize_params_(model, torch.Generator("cuda").manual_seed(SR_SEED))
+            x = torch.rand((1, 256, 256, 3), generator=torch.Generator().manual_seed(SR_SEED))
+            x = x * 2 - 1
+            # encode → decode (the VQ model's quantizer left out: its argmax flips at
+            # near-ties from one device to the other)
+            if cls is VQModel:
+                fwd = lambda m, img: m.decode(m.encode_pre_quant(img))
+            else:
+                fwd = lambda m, img: m.decode(m.encode(img).mode())
+            parity.append(_card_vs_cpu(name, model, fwd, x))
+            model = model.to(torch.bfloat16)
+            bf16_routes: dict = {}
+            kernels.reset_launches()
+            with torch.no_grad(), _attention_routes(bf16_routes), _kernel_shape_spies(shapes):
+                out = fwd(model, x.cuda().bfloat16())
+                torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            require(torch.isfinite(out.float()).all().item(), f"{name}: finite bf16 output")
+            require(launches.get("flash_attention", 0) == CODEC_BF16_FLASH[name]
+                    == launches.get("flash_fwd_wide", 0),
+                    f"{name}: {CODEC_BF16_FLASH[name]} wide flash launches in bf16, got "
+                    f"{launches}")
+            bf16[name] = {"launches": launches, "attention_routes": bf16_routes}
+            del model, out
+            torch.cuda.empty_cache()
+        held = _hold_edit_kernels(shapes, SR_SEED, "codec_attention")
+        emit({"phase": "codec_attention", "nvidia_smi": smi, "runs": runs,
+              "attention_routes": routes, "card_vs_cpu": parity, "bf16_forward": bf16,
+              "kernel_shapes_held": held, "phase_seconds": time.perf_counter() - t_phase})
+        return {f"{name}_bf16_forward": r_["launches"] for name, r_ in bf16.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def ptxas_report(log: str, keep) -> dict:
@@ -5043,7 +5473,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          **host_libraries()})
 
     from sd_tpu_torch.kernels import _build
     from sd_tpu_torch.kernels.flash_attention import launch_name as fa_launch_name
@@ -5099,6 +5530,8 @@ def main() -> int:
     adapters = phase_adapters(smi)
     few_step = phase_few_step(smi, e2e_seconds)
     fine_tune = phase_fine_tune(smi)
+    super_resolution = phase_super_resolution(smi)
+    codec_attention = phase_codec_attention(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -5296,6 +5729,13 @@ def main() -> int:
                  if counts.get(name)}
         if tuned:
             row["fine_tune_launches"] = tuned
+        # ... and the super_resolution and codec_attention phases', where not 0
+        for phase, by_entry in (("super_resolution", super_resolution),
+                                ("codec_attention", codec_attention)):
+            moved = {entry: counts[name] for entry, counts in by_entry.items()
+                     if counts.get(name)}
+            if moved:
+                row[f"{phase}_launches"] = moved
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -24,8 +24,13 @@ base run and first-stage checkpoint), `ip_smoke_config()`,
 `ti_smoke_config()`, `dreambooth_smoke_config()` and
 `inpaint_smoke_config()` (their `configs/*_smoke.yaml`), and
 `sd512_inpaint_train_config()`, the SD-v1 training recipe as the
-SD-inpainting UNet (9 input channels, `hybrid`); as dicts, so the port runs
-where PyYAML is not installed.
+SD-inpainting UNet (9 input channels, `hybrid`); the super-resolution
+configs `ldm_sr_smoke_config()` and `ldm_sr_catdog_config()`
+(`configs/ldm_sr_smoke.yaml`, `ldm_sr_catdog.yaml` without its first-stage
+checkpoint) and the first stages `kl_128_catdog_config()`, `kl_f32_config()`
+and `vq_gumbel_f8_config()` (`configs/kl_128_catdog.yaml`, `kl_f32.yaml`,
+`vq_gumbel_f8.yaml`); as dicts, so the port runs where PyYAML is not
+installed.
 
 `load_config(spec)` takes the name of one of them (`sd_v1`, or
 `sd_v1_config`) or the path of a config file: `.json` through the standard
@@ -415,13 +420,118 @@ def sd512_inpaint_train_config() -> dict:
     return cfg
 
 
+def _sr_config(seed: int, timesteps: int, latent: dict, unet: dict, first_stage: dict,
+               sr: dict, train: dict, num_steps: int) -> dict:
+    """A concat-conditioned super-resolution LDM: the linear schedule over
+    `timesteps`, the UNet without spatial transformers (no text context) over
+    latent channels + 3 LR channels, the f4 KL first stage."""
+    return {
+        "task": "ldm_sr",
+        "seed": seed,
+        "diffusion": {"timesteps": timesteps, "beta_schedule": "linear",
+                      "linear_start": 0.00085, "linear_end": 0.012},
+        "latent": latent,
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {**unet, "use_spatial_transformer": False, "context_dim": None}},
+        "first_stage": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                        "params": first_stage},
+        "data": {"sr": sr},
+        "train": train,
+        "sample": {"num_steps": num_steps, "eta": 0.0},
+    }
+
+
+def ldm_sr_smoke_config() -> dict:
+    """`configs/ldm_sr_smoke.yaml`: 32² HR over a tiny f4 first stage (ch 16,
+    mult (1, 2, 4)) → 8² latent, where the bicubic ×4 LR image is
+    concatenated; UNet 32 × (1, 2), self-attention at 8² with 4 heads."""
+    return _sr_config(
+        0, 50, {"image_size": 8, "channels": 4, "scale_factor": "auto"},
+        {"in_channels": 7, "model_channels": 32, "out_channels": 4, "num_res_blocks": 1,
+         "attention_resolutions": [1], "channel_mult": [1, 2], "num_heads": 4},
+        {"embed_dim": 4, "ch": 16, "ch_mult": [1, 2, 4], "num_res_blocks": 1,
+         "attn_resolutions": [], "resolution": 32, "z_channels": 4},
+        {"sf": 4, "degradation": "bicubic"},
+        {"image_size": 32, "batch_size": 2, "lr": 1.0e-3, "ema_decay": 0.999,
+         "total_steps": 4, "checkpoint_every": 4}, 4)
+
+
+def ldm_sr_catdog_config() -> dict:
+    """`configs/ldm_sr_catdog.yaml` without its first-stage checkpoint: 128²
+    HR over `kl_128_catdog_config()`'s f4 first stage → 32² × 3 latent, the
+    BSRGAN-light ×4 LR image concatenated; UNet 128 × (1, 2, 4), 2 res blocks,
+    4-head self-attention at 16² and 8² (d = 64, 128); batch 16, lr 1e-4."""
+    return _sr_config(
+        42, 1000, {"image_size": 32, "channels": 3, "scale_factor": "auto"},
+        {"in_channels": 6, "model_channels": 128, "out_channels": 3, "num_res_blocks": 2,
+         "attention_resolutions": [2, 4], "channel_mult": [1, 2, 4], "num_heads": 4},
+        dict(kl_128_catdog_config()["model"]["params"]),
+        {"sf": 4, "degradation": "bsrgan_light"},
+        {"image_size": 128, "batch_size": 16, "lr": 1.0e-4, "ema_decay": 0.999,
+         "total_steps": 3000, "eval_every": 500, "checkpoint_every": 1000}, 20)
+
+
+def kl_128_catdog_config() -> dict:
+    """`configs/kl_128_catdog.yaml`: an f4 KL first stage (embed 3, ch 64,
+    mult (1, 2, 4), 2 res blocks) trained at 128², batch 8, lr 1e-4, with
+    the hinge PatchGAN from step 2000."""
+    cfg = kl_f8_256_train_config()
+    cfg["model"]["params"] = {"embed_dim": 3, "ch": 64, "ch_mult": [1, 2, 4],
+                              "num_res_blocks": 2, "attn_resolutions": [], "resolution": 128,
+                              "z_channels": 3}
+    cfg["loss"]["disc_start"] = 2000
+    cfg["train"].update(image_size=128, batch_size=8, total_steps=3000)
+    return cfg
+
+
+def kl_f32_config() -> dict:
+    """`configs/kl_f32.yaml`: the KL-f32 first stage (embed 64, ch 128, mult
+    (1, 1, 2, 2, 4, 4), attention at 16² and 8²) at 256², batch 4."""
+    return {
+        "task": "kl_vae",
+        "seed": 42,
+        "model": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                  "params": {"embed_dim": 64, "ch": 128, "ch_mult": [1, 1, 2, 2, 4, 4],
+                             "num_res_blocks": 2, "attn_resolutions": [16, 8],
+                             "resolution": 256, "z_channels": 64}},
+        "loss": {"disc_start": 50001, "kl_weight": 1.0e-6, "disc_weight": 0.5,
+                 "perceptual_weight": 1.0, "disc_loss": "hinge"},
+        "discriminator": {"ndf": 64, "n_layers": 3, "use_actnorm": False},
+        "train": {"image_size": 256, "batch_size": 4, "lr": 4.5e-6, "ema_decay": None,
+                  "total_steps": 200000, "checkpoint_every": 2000},
+    }
+
+
+def vq_gumbel_f8_config() -> dict:
+    """`configs/vq_gumbel_f8.yaml`: the Gumbel-VQ f8 model (8192 codes of
+    width 256, ch 128, mult (1, 1, 2, 4), attention at 32²) at 256², its
+    temperature annealed from 1 to 1/16."""
+    return {
+        "task": "vq",
+        "seed": 42,
+        "model": {"target": "sd_tpu.models.autoencoder.VQModel",
+                  "params": {"quantizer_type": "gumbel", "n_embed": 8192, "embed_dim": 256,
+                             "ch": 128, "ch_mult": [1, 1, 2, 4], "num_res_blocks": 2,
+                             "attn_resolutions": [32], "resolution": 256, "z_channels": 256,
+                             "kl_weight": 1.0e-8, "temp_init": 1.0}},
+        "gumbel_schedule": {"temp_min": 0.0625, "anneal_rate": 1.0e-6},
+        "loss": {"disc_start": 30001, "disc_weight": 0.8, "codebook_weight": 1.0,
+                 "perceptual_weight": 1.0, "disc_loss": "hinge"},
+        "discriminator": {"ndf": 64, "n_layers": 3, "use_actnorm": False},
+        "train": {"image_size": 256, "batch_size": 4, "lr": 4.5e-6, "total_steps": 200000,
+                  "checkpoint_every": 2000},
+    }
+
+
 def config_functions() -> dict:
     """{name: config function} of every configuration above."""
     fns = (sd_v1_config, sd512_train_config, kl_f8_256_train_config, ddpm_256_train_config,
            ddpm_smoke_config, vq_128_train_config, vq_64_train_config, vq_smoke_config,
            inpaint_128_config, lcm512_distill_config, distill_smoke_config, flow_smoke_config,
            flow512_train_config, controlnet_32_config, ip_smoke_config, ti_smoke_config,
-           dreambooth_smoke_config, inpaint_smoke_config, sd512_inpaint_train_config)
+           dreambooth_smoke_config, inpaint_smoke_config, sd512_inpaint_train_config,
+           ldm_sr_smoke_config, ldm_sr_catdog_config, kl_128_catdog_config, kl_f32_config,
+           vq_gumbel_f8_config)
     return {fn.__name__[:-len("_config")]: fn for fn in fns}
 
 

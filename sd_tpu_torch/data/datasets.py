@@ -3,10 +3,11 @@ lists, class captions and COCO captions.
 
 Counterpart of `sd_tpu/data/datasets.py` (`ImageFolderDataset`,
 `LSUNDataset`, `ImagePathsDataset`, `ClassCaptionDataset`,
-`CocoCaptionDataset`): the same sorted walk, extensions, per-item flip
-stream and captions, each item float32 [size, size, 3] in [-1, 1]. Images
-are read by `data/image_io.py` (PNG; a JPEG raises an error naming the
-file). `SRDataset` is not ported yet: it needs `data/degradation.py`.
+`CocoCaptionDataset`, `SRDataset`): the same sorted walk, extensions,
+per-item flip stream and captions, each item float32 [size, size, 3] in
+[-1, 1]; `SRDataset` adds the item's low-resolution twin, made on the host
+by `data/degradation.py`. Images are read by `data/image_io.py` (PNG; a JPEG
+raises an error naming the file).
 """
 
 from __future__ import annotations
@@ -136,3 +137,51 @@ class CocoCaptionDataset:
         fn, caption = self.items[idx]
         img = load_image(os.path.join(self.image_dir, fn), self.image_size)
         return {"image": img, "txt_raw": caption.strip()}
+
+
+SR_DEGRADATIONS = ("bicubic", "bsrgan", "bsrgan_light", "bsrgan_variant")
+
+# the degradation stream's last key: (seed, epoch, index, SR_KEY)
+SR_KEY = 0x5F
+
+
+def degrade_to_lr(hr01: np.ndarray, how: str, sf: int, rng: np.random.Generator) -> np.ndarray:
+    """An HR image in [0, 1] → its LR image (1/sf) in [0, 1]: bicubic
+    downsampling, or the BSRGAN composite `how` names drawing from `rng`."""
+    from sd_tpu_torch.data import degradation as deg
+
+    if how == "bicubic":
+        return deg.bicubic_degradation(hr01, sf)
+    if how == "bsrgan_variant":
+        return deg.degradation_bsrgan_variant(hr01, sf, rng)[0]
+    if how in ("bsrgan", "bsrgan_light"):
+        return deg.degradation_bsrgan(hr01, sf, rng, light=how == "bsrgan_light")[0]
+    raise ValueError(f"unknown degradation {how!r} (one of {', '.join(SR_DEGRADATIONS)})")
+
+
+class SRDataset(ImageFolderDataset):
+    """HR/LR pairs for super-resolution training: {'image': HR [size, size,
+    3], 'lr': LR [size/sf, size/sf, 3]}, both in [-1, 1]. The LR side is the
+    flipped HR item degraded in [0, 1] by `degradation`: plain bicubic
+    1/sf downsampling, or the BSRGAN composite (`bsrgan`, its light ranges
+    `bsrgan_light`, `bsrgan_variant`) drawing from a generator of its own
+    per (seed, epoch, index, 0x5F), so the loader's threads stay
+    reproducible."""
+
+    def __init__(self, root: str, image_size: int = 256, sf: int = 4,
+                 degradation: str = "bicubic", **kw):
+        super().__init__(root, image_size=image_size, **kw)
+        if image_size % sf:
+            raise ValueError(f"image_size={image_size} not divisible by sf={sf}")
+        if degradation not in SR_DEGRADATIONS:
+            raise ValueError(f"unknown degradation {degradation!r} "
+                             f"(one of {', '.join(SR_DEGRADATIONS)})")
+        self.sf = sf
+        self.degradation = degradation
+
+    def __getitem__(self, idx: int) -> dict:
+        item = super().__getitem__(idx)
+        rng = np.random.default_rng((self.seed, self._epoch, idx, SR_KEY))
+        lr01 = degrade_to_lr((item["image"] + 1.0) * 0.5, self.degradation, self.sf, rng)
+        item["lr"] = np.clip(lr01, 0, 1).astype(np.float32) * 2.0 - 1.0
+        return item

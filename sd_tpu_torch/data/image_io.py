@@ -3,9 +3,10 @@ PIL-compatible resampling, center crop.
 
 Counterpart of what `sd_tpu/native/image_loader.cc` and
 `sd_tpu/data/datasets.py _load_image` do (the TPU package decodes with
-libjpeg / libpng or PIL; the card's machine has neither PIL nor a native
-build of the decoder). `load_image` returns float32 HWC in [-1, 1] as both
-of those do.
+libjpeg / libpng or PIL; the card's machine has PIL, with JPEG support, but
+not the libjpeg / libpng headers the native decoder builds against, and the
+port decodes its images without either). `load_image` returns float32 HWC
+in [-1, 1] as both of those do.
 
 PNG: 8-bit gray, gray + alpha, RGB and RGBA, and palette or gray at 1, 2, 4
 or 8 bits, non-interlaced; the five row filters (None, Sub and Up

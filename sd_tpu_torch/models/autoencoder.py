@@ -8,7 +8,9 @@ calling the module runs encode → posterior sample (or mode) → decode and
 returns `(recon, posterior)`, as the TPU package's `__call__` does and as
 the GAN step (`sd_tpu_torch.train.gan`) uses it. The module holds the TPU
 package's whole KL tree (`encoder`, `decoder`, `quant_conv`,
-`post_quant_conv`). `VQModel`: the encoder (single z), `quant_conv`, one of
+`post_quant_conv`). Both place per-level attention in the encoder and
+decoder where `attn_resolutions` names a level's resolution (`resolution`
+halved per level; `models/codec.py`). `VQModel`: the encoder (single z), `quant_conv`, one of
 the three quantizer families (`models/quantize.py`), `post_quant_conv`, the
 decoder; calling it returns `(recon, codebook_loss, (perplexity, None,
 indices))`, the TPU package's contract. `IdentityFirstStage` is not ported
@@ -29,9 +31,7 @@ from sd_tpu_torch.models.quantize import EMAVectorQuantizer, GumbelQuantize, Vec
 from sd_tpu_torch.nn.layers import Conv2d
 
 
-def _refuse_unported(attn_resolutions, dropout: float = 0.0) -> None:
-    if tuple(attn_resolutions):
-        raise NotImplementedError("per-level codec attention is not ported")
+def _refuse_unported(dropout: float = 0.0) -> None:
     if dropout:
         raise NotImplementedError("codec dropout > 0 is not ported yet (ROADMAP Queue 1)")
 
@@ -46,18 +46,16 @@ class AutoencoderKL(nn.Module):
                  z_channels: int = 4, out_ch: int = 3, *, dtype=torch.float32,
                  device=None):
         super().__init__()
-        # `resolution` only places per-level attention (`attn_resolutions`),
-        # which SD-v1 does not use and the port does not have yet
-        del resolution
-        _refuse_unported(attn_resolutions)
         kw = dict(dtype=dtype, device=resolve_device(device))
         # the block layout, which the SD checkpoint walk reads
         self.ch_mult, self.num_res_blocks = tuple(ch_mult), num_res_blocks
+        self.attn_resolutions, self.resolution = tuple(attn_resolutions), resolution
+        attn = dict(attn_resolutions=attn_resolutions, resolution=resolution)
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
-                               z_channels=z_channels, double_z=True, **kw)
+                               z_channels=z_channels, double_z=True, **attn, **kw)
         self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
                                num_res_blocks=num_res_blocks,
-                               z_channels=z_channels, **kw)
+                               z_channels=z_channels, **attn, **kw)
         self.quant_conv = Conv2d(2 * z_channels, 2 * embed_dim, 1, **kw)
         self.post_quant_conv = Conv2d(embed_dim, z_channels, 1, **kw)
 
@@ -99,14 +97,15 @@ class VQModel(nn.Module):
                  kl_weight: float = 5e-4, temp_init: float = 1.0, ema_decay: float = 0.99,
                  *, dtype=torch.float32, device=None):
         super().__init__()
-        del resolution      # places per-level attention, which the port does not have
-        _refuse_unported(attn_resolutions, dropout)
+        _refuse_unported(dropout)
         kw = dict(dtype=dtype, device=resolve_device(device))
         self.quantizer_type = quantizer_type
+        attn = dict(attn_resolutions=attn_resolutions, resolution=resolution)
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
-                               z_channels=z_channels, double_z=False, **kw)
+                               z_channels=z_channels, double_z=False, **attn, **kw)
         self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
-                               num_res_blocks=num_res_blocks, z_channels=z_channels, **kw)
+                               num_res_blocks=num_res_blocks, z_channels=z_channels,
+                               **attn, **kw)
         if quantizer_type == "gumbel":
             self.quantize = GumbelQuantize(n_embed, embed_dim, kl_weight=kl_weight,
                                            temp_init=temp_init, remap=remap, **kw)

@@ -8,7 +8,9 @@ embedding, a class token and learned positions, with LayerNorms in fp32 and
 a [width, output_dim] projection of the class token. Preprocessing resizes
 with `bicubic_resize`, a float resize that is `jax.image.resize(...,
 "bicubic")`: Keys' cubic (a = −0.5), the kernel widened by the scale when
-downsampling (antialias), weights normalised per output pixel, no rounding.
+downsampling (antialias), weights normalised per output pixel, no rounding;
+`float_resize` does the same with the triangle kernel for "bilinear" (the
+super-resolution model's LR conditioning, `train/sr.py`).
 """
 
 from __future__ import annotations
@@ -31,14 +33,22 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def cubic_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
-    """[n_in, n_out] fp32 weights of the bicubic resize along one axis (JAX's
-    `compute_weight_mat` with antialias)."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+RESIZE_KERNELS = {"bicubic": _keys_cubic, "bilinear": _triangle}
+
+
+def resize_weights(n_in: int, n_out: int, method: str = "bicubic",
+                   device=None) -> torch.Tensor:
+    """[n_in, n_out] fp32 weights of the bicubic or bilinear resize along one
+    axis (JAX's `compute_weight_mat` with antialias)."""
     inv_scale = 1.0 / (n_out / n_in)
     kernel_scale = max(inv_scale, 1.0)
     sample_f = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
     x = (sample_f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
-    w = _keys_cubic(x / kernel_scale)
+    w = RESIZE_KERNELS[method](x / kernel_scale)
     total = w.sum(dim=0, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                     w / torch.where(total != 0, total, torch.ones_like(total)),
@@ -47,15 +57,23 @@ def cubic_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
 
 
-def bicubic_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Float images x [B, H, W, C] resized to [B, height, width, C] in fp32;
-    an axis whose size does not change is left as it is."""
+def float_resize(x: torch.Tensor, height: int, width: int,
+                 method: str = "bicubic") -> torch.Tensor:
+    """Float images x [B, H, W, C] resized to [B, height, width, C] in fp32 as
+    `jax.image.resize(x, ..., method)` resizes them; an axis whose size does
+    not change is left as it is."""
     x = x.float()
     if x.shape[1] != height:
-        x = torch.einsum("bhwc,hk->bkwc", x, cubic_weights(x.shape[1], height, x.device))
+        x = torch.einsum("bhwc,hk->bkwc", x,
+                         resize_weights(x.shape[1], height, method, x.device))
     if x.shape[2] != width:
-        x = torch.einsum("bhwc,wk->bhkc", x, cubic_weights(x.shape[2], width, x.device))
+        x = torch.einsum("bhwc,wk->bhkc", x,
+                         resize_weights(x.shape[2], width, method, x.device))
     return x
+
+
+def bicubic_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    return float_resize(x, height, width, "bicubic")
 
 
 def clip_image_preprocess(x: torch.Tensor, size: int = 224) -> torch.Tensor:

@@ -1,7 +1,11 @@
 """SD UNet — the ε-model of the text-to-image pipeline.
 
-Counterpart of `sd_tpu/models/unet_sd.py` `UNetModel` on its
-spatial-transformer path (the SD-v1 configuration). Submodules carry the
+Counterpart of `sd_tpu/models/unet_sd.py` `UNetModel`: the spatial-
+transformer UNet (the SD-v1 configuration) and, with
+`use_spatial_transformer=False`, the self-attention UNet of the
+super-resolution configs (`SelfAttentionBlock2D` at each attention level, no
+text context). The heads are `num_heads`, or the width over
+`num_head_channels` where that is given. Submodules carry the
 TPU package's parameter names (`in_0_0_res`, `in_0_0_attn`, `mid_attn`,
 `out_3_2_up`, ...), so `weights.load_flax_params` maps its param tree
 mechanically. The parameter-free serving options, read at every call and
@@ -11,8 +15,7 @@ the decoder's backbone channels amplified and its skips low-pass filtered at
 the two deepest widths, arXiv:2309.11497). `forward` takes ControlNet's
 residuals (`control=`, models/controlnet.py) and IP-Adapter's image payload
 (`ip=`, models/ip_adapter.py). Class labels, the codebook head,
-`num_head_channels`, `resblock_updown` and `conv_resample=False` are not
-ported yet.
+`resblock_updown` and `conv_resample=False` are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.core.config import resolve_device
+from sd_tpu_torch.kernels import attention as attn_k
 from sd_tpu_torch.nn.attention import SpatialTransformer
 from sd_tpu_torch.nn.layers import (Conv2d, Dense, GroupNorm32,
                                     timestep_embedding, zeros_init_conv)
@@ -60,6 +64,32 @@ def _apply_freeu(h: torch.Tensor, skip: torch.Tensor, mc: int,
     return h, skip
 
 
+class SelfAttentionBlock2D(nn.Module):
+    """The attention block of the UNet without spatial transformers: GN (32
+    groups, eps 1e-5, fp32) → 1×1 `qkv` → multi-head self-attention over the
+    H·W tokens → zero-init 1×1 `proj_out` → residual. The qkv split is the
+    TPU package's, [B, HW, 3, heads, C/heads] (the three outer, the heads
+    inner), not the reference's heads-outer legacy order; the attention goes
+    through `kernels.attention.dot_product_attention`, whose shape rule picks
+    the flash kernel or the plain path."""
+
+    def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.heads = channels // num_head_channels if num_head_channels != -1 else num_heads
+        self.norm = GroupNorm32(channels, 32, **kw)
+        self.qkv = Conv2d(channels, 3 * channels, 1, **kw)
+        self.proj_out = zeros_init_conv(channels, channels, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        qkv = self.qkv(self.norm(x)).reshape(B, H * W, 3, self.heads, C // self.heads)
+        q, k, v = qkv.unbind(2)
+        out = attn_k.dot_product_attention(q, k, v).reshape(B, H, W, C)
+        return x + self.proj_out(out)
+
+
 class UNetModel(nn.Module):
     """The SD UNet; built on the card unless `device` names another."""
 
@@ -72,6 +102,7 @@ class UNetModel(nn.Module):
         attention_resolutions: Sequence[int] = (4, 2, 1),
         channel_mult: Sequence[int] = (1, 2, 4, 4),
         num_heads: int = 8,
+        num_head_channels: int = -1,
         use_spatial_transformer: bool = True,
         transformer_depth: int = 1,
         context_dim: int | None = 768,
@@ -83,9 +114,6 @@ class UNetModel(nn.Module):
         device=None,
     ):
         super().__init__()
-        if not use_spatial_transformer:
-            raise NotImplementedError(
-                "only the spatial-transformer UNet is ported")
         kw = dict(dtype=dtype, device=resolve_device(device))
         mc = model_channels
         self.model_channels = mc
@@ -98,8 +126,15 @@ class UNetModel(nn.Module):
         emb_ch = mc * 4
 
         def attn(ch, name):
+            if not use_spatial_transformer:
+                setattr(self, name, SelfAttentionBlock2D(ch, num_heads, num_head_channels, **kw))
+                return
+            if num_head_channels == -1:
+                heads, dim_head = num_heads, ch // num_heads
+            else:
+                heads, dim_head = ch // num_head_channels, num_head_channels
             setattr(self, name, SpatialTransformer(
-                ch, num_heads, ch // num_heads, transformer_depth, context_dim,
+                ch, heads, dim_head, transformer_depth, context_dim,
                 tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, **kw))
 
         self.time_embed_1 = Dense(mc, emb_ch, **kw)

@@ -1,7 +1,11 @@
-"""Attention blocks: codec self-attention and the SD transformer
-(self/cross-attention, GEGLU feed-forward, SpatialTransformer).
+"""Attention blocks: codec self-attention, linear attention and the
+`make_attn` factory, and the SD transformer (self/cross-attention, GEGLU
+feed-forward, SpatialTransformer).
 
-Counterpart of `sd_tpu/nn/attention.py`, on the SD-v1 path: the unmasked
+Counterpart of `sd_tpu/nn/attention.py`. The codec's `make_attn` builds
+`AttnBlock` (vanilla), `LinearAttention` (linear: k softmaxed over the
+tokens, context = kᵀv, out = context·q, each product accumulated in fp32)
+or an identity (none). On the SD-v1 path: the unmasked
 self-attention branch through the head-packed flash kernel at inference and
 the differentiable flash attention in training, the cross-attention branch
 through the fused cross-attention kernel where the TPU package's opt-in gate
@@ -63,6 +67,55 @@ class AttnBlock(nn.Module):
         v = self.v(h).reshape(B, H * W, 1, C)
         out = attn_k.dot_product_attention(q, k, v).reshape(B, H, W, C)
         return x + self.proj_out(out)
+
+
+class LinearAttention(nn.Module):
+    """kv-first linear attention: 1×1 `to_qkv` (no bias) → per head k
+    softmaxed in fp32 over the H·W tokens, context = kᵀv and out = context·q
+    with fp32 accumulation → 1×1 `to_out` → residual. O(N·d²) instead of
+    O(N²·d); no kernel of its own, as in the TPU package."""
+
+    def __init__(self, channels: int, heads: int = 4, dim_head: int = 32, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_qkv = Conv2d(channels, 3 * inner, 1, bias=False, **kw)
+        self.to_out = Conv2d(inner, channels, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        h, d = self.heads, self.dim_head
+        qkv = self.to_qkv(x).reshape(B, H * W, 3, h, d)
+        q, k, v = qkv.unbind(2)                                   # [B, N, h, d]
+        k = torch.softmax(k.float(), dim=1).to(x.dtype)
+        context = torch.einsum("bnhd,bnhe->bhde", k.float(), v.float())
+        out = torch.einsum("bhde,bnhd->bnhe", context.to(x.dtype).float(), q.float())
+        return x + self.to_out(out.to(x.dtype).reshape(B, H, W, h * d))
+
+
+class _Identity(nn.Module):
+    """`make_attn("none")`: no attention, no parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def make_attn(attn_type: str, channels: int, *, dtype=torch.float32,
+              device=None) -> nn.Module:
+    """The codec's attention block over `channels`: "vanilla" (`AttnBlock`),
+    "linear" (`LinearAttention`) or "none". The TPU package names each such
+    unnamed child `<class name>_<k>`, k counting the blocks in the order
+    they are built."""
+    kw = dict(dtype=dtype, device=device)
+    if attn_type == "vanilla":
+        return AttnBlock(channels, **kw)
+    if attn_type == "linear":
+        return LinearAttention(channels, **kw)
+    if attn_type == "none":
+        return _Identity()
+    raise ValueError(f"unknown attn_type {attn_type!r}")
 
 
 class CrossAttention(nn.Module):

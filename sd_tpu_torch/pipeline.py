@@ -196,9 +196,9 @@ class Text2ImagePipeline:
                     transformer_depth=u.transformer_depth)
 
     def _vae_walk(self) -> dict:
-        # the port's KL first stage has no per-level attention
-        # (`attn_resolutions` is refused when it is built)
-        return dict(ch_mult=self.vae.ch_mult, num_res_blocks=self.vae.num_res_blocks)
+        v = self.vae
+        return dict(ch_mult=v.ch_mult, num_res_blocks=v.num_res_blocks,
+                    attn_resolutions=v.attn_resolutions, resolution=v.resolution)
 
     def to_sd_checkpoint(self, path: str, half: bool = False) -> None:
         """The UNet and first stage as a Stable-Diffusion v1 checkpoint

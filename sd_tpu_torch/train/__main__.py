@@ -7,7 +7,9 @@ trainable-text-encoder branches by the config's blocks), `distill_ldm`
 (`task: distill`: a finished LDM run, `distill.teacher_run`, distilled into
 a few-step consistency student, or into an LCM-LoRA with
 `distill.lora_rank`), `train_textual_inversion`, `train_dreambooth` or
-`train_ldm_inpaint`, reads images from `--data`, writes the run
+`train_ldm_inpaint`, or `train_ldm_sr` (`task: ldm_sr`: concat-conditioned
+super-resolution over HR/LR pairs that `SRDataset` degrades on the host),
+reads images from `--data`, writes the run
 (checkpoints under `ckpt/`, `metrics.jsonl`, `samples/`,
 `calibration.json`, and the config it ran as `config.json`; a LoRA run's
 `lora.safetensors`, an IP-Adapter run's `ip_embedder/`, a textual
@@ -23,7 +25,7 @@ of `--platform`).
 
 `--config` is a config function's name (`core/config.py`, e.g.
 `lcm512_distill`, whose `distill.teacher_run` a .json copy sets) or a .json
-/ .yaml file. `ldm_sr` is not ported yet and exits with 2.
+/ .yaml file. A task that is none of these exits with 2.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     from sd_tpu_torch.core.config import load_config
-    from sd_tpu_torch.train import distill, dreambooth, inpaint, runners, textual_inversion
+    from sd_tpu_torch.train import (distill, dreambooth, inpaint, runners, sr,
+                                    textual_inversion)
 
     cfg = load_config(args.config)
     if args.annotations:
@@ -58,9 +61,9 @@ def main(argv: list[str] | None = None) -> int:
            "ldm_inpaint": inpaint.train_ldm_inpaint,
            "textual_inversion": textual_inversion.train_textual_inversion,
            "dreambooth": dreambooth.train_dreambooth,
-           "distill": distill.distill_ldm}.get(task)
+           "distill": distill.distill_ldm, "ldm_sr": sr.train_ldm_sr}.get(task)
     if run is None:
-        print(f"sd_tpu_torch.train: task {task!r} is not ported yet", file=sys.stderr)
+        print(f"sd_tpu_torch.train: unknown task {task!r}", file=sys.stderr)
         return 2
     out = args.out or f"runs/{task}"
     os.makedirs(out, exist_ok=True)

@@ -131,11 +131,12 @@ def _load_cfg(config: dict | str) -> dict:
 
 def _build_loader(data_dir: str, cfg: dict, batch_size: int):
     """The config's dataset over `data_dir` (COCO captions with
-    `annotation_file`, class captions with `data.captions: class`, else the
-    image folder) in a DataLoader; under `torch.distributed` each rank
-    reads its own share of every epoch."""
+    `annotation_file`, HR/LR pairs with `data.sr: {sf, degradation}`, class
+    captions with `data.captions: class`, else the image folder) in a
+    DataLoader; under `torch.distributed` each rank reads its own share of
+    every epoch."""
     from sd_tpu_torch.data.datasets import (ClassCaptionDataset, CocoCaptionDataset,
-                                            ImageFolderDataset)
+                                            ImageFolderDataset, SRDataset)
     from sd_tpu_torch.data.loader import DataLoader
 
     ann = cfg.get("annotation_file")
@@ -144,7 +145,10 @@ def _build_loader(data_dir: str, cfg: dict, batch_size: int):
     if ann:
         ds = CocoCaptionDataset(data_dir, ann, image_size=size)
     elif dcfg.get("sr"):
-        raise NotImplementedError("SRDataset is not ported yet (data/degradation.py)")
+        # the degradation runs on the host, in the loader's threads
+        sr = dcfg["sr"]
+        ds = SRDataset(data_dir, image_size=size, sf=int(sr.get("sf", 4)),
+                       degradation=sr.get("degradation", "bicubic"))
     elif dcfg.get("captions") == "class":
         ds = ClassCaptionDataset(data_dir, image_size=size,
                                  label_from=dcfg.get("label_from", "filename_prefix"),

@@ -602,3 +602,67 @@ def test_vq_step_trains_through_the_wide_kernels_at_d256(cuda, monkeypatch):
                                  do.float(), scale)
         for got, ref in zip((dq, dk, dv), refs):
             _grad_within(got, ref)
+
+
+def _card_and_cpu(module, fn, *inputs):
+    """fn(module, *inputs) with the fp32 module on the card and on a CPU copy."""
+    import copy
+
+    with torch.no_grad():
+        out = fn(module, *(t.cuda() for t in inputs)).cpu()
+        ref = fn(copy.deepcopy(module).cpu(), *inputs)
+    return out, ref
+
+
+def _card_vs_cpu_within(out, ref, tol=1e-3):
+    err = (out - ref).abs().max().item()
+    assert torch.isfinite(out).all() and err <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_sr_unet_runs_plain_on_the_card_as_on_the_cpu(cuda, monkeypatch):
+    """ldm_sr_catdog's UNet (SelfAttentionBlock2D at 16² and 8², fp32, every
+    weight random) on the card against its CPU copy, with TF32 off: within
+    1e-3·max|ref|, and no kernel launched (sq < 512 and fp32: the plain path)."""
+    from sd_tpu_torch.core.config import ldm_sr_catdog_config
+    from sd_tpu_torch.models.unet_sd import UNetModel
+    from sd_tpu_torch.weights import randomize_params_
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    unet = UNetModel(**ldm_sr_catdog_config()["unet"]["params"])
+    randomize_params_(unet, cuda)
+    g = torch.Generator().manual_seed(1)
+    x, t = torch.randn((2, 32, 32, 6), generator=g), torch.tensor([17, 803])
+    kernels.reset_launches()
+    out, ref = _card_and_cpu(unet, lambda m, x_, t_: m(x_, t_), x, t)
+    assert not any(kernels.LAUNCHES.values()), {k: v for k, v in kernels.LAUNCHES.items() if v}
+    _card_vs_cpu_within(out, ref)
+
+
+@pytest.mark.cuda
+def test_per_level_codec_runs_on_the_card_as_on_the_cpu(cuda, monkeypatch):
+    """A KL codec with per-level attention at 32² (1024 tokens, d = 256):
+    fp32 on the card against its CPU copy within 1e-3·max|ref| with no
+    launch; in bf16 its 32² blocks take the wide flash kernel (2 in the
+    encoder with the mid block, 3 in the decoder, counted under
+    `flash_fwd_wide`) and the result stays within 0.1·max|ref| of fp32 (the
+    decoder's bf16 bound in `chip_smoke.py`)."""
+    from sd_tpu_torch.models.autoencoder import AutoencoderKL
+    from sd_tpu_torch.weights import randomize_params_
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    vae = AutoencoderKL(embed_dim=4, ch=64, ch_mult=(1, 2, 4), num_res_blocks=1,
+                        attn_resolutions=(32,), resolution=128, z_channels=4).eval()
+    randomize_params_(vae, cuda)
+    fwd = lambda m, x_: m.decode(m.encode(x_).mode())
+    x = torch.rand((1, 128, 128, 3), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    kernels.reset_launches()
+    out, ref = _card_and_cpu(vae, fwd, x)
+    assert not any(kernels.LAUNCHES.values())
+    _card_vs_cpu_within(out, ref)
+    with torch.no_grad():
+        low = fwd(vae.to(torch.bfloat16), x.cuda().bfloat16()).float().cpu()
+    assert kernels.LAUNCHES["flash_attention"] == kernels.LAUNCHES["flash_fwd_wide"] == 5
+    _card_vs_cpu_within(low, ref, 0.1)

@@ -8,8 +8,10 @@ CPU) and a trainable text encoder with AdamW, the noise offset and the
 learned logvar: 2 steps, then resumed to 3 (the resumed run starts from the
 saved step); each run's file loads through its loader and generates
 (`load_textual_inversion`, `from_run`, `load_ip_adapter`, `load_lora`,
-`load_controlnet`), `from_run` refuses the {unet, cond} run, and `ldm_sr`
-exits 2. (`tests/test_torch_inpaint_train.py` runs `inpaint_smoke`.)
+`load_controlnet`), `from_run` refuses the {unet, cond} run, and a task
+that is not one of `scripts/train.py`'s exits 2
+(`tests/test_torch_inpaint_train.py` runs `inpaint_smoke`,
+`tests/test_torch_sr.py` `ldm_sr`).
 """
 
 from __future__ import annotations
@@ -175,9 +177,11 @@ def test_trainable_text_encoder_run_is_refused_by_from_run(tmp_path, images):
 
 
 def test_ldm_sr_still_exits_2(tmp_path, images, capsys):
+    """`ldm_sr` was the last task the command line refused; every task of
+    `scripts/train.py` now runs, and a task that is none of them exits 2."""
     cfg = port_config.inpaint_smoke_config()
-    cfg["task"] = "ldm_sr"
+    cfg["task"] = "ldm_sr_x4"
     assert _cli(cfg, images, tmp_path / "sr") == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert "unknown task 'ldm_sr_x4'" in capsys.readouterr().err
 
 

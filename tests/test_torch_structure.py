@@ -40,8 +40,8 @@
   the decoder's the wide kernel (`flash_fwd_wide`); with
   `SD_TPU_ATTN_HPACKED=0` the 500 move to `flash_attention` on the same
   route;
-* the port (the serving modules included) and `chip_smoke.py` import
-  neither JAX nor the JAX package;
+* the port (the serving and super-resolution modules included) and
+  `chip_smoke.py` import neither JAX nor the JAX package;
 * the pipeline and the trainer refuse to run without a card unless asked
   for the CPU;
 * `sd_v1_config()` is `configs/sd_txt2img.yaml`, `sd512_train_config()`
@@ -75,12 +75,14 @@ from sd_tpu.kernels import flash_attention as jfa
 from sd_tpu.kernels import geglu as jgeglu
 from sd_tpu.kernels import groupnorm as jgn
 from sd_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL
+from sd_tpu.models.autoencoder import VQModel as JVQModel
 from sd_tpu.models.clip_text import ClipTextConfig as JClipConfig
 from sd_tpu.models.clip_text import ClipTextTransformer as JClip
 from sd_tpu.models.unet_sd import UNetModel as JUNet
 import chip_smoke
-from sd_tpu_torch.core.config import (kl_f8_256_train_config, sd512_train_config,
-                                     sd_v1_config, vq_128_train_config)
+from sd_tpu_torch.core.config import (kl_f8_256_train_config, kl_f32_config,
+                                     ldm_sr_catdog_config, sd512_train_config, sd_v1_config,
+                                     vq_128_train_config, vq_gumbel_f8_config)
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.diffusion.latent import LatentDiffusion
@@ -120,7 +122,11 @@ def _flax_tree(module, *args):
     return jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)["params"]
 
 
-@pytest.mark.parametrize("model", ["unet", "vae", "clip"])
+def _tuples(params: dict) -> dict:
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in params.items()}
+
+
+@pytest.mark.parametrize("model", ["unet", "vae", "clip", "sr_unet", "kl_f32", "vq_gumbel_f8"])
 def test_full_width_param_trees_map_onto_the_port(model):
     if model == "unet":
         tree = _flax_tree(JUNet(**UNET), jnp.zeros((1, 64, 64, 4)),
@@ -129,6 +135,20 @@ def test_full_width_param_trees_map_onto_the_port(model):
     elif model == "vae":
         tree = _flax_tree(JAutoencoderKL(**VAE), jnp.zeros((1, 512, 512, 3)))
         mod = AutoencoderKL(**VAE, **BF16)
+    elif model == "sr_unet":
+        # ldm_sr_catdog's UNet without spatial transformers: SelfAttentionBlock2D at 16², 8²
+        sr_unet = ldm_sr_catdog_config()["unet"]["params"]
+        tree = _flax_tree(JUNet(**_tuples(sr_unet)), jnp.zeros((1, 32, 32, 6)),
+                          jnp.zeros((1,), jnp.int32), None)
+        mod = UNetModel(**sr_unet, **BF16)
+    elif model in ("kl_f32", "vq_gumbel_f8"):
+        # per-level attention: AttnBlock_k at 16² and 8² (kl_f32), 32² (vq_gumbel_f8)
+        cfg = (kl_f32_config if model == "kl_f32" else vq_gumbel_f8_config)()
+        jcls, cls = ((JAutoencoderKL, AutoencoderKL) if model == "kl_f32"
+                     else (JVQModel, VQModel))
+        tree = _flax_tree(jcls(**_tuples(cfg["model"]["params"])), jnp.zeros((1, 256, 256, 3)))
+        mod = cls(**cfg["model"]["params"], **BF16)
+        assert sum(".AttnBlock_" in n for n in _shapes(mod)) > 2 * 8
     else:
         tree = _flax_tree(JClip(JClipConfig()), jnp.zeros((1, 77), jnp.int32))
         mod = ClipTextTransformer(ClipTextConfig(), **BF16)
@@ -1279,6 +1299,9 @@ SERVING_MODULES = ("sd_tpu_torch.serve", "sd_tpu_torch.utils.prompt_weights",
                    "sd_tpu_torch.utils.watermark", "sd_tpu_torch.diffusion.dpm_solver",
                    "sd_tpu_torch.diffusion.unipc", "sd_tpu_torch.diffusion.plms",
                    "sd_tpu_torch.diffusion.k_samplers")
+# ... and the super-resolution path's
+SR_MODULES = ("sd_tpu_torch.train.sr", "sd_tpu_torch.sample_sr",
+              "sd_tpu_torch.data.degradation", "sd_tpu_torch.data.datasets")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -1288,7 +1311,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(sd_tpu_torch.__path__, 'sd_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"assert set({SERVING_MODULES!r}) <= set(names), names\n"
+        f"assert set({SERVING_MODULES + SR_MODULES!r}) <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sd_tpu', 'flax')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -405,6 +405,6 @@ def test_serve_run_answers_a_request(monkeypatch, ldm_run):
 
 def test_cli_refuses_an_unported_task(tmp_path, capsys, images):
     cfg = _ddpm_cfg()
-    cfg["task"] = "ldm_sr"
+    cfg["task"] = "sr3"
     assert _cli(cfg, images, tmp_path / "sr") == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert "unknown task 'sr3'" in capsys.readouterr().err

@@ -323,8 +323,9 @@ def test_vq_model_refusals():
         VQModel(**VQ, remap=[0, 1, 2], device="cpu")
     with pytest.raises(NotImplementedError, match="remap"):
         VQModel(**VQ, quantizer_type="gumbel", remap=[0, 1, 2], device="cpu")
-    with pytest.raises(NotImplementedError, match="attention"):
-        VQModel(**{**VQ, "attn_resolutions": [16]}, device="cpu")
+    # per-level attention is ported: a 16² level attends (`test_torch_codec_attn.py`)
+    attn = VQModel(**{**VQ, "attn_resolutions": [16]}, device="cpu")
+    assert attn.encoder.attn_names and "AttnBlock_1" in dict(attn.decoder.named_children())
     with pytest.raises(NotImplementedError, match="dropout"):
         VQModel(**VQ, dropout=0.1, device="cpu")
 
