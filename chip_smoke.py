@@ -238,6 +238,13 @@ Phases, each printed as one JSON line:
            (no launch, every attention plain), their encode → decode on the card
            against a CPU copy in fp32, and in bf16 (vq_gumbel_f8's 32² level on
            the wide flash kernel, its shapes held against the plain versions).
+  model_families  LDM-KL-8-G (BERT 32 × 1280 → 50 DDIM steps, CFG 5.0 → KL-f8
+           decode, 2 prompts, 256²) and the ADM ImageNet 256² class-conditional
+           UNet (batch 2) at full width in bf16, with their launches (flash and
+           GEGLU on every UNet call; the ADM's 32² self-attention flash); the
+           full-width BERT and UNets, `UNetCompVis` and `AttentionPool2d` on
+           the card against a CPU copy in fp32 (the linear-attention
+           `UNetCompVis` against float64), the shapes held.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -587,6 +594,9 @@ SR_SAMPLE_IMAGES = 4
 SR_DISK_GB = 8                 # the runs' checkpoints (≈ 1.2 GB SR, ≈ 0.6 GB KL, 2 codecs)
 # card fp32 against CPU fp32 (TF32 off), forward: stated before measuring
 CARD_CPU_TOL = {"max_rel": 1e-3, "l2_rel": 1e-4}
+# where fp32 itself is loose (the linear-attention UNetCompVis), the card's
+# fp32 distance from a CPU float64 run at most this times the CPU's fp32 one
+F64_RATIO = 1.5
 # fp32 throughout: every attention and conv the SR and codec runs make takes
 # the plain path (sq < 512 or 4-byte data, the TPU package's gates)
 SR_RUN_LAUNCHES = launches_of()
@@ -597,6 +607,36 @@ SR_RUN_LAUNCHES = launches_of()
 CODEC_BF16_FLASH = {"kl_f32": 0, "vq_gumbel_f8": 7}
 # the encoder's launches at 512², batch 2 (its bf16-vs-fp32 check)
 ENCODER_512_LAUNCHES = launches_of(flash_attention=1, flash_fwd_wide=1, conv3x3_same=12)
+# the model_families phase: LDM-KL-8-G (CompVis's BERT-conditioned
+# txt2img-1p4B) at full width in bf16, 2 prompts, 50 DDIM steps at CFG 5.0
+# against the embedding of "" (CompVis's txt2img script), 256² images; the
+# guided-diffusion ADM ImageNet 256² class-conditional UNet, one bf16
+# forward at batch 2
+FAMILY_SEED = 22
+FAMILY_PROMPTS = ["a virus monster is playing guitar, oil on canvas",
+                  "a squirrel eating a burger"]
+FAMILY_STEPS = 50
+FAMILY_CFG = 5.0
+ADM_BATCH = 2
+# the ADM UNet's card-vs-CPU check runs at 64² (it is convolutional; its
+# 256² fp32 forward on the CPU would take most of the phase's budget)
+ADM_PARITY_SIZE = 64
+# a CFG UNet call of LDM-KL-8-G at its 32² latent (batch 4): the 5 level-0
+# self-attentions ([4, 1024, 8×40]) on the head-packed Hopper kernel and
+# their GEGLUs (4096 tokens × 320); level 1's 256 tokens and level 2's 64
+# stay plain, as do BERT's 77-token attention and its 1280-wide FF; the
+# decode at 256²: the mid-block attention (1024 tokens, d = 512) on the wide
+# kernel and 12 convs; the ADM UNet at 256²: the 5 self-attentions of its
+# 32² level ([2, 1024, 8, 64]) on the Hopper kernel, its 16² and 8² plain,
+# its convs plain (no Conv3x3 in the guided-diffusion resblocks)
+_FAMILY_UNET_CALL = dict(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5)
+MODEL_FAMILY_LAUNCHES = {
+    "bert": launches_of(),
+    "ldm_kl8g_generate": launches_of(
+        **{k: FAMILY_STEPS * v for k, v in _FAMILY_UNET_CALL.items()},
+        flash_attention=1, flash_fwd_wide=1, conv3x3_same=12),
+    "adm_forward": launches_of(flash_attention=5, flash_fwd_sm90=5),
+}
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
@@ -4618,6 +4658,38 @@ def _card_vs_cpu(name: str, module, fn, *inputs) -> dict:
     return row
 
 
+def _card_vs_float64(name: str, module, fn, *inputs) -> dict:
+    """For a model that fp32 itself computes loosely (`UNetCompVis` with
+    linear attention: its k softmax reads the unnormalised residual stream,
+    and the CPU's fp32 output is ~1e-3·max|ref| from float64): `fn(module,
+    *inputs)` in fp32 on the card and on a CPU copy, each against the CPU
+    copy in float64; the card's max|Δ| and ‖Δ‖₂ at most
+    F64_RATIO × the CPU's."""
+    import copy
+
+    import torch
+
+    with torch.no_grad():
+        out = fn(module, *(t.cuda() for t in inputs)).cpu().double()
+        cpu = copy.deepcopy(module).cpu()
+        t0 = time.perf_counter()
+        ref32 = fn(cpu, *(t.cpu() for t in inputs)).double()
+        cpu_s = time.perf_counter() - t0
+        exact = fn(cpu.double(), *(t.cpu().double() if t.is_floating_point() else t.cpu()
+                                   for t in inputs))
+    del cpu
+    errs = {who: (float((o - exact).abs().max() / exact.abs().max()),
+                  float((o - exact).norm() / exact.norm())) for who, o in (("card", out),
+                                                                          ("cpu", ref32))}
+    row = {"name": name, "shape": list(out.shape), "card_max_rel_f64": errs["card"][0],
+           "card_l2_rel_f64": errs["card"][1], "cpu_max_rel_f64": errs["cpu"][0],
+           "cpu_l2_rel_f64": errs["cpu"][1], "max_rel": rel_err(out.float(), ref32.float())[1],
+           "l2_rel": l2_rel(out.float(), ref32.float()), "cpu_seconds": cpu_s}
+    require(torch.isfinite(out).all().item() and all(
+        errs["card"][i] <= F64_RATIO * errs["cpu"][i] for i in (0, 1)),
+        f"{name}: card fp32 as close to float64 as the CPU's fp32 (×{F64_RATIO}): {row}")
+    return row
+
 def phase_super_resolution(smi: str) -> dict:
     """Super-resolution (`task: ldm_sr`) at `configs/ldm_sr_catdog.yaml`'s
     full width through the port's command lines, in a temporary directory
@@ -4899,6 +4971,172 @@ def phase_codec_attention(smi: str) -> dict:
         return {f"{name}_bf16_forward": r_["launches"] for name, r_ in bf16.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_model_families(smi: str) -> dict:
+    """The CompVis / guided-diffusion model families at full width, every
+    weight random (seeded): (a) LDM-KL-8-G (`ldm_kl8g_txt2img_config()`):
+    the 32-layer BERT of FAMILY_PROMPTS tokenized by `BERTTokenizerHost`
+    (the Hugging Face tokenizer where a local copy is installed, else its
+    hash fallback; printed) → `LatentDiffusion(crossattn, cond_fn=BERT)` →
+    FAMILY_STEPS DDIM steps at CFG FAMILY_CFG against BERT's embedding of ""
+    → KL-f8 decode to [2, 256, 256, 3], in bf16, with each part's seconds
+    and its launches (MODEL_FAMILY_LAUNCHES: flash and GEGLU on every UNet
+    call), and in fp32 the full-width BERT and one full-width UNet call
+    with the 1280-wide context on the card against their CPU copies
+    (CARD_CPU_TOL); (b) the ADM ImageNet 256² UNet (`adm_imagenet256_config()`):
+    one bf16 forward at batch ADM_BATCH with two class labels to [2, 256,
+    256, 6] (its 32² self-attention on the flash kernel, each attention
+    block's route printed), and in fp32 card against CPU at ADM_PARITY_SIZE²;
+    (c) card against CPU in fp32 of `UNetCompVis` with vanilla attention and
+    `AttentionPool2d`, and, with linear attention (loose in fp32 on any
+    device), card and CPU fp32 against CPU float64 (`_card_vs_float64`). The kernel shapes the bf16 runs
+    launched are held against their plain versions."""
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import adm_imagenet256_config, ldm_kl8g_txt2img_config
+    from sd_tpu_torch.diffusion.latent import LatentDiffusion
+    from sd_tpu_torch.models.autoencoder import AutoencoderKL
+    from sd_tpu_torch.models.conditioners import BERTEmbedder, BERTTokenizerHost
+    from sd_tpu_torch.models.unet_compvis import UNetCompVis
+    from sd_tpu_torch.models.unet_sd import AttentionPool2d, UNetModel
+    from sd_tpu_torch.train.runners import build_process
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    seeded = lambda k: torch.Generator("cuda").manual_seed(FAMILY_SEED + k)
+    cpu_gen = torch.Generator().manual_seed(FAMILY_SEED)
+    shapes: dict = {}
+    parity, launches, seconds = [], {}, {}
+
+    def count(name, fn):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = dict(kernels.LAUNCHES)
+        want = {k: v for k, v in MODEL_FAMILY_LAUNCHES[name].items() if v}
+        got = {k: v for k, v in launches[name].items() if v}
+        require(got == want, f"model_families {name}: launches {got} == {want}")
+        return out
+
+    # -- (a) LDM-KL-8-G -------------------------------------------------------------------
+    cfg = ldm_kl8g_txt2img_config()
+    tok = BERTTokenizerHost(max_length=77)
+    # the Hugging Face tokenizer where a local bert-base-uncased is installed,
+    # else the md5 hash fallback: printed, either gives [2, 77] ids
+    tokenizer = "hash fallback" if tok._tok is None else type(tok._tok).__name__
+    ids = torch.from_numpy(tok.tokenize(FAMILY_PROMPTS)).long()
+    empty = torch.from_numpy(tok.tokenize([""] * len(FAMILY_PROMPTS))).long()
+    bert = BERTEmbedder(**cfg["cond_stage"]["params"]).eval()
+    randomize_params_(bert, seeded(0))
+    unet = UNetModel(**cfg["unet"]["params"]).eval()
+    randomize_params_(unet, seeded(1))
+    vae = AutoencoderKL(**cfg["first_stage"]["params"]).eval()
+    randomize_params_(vae, seeded(2))
+    parity.append(_card_vs_cpu("bert_1p4b", bert, lambda m, t_: m(t_), ids[:1]))
+    ctx = torch.randn((1, 77, 1280), generator=cpu_gen)
+    lat = torch.randn((1, 32, 32, 4), generator=cpu_gen)
+    parity.append(_card_vs_cpu("ldm_kl8g_unet", unet, lambda m, x_, t_, c_: m(x_, t_, c_),
+                               lat, torch.tensor([631]), ctx))
+    for mod in (bert, unet, vae):
+        mod.to(torch.bfloat16)
+    ld = LatentDiffusion(
+        process=build_process(cfg, "cuda"), unet_apply=unet,
+        decode_fn=lambda z: vae.decode(z.to(torch.bfloat16)), cond_fn=bert,
+        conditioning_key=cfg["latent"]["conditioning_key"],
+        scale_factor=cfg["latent"]["scale_factor"])
+    unet_calls = []
+    hook = unet.register_forward_pre_hook(lambda m, a: unet_calls.append(a[0].shape[0]))
+    with torch.no_grad(), _kernel_shape_spies(shapes):
+        conds = count("bert", lambda: [ld.get_learned_conditioning(t_.cuda())
+                                       for t_ in (ids, empty)])
+        x_T = torch.randn((len(FAMILY_PROMPTS), 32, 32, 4), generator=seeded(3),
+                          device="cuda")
+
+        def generate():
+            t0 = time.perf_counter()
+            z = ld.sample(tuple(x_T.shape), x_T, {"c_crossattn": [conds[0]]},
+                          {"c_crossattn": [conds[1]]}, guidance_scale=FAMILY_CFG,
+                          num_steps=FAMILY_STEPS, decode=False)
+            torch.cuda.synchronize()
+            seconds["ldm_kl8g_sampling_loop"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = ld.decode_first_stage(z)
+            torch.cuda.synchronize()
+            seconds["ldm_kl8g_decode"] = time.perf_counter() - t0
+            return out
+
+        images = count("ldm_kl8g_generate", generate)
+    hook.remove()
+    require(images.shape == (2, 256, 256, 3) and torch.isfinite(images.float()).all().item()
+            and images.float().std().item() > 0,
+            f"LDM-KL-8-G images {list(images.shape)}, finite and not constant")
+    require(unet_calls == [2 * len(FAMILY_PROMPTS)] * FAMILY_STEPS,
+            f"{FAMILY_STEPS} CFG UNet calls at batch {2 * len(FAMILY_PROMPTS)}, got {unet_calls}")
+    per_call = {k: launches["ldm_kl8g_generate"][k] / FAMILY_STEPS
+                for k in ("flash_attention_hpacked", "geglu_ff")}
+    require(all(v == 5 for v in per_call.values()),
+            f"flash and GEGLU on every UNet call: {per_call} a call")
+    del bert, unet, vae, ld, images, conds
+    torch.cuda.empty_cache()
+
+    # -- (b) the ADM ImageNet 256² UNet ----------------------------------------------------
+    adm_cfg = adm_imagenet256_config()
+    adm = UNetModel(**adm_cfg["unet"]["params"]).eval()
+    randomize_params_(adm, seeded(4))
+    labels = torch.tensor([207, 980])
+    x = torch.randn((1, ADM_PARITY_SIZE, ADM_PARITY_SIZE, 3), generator=cpu_gen)
+    parity.append(_card_vs_cpu(f"adm_unet_{ADM_PARITY_SIZE}", adm,
+                               lambda m, x_, t_, y_: m(x_, t_, None, y_), x,
+                               torch.tensor([499]), labels[:1]))
+    adm.to(torch.bfloat16)
+    size = adm_cfg["image_size"]
+    x = torch.randn((ADM_BATCH, size, size, 3), generator=seeded(5), device="cuda")
+    routes: dict = {}
+    with torch.no_grad(), _kernel_shape_spies(shapes), _attention_routes(routes):
+        out = count("adm_forward", lambda: adm(x.bfloat16(), torch.tensor([10, 900],
+                                                                          device="cuda"),
+                                               None, labels.cuda()))
+    require(out.shape == (ADM_BATCH, size, size, 6) and torch.isfinite(out.float()).all().item(),
+            f"ADM output {list(out.shape)}, finite")
+    flash_blocks = [k for k, r in routes.items() if r["route"] == "flash"]
+    require(len(flash_blocks) == 1 and "[2, 32, 32, 512]" in flash_blocks[0]
+            and routes[flash_blocks[0]]["calls"] == 5,
+            f"the ADM UNet's 32² self-attentions on the flash kernel: {routes}")
+    del adm, out
+    torch.cuda.empty_cache()
+
+    # -- (c) small card-against-CPU checks -------------------------------------------------
+    kernels.reset_launches()
+    x = torch.randn((2, 32, 32, 3), generator=cpu_gen)
+    t = torch.tensor([10, 900])
+    for attn_type in ("vanilla", "linear"):
+        cv = UNetCompVis(ch=64, out_ch=3, ch_mult=(1, 2, 2), num_res_blocks=1,
+                         attn_resolutions=(16,), resolution=32, attn_type=attn_type).eval()
+        randomize_params_(cv, seeded(6))
+        check = _card_vs_cpu if attn_type == "vanilla" else _card_vs_float64
+        parity.append(check(f"unet_compvis_{attn_type}", cv, lambda m, x_, t_: m(x_, t_), x, t))
+    pool = AttentionPool2d(64, 256, 8, output_dim=128).eval()
+    randomize_params_(pool, seeded(7))
+    parity.append(_card_vs_cpu("attention_pool_2d", pool, lambda m, x_: m(x_),
+                               torch.randn((2, 8, 8, 256), generator=cpu_gen)))
+    fp32 = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    require(not fp32, f"the fp32 checks launch nothing: {fp32}")
+    del cv, pool
+    torch.cuda.empty_cache()
+
+    held = _hold_edit_kernels(shapes, FAMILY_SEED, "model_families")
+    emit({"phase": "model_families", "nvidia_smi": smi, "tokenizer": tokenizer,
+          "prompt_ids": ids.tolist(), "seconds": seconds,
+          "launches": {k: {n: c for n, c in v.items() if c} for k, v in launches.items()},
+          "unet_calls": len(unet_calls), "adm_attention_routes": routes,
+          "card_vs_cpu": parity, "kernel_shapes_held": held,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {k: v for k, v in launches.items() if k != "bert"}
 
 
 def ptxas_report(log: str, keep) -> dict:
@@ -5532,6 +5770,7 @@ def main() -> int:
     fine_tune = phase_fine_tune(smi)
     super_resolution = phase_super_resolution(smi)
     codec_attention = phase_codec_attention(smi)
+    model_families = phase_model_families(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -5729,9 +5968,11 @@ def main() -> int:
                  if counts.get(name)}
         if tuned:
             row["fine_tune_launches"] = tuned
-        # ... and the super_resolution and codec_attention phases', where not 0
+        # ... and the super_resolution, codec_attention and model_families
+        # phases', where not 0
         for phase, by_entry in (("super_resolution", super_resolution),
-                                ("codec_attention", codec_attention)):
+                                ("codec_attention", codec_attention),
+                                ("model_families", model_families)):
             moved = {entry: counts[name] for entry, counts in by_entry.items()
                      if counts.get(name)}
             if moved:

@@ -29,8 +29,11 @@ configs `ldm_sr_smoke_config()` and `ldm_sr_catdog_config()`
 (`configs/ldm_sr_smoke.yaml`, `ldm_sr_catdog.yaml` without its first-stage
 checkpoint) and the first stages `kl_128_catdog_config()`, `kl_f32_config()`
 and `vq_gumbel_f8_config()` (`configs/kl_128_catdog.yaml`, `kl_f32.yaml`,
-`vq_gumbel_f8.yaml`); as dicts, so the port runs where PyYAML is not
-installed.
+`vq_gumbel_f8.yaml`); and two published models that no file of
+`configs/` holds, each naming its source: `ldm_kl8g_txt2img_config()`
+(CompVis's BERT-conditioned LDM-KL-8-G) and `adm_imagenet256_config()`
+(guided diffusion's class-conditional ImageNet 256² UNet); as dicts, so the
+port runs where PyYAML is not installed.
 
 `load_config(spec)` takes the name of one of them (`sd_v1`, or
 `sd_v1_config`) or the path of a config file: `.json` through the standard
@@ -523,6 +526,54 @@ def vq_gumbel_f8_config() -> dict:
     }
 
 
+def ldm_kl8g_txt2img_config() -> dict:
+    """LDM-KL-8-G, the BERT-conditioned text-to-image latent diffusion model
+    of Rombach et al. 2022: the SD-v1 UNet widths with a 1280-wide context,
+    a 32² latent of the KL-f8 first stage (`sd_v1_config()`'s), and the
+    32-layer, 1280-wide `BERTEmbedder` trained with the model."""
+    # source: CompVis/latent-diffusion configs/latent-diffusion/txt2img-1p4B-eval.yaml
+    return {
+        "task": "ldm",
+        "seed": 42,
+        "diffusion": {"timesteps": 1000, "beta_schedule": "linear",
+                      "linear_start": 0.00085, "linear_end": 0.012,
+                      "parameterization": "eps"},
+        "latent": {"image_size": 32, "channels": 4, "scale_factor": 0.18215,
+                   "conditioning_key": "crossattn"},
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {"in_channels": 4, "model_channels": 320,
+                            "out_channels": 4, "num_res_blocks": 2,
+                            "attention_resolutions": [4, 2, 1],
+                            "channel_mult": [1, 2, 4, 4], "num_heads": 8,
+                            "use_spatial_transformer": True,
+                            "transformer_depth": 1, "context_dim": 1280}},
+        "first_stage": sd_v1_config()["first_stage"],
+        "cond_stage": {"target": "sd_tpu.models.conditioners.BERTEmbedder",
+                       "params": {"n_embed": 1280, "n_layer": 32}, "trainable": True},
+    }
+
+
+def adm_imagenet256_config() -> dict:
+    """The guided-diffusion (ADM) class-conditional ImageNet 256×256 UNet:
+    pixel space, 256 channels × (1, 1, 2, 2, 4, 4), self-attention at 32²,
+    16² and 8² in heads of 64 channels, scale-shift norm, resblock
+    up/down-sampling, 1000 classes, learned σ (6 output channels)."""
+    # source: openai/guided-diffusion README.md, "Model flags" of the 256x256
+    # class-conditional model (MODEL_FLAGS ... --class_cond True --image_size 256)
+    return {
+        "task": "adm",
+        "image_size": 256,
+        "diffusion": {"timesteps": 1000, "noise_schedule": "linear", "learn_sigma": True},
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {"in_channels": 3, "model_channels": 256, "out_channels": 6,
+                            "num_res_blocks": 2, "attention_resolutions": [8, 16, 32],
+                            "channel_mult": [1, 1, 2, 2, 4, 4], "num_head_channels": 64,
+                            "use_spatial_transformer": False, "context_dim": None,
+                            "num_classes": 1000, "use_scale_shift_norm": True,
+                            "resblock_updown": True}},
+    }
+
+
 def config_functions() -> dict:
     """{name: config function} of every configuration above."""
     fns = (sd_v1_config, sd512_train_config, kl_f8_256_train_config, ddpm_256_train_config,
@@ -531,7 +582,7 @@ def config_functions() -> dict:
            flow512_train_config, controlnet_32_config, ip_smoke_config, ti_smoke_config,
            dreambooth_smoke_config, inpaint_smoke_config, sd512_inpaint_train_config,
            ldm_sr_smoke_config, ldm_sr_catdog_config, kl_128_catdog_config, kl_f32_config,
-           vq_gumbel_f8_config)
+           vq_gumbel_f8_config, ldm_kl8g_txt2img_config, adm_imagenet256_config)
     return {fn.__name__[:-len("_config")]: fn for fn in fns}
 
 

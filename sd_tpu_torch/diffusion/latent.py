@@ -1,24 +1,26 @@
 """Latent diffusion glue: conditioning dispatch, the frozen first stage, the
 training loss, sampling and the scale-factor calibration.
 
-Counterpart of `sd_tpu/diffusion/latent.py` on the text-to-image and
-image-editing paths: `apply_conditioned` with the `crossattn`, `concat` and
-`hybrid` keys, `get_input`, `training_loss` / `p_losses`,
-`LatentDiffusion.sample` with its sampler dispatch (ddim, dpm, dpm_sde,
-unipc, plms, euler, euler_a, heun, ddpm and `guidance_rescale`; lcm, the
-consistency student's sampler; flow and flow_midpoint, a flow model's
-only samplers and its default) followed by the decode,
-`calibrate_scale_factor`, and the overlapping-tile apply (`patched_apply`:
-sliding windows, the apply on every tile as one batch, border-weighted
-overlap-add in fp32) that tiles the first stage's decode and encode; a
-conditioning dict's `c_control` (ControlNet's hint) reaches the UNet apply
-as `control=`, its `c_ip` (IP-Adapter's image embedding) as `ip_embed=`;
-`sag_scale` > 0 takes DDIM's Self-Attention Guidance through the probe
-apply `unet_apply_probs` (diffusion/sag.py); `get_input` for `crossattn`,
-`concat` and `hybrid` (a batch's `concat_cond` the `c_concat` entry, its
-`hint` the `c_control` entry, its `ip_embed` the `c_ip` entry), and the
-noise offset of the training noise. The `adm` key and the coordinates-bbox
-patched apply are not ported yet.
+Counterpart of `sd_tpu/diffusion/latent.py`: `apply_conditioned` with the
+`crossattn`, `concat`, `hybrid` and `adm` keys and the unconditional None,
+`get_input`, `training_loss` / `p_losses`, `LatentDiffusion.sample` with its
+sampler dispatch (ddim, dpm, dpm_sde, unipc, plms, euler, euler_a, heun,
+ddpm and `guidance_rescale`; lcm, the consistency student's sampler; flow
+and flow_midpoint, a flow model's only samplers and its default) followed by
+the decode, `calibrate_scale_factor`, and the overlapping-tile apply
+(`patched_apply`: sliding windows, the apply on every tile as one batch,
+border-weighted overlap-add in fp32) that tiles the first stage's decode and
+encode; a conditioning dict's `c_control` (ControlNet's hint) reaches the
+UNet apply as `control=`, its `c_ip` (IP-Adapter's image embedding) as
+`ip_embed=`; `sag_scale` > 0 takes DDIM's Self-Attention Guidance through
+the probe apply `unet_apply_probs` (diffusion/sag.py); `get_input` for every
+conditioning key (`crossattn`, `concat`, `hybrid`, `adm` and None, the
+unconditional model: a batch's `txt_emb`, or its `txt_raw` through the
+conditioner `cond_fn`, the `c_crossattn` entry, its `concat_cond` the
+`c_concat` entry, its `class_label` the `c_adm` entry that reaches the UNet
+as its labels `y`, its `hint` the `c_control` entry, its `ip_embed` the
+`c_ip` entry), and the noise offset of the training noise. The
+coordinates-bbox patched apply is not ported yet.
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
 `torch.Generator`; a batch may carry the draws instead (`t`, `noise`, and
@@ -47,18 +49,22 @@ from sd_tpu_torch.diffusion.unipc import UniPCSampler
 
 
 def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
-                      cond: dict, conditioning_key: str) -> torch.Tensor:
+                      cond: dict | None, conditioning_key: str | None) -> torch.Tensor:
     """Route conditioning into the UNet: `crossattn` concatenates the
     `c_crossattn` list along tokens and passes it as the context, `concat`
     the `c_concat` list to the latent along channels (no context), `hybrid`
-    both. A `c_control` entry goes to the apply as `control=`, a `c_ip`
-    entry as `ip_embed=`."""
-    if conditioning_key not in ("crossattn", "concat", "hybrid"):
-        raise NotImplementedError(
-            f"conditioning key {conditioning_key!r} is not ported yet")
-    kw = {"control": cond["c_control"]} if "c_control" in cond else {}
-    if "c_ip" in cond:
+    both, `adm` passes `c_adm` as the class labels `y`; with the key None or
+    no cond the UNet runs unconditioned. A `c_control` entry goes to the
+    apply as `control=`, a `c_ip` entry as `ip_embed=`."""
+    if conditioning_key not in (None, "crossattn", "concat", "hybrid", "adm"):
+        raise ValueError(f"unknown conditioning key {conditioning_key!r}")
+    kw = {"control": cond["c_control"]} if cond is not None and "c_control" in cond else {}
+    if cond is not None and "c_ip" in cond:
         kw["ip_embed"] = cond["c_ip"]
+    if conditioning_key is None or cond is None:
+        return unet_apply(x, t, None, **kw)
+    if conditioning_key == "adm":
+        return unet_apply(x, t, None, y=cond["c_adm"], **kw)
     if conditioning_key in ("concat", "hybrid"):
         x = torch.cat([x, *(c.to(x.dtype) for c in cond["c_concat"])], dim=-1)
     ctx = (None if conditioning_key == "concat"
@@ -68,21 +74,25 @@ def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class LatentDiffusion:
-    """unet_apply(x, t, context) -> prediction; encode_fn(image) ->
+    """unet_apply(x, t, context, y=None) -> prediction; encode_fn(image) ->
     DiagonalGaussian posterior, or the latent itself (frozen); decode_fn(z)
     -> image (takes the unscaled latent); unet_apply_probs(x, t, context)
     -> (prediction, SAG salience mask), the probe Self-Attention Guidance
     needs (`sag.make_probs_apply`). `noise_offset` > 0 adds offset·ε_c,
-    one ε_c per (sample, channel), to the drawn training noise."""
+    one ε_c per (sample, channel), to the drawn training noise.
+    cond_fn(raw conditioning) -> the conditioning tensor (a text
+    conditioner on token ids, a class embedder on labels); whether it
+    trains follows from its parameters' `requires_grad`."""
 
     process: DDPMProcess | FlowProcess
     unet_apply: Callable
     encode_fn: Callable | None = None
     decode_fn: Callable | None = None
-    conditioning_key: str = "crossattn"
+    conditioning_key: str | None = "crossattn"
     scale_factor: float = 0.18215
     unet_apply_probs: Callable | None = None
     noise_offset: float = 0.0
+    cond_fn: Callable | None = None
 
     @property
     def schedule(self) -> DiffusionSchedule | FlowSchedule:
@@ -121,27 +131,38 @@ class LatentDiffusion:
                                 device=posterior.mean.device)
         return posterior.sample(noise)
 
+    def get_learned_conditioning(self, raw_cond) -> torch.Tensor:
+        """`cond_fn(raw_cond)`: the conditioning of raw text tokens or labels."""
+        if self.cond_fn is None:
+            raise ValueError("get_learned_conditioning needs a cond_fn")
+        return self.cond_fn(raw_cond)
+
     def get_input(self, batch: dict, generator: torch.Generator | None = None):
-        """batch {'image': [B, H, W, 3], 'txt_emb': [B, L, C] (`crossattn`,
-        `hybrid`), 'concat_cond': [B, h, w, c] (`concat`, `hybrid`),
-        optional 'enc_noise', 'hint' (ControlNet's pixel-space control
-        image) and 'ip_embed' (IP-Adapter's image embedding)} → (z, cond), z
-        scaled by the scale factor."""
+        """batch {'image': [B, H, W, 3], 'txt_emb': [B, L, C] or 'txt_raw'
+        (`cond_fn`'s input; `crossattn`, `hybrid`), 'concat_cond': [B, h,
+        w, c] (`concat`, `hybrid`), 'class_label': [B] (`adm`), optional
+        'enc_noise', 'hint' (ControlNet's pixel-space control image) and
+        'ip_embed' (IP-Adapter's image embedding)} → (z, cond), z scaled by
+        the scale factor; cond is None for the unconditional key None
+        without a hint or an image embedding."""
         key = self.conditioning_key
-        if key not in ("crossattn", "concat", "hybrid"):
-            raise NotImplementedError(f"conditioning key {key!r} is not ported yet")
+        if key not in (None, "crossattn", "concat", "hybrid", "adm"):
+            raise ValueError(f"unknown conditioning key {key!r}")
         z = self.scale_factor * self.encode_first_stage(
             batch["image"], batch.get("enc_noise"), generator)
         cond = {}
         if key in ("crossattn", "hybrid"):
-            cond["c_crossattn"] = [batch["txt_emb"]]
+            cond["c_crossattn"] = [batch["txt_emb"] if "txt_emb" in batch
+                                   else self.get_learned_conditioning(batch["txt_raw"])]
         if key in ("concat", "hybrid"):
             cond["c_concat"] = [batch["concat_cond"]]
+        if key == "adm":
+            cond["c_adm"] = batch["class_label"]
         if "hint" in batch:
             cond["c_control"] = batch["hint"]
         if "ip_embed" in batch:
             cond["c_ip"] = batch["ip_embed"]
-        return z, cond
+        return z, (cond or None) if key is None else cond
 
     def p_losses(self, z: torch.Tensor, cond: dict, t: torch.Tensor,
                  noise: torch.Tensor, learned_logvar: torch.Tensor | None = None):

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.core.config import resolve_device
-from sd_tpu_torch.models.unet_sd import UNetModel
+from sd_tpu_torch.models.unet_sd import UNetModel, attention_block
 from sd_tpu_torch.nn.attention import SpatialTransformer
 from sd_tpu_torch.nn.layers import Conv2d, Dense, timestep_embedding, zeros_init_conv
 from sd_tpu_torch.nn.resnet import ResBlockSD
@@ -33,7 +33,10 @@ HINT_LADDER = (16, 32, 96, 256)
 
 
 class ControlNet(nn.Module):
-    """The control branch; its options are the UNet's, plus the hint's
+    """The control branch; its options are the UNet's (a class-conditional
+    branch embeds labels as the UNet does, its resblocks take scale-shift
+    norm where the UNet's do, and its attention is the UNet's kind:
+    spatial transformers or self-attention blocks), plus the hint's
     channels and `hint_downsamples` = log2 of the first stage's factor (3
     for SD-v1's f8). Built on the card unless `device` names another."""
 
@@ -42,17 +45,29 @@ class ControlNet(nn.Module):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads: int = 8,
                  use_spatial_transformer: bool = True, transformer_depth: int = 1,
                  context_dim: int | None = 768, hint_channels: int = 3,
-                 hint_downsamples: int = 3, *, dtype=torch.float32, device=None):
+                 hint_downsamples: int = 3, num_classes: int | None = None,
+                 use_scale_shift_norm: bool = False, num_head_channels: int = -1, *,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        if not use_spatial_transformer:
-            raise NotImplementedError("only the spatial-transformer ControlNet is ported")
         kw = dict(dtype=dtype, device=resolve_device(device))
         mc = model_channels
         self.model_channels, self.num_res_blocks = mc, num_res_blocks
         self.channel_mult, self.hint_downsamples = tuple(channel_mult), hint_downsamples
+        self.num_classes = num_classes
         emb_ch = mc * 4
+
+        def res(c_in, c_out):
+            return ResBlockSD(c_in, emb_ch, c_out, use_scale_shift_norm=use_scale_shift_norm,
+                              **kw)
+
+        def attn(ch):
+            return attention_block(ch, use_spatial_transformer, num_heads, num_head_channels,
+                                   transformer_depth, context_dim, **kw)
+
         self.time_embed_1 = Dense(mc, emb_ch, **kw)
         self.time_embed_2 = Dense(emb_ch, emb_ch, **kw)
+        if num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, emb_ch, **kw).requires_grad_(False)
         self.hint_in = Conv2d(hint_channels, 16, 3, **kw)
         ch = 16
         for i in range(hint_downsamples):
@@ -67,11 +82,10 @@ class ControlNet(nn.Module):
         ch, ds, k = mc, 1, 1
         for level, mult in enumerate(channel_mult):
             for i in range(num_res_blocks):
-                setattr(self, f"in_{level}_{i}_res", ResBlockSD(ch, emb_ch, mult * mc, **kw))
+                setattr(self, f"in_{level}_{i}_res", res(ch, mult * mc))
                 ch = mult * mc
                 if ds in attention_resolutions:
-                    setattr(self, f"in_{level}_{i}_attn", SpatialTransformer(
-                        ch, num_heads, ch // num_heads, transformer_depth, context_dim, **kw))
+                    setattr(self, f"in_{level}_{i}_attn", attn(ch))
                 setattr(self, f"zero_conv_{k}", zeros_init_conv(ch, ch, 1, **kw))
                 k += 1
             if level != len(channel_mult) - 1:
@@ -79,19 +93,24 @@ class ControlNet(nn.Module):
                 setattr(self, f"zero_conv_{k}", zeros_init_conv(ch, ch, 1, **kw))
                 k += 1
                 ds *= 2
-        self.mid_res1 = ResBlockSD(ch, emb_ch, ch, **kw)
-        self.mid_attn = SpatialTransformer(ch, num_heads, ch // num_heads, transformer_depth,
-                                           context_dim, **kw)
-        self.mid_res2 = ResBlockSD(ch, emb_ch, ch, **kw)
+        self.mid_res1 = res(ch, ch)
+        self.mid_attn = attn(ch)
+        self.mid_res2 = res(ch, ch)
         self.mid_zero_conv = zeros_init_conv(ch, ch, 1, **kw)
 
     def forward(self, x: torch.Tensor, hint: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
-        """x [B, h, w, C_in] latent, hint [B, H, W, hint_channels] pixels →
-        the residuals, one per UNet skip connection in order, then the
-        middle block's."""
+                context: torch.Tensor | None = None,
+                y: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+        """x [B, h, w, C_in] latent, hint [B, H, W, hint_channels] pixels, y
+        [B] class labels (a class-conditional branch needs them) → the
+        residuals, one per UNet skip connection in order, then the middle
+        block's."""
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_2(F.silu(self.time_embed_1(emb)))
+        if self.num_classes is not None:
+            if y is None:
+                raise ValueError("class-conditional model needs labels")
+            emb = emb + self.label_emb(y).to(emb.dtype)
         g = F.silu(self.hint_in(hint))
         for i in range(self.hint_downsamples):
             g = F.silu(getattr(self, f"hint_{i}_down")(F.silu(getattr(self, f"hint_{i}_a")(g))))
@@ -103,21 +122,25 @@ class ControlNet(nn.Module):
                 h = getattr(self, f"in_{level}_{i}_res")(h, emb)
                 attn = getattr(self, f"in_{level}_{i}_attn", None)
                 if attn is not None:
-                    h = attn(h, context)
+                    h = self._attend(attn, h, context)
                 outs.append(getattr(self, f"zero_conv_{k}")(h))
                 k += 1
             if level != levels - 1:
                 h = getattr(self, f"in_{level}_down")(h)
                 outs.append(getattr(self, f"zero_conv_{k}")(h))
                 k += 1
-        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb), context), emb)
+        h = self.mid_res2(self._attend(self.mid_attn, self.mid_res1(h, emb), context), emb)
         outs.append(self.mid_zero_conv(h))
         return tuple(outs)
+
+    @staticmethod
+    def _attend(attn: nn.Module, h: torch.Tensor, context: torch.Tensor | None) -> torch.Tensor:
+        return attn(h, context) if isinstance(attn, SpatialTransformer) else attn(h)
 
 
 CONTROLNET_KEYS = ("in_channels", "model_channels", "num_res_blocks", "attention_resolutions",
                    "channel_mult", "num_heads", "use_spatial_transformer", "transformer_depth",
-                   "context_dim")
+                   "context_dim", "num_classes", "use_scale_shift_norm", "num_head_channels")
 
 
 def controlnet_from_unet_config(unet_cfg: dict, hint_channels: int = 3,
@@ -145,16 +168,16 @@ def init_controlnet_from_unet(controlnet: ControlNet, unet: UNetModel) -> Contro
 
 
 def controlled_apply_fn(unet: UNetModel, controlnet: ControlNet, control_scale: float = 1.0):
-    """The controlled UNet apply: `(x, t, ctx, control=None)`; with a hint
-    image `control` the branch's residuals (times `control_scale` where it
-    is not 1) go into the UNet, without one the plain UNet."""
+    """The controlled UNet apply: `(x, t, ctx, y=None, control=None)`; with
+    a hint image `control` the branch's residuals (times `control_scale`
+    where it is not 1) go into the UNet, without one the plain UNet."""
 
-    def apply(x, t, ctx, control=None):
+    def apply(x, t, ctx, y=None, control=None):
         if control is None:
-            return unet(x, t, ctx)
-        res = controlnet(x, control, t, ctx)
+            return unet(x, t, ctx, y)
+        res = controlnet(x, control, t, ctx, y)
         if control_scale != 1.0:
             res = tuple(r * control_scale for r in res)
-        return unet(x, t, ctx, control=res)
+        return unet(x, t, ctx, y, control=res)
 
     return apply

@@ -28,6 +28,7 @@ package. NHWC layout; LayerNorm and softmax in fp32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.kernels import attention as attn_k
@@ -186,18 +187,21 @@ class CrossAttention(nn.Module):
 
 class FeedForwardGEGLU(nn.Module):
     """GEGLU feed-forward: proj_in to 2·4C, a·gelu_erf(g), proj_out to C —
-    the fused kernel where the TPU package's shape rule sends it."""
+    the fused kernel where the TPU package's shape rule sends it. With
+    `glu=False` the plain MLP: proj_in to 4C, exact-erf gelu, proj_out."""
 
-    def __init__(self, dim: int, mult: int = 4, *, dtype=torch.float32,
+    def __init__(self, dim: int, mult: int = 4, *, glu: bool = True, dtype=torch.float32,
                  device=None):
         super().__init__()
         inner = dim * mult
-        self.inner = inner
-        self.proj_in = Dense(dim, 2 * inner, dtype=dtype, device=device)
+        self.inner, self.glu = inner, glu
+        self.proj_in = Dense(dim, (2 if glu else 1) * inner, dtype=dtype, device=device)
         self.proj_out = Dense(inner, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.proj_in.weight.dtype)
+        if not self.glu:
+            return self.proj_out(F.gelu(self.proj_in(x)))
         C = x.shape[-1]
         args = (x, self.proj_in.weight, self.proj_in.bias,
                 self.proj_out.weight, self.proj_out.bias)

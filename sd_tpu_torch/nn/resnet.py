@@ -1,8 +1,9 @@
 """Residual blocks: the codec (CompVis) variant and the SD-UNet variant.
 
 Counterpart of `sd_tpu/nn/resnet.py`. `ResnetBlock` carries the optional
-time-embedding input of the pixel-space DDPM UNet. `ResBlockSD` is ported
-on the SD-v1 path only: no scale-shift norm, no built-in up/down-sampling.
+time-embedding input of the pixel-space DDPM UNet. `ResBlockSD` carries the
+guided-diffusion options: scale-shift ("AdaGN") conditioning, built-in
+up/down-sampling (the UNet's `resblock_updown`) and a 3×3 skip.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 
 from sd_tpu_torch.nn.layers import (Conv2d, Conv3x3, Dense, GroupNorm32,
                                     zeros_init_conv)
+from sd_tpu_torch.nn.updown import avg_pool_2x, nearest_upsample_2x
 
 
 class ResnetBlock(nn.Module):
@@ -56,27 +58,42 @@ class ResnetBlock(nn.Module):
 
 
 class ResBlockSD(nn.Module):
-    """SD-UNet resblock: GN → silu → conv, + time embedding, GN → silu →
-    zero-init conv, 1×1 `skip` when the width changes."""
+    """SD-UNet resblock: GN → silu (→ nearest-2× `up` or 2×2-average `down`
+    of both branches) → conv, then the time embedding: added before GN →
+    silu, or with `use_scale_shift_norm` projected to 2·out and applied as
+    GN(h)·(1 + scale) + shift before the silu; → zero-init conv. The skip is
+    a 1×1 (3×3 with `use_conv_skip`) `skip` conv when the width changes."""
 
     def __init__(self, in_channels: int, emb_channels: int,
-                 out_channels: int | None = None, *, dtype=torch.float32,
-                 device=None):
+                 out_channels: int | None = None, *, use_scale_shift_norm: bool = False,
+                 up: bool = False, down: bool = False, use_conv_skip: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         out_channels = out_channels or in_channels
         kw = dict(dtype=dtype, device=device)
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.resample = (nearest_upsample_2x if up else avg_pool_2x if down else None)
         self.in_norm = GroupNorm32(in_channels, 32, **kw)
         self.in_conv = Conv2d(in_channels, out_channels, 3, **kw)
-        self.emb_proj = Dense(emb_channels, out_channels, **kw)
+        self.emb_proj = Dense(emb_channels, (2 if use_scale_shift_norm else 1) * out_channels,
+                              **kw)
         self.out_norm = GroupNorm32(out_channels, 32, **kw)
         self.out_conv = zeros_init_conv(out_channels, out_channels, **kw)
-        self.skip = (Conv2d(in_channels, out_channels, 1, **kw)
+        self.skip = (Conv2d(in_channels, out_channels, 3 if use_conv_skip else 1, **kw)
                      if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_conv(F.silu(self.in_norm(x)))
-        h = h + self.emb_proj(F.silu(emb))[:, None, None, :]
-        h = self.out_conv(F.silu(self.out_norm(h)))
+        h = F.silu(self.in_norm(x))
+        if self.resample is not None:
+            h, x = self.resample(h), self.resample(x)
+        h = self.in_conv(h)
+        emb_out = self.emb_proj(F.silu(emb))[:, None, None, :]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = self.out_norm(h) * (1 + scale) + shift
+        else:
+            h = self.out_norm(h + emb_out)
+        h = self.out_conv(F.silu(h))
         if self.skip is not None:
             x = self.skip(x)
         return x + h

@@ -8,7 +8,9 @@ path maps onto a torch parameter name mechanically:
   * `kernel` becomes `weight`: a Dense kernel [in, out] is transposed to
     [out, in], a conv kernel HWIO is permuted to OIHW;
   * `scale` (norms) and `embedding` (embeddings, the quantizers'
-    codebooks) become `weight`.
+    codebooks) become `weight`;
+  * raw leaves (`pos_emb`, `mem_k`, a scalar `g`, `rezero_0`, ...) keep
+    their names and shapes.
 Non-parameter collections map onto buffers the same way: the
 discriminator's `batch_stats` and the EMA quantizer's `codebook`.
 """
@@ -23,6 +25,9 @@ import torch
 from torch import nn
 
 _DROPPED = ("GroupNorm_0", "LayerNorm_0")
+# the x-transformer's raw leaves, initialised N(0, 0.02²) as in the TPU package
+N002_PARAMS = ("mem_k", "mem_v", "pre_softmax_proj", "post_softmax_proj", "pos_emb",
+               "memory_tokens")
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
@@ -95,7 +100,9 @@ def _load(own: dict[str, torch.Tensor], params: Mapping) -> None:
             raise ValueError(f"{name}: flax shape {arr.shape} != {tuple(p.shape)}")
     with torch.no_grad():
         for name, arr in converted.items():
-            own[name].copy_(torch.from_numpy(np.ascontiguousarray(arr, np.float32)))
+            # (ascontiguousarray makes a 0-d leaf 1-d: keep its shape)
+            own[name].copy_(torch.from_numpy(np.ascontiguousarray(arr, np.float32)
+                                             .reshape(arr.shape)))
 
 
 def _fan_in(p: torch.Tensor) -> int:
@@ -105,10 +112,11 @@ def _fan_in(p: torch.Tensor) -> int:
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:
     """The TPU package's initialisers: lecun-normal weights (std
-    1/sqrt(fan_in)), zero biases, unit norm scales, zero weights for the
-    convs marked `zero_init`, N(0, 1/width) embeddings, N(0, 0.01)
-    position embeddings, and each quantizer's codebook from its own
-    distribution (`reset_codebook_`)."""
+    1/sqrt(fan_in)), zero biases, unit norm scales (ScaleNorm's scalar `g`
+    too), zero weights for the convs marked `zero_init` and for the scalar
+    rezero gains, N(0, 1/width) embeddings, N(0, 0.01) position embeddings,
+    N(0, 0.02²) for the x-transformer's raw leaves (`N002_PARAMS`), and each
+    quantizer's codebook from its own distribution (`reset_codebook_`)."""
     for mod in module.modules():
         if hasattr(mod, "reset_codebook_"):
             mod.reset_codebook_(generator)
@@ -116,6 +124,10 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
         for name, p in mod.named_parameters(recurse=False):
             if getattr(mod, "zero_init", False) or name == "bias":
                 p.zero_()
+            elif p.ndim == 0:
+                p.fill_(0.0 if name.startswith("rezero_") else 1.0)
+            elif name in N002_PARAMS:
+                _normal_(p, generator, 0.02)
             elif name == "position_embedding":
                 _normal_(p, generator, 0.01)
             elif isinstance(mod, nn.Embedding):
@@ -129,17 +141,17 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
 @torch.no_grad()
 def randomize_params_(module: nn.Module, generator: torch.Generator) -> None:
     """Every parameter random, zero-init ones included: weights N(0,
-    1/fan_in), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²); the EMA
-    quantizer's codebook buffers from their init. A model so filled moves
-    every residual branch, so a check on its output sees every kernel's
-    work."""
+    1/fan_in), biases N(0, 0.02²), norm scales and scalar gains (rezero's
+    too) 1 + N(0, 0.1²); the EMA quantizer's codebook buffers from their
+    init. A model so filled moves every residual branch, so a check on its
+    output sees every kernel's work."""
     for mod in module.modules():
         if hasattr(mod, "reset_codebook_"):
             mod.reset_codebook_(generator)
         for name, p in mod.named_parameters(recurse=False):
             if name == "bias":
                 _normal_(p, generator, 0.02)
-            elif p.ndim == 1:
+            elif p.ndim <= 1:
                 _normal_(p, generator, 0.1)
                 p.add_(1.0)
             elif isinstance(mod, nn.Embedding):

@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from test_torch_helpers import flax_init, nprand, port, to_torch
+from test_torch_helpers import flax_init, init_shapes, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.models import codec as jcodec
 from sd_tpu.models import unet_sd as junet
@@ -60,8 +61,7 @@ def assert_rel(got, ref, tol: float) -> None:
 def run_both(flax_mod, torch_mod, x: np.ndarray, seed: int = 0):
     """(port output, JAX output) of the two modules on x with the same random
     weights (the JAX apply jitted; a module without parameters has none)."""
-    has = "params" in jax.eval_shape(lambda: flax_mod.init(jax.random.PRNGKey(0),
-                                                           jnp.asarray(x)))
+    has = "params" in init_shapes(flax_mod, jnp.asarray(x))
     params = flax_init(flax_mod, jnp.asarray(x), seed=seed) if has else {}
     ref = jax.jit(lambda p, a: flax_mod.apply({"params": p}, a))(params, jnp.asarray(x))
     with torch.no_grad():

@@ -30,6 +30,7 @@ import pytest
 import torch
 import yaml
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core.schedules import DiffusionSchedule as JSchedule
 from sd_tpu.diffusion.ddpm import DDPMProcess as JProcess

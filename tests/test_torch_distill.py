@@ -32,6 +32,7 @@ import pytest
 import torch
 from test_torch_flow import CFG_CONTEXT, CFG_LATENT, CONTEXT, LATENT, scan_as_loop, tiny_unet
 from test_torch_helpers import assert_close, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core import ema as jema
 from sd_tpu.core import schedules as jsched

@@ -32,6 +32,7 @@ import torch
 from test_torch_distill import N, T, distillers, schedules_pair
 from test_torch_flow import TINY_UNET, scan_as_loop, tiny_unet
 from test_torch_helpers import assert_close, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core import ema as jema
 from sd_tpu.diffusion import consistency as jcons

@@ -39,7 +39,8 @@ import optax
 import pytest
 import torch
 from jax.flatten_util import ravel_pytree
-from test_torch_helpers import assert_close, nprand, randomize_tree, to_torch
+from test_torch_helpers import COMPILE_OPTIONS, assert_close, nprand, randomize_tree, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core.schedules import DiffusionSchedule as JSchedule
 from sd_tpu.diffusion import ddpm as jddpm
@@ -205,12 +206,6 @@ def lower_jax_step(loss_fn, params, batch: dict, weight_decay: float = 0.0,
         learn_logvar=learn_logvar)
     args = (state, jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(0))
     return step.lower(*args), args, np_unravel
-
-
-# the reference steps compile without LLVM's optimisation passes: a fifth
-# less compile time; XLA's own passes still run, and LLVM reorders no float
-# arithmetic at any level (no fast-math)
-COMPILE_OPTIONS = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def build_and_run(cases: dict) -> dict:

@@ -33,6 +33,7 @@ from test_torch_finetune import (B, as_port, assert_frozen, assert_step_matches,
                                  jax_ld, jax_loss, jax_weights, lower_jax_step, port_stack,
                                  port_step, build_and_run, unet_kwargs, _frozen)
 from test_torch_helpers import nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.models.clip_text import ClipTextConfig as JClipConfig
 from sd_tpu.models.clip_text import ClipTextTransformer as JClip

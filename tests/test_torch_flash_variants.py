@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import MODULE_TOL, assert_close, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.kernels import flash_attention as jfa
 from sd_tpu_torch.kernels import attention as attn_k

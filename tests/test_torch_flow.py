@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core import schedules as jsched
 from sd_tpu.diffusion import flow as jflow

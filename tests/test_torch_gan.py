@@ -19,6 +19,7 @@ import pytest
 import torch
 from flax import linen as fnn
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.losses import gan as jgan
 from sd_tpu.models import discriminator as jdisc

@@ -10,6 +10,8 @@ text-to-image slice ≤ 1e-3·max(1, max|ref|).
 
 from __future__ import annotations
 
+from unittest import mock
+
 import jax
 import numpy as np
 import pytest
@@ -22,6 +24,29 @@ torch.set_num_threads(2)
 
 MODULE_TOL = 1e-4
 SLICE_TOL = 1e-3
+
+# the JAX references compile without LLVM's optimisation passes: a fifth
+# less compile time; XLA's own passes still run, and LLVM reorders no float
+# arithmetic at any level (no fast-math)
+COMPILE_OPTIONS = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(autouse=True)
+def jax_quick_compiles():
+    """Every XLA compile of a test in a module that imports this fixture
+    (an autouse fixture applies where its name is bound) takes
+    COMPILE_OPTIONS, nested `jax.jit`s and the JAX package's own programs
+    included; options a compile names itself win."""
+    from jax._src import compiler
+
+    real = compiler.get_compile_options
+
+    def options(*args, env_options_overrides=None, **kw):
+        return real(*args, env_options_overrides={**COMPILE_OPTIONS,
+                                                  **(env_options_overrides or {})}, **kw)
+
+    with mock.patch.object(compiler, "get_compile_options", options):
+        yield
 
 
 def randomize_tree(params, seed: int = 0):
@@ -42,10 +67,46 @@ def randomize_tree(params, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, jax.device_get(params))
 
 
+# the variables' shapes of each (module, argument shapes) traced so far
+_INIT_SHAPES: dict = {}
+
+
+def _spec(x):
+    """A hashable stand-in for an `init` argument: arrays by shape and dtype
+    (what `init` reads of them), containers element by element."""
+    if hasattr(x, "shape") and hasattr(x, "dtype"):
+        return ("array", tuple(x.shape), str(x.dtype))
+    if isinstance(x, (list, tuple)):
+        return type(x).__name__, tuple(_spec(v) for v in x)
+    if isinstance(x, dict):
+        return "dict", tuple(sorted((k, _spec(v)) for k, v in x.items()))
+    return x
+
+
+def init_shapes(module, *args, init=None, rngs=None, **kw):
+    """`jax.eval_shape` of `module.init(rngs, *args, **kw)` (or of
+    `init(module, rngs, ...)`): the variables' shapes, traced once per module
+    configuration, rng streams and argument shapes in a process (a flax
+    module hashes by its fields)."""
+    init = init or type(module).init
+    rngs = jax.random.PRNGKey(0) if rngs is None else rngs
+    key = (module, init, _spec(rngs), _spec(args), _spec(kw))
+    try:
+        cached = _INIT_SHAPES.get(key)
+    except TypeError:                          # a field that does not hash
+        key = cached = None
+    if cached is None:
+        cached = jax.eval_shape(lambda r: init(module, r, *args, **kw), rngs)
+        if key is not None:
+            _INIT_SHAPES[key] = cached
+    return cached
+
+
 def flax_init(module, *args, seed: int = 0, **kw):
     """Random params for a flax module, as plain nested dicts of numpy (only
-    the tree's shapes are traced: every leaf is drawn anew)."""
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kw))["params"]
+    the tree's shapes are traced, once per module and argument shapes:
+    every leaf is drawn anew)."""
+    shapes = init_shapes(module, *args, **kw)["params"]
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     return randomize_tree(_plain(params), seed)
 
@@ -75,7 +136,7 @@ def jax_pipeline(cfg: dict, seed: int = 0):
     real_init = nn.Module.init
 
     def traced_init(self, rngs, *args, **kw):
-        shapes = jax.eval_shape(lambda r: real_init(self, r, *args, **kw), rngs)
+        shapes = init_shapes(self, *args, init=real_init, rngs=rngs, **kw)
         return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
 
     with mock.patch.object(nn.Module, "init", traced_init):

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 from test_torch_helpers import assert_close, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 import chip_smoke
 from sd_tpu.kernels import conv2d as jconv

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import assert_close, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 import chip_smoke
 from sd_tpu.kernels import flash_attention as jfa

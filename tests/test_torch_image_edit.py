@@ -37,6 +37,7 @@ import torch
 import yaml
 from test_torch_helpers import (MODULE_TOL, SLICE_TOL, assert_close, jax_pipeline, nprand,
                                 port_pipeline, to_torch)
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_samplers import jax_model, schedules, torch_model
 from test_torch_slice import PROMPTS, tiny_config
 

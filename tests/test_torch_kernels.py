@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import assert_close, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.kernels import conv2d as jconv
 from sd_tpu.kernels import flash_attention as jfa

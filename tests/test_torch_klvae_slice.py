@@ -35,6 +35,7 @@ import optax
 import pytest
 import torch
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.kernels import flash_attention as jfa
 from sd_tpu.losses.gan import GanLossConfig as JGanLossConfig

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.models import autoencoder as jae
 from sd_tpu.models import codec as jcodec

@@ -292,11 +292,12 @@ def test_ddim_sample_with_cfg_and_injected_noise():
 def test_apply_conditioned_crossattn_concatenates_tokens():
     """`crossattn` concatenates the context along tokens; `concat` the
     latent's conditioning along channels (no context); `hybrid` both (the
-    inpainting model); `adm` is not ported yet."""
+    inpainting model); `adm` passes `c_adm` as the labels `y`; the key None
+    runs unconditioned; an unknown key raises."""
     seen = {}
 
-    def unet(x, t, ctx):
-        seen["x"], seen["ctx"] = x, ctx
+    def unet(x, t, ctx, y=None):
+        seen["x"], seen["ctx"], seen["y"] = x, ctx, y
         return x
 
     a, b = torch.randn(2, 3, 8), torch.randn(2, 5, 8)
@@ -309,5 +310,10 @@ def test_apply_conditioned_crossattn_concatenates_tokens():
     latent.apply_conditioned(unet, x, torch.zeros(2),
                              {"c_concat": [m], "c_crossattn": [a]}, "hybrid")
     assert torch.equal(seen["x"], torch.cat([x, m], dim=-1)) and torch.equal(seen["ctx"], a)
-    with pytest.raises(NotImplementedError):
-        latent.apply_conditioned(unet, x, torch.zeros(2), {"c_adm": a}, "adm")
+    labels = torch.tensor([3, 7])
+    latent.apply_conditioned(unet, x, torch.zeros(2), {"c_adm": labels}, "adm")
+    assert torch.equal(seen["x"], x) and seen["ctx"] is None and seen["y"] is labels
+    latent.apply_conditioned(unet, x, torch.zeros(2), None, None)
+    assert torch.equal(seen["x"], x) and seen["ctx"] is None and seen["y"] is None
+    with pytest.raises(ValueError, match="conditioning key"):
+        latent.apply_conditioned(unet, x, torch.zeros(2), {"c_adm": a}, "class")

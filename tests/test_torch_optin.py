@@ -22,6 +22,7 @@ import pytest
 import torch
 from test_torch_helpers import (SLICE_TOL, assert_close, flax_init, nprand, port,
                                 to_torch)
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_models import TINY_VAE, vae_params
 from test_torch_slice import PROMPTS, TINY_CLIP, tiny_config
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 from test_torch_helpers import (MODULE_TOL, assert_close, jax_pipeline, nprand, port_pipeline,
                                 to_torch)
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_image_edit import _normal, _split, assert_within_a_level
 from test_torch_models import TINY_UNET
 from test_torch_samplers import jax_model, schedules, torch_model

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import MODULE_TOL, assert_close, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core import schedules as jsched
 from sd_tpu.diffusion import ddim as jddim, ddpm as jddpm, dpm_solver as jdpm

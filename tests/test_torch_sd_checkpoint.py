@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import jax_pipeline, port, port_pipeline
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_models import TINY_UNET, TINY_VAE
 from test_torch_slice import TINY_CLIP, tiny_config
 

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import SLICE_TOL, assert_close, flax_init, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_models import TINY_VAE, unet_params, vae_params
 from test_torch_slice import PROMPTS, TINY_CLIP, tiny_config
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import SLICE_TOL, assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_models import TINY_UNET, TINY_VAE, unet_params, vae_params
 
 from sd_tpu.core.schedules import DiffusionSchedule

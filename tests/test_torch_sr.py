@@ -37,6 +37,7 @@ import yaml
 from test_torch_finetune import (as_port, assert_step_matches, draws, jax_ld, jax_loss,
                                  lower_jax_step, port_step, with_draws)
 from test_torch_helpers import assert_close, flax_init, nprand, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core.schedules import DiffusionSchedule as JSchedule
 from sd_tpu.data import datasets as jdatasets

@@ -50,7 +50,11 @@
   configs are theirs;
 * the pieces of a consistency-distillation step and of the few-step
   samplers at full width on `meta` tensors give the launches
-  `chip_smoke.py`'s few_step phase requires.
+  `chip_smoke.py`'s few_step phase requires;
+* the model families at full width: the param trees of LDM-KL-8-G's BERT and
+  UNet, the ADM ImageNet 256² UNet and the CompVis codec UNet map onto the
+  port (shapes only), and their bf16 forwards on `meta` tensors give the
+  launches of `chip_smoke.py`'s model_families phase.
 """
 
 from __future__ import annotations
@@ -78,9 +82,12 @@ from sd_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL
 from sd_tpu.models.autoencoder import VQModel as JVQModel
 from sd_tpu.models.clip_text import ClipTextConfig as JClipConfig
 from sd_tpu.models.clip_text import ClipTextTransformer as JClip
+from sd_tpu.models.conditioners import BERTEmbedder as JBERTEmbedder
+from sd_tpu.models.unet_compvis import UNetCompVis as JUNetCompVis
 from sd_tpu.models.unet_sd import UNetModel as JUNet
 import chip_smoke
-from sd_tpu_torch.core.config import (kl_f8_256_train_config, kl_f32_config,
+from sd_tpu_torch.core.config import (adm_imagenet256_config, kl_f8_256_train_config,
+                                     kl_f32_config, ldm_kl8g_txt2img_config,
                                      ldm_sr_catdog_config, sd512_train_config, sd_v1_config,
                                      vq_128_train_config, vq_gumbel_f8_config)
 from sd_tpu_torch.core.schedules import DiffusionSchedule
@@ -96,9 +103,11 @@ from sd_tpu_torch.kernels import groupnorm as gn_k
 from sd_tpu_torch.losses.gan import GanLossConfig
 from sd_tpu_torch.models.autoencoder import AutoencoderKL, VQModel
 from sd_tpu_torch.models.clip_text import ClipTextConfig, ClipTextTransformer
+from sd_tpu_torch.models.conditioners import BERTEmbedder
 from sd_tpu_torch.models.discriminator import NLayerDiscriminator
 from sd_tpu_torch.models.lpips import LPIPS
 from sd_tpu_torch.nn.attention import CrossAttention
+from sd_tpu_torch.models.unet_compvis import UNetCompVis
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.pipeline import Text2ImagePipeline
 from sd_tpu_torch.train import diffusion as train
@@ -126,9 +135,33 @@ def _tuples(params: dict) -> dict:
     return {k: tuple(v) if isinstance(v, list) else v for k, v in params.items()}
 
 
-@pytest.mark.parametrize("model", ["unet", "vae", "clip", "sr_unet", "kl_f32", "vq_gumbel_f8"])
+@pytest.mark.parametrize("model", ["unet", "vae", "clip", "sr_unet", "kl_f32", "vq_gumbel_f8",
+                                   "bert_1p4b", "ldm_kl8g_unet", "adm_imagenet256",
+                                   "unet_compvis"])
 def test_full_width_param_trees_map_onto_the_port(model):
-    if model == "unet":
+    if model == "bert_1p4b":
+        # LDM-KL-8-G's text conditioner: 32 layers, 1280 wide, vocab 30522
+        params = ldm_kl8g_txt2img_config()["cond_stage"]["params"]
+        tree = _flax_tree(JBERTEmbedder(**params), jnp.zeros((1, 77), jnp.int32))
+        mod = BERTEmbedder(**params, **BF16)
+    elif model in ("ldm_kl8g_unet", "adm_imagenet256"):
+        # the SD-v1 UNet with a 1280-wide context; the ADM class-conditional UNet
+        cfg = (ldm_kl8g_txt2img_config if model == "ldm_kl8g_unet" else adm_imagenet256_config)()
+        params = cfg["unet"]["params"]
+        if model == "ldm_kl8g_unet":
+            args = (jnp.zeros((1, 32, 32, 4)), jnp.zeros((1,), jnp.int32),
+                    jnp.zeros((1, 77, 1280)))
+        else:
+            args = (jnp.zeros((1, 256, 256, 3)), jnp.zeros((1,), jnp.int32), None,
+                    jnp.zeros((1,), jnp.int32))
+        tree = _flax_tree(JUNet(**_tuples(params)), *args)
+        mod = UNetModel(**params, **BF16)
+    elif model == "unet_compvis":
+        # the CompVis codec UNet at its defaults (ch 128 × (1, 2, 4, 8), 256²)
+        tree = _flax_tree(JUNetCompVis(), jnp.zeros((1, 256, 256, 3)),
+                          jnp.zeros((1,), jnp.int32))
+        mod = UNetCompVis(**BF16)
+    elif model == "unet":
         tree = _flax_tree(JUNet(**UNET), jnp.zeros((1, 64, 64, 4)),
                           jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 768)))
         mod = UNetModel(**UNET, **BF16)
@@ -176,6 +209,10 @@ ATTN_SWITCHES = ("SD_TPU_ATTN_IMPL", "SD_TPU_ATTN_HPACKED", "SD_TPU_ATTN_PACKED"
 OPT_IN = {"SD_TPU_PALLAS_GN": "1", "SD_TPU_PALLAS_XATTN": "1", "SD_TPU_FLASH_PIPE": "1"}
 
 
+# the JAX `flash_attention`'s kernel choice by (skv, d, SD_TPU_* switches)
+_PIPELINED: dict = {}
+
+
 @pytest.fixture
 def tpu_gates(monkeypatch):
     """The JAX gates as they decide on a TPU at inference; the switches unset
@@ -215,7 +252,15 @@ def tpu_gates(monkeypatch):
 
     def jax_pipelined(skv, d):
         # which forward kernel the JAX `flash_attention` builds (traced
-        # abstractly, its Pallas call recorded); its choice reads no q length
+        # abstractly, its Pallas call recorded); its choice reads no q length,
+        # only (skv, d) and the switches, so each answer is traced once
+        key = (skv, d, tuple(sorted((k, v) for k, v in os.environ.items()
+                                    if k.startswith("SD_TPU_"))))
+        if key not in _PIPELINED:
+            _PIPELINED[key] = trace_pipelined(skv, d)
+        return _PIPELINED[key]
+
+    def trace_pipelined(skv, d):
         seen = []
         real = jfa.pl.pallas_call
 
@@ -1272,6 +1317,43 @@ def test_fine_tune_fp32_trainers_reach_no_kernel(monkeypatch):
         chip_smoke.FINE_TUNE_LAUNCHES["fp32_step"].values())
 
 
+def test_model_family_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s model_families launches, piece by piece on `meta`
+    tensors in bf16 with every gate checked against the JAX package's:
+    LDM-KL-8-G's BERT over the two prompts and the two empty ones (its
+    77-token attention is explicit, its 1280-wide FF fails the GEGLU rule:
+    nothing), one CFG UNet call at the 32² latent (batch 4, context 1280)
+    times the DDIM table's FAMILY_STEPS calls plus the 256² decode; the ADM
+    UNet's forward at 256², batch 2, with labels."""
+    piece = _fine_tune_piece(monkeypatch)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    ldm, adm = ldm_kl8g_txt2img_config(), adm_imagenet256_config()
+    n = len(chip_smoke.FAMILY_PROMPTS)
+    times = lambda k, c: Counter({name: k * v for name, v in c.items()})
+    with torch.no_grad():
+        bert = BERTEmbedder(**ldm["cond_stage"]["params"], **BF16)
+        text = piece(lambda: bert(meta(n, 77, dtype=torch.long))) + piece(
+            lambda: bert(meta(n, 77, dtype=torch.long)))
+        unet = UNetModel(**ldm["unet"]["params"], **BF16)
+        unet_call = piece(lambda: unet(meta(2 * n, 32, 32, 4), meta(2 * n, dtype=torch.long),
+                                       meta(2 * n, 77, 1280)))
+        dec = piece(lambda: AutoencoderKL(**ldm["first_stage"]["params"], **BF16).decode(
+            meta(n, 32, 32, 4)))
+        size = adm["image_size"]
+        adm_unet = UNetModel(**adm["unet"]["params"], **BF16)
+        adm_fwd = piece(lambda: adm_unet(meta(chip_smoke.ADM_BATCH, size, size, 3),
+                                         meta(chip_smoke.ADM_BATCH, dtype=torch.long), None,
+                                         meta(chip_smoke.ADM_BATCH, dtype=torch.long)))
+    steps = _ddim_calls(chip_smoke.FAMILY_STEPS)
+    assert steps == chip_smoke.FAMILY_STEPS
+    derived = {"bert": text, "ldm_kl8g_generate": times(steps, unet_call) + dec,
+               "adm_forward": adm_fwd}
+    want = {name: {k: v for k, v in counts.items() if v}
+            for name, counts in chip_smoke.MODEL_FAMILY_LAUNCHES.items()}
+    assert {name: dict(c) for name, c in derived.items()} == want
+    assert unet_call["flash_attention_hpacked"] == unet_call["geglu_ff"] > 0
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
@@ -1281,7 +1363,8 @@ def test_launch_counters_are_chip_smokes_kernels():
                  chip_smoke.FIRST_STAGE_ENCODE_LAUNCHES, chip_smoke.ENCODER_512_LAUNCHES,
                  *chip_smoke.IMAGE_EDIT_LAUNCHES.values(), *chip_smoke.ADAPTER_LAUNCHES.values(),
                  *chip_smoke.FEW_STEP_LAUNCHES.values(),
-                 *chip_smoke.FINE_TUNE_LAUNCHES.values()):
+                 *chip_smoke.FINE_TUNE_LAUNCHES.values(),
+                 *chip_smoke.MODEL_FAMILY_LAUNCHES.values()):
         assert set(want) == set(kernels.LAUNCHES)
 
 
@@ -1302,6 +1385,9 @@ SERVING_MODULES = ("sd_tpu_torch.serve", "sd_tpu_torch.utils.prompt_weights",
 # ... and the super-resolution path's
 SR_MODULES = ("sd_tpu_torch.train.sr", "sd_tpu_torch.sample_sr",
               "sd_tpu_torch.data.degradation", "sd_tpu_torch.data.datasets")
+# ... and the model families'
+FAMILY_MODULES = ("sd_tpu_torch.models.x_transformer", "sd_tpu_torch.models.unet_compvis",
+                  "sd_tpu_torch.models.conditioners")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -1311,7 +1397,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(sd_tpu_torch.__path__, 'sd_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"assert set({SERVING_MODULES + SR_MODULES!r}) <= set(names), names\n"
+        f"assert set({SERVING_MODULES + SR_MODULES + FAMILY_MODULES!r}) <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sd_tpu', 'flax')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_helpers import MODULE_TOL, assert_close, nprand, port, to_torch
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 from test_torch_models import TINY_UNET, unet_params
 from test_torch_slice import PROMPTS, tiny_config
 

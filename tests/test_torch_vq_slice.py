@@ -28,6 +28,7 @@ package, fp32 on the CPU at `configs/vq_smoke.yaml` widths (ch 16, (1, 2),
 from __future__ import annotations
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -37,7 +38,9 @@ import optax
 import pytest
 import torch
 import yaml
-from test_torch_helpers import MODULE_TOL, assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import (COMPILE_OPTIONS, MODULE_TOL, assert_close, flax_init, nprand,
+                                port, to_torch)
+from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.losses.gan import GanLossConfig as JGanLossConfig
 from sd_tpu.models import discriminator as jdisc
@@ -363,7 +366,9 @@ def _gan_setup(family: str):
                 lparams=lparams, loss=loss, x=x)
 
 
-def _jax_vq_step(s, family):
+def _lower_jax_vq_step(s, family):
+    """The JAX package's jitted step of `family` from its initial state,
+    lowered: (state, lowered step, its arguments)."""
     jvq = s["jvq"]
 
     if family == "vq":
@@ -389,8 +394,24 @@ def _jax_vq_step(s, family):
     step = jgan.make_vq_gan_train_step(apply, s["jd"], lpips, opt, opt,
                                        JGanLossConfig(**s["loss"]), stateful=stateful,
                                        temp_fn=temp_fn, jit=True)
-    new, logs = step(state, jnp.asarray(s["x"]), jax.random.PRNGKey(0))
-    return state, new, logs
+    args = (state, jnp.asarray(s["x"]), jax.random.PRNGKey(0))
+    return state, step.lower(*args), args
+
+
+@pytest.fixture(scope="module")
+def jax_vq_steps():
+    """{family: (setup, JAX state before, state after, logs)}: each family's
+    step lowered in turn and compiled in a thread as soon as it is lowered
+    (XLA compiles outside the GIL, so the next family traces meanwhile)."""
+    built = {}
+    with ThreadPoolExecutor(len(FAMILIES)) as ex:
+        for family in FAMILIES:
+            s = _gan_setup(family)
+            state, lowered, args = _lower_jax_vq_step(s, family)
+            built[family] = (s, state, args,
+                             ex.submit(lowered.compile, compiler_options=COMPILE_OPTIONS))
+        return {family: (s, state, *compiled.result()(*args))
+                for family, (s, state, args, compiled) in built.items()}
 
 
 def _torch_vq_step(s, family):
@@ -417,9 +438,8 @@ def _torch_vq_step(s, family):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-def test_one_vq_gan_step_matches(family):
-    s = _gan_setup(family)
-    jold, jnew, jlogs = _jax_vq_step(s, family)
+def test_one_vq_gan_step_matches(family, jax_vq_steps):
+    s, jold, jnew, jlogs = jax_vq_steps[family]
     before, state, logs = _torch_vq_step(s, family)
     assert state.step == int(jnew.step) == STEP[family] + 1
     assert sorted(logs) == sorted(jlogs)
@@ -531,23 +551,34 @@ def test_bf16_vq_step_matches_the_jax_packages_bf16_step():
                  **{"d/" + n: g for n, g in zip(state.params_d, opt_d.grads)}}
         return {k: float(v) for k, v in logs.items()}, {k: g.numpy() for k, g in grads.items()}
 
-    def jax_step(dtype):
+    def lower_jax_step(dtype):
+        """The JAX step on the port's bf16 codes, lowered, and its arguments."""
         jvq = JVQModel(**VQ, dtype=dtype)
         opt = _jax_grad_recorder()
         state = jgan.init_gan_state(vparams, {"params": dparams}, opt, opt, param_dtype=dtype)
         step = jgan.make_vq_gan_train_step(lambda p, x: jvq.apply({"params": p}, x), jd, None,
                                            opt, opt, JGanLossConfig(**loss_cfg), jit=True)
         fixed = jnp.asarray(codes[0].numpy().astype(np.int32))
+        args = (state, jnp.asarray(x), jax.random.PRNGKey(0))
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jq, "_nearest_code", lambda z, e: fixed)
-            new, logs = step(state, jnp.asarray(x), jax.random.PRNGKey(0))
+            return step.lower(*args), args
+
+    def jax_result(new, logs):
         grads = _torch_flat(new.opt_state_g["model"])
         grads["logvar"] = np.asarray(new.opt_state_g["logvar"])
         grads.update({"d/" + n: g for n, g in _torch_flat(new.opt_state_d).items()})
         return {k: float(v) for k, v in logs.items()}, grads
 
-    port16, port32 = torch_step(torch.bfloat16), torch_step(None)
-    jax16, jax32 = jax_step(jnp.bfloat16), jax_step(None)
+    port16 = torch_step(torch.bfloat16)
+    # both JAX steps compile in threads while the port's fp32 step runs
+    with ThreadPoolExecutor(2) as ex:
+        steps = []
+        for dtype in (jnp.bfloat16, None):
+            lowered, args = lower_jax_step(dtype)
+            steps.append((ex.submit(lowered.compile, compiler_options=COMPILE_OPTIONS), args))
+        port32 = torch_step(None)
+        jax16, jax32 = (jax_result(*compiled.result()(*args)) for compiled, args in steps)
     assert sorted(port16[1]) == sorted(jax16[1])
     for names in ([n for n in jax16[1] if not n.startswith("d/")],
                   [n for n in jax16[1] if n.startswith("d/")]):
