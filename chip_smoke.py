@@ -245,6 +245,17 @@ Phases, each printed as one JSON line:
            full-width BERT and UNets, `UNetCompVis` and `AttentionPool2d` on
            the card against a CPU copy in fp32 (the linear-attention
            `UNetCompVis` against float64), the shapes held.
+  training_options  train_ddpm on ddpm_256_train_config() with
+           `model.params.dtype: bfloat16` (fp32 parameters, Adam moments and
+           EMA, bf16 compute) and dropout 0.1, 256², batch 6: one warm-up and
+           TRAINING_OPTIONS_STEPS timed steps (s/step, peak GB, launches by
+           route: its level-3 attention on the wide flash training kernels
+           at [6, 1024, 1, 256]); the mixed-precision step against its fp32
+           step on the card from the same weights, batch, t, noise and
+           dropout masks (MIXED_TOL); the fp32 step with dropout on the card
+           against the CPU at batch 1 with the same injected masks
+           (DDPM_TOL); the path's training kernels at its shape against their
+           plain versions.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -547,9 +558,9 @@ FEW_STEP_LAUNCHES = {
 # batch 1, as the TPU package builds them) at SD-v1 full width through
 # `python -m sd_tpu_torch.train`, each run's output served by its loader
 FINE_TUNE_SEED = 20
-FINE_TUNE_STEPS = 2            # optimizer steps of each run, one checkpoint at the end
+FINE_TUNE_STEPS = 1            # optimizer steps of each run, one checkpoint at the end
 FINE_TUNE_LR = 1.0e-4          # constant: the recipe's warm-up starts at lr·1e-6
-FINE_TUNE_GENERATE_STEPS = 10  # each served check: 2 prompts, 512², DDIM + CFG 7.5
+FINE_TUNE_GENERATE_STEPS = 5   # each served check: 2 prompts, 512², DDIM + CFG 7.5
 FINE_TUNE_CLASS_IMAGES = 2     # DreamBooth's generated prior set ...
 FINE_TUNE_CLASS_STEPS = 4      # ... at this many DDIM steps
 FINE_TUNE_DISK_GB = 36         # two fp32 runs of ≈ 13.8 GB and a ControlNet run of ≈ 5 GB
@@ -637,6 +648,26 @@ MODEL_FAMILY_LAUNCHES = {
         flash_attention=1, flash_fwd_wide=1, conv3x3_same=12),
     "adm_forward": launches_of(flash_attention=5, flash_fwd_sm90=5),
 }
+# the training_options phase: train_ddpm on ddpm_256_train_config() under
+# `model.params.dtype: bfloat16` (fp32 parameters, Adam moments and EMA, bf16
+# compute) with dropout 0.1 (the DDPM paper's CIFAR-10 rate, arXiv:2006.11239
+# App. B), 256², batch 6: one warm-up and TRAINING_OPTIONS_STEPS timed steps.
+# A step's forward runs the 5 level-3 AttnBlocks (32², 256 channels, one head:
+# [6, 1024, 1, 256]) on the wide flash training route, the 16² bottleneck's
+# 256 tokens plain; no remat, so one LSE forward and one dQ, dK/dV each
+TRAINING_OPTIONS_SEED = 23
+TRAINING_OPTIONS_DROPOUT = 0.1
+TRAINING_OPTIONS_STEPS = 2
+DDPM_ATTN_SHAPE = (6, 1024, 1024, 1, 256)
+_DDPM_BF16_STEP = dict(flash_attention_lse=5, flash_lse_wide=5, flash_bwd_dq=5,
+                       flash_bwd_dkv=5, flash_bwd_dq_wide_sm90=5, flash_bwd_dkv_wide_sm90=5)
+TRAINING_OPTIONS_LAUNCHES = {
+    "ddpm_bf16_steps": launches_of(**{k: (1 + TRAINING_OPTIONS_STEPS) * v
+                                      for k, v in _DDPM_BF16_STEP.items()})}
+# the mixed-precision gates, stated before measuring: the bf16-compute step's
+# loss within 2e-2 relative of the fp32 step's, its gradient ‖Δg‖₂ ≤ 0.1·‖g‖₂
+# (the train_parity gate)
+MIXED_TOL = {"loss_rel": 2e-2, "grad_l2_rel": 0.1}
 # launches of the opt-in parity runs (UNet latent 32² batch 2, decoder latent 32²)
 PARITY_OPTIN_LAUNCHES = {
     "unet": launches_of(flash_attention_hpacked=5, flash_fwd_sm90=5, geglu_ff=5, geglu_sm90=5,
@@ -694,8 +725,8 @@ TRAIN_STEPS = 3                                  # timed, after one warm-up step
 # [B, Sq, Skv, H, D] of the flash training kernels' checks: train_ldm's
 # self-attention at UNet levels 0 and 1, a ragged case, train_kl_vae's codec
 # mid-block at 256², a 512² codec's, a ragged case at d = 512, the 32² level
-# of configs/ddpm_256_catdog.yaml (batch 6, 256 channels; on no path: the
-# config is fp32 and the port has no bf16-compute policy for it), and
+# of configs/ddpm_256_catdog.yaml (batch 6, 256 channels; the training_options
+# phase's bf16-compute train_ddpm), and
 # train_vq's codec mid-block under the bf16 policy (vq_128_train_config(),
 # batch 8); each added last, so that it shifts no other check's inputs
 KLVAE_ATTN_SHAPE = (4, 1024, 1024, 1, 512)
@@ -714,7 +745,7 @@ KLVAE_STEPS = 4                                  # timed, after one warm-up step
 # stated before measuring: the loss within 1e-4 relative, grad_norm within
 # 1e-3, the parameters after the step ‖Δ‖₂ ≤ 1e-3·‖ref‖₂
 DDPM_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "params_l2_rel": 1e-3}
-DDPM_STEPS = 3                                   # timed, after one warm-up step
+DDPM_STEPS = 1                                   # timed, after one warm-up step
 VQ_STEPS = 3                                     # timed, after one warm-up step
 VQ_EMA_STEPS = 3
 # the inference variants' kernel checks: the serving path's shapes (bucket 4:
@@ -5139,6 +5170,237 @@ def phase_model_families(smi: str) -> dict:
     return {k: v for k, v in launches.items() if k != "bert"}
 
 
+def training_options_config() -> dict:
+    """ddpm_256_train_config() with bf16 compute over fp32 parameters and
+    dropout (the training_options phase's)."""
+    from sd_tpu_torch.core.config import ddpm_256_train_config
+
+    cfg = ddpm_256_train_config()
+    cfg["model"]["params"].update(dtype="bfloat16", dropout=TRAINING_OPTIONS_DROPOUT)
+    return cfg
+
+
+def _keyed_masks(model_names: dict):
+    """A dropout `mask_hook` giving each site (its module's name + the
+    child's) the keep mask of a CPU generator seeded by the site's key, so
+    that models on two devices draw the same masks."""
+    import zlib
+
+    import torch
+
+    def hook(module, name, shape, keep):
+        key = f"{model_names[id(module)]}/{name}"
+        g = torch.Generator().manual_seed(zlib.crc32(key.encode()))
+        return torch.rand(shape, generator=g) < keep
+
+    return hook
+
+
+def _hold_training_kernels(shape, seed: int) -> dict:
+    """The flash training kernels (LSE forward, dQ, dK/dV) at one [B, Sq,
+    Skv, H, D] of a path on random bf16 inputs (a generator of their own):
+    the route counters moved, against their fp32 plain versions (o within
+    KERNEL_TOL, lse2 LSE_TOL absolute, dq, dk, dv GRAD_TOL), the same bits
+    twice."""
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.kernels import flash_attention as fa
+
+    b, sq, skv, h, d = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda *s_: torch.randn(s_, generator=g, device="cuda").bfloat16()
+    q, k, v, do = rnd(b, sq, h, d), rnd(b, skv, h, d), rnd(b, skv, h, d), rnd(b, sq, h, d)
+    scale = d**-0.5
+    counters = (LSE_ROUTE_COUNTER[fa.lse_route(d)],
+                *(BWD_ROUTE_COUNTER[p, fa.bwd_route(d)] for p in ("dq", "dkv")))
+    before = {c: kernels.LAUNCHES[c] for c in counters}
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_lse(q, k, v, scale)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale)
+        runs.append((o, lse, dq, dk, dv))
+    moved = {c: kernels.LAUNCHES[c] - n for c, n in before.items()}
+    f32 = [t.float() for t in (q, k, v)]
+    o_ref, lse_ref = fa._flash_lse_ref(*f32, scale)
+    o, lse, dq, dk, dv = runs[0]
+    dq_ref, dk_ref, dv_ref, _ = fa._flash_bwd_ref(*f32, o.float(), lse, do.float(), scale)
+    row = {"shape": list(shape), "route_counters_moved": moved,
+           "o_rel_err": rel_err(o, o_ref)[1], "lse_abs_err": (lse - lse_ref).abs().max().item(),
+           **{f"{n}_rel_err": rel_err(x, r)[1] for n, x, r in
+              (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))},
+           **{f"{n}_l2_rel": l2_rel(x, r) for n, x, r in
+              (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))},
+           "same_bits_twice": all(torch.equal(a, b_) for a, b_ in zip(*runs))}
+    require(moved == dict.fromkeys(counters, 2), f"training kernels {list(shape)}: the route "
+            f"counters {counters} moved by 2 each: {moved}")
+    require(row["o_rel_err"] <= KERNEL_TOL and row["lse_abs_err"] <= LSE_TOL,
+            f"LSE forward {list(shape)}: o {row['o_rel_err']:.3g}, lse2 {row['lse_abs_err']:.3g}")
+    for n in ("dq", "dk", "dv"):
+        require(row[f"{n}_rel_err"] <= GRAD_TOL["max_rel"]
+                and row[f"{n}_l2_rel"] <= GRAD_TOL["l2_rel"],
+                f"{n} {list(shape)}: max {row[f'{n}_rel_err']:.3g}, l2 {row[f'{n}_l2_rel']:.3g}")
+    require(row["same_bits_twice"], f"training kernels {list(shape)}: the same bits twice")
+    return row
+
+
+def phase_training_options(smi: str) -> dict:
+    """fp32 master weights with bf16 compute, and dropout, in train_ddpm at
+    full width (`training_options_config()`: 256², batch 6): (a) the run:
+    one warm-up and TRAINING_OPTIONS_STEPS timed steps, s/step, peak memory,
+    launches (TRAINING_OPTIONS_LAUNCHES) with the stored parameters, Adam
+    moments and EMA fp32, finite losses, `conv_out` moved off zero; (b) one
+    bf16-compute step against the fp32 step on the card from the same
+    random weights, batch, t, noise and dropout masks (the same step
+    generator): loss and gradient within MIXED_TOL; (c) the fp32 step with
+    dropout on the card against the CPU at batch 1, every mask injected
+    from a key of its site (DDPM_TOL); (d) the path's flash training
+    kernels at DDPM_ATTN_SHAPE against their plain versions. Returns the
+    run's launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.core.config import split_dtype
+    from sd_tpu_torch.models.unet_ddpm import UNetDDPM
+    from sd_tpu_torch.nn import layers
+    from sd_tpu_torch.train import runners
+    from sd_tpu_torch.train.diffusion import Adam
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    cfg = training_options_config()
+    tc, steps = cfg["train"], 1 + TRAINING_OPTIONS_STEPS
+    mp, compute = split_dtype(cfg["model"]["params"])
+    # (a) the run
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = runners.train_ddpm(cfg, _image_batches(
+        tc, steps, np.random.default_rng(TRAINING_OPTIONS_SEED)), max_steps=steps)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    timed = [r["seconds"] for r in hist[1:]]
+    dtypes = {kind: sorted({str(t.dtype) for t in ts}) for kind, ts in (
+        ("params", state.params.values()), ("adam_mu", state.opt_state.mu),
+        ("adam_nu", state.opt_state.nu), ("ema", state.ema.shadow.values()))}
+    conv_out_moved = bool(state.params["conv_out.weight"].any())
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) the bf16-compute step against the fp32 step: the same random weights
+    # (every one, the zero-initialised head too), batch, t, noise and masks
+    px, bsz = tc["image_size"], tc["batch_size"]
+    g = torch.Generator("cuda").manual_seed(TRAINING_OPTIONS_SEED)
+    batch = {"image": torch.rand(bsz, px, px, 3, generator=g, device="cuda") * 2 - 1,
+             "t": torch.randint(0, 1000, (bsz,), generator=g, device="cuda"),
+             "noise": torch.randn(bsz, px, px, 3, generator=g, device="cuda")}
+    weights = None
+
+    def one_step(compute_dtype):
+        nonlocal weights
+        model = UNetDDPM(**mp, compute_dtype=compute_dtype, device="cuda")
+        if weights is None:
+            randomize_params_(model, torch.Generator("cuda").manual_seed(TRAINING_OPTIONS_SEED))
+            weights = {n: p.detach().clone() for n, p in model.state_dict().items()}
+        model.load_state_dict(weights)
+        st, step = runners.make_ddpm_trainer(cfg, model)
+        grads, real = [], Adam.update_
+
+        def capture(self, params, gs, opt_state):
+            grads.extend(t.detach().float().clone() for t in gs)
+            return real(self, params, gs, opt_state)
+
+        with mock.patch.object(Adam, "update_", capture):
+            logs = step(st, batch, runners.step_generator("cuda", TRAINING_OPTIONS_SEED, 0))
+        loss = float(logs["loss"])
+        del model, st
+        torch.cuda.empty_cache()
+        return loss, grads
+
+    loss16, g16 = one_step(compute)
+    loss32, g32 = one_step(None)
+    gnorm = lambda ts: math.sqrt(sum(float((t.double() ** 2).sum()) for t in ts))
+    mixed = {"loss_bf16": loss16, "loss_fp32": loss32,
+             "loss_rel": abs(loss16 - loss32) / abs(loss32),
+             "grad_l2_rel": gnorm(a - b for a, b in zip(g16, g32)) / gnorm(g32)}
+    del g16, g32, weights
+
+    # (c) the fp32 step with dropout, card against CPU at batch 1
+    g = torch.Generator().manual_seed(TRAINING_OPTIONS_SEED + 1)
+    cpu = UNetDDPM(**mp, device="cpu")
+    randomize_params_(cpu, g)
+    gpu = UNetDDPM(**mp, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    one = {"image": torch.rand(1, px, px, 3, generator=g) * 2 - 1, "t": torch.tensor([500]),
+           "noise": torch.randn(1, px, px, 3, generator=g)}
+    names = {id(m): n for model in (cpu, gpu) for n, m in model.named_modules()}
+
+    def run(model, dev):
+        st, step = runners.make_ddpm_trainer(cfg, model)
+        logs = step(st, {k: v.to(dev) for k, v in one.items()}, torch.Generator(dev))
+        return ({k: float(v) for k, v in logs.items()},
+                {n: p.detach().cpu() for n, p in st.params.items()})
+
+    with mock.patch.object(layers, "mask_hook", _keyed_masks(names)):
+        kernels.reset_launches()
+        logs_gpu, p_gpu = run(gpu, "cuda")
+        torch.cuda.synchronize()
+        fp32_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        t0 = time.perf_counter()
+        logs_cpu, p_cpu = run(cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    norm = lambda ts: math.sqrt(sum(float((t.double() ** 2).sum()) for t in ts))
+    parity = {"loss_rel": rel(logs_gpu["loss"], logs_cpu["loss"]),
+              "grad_norm_rel": rel(logs_gpu["grad_norm"], logs_cpu["grad_norm"]),
+              "params_l2_rel": norm(p_gpu[n] - p_cpu[n] for n in p_cpu) / norm(p_cpu.values()),
+              "update_l2_rel": (norm((p_gpu[n] - init[n]) - (p_cpu[n] - init[n]) for n in p_cpu)
+                                / norm(p_cpu[n] - init[n] for n in p_cpu)),
+              "logs_gpu": logs_gpu, "logs_cpu": logs_cpu, "cpu_seconds": cpu_s}
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+    # (d) the path's training kernels at its shape
+    held = _hold_training_kernels(DDPM_ATTN_SHAPE, TRAINING_OPTIONS_SEED)
+    want = TRAINING_OPTIONS_LAUNCHES["ddpm_bf16_steps"]
+    row = {"phase": "training_options", "nvidia_smi": smi, "steps": len(hist),
+           "timed_step_seconds": timed, "seconds_per_step": sum(timed) / len(timed),
+           "images_per_second": tc["batch_size"] * len(timed) / sum(timed),
+           "peak_memory_gb": peak_gb, "losses": [r["loss"] for r in hist],
+           "grad_norms": [r["grad_norm"] for r in hist], "dtypes": dtypes,
+           "launches": {k: v for k, v in launches.items() if v},
+           "expected_launches": {k: v for k, v in want.items() if v},
+           "mixed_precision": mixed, "mixed_bounds": MIXED_TOL, "cpu_parity": parity,
+           "cpu_parity_bounds": DDPM_TOL, "fp32_parity_launches": fp32_launches,
+           "held": held, "phase_seconds": time.perf_counter() - t_phase}
+    emit(row)
+    require(len(hist) == steps and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                                       for r in hist), f"{steps} finite bf16 DDPM steps")
+    require(all(v == ["torch.float32"] for v in dtypes.values()),
+            f"fp32 parameters, Adam moments and EMA under bf16 compute: {dtypes}")
+    require(conv_out_moved, "conv_out left zero")
+    require(launches == want, f"training_options launches {row['launches']} == "
+            f"{row['expected_launches']}")
+    require(mixed["loss_rel"] <= MIXED_TOL["loss_rel"]
+            and mixed["grad_l2_rel"] <= MIXED_TOL["grad_l2_rel"],
+            f"bf16-compute step against fp32 within {MIXED_TOL}: loss {mixed['loss_rel']:.3g}, "
+            f"gradient {mixed['grad_l2_rel']:.3g}")
+    require(all(math.isfinite(v) for v in logs_gpu.values())
+            and parity["loss_rel"] <= DDPM_TOL["loss_rel"]
+            and parity["grad_norm_rel"] <= DDPM_TOL["grad_norm_rel"]
+            and parity["params_l2_rel"] <= DDPM_TOL["params_l2_rel"],
+            f"fp32 DDPM step with dropout, card against CPU within {DDPM_TOL}: loss "
+            f"{parity['loss_rel']:.3g}, grad_norm {parity['grad_norm_rel']:.3g}, params "
+            f"{parity['params_l2_rel']:.3g}")
+    require(not fp32_launches, f"no kernel launches in the fp32 DDPM step: {fp32_launches}")
+    return {"ddpm_bf16_steps": launches}
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -5771,6 +6033,7 @@ def main() -> int:
     super_resolution = phase_super_resolution(smi)
     codec_attention = phase_codec_attention(smi)
     model_families = phase_model_families(smi)
+    training_options = phase_training_options(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -5968,11 +6231,12 @@ def main() -> int:
                  if counts.get(name)}
         if tuned:
             row["fine_tune_launches"] = tuned
-        # ... and the super_resolution, codec_attention and model_families
-        # phases', where not 0
+        # ... and the super_resolution, codec_attention, model_families and
+        # training_options phases', where not 0
         for phase, by_entry in (("super_resolution", super_resolution),
                                 ("codec_attention", codec_attention),
-                                ("model_families", model_families)):
+                                ("model_families", model_families),
+                                ("training_options", training_options)):
             moved = {entry: counts[name] for entry, counts in by_entry.items()
                      if counts.get(name)}
             if moved:

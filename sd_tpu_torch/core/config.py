@@ -620,3 +620,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: sd_tpu_torch runs on the GPU unless you pass "
             "device='cpu'")
     return dev
+
+
+def split_dtype(params: dict) -> tuple[dict, torch.dtype | None]:
+    """A model config's params without its `dtype` key, and that key as the
+    model's compute dtype (None when the config pins none): the TPU
+    package's modules store fp32 parameters and compute in their `dtype`,
+    and its trainers let the config pin it over `train.param_dtype`."""
+    rest = {k: v for k, v in params.items() if k != "dtype"}
+    dt = params.get("dtype")
+    return rest, (None if dt is None else getattr(torch, str(dt)))

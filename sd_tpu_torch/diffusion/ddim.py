@@ -120,8 +120,10 @@ class DDIMSampler:
                noise: NoiseFn | None = None, mask: torch.Tensor | None = None,
                x0: torch.Tensor | None = None,
                mask_noise: NoiseFn | None = None, sag_scale: float = 0.0,
-               sag_probs_fn=None) -> torch.Tensor:
-        """S-step DDIM from the initial noise x_T [shape]. With `mask` and
+               sag_probs_fn=None, return_pred_x0: bool = False):
+        """S-step DDIM from the initial noise x_T [shape]; with
+        `return_pred_x0`, (x_0, every step's x̂0 stacked [S, *shape] in
+        sampling order). With `mask` and
         `x0` (inpainting): before each step the region where mask is 1 is
         reset to q_sample(x0, t) with fresh noise, drawn at every step
         whatever eta is, as the TPU package draws it. `sag_scale` > 0 takes
@@ -143,7 +145,7 @@ class DDIMSampler:
         out_fn = guided(model_fn, cond, uncond, guidance_scale, guidance_rescale)
         both = (cat_cond(uncond, cond) if sag_scale > 0.0 and uncond is not None
                 and guidance_scale != 1.0 else None)
-        img = x_T
+        img, pred_x0s = x_T, []
         for index in range(dd.num_steps - 1, -1, -1):
             t = dd.timesteps[index].expand(shape[0])
             if mask is not None:
@@ -151,13 +153,15 @@ class DDIMSampler:
                 img = orig * mask + (1.0 - mask) * img
             step_noise = noise(index, tuple(shape)) if stochastic else None
             if sag_scale > 0.0:
-                img, _ = self.p_sample_ddim_sag(
+                img, pred_x0 = self.p_sample_ddim_sag(
                     model_fn, sag_probs_fn, img, t, index, dd, step_noise, cond=cond,
                     uncond=uncond, guidance_scale=guidance_scale, cond_batched=both,
                     guidance_rescale=guidance_rescale, sag_scale=sag_scale)
             else:
-                img, _ = self.p_sample_ddim(out_fn(img, t), img, index, dd, step_noise)
-        return img
+                img, pred_x0 = self.p_sample_ddim(out_fn(img, t), img, index, dd, step_noise)
+            if return_pred_x0:
+                pred_x0s.append(pred_x0)
+        return (img, torch.stack(pred_x0s)) if return_pred_x0 else img
 
     def stochastic_encode(self, x0: torch.Tensor, t_index: int, dd: DDIMSchedule,
                           noise: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,11 @@ decoder where `attn_resolutions` names a level's resolution (`resolution`
 halved per level; `models/codec.py`). `VQModel`: the encoder (single z), `quant_conv`, one of
 the three quantizer families (`models/quantize.py`), `post_quant_conv`, the
 decoder; calling it returns `(recon, codebook_loss, (perplexity, None,
-indices))`, the TPU package's contract. `IdentityFirstStage` is not ported
-yet.
+indices))`, the TPU package's contract. Both store their parameters in
+`dtype` and compute in `compute_dtype` (the config's `dtype`), and their
+resblocks drop at `dropout` inside a training step's `dropout_rng`.
+`IdentityFirstStage` is the pass-through first stage of pixel-space latent
+diffusion.
 """
 
 from __future__ import annotations
@@ -31,11 +34,6 @@ from sd_tpu_torch.models.quantize import EMAVectorQuantizer, GumbelQuantize, Vec
 from sd_tpu_torch.nn.layers import Conv2d
 
 
-def _refuse_unported(dropout: float = 0.0) -> None:
-    if dropout:
-        raise NotImplementedError("codec dropout > 0 is not ported yet (ROADMAP Queue 1)")
-
-
 class AutoencoderKL(nn.Module):
     """The KL autoencoder; built on the card unless `device` names another."""
 
@@ -43,14 +41,14 @@ class AutoencoderKL(nn.Module):
                  ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2,
                  attn_resolutions: Sequence[int] = (), resolution: int = 256,
-                 z_channels: int = 4, out_ch: int = 3, *, dtype=torch.float32,
-                 device=None):
+                 z_channels: int = 4, out_ch: int = 3, dropout: float = 0.0, *,
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=resolve_device(device))
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=resolve_device(device))
         # the block layout, which the SD checkpoint walk reads
         self.ch_mult, self.num_res_blocks = tuple(ch_mult), num_res_blocks
         self.attn_resolutions, self.resolution = tuple(attn_resolutions), resolution
-        attn = dict(attn_resolutions=attn_resolutions, resolution=resolution)
+        attn = dict(attn_resolutions=attn_resolutions, resolution=resolution, dropout=dropout)
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
                                z_channels=z_channels, double_z=True, **attn, **kw)
         self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
@@ -95,17 +93,17 @@ class VQModel(nn.Module):
                  beta: float = 0.25, legacy: bool = True, remap=None,
                  sane_index_shape: bool = False, quantizer_type: str = "vq",
                  kl_weight: float = 5e-4, temp_init: float = 1.0, ema_decay: float = 0.99,
-                 *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
-        _refuse_unported(dropout)
         kw = dict(dtype=dtype, device=resolve_device(device))
+        ckw = dict(compute_dtype=compute_dtype, **kw)
         self.quantizer_type = quantizer_type
-        attn = dict(attn_resolutions=attn_resolutions, resolution=resolution)
+        attn = dict(attn_resolutions=attn_resolutions, resolution=resolution, dropout=dropout,
+                    **ckw)
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
-                               z_channels=z_channels, double_z=False, **attn, **kw)
+                               z_channels=z_channels, double_z=False, **attn)
         self.decoder = Decoder(ch=ch, out_ch=out_ch, ch_mult=ch_mult,
-                               num_res_blocks=num_res_blocks, z_channels=z_channels,
-                               **attn, **kw)
+                               num_res_blocks=num_res_blocks, z_channels=z_channels, **attn)
         if quantizer_type == "gumbel":
             self.quantize = GumbelQuantize(n_embed, embed_dim, kl_weight=kl_weight,
                                            temp_init=temp_init, remap=remap, **kw)
@@ -116,8 +114,8 @@ class VQModel(nn.Module):
             self.quantize = VectorQuantizer(n_embed, embed_dim, beta=beta, legacy=legacy,
                                             remap=remap, sane_index_shape=sane_index_shape,
                                             **kw)
-        self.quant_conv = Conv2d(z_channels, embed_dim, 1, **kw)
-        self.post_quant_conv = Conv2d(embed_dim, z_channels, 1, **kw)
+        self.quant_conv = Conv2d(z_channels, embed_dim, 1, **ckw)
+        self.post_quant_conv = Conv2d(embed_dim, z_channels, 1, **ckw)
 
     def _quantize(self, h, *, gumbel=None, temp=None, update=False, deterministic=True,
                   generator=None):
@@ -158,3 +156,27 @@ class VQModel(nn.Module):
         z_q, diff, info = self.encode(x, gumbel=gumbel, temp=temp, update=update,
                                       deterministic=deterministic, generator=generator)
         return self.decode(z_q), diff, info
+
+
+class IdentityFirstStage(nn.Module):
+    """The pass-through first stage of pixel-space latent diffusion: encode,
+    decode and the call return their input; `quantize` too, as (x, None,
+    [None, None, None]) with `vq_interface`. No parameters; `dtype`,
+    `compute_dtype` and `device` are taken and ignored."""
+
+    def __init__(self, vq_interface: bool = False, *, dtype=None, compute_dtype=None,
+                 device=None):
+        super().__init__()
+        self.vq_interface = vq_interface
+
+    def encode(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return x
+
+    def decode(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return x
+
+    def quantize(self, x: torch.Tensor, *args, **kwargs):
+        return (x, None, [None, None, None]) if self.vq_interface else x
+
+    def forward(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return x

@@ -1,8 +1,9 @@
 """PatchGAN discriminator and ActNorm.
 
 Counterpart of `sd_tpu/models/discriminator.py` `NLayerDiscriminator`,
-`ActNorm` and `actnorm_ddi` (the auxiliary `UNetGenerator` is not ported
-yet). NHWC at the module's input and output.
+`ActNorm`, `actnorm_ddi` and the auxiliary GAN generator `UNetGenerator`
+(reflection-padded convs, `ResidualBlock`s, transposed-conv upsampling).
+NHWC at the module's input and output.
 
 Numerics follow flax, not torch:
   * a conv runs in `promote_types(input, weight)` (flax's `dtype=None`):
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.core.config import resolve_device
-from sd_tpu_torch.nn.layers import _empty
+from sd_tpu_torch.nn.layers import Conv2d, _cast, _empty
 
 
 class PromotingConv(nn.Module):
@@ -163,3 +164,80 @@ def init_discriminator_(disc: nn.Module, generator: torch.Generator) -> None:
             if isinstance(mod, BatchNorm):
                 mod.mean.zero_()
                 mod.var.fill_(1.0)
+
+
+def _reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """NHWC x reflection-padded by p on each spatial side (the edge row is
+    not repeated, numpy's "reflect")."""
+    return F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect").permute(0, 2, 3, 1)
+
+
+class ConvTranspose2x(nn.Module):
+    """flax `nn.ConvTranspose(features, (3, 3), strides=(2, 2),
+    padding="SAME")` over NHWC: the input dilated by 2 and padded (2, 1) on
+    each spatial axis (lax's SAME padding of a transposed conv), then
+    correlated with the kernel as stored (no flip); the output twice the
+    input's size. Weight OIHW from flax's [kh, kw, in, out]."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, dtype=torch.float32,
+                 compute_dtype=None, device=None):
+        super().__init__()
+        self.weight = _empty((out_channels, in_channels, 3, 3), dtype, device,
+                             channels_last=True)
+        self.bias = _empty((out_channels,), dtype, device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        B, H, W, C = x.shape
+        xd = x.new_zeros((B, C, 2 * H - 1, 2 * W - 1), dtype=dt)
+        xd[:, :, ::2, ::2] = x.to(dt).permute(0, 3, 1, 2)
+        y = F.conv2d(F.pad(xd, (2, 1, 2, 1)), self.weight.to(dt), _cast(self.bias, dt))
+        return y.permute(0, 2, 3, 1)
+
+
+class ResidualBlock(nn.Module):
+    """x + conv2(relu(conv1(x))), each a 3×3 conv over the reflection-padded
+    map."""
+
+    def __init__(self, channels: int, *, dtype=torch.float32, compute_dtype=None,
+                 device=None):
+        super().__init__()
+        kw = dict(padding=0, dtype=dtype, compute_dtype=compute_dtype, device=device)
+        self.conv1 = Conv2d(channels, channels, 3, **kw)
+        self.conv2 = Conv2d(channels, channels, 3, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.conv1(_reflect_pad(x, 1)))
+        return x + self.conv2(_reflect_pad(h, 1))
+
+
+class UNetGenerator(nn.Module):
+    """The small GAN generator: reflection pad 3 → 7×7 `stem` → relu, two
+    stride-2 3×3 convs (`down1`, `down2`, ×2 and ×4 `ngf`) with relu,
+    `n_res_blocks` `ResidualBlock`s (`res{i}`), two transposed convs
+    (`up1`, `up2`) with relu, reflection pad 3 → 7×7 `head` → tanh. NHWC;
+    built on the card unless `device` names another."""
+
+    def __init__(self, ngf: int = 64, n_res_blocks: int = 6, out_channels: int = 3,
+                 in_channels: int = 3, *, dtype=torch.float32, compute_dtype=None,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=resolve_device(device))
+        self.n_res_blocks = n_res_blocks
+        self.stem = Conv2d(in_channels, ngf, 7, padding=0, **kw)
+        self.down1 = Conv2d(ngf, 2 * ngf, 3, stride=2, **kw)
+        self.down2 = Conv2d(2 * ngf, 4 * ngf, 3, stride=2, **kw)
+        for i in range(n_res_blocks):
+            setattr(self, f"res{i}", ResidualBlock(4 * ngf, **kw))
+        self.up1 = ConvTranspose2x(4 * ngf, 2 * ngf, **kw)
+        self.up2 = ConvTranspose2x(2 * ngf, ngf, **kw)
+        self.head = Conv2d(ngf, out_channels, 7, padding=0, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.stem(_reflect_pad(x, 3)))
+        h = F.relu(self.down2(F.relu(self.down1(h))))
+        for i in range(self.n_res_blocks):
+            h = getattr(self, f"res{i}")(h)
+        h = F.relu(self.up2(F.relu(self.up1(h))))
+        return torch.tanh(self.head(_reflect_pad(h, 3)))

@@ -1,8 +1,10 @@
-"""Vector quantizers: the argmin codebook VQ (legacy β placement), the
-Gumbel-softmax VQ and the EMA codebook, as a module and as a function.
+"""Vector quantizers: the argmin codebook VQ (legacy β placement, index
+remap), its one-hot form, the Gumbel-softmax VQ and the EMA codebook, as a
+module and as a function.
 
 Counterpart of `sd_tpu/models/quantize.py` `VectorQuantizer`,
-`GumbelQuantize`, `EMAVectorQuantizer`, `EmaCodebook` and `ema_quantize`:
+`VectorQuantizerOneHot`, `GumbelQuantize`, `EMAVectorQuantizer`,
+`EmaCodebook` and `ema_quantize`:
 the nearest code by the expanded square ‖z‖² + ‖e‖² − 2 z·eᵀ in fp32, the
 lookup by index, straight-through gradients z + (z_q − z).detach(), the
 perplexity of the code histogram. NHWC: z is [B, H, W, e_dim].
@@ -12,14 +14,19 @@ from an explicit `torch.Generator`), never from a global RNG; the EMA
 codebook is three fp32 buffers (`weight`, `cluster_size`, `embed_avg`) that
 `update=True` rewrites in place after the lookup, where the TPU package
 returns a new 'codebook' collection. The codebooks' flax name `embedding`
-is the torch parameter `weight` (`weights.torch_name`). `remap` (an index
-remap to a used subset, whose unknown-index fill draws from JAX's RNG) is
-not ported yet, nor is `VectorQuantizerOneHot`, which no trainer uses.
+is the torch parameter `weight` (`weights.torch_name`). `remap` (a `.npy`
+path or a list of the used codes) reports the indices in the used subset:
+the argmin VQ maps each code to its place in the subset and a code outside
+it to `unknown_index` ("random": a draw from the call's generator, "extra":
+one past the subset, or that integer); the Gumbel VQ masks the unused codes
+out of its softmax. `get_codebook_entry` maps the indices back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -46,10 +53,11 @@ def _perplexity(idx: torch.Tensor, n_e: int) -> torch.Tensor:
     return torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
 
 
-def _remap_refused(remap) -> None:
-    if remap is not None:
-        raise NotImplementedError("the quantizers' `remap` is not ported yet "
-                                  "(ROADMAP Queue 1)")
+def _load_used(remap) -> np.ndarray | None:
+    """The used codes of `remap` (a `.npy` path or a sequence), or None."""
+    if remap is None:
+        return None
+    return np.load(remap) if isinstance(remap, str) else np.asarray(remap, dtype=np.int64)
 
 
 def _ema_update_(weight, cluster_size, embed_avg, z_flat, idx, decay, eps) -> None:
@@ -73,14 +81,41 @@ class VectorQuantizer(nn.Module):
     on the commitment term."""
 
     def __init__(self, n_e: int, e_dim: int, beta: float = 0.25, legacy: bool = True,
-                 remap=None, sane_index_shape: bool = False, *, dtype=torch.float32,
-                 device=None):
+                 remap=None, unknown_index: str | int = "random",
+                 sane_index_shape: bool = False, *, dtype=torch.float32, device=None):
         super().__init__()
-        _remap_refused(remap)
         self.n_e, self.e_dim, self.beta, self.legacy = n_e, e_dim, beta, legacy
-        self.sane_index_shape = sane_index_shape
+        self.sane_index_shape, self.unknown_index = sane_index_shape, unknown_index
         self.weight = nn.Parameter(torch.empty(n_e, e_dim, dtype=dtype, device=device),
                                    requires_grad=False)
+        used = _load_used(remap)
+        # the used codes: a constant of the config, not a parameter or a buffer
+        self.used = None if used is None else torch.as_tensor(used, device=device)
+        self.re_embed = n_e if used is None else len(used) + (unknown_index == "extra")
+
+    def remap_to_used(self, inds: torch.Tensor, generator: torch.Generator | None = None,
+                      draws: torch.Tensor | None = None) -> torch.Tensor:
+        """Codes → their places in the used subset; a code outside it →
+        `unknown_index` ("random": `draws`, else uniform in [0, re_embed)
+        from `generator`, else from a generator seeded 0)."""
+        match = inds[..., None] == self.used.to(inds.device)
+        new = match.int().argmax(dim=-1)
+        unknown = ~match.any(dim=-1)
+        if self.unknown_index == "random":
+            if draws is None:
+                gen = generator or torch.Generator(inds.device).manual_seed(0)
+                draws = torch.randint(0, self.re_embed, new.shape, generator=gen,
+                                      device=gen.device).to(inds.device)
+            return torch.where(unknown, draws.to(new.dtype), new)
+        fill = self.re_embed - 1 if self.unknown_index == "extra" else int(self.unknown_index)
+        return torch.where(unknown, torch.full_like(new, fill), new)
+
+    def unmap_to_all(self, inds: torch.Tensor) -> torch.Tensor:
+        """Places in the used subset → codes ("extra" → code used[0])."""
+        used = self.used.to(inds.device)
+        if self.unknown_index == "extra":
+            inds = torch.where(inds >= len(used), torch.zeros_like(inds), inds)
+        return used[inds]
 
     @torch.no_grad()
     def reset_codebook_(self, generator: torch.Generator) -> None:
@@ -88,8 +123,11 @@ class VectorQuantizer(nn.Module):
         u = torch.rand(self.weight.shape, generator=generator, device=self.weight.device)
         self.weight.copy_((2 * u - 1) / self.n_e)
 
-    def forward(self, z: torch.Tensor):
-        """(z_q, loss, (perplexity, None, indices))."""
+    def forward(self, z: torch.Tensor, generator: torch.Generator | None = None,
+                remap_draws: torch.Tensor | None = None):
+        """(z_q, loss, (perplexity, None, indices)); under `remap` the
+        indices are the used subset's (`remap_to_used` with `generator` or
+        `remap_draws`, [B, H·W])."""
         B, H, W, C = z.shape
         assert C == self.e_dim
         idx = _nearest_code(z.reshape(-1, C), self.weight)
@@ -100,13 +138,44 @@ class VectorQuantizer(nn.Module):
         loss = commit + self.beta * embed if self.legacy else self.beta * commit + embed
         z_q = z + (z_q - z).detach()
         perplexity = _perplexity(idx, self.n_e)
+        if self.used is not None:
+            idx = self.remap_to_used(idx.reshape(B, -1), generator, remap_draws).reshape(-1)
         if self.sane_index_shape:
             idx = idx.reshape(B, H, W)
         return z_q, loss, (perplexity, None, idx)
 
     def get_codebook_entry(self, indices: torch.Tensor, shape: tuple | None = None):
-        z_q = self.weight[indices.reshape(-1)]
+        indices = indices.reshape(-1)
+        if self.used is not None:
+            indices = self.unmap_to_all(indices)
+        z_q = self.weight[indices]
         return z_q.reshape(shape) if shape is not None else z_q
+
+
+class VectorQuantizerOneHot(nn.Module):
+    """The legacy one-hot VQ: the nearest code's one-hot row times the
+    codebook `weight` [n_e, e_dim] in fp32, the loss commit + β·embed, the
+    one-hot matrix returned beside the perplexity."""
+
+    def __init__(self, n_e: int, e_dim: int, beta: float = 0.25, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.n_e, self.e_dim, self.beta = n_e, e_dim, beta
+        self.weight = nn.Parameter(torch.empty(n_e, e_dim, dtype=dtype, device=device),
+                                   requires_grad=False)
+
+    reset_codebook_ = VectorQuantizer.reset_codebook_
+
+    def forward(self, z: torch.Tensor):
+        """(z_q, loss, (perplexity, one_hot [N, n_e], indices))."""
+        idx = _nearest_code(z.reshape(-1, self.e_dim), self.weight)
+        one_hot = _one_hot(idx, self.n_e)
+        z_q = (one_hot @ self.weight.float()).reshape(z.shape).to(z.dtype)
+        z32, zq32 = z.float(), z_q.float()
+        loss = ((zq32.detach() - z32).pow(2).mean()
+                + self.beta * (zq32 - z32.detach()).pow(2).mean())
+        z_q = z + (z_q - z).detach()
+        return z_q, loss, (_perplexity(idx, self.n_e), one_hot, idx)
 
 
 class GumbelQuantize(nn.Module):
@@ -119,10 +188,10 @@ class GumbelQuantize(nn.Module):
                  kl_weight: float = 5e-4, temp_init: float = 1.0, remap=None, *,
                  dtype=torch.float32, device=None):
         super().__init__()
-        _remap_refused(remap)
         self.n_e, self.e_dim = n_e, e_dim
         self.straight_through, self.kl_weight, self.temp_init = (
             straight_through, kl_weight, temp_init)
+        self.used = _load_used(remap)
         self.proj = Conv2d(e_dim, n_e, 1, dtype=dtype, device=device)
         self.weight = nn.Parameter(torch.empty(n_e, e_dim, dtype=dtype, device=device),
                                    requires_grad=False)
@@ -141,6 +210,11 @@ class GumbelQuantize(nn.Module):
         `generator`; with neither, or `deterministic`, there is none."""
         temp = self.temp_init if temp is None else temp
         logits = self.proj(z).float()
+        if self.used is not None:
+            # the unused codes masked out of the categorical
+            mask = np.full((self.n_e,), -np.inf, np.float32)
+            mask[self.used] = 0.0
+            logits = logits + torch.from_numpy(mask).to(logits.device)
         if gumbel is None and generator is not None and not deterministic:
             u = torch.rand(logits.shape, generator=generator, device=logits.device)
             tiny = torch.finfo(torch.float32).tiny
@@ -156,11 +230,23 @@ class GumbelQuantize(nn.Module):
             probs = soft
         z_q = torch.einsum("bhwk,kd->bhwd", probs, self.weight.float()).to(z.dtype)
         qy = torch.softmax(logits, dim=-1)
-        kl = self.kl_weight * (qy * torch.log(qy * self.n_e + 1e-10)).sum(dim=-1).mean()
-        return z_q, kl, (_perplexity(idx, self.n_e), None, idx)
+        terms = qy * torch.log(qy * self.n_e + 1e-10)
+        if self.used is not None:
+            terms = torch.where(torch.isfinite(logits), terms, torch.zeros_like(terms))
+        kl = self.kl_weight * terms.sum(dim=-1).mean()
+        perplexity = _perplexity(idx, self.n_e)
+        if self.used is not None:
+            # the used subset's places (the mask keeps the argmax inside it)
+            inv = np.zeros((self.n_e,), np.int64)
+            inv[self.used] = np.arange(len(self.used))
+            idx = torch.from_numpy(inv).to(idx.device)[idx]
+        return z_q, kl, (perplexity, None, idx)
 
     def get_codebook_entry(self, indices: torch.Tensor, shape: tuple | None = None):
-        z_q = self.weight[indices.reshape(-1)]
+        flat = indices.reshape(-1)
+        if self.used is not None:
+            flat = torch.as_tensor(self.used, device=flat.device)[flat]
+        z_q = self.weight[flat]
         return z_q.reshape(shape) if shape is not None else z_q
 
 

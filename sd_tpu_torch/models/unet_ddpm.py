@@ -8,9 +8,11 @@ bottleneck, an up path that concatenates [h, skip] before each of its
 `num_res_blocks + 1` resblocks per level, and GN(eps 1e-6) → silu →
 zero-initialised `conv_out`. NHWC, the TPU package's parameter names.
 
-The port's layers hold their parameters in one dtype (`dtype`) and compute
-in it; the TPU package's `dtype` (fp32 parameters, bf16 compute) has no
-counterpart yet, so the trainer refuses a config that sets it.
+The parameters are stored in `dtype` and computed in `compute_dtype` (the
+TPU package's `dtype`: fp32 parameters with bf16 compute under
+`model.params.dtype: bfloat16`, whose level-3 attention blocks then take the
+flash training kernels). The resblocks drop at `dropout` inside a training
+step's `dropout_rng`.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ class UNetDDPM(nn.Module):
     def __init__(self, base_channels: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
                  attn_levels: Sequence[int] = (3,), num_res_blocks: int = 2,
                  out_channels: int = 3, dropout: float = 0.0, in_channels: int = 3, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=resolve_device(device))
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=resolve_device(device))
         base, temb_ch = base_channels, base_channels * 4
         self.base_channels, self.out_channels = base, out_channels
         self.ch_mult, self.attn_levels = tuple(ch_mult), tuple(attn_levels)

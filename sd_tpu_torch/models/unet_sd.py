@@ -80,9 +80,9 @@ class SelfAttentionBlock2D(nn.Module):
     the flash kernel or the plain path."""
 
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.heads = channels // num_head_channels if num_head_channels != -1 else num_heads
         self.norm = GroupNorm32(channels, 32, **kw)
         self.qkv = Conv2d(channels, 3 * channels, 1, **kw)
@@ -100,7 +100,7 @@ def attention_block(ch: int, use_spatial_transformer: bool, num_heads: int,
                     num_head_channels: int, transformer_depth: int, context_dim: int | None,
                     **kw) -> nn.Module:
     """The UNet's (and its ControlNet's) attention block over `ch` channels:
-    a SpatialTransformer (`kw` may carry its ToMe options) or, without
+    a SpatialTransformer (`kw` may carry its ToMe and dropout options) or, without
     spatial transformers, a SelfAttentionBlock2D; heads of
     `num_head_channels` where that is given, else `num_heads`."""
     if not use_spatial_transformer:
@@ -164,12 +164,14 @@ class UNetModel(nn.Module):
         resblock_updown: bool = False,
         conv_resample: bool = True,
         n_embed: int | None = None,
+        dropout: float = 0.0,
         *,
         dtype=torch.float32,
+        compute_dtype=None,
         device=None,
     ):
         super().__init__()
-        kw = dict(dtype=dtype, device=resolve_device(device))
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=resolve_device(device))
         mc = model_channels
         self.model_channels = mc
         self.num_classes, self.n_embed = num_classes, n_embed
@@ -182,19 +184,21 @@ class UNetModel(nn.Module):
         emb_ch = mc * 4
 
         def attn(ch, name):
-            st_kw = dict(tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens)
+            st_kw = dict(tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens,
+                         dropout=dropout)
             setattr(self, name, attention_block(
                 ch, use_spatial_transformer, num_heads, num_head_channels, transformer_depth,
                 context_dim, **(st_kw if use_spatial_transformer else {}), **kw))
 
         def res(c_in, c_out, **updown):
             return ResBlockSD(c_in, emb_ch, c_out, use_scale_shift_norm=use_scale_shift_norm,
-                              **updown, **kw)
+                              dropout=dropout, **updown, **kw)
 
         self.time_embed_1 = Dense(mc, emb_ch, **kw)
         self.time_embed_2 = Dense(emb_ch, emb_ch, **kw)
         if num_classes is not None:
-            self.label_emb = nn.Embedding(num_classes, emb_ch, **kw).requires_grad_(False)
+            self.label_emb = nn.Embedding(num_classes, emb_ch, dtype=dtype,
+                                          device=kw["device"]).requires_grad_(False)
         self.input_conv = Conv2d(in_channels, mc, 3, **kw)
 
         chans = [mc]

@@ -16,9 +16,10 @@ product, masked to −1e9, softmax in fp32, the probabilities cast to the
 values' dtype before PV (fp32 accumulation); it needs the probability
 tensor for talking heads, top-k and the masks, so no flash kernel serves
 it, as none does in the TPU package. The feed-forward is the UNet's
-`FeedForwardGEGLU` (its fused kernel where the shape rule sends it). Dropout
-is the identity at 0 and outside training; a training forward with
-dropout > 0 raises.
+`FeedForwardGEGLU` (its fused kernel where the shape rule sends it). Dropout,
+inside a training step's `dropout_rng`, at the TPU package's sites: the
+attention probabilities before PV, the feed-forward's activation, the
+embeddings after the positions are added.
 """
 
 from __future__ import annotations
@@ -28,16 +29,9 @@ from torch import nn
 
 from sd_tpu_torch.core.config import resolve_device
 from sd_tpu_torch.nn.attention import FeedForwardGEGLU, LayerNorm32
-from sd_tpu_torch.nn.layers import Dense, _empty
+from sd_tpu_torch.nn.layers import Dense, _empty, dropout
 
 BIG_NEG = -1e9
-
-
-def _no_dropout(module: nn.Module, p: float) -> None:
-    if p > 0 and module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} dropout > 0 in training is not ported yet "
-            "(ROADMAP Queue 1)")
 
 
 class ScaleNorm(nn.Module):
@@ -104,7 +98,6 @@ class XAttention(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None,
                 context_mask: torch.Tensor | None = None) -> torch.Tensor:
-        _no_dropout(self, self.dropout)
         B, N, _ = x.shape
         kv = x if context is None else context
         M = kv.shape[1]
@@ -143,6 +136,7 @@ class XAttention(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         if self.talking_heads:
             probs = torch.einsum("bhqk,hg->bgqk", probs, self.post_softmax_proj.float())
+        probs = dropout(probs, self.dropout, self)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
         return self.to_out(out.reshape(B, N, h * d).to(x.dtype))
 
@@ -197,13 +191,13 @@ class AttentionLayers(nn.Module):
                 setattr(self, f"cross_{idx}", XAttention(
                     dim, heads, dim_head, context_dim=context_dim, dropout=dropout, **kw))
             else:
-                setattr(self, f"ff_{idx}", FeedForwardGEGLU(dim, glu=ff_glu, **kw))
+                setattr(self, f"ff_{idx}", FeedForwardGEGLU(dim, glu=ff_glu, dropout=dropout,
+                                                            **kw))
             if use_rezero:
                 setattr(self, f"rezero_{idx}", _empty((), dtype, device))
             if gate_residual:
                 setattr(self, f"gate_{idx}", Dense(2 * dim, 2 * dim, **kw))
                 setattr(self, f"gate_c_{idx}", Dense(2 * dim, dim, **kw))
-        self.dropout = dropout
 
     def _norm(self, idx: int, x: torch.Tensor) -> torch.Tensor:
         return x if self.use_rezero else getattr(self, f"norm_{idx}")(x)
@@ -211,7 +205,6 @@ class AttentionLayers(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None,
                 context_mask: torch.Tensor | None = None) -> torch.Tensor:
-        _no_dropout(self, self.dropout)
         for idx, lt in enumerate(self.layer_types):
             residual = x
             h = self._norm(idx, x) if self.pre_norm else x
@@ -282,10 +275,9 @@ class TransformerWrapper(nn.Module):
 
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor | None = None,
                 return_logits: bool | None = None) -> torch.Tensor:
-        _no_dropout(self, self.emb_dropout)
         B, L = tokens.shape
         x = self.token_emb(tokens)
-        x = x + self.pos_emb[None, :L].to(x.dtype)
+        x = dropout(x + self.pos_emb[None, :L].to(x.dtype), self.emb_dropout, self)
         n_mem = self.num_memory_tokens
         if n_mem > 0:
             x = torch.cat([self.memory_tokens[None].expand(B, -1, -1).to(x.dtype), x], dim=1)

@@ -22,7 +22,12 @@ softmax probabilities recorded for Self-Attention Guidance at the calls
 projected image tokens with adapter-owned K/V kernels ([in, out], the TPU
 package's layout), summed before the output projection; a call with an
 image payload stays off the fused cross-attention kernel, as in the TPU
-package. NHWC layout; LayerNorm and softmax in fp32.
+package. NHWC layout; LayerNorm and softmax in fp32. Every block computes in
+its layers' `compute_dtype` (the stored dtype when None). Dropout, inside a
+training step's `dropout_rng`, at the TPU package's sites: each
+cross-attention's output after `to_out` on every route, and the
+feed-forward's gated activation before `proj_out` (the unfused GEGLU then,
+as in the TPU package; the kernel route otherwise).
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from sd_tpu_torch.kernels import attention as attn_k
 from sd_tpu_torch.kernels import cross_attention as xattn_k
 from sd_tpu_torch.kernels import geglu as geglu_k
 from sd_tpu_torch.nn import attn_probe
-from sd_tpu_torch.nn.layers import Conv2d, Dense, GroupNorm32, LayerNorm
+from sd_tpu_torch.nn.layers import (Conv2d, Dense, GroupNorm32, LayerNorm, dropout,
+                                    dropout_generator)
 from sd_tpu_torch.nn.tome import build_tome
 
 
@@ -51,9 +57,10 @@ class AttnBlock(nn.Module):
     """Codec self-attention: GN → 1×1 q/k/v → single-head attention over
     H·W tokens → 1×1 proj_out → residual."""
 
-    def __init__(self, channels: int, *, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, *, dtype=torch.float32, compute_dtype=None,
+                 device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.norm = GroupNorm32(channels, 32, eps=1e-6, **kw)
         self.q = Conv2d(channels, channels, 1, **kw)
         self.k = Conv2d(channels, channels, 1, **kw)
@@ -77,9 +84,9 @@ class LinearAttention(nn.Module):
     O(N²·d); no kernel of its own, as in the TPU package."""
 
     def __init__(self, channels: int, heads: int = 4, dim_head: int = 32, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
         self.to_qkv = Conv2d(channels, 3 * inner, 1, bias=False, **kw)
@@ -104,12 +111,12 @@ class _Identity(nn.Module):
 
 
 def make_attn(attn_type: str, channels: int, *, dtype=torch.float32,
-              device=None) -> nn.Module:
+              compute_dtype=None, device=None) -> nn.Module:
     """The codec's attention block over `channels`: "vanilla" (`AttnBlock`),
     "linear" (`LinearAttention`) or "none". The TPU package names each such
     unnamed child `<class name>_<k>`, k counting the blocks in the order
     they are built."""
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
     if attn_type == "vanilla":
         return AttnBlock(channels, **kw)
     if attn_type == "linear":
@@ -121,16 +128,17 @@ def make_attn(attn_type: str, channels: int, *, dtype=torch.float32,
 
 class CrossAttention(nn.Module):
     """Multi-head attention with kv from `context` (or x for
-    self-attention); to_q/to_k/to_v without bias, to_out with bias."""
+    self-attention); to_q/to_k/to_v without bias, to_out with bias, then
+    dropout."""
 
     def __init__(self, query_dim: int, context_dim: int | None = None,
-                 heads: int = 8, dim_head: int = 64, *, dtype=torch.float32,
-                 device=None):
+                 heads: int = 8, dim_head: int = 64, dropout: float = 0.0, *,
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         inner = heads * dim_head
         context_dim = context_dim or query_dim
-        kw = dict(dtype=dtype, device=device)
-        self.heads, self.dim_head = heads, dim_head
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         self.to_q = Dense(query_dim, inner, bias=False, **kw)
         self.to_k = Dense(context_dim, inner, bias=False, **kw)
         self.to_v = Dense(context_dim, inner, bias=False, **kw)
@@ -140,11 +148,15 @@ class CrossAttention(nn.Module):
                 ip_kv: tuple | None = None) -> torch.Tensor:
         """`ip_kv`: IP-Adapter's (to_k_ip, to_v_ip, image tokens [B, n, Cc],
         scale), read by a cross-attention call only."""
+        return dropout(self._attend(x, context, ip_kv), self.dropout, self)
+
+    def _attend(self, x: torch.Tensor, context: torch.Tensor | None,
+                ip_kv: tuple | None) -> torch.Tensor:
         B, N, C = x.shape
         ctx = x if context is None else context
         M = ctx.shape[1]
         h, d = self.heads, self.dim_head
-        dt = self.to_q.weight.dtype
+        dt = self.to_q.cdtype
         ip = ip_kv if context is not None else None
         probe = attn_probe.wants_capture(self, N) if context is None else None
         if probe is not None:
@@ -163,16 +175,18 @@ class CrossAttention(nn.Module):
             # K/V projected plainly (77 tokens), then q-projection, softmax
             # and out-projection in one kernel
             return xattn_k.crossattn_kv_trainable(
-                x.to(dt).contiguous(), self.to_q.weight, self.to_k(ctx), self.to_v(ctx),
-                self.to_out.weight, self.to_out.bias, h)
+                x.to(dt).contiguous(), self.to_q.weight.to(dt), self.to_k(ctx),
+                self.to_v(ctx), self.to_out.weight.to(dt), self.to_out.bias.to(dt), h)
         if context is None and attn_k.packed_flash_ok(N, M, h, d, dt):
             # opt-in: [B, H, S, D] projections, heads folded into the batch
             xd = x.to(dt)
-            proj = lambda lin: torch.einsum("bsc,hdc->bhsd", xd, lin.weight.view(h, d, C))
+            proj = lambda lin: torch.einsum("bsc,hdc->bhsd", xd,
+                                            lin.weight.to(dt).view(h, d, C))
             out = attn_k.packed_flash_attention(proj(self.to_q), proj(self.to_k),
                                                 proj(self.to_v))
-            return (torch.einsum("bhsd,chd->bsc", out, self.to_out.weight.view(C, h, d))
-                    + self.to_out.bias)
+            return (torch.einsum("bhsd,chd->bsc", out,
+                                 self.to_out.weight.to(dt).view(C, h, d))
+                    + self.to_out.bias.to(dt))
         q = self.to_q(x).reshape(B, N, h, d)
         out = attn_k.dot_product_attention(q, self.to_k(ctx).reshape(B, M, h, d),
                                            self.to_v(ctx).reshape(B, M, h, d))
@@ -188,26 +202,37 @@ class CrossAttention(nn.Module):
 class FeedForwardGEGLU(nn.Module):
     """GEGLU feed-forward: proj_in to 2·4C, a·gelu_erf(g), proj_out to C —
     the fused kernel where the TPU package's shape rule sends it. With
-    `glu=False` the plain MLP: proj_in to 4C, exact-erf gelu, proj_out."""
+    `glu=False` the plain MLP: proj_in to 4C, exact-erf gelu, proj_out.
+    Dropout on the activation before proj_out; with it on, the gated form
+    is the unfused one (the kernel has no dropout), as in the TPU package.
+    The weights are cast to the compute dtype, the biases added in fp32
+    (flax's promotion), but on the kernel route, which takes bf16 ones."""
 
-    def __init__(self, dim: int, mult: int = 4, *, glu: bool = True, dtype=torch.float32,
-                 device=None):
+    def __init__(self, dim: int, mult: int = 4, *, glu: bool = True, dropout: float = 0.0,
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         inner = dim * mult
-        self.inner, self.glu = inner, glu
-        self.proj_in = Dense(dim, (2 if glu else 1) * inner, dtype=dtype, device=device)
-        self.proj_out = Dense(inner, dim, dtype=dtype, device=device)
+        self.inner, self.glu, self.dropout = inner, glu, dropout
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
+        self.proj_in = Dense(dim, (2 if glu else 1) * inner, **kw)
+        self.proj_out = Dense(inner, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.proj_in.weight.dtype)
+        dt = self.proj_in.cdtype
+        x = x.to(dt)
         if not self.glu:
-            return self.proj_out(F.gelu(self.proj_in(x)))
+            return self.proj_out(dropout(F.gelu(self.proj_in(x)), self.dropout, self))
         C = x.shape[-1]
-        args = (x, self.proj_in.weight, self.proj_in.bias,
-                self.proj_out.weight, self.proj_out.bias)
+        w1, w2 = self.proj_in.weight.to(dt), self.proj_out.weight.to(dt)
+        b1, b2 = self.proj_in.bias, self.proj_out.bias
+        if self.dropout > 0.0 and self.training and dropout_generator() is not None:
+            h = F.linear(x.float(), w1.float()) + b1.float()
+            a, g = h[..., :self.inner], h[..., self.inner:]
+            y = dropout((a * F.gelu(g)).to(dt), self.dropout, self)
+            return (F.linear(y.float(), w2.float()) + b2.float()).to(dt)
         if geglu_k.geglu_wants_pallas(x.numel() // C, C, self.inner, x.dtype):
-            return geglu_k.geglu_ff_trainable(*args)
-        return geglu_k._geglu_xla(*args)
+            return geglu_k.geglu_ff_trainable(x, w1, b1.to(dt), w2, b2.to(dt))
+        return geglu_k._geglu_xla(x, w1, b1, w2, b2)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -215,16 +240,16 @@ class BasicTransformerBlock(nn.Module):
     with a residual."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
-                 context_dim: int | None = None, *, dtype=torch.float32,
-                 device=None):
+                 context_dim: int | None = None, dropout: float = 0.0, *,
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.norm1 = LayerNorm32(dim, **kw)
-        self.attn1 = CrossAttention(dim, None, heads, dim_head, **kw)
+        self.attn1 = CrossAttention(dim, None, heads, dim_head, dropout, **kw)
         self.norm2 = LayerNorm32(dim, **kw)
-        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, **kw)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dropout, **kw)
         self.norm3 = LayerNorm32(dim, **kw)
-        self.ff = FeedForwardGEGLU(dim, **kw)
+        self.ff = FeedForwardGEGLU(dim, dropout=dropout, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 tome=None, ip_kv: tuple | None = None) -> torch.Tensor:
@@ -246,19 +271,19 @@ class SpatialTransformer(nn.Module):
     every call."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
-                 depth: int = 1, context_dim: int | None = None, *,
+                 depth: int = 1, context_dim: int | None = None, dropout: float = 0.0, *,
                  tome_ratio: float = 0.0, tome_min_tokens: int = 1024,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         inner = heads * dim_head
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.norm = GroupNorm32(channels, 32, eps=1e-6, **kw)
         self.proj_in = Conv2d(channels, inner, 1, **kw)
         self.depth = depth
         self.tome_ratio, self.tome_min_tokens = tome_ratio, tome_min_tokens
         for i in range(depth):
             setattr(self, f"block_{i}", BasicTransformerBlock(
-                inner, heads, dim_head, context_dim, **kw))
+                inner, heads, dim_head, context_dim, dropout, **kw))
         self.proj_out = Conv2d(inner, channels, 1, **kw)
         self.proj_out.zero_init = True
 

@@ -3,13 +3,25 @@ dispatch), timestep embeddings, NHWC linear/conv layers and the 3×3 conv
 with the kernel dispatch.
 
 Counterpart of `sd_tpu/nn/layers.py`. Layout is NHWC as in the TPU package.
-Every layer holds its parameters in one dtype (`dtype`) on one device and
-casts its input to that dtype, which is what flax's `dtype=` does for the
-TPU package's bf16 inference policy (and a no-op in fp32).
+A layer stores its parameters in one dtype (`dtype`, flax's `param_dtype`)
+and computes in `compute_dtype` (flax's `dtype`): it casts its parameters
+and its input to it at use, and the gradient reaches the stored tensors
+through those casts. `compute_dtype=None` computes in the stored dtype, so
+a model cast in place (`init_gan_state`, the pipelines) computes in what it
+was cast to, and a cast between equal dtypes is the tensor itself: nothing
+moves where the two agree. The norms compute in fp32 whatever they are
+given.
+
+`dropout` is the one function that draws dropout masks: from the generator
+a training step sets with `dropout_rng` (flax's `deterministic=False` with
+a 'dropout' rng), at the modules' flax sites; without one, or in a module
+in eval mode, it is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -18,6 +30,52 @@ from torch import nn
 
 from sd_tpu_torch.kernels import conv2d as conv_k
 from sd_tpu_torch.kernels import groupnorm as gn_k
+
+
+# the step's dropout generator (`dropout_rng`); None: no dropout anywhere
+_DROPOUT_GEN: contextvars.ContextVar = contextvars.ContextVar("sd_tpu_torch_dropout",
+                                                              default=None)
+
+# test hook: fn(module, name, shape, keep) -> bool keep mask, in place of the draw
+mask_hook = None
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator | None):
+    """Dropout on for the calls inside, its masks drawn from `generator`
+    (None: off)."""
+    token = _DROPOUT_GEN.set(generator)
+    try:
+        yield
+    finally:
+        _DROPOUT_GEN.reset(token)
+
+
+def dropout_generator() -> torch.Generator | None:
+    """The generator `dropout_rng` set, or None."""
+    return _DROPOUT_GEN.get()
+
+
+def dropout(x: torch.Tensor, rate: float, module: nn.Module,
+            name: str = "Dropout_0") -> torch.Tensor:
+    """flax's `nn.Dropout(rate)` at `module`'s child `name`: x / keep where
+    a uniform draw from the step's generator is below keep = 1 − rate, 0
+    elsewhere, in x's dtype. The identity at rate 0, in eval mode and
+    outside `dropout_rng`."""
+    gen = _DROPOUT_GEN.get()
+    if rate <= 0.0 or gen is None or not module.training:
+        return x
+    keep = 1.0 - rate
+    if mask_hook is not None:
+        mask = torch.as_tensor(mask_hook(module, name, tuple(x.shape), keep),
+                               device=x.device)
+    else:
+        mask = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    return None if t is None else t.to(dtype)
 
 
 def _empty(shape, dtype, device, channels_last=False):
@@ -31,13 +89,20 @@ class Dense(nn.Module):
     """`nn.Dense`: y = x @ Wᵀ + b with W stored [out, in] (torch layout)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         self.weight = _empty((out_features, in_features), dtype, device)
         self.bias = _empty((out_features,), dtype, device) if bias else None
+        self.compute_dtype = compute_dtype
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        """The dtype the layer computes in."""
+        return self.compute_dtype or self.weight.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.cdtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class Conv2d(nn.Module):
@@ -47,16 +112,23 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, *, bias: bool = True, padding: int | None = None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         self.weight = _empty((out_channels, in_channels, kernel_size, kernel_size),
                              dtype, device, channels_last=True)
         self.bias = _empty((out_channels,), dtype, device) if bias else None
         self.stride = stride
         self.padding = kernel_size // 2 if padding is None else padding
+        self.compute_dtype = compute_dtype
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        """The dtype the layer computes in."""
+        return self.compute_dtype or self.weight.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_k.conv_nhwc(x.to(self.weight.dtype), self.weight, self.bias,
+        dt = self.cdtype
+        return conv_k.conv_nhwc(x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
                                 self.stride, self.padding)
 
 
@@ -66,17 +138,20 @@ class Conv3x3(Conv2d):
     rule, and everything else to the plain conv."""
 
     def __init__(self, in_channels: int, out_channels: int, *,
-                 dtype=torch.float32, device=None):
-        super().__init__(in_channels, out_channels, 3, dtype=dtype, device=device)
+                 dtype=torch.float32, compute_dtype=None, device=None):
+        super().__init__(in_channels, out_channels, 3, dtype=dtype,
+                         compute_dtype=compute_dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_conv3x3(x, self.weight, self.bias)
+        return apply_conv3x3(x, self.weight, self.bias, self.compute_dtype)
 
 
-def apply_conv3x3(x: torch.Tensor, w: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
-    """Functional 3×3 SAME conv with the kernel-vs-plain dispatch."""
-    x = x.to(w.dtype)
+def apply_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Functional 3×3 SAME conv with the kernel-vs-plain dispatch, in
+    `compute_dtype` (None: the weight's)."""
+    dt = compute_dtype or w.dtype
+    x, w, b = x.to(dt), w.to(dt), b.to(dt)
     if conv_k.conv3x3_wants_pallas(x.shape, x.shape[-1], w.shape[0], x.dtype):
         return conv_k.conv3x3_same_trainable(x, w, b)
     return conv_k._xla_conv3x3(x, w, b)
@@ -91,7 +166,7 @@ class GroupNorm32(nn.Module):
     `_GroupNormCore` does; otherwise flax's module math, unclamped."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
-                 *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         if channels % num_groups == 0:
             groups = num_groups
@@ -126,7 +201,7 @@ class LayerNorm(nn.Module):
     dtype (flax's default eps of 1e-6 unless given)."""
 
     def __init__(self, features: int, eps: float = 1e-6, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         self.eps = eps
         self.weight = _empty((features,), dtype, device)
@@ -158,10 +233,10 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 def zeros_init_conv(in_channels: int, out_channels: int, kernel_size: int = 3,
-                    *, dtype=torch.float32, device=None) -> Conv2d:
+                    *, dtype=torch.float32, compute_dtype=None, device=None) -> Conv2d:
     """Conv whose kernel and bias start at zero (`init_params_` honours the
     `zero_init` mark)."""
     conv = Conv2d(in_channels, out_channels, kernel_size, dtype=dtype,
-                  device=device)
+                  compute_dtype=compute_dtype, device=device)
     conv.zero_init = True
     return conv

@@ -3,7 +3,9 @@
 Counterpart of `sd_tpu/nn/resnet.py`. `ResnetBlock` carries the optional
 time-embedding input of the pixel-space DDPM UNet. `ResBlockSD` carries the
 guided-diffusion options: scale-shift ("AdaGN") conditioning, built-in
-up/down-sampling (the UNet's `resblock_updown`) and a 3×3 skip.
+up/down-sampling (the UNet's `resblock_updown`) and a 3×3 skip. Both drop
+at the TPU package's site (`dropout`, after the second GN → silu) inside a
+training step's `dropout_rng`.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sd_tpu_torch.nn.layers import (Conv2d, Conv3x3, Dense, GroupNorm32,
+from sd_tpu_torch.nn.layers import (Conv2d, Conv3x3, Dense, GroupNorm32, dropout,
                                     zeros_init_conv)
 from sd_tpu_torch.nn.updown import avg_pool_2x, nearest_upsample_2x
 
@@ -22,17 +24,14 @@ class ResnetBlock(nn.Module):
     projected time embedding when `temb_channels` is set (`temb_proj`, the
     pixel-space DDPM UNet's), GN → swish → dropout → conv2, 1×1
     `nin_shortcut` when the width changes. Both 3×3 convs dispatch to the
-    direct-conv kernel at the big decoder levels. Dropout is the identity at
-    0 (every config) and outside training; a training forward with
-    `dropout > 0` raises (its masks cannot be held against the TPU
-    package's)."""
+    direct-conv kernel at the big decoder levels."""
 
     def __init__(self, in_channels: int, out_channels: int | None = None, *,
                  temb_channels: int | None = None, dropout: float = 0.0,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
         out_channels = out_channels or in_channels
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.norm1 = GroupNorm32(in_channels, 32, eps=1e-6, **kw)
         self.conv1 = Conv3x3(in_channels, out_channels, **kw)
         self.temb_proj = (Dense(temb_channels, out_channels, **kw)
@@ -47,10 +46,7 @@ class ResnetBlock(nn.Module):
         h = self.conv1(F.silu(self.norm1(x)))
         if temb is not None:
             h = h + self.temb_proj(F.silu(temb))[:, None, None, :]
-        h = F.silu(self.norm2(h))
-        if self.dropout > 0 and self.training:
-            raise NotImplementedError(
-                "ResnetBlock dropout > 0 in training is not ported yet (ROADMAP Queue 1)")
+        h = dropout(F.silu(self.norm2(h)), self.dropout, self)
         h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
@@ -67,11 +63,13 @@ class ResBlockSD(nn.Module):
     def __init__(self, in_channels: int, emb_channels: int,
                  out_channels: int | None = None, *, use_scale_shift_norm: bool = False,
                  up: bool = False, down: bool = False, use_conv_skip: bool = False,
-                 dtype=torch.float32, device=None):
+                 dropout: float = 0.0, dtype=torch.float32, compute_dtype=None,
+                 device=None):
         super().__init__()
         out_channels = out_channels or in_channels
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, compute_dtype=compute_dtype, device=device)
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.dropout = dropout
         self.resample = (nearest_upsample_2x if up else avg_pool_2x if down else None)
         self.in_norm = GroupNorm32(in_channels, 32, **kw)
         self.in_conv = Conv2d(in_channels, out_channels, 3, **kw)
@@ -93,7 +91,7 @@ class ResBlockSD(nn.Module):
             h = self.out_norm(h) * (1 + scale) + shift
         else:
             h = self.out_norm(h + emb_out)
-        h = self.out_conv(F.silu(h))
+        h = self.out_conv(dropout(F.silu(h), self.dropout, self))
         if self.skip is not None:
             x = self.skip(x)
         return x + h

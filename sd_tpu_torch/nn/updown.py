@@ -36,9 +36,10 @@ class Upsample(nn.Module):
     `with_conv`)."""
 
     def __init__(self, channels: int, *, with_conv: bool = True, dtype=torch.float32,
-                 device=None):
+                 compute_dtype=None, device=None):
         super().__init__()
-        self.conv = (Conv2d(channels, channels, 3, dtype=dtype, device=device)
+        self.conv = (Conv2d(channels, channels, 3, dtype=dtype, compute_dtype=compute_dtype,
+                            device=device)
                      if with_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -53,9 +54,11 @@ class Downsample(nn.Module):
     pool."""
 
     def __init__(self, channels: int, *, with_conv: bool = True,
-                 asymmetric_padding: bool = False, dtype=torch.float32, device=None):
+                 asymmetric_padding: bool = False, dtype=torch.float32, compute_dtype=None,
+                 device=None):
         super().__init__()
-        self.conv = (Conv2d(channels, channels, 3, stride=2, dtype=dtype, device=device)
+        self.conv = (Conv2d(channels, channels, 3, stride=2, dtype=dtype,
+                            compute_dtype=compute_dtype, device=device)
                      if with_conv else None)
         self.asymmetric_padding = asymmetric_padding
 
@@ -64,5 +67,7 @@ class Downsample(nn.Module):
             return avg_pool_2x(x)
         if not self.asymmetric_padding:
             return self.conv(x)
-        x = F.pad(x.to(self.conv.weight.dtype), (0, 0, 0, 1, 0, 1))
-        return conv_nhwc(x, self.conv.weight, self.conv.bias, stride=2, padding=0)
+        dt = self.conv.cdtype
+        x = F.pad(x.to(dt), (0, 0, 0, 1, 0, 1))
+        return conv_nhwc(x, self.conv.weight.to(dt), self.conv.bias.to(dt), stride=2,
+                         padding=0)

@@ -53,7 +53,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from sd_tpu_torch.core.config import resolve_device
+from sd_tpu_torch.core.config import resolve_device, split_dtype
 from sd_tpu_torch.data.image_io import resize
 from sd_tpu_torch.diffusion.ddim import DDIMSampler
 from sd_tpu_torch.diffusion.guidance import NoiseFn
@@ -73,7 +73,7 @@ from sd_tpu_torch.train import checkpoint
 from sd_tpu_torch.train.checkpoint import trained_weights
 from sd_tpu_torch.train.lora import load_lora_safetensors, merge_lora, nest_lora
 from sd_tpu_torch.train.runners import (build_first_stage, build_process, copy_named_,
-                                        first_stage_fns)
+                                        first_stage_factor, first_stage_fns)
 from sd_tpu_torch.train.textual_inversion import (expand_placeholder, patch_embedding_rows,
                                                   placeholder_ids)
 from sd_tpu_torch.utils.safetensors_io import load_safetensors
@@ -108,8 +108,10 @@ class Text2ImagePipeline:
         self.dtype = param_dtype
         kw = dict(dtype=param_dtype, device=self.device)
         gen = torch.Generator(self.device).manual_seed(cfg.get("seed", 0))
-        ucfg = {k: v for k, v in cfg["unet"]["params"].items() if k != "dtype"}
-        self.unet = UNetModel(**ucfg, **kw).eval()
+        # the config's pinned `dtype` is the UNet's compute dtype, as in the
+        # TPU package (none pins one: it computes in `param_dtype`)
+        ucfg, compute = split_dtype(cfg["unet"]["params"])
+        self.unet = UNetModel(**ucfg, compute_dtype=compute, **kw).eval()
         init_params_(self.unet, gen)
         # the config's first stage (AutoencoderKL or VQModel), trained
         # weights from `first_stage.ckpt` where it names a run's checkpoint
@@ -224,7 +226,7 @@ class Text2ImagePipeline:
         lat = self.cfg["latent"]
         if height is None and width is None:
             return lat["image_size"], lat["image_size"]
-        f_vae = 2 ** (len(self.cfg["first_stage"]["params"].get("ch_mult", (1, 2, 4, 4))) - 1)
+        f_vae = self._vae_factor()
         f_unet = 2 ** (len(self.cfg["unet"]["params"].get("channel_mult", (1, 2, 4, 4))) - 1)
         f = f_vae * f_unet
         height = height if height is not None else lat["image_size"] * f_vae
@@ -235,7 +237,7 @@ class Text2ImagePipeline:
         return height // f_vae, width // f_vae
 
     def _vae_factor(self) -> int:
-        return 2 ** (len(self.cfg["first_stage"]["params"].get("ch_mult", (1, 2, 4, 4))) - 1)
+        return first_stage_factor(self.cfg["first_stage"])
 
     # -- options, adapters ----------------------------------------------------------
 

@@ -138,7 +138,7 @@ def _sample_ddpm(cfg: dict, args, dtype):
     generator seeded with `--seed`."""
     import torch
 
-    from sd_tpu_torch.core.config import resolve_device
+    from sd_tpu_torch.core.config import resolve_device, split_dtype
     from sd_tpu_torch.core.schedules import DiffusionSchedule
     from sd_tpu_torch.diffusion.ddim import DDIMSampler
     from sd_tpu_torch.diffusion.ddpm import DDPMProcess
@@ -148,8 +148,8 @@ def _sample_ddpm(cfg: dict, args, dtype):
     from sd_tpu_torch.weights import init_params_
 
     device = resolve_device(args.device)
-    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
-    model = UNetDDPM(**mp, dtype=dtype, device=device).eval()
+    mp, compute = split_dtype(cfg["model"]["params"])
+    model = UNetDDPM(**mp, dtype=dtype, compute_dtype=compute, device=device).eval()
     init_params_(model, torch.Generator(device).manual_seed(cfg.get("seed", 0)))
     if args.ckpt:
         tree = restore_tree(args.ckpt)

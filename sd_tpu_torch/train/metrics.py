@@ -4,14 +4,18 @@ Counterpart of `sd_tpu/train/metrics.py`: the append-only `metrics.jsonl`
 stream (`step`, `time`, then every float of the step's logs), PSNR and SSIM
 of image batches in [-1, 1], parameter counts, uint8 postprocessing, image
 grids and per-step timing. Grids are uint8 arrays written as PNG by
-`data/image_io.py` (the TPU package's are PIL images). The TPU package's
-`compiled_cost` (XLA's cost analysis) and `profile_trace` (`jax.profiler`)
-have no port: the card's counterparts are `chip_smoke.py --profile`'s
-`torch.profiler` breakdowns.
+`data/image_io.py` (the TPU package's are PIL images). `ismap` / `isimage`
+tell conditioning maps from images, `save_animation` writes a denoising
+trajectory as a GIF and `log_txt_as_img` renders prompts (both through
+PIL, imported when called, as in the TPU package). `compiled_cost` counts a
+call's FLOPs with `torch.utils.flop_counter` (the TPU package's XLA cost
+analysis; its "flops" key), `profile_trace` writes a `torch.profiler` trace
+(its `jax.profiler` trace).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -91,6 +95,16 @@ def ssim(a, b, data_range: float = 2.0) -> float:
     return float(np.mean(vals))
 
 
+def ismap(x) -> bool:
+    """4-D with more than 3 channels (NHWC): a segmentation-style map."""
+    return hasattr(x, "ndim") and x.ndim == 4 and x.shape[-1] > 3
+
+
+def isimage(x) -> bool:
+    """4-D with 1 or 3 channels (NHWC)."""
+    return hasattr(x, "ndim") and x.ndim == 4 and x.shape[-1] in (1, 3)
+
+
 def count_params(params) -> int:
     """Elements of a module's parameters, or of a dict / list of tensors."""
     if isinstance(params, torch.nn.Module):
@@ -129,6 +143,57 @@ def save_image_grid(images, path: str, **kw) -> None:
     """float [-1, 1] batch → grid PNG at `path`."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     write_png(path, make_grid(postprocess(np.asarray(images)), **kw))
+
+
+def save_animation(frames, path: str, duration_ms: int = 100) -> None:
+    """A sequence of float [-1, 1] batches → a looping GIF of their grids."""
+    from PIL import Image
+
+    imgs = [Image.fromarray(make_grid(postprocess(np.asarray(f)))) for f in frames]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=duration_ms, loop=0)
+
+
+def log_txt_as_img(shape_hw: tuple[int, int], texts: list[str]) -> np.ndarray:
+    """Each text drawn black on white in PIL's default font, wrapped every
+    40·(w/256) characters: float NHWC in [-1, 1]."""
+    from PIL import Image, ImageDraw
+
+    h, w = shape_hw
+    out = np.zeros((len(texts), h, w, 3), np.float32)
+    for i, text in enumerate(texts):
+        img = Image.new("RGB", (w, h), (255, 255, 255))
+        nc = max(1, int(40 * (w / 256)))
+        lines = "\n".join(text[s: s + nc] for s in range(0, len(text), nc))
+        ImageDraw.Draw(img).multiline_text((0, 0), lines, fill=(0, 0, 0))
+        out[i] = np.asarray(img, np.float32) / 127.5 - 1.0
+    return out
+
+
+def compiled_cost(fn, *args) -> dict:
+    """{"flops": the FLOPs of `fn(*args)`} as `torch.utils.flop_counter`
+    counts them (matmuls, convolutions and attention; elementwise work
+    uncounted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return {"flops": float(counter.get_total_flops())}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Profile the block with `torch.profiler` (the CPU, and CUDA where
+    there is a card) and write its Chrome trace to `log_dir/trace.json`.
+    Usage: `with profile_trace("out/trace"): step(...)`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                                     else [])
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StepTimer:

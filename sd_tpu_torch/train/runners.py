@@ -62,20 +62,21 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from sd_tpu_torch.core.config import load_config, resolve_device
+from sd_tpu_torch.core.config import load_config, resolve_device, split_dtype
 from sd_tpu_torch.core.ema import ema_copy_to
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess, draw_training_noise
 from sd_tpu_torch.diffusion.flow import FlowProcess, FlowSchedule
 from sd_tpu_torch.diffusion.latent import LatentDiffusion, calibrate_scale_factor
 from sd_tpu_torch.losses.gan import GanLossConfig
-from sd_tpu_torch.models.autoencoder import AutoencoderKL, VQModel
+from sd_tpu_torch.models.autoencoder import AutoencoderKL, IdentityFirstStage, VQModel
 from sd_tpu_torch.models.clip_text import (ClipTextConfig, ClipTextTransformer,
                                            SimpleHashTokenizer)
 from sd_tpu_torch.models.discriminator import NLayerDiscriminator, init_discriminator_
 from sd_tpu_torch.models.lpips import make_lpips_fn
 from sd_tpu_torch.models.unet_ddpm import UNetDDPM
 from sd_tpu_torch.models.unet_sd import UNetModel
+from sd_tpu_torch.nn.layers import dropout_rng
 from sd_tpu_torch.train.checkpoint import (auto_resume, restore_tree, save_checkpoint,
                                            trained_weights)
 from sd_tpu_torch.train.diffusion import (TrainState, cast_floating, ddpm_optimizer,
@@ -295,17 +296,20 @@ def _recon_eval_sampler(batches: _Batches, device, recon_fn: Callable) -> Callab
 
 
 def first_stage_factor(fs_cfg: dict) -> int:
-    """The pixel / latent downsampling of a first-stage config: 2^(levels − 1)."""
+    """The pixel / latent downsampling of a first-stage config: 2^(levels −
+    1), 1 for the identity first stage."""
+    if _first_stage_class(fs_cfg) is IdentityFirstStage:
+        return 1
     return 2 ** (len(fs_cfg["params"].get("ch_mult", [1, 2, 4, 4])) - 1)
 
 
 def _first_stage_class(fs_cfg: dict):
     target = fs_cfg.get("target", "AutoencoderKL")
-    for cls in (AutoencoderKL, VQModel):
+    for cls in (AutoencoderKL, VQModel, IdentityFirstStage):
         if target.split(".")[-1] == cls.__name__:
             return cls
-    raise NotImplementedError(f"first stage {target!r} is not ported "
-                              "(AutoencoderKL and VQModel are)")
+    raise ValueError(f"unknown first stage {target!r} (AutoencoderKL, VQModel or "
+                     "IdentityFirstStage)")
 
 
 def copy_named_(own: dict[str, torch.Tensor], loaded: dict, what: str) -> None:
@@ -340,13 +344,15 @@ def load_first_stage_(model: torch.nn.Module, ckpt: str) -> None:
 
 def build_first_stage(fs_cfg: dict, generator: torch.Generator,
                       dtype: torch.dtype = torch.float32, device=None) -> torch.nn.Module:
-    """The first stage of `first_stage` (`target` AutoencoderKL or VQModel),
-    in eval mode, every weight drawn from `generator`; the trained weights
-    of `ckpt` copied over them where the config names one (the draws are
-    made either way, so what is drawn after them does not move)."""
+    """The first stage of `first_stage` (`target` AutoencoderKL, VQModel or
+    IdentityFirstStage), in eval mode, every weight drawn from `generator`
+    and stored in `dtype`, computing in the config's pinned `dtype` (else
+    in `dtype`); the trained weights of `ckpt` copied over them where the
+    config names one (the draws are made either way, so what is drawn after
+    them does not move)."""
     cls = _first_stage_class(fs_cfg)
-    params = {k: v for k, v in fs_cfg["params"].items() if k != "dtype"}
-    model = cls(**params, dtype=dtype, device=device).eval()
+    params, compute = split_dtype(fs_cfg.get("params") or {})
+    model = cls(**params, dtype=dtype, compute_dtype=compute, device=device).eval()
     init_params_(model, generator)
     if fs_cfg.get("ckpt"):
         load_first_stage_(model, fs_cfg["ckpt"])
@@ -424,12 +430,13 @@ def build_ldm(cfg: dict, generator: torch.Generator,
     """The text-to-image latent-diffusion stack of `cfg`, every weight from
     `generator` (the first stage's trained ones from `first_stage.ckpt`):
     (ld, unet, first_stage, embed_texts). The UNet holds its parameters in
+    `param_dtype` and computes in the config's pinned `dtype`, else in
     `param_dtype`; the first stage and text tower are fp32 and frozen
     (`requires_grad` off)."""
     device = resolve_device(device)
     lat = cfg["latent"]
-    ucfg = {k: v for k, v in cfg["unet"]["params"].items() if k != "dtype"}
-    unet = UNetModel(**ucfg, dtype=param_dtype, device=device)
+    ucfg, compute = split_dtype(cfg["unet"]["params"])
+    unet = UNetModel(**ucfg, dtype=param_dtype, compute_dtype=compute, device=device)
     init_params_(unet, generator)
     vae = build_first_stage(cfg["first_stage"], generator, device=device).requires_grad_(False)
     clip_cfg = ClipTextConfig(**(cfg.get("cond_stage", {}).get("params") or {}))
@@ -780,12 +787,12 @@ def train_kl_vae(config: dict | str, data: str | Iterable[dict], out_dir: str | 
     cfg = _load_cfg(config)
     target = cfg["model"].get("target", "")
     if not target.endswith("AutoencoderKL"):
-        raise NotImplementedError(f"first stage {target!r} is not ported yet")
+        raise ValueError(f"train_kl_vae trains an AutoencoderKL, not {target!r}")
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
-    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
-    vae = AutoencoderKL(**mp, device=device)
+    mp, compute = split_dtype(cfg["model"]["params"])
+    vae = AutoencoderKL(**mp, compute_dtype=compute, device=device)
     disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh = _gan_setup(cfg, vae, device, gen, "kl-vae")
     state, start = _resume(out_dir, fresh)
     print(f"[kl-vae] params: {_gan_params(state) / 1e6:.1f}M")
@@ -828,8 +835,8 @@ def train_vq(config: dict | str, data: str | Iterable[dict], out_dir: str | None
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
-    mp = {k: v for k, v in cfg["model"]["params"].items() if k != "dtype"}
-    vq = VQModel(**mp, device=device)
+    mp, compute = split_dtype(cfg["model"]["params"])
+    vq = VQModel(**mp, compute_dtype=compute, device=device)
     disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh = _gan_setup(cfg, vq, device, gen, "vq")
     state, start = _resume(out_dir, fresh)
     print(f"[vq] params: {_gan_params(state) / 1e6:.1f}M")
@@ -840,7 +847,10 @@ def train_vq(config: dict | str, data: str | Iterable[dict], out_dir: str | None
                                        **cfg.get("gumbel_schedule", {}))
 
     def vq_apply(x, generator, temp):
-        return vq(x, temp=temp, update=True, deterministic=False, generator=generator)
+        # dropout (`model.params.dropout`) in the gumbel and ema families'
+        # steps, as in the TPU package, its masks from the step's generator
+        with dropout_rng(generator if vq.quantizer_type != "vq" else None):
+            return vq(x, temp=temp, update=True, deterministic=False, generator=generator)
 
     def recon(st, x, generator):
         return vq(x, temp=mp.get("temp_init", 1.0), update=False, deterministic=True)[0]
@@ -879,8 +889,10 @@ def _ddpm_parts(cfg: dict, model: UNetDDPM):
         if noise is None:
             noise = draw_training_noise(tuple(x.shape), noise_offset, generator=generator,
                                         device=x.device)
-        return process.p_losses(lambda x_t, t_, _: model(x_t, t_), x, t, noise,
-                                learned_logvar=logvar)
+        # the model's dropout masks from the step's generator, after t and noise
+        with dropout_rng(generator):
+            return process.p_losses(lambda x_t, t_, _: model(x_t, t_), x, t, noise,
+                                    learned_logvar=logvar)
 
     opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0))
     fresh = lambda: init_train_state(dict(model.named_parameters()), opt,
@@ -897,7 +909,8 @@ def make_ddpm_trainer(cfg: dict, model: UNetDDPM):
     `DDPMProcess(clip_denoised=True)` on the config's schedule, clip + Adam
     on the config's lr, `train.grad_accum` microbatches; its timesteps
     (uniform in [0, T)) and noise from the batch's `t` and `noise` where it
-    has them, else from `generator`."""
+    has them, else from `generator`, then the model's dropout masks from
+    `generator`."""
     fresh, step, _ = _ddpm_parts(cfg, model)
     return fresh(), step
 
@@ -906,20 +919,19 @@ def train_ddpm(config: dict | str, data: str | Iterable[dict], out_dir: str | No
                max_steps: int | None = None, device=None) -> tuple[TrainState, list[dict]]:
     """Train the pixel-space DDPM of `config` (e.g. `ddpm_256_train_config()`)
     on `data` (see the module docstring) with `make_ddpm_trainer`. Every
-    weight is random from the config's seed, each step's timesteps and
-    noise from the step's generator. fp32 parameters; the config's lr is a
-    constant or `lr_schedule: cosine`. The eval samples `sample.num_images`
-    images (default 4) with `p_sample_loop` under the EMA weights, x_T from
-    the eval generator."""
+    weight is random from the config's seed, each step's timesteps, noise
+    and dropout masks (`model.params.dropout`) from the step's generator.
+    fp32 parameters, Adam moments and EMA; the model computes in
+    `model.params.dtype` where the config pins it (e.g. "bfloat16": the
+    level-3 attention then takes the flash training kernels), else in fp32.
+    The config's lr is a constant or `lr_schedule: cosine`. The eval samples
+    `sample.num_images` images (default 4) with `p_sample_loop` under the
+    EMA weights, x_T from the eval generator."""
     cfg = _load_cfg(config)
-    mp = dict(cfg["model"]["params"])
-    if mp.pop("dtype", None) is not None:
-        raise NotImplementedError(
-            "model.params.dtype (fp32 master parameters, bf16 compute) is not ported yet "
-            "(ROADMAP Queue 1)")
+    mp, compute = split_dtype(cfg["model"]["params"])
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
-    model = UNetDDPM(**mp, device=device)
+    model = UNetDDPM(**mp, compute_dtype=compute, device=device)
     init_params_(model, torch.Generator(device).manual_seed(seed))
     fresh, step_fn, process = _ddpm_parts(cfg, model)
     state, start = _resume(out_dir, fresh)

@@ -57,7 +57,7 @@ def build_ldm_sr(cfg: dict, generator: torch.Generator, device=None):
     """The SR latent-diffusion stack of `cfg`, every weight from `generator`
     (the first stage's trained ones from `first_stage.ckpt`): (ld, unet,
     first_stage). The UNet is fp32; the first stage is frozen."""
-    from sd_tpu_torch.core.config import resolve_device
+    from sd_tpu_torch.core.config import resolve_device, split_dtype
     from sd_tpu_torch.diffusion.latent import LatentDiffusion
     from sd_tpu_torch.models.unet_sd import UNetModel
     from sd_tpu_torch.train.runners import build_first_stage, build_process, first_stage_fns
@@ -66,8 +66,8 @@ def build_ldm_sr(cfg: dict, generator: torch.Generator, device=None):
     want_in = _check_sr_config(cfg)
     device = resolve_device(device)
     lat = cfg["latent"]
-    ucfg = {k: v for k, v in cfg["unet"].get("params", {}).items() if k != "dtype"}
-    unet = UNetModel(**{**ucfg, "in_channels": want_in}, device=device)
+    ucfg, compute = split_dtype(cfg["unet"].get("params", {}))
+    unet = UNetModel(**{**ucfg, "in_channels": want_in}, compute_dtype=compute, device=device)
     init_params_(unet, generator)
     vae = build_first_stage(cfg["first_stage"], generator, device=device).requires_grad_(False)
     encode_fn, decode_fn = first_stage_fns(vae)

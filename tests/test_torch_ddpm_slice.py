@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import (assert_close, flax_init, injected_dropout, nprand, port,
+                                to_torch)
 from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.core.schedules import DiffusionSchedule as JSchedule
@@ -43,6 +44,7 @@ from sd_tpu_torch.core.config import ddpm_256_train_config, ddpm_smoke_config
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.ddpm import DDPMProcess
 from sd_tpu_torch.models.unet_ddpm import UNetDDPM
+from sd_tpu_torch.nn.layers import dropout_rng
 from sd_tpu_torch.nn.resnet import ResnetBlock
 from sd_tpu_torch.train.lr_schedules import cosine_annealing
 from sd_tpu_torch.train.runners import make_ddpm_trainer, make_lr, train_ddpm
@@ -77,13 +79,24 @@ def test_resnet_block_with_temb_matches(cin, cout):
 
 
 def test_resnet_block_refuses_dropout_in_training():
-    block = ResnetBlock(32, temb_channels=64, dropout=0.1, device="cpu")
-    init_params_(block, torch.Generator().manual_seed(0))
-    x = torch.randn(1, 4, 4, 32)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        block(x)
-    block.eval()        # the identity outside training, as flax's deterministic form
-    assert block(x).shape == x.shape
+    """(Named when the port refused dropout.) Dropout 0.1 in training: the
+    TPU package's masked form inside a step's `dropout_rng` (both packages'
+    masks injected), the deterministic form bit for bit outside it and in
+    eval mode."""
+    x, temb = nprand(2, 8, 8, 32, seed=1), nprand(2, 64, seed=2)
+    jb = JResnetBlock(out_channels=32, dropout=0.1)
+    params = flax_init(jb, jnp.asarray(x), jnp.asarray(temb), seed=3)
+    block = port(ResnetBlock(32, temb_channels=64, dropout=0.1, device="cpu"), params).train()
+    args = (to_torch(x), to_torch(temb))
+    det = block(*args)
+    assert_close(det, jb.apply({"params": params}, jnp.asarray(x), jnp.asarray(temb)))
+    with injected_dropout(block):
+        ref = jb.apply({"params": params}, jnp.asarray(x), jnp.asarray(temb),
+                       deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)})
+        with dropout_rng(torch.Generator().manual_seed(0)):
+            assert_close(block(*args), ref, 1e-5)
+            assert torch.equal(block.eval()(*args), det)
+    assert not np.allclose(np.asarray(ref), det.numpy())
 
 
 def test_unet_ddpm_matches(unet_weights):
@@ -225,10 +238,18 @@ def test_train_ddpm_runs_on_the_cpu():
 
 
 def test_train_ddpm_refusals(monkeypatch):
-    cfg = ddpm_256_train_config()
+    """(Named when `model.params.dtype` was refused.) A pinned bf16 compute
+    dtype trains with fp32 parameters, Adam moments and EMA; without
+    `device` and a card, `train_ddpm` refuses."""
+    cfg = _ddpm_cfg()
     cfg["model"]["params"]["dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="fp32 master"):
-        train_ddpm(cfg, [], device="cpu")
+    images = [{"image": np.random.default_rng(0).uniform(-1, 1, (2, PX, PX, 3))
+               .astype(np.float32)}]
+    state, hist = train_ddpm(cfg, images, max_steps=1, device="cpu")
+    assert math.isfinite(hist[0]["loss"]) and state.step == 1
+    for tensors in (state.params.values(), state.ema.shadow.values(),
+                    state.opt_state.mu, state.opt_state.nu):
+        assert {t.dtype for t in tensors} == {torch.float32}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_ddpm(ddpm_256_train_config(), [])

@@ -10,6 +10,7 @@ text-to-image slice ≤ 1e-3·max(1, max|ref|).
 
 from __future__ import annotations
 
+import contextlib
 from unittest import mock
 
 import jax
@@ -176,6 +177,44 @@ def assert_close(got, ref, tol: float = MODULE_TOL) -> None:
 
 def nprand(*shape, seed: int = 0, scale: float = 1.0) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def dropout_keep_mask(key: str, shape: tuple, keep: float) -> np.ndarray:
+    """The keep mask of the dropout site `key` (its flax path, "/"-joined):
+    uniform draws from a numpy stream seeded by the key, below `keep`."""
+    import zlib
+
+    return np.random.default_rng(zlib.crc32(key.encode())).random(shape) < keep
+
+
+@contextlib.contextmanager
+def injected_dropout(*roots: torch.nn.Module):
+    """Both packages' dropout masks from `dropout_keep_mask`, keyed by the
+    site's flax path: flax's `nn.Dropout.__call__` patched for this block
+    (`self.scope.path`), and the port's `layers.mask_hook` keyed by each
+    module's name under `roots` (the flax names)."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from sd_tpu_torch.nn import layers
+
+    def flax_dropout(self, inputs, deterministic=None, rng=None):
+        deterministic = fnn.merge_param("deterministic", self.deterministic, deterministic)
+        if self.rate == 0.0 or deterministic:
+            return inputs
+        keep = 1.0 - self.rate
+        mask = dropout_keep_mask("/".join(self.scope.path), tuple(inputs.shape), keep)
+        return jnp.where(jnp.asarray(mask), inputs / keep, jnp.zeros_like(inputs))
+
+    names = {id(m): n.replace(".", "/") for root in roots for n, m in root.named_modules()}
+
+    def hook(module, name, shape, keep):
+        return dropout_keep_mask("/".join(filter(None, (names[id(module)], name))), shape,
+                                 keep)
+
+    with mock.patch.object(fnn.Dropout, "__call__", flax_dropout), \
+            mock.patch.object(layers, "mask_hook", hook):
+        yield
 
 
 # -- tests of the carry-over ---------------------------------------------------

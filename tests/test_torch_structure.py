@@ -54,7 +54,14 @@
 * the model families at full width: the param trees of LDM-KL-8-G's BERT and
   UNet, the ADM ImageNet 256² UNet and the CompVis codec UNet map onto the
   port (shapes only), and their bf16 forwards on `meta` tensors give the
-  launches of `chip_smoke.py`'s model_families phase.
+  launches of `chip_smoke.py`'s model_families phase;
+* the GAN generator (`UNetGenerator`) and two codec heads
+  (`MergedRescaleDecoder` at the KL-f8 widths, `FirstStagePostProcessor`)
+  map onto the port at full width; one full-width `train_ddpm` step of
+  `ddpm_256_train_config()` under `model.params.dtype: bfloat16` (256²,
+  batch 6, on `meta` tensors, the JAX gates in their training context)
+  gives the launches of `chip_smoke.py`'s training_options phase: its five
+  level-3 attentions on the wide flash training kernels.
 """
 
 from __future__ import annotations
@@ -82,7 +89,9 @@ from sd_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL
 from sd_tpu.models.autoencoder import VQModel as JVQModel
 from sd_tpu.models.clip_text import ClipTextConfig as JClipConfig
 from sd_tpu.models.clip_text import ClipTextTransformer as JClip
+from sd_tpu.models import codec as jcodec
 from sd_tpu.models.conditioners import BERTEmbedder as JBERTEmbedder
+from sd_tpu.models.discriminator import UNetGenerator as JUNetGenerator
 from sd_tpu.models.unet_compvis import UNetCompVis as JUNetCompVis
 from sd_tpu.models.unet_sd import UNetModel as JUNet
 import chip_smoke
@@ -103,8 +112,9 @@ from sd_tpu_torch.kernels import groupnorm as gn_k
 from sd_tpu_torch.losses.gan import GanLossConfig
 from sd_tpu_torch.models.autoencoder import AutoencoderKL, VQModel
 from sd_tpu_torch.models.clip_text import ClipTextConfig, ClipTextTransformer
+from sd_tpu_torch.models import codec
 from sd_tpu_torch.models.conditioners import BERTEmbedder
-from sd_tpu_torch.models.discriminator import NLayerDiscriminator
+from sd_tpu_torch.models.discriminator import NLayerDiscriminator, UNetGenerator
 from sd_tpu_torch.models.lpips import LPIPS
 from sd_tpu_torch.nn.attention import CrossAttention
 from sd_tpu_torch.models.unet_compvis import UNetCompVis
@@ -137,9 +147,23 @@ def _tuples(params: dict) -> dict:
 
 @pytest.mark.parametrize("model", ["unet", "vae", "clip", "sr_unet", "kl_f32", "vq_gumbel_f8",
                                    "bert_1p4b", "ldm_kl8g_unet", "adm_imagenet256",
-                                   "unet_compvis"])
+                                   "unet_compvis", "unet_generator", "merged_rescale_decoder",
+                                   "post_processor"])
 def test_full_width_param_trees_map_onto_the_port(model):
-    if model == "bert_1p4b":
+    if model == "unet_generator":
+        # the GAN generator at its defaults (ngf 64, 6 residual blocks), 256²
+        tree = _flax_tree(JUNetGenerator(), jnp.zeros((1, 256, 256, 3)))
+        mod = UNetGenerator(**BF16)
+    elif model == "merged_rescale_decoder":
+        # a rescaler to KL-f8's z (4 × 4 channels) then its decoder, 32² → 256²
+        kw = dict(z_channels=4, ch=128, ch_mult=(1, 2, 4, 4), resolution=256)
+        tree = _flax_tree(jcodec.MergedRescaleDecoder(**kw), jnp.zeros((1, 32, 32, 4)))
+        mod = codec.MergedRescaleDecoder(**kw, **BF16)
+    elif model == "post_processor":
+        kw = dict(ch_mult=(1, 2), in_channels=4, proj_channels=128)
+        tree = _flax_tree(jcodec.FirstStagePostProcessor(**kw), jnp.zeros((1, 32, 32, 4)))
+        mod = codec.FirstStagePostProcessor(**kw, **BF16)
+    elif model == "bert_1p4b":
         # LDM-KL-8-G's text conditioner: 32 layers, 1280 wide, vocab 30522
         params = ldm_kl8g_txt2img_config()["cond_stage"]["params"]
         tree = _flax_tree(JBERTEmbedder(**params), jnp.zeros((1, 77), jnp.int32))
@@ -1354,6 +1378,49 @@ def test_model_family_launches(tpu_gates, monkeypatch):
     assert unet_call["flash_attention_hpacked"] == unet_call["geglu_ff"] > 0
 
 
+def test_training_options_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s training_options launches: one `make_ddpm_trainer`
+    step of `chip_smoke.training_options_config()` (`ddpm_256_train_config()`
+    under `model.params.dtype: bfloat16`, dropout 0.1) at full width, 256²,
+    batch 6, fp32 parameters, on `meta` tensors, with every gate checked
+    against the JAX package's inside a traced train step: the 5 level-3
+    AttnBlocks ([6, 1024, 1, 256]) pass the flash rule and reach the wide
+    training kernels (LSE forward, dQ, dK/dV: no remat, one each), the 16²
+    bottleneck's 256 tokens stay plain, no conv kernel in training; the run
+    is one warm-up and TRAINING_OPTIONS_STEPS timed steps. (No dropout
+    generator here: `meta` tensors have none, and dropout moves no gate.)"""
+    from sd_tpu_torch.core.config import split_dtype
+    from sd_tpu_torch.models.unet_ddpm import UNetDDPM
+    from sd_tpu_torch.train.runners import make_ddpm_trainer
+
+    calls = _count_kernel_calls(monkeypatch)
+    cfg = chip_smoke.training_options_config()
+    mp, compute = split_dtype(cfg["model"]["params"])
+    assert compute == torch.bfloat16 and mp["dropout"] == chip_smoke.TRAINING_OPTIONS_DROPOUT
+    model = UNetDDPM(**mp, compute_dtype=compute, device="meta")
+    state, step = make_ddpm_trainer(cfg, model)
+    B, px = cfg["train"]["batch_size"], cfg["train"]["image_size"]
+    meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+    with jconv.training_trace():      # the JAX gates inside a traced train step
+        logs = step(state, {"image": meta(B, px, px, 3), "t": meta(B, dtype=torch.long),
+                            "noise": meta(B, px, px, 3)})
+    assert logs["loss"].shape == () and state.step == 1
+    assert {p.dtype for p in state.params.values()} == {torch.float32}
+    assert _launched(tpu_gates, GATES + OPT_IN_GATES) == {
+        "hpacked_flash_ok": 0, "flash_ok": 5, "geglu_wants_pallas": 0,
+        "conv3x3_wants_pallas": 0, "group_norm_wants_pallas": 0,
+        "crossattn_kv_wants_pallas": 0, "flash_pipelined_ok": 0}
+    assert [args[0].shape for name, args in tpu_gates.args if name == "flash_ok"] == [
+        (B, 1024, 1, 256)] * 5
+    runs = 1 + chip_smoke.TRAINING_OPTIONS_STEPS
+    want = {k: v for k, v in chip_smoke.TRAINING_OPTIONS_LAUNCHES["ddpm_bf16_steps"].items()
+            if v}
+    assert {k: runs * v for k, v in calls.items()} == want == {
+        k: runs * 5 for k in ("flash_attention_lse", "flash_lse_wide", "flash_bwd_dq",
+                              "flash_bwd_dkv", "flash_bwd_dq_wide_sm90",
+                              "flash_bwd_dkv_wide_sm90")}
+
+
 def test_launch_counters_are_chip_smokes_kernels():
     assert set(kernels.LAUNCHES) == set(chip_smoke.KERNELS)
     assert chip_smoke.ROUTE_COUNTER == fa.ROUTE_COUNTERS
@@ -1364,7 +1431,8 @@ def test_launch_counters_are_chip_smokes_kernels():
                  *chip_smoke.IMAGE_EDIT_LAUNCHES.values(), *chip_smoke.ADAPTER_LAUNCHES.values(),
                  *chip_smoke.FEW_STEP_LAUNCHES.values(),
                  *chip_smoke.FINE_TUNE_LAUNCHES.values(),
-                 *chip_smoke.MODEL_FAMILY_LAUNCHES.values()):
+                 *chip_smoke.MODEL_FAMILY_LAUNCHES.values(),
+                 *chip_smoke.TRAINING_OPTIONS_LAUNCHES.values()):
         assert set(want) == set(kernels.LAUNCHES)
 
 
@@ -1388,6 +1456,11 @@ SR_MODULES = ("sd_tpu_torch.train.sr", "sd_tpu_torch.sample_sr",
 # ... and the model families'
 FAMILY_MODULES = ("sd_tpu_torch.models.x_transformer", "sd_tpu_torch.models.unet_compvis",
                   "sd_tpu_torch.models.conditioners")
+# ... and the training options' and the utilities'
+OPTION_MODULES = ("sd_tpu_torch.diffusion.visualize", "sd_tpu_torch.models.codec",
+                  "sd_tpu_torch.models.quantize", "sd_tpu_torch.models.discriminator",
+                  "sd_tpu_torch.train.metrics", "sd_tpu_torch.train.lr_schedules",
+                  "sd_tpu_torch.core.distributions", "sd_tpu_torch.nn.layers")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -1397,7 +1470,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(sd_tpu_torch.__path__, 'sd_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"assert set({SERVING_MODULES + SR_MODULES + FAMILY_MODULES!r}) <= set(names), names\n"
+        f"assert set({SERVING_MODULES + SR_MODULES + FAMILY_MODULES + OPTION_MODULES!r})"
+        " <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sd_tpu', 'flax')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

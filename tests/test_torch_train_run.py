@@ -290,9 +290,12 @@ def test_ldm_encodes_with_the_kl_runs_first_stage(kl_run):
         wide["first_stage"]["params"]["ch"] = 32
         runners.build_ldm(wide, torch.Generator().manual_seed(0), device="cpu")
     other = _ldm_cfg(kl_run / "ckpt")
-    other["first_stage"]["target"] = "sd_tpu.models.autoencoder.IdentityFirstStage"
-    with pytest.raises(NotImplementedError, match="IdentityFirstStage"):
-        runners.build_ldm(other, torch.Generator().manual_seed(0), device="cpu")
+    other["first_stage"] = {"target": "sd_tpu.models.autoencoder.IdentityFirstStage"}
+    ld, _, identity, _ = runners.build_ldm(other, torch.Generator().manual_seed(0),
+                                           device="cpu")
+    assert runners.first_stage_factor(other["first_stage"]) == 1
+    assert not list(identity.parameters())
+    assert torch.equal(ld.encode_first_stage(x), x) and torch.equal(ld.decode_fn(x), x)
 
 
 def test_ldm_run_calibrates_and_resumes_bitwise(tmp_path, monkeypatch, images, kl_run, ldm_run):

@@ -54,6 +54,7 @@ from sd_tpu_torch.losses.gan import GanLossConfig
 from sd_tpu_torch.models import quantize as q
 from sd_tpu_torch.models.autoencoder import VQModel
 from sd_tpu_torch.models.discriminator import NLayerDiscriminator
+from sd_tpu_torch.nn.layers import dropout_rng
 from sd_tpu_torch.models.lpips import LPIPS
 from sd_tpu_torch.train import gan as gan_train
 from sd_tpu_torch.train.runners import train_vq
@@ -322,15 +323,25 @@ def test_vq_model_decode_code_and_pre_quant():
 
 
 def test_vq_model_refusals():
-    with pytest.raises(NotImplementedError, match="remap"):
-        VQModel(**VQ, remap=[0, 1, 2], device="cpu")
-    with pytest.raises(NotImplementedError, match="remap"):
-        VQModel(**VQ, quantizer_type="gumbel", remap=[0, 1, 2], device="cpu")
+    """(Named when `remap` and dropout were refused.) Both families build
+    their index remap (held against the JAX package in
+    `test_torch_quantize_codec_heads.py`); per-level attention; dropout acts
+    inside a step's `dropout_rng` only, and not in eval mode."""
+    vq = VQModel(**VQ, remap=[0, 1, 2], device="cpu")
+    assert vq.quantize.used.tolist() == [0, 1, 2] and vq.quantize.re_embed == 3
+    gumbel = VQModel(**VQ, quantizer_type="gumbel", remap=[0, 1, 2], device="cpu")
+    assert gumbel.quantize.used.tolist() == [0, 1, 2]
     # per-level attention is ported: a 16² level attends (`test_torch_codec_attn.py`)
     attn = VQModel(**{**VQ, "attn_resolutions": [16]}, device="cpu")
     assert attn.encoder.attn_names and "AttnBlock_1" in dict(attn.decoder.named_children())
-    with pytest.raises(NotImplementedError, match="dropout"):
-        VQModel(**VQ, dropout=0.1, device="cpu")
+    drop = VQModel(**VQ, dropout=0.1, device="cpu")
+    init_params_(drop, torch.Generator().manual_seed(0))
+    x = torch.tanh(torch.from_numpy(nprand(1, PX, PX, 3, seed=5)))
+    with torch.no_grad():
+        det = drop(x)[0]
+        with dropout_rng(torch.Generator().manual_seed(1)):
+            assert not torch.equal(drop(x)[0], det)
+            assert torch.equal(drop.eval()(x)[0], det)
 
 
 # -- one VQ GAN step --------------------------------------------------------------------

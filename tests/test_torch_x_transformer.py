@@ -23,13 +23,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_helpers import assert_close, flax_init, nprand, port, to_torch
+from test_torch_helpers import (assert_close, flax_init, injected_dropout, nprand, port,
+                                to_torch)
 from test_torch_helpers import jax_quick_compiles  # noqa: F401 (autouse)
 
 from sd_tpu.models import x_transformer as jx
 from sd_tpu.nn import attention as jattn
 from sd_tpu_torch.models import x_transformer as tx
 from sd_tpu_torch.nn.attention import FeedForwardGEGLU
+from sd_tpu_torch.nn.layers import dropout_rng
 from sd_tpu_torch.weights import init_params_, randomize_params_
 
 TOL = 1e-5
@@ -205,8 +207,19 @@ def test_init_and_randomize_cover_every_new_leaf():
 
 
 def test_dropout_in_training_is_refused():
-    attn = tx.XAttention(DIM, HEADS, DH, dropout=0.1, device="cpu")
-    init_params_(attn, torch.Generator().manual_seed(2))
-    attn.eval()(torch.zeros(1, N, DIM))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        attn.train()(torch.zeros(1, N, DIM))
+    """(Named when the port refused dropout.) The attention probabilities'
+    dropout of a training step (`dropout_rng`) against the JAX package's
+    with the same injected masks; outside it, and in eval mode, the
+    deterministic form bit for bit."""
+    x = nprand(2, N, DIM, seed=3)
+    jattn_ = jx.XAttention(heads=HEADS, dim_head=DH, dropout=0.1)
+    params = flax_init(jattn_, jnp.asarray(x), seed=4)
+    attn = port(tx.XAttention(DIM, HEADS, DH, dropout=0.1, device="cpu"), params).train()
+    det = attn(to_torch(x))
+    with injected_dropout(attn):
+        ref = jattn_.apply({"params": params}, jnp.asarray(x), deterministic=False,
+                           rngs={"dropout": jax.random.PRNGKey(0)})
+        with dropout_rng(torch.Generator().manual_seed(0)):
+            assert_close(attn(to_torch(x)), ref, TOL)
+            assert torch.equal(attn.eval()(to_torch(x)), det)
+    assert not np.allclose(np.asarray(ref), det.detach().numpy())
