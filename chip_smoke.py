@@ -256,6 +256,25 @@ Phases, each printed as one JSON line:
            against the CPU at batch 1 with the same injected masks
            (DDPM_TOL); the path's training kernels at its shape against their
            plain versions.
+  bench_serve  `python -m sd_tpu_torch.bench_serve` on SD-v1 at 512² (bf16,
+           the default switches): BatchingServer(max_batch 4, 50 ms) over
+           loopback HTTP, rows ddim50 (cut to 10 steps, CFG 7.5) and lcm4 (4
+           steps), 4 clients × 2 requests after each row's warm-up and
+           sequential phase; each row's JSON, every response a 512² PNG, the
+           concurrent phase's mean batch above 1, each row's launches by route
+           (BENCH_SERVE_LAUNCHES by bucket), seeded grouped requests within 1
+           level of a direct generate of their batch (and, reported, their
+           distance from themselves alone at batch 1 on their slot's noise).
+  eval_tools  the evaluation and diagnostic tools: kl_128_catdog and
+           ldm_32_catdog_cond trained 1 step each through `python -m
+           sd_tpu_torch.train` on 16 synthetic cat / dog PNGs, `python -m
+           sd_tpu_torch.eval_steering` on that run (2 rows, finite scores and
+           surrogate FID); the cross-attention heatmaps of SD-v1 at 512²
+           (batch 2, 16 maps, rows summing to 1, the other attentions on their
+           routes), seconds and peak memory; card against CPU in fp32: the
+           probe's forward, a FID feature batch, the heatmaps at a 16² latent;
+           `nan_check` on an injected NaN and a clean forward,
+           `tree_finite_summary` over the UNet's parameters.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -664,6 +683,45 @@ _DDPM_BF16_STEP = dict(flash_attention_lse=5, flash_lse_wide=5, flash_bwd_dq=5,
 TRAINING_OPTIONS_LAUNCHES = {
     "ddpm_bf16_steps": launches_of(**{k: (1 + TRAINING_OPTIONS_STEPS) * v
                                       for k, v in _DDPM_BF16_STEP.items()})}
+# the bench_serve phase: `python -m sd_tpu_torch.bench_serve` on SD-v1 at 512²
+# (full width, bf16, the default switches) over BatchingServer(max_batch 4,
+# window 50 ms) and its HTTP front end: rows ddim50 (cut to 10 steps for time:
+# its JSON says 10) and lcm4, each BENCH_SERVE_CLIENTS clients × BENCH_SERVE_REQUESTS
+# requests after its warm-up and sequential phase. A served generate's launches
+# by row and bucket (tests/test_torch_structure.py derives them on `meta`
+# tensors): ddim50's CFG calls see 2, 4 or 8 rows (10 head-packed flash and 10
+# GEGLU launches a call), lcm4's calls 1, 2 or 4 (at 1 row level 1's GEGLU stays
+# plain: 5); the decode 1 wide flash launch and 18 convs at every batch
+BENCH_SERVE_SEED = 24
+BENCH_SERVE_STEPS = {"ddim50": 10, "lcm4": 4}
+BENCH_SERVE_CLIENTS, BENCH_SERVE_REQUESTS = 4, 2
+BENCH_SERVE_BUCKETS = (1, 2, 4)
+
+
+def _bench_generate(calls: int, geglu_per_call: int = 10) -> dict:
+    out = _unet_calls(calls, decode=True)
+    out["geglu_ff"] = out["geglu_sm90"] = calls * geglu_per_call
+    return out
+
+
+BENCH_SERVE_LAUNCHES = {
+    **{("ddim50", b): _bench_generate(BENCH_SERVE_STEPS["ddim50"]) for b in BENCH_SERVE_BUCKETS},
+    ("lcm4", 1): _bench_generate(BENCH_SERVE_STEPS["lcm4"], 5),
+    **{("lcm4", b): _bench_generate(BENCH_SERVE_STEPS["lcm4"]) for b in (2, 4)}}
+# the eval_tools phase: 16 synthetic 128² PNGs (cat.<i>.png / dog.<i>.png, the
+# `filename_prefix` labels), kl_128_catdog trained 1 step and ldm_32_catdog_cond
+# 1 step over it by `python -m sd_tpu_torch.train`, then `python -m
+# sd_tpu_torch.eval_steering` with EVAL_STEERING_ARGS; the cross-attention
+# heatmaps of SD-v1 at 512² (batch 2, every block captured: 16 maps), whose
+# forward keeps every other attention's route (one inference UNet call of 2
+# rows: 10 head-packed flash, 10 GEGLU); card against CPU at EVAL_PARITY_LATENT
+EVAL_TOOLS_SEED = 25
+EVAL_TOOLS_IMAGES = 16
+EVAL_STEERING_ARGS = ["--guidance-scales", "1", "3", "--per-class", "2", "--steps", "10",
+                      "--probe-steps", "20", "--real-per-class", "8", "--fid-batch", "8"]
+EVAL_PARITY_LATENT = 16
+ATTN_VIZ_LAUNCHES = _unet_calls(1)
+ATTN_VIZ_MAPS = 16
 # the mixed-precision gates, stated before measuring: the bf16-compute step's
 # loss within 2e-2 relative of the fp32 step's, its gradient ‖Δg‖₂ ≤ 0.1·‖g‖₂
 # (the train_parity gate)
@@ -5401,6 +5459,329 @@ def phase_training_options(smi: str) -> dict:
     return {"ddpm_bf16_steps": launches}
 
 
+def phase_bench_serve(smi: str):
+    """`python -m sd_tpu_torch.bench_serve` (its `main`) on SD-v1 at 512² in
+    bf16 with the default switches: BatchingServer(max_batch 4, window 50 ms)
+    behind its HTTP front end on loopback, rows ddim50 (BENCH_SERVE_STEPS:
+    10 steps, CFG 7.5) and lcm4 (4 steps, guidance 1), each row's warm-up at
+    every bucket, 3 sequential requests, then BENCH_SERVE_CLIENTS clients ×
+    BENCH_SERVE_REQUESTS requests. Gates: every response a 512² PNG, each
+    row's `requests` clients × requests and its concurrent `mean_batch` above
+    1, each row's launches by route the sum over the generates it ran of
+    BENCH_SERVE_LAUNCHES[row, bucket]; then three explicitly seeded ddim50
+    requests queued together (one bucket-4 generate) each within 1 uint8
+    level of a direct `generate` of their batch. A batch draws its noise as
+    one tensor, so a request served alone draws other noise; each request is
+    also computed alone (batch 1) on its slot of the group's noise, and that
+    distance, bf16's dependence on the batch, is reported, not gated.
+    Returns (the rows' launches, the pipeline)."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sd_tpu_torch import bench_serve, kernels
+    from sd_tpu_torch.pipeline import to_uint8
+    from sd_tpu_torch.serve import BatchingServer, decode_png, make_http_server
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    built, shapes, per_row = {}, [], {}
+    real_pipeline, real_post, real_run_row = (bench_serve._pipeline, bench_serve._post,
+                                              bench_serve.run_row)
+
+    def pipeline(config, device):
+        t0 = time.perf_counter()
+        built["pipe"] = _Recording(real_pipeline(config, device))
+        built["seconds"] = time.perf_counter() - t0
+        return built["pipe"]
+
+    def post(port, body, timeout=900.0):
+        out = real_post(port, body, timeout)
+        shapes.append(tuple(decode_png(base64.b64decode(out["image"])).shape))
+        return out
+
+    def run_row(name, port, batcher, body, clients, requests_per_client):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        n0 = len(built["pipe"].batches)
+        row = real_run_row(name, port, batcher, body, clients, requests_per_client)
+        torch.cuda.synchronize()
+        per_row[name] = {"launches": dict(kernels.LAUNCHES),
+                         "buckets": [len(p) for p, _ in built["pipe"].batches[n0:]]}
+        return row
+
+    rows_cut = {name: {**bench_serve.ROWS[name], "steps": n}
+                for name, n in BENCH_SERVE_STEPS.items()}
+    out_path = os.path.join(tempfile.mkdtemp(prefix="sd_tpu_torch_bench_"), "rows.json")
+    with mock.patch.dict(bench_serve.ROWS, rows_cut), \
+            mock.patch.object(bench_serve, "_pipeline", pipeline), \
+            mock.patch.object(bench_serve, "_post", post), \
+            mock.patch.object(bench_serve, "run_row", run_row):
+        code = bench_serve.main(["--config", "sd_v1", "--rows", ",".join(BENCH_SERVE_STEPS),
+                                 "--clients", str(BENCH_SERVE_CLIENTS),
+                                 "--requests", str(BENCH_SERVE_REQUESTS), "--max-batch", "4",
+                                 "--batch-window-ms", "50", "--out", out_path])
+    require(code == 0, f"bench_serve exit {code}")
+    with open(out_path) as f:
+        rows = json.load(f)
+    os.remove(out_path)
+    os.rmdir(os.path.dirname(out_path))
+    rec = built["pipe"]
+    pipe = rec.pipe
+
+    # three seeded requests queued together: one bucket-4 generate; each
+    # against itself alone at batch 1 on its slot of the group's noise
+    body = {"steps": BENCH_SERVE_STEPS["ddim50"], "guidance_scale": 7.5, "seed": BENCH_SERVE_SEED}
+    prompts = bench_serve.PROMPTS[:3]
+    batcher = BatchingServer(rec, max_batch=4, batch_window_ms=50)
+    server = make_http_server(batcher, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    grouped = {}
+
+    def send(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/generate",
+            data=json.dumps({**body, "prompt": prompts[i]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            grouped[i] = json.loads(r.read())
+
+    try:
+        senders = [threading.Thread(target=send, args=(i,), daemon=True) for i in range(3)]
+        for t in senders:
+            t.start()
+        deadline = time.monotonic() + 60
+        while batcher.queue_depth() < 3 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        require(batcher.queue_depth() == 3, "the three seeded requests queued")
+        n0 = len(rec.batches)
+        batcher.start()
+        for t in senders:
+            t.join(600)
+    finally:
+        batcher.stop()
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    buckets = [len(p) for p, _ in rec.batches[n0:]]
+    require(len(grouped) == 3 and buckets == [4],
+            f"the three seeded requests answered by one bucket-4 generate: {buckets}")
+    group_prompts, kw = rec.batches[n0]
+    direct = pipe.generate(group_prompts, **kw)
+    gen = torch.Generator("cuda").manual_seed(kw["seed"])
+    h, w = pipe.latent_hw(None, None)
+    x_T = torch.randn((4, h, w, pipe.cfg["latent"]["channels"]), generator=gen, device="cuda",
+                      dtype=torch.float32)
+    direct_diffs, alone_diffs, alone_means = [], [], []
+    for i, p in enumerate(prompts):
+        slot = group_prompts.index(p)
+        served = decode_png(base64.b64decode(grouped[i]["image"])).astype(int)
+        require(grouped[i]["batch_size"] == 3 and served.shape == (512, 512, 3),
+                f"seeded request {i}: batch {grouped[i]['batch_size']}, {served.shape}")
+        direct_diffs.append(int(np.abs(served - direct[slot]).max()))
+        # measured, not gated: the request alone (batch 1) on its slot's noise
+        with torch.no_grad():
+            alone = to_uint8(pipe.sample([p], x_T[slot:slot + 1], "", kw["num_steps"],
+                                         kw["guidance_scale"], kw.get("eta", 0.0),
+                                         sampler=kw["sampler"]))[0].astype(int)
+        alone_diffs.append(int(np.abs(served - alone).max()))
+        alone_means.append(float(np.abs(served - alone).mean()))
+
+    launches = {}
+    for row in rows:
+        name = row["row"]
+        got = {k: v for k, v in per_row[name]["launches"].items() if v}
+        want = launches_of()
+        for b in per_row[name]["buckets"]:
+            for k, v in BENCH_SERVE_LAUNCHES[name, b].items():
+                want[k] += v
+        launches[name] = per_row[name]["launches"]
+        row.update(phase="bench_serve", nvidia_smi=smi,
+                   generates_by_bucket={str(b): per_row[name]["buckets"].count(b)
+                                        for b in BENCH_SERVE_BUCKETS},
+                   launches=got, expected_launches={k: v for k, v in want.items() if v})
+    result = {"phase": "bench_serve", "nvidia_smi": smi, "rows": rows,
+              "responses": len(shapes), "response_shapes": sorted({str(s) for s in shapes}),
+              "pipeline_build_seconds": built["seconds"],
+              "grouped_vs_direct_generate_max_uint8": direct_diffs,
+              "grouped_vs_alone_on_slot_noise_max_uint8": alone_diffs,
+              "grouped_vs_alone_on_slot_noise_mean_uint8": alone_means,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "phase_seconds": time.perf_counter() - t_phase}
+    emit(result)
+    require(shapes and all(s == (512, 512, 3) for s in shapes),
+            f"every bench_serve response a 512² PNG: {result['response_shapes']}")
+    for row in rows:
+        require(row["requests"] == BENCH_SERVE_CLIENTS * BENCH_SERVE_REQUESTS
+                and row["steps"] == BENCH_SERVE_STEPS[row["row"]],
+                f"{row['row']}: {row['requests']} requests at {row['steps']} steps")
+        require(row["mean_batch"] > 1, f"{row['row']}: mean batch {row['mean_batch']} above 1")
+        require(row["launches"] == row["expected_launches"],
+                f"{row['row']} launches {row['launches']} == {row['expected_launches']}")
+    require(max(direct_diffs) <= 1, f"grouped requests within 1 uint8 level of a direct generate "
+            f"of their batch: {direct_diffs}")
+    return launches, pipe
+
+
+def phase_eval_tools(smi: str, pipe) -> dict:
+    """The evaluation and diagnostic tools on the card: EVAL_TOOLS_IMAGES
+    synthetic 128² PNGs (cat.<i> / dog.<i>); `python -m sd_tpu_torch.train`
+    on kl_128_catdog_config() for 1 step, then ldm_32_catdog_cond_config()
+    over its checkpoint for 1 step; `python -m sd_tpu_torch.eval_steering`
+    on that run (EVAL_STEERING_ARGS: 2 rows with finite `acc_*`, `conf_*`
+    and `fid_surrogate`); `cross_attention_maps` and `token_heatmaps` on
+    `pipe`'s SD-v1 UNet at 512², batch 2, every cross-attention block
+    captured (ATTN_VIZ_MAPS maps, every row summing to 1 within 1e-5,
+    heatmaps [2, 64, 64, 77], the forward's launches ATTN_VIZ_LAUNCHES,
+    seconds and peak memory); card against CPU in fp32 within CARD_CPU_TOL
+    (every weight random): the probe classifier's forward, one FID feature
+    batch of the ViT-B/32 tower, and the heatmaps of the full-width UNet at
+    a EVAL_PARITY_LATENT² latent; `nan_check` flags a NaN injected into the
+    probe's input and nothing on its clean forward; `tree_finite_summary`
+    over the UNet's parameters on the card. Returns the launches by entry."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sd_tpu_torch import eval_steering, kernels
+    from sd_tpu_torch.core.config import (kl_128_catdog_config, ldm_32_catdog_cond_config,
+                                         sd_v1_config)
+    from sd_tpu_torch.data.image_io import write_png
+    from sd_tpu_torch.eval import TinyImageClassifier
+    from sd_tpu_torch.models.conditioners import FrozenClipImageEmbedder
+    from sd_tpu_torch.models.unet_sd import UNetModel
+    from sd_tpu_torch.train import __main__ as train_cli
+    from sd_tpu_torch.utils import attn_viz, debug
+    from sd_tpu_torch.weights import randomize_params_
+
+    t_phase = time.perf_counter()
+    seconds, launches = {}, {}
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_eval_")
+    try:
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        for i, im in enumerate(_edit_images(EVAL_TOOLS_IMAGES, 128, EVAL_TOOLS_SEED)):
+            label = "cat" if i < EVAL_TOOLS_IMAGES // 2 else "dog"
+            write_png(os.path.join(data, f"{label}.{i}.png"), im)
+
+        def run(name, cfg):
+            cfg["seed"] = EVAL_TOOLS_SEED
+            cfg["train"].update(total_steps=1, checkpoint_every=1, eval_every=10**6)
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            out = os.path.join(root, name)
+            t0 = time.perf_counter()
+            code = train_cli.main(["--config", path, "--data", data, "--out", out])
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            require(code == 0, f"python -m sd_tpu_torch.train {name}: exit {code}")
+            return out, path
+
+        kl_dir, _ = run("kl_f4", kl_128_catdog_config())
+        cond_cfg = ldm_32_catdog_cond_config()
+        cond_cfg["first_stage"]["ckpt"] = os.path.join(kl_dir, "ckpt")
+        ldm_dir, ldm_path = run("ldm_32_catdog_cond", cond_cfg)
+        out = os.path.join(root, "steering")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        code = eval_steering.main(["--config", ldm_path, "--ckpt", os.path.join(ldm_dir, "ckpt"),
+                                   "--data", data, *EVAL_STEERING_ARGS,
+                                   "--seed", str(EVAL_TOOLS_SEED), "--out", out])
+        torch.cuda.synchronize()
+        seconds["eval_steering"] = time.perf_counter() - t0
+        launches["eval_steering"] = dict(kernels.LAUNCHES)
+        require(code == 0, f"python -m sd_tpu_torch.eval_steering: exit {code}")
+        with open(os.path.join(out, "steering.jsonl")) as f:
+            steering = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keys = ("acc_cat", "conf_cat", "acc_dog", "conf_dog", "fid_surrogate")
+    require(len(steering) == 2 and all(math.isfinite(r[k]) for r in steering for k in keys),
+            f"eval_steering: 2 rows with finite {keys}: {steering}")
+
+    # the heatmaps of SD-v1 at 512², batch 2, every block captured
+    g = torch.Generator("cuda").manual_seed(EVAL_TOOLS_SEED)
+    with torch.no_grad():
+        ctx, _ = pipe.encode_prompts(["a photo of a cat", "a photo of a dog"])
+    x = torch.randn(2, 64, 64, 4, generator=g, device="cuda").to(pipe.dtype)
+    t = torch.tensor([500, 500], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    maps = attn_viz.cross_attention_maps(pipe.unet, x, t, ctx.to(pipe.dtype))
+    heat = attn_viz.token_heatmaps(maps, (64, 64))
+    torch.cuda.synchronize()
+    seconds["attn_viz_512"] = time.perf_counter() - t0
+    launches["attn_viz_512"] = dict(kernels.LAUNCHES)
+    viz_peak = torch.cuda.max_memory_allocated() / 2**30
+    row_err = max(float((p.sum(-1) - 1).abs().max()) for p in maps.values())
+    n_maps, map_shapes = len(maps), sorted({str(list(p.shape)) for p in maps.values()})
+    del maps
+
+    # card against CPU, fp32, every weight random
+    parity = {}
+    x128 = torch.rand(8, 128, 128, 3, generator=g, device="cuda") * 2 - 1
+    probe = TinyImageClassifier(2, device="cuda")
+    randomize_params_(probe, g)
+    parity["probe"] = _card_vs_cpu("probe forward", probe, lambda m, x_: m(x_), x128)
+    tower = FrozenClipImageEmbedder(device="cuda")
+    randomize_params_(tower, g)
+    parity["fid_features"] = _card_vs_cpu("FID feature batch", tower, lambda m, x_: m(x_), x128)
+    del tower
+    uparams = sd_v1_config()["unet"]["params"]
+    unet = UNetModel(**uparams, device="cuda")
+    randomize_params_(unet, g)
+    n = EVAL_PARITY_LATENT
+    heatmaps = lambda m, x_, t_, c_: torch.from_numpy(attn_viz.token_heatmaps(
+        attn_viz.cross_attention_maps(m, x_, t_, c_), (n, n), normalize=False))
+    parity["heatmaps"] = _card_vs_cpu(
+        f"heatmaps at a {n}² latent", unet, heatmaps,
+        torch.randn(2, n, n, 4, generator=g, device="cuda"), t,
+        torch.randn(2, 77, uparams["context_dim"], generator=g, device="cuda"))
+    del unet
+    torch.cuda.empty_cache()
+
+    # NaN checks and the parameters' health on the card
+    clean_err, _ = debug.nan_check(probe)(x128)
+    bad = x128.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    bad_err, _ = debug.nan_check(probe)(bad)
+    health = debug.tree_finite_summary(dict(pipe.unet.named_parameters()))
+    health = {k: (bool(v) if k == "finite" else int(v)) for k, v in health.items()}
+    row = {"phase": "eval_tools", "nvidia_smi": smi, "steering_rows": steering,
+           "seconds": seconds, "attn_viz_maps": n_maps,
+           "attn_viz_map_shapes": map_shapes, "attn_viz_row_sum_err": row_err,
+           "heatmaps_shape": list(heat.shape), "attn_viz_peak_memory_gb": viz_peak,
+           "attn_viz_launches": {k: v for k, v in launches["attn_viz_512"].items() if v},
+           "eval_steering_launches": {k: v for k, v in launches["eval_steering"].items() if v},
+           "card_vs_cpu": parity,
+           "nan_check": {"clean": clean_err.get(), "injected": bad_err.get()},
+           "unet_parameters": health, "phase_seconds": time.perf_counter() - t_phase}
+    emit(row)
+    require(n_maps == ATTN_VIZ_MAPS, f"{n_maps} cross-attention maps == {ATTN_VIZ_MAPS}")
+    require(row_err <= 1e-5, f"attention rows sum to 1 within 1e-5: {row_err:.3g}")
+    require(heat.shape == (2, 64, 64, 77), f"heatmaps {heat.shape} == (2, 64, 64, 77)")
+    require(launches["attn_viz_512"] == ATTN_VIZ_LAUNCHES,
+            f"attn_viz launches {row['attn_viz_launches']} == "
+            f"{ {k: v for k, v in ATTN_VIZ_LAUNCHES.items() if v} }")
+    require(clean_err.get() is None and bad_err.get() is not None,
+            f"nan_check: nothing on the clean forward, the injected NaN flagged: "
+            f"{row['nan_check']}")
+    require(health == {"finite": True, "num_nan": 0, "num_inf": 0},
+            f"the UNet's parameters finite: {health}")
+    return launches
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -6034,6 +6415,10 @@ def main() -> int:
     codec_attention = phase_codec_attention(smi)
     model_families = phase_model_families(smi)
     training_options = phase_training_options(smi)
+    bench_serve_launches, bench_pipe = phase_bench_serve(smi)
+    eval_tools = phase_eval_tools(smi, bench_pipe)
+    del bench_pipe
+    torch.cuda.empty_cache()
     if profiling:
         phase_trainer_profiles()
 
@@ -6231,12 +6616,14 @@ def main() -> int:
                  if counts.get(name)}
         if tuned:
             row["fine_tune_launches"] = tuned
-        # ... and the super_resolution, codec_attention, model_families and
-        # training_options phases', where not 0
+        # ... and the super_resolution, codec_attention, model_families,
+        # training_options, bench_serve and eval_tools phases', where not 0
         for phase, by_entry in (("super_resolution", super_resolution),
                                 ("codec_attention", codec_attention),
                                 ("model_families", model_families),
-                                ("training_options", training_options)):
+                                ("training_options", training_options),
+                                ("bench_serve", bench_serve_launches),
+                                ("eval_tools", eval_tools)):
             moved = {entry: counts[name] for entry, counts in by_entry.items()
                      if counts.get(name)}
             if moved:

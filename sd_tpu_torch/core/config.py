@@ -29,7 +29,11 @@ configs `ldm_sr_smoke_config()` and `ldm_sr_catdog_config()`
 (`configs/ldm_sr_smoke.yaml`, `ldm_sr_catdog.yaml` without its first-stage
 checkpoint) and the first stages `kl_128_catdog_config()`, `kl_f32_config()`
 and `vq_gumbel_f8_config()` (`configs/kl_128_catdog.yaml`, `kl_f32.yaml`,
-`vq_gumbel_f8.yaml`); and two published models that no file of
+`vq_gumbel_f8.yaml`); the class-conditional cat/dog LDM
+`ldm_32_catdog_cond_config()` (`configs/ldm_32_catdog_cond.yaml` without its
+first-stage checkpoint) and the tiny text-to-image LDM
+`sd_txt2img_smoke_config()` (`configs/sd_txt2img_smoke.yaml`, `bench_serve
+--smoke`'s); and two published models that no file of
 `configs/` holds, each naming its source: `ldm_kl8g_txt2img_config()`
 (CompVis's BERT-conditioned LDM-KL-8-G) and `adm_imagenet256_config()`
 (guided diffusion's class-conditional ImageNet 256² UNet); as dicts, so the
@@ -487,6 +491,66 @@ def kl_128_catdog_config() -> dict:
     return cfg
 
 
+def ldm_32_catdog_cond_config() -> dict:
+    """`configs/ldm_32_catdog_cond.yaml` without its first-stage checkpoint:
+    the class-conditional cat/dog LDM with classifier-free guidance —
+    captions "a photo of a {}" from the file names' prefixes, the empty
+    prompt trained at 10%; a 32² × 3 latent of `kl_128_catdog_config()`'s f4
+    first stage under `scale_factor: auto`; UNet 128 × (1, 2, 4), 2 res
+    blocks, 4 heads at 16² and 8², a 64-wide context from a 2-layer CLIP
+    tower (vocabulary 8192, 16 tokens); batch 16, lr 1e-4."""
+    return {
+        "task": "ldm",
+        "seed": 42,
+        "data": {"captions": "class", "label_from": "filename_prefix",
+                 "template": "a photo of a {}"},
+        "diffusion": {"timesteps": 1000, "beta_schedule": "linear",
+                      "linear_start": 0.00085, "linear_end": 0.012},
+        "latent": {"image_size": 32, "channels": 3, "scale_factor": "auto",
+                   "conditioning_key": "crossattn"},
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {"in_channels": 3, "model_channels": 128, "out_channels": 3,
+                            "num_res_blocks": 2, "attention_resolutions": [2, 4],
+                            "channel_mult": [1, 2, 4], "num_heads": 4, "context_dim": 64}},
+        "first_stage": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                        "params": dict(kl_128_catdog_config()["model"]["params"])},
+        "cond_stage": {"target": "sd_tpu.models.clip_text.ClipTextConfig",
+                       "params": {"vocab_size": 8192, "hidden_size": 64, "num_layers": 2,
+                                  "num_heads": 4, "max_length": 16}},
+        "train": {"image_size": 128, "batch_size": 16, "lr": 1.0e-4, "ema_decay": 0.999,
+                  "cond_dropout": 0.1, "total_steps": 3500, "eval_every": 500,
+                  "checkpoint_every": 1000},
+    }
+
+
+def sd_txt2img_smoke_config() -> dict:
+    """`configs/sd_txt2img_smoke.yaml`: the tiny text-to-image LDM of the
+    smoke tests — latent 8² × 4 of an f4 first stage (ch 16), UNet 32 × (1,
+    2) with attention at 8², a 2-layer 32-wide CLIP tower, 50 timesteps."""
+    return {
+        "task": "ldm",
+        "seed": 0,
+        "diffusion": {"timesteps": 50, "beta_schedule": "linear",
+                      "linear_start": 0.00085, "linear_end": 0.012},
+        "latent": {"image_size": 8, "channels": 4, "scale_factor": 0.18215,
+                   "conditioning_key": "crossattn"},
+        "unet": {"target": "sd_tpu.models.unet_sd.UNetModel",
+                 "params": {"in_channels": 4, "model_channels": 32, "out_channels": 4,
+                            "num_res_blocks": 1, "attention_resolutions": [1],
+                            "channel_mult": [1, 2], "num_heads": 4, "context_dim": 32}},
+        "first_stage": {"target": "sd_tpu.models.autoencoder.AutoencoderKL",
+                        "params": {"embed_dim": 4, "ch": 16, "ch_mult": [1, 2, 4],
+                                   "num_res_blocks": 1, "attn_resolutions": [],
+                                   "resolution": 32, "z_channels": 4}},
+        "cond_stage": {"target": "sd_tpu.models.clip_text.ClipTextConfig",
+                       "params": {"vocab_size": 1000, "hidden_size": 32, "num_layers": 2,
+                                  "num_heads": 4, "max_length": 16}},
+        "train": {"image_size": 32, "batch_size": 2, "lr": 1.0e-3, "ema_decay": 0.999,
+                  "total_steps": 4, "checkpoint_every": 4},
+        "sample": {"num_steps": 4, "guidance_scale": 3.0, "eta": 0.0},
+    }
+
+
 def kl_f32_config() -> dict:
     """`configs/kl_f32.yaml`: the KL-f32 first stage (embed 64, ch 128, mult
     (1, 1, 2, 2, 4, 4), attention at 16² and 8²) at 256², batch 4."""
@@ -582,7 +646,8 @@ def config_functions() -> dict:
            flow512_train_config, controlnet_32_config, ip_smoke_config, ti_smoke_config,
            dreambooth_smoke_config, inpaint_smoke_config, sd512_inpaint_train_config,
            ldm_sr_smoke_config, ldm_sr_catdog_config, kl_128_catdog_config, kl_f32_config,
-           vq_gumbel_f8_config, ldm_kl8g_txt2img_config, adm_imagenet256_config)
+           vq_gumbel_f8_config, ldm_kl8g_txt2img_config, adm_imagenet256_config,
+           ldm_32_catdog_cond_config, sd_txt2img_smoke_config)
     return {fn.__name__[:-len("_config")]: fn for fn in fns}
 
 

@@ -4,7 +4,8 @@ Counterpart of `sd_tpu/data/loader.py` `collate` and `DataLoader`: the same
 seed-and-epoch shuffle, `drop_last`, the split of each epoch's batches over
 `world` ranks (round-robin, the same list on every rank), a thread pool
 that reads a batch's items ahead of the step and a bounded prefetch queue
-whose producer stops when the consumer leaves early.
+whose producer stops when the consumer leaves early; and
+`parallel_data_prefetch`, a thread-parallel map over chunks of a dataset.
 """
 
 from __future__ import annotations
@@ -116,3 +117,28 @@ class DataLoader:
                 yield batch
         finally:
             stop.set()
+
+
+def parallel_data_prefetch(func: Callable, data, n_proc: int = 4,
+                           target_data_type: str = "ndarray") -> Any:
+    """`func` over every item of `data` (a dict's values, a list, an array),
+    in `n_proc` contiguous chunks mapped by as many threads: a list of the
+    results in order (`target_data_type="list"`), or their arrays stacked
+    along a new first axis ("ndarray")."""
+    if target_data_type not in ("ndarray", "list"):
+        raise ValueError("target_data_type must be 'ndarray' or 'list'")
+    if isinstance(data, np.ndarray) and target_data_type == "list":
+        raise ValueError("list expected but function got ndarray")
+    if isinstance(data, dict):
+        data = list(data.values())
+    arr = np.asarray(data, dtype=object) if target_data_type == "ndarray" else list(data)
+    n = len(arr)
+    n_proc = max(1, min(n_proc, n))
+    step = -(-n // n_proc)
+    chunks = [arr[i * step: (i + 1) * step] for i in range(n_proc)]
+    with ThreadPoolExecutor(n_proc) as pool:
+        results = list(pool.map(lambda c: [func(x) for x in c], chunks))
+    flat = [r for chunk in results for r in chunk]
+    if target_data_type == "ndarray":
+        return np.concatenate([np.asarray(f)[None] for f in flat], axis=0)
+    return flat

@@ -19,8 +19,11 @@ unconditional model: a batch's `txt_emb`, or its `txt_raw` through the
 conditioner `cond_fn`, the `c_crossattn` entry, its `concat_cond` the
 `c_concat` entry, its `class_label` the `c_adm` entry that reaches the UNet
 as its labels `y`, its `hint` the `c_control` entry, its `ip_embed` the
-`c_ip` entry), and the noise offset of the training noise. The
-coordinates-bbox patched apply is not ported yet.
+`c_ip` entry), and the noise offset of the training noise;
+`decode_first_stage` (no gradient) beside `differentiable_decode_first_stage`;
+and the coordinates-bbox patched apply (`patched_apply_bbox`: every window
+re-conditioned on its own crop box, `bbox_patch_limits`, all windows as one
+batched UNet apply in patch-major order, the same overlap-add).
 
 Randomness: where the TPU package splits a PRNG key, the port draws from a
 `torch.Generator`; a batch may carry the draws instead (`t`, `noise`, and
@@ -31,8 +34,9 @@ same numbers and a microbatch split keeps them with their images.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from sd_tpu_torch.core.distributions import DiagonalGaussian
@@ -187,7 +191,14 @@ class LatentDiffusion:
 
     # -- sampling -------------------------------------------------------------
 
+    @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
+        """The frozen first stage's decode of z / scale factor, no gradient."""
+        return self.decode_fn(z / self.scale_factor)
+
+    def differentiable_decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
+        """The decode of z / scale factor with its gradient to z (the first
+        stage's own parameters stay as their `requires_grad` says)."""
         return self.decode_fn(z / self.scale_factor)
 
     def sample(self, shape: tuple[int, ...], x_T: torch.Tensor, cond: dict,
@@ -327,3 +338,48 @@ def calibrate_scale_factor(z: torch.Tensor) -> float:
     """1 / std of the first batch of latents (the reference's std-rescaling,
     computed once at the start of training)."""
     return float(1.0 / z.float().std(unbiased=False))
+
+
+def bbox_patch_limits(hw: tuple[int, int], ks: int, stride: int,
+                      original_image_size: tuple[int, int],
+                      rescale_latent: int) -> list[tuple[float, float, float, float]]:
+    """The normalized crop box (x_t1, y_t1, w_frac, h_frac) of every window,
+    row-major: its top-left corner rescaled from the latent to fractions of
+    the original image."""
+    h, w = hw
+    n_row = (w - ks) // stride + 1
+    n_col = (h - ks) // stride + 1
+    full_h, full_w = original_image_size
+    return [(rescale_latent * stride * (pn % n_row) / full_w,
+             rescale_latent * stride * (pn // n_row) / full_h,
+             rescale_latent * ks / full_w, rescale_latent * ks / full_h)
+            for pn in range(n_row * n_col)]
+
+
+def patched_apply_bbox(ld: LatentDiffusion, x: torch.Tensor, t: torch.Tensor,
+                       cond_tokens: torch.Tensor, *, ks: int, stride: int,
+                       original_image_size: tuple[int, int], rescale_latent: int,
+                       crop_encoder: Callable[[tuple[float, float, float, float]], Sequence[int]],
+                       encode_tokens: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The coordinates-bbox patched apply of x [B, H, W, C] at t [B]: every
+    ks×ks window at `stride` re-conditioned on its own crop box — the base
+    conditioning tokens [B, n] lose their last two, the window's box
+    tokens (`crop_encoder(box)`) are appended, and the cond stage
+    (`encode_tokens`: [L·B, n'] ids → [L·B, M, D]) encodes them — then all
+    L windows as one UNet apply of L·B rows in patch-major order, folded
+    back by the weighted overlap-add of `patched_apply`, in x's dtype."""
+    B, H, W, C = x.shape
+    patches = extract_patches(x, ks, stride)                # [B, nh, nw, ks, ks, C]
+    nh, nw = patches.shape[1], patches.shape[2]
+    L = nh * nw
+    limits = bbox_patch_limits((H, W), ks, stride, original_image_size, rescale_latent)
+    coords = torch.as_tensor(np.stack([np.asarray(crop_encoder(b), np.int64) for b in limits]),
+                             dtype=cond_tokens.dtype, device=cond_tokens.device)   # [L, n_coord]
+    cut = cond_tokens[:, :-2]
+    adapted = torch.cat([cut[None].expand(L, B, cut.shape[1]),
+                         coords[:, None].expand(L, B, coords.shape[1])], dim=-1)
+    ctx = encode_tokens(adapted.reshape(L * B, -1))
+    flat = patches.permute(1, 2, 0, 3, 4, 5).reshape(L * B, ks, ks, C)
+    out = ld.apply_model(flat, t[None].expand(L, B).reshape(-1), {"c_crossattn": [ctx]})
+    out = out.reshape(nh, nw, B, ks, ks, out.shape[-1]).permute(2, 0, 1, 3, 4, 5)
+    return fold_patches(out, (H, W), stride, _tie_breaker_weights(ks)).to(x.dtype)

@@ -16,7 +16,8 @@ GEGLU feed-forward through the fused kernel where the TPU package's shape
 rule sends it (their plain versions when a gradient is wanted), and ToMe's
 token merging around the self-attention where `tome_ratio` asks for it
 (`nn/tome.py`). Two inference additions: the probe path, explicit fp32
-softmax probabilities recorded for Self-Attention Guidance at the calls
+softmax probabilities recorded for Self-Attention Guidance and the
+cross-attention heatmaps (`utils/attn_viz.py`) at the calls
 `nn/attn_probe.py` captures; and IP-Adapter's decoupled cross-attention
 (`models/ip_adapter.py`, arXiv:2308.06721), a second attention read over
 projected image tokens with adapter-owned K/V kernels ([in, out], the TPU
@@ -158,14 +159,16 @@ class CrossAttention(nn.Module):
         h, d = self.heads, self.dim_head
         dt = self.to_q.cdtype
         ip = ip_kv if context is not None else None
-        probe = attn_probe.wants_capture(self, N) if context is None else None
+        probe = attn_probe.wants_capture(self, N, is_self=context is None)
         if probe is not None:
             # explicit softmax from fp32 logits, recorded for the caller
-            q, k, v = (f(x).reshape(B, N, h, d).float() for f in (self.to_q, self.to_k, self.to_v))
-            probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5, dim=-1)
+            q = self.to_q(x).reshape(B, N, h, d)
+            k, v = (f(ctx).reshape(B, M, h, d).float() for f in (self.to_k, self.to_v))
+            probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * d ** -0.5,
+                                  dim=-1)
             attn_probe.record(probe, probs)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt).float(), v).to(dt)
-            return self.to_out(out.reshape(B, N, h * d))
+            return self.to_out(self._add_ip(out, q, ip).reshape(B, N, h * d))
         if context is None and attn_k.hpacked_flash_ok(N, M, h, d, dt):
             # projection-native [B, N, H·D] straight into the kernel
             out = attn_k.hpacked_flash_attention(self.to_q(x), self.to_k(x), self.to_v(x), h)
@@ -190,13 +193,19 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).reshape(B, N, h, d)
         out = attn_k.dot_product_attention(q, self.to_k(ctx).reshape(B, M, h, d),
                                            self.to_v(ctx).reshape(B, M, h, d))
-        if ip is not None:
-            # the image read over the adapter's K/V, summed before to_out
-            wk, wv, tok, scale = ip
-            k_i = (tok.to(dt) @ wk.to(dt)).reshape(B, tok.shape[1], h, d)
-            v_i = (tok.to(dt) @ wv.to(dt)).reshape(B, tok.shape[1], h, d)
-            out = out + scale * attn_k.dot_product_attention(q, k_i, v_i).to(out.dtype)
-        return self.to_out(out.reshape(B, N, h * d))
+        return self.to_out(self._add_ip(out, q, ip).reshape(B, N, h * d))
+
+    def _add_ip(self, out: torch.Tensor, q: torch.Tensor, ip: tuple | None) -> torch.Tensor:
+        """IP-Adapter's image read over the adapter's K/V, summed before
+        to_out (none without `ip`)."""
+        if ip is None:
+            return out
+        B, _, h, d = q.shape
+        dt = self.to_q.cdtype
+        wk, wv, tok, scale = ip
+        k_i = (tok.to(dt) @ wk.to(dt)).reshape(B, tok.shape[1], h, d)
+        v_i = (tok.to(dt) @ wv.to(dt)).reshape(B, tok.shape[1], h, d)
+        return out + scale * attn_k.dot_product_attention(q, k_i, v_i).to(out.dtype)
 
 
 class FeedForwardGEGLU(nn.Module):

@@ -24,6 +24,7 @@ TPU package's `_pv_int8` codes and scales, and the sweep through those codes
 from __future__ import annotations
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -59,21 +60,83 @@ def qkv(b, sq, skv, width, seed=0):
         nprand(b, skv, width, seed=seed + 2)
 
 
-def close(got, ref, tol=VARIANT_TOL, rerun=None):
-    """max|got − ref| ≤ tol·max|ref|. On a failure `rerun()` (both sides
-    again, as (ref, got)) says in the message which side's bits changed
-    within the process."""
+def process_state() -> dict:
+    """The process-global settings that could move either side's bits, and
+    the test modules this process has imported (what ran before)."""
+    mkldnn = getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)
+    return {"pid": os.getpid(), "torch_threads": torch.get_num_threads(),
+            "torch_matmul_precision": torch.get_float32_matmul_precision(),
+            "mkldnn_matmul_fp32_precision": getattr(mkldnn, "fp32_precision", "absent"),
+            "torch_default_dtype": str(torch.get_default_dtype()),
+            "jax_default_matmul_precision": jax.config.jax_default_matmul_precision,
+            "jax_enable_x64": jax.config.jax_enable_x64,
+            "test_modules": sorted(m for m in sys.modules if m.startswith("test_"))}
+
+
+def row_exponentials(q, k, scale, block_q, block_k, exp, index) -> str:
+    """The worst element's row (index (b, q, h, d) of the [B, Sq, H, D]
+    output), recomputed from the same inputs on both sides kv tile by kv
+    tile at the kernel's tile shapes: the fp32 base-2 logit minus the
+    running max (s − m_new), its rounding to the softmax dtype and p = exp2
+    of it, by the port's ops and by the Pallas kernel's jnp ops; says where
+    they differ."""
+    b, i, h, _ = index
+    i0 = i // block_q * block_q
+    qt, kr = q[b, i0:i0 + block_q, h], k[b, :, h]              # [bq, D], [Skv, D]
+
+    @jax.jit
+    def pallas(qt, kt, m_prev):
+        # the kernel's ops on its tiles, in one program so that XLA keeps
+        # the precision it keeps inside the kernel
+        s = jax.lax.dot_general(qt, kt, (((1,), (1,)), ((), ())),
+                                preferred_element_type=jnp.float32) * (scale * jfa.LOG2E)
+        m_new = jnp.maximum(m_prev, jnp.max(s, axis=1, keepdims=True))
+        x = (s - m_new).astype(JAX_DT[exp])
+        return s - m_new, x, jnp.exp2(x).astype(jnp.float32), m_new
+
+    lines, m_t = [], torch.full((len(qt), 1), fa.NEG_INF)
+    m_j = jnp.full((len(qt), 1), jfa.NEG_INF, jnp.float32)
+    for j0 in range(0, kr.shape[0], block_k):
+        kt = kr[j0:j0 + block_k]
+        s_t = torch.einsum("qd,kd->qk", to_torch(qt), to_torch(kt)) * (scale * fa.LOG2E)
+        m_t = torch.maximum(m_t, s_t.amax(dim=1, keepdim=True))
+        x_t = s_t - m_t
+        r_t = x_t.to(TORCH_DT[exp])
+        x_j, r_j, p_j, m_j = pallas(jnp.asarray(qt), jnp.asarray(kt), m_j)
+        sides = {"s−m_new": (x_t[i - i0].numpy(), np.asarray(x_j)[i - i0]),
+                 "rounded": (r_t[i - i0].float().numpy(),
+                             np.asarray(r_j.astype(jnp.float32))[i - i0]),
+                 "p": (fa._exp2(r_t[i - i0]).float().numpy(), np.asarray(p_j)[i - i0])}
+        for name, (a, c) in sides.items():
+            diff = np.flatnonzero(a != c)
+            if len(diff):
+                c0 = int(diff[0])
+                lines.append(f"tile {j0 // block_k} {name}: {len(diff)} differ, first at kv "
+                             f"{j0 + c0}: port {a[c0]!r} pallas {c[c0]!r}")
+    return "; ".join(lines) or "the row's s − m_new, rounding and p agree bit for bit"
+
+
+def close(got, ref, tol=VARIANT_TOL, rerun=None, row=None):
+    """max|got − ref| ≤ tol·max|ref|. On a failure the message gives the
+    worst element's index and both values there, `row(index)` (the row's
+    exponentials on both sides), which side's bits changed when `rerun()`
+    (both sides again, as (ref, got)) runs them again in this process, and
+    `process_state()`."""
     got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
     assert got.shape == ref.shape, (got.shape, ref.shape)
     err, bound = float(np.abs(got - ref).max()), tol * float(np.abs(ref).max())
-    why = ""
-    if err > bound and rerun is not None:
+    if err <= bound:
+        return
+    worst = np.unravel_index(int(np.abs(got - ref).argmax()), got.shape)
+    why = f"; worst at {tuple(int(x) for x in worst)}: plain {got[worst]!r}, pallas {ref[worst]!r}"
+    if row is not None:
+        why += f"; {row(worst)}"
+    if rerun is not None:
         ref2, got2 = rerun()
-        why = (f"; run again in this process, the Pallas side's bits "
-               f"{'held' if np.array_equal(ref, ref2) else 'changed'} and the plain side's "
-               f"{'held' if np.array_equal(got, got2) else 'changed'} (torch threads "
-               f"{torch.get_num_threads()}, pid {os.getpid()})")
-    assert err <= bound, f"max|Δ| = {err:.3g} > {bound:.3g}{why}"
+        why += (f"; run again in this process, the Pallas side's bits "
+                f"{'held' if np.array_equal(ref, ref2) else 'changed'} and the plain side's "
+                f"{'held' if np.array_equal(got, got2) else 'changed'}")
+    assert err <= bound, f"max|Δ| = {err:.3g} > {bound:.3g}{why}; {process_state()}"
 
 
 @pytest.mark.parametrize("skv", [256, 200])
@@ -90,7 +153,8 @@ def test_tiled_variants_match_pallas(skv, exp, pv):
         return np.asarray(ref, np.float32), got.numpy()
 
     ref, got = sides()
-    close(got, ref, rerun=sides)
+    close(got, ref, rerun=sides,
+          row=lambda at: row_exponentials(q, k, 40**-0.5, 128, 128, exp, at))
 
 
 @pytest.mark.parametrize("exp,pv", VARIANTS)

@@ -61,7 +61,11 @@
   `ddpm_256_train_config()` under `model.params.dtype: bfloat16` (256²,
   batch 6, on `meta` tensors, the JAX gates in their training context)
   gives the launches of `chip_smoke.py`'s training_options phase: its five
-  level-3 attentions on the wide flash training kernels.
+  level-3 attentions on the wide flash training kernels; one served SD-v1
+  512² `generate` for each of its bench_serve phase's rows and buckets, and
+  its eval_tools phase's heatmap forward (every cross-attention captured,
+  the other attentions on their routes), give the launches those phases
+  require.
 """
 
 from __future__ import annotations
@@ -1461,16 +1465,22 @@ OPTION_MODULES = ("sd_tpu_torch.diffusion.visualize", "sd_tpu_torch.models.codec
                   "sd_tpu_torch.models.quantize", "sd_tpu_torch.models.discriminator",
                   "sd_tpu_torch.train.metrics", "sd_tpu_torch.train.lr_schedules",
                   "sd_tpu_torch.core.distributions", "sd_tpu_torch.nn.layers")
+# ... and the evaluation and diagnostic tools' and the last two commands'
+EVAL_MODULES = ("sd_tpu_torch.eval", "sd_tpu_torch.eval.fid", "sd_tpu_torch.eval.classifier",
+                "sd_tpu_torch.utils.attn_viz", "sd_tpu_torch.utils.debug",
+                "sd_tpu_torch.data.imagenet_utils", "sd_tpu_torch.bench_serve",
+                "sd_tpu_torch.eval_steering")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    ported = SERVING_MODULES + SR_MODULES + FAMILY_MODULES + OPTION_MODULES + EVAL_MODULES
     code = (
         "import pkgutil, sys, importlib\n"
         "import sd_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(sd_tpu_torch.__path__, 'sd_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        f"assert set({SERVING_MODULES + SR_MODULES + FAMILY_MODULES + OPTION_MODULES!r})"
+        f"assert set({ported!r})"
         " <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sd_tpu', 'flax')]\n"
         "print(bad)\n"
@@ -1568,3 +1578,38 @@ def test_chip_smoke_refuses_to_run_outside_the_repository(tmp_path):
     res = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_bench_serve_and_attn_viz_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s bench_serve launches, piece by piece on `meta`
+    tensors in bf16 with every gate checked against the JAX package's: one
+    served generate at SD-v1's 512² for each row and bucket is its sampler's
+    UNet calls (ddim50 cut to BENCH_SERVE_STEPS: the DDIM table's calls, each
+    CFG call of 2·bucket rows; lcm4: 4 calls of bucket rows, no CFG) and one
+    decode of the bucket; and the eval_tools phase's heatmap forward (2 rows,
+    every cross-attention captured) keeps every other attention's route."""
+    from sd_tpu_torch.utils import attn_viz
+
+    piece = _fine_tune_piece(monkeypatch)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    times = lambda k, c: Counter({name: k * v for name, v in c.items()})
+    unet = UNetModel(**UNET, **BF16)
+    vae = AutoencoderKL(**VAE, **BF16)
+    call = lambda rows: piece(lambda: unet(meta(rows, 64, 64, 4), meta(rows, dtype=torch.long),
+                                           meta(rows, 77, 768)))
+    calls = {"ddim50": _ddim_calls(chip_smoke.BENCH_SERVE_STEPS["ddim50"]),
+             "lcm4": chip_smoke.BENCH_SERVE_STEPS["lcm4"]}
+    derived = {}
+    for b in chip_smoke.BENCH_SERVE_BUCKETS:
+        decode = piece(lambda: vae.decode(meta(b, 64, 64, 4)))
+        derived["ddim50", b] = times(calls["ddim50"], call(2 * b)) + decode
+        derived["lcm4", b] = times(calls["lcm4"], call(b)) + decode
+    want = {key: {k: v for k, v in counts.items() if v}
+            for key, counts in chip_smoke.BENCH_SERVE_LAUNCHES.items()}
+    assert {key: dict(c) for key, c in derived.items()} == want
+    with torch.no_grad():
+        maps = {}
+        viz = piece(lambda: maps.update(attn_viz.cross_attention_maps(
+            unet, meta(2, 64, 64, 4), meta(2, dtype=torch.long), meta(2, 77, 768))))
+    assert len(maps) == chip_smoke.ATTN_VIZ_MAPS
+    assert dict(viz) == {k: v for k, v in chip_smoke.ATTN_VIZ_LAUNCHES.items() if v}
