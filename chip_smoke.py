@@ -275,6 +275,23 @@ Phases, each printed as one JSON line:
            probe's forward, a FID feature batch, the heatmaps at a 16² latent;
            `nan_check` on an injected NaN and a clean forward,
            `tree_finite_summary` over the UNet's parameters.
+  parallel  the parallel layer (`sd_tpu_torch/parallel/`) on the one card, 8
+           512² JPEGs read through PIL: `python -m sd_tpu_torch.train` on the
+           train cell's config with a `parallel:` block at world 1 over NCCL
+           (ZeRO-1, then FSDP, 2 steps each) and at two ranks on the card over
+           gloo (data 2, batch 8 as 4 microbatches of one row per rank, 2
+           steps), each against the plain run of the same steps on the same
+           rows (PARALLEL_TOL: losses, grad_norm, Adam's first moment, the
+           parameters against the update's size); `shard_for_serving` at data 1 ×
+           model 2 over gloo (`python chip_smoke.py --tp-rank`, two ranks):
+           a UNet call under the default and the opt-in switches against tp =
+           1 (UNET_TOL), a 10-step CFG generate's level differences
+           (PARALLEL_LEVELS); `python -m sd_tpu_torch.serve --shard` at world
+           1 over NCCL, two requests; every rank's launches (PARALLEL_LAUNCHES),
+           step seconds and peak memory. The tensor-parallel ranks' kernel
+           shapes (4 of 8 heads, half the feed-forward) are held in the kernel
+           phase (`how: tp2`); each kernel row carries `parallel_launches`,
+           by run and rank.
   profile  (only with `--profile`) the layers' times and the device time of
            one generate by kernel family, against its wall time, for the
            default and the opt-in configuration, the serve phase's grouped
@@ -722,6 +739,63 @@ EVAL_STEERING_ARGS = ["--guidance-scales", "1", "3", "--per-class", "2", "--step
 EVAL_PARITY_LATENT = 16
 ATTN_VIZ_LAUNCHES = _unet_calls(1)
 ATTN_VIZ_MAPS = 16
+# the parallel phase (`sd_tpu_torch/parallel/`): PARALLEL_IMAGES 512² JPEGs
+# (cat_0..3, dog_0..3), the train cell's config (sd512_train_config()) with a
+# `parallel:` block through `python -m sd_tpu_torch.train` at world 1 over
+# NCCL (ZeRO-1 and FSDP, PARALLEL_W1_STEPS each, against the plain run of the
+# same steps), then at two ranks on the one card over gloo (data 2,
+# train.batch_size PARALLEL_DP_BATCH as 4 microbatches: one row per rank per
+# microbatch, PARALLEL_DP_STEPS steps, against the plain run on the same
+# rows); `shard_for_serving` at data 1 × model 2 on the card over gloo (one
+# UNet call under the default and one under the opt-in switches against tp =
+# 1 by UNET_TOL, then a PARALLEL_TP_STEPS-step CFG generate of 2 prompts, its
+# level differences within PARALLEL_LEVELS); `serve --shard` at world 1 over
+# NCCL for two requests. The gates, stated before measuring: losses within
+# 1e-3 relative, grad_norm within 1e-2, Adam's fp32 first moment (the
+# averaged gradient) ‖m − m₁‖₂ ≤ 1e-2·‖m₁‖₂, and the updated bf16
+# parameters ‖θ − θ₁‖₂ ≤ 0.05·‖θ₁ − θ₀‖₂, the update's own size (a stale
+# shard after a ZeRO-1 gather, or a slice that FSDP never wrote back, moves
+# that ratio towards 1 while the loss and the moment stay put)
+PARALLEL_SEED = 26
+PARALLEL_IMAGES = 8
+PARALLEL_W1_STEPS = 2
+PARALLEL_DP_BATCH = 8
+PARALLEL_DP_STEPS = 2                            # 1 warm-up + 1 timed
+PARALLEL_TP_STEPS = 10                           # DDIM "uniform": 10 UNet calls
+PARALLEL_SERVE_STEPS = 10
+PARALLEL_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 1e-2, "moment_rel": 1e-2,
+                "update_rel": 0.05}
+PARALLEL_LEVELS = {"mean": 6.0}                  # the seam gate's mean
+PARALLEL_DISK_GB = 14                            # one ≈ 12 GB checkpoint at a time
+PARALLEL_RANK_TIMEOUT = 900
+_TRAIN_RUN = lambda steps: launches_of(**{k: steps * v for k, v in
+                                          EXPECTED_TRAIN_LAUNCHES.items() if v})
+# each rank's launches (tests/test_torch_structure.py derives them): a rank of
+# the data-parallel run trains 4 microbatches of 1 row a step, the train
+# cell's step; a tensor-parallel rank's UNet call at 4 of its 8 heads and half
+# of each feed-forward keeps every kernel gate of tp = 1 (GEGLU's 11 MB weight
+# rule takes levels 0 and 1 at inner/2 too); a served request of 1 prompt is
+# a CFG pair of rows at every UNet call
+PARALLEL_LAUNCHES = {
+    "train_zero1_w1": _TRAIN_RUN(PARALLEL_W1_STEPS),
+    "train_fsdp_w1": _TRAIN_RUN(PARALLEL_W1_STEPS),
+    "train_dp2": _TRAIN_RUN(PARALLEL_DP_STEPS),
+    "tp2_unet": _unet_calls(1),
+    "tp2_unet_optin": launches_of(
+        flash_attention_hpacked=10, flash_fwd_sm90=10, geglu_ff=10, geglu_sm90=10,
+        group_norm=57, group_norm_sm90=57, crossattn_kv=15, crossattn_sm90=15),
+    "tp2_generate": _unet_calls(PARALLEL_TP_STEPS, decode=True),
+    # two requests, one after the other: two generates of one prompt
+    "serve_shard_w1": {k: 2 * v for k, v in
+                       _unet_calls(PARALLEL_SERVE_STEPS, decode=True).items()},
+}
+# the per-rank shapes a tensor-parallel UNet call gives the kernels at tp = 2
+# (2 prompts, CFG: 4 rows): head-packed flash at 4 of 8 heads, GEGLU at half
+# the inner width, the fused cross-attention (opt-in) at 4 heads
+TP_FLASH_SHAPES = ((4, 4096, 4, 40), (4, 1024, 4, 80))
+TP_GEGLU_SHAPES = [(16384, 320, 640), (4096, 640, 1280)]
+TP_XATTN_SHAPES = [(4, 4096, 77, 4, 40, 320), (4, 1024, 77, 4, 80, 640),
+                   (4, 256, 77, 4, 160, 1280)]
 # the mixed-precision gates, stated before measuring: the bf16-compute step's
 # loss within 2e-2 relative of the fp32 step's, its gradient ‖Δg‖₂ ≤ 0.1·‖g‖₂
 # (the train_parity gate)
@@ -1295,6 +1369,58 @@ def kernel_cases(gen):
             generic=lambda a=args: conv2d._launch_gn_silu_conv(*a, 32, 1e-6, "template"),
             unfused=unfused, pair=pair, extra=lambda out, a=args: gn_stats_fields(*a),
             library=None, view=lambda o: o, cost=gn_silu_conv_cost(B, Hs, Ws, C, O)))
+    # the per-rank shapes of a tensor-parallel UNet call at tp = 2 (the
+    # parallel phase's): head-packed flash at 4 of the 8 heads, GEGLU at half
+    # the inner width, the opt-in cross-attention at 4 heads; inputs from a
+    # generator of their own, after every other case's
+    # (its lambdas bind their own names: the earlier cases' `heads` is looked up late)
+    g_tp = torch.Generator("cuda").manual_seed(15)
+    for B, S, H, D in TP_FLASH_SHAPES:
+        q, k, v = (rnd(B, S, H * D, g=g_tp) for _ in range(3))
+        tp_split = lambda t, B=B, S=S, H=H, D=D: t.view(B, S, H, D)
+        tp_heads = lambda t, s=tp_split: s(t).transpose(1, 2)
+        cases.append(dict(
+            name="flash_attention_hpacked", shape=[B, S, H * D, H], route="sm90", how="tp2",
+            device=True, table=False,
+            kernel=lambda q=q, k=k, v=v, H=H: fa.flash_attention_hpacked(q, k, v, H),
+            plain=lambda q=q, k=k, v=v, s=tp_split, D=D: fa._xla_ref(s(q), s(k), s(v), D**-0.5),
+            ref=lambda q=q, k=k, v=v, s=tp_split, D=D: fa._xla_ref(
+                s(q).float(), s(k).float(), s(v).float(), D**-0.5),
+            library=lambda q=q, k=k, v=v, h=tp_heads: F.scaled_dot_product_attention(
+                h(q), h(k), h(v)),
+            generic=lambda q=q, k=k, v=v, s=tp_split: route_forward(s(q), s(k), s(v)),
+            view=lambda o, s=tp_split: s(o), cost=attention_cost(B, S, S, H, D)))
+    for N, C, I in TP_GEGLU_SHAPES:
+        args = (rnd(N, C, g=g_tp), rnd(2 * I, C, scale=C**-0.5, g=g_tp),
+                rnd(2 * I, scale=0.1, g=g_tp), rnd(C, I, scale=I**-0.5, g=g_tp),
+                rnd(C, scale=0.1, g=g_tp))
+
+        def unfused(a=args):
+            h_a, h_g = F.linear(a[0], a[1], a[2]).chunk(2, dim=-1)
+            return F.linear(h_a * F.gelu(h_g), a[3], a[4])
+
+        cases.append(dict(
+            name="geglu_ff", shape=[N, C, I], counter="geglu_sm90", device=True, table=False,
+            how="tp2", split=geglu.geglu_plan(N, C, I).split,
+            kernel=lambda a=args: geglu.geglu_ff(*a),
+            plain=lambda a=args: geglu._geglu_xla(*a),
+            ref=lambda a=args: geglu._geglu_xla(*(t.float() for t in a)),
+            generic=lambda a=args: geglu._launch_geglu(*a, source="template"),
+            unfused=unfused, library=None, view=lambda o: o, cost=geglu_cost(N, C, I)))
+    for B, N, M, H, D, C in TP_XATTN_SHAPES:
+        HD = H * D
+        args = (rnd(B, N, C, g=g_tp), rnd(HD, C, scale=C**-0.5, g=g_tp), rnd(B, M, HD, g=g_tp),
+                rnd(B, M, HD, g=g_tp), rnd(C, HD, scale=HD**-0.5, g=g_tp),
+                rnd(C, scale=0.1, g=g_tp))
+        cases.append(dict(
+            name="crossattn_kv", shape=[B, N, M, H, D, C], counter="crossattn_sm90",
+            device=True, table=False, how="tp2",
+            plan={"rows": xattn.xattn_plan(B, N, M, H, D, C).rows},
+            kernel=lambda a=args, H=H: xattn.crossattn_kv(*a, H),
+            plain=lambda a=args, H=H: xattn.crossattn_kv_xla(*a, H),
+            ref=lambda a=args, H=H: xattn.crossattn_kv_xla(*(t.float() for t in a), H),
+            generic=lambda a=args, H=H: xattn._launch_xattn(*a, H, None, source="template"),
+            library=None, view=lambda o: o, cost=crossattn_cost(B, N, M, H, D, C)))
     return cases
 
 
@@ -1371,6 +1497,8 @@ def _kernel_case(case, hopper_rows) -> dict:
         "library_ms": (time_ms(case["library"]) if case["library"] else None),
         "bound_ms": b_ms, "bound_by": b_by, "bound_op": b_op,
     }
+    if case.get("how"):
+        row["how"] = case["how"]
     if "route" in case:
         row.update(route=case["route"], how=case.get("how", ""))
         require_route(moved, case["route"], f"{case['name']} {case['shape']}")
@@ -5782,6 +5910,433 @@ def phase_eval_tools(smi: str, pipe) -> dict:
     return launches
 
 
+# -- the parallel layer --------------------------------------------------------------
+
+# what a rank of the parallel phase runs: an entry point (`python -m
+# sd_tpu_torch.train` or `python -m sd_tpu_torch.serve`, its `main` with the
+# arguments given), its launch counts zeroed just before and read just after,
+# its steps' seconds and its peak device memory printed as one JSON line
+_RANK_HARNESS = r"""
+import json, os, sys, time
+import torch
+from sd_tpu_torch import kernels
+from sd_tpu_torch.train import runners
+seconds = []
+real_loop = runners._run_loop
+def loop(*a, **k):
+    history = real_loop(*a, **k)
+    seconds.extend(r["seconds"] for r in history)
+    return history
+runners._run_loop = loop
+if sys.argv[1] == "train":
+    from sd_tpu_torch.train.__main__ import main
+else:
+    from sd_tpu_torch.serve import main
+kernels.reset_launches()
+t0 = time.perf_counter()
+rc = main(sys.argv[2:])
+wall = time.perf_counter() - t0
+print("RANK_RESULT " + json.dumps({
+    "rc": rc, "rank": int(os.environ.get("RANK", "0")), "seconds": seconds, "wall": wall,
+    "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+    "launches": dict(kernels.LAUNCHES)}), flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    """The environment torchrun gives rank `rank` of `world` on one host."""
+    return {**os.environ, "PYTHONPATH": str(HERE), "RANK": str(rank),
+            "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def _start_ranks(world: int, argv_of, env_extra: dict | None = None) -> list:
+    """`world` processes (`argv_of(rank)`) with torchrun's environment."""
+    port = _free_port()
+    return [subprocess.Popen(argv_of(r), cwd=str(HERE),
+                             env={**_rank_env(r, world, port), **(env_extra or {})},
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def _finish_ranks(procs: list, what: str, timeout: float = PARALLEL_RANK_TIMEOUT) -> list:
+    """Each rank's RANK_RESULT (or TP_RESULT) JSON; every process ended."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        lines = [ln for ln in log.splitlines() if ln.startswith(("RANK_RESULT ", "TP_RESULT "))]
+        require(p.returncode == 0 and lines, f"{what}: rank {r} exited {p.returncode}:\n"
+                + log[-3000:])
+        results.append(json.loads(lines[-1].split(" ", 1)[1]))
+    return results
+
+
+def _train_ranks(world: int, cfg: dict, data: str, out: str, steps: int, extra=()) -> list:
+    """`python -m sd_tpu_torch.train` at `world` ranks (its main through
+    _RANK_HARNESS) on a .json copy of `cfg`."""
+    path = out + ".json"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    argv = lambda r: [sys.executable, "-c", _RANK_HARNESS, "train", "--config", path,
+                      "--data", data, "--out", out, "--max-steps", str(steps), *extra]
+    return _finish_ranks(_start_ranks(world, argv), f"train at {world} ranks ({out})")
+
+
+def _metrics(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _hold_run(name: str, out: str, ref_hist: list, ref: dict, init: dict) -> dict:
+    """A parallel run's losses, grad_norm, Adam first moment and final
+    parameters (its rank 0 checkpoint) against the plain run's (`ref`:
+    `params`, `mu`), by PARALLEL_TOL."""
+    import math
+    import shutil
+
+    from sd_tpu_torch.train.checkpoint import restore_tree
+
+    rows = _metrics(out)
+    loss_rel = max(abs(r["loss"] - h["loss"]) / abs(h["loss"]) for r, h in zip(rows, ref_hist))
+    gn_rel = max(abs(r["grad_norm"] - h["grad_norm"]) / h["grad_norm"]
+                 for r, h in zip(rows, ref_hist))
+    tree = restore_tree(os.path.join(out, "ckpt"))
+    l2 = lambda pairs: math.sqrt(sum(float((a.float() - b.float()).pow(2).sum())
+                                     for a, b in pairs))
+    diff = l2((tree["params"][n], p) for n, p in ref["params"].items())
+    step = l2((p, init[n]) for n, p in ref["params"].items())
+    moment_rel = (l2(zip(tree["opt_state"]["mu"], ref["mu"]))
+                  / l2((m, m.new_zeros(())) for m in ref["mu"]))
+    del tree
+    shutil.rmtree(os.path.join(out, "ckpt"), ignore_errors=True)
+    held = {"steps": len(rows), "loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+            "moment_rel": moment_rel, "update_rel": diff / step if step else None,
+            "update_l2": step, "losses": [r["loss"] for r in rows],
+            "grad_norms": [r["grad_norm"] for r in rows]}
+    require(len(rows) == len(ref_hist), f"{name}: {len(ref_hist)} steps, ran {len(rows)}")
+    require(step > 0, f"{name}: the plain run's update is 0")
+    for key, bound in PARALLEL_TOL.items():
+        require(held[key] <= bound, f"{name}: {key} {held[key]:.3g} > {bound}")
+    return held
+
+
+def _write_parallel_images(root: str) -> None:
+    """PARALLEL_IMAGES 512² JPEGs (`cat_0..3.jpg`, `dog_0..3.jpg`) written
+    by PIL: the port reads them through PIL, as the JAX package's loader
+    falls back to."""
+    import numpy as np
+    from PIL import Image
+
+    from sd_tpu_torch.data.image_io import resize
+
+    rng = np.random.default_rng(PARALLEL_SEED)
+    for i in range(PARALLEL_IMAGES):
+        low = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+        field = resize(low, 512, 512).astype(np.int16) + rng.integers(-12, 13, (512, 512, 3))
+        Image.fromarray(np.clip(field, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, f"{('cat', 'dog')[i // 4]}_{i % 4}.jpg"), quality=92)
+
+
+def _plain_train(cfg: dict, data: str, steps: int):
+    """train_ldm without the parallel block, in this process: (history,
+    {"params": final UNet parameters, "mu": Adam's first moment}, on the CPU)."""
+    import torch
+
+    from sd_tpu_torch.train.runners import train_ldm
+
+    plain = {k: v for k, v in cfg.items() if k != "parallel"}
+    state, hist = train_ldm(plain, data, max_steps=steps)
+    ref = {"params": {n: p.detach().cpu() for n, p in state.params.items()},
+           "mu": [m.cpu() for m in state.opt_state.mu]}
+    del state
+    torch.cuda.empty_cache()
+    return hist, ref
+
+
+def _rank_rows(results: list, want: dict, what: str) -> dict:
+    """Each rank's seconds, peak memory and launches, the launches held
+    against `want`."""
+    for r in results:
+        got = {k: v for k, v in r["launches"].items() if v}
+        require(got == {k: v for k, v in want.items() if v},
+                f"{what} rank {r['rank']}: launches {got} == {want}")
+    return {f"rank{r['rank']}": {"step_seconds": r["seconds"], "wall_seconds": r["wall"],
+                                 "peak_memory_gb": r["peak_gb"]} for r in results}
+
+
+def tp_rank() -> int:
+    """One rank of the parallel phase's tensor-parallel serving check
+    (`python chip_smoke.py --tp-rank <dir>` under torchrun's environment):
+    SD-v1 on the one card over gloo, `shard_for_serving` at data 1 × model
+    2; one UNet call under the default and one under the opt-in switches on
+    the inputs of PARALLEL_SEED, then a PARALLEL_TP_STEPS-step CFG generate
+    of 2 prompts; rank 0 saves the outputs, every rank prints its launches,
+    seconds and peak memory."""
+    import torch
+
+    from sd_tpu_torch import kernels
+    from sd_tpu_torch.parallel import mesh as pmesh
+    from sd_tpu_torch.parallel import multihost
+
+    out_dir = sys.argv[sys.argv.index("--tp-rank") + 1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(backend="gloo", device="cuda:0")
+    rank = torch.distributed.get_rank()
+    pipe = _tp_pipeline()
+    pipe.shard_for_serving(pmesh.make_mesh({"data": 1, "model": 2}))
+    x, t, ctx = _tp_unet_inputs()
+    res = {"rank": rank, "split_leaves": len(pipe._unet_split), "launches": {}, "seconds": {}}
+    outs = {}
+    for name, env in (("tp2_unet", {}), ("tp2_unet_optin", OPT_IN)):
+        with switches(env), torch.no_grad():
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = pipe.unet(x, t, ctx).float().cpu()
+            torch.cuda.synchronize()
+            res["seconds"][name] = time.perf_counter() - t0
+            res["launches"][name] = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs["tp2_generate"] = torch.from_numpy(pipe.generate(
+        FAMILY_PROMPTS[:2], num_steps=PARALLEL_TP_STEPS, seed=PARALLEL_SEED))
+    res["seconds"]["tp2_generate"] = time.perf_counter() - t0
+    res["launches"]["tp2_generate"] = dict(kernels.LAUNCHES)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        torch.save(outs, os.path.join(out_dir, "tp_outputs.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("TP_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def _tp_pipeline():
+    """SD-v1 (bf16) with every UNet parameter random from PARALLEL_SEED (the
+    port's init zeroes the output conv, which would hide the UNet from
+    every check)."""
+    import torch
+
+    from sd_tpu_torch.core.config import sd_v1_config
+    from sd_tpu_torch.pipeline import Text2ImagePipeline
+    from sd_tpu_torch.weights import randomize_params_
+
+    pipe = Text2ImagePipeline(sd_v1_config())
+    with torch.no_grad():
+        randomize_params_(pipe.unet, torch.Generator(pipe.device).manual_seed(PARALLEL_SEED))
+    return pipe
+
+
+def _tp_unet_inputs():
+    """A 512² UNet call's inputs of 2 prompts under CFG (4 rows), from PARALLEL_SEED."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(PARALLEL_SEED)
+    x = torch.randn((4, 64, 64, 4), generator=g, device="cuda").bfloat16()
+    t = torch.tensor([981, 981, 500, 500], device="cuda")
+    ctx = torch.randn((4, 77, 768), generator=g, device="cuda").bfloat16()
+    return x, t, ctx
+
+
+def _serve_shard_w1(root: str) -> dict:
+    """`python -m sd_tpu_torch.serve --config sd_v1 --shard` without
+    torchrun (a process group of one rank, NCCL): two requests, one after
+    the other, then SIGINT. Returns its RANK_RESULT and the answers' check."""
+    import base64
+    import signal
+    import urllib.request
+
+    import numpy as np
+
+    from sd_tpu_torch.data.image_io import decode_png
+
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(HERE)
+    proc = subprocess.Popen([sys.executable, "-u", "-c", _RANK_HARNESS, "serve", "--config",
+                             "sd_v1", "--shard", "--port", "0", "--max-batch", "2",
+                             "--steps", str(PARALLEL_SERVE_STEPS)], cwd=str(HERE), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log, port = [], None
+    try:
+        t0 = time.perf_counter()
+        while port is None and time.perf_counter() - t0 < PARALLEL_RANK_TIMEOUT:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            log.append(line)
+            if line.startswith("serving on http://"):
+                port = int(line.split(":")[2].split()[0])
+        require(port is not None, "serve --shard came up:\n" + "".join(log)[-3000:])
+        answers, seconds = [], []
+        for i, prompt in enumerate(("a photo of a cat", "a photo of a dog")):
+            body = json.dumps({"prompt": prompt, "seed": PARALLEL_SEED + i}).encode()
+            t1 = time.perf_counter()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers.append(json.loads(r.read()))
+            seconds.append(time.perf_counter() - t1)
+        proc.send_signal(signal.SIGINT)
+        rest = proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.append(rest)
+    lines = [ln for ln in "".join(log).splitlines() if ln.startswith("RANK_RESULT ")]
+    require(proc.returncode == 0 and lines, "serve --shard exited cleanly:\n"
+            + "".join(log)[-3000:])
+    imgs = [decode_png(base64.b64decode(a["image"])) for a in answers]
+    require(all(i.shape == (512, 512, 3) and np.ptp(i) > 0 for i in imgs)
+            and [a["seed"] for a in answers] == [PARALLEL_SEED, PARALLEL_SEED + 1],
+            "serve --shard answered two 512² images with their seeds")
+    return {**json.loads(lines[-1].split(" ", 1)[1]), "request_seconds": seconds}
+
+
+def phase_parallel(smi: str) -> dict:
+    """The parallel layer on the card (see PARALLEL_SEED's comment): world 1
+    over NCCL (train ZeRO-1 and FSDP, serve --shard), data-parallel training
+    and tensor-parallel serving at two ranks on the one card over gloo, each
+    rank's launches held, each run against its plain counterpart. Returns
+    each run's launches by rank."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sd_tpu_torch.core.config import sd512_train_config
+    from sd_tpu_torch.train.runners import build_ldm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="sd_tpu_torch_parallel_")
+    runs: dict = {}
+    row: dict = {"phase": "parallel", "nvidia_smi": smi}
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        require(free_gb >= PARALLEL_DISK_GB, f"free disk under {root}: {free_gb:.1f} GB, the "
+                f"phase needs {PARALLEL_DISK_GB} GB (one ≈ 12 GB checkpoint)")
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        _write_parallel_images(data)
+        base = sd512_train_config()
+        _, unet, _, _ = build_ldm(base, torch.Generator("cuda").manual_seed(base["seed"]),
+                                  torch.bfloat16, "cuda")
+        init = {n: p.detach().cpu() for n, p in unet.named_parameters()}
+        del unet
+        torch.cuda.empty_cache()
+
+        # (1) world 1 over NCCL: ZeRO-1, FSDP, against the plain run
+        t0 = time.perf_counter()
+        ref_hist, ref = _plain_train(base, data, PARALLEL_W1_STEPS)
+        row["plain_w1_seconds"] = time.perf_counter() - t0
+        row["plain_w1_step_seconds"] = [h["seconds"] for h in ref_hist]
+        for mode in ("zero1", "fsdp"):
+            name = f"train_{mode}_w1"
+            cfg = {**base, "parallel": {"mesh": {"data": 1}, "state_sharding": mode}}
+            out = os.path.join(root, name)
+            res = _train_ranks(1, cfg, data, out, PARALLEL_W1_STEPS)
+            row[name] = {**_rank_rows(res, PARALLEL_LAUNCHES[name], name),
+                         **_hold_run(name, out, ref_hist, ref, init)}
+            runs[name] = {f"rank{r['rank']}": r["launches"] for r in res}
+        del ref
+
+        # (2) data-parallel: two ranks on the one card over gloo, batch 8
+        name = "train_dp2"
+        cfg = {**base, "train": {**base["train"], "batch_size": PARALLEL_DP_BATCH},
+               "parallel": {"mesh": {"data": 2}, "state_sharding": "zero1"}}
+        out = os.path.join(root, name)
+        res = _train_ranks(2, cfg, data, out, PARALLEL_DP_STEPS,
+                           extra=("--backend", "gloo", "--device", "cuda:0"))
+        t0 = time.perf_counter()
+        dp_hist, dp_ref = _plain_train(cfg, data, PARALLEL_DP_STEPS)
+        row["plain_dp_reference_seconds"] = time.perf_counter() - t0
+        row["plain_dp_reference_step_seconds"] = [h["seconds"] for h in dp_hist]
+        row[name] = {**_rank_rows(res, PARALLEL_LAUNCHES[name], name),
+                     **_hold_run(name, out, dp_hist, dp_ref, init)}
+        for r in res:
+            for c in (*LSE_ROUTE_COUNTER.values(), "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"):
+                if c != "flash_lse_wide":
+                    require(r["launches"][c] > 0, f"{name} rank {r['rank']}: {c} moved")
+        runs[name] = {f"rank{r['rank']}": r["launches"] for r in res}
+        del dp_ref, init
+        torch.cuda.empty_cache()
+
+        # (3) tensor-parallel serving: two ranks on the one card over gloo
+        t0 = time.perf_counter()
+        procs = _start_ranks(2, lambda r: [sys.executable, str(HERE / "chip_smoke.py"),
+                                           "--tp-rank", root])
+        tp = _finish_ranks(procs, "tensor-parallel serving")
+        row["tp2_seconds"] = time.perf_counter() - t0
+        outs = torch.load(os.path.join(root, "tp_outputs.pt"))
+        pipe = _tp_pipeline()
+        x, t, ctx = _tp_unet_inputs()
+        tp_row = {"split_leaves": tp[0]["split_leaves"]}
+        for key, env in (("tp2_unet", {}), ("tp2_unet_optin", OPT_IN)):
+            with switches(env), torch.no_grad():
+                ref = pipe.unet(x, t, ctx).float().cpu()
+            mx, l2 = rel_err(outs[key], ref)[1], l2_rel(outs[key], ref)
+            tp_row[key] = {"max_rel": mx, "l2_rel": l2}
+            require(mx <= UNET_TOL["max_rel"] and l2 <= UNET_TOL["l2_rel"],
+                    f"{key}: max|Δ| {mx:.3g}·max|ref|, ‖Δ‖₂ {l2:.3g}·‖ref‖₂ within {UNET_TOL}")
+        ref_imgs = pipe.generate(FAMILY_PROMPTS[:2], num_steps=PARALLEL_TP_STEPS,
+                                 seed=PARALLEL_SEED)
+        levels = (outs["tp2_generate"].numpy().astype(int) - ref_imgs.astype(int))
+        tp_row["generate_levels"] = {"mean": float(abs(levels).mean()),
+                                     "max": int(abs(levels).max())}
+        require(tp_row["generate_levels"]["mean"] <= PARALLEL_LEVELS["mean"],
+                f"tp2 generate: mean level difference {tp_row['generate_levels']['mean']:.3g} "
+                f"≤ {PARALLEL_LEVELS['mean']}")
+        del pipe
+        torch.cuda.empty_cache()
+        for r in tp:
+            for key in ("tp2_unet", "tp2_unet_optin", "tp2_generate"):
+                got = {k: v for k, v in r["launches"][key].items() if v}
+                want = {k: v for k, v in PARALLEL_LAUNCHES[key].items() if v}
+                require(got == want, f"{key} rank {r['rank']}: launches {got} == {want}")
+            tp_row[f"rank{r['rank']}"] = {"seconds": r["seconds"], "peak_memory_gb": r["peak_gb"]}
+            for key in ("tp2_unet", "tp2_unet_optin", "tp2_generate"):
+                runs.setdefault(key, {})[f"rank{r['rank']}"] = r["launches"][key]
+        require(tp[0]["split_leaves"] > 0, "the UNet split over the model axis")
+        row["tp2"] = tp_row
+
+        # (4) serve --shard at world 1 over NCCL: two requests
+        t0 = time.perf_counter()
+        served = _serve_shard_w1(root)
+        row["serve_shard_w1"] = {
+            "seconds": time.perf_counter() - t0, "request_seconds": served["request_seconds"],
+            "peak_memory_gb": served["peak_gb"]}
+        got = {k: v for k, v in served["launches"].items() if v}
+        want = {k: v for k, v in PARALLEL_LAUNCHES["serve_shard_w1"].items() if v}
+        require(got == want, f"serve --shard launches {got} == {want}")
+        runs["serve_shard_w1"] = {"rank0": served["launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return runs
+
+
 def ptxas_report(log: str, keep) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from an
     `nvcc -Xptxas -v` log, for the mangled kernel names `keep` accepts."""
@@ -6419,6 +6974,7 @@ def main() -> int:
     eval_tools = phase_eval_tools(smi, bench_pipe)
     del bench_pipe
     torch.cuda.empty_cache()
+    parallel = phase_parallel(smi)
     if profiling:
         phase_trainer_profiles()
 
@@ -6628,6 +7184,10 @@ def main() -> int:
                      if counts.get(name)}
             if moved:
                 row[f"{phase}_launches"] = moved
+        # ... and every rank's of the parallel phase's runs (0 where none)
+        row["parallel_launches"] = {run: {rank: counts.get(name, 0)
+                                          for rank, counts in by_rank.items()}
+                                    for run, by_rank in parallel.items()}
         rows.append(row)
     emit({"kernels": rows})
     print(smi, flush=True)
@@ -6637,4 +7197,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tp_rank() if "--tp-rank" in sys.argv else main())

@@ -6,8 +6,9 @@ Counterpart of `sd_tpu/data/datasets.py` (`ImageFolderDataset`,
 `CocoCaptionDataset`, `SRDataset`): the same sorted walk, extensions,
 per-item flip stream and captions, each item float32 [size, size, 3] in
 [-1, 1]; `SRDataset` adds the item's low-resolution twin, made on the host
-by `data/degradation.py`. Images are read by `data/image_io.py` (PNG; a JPEG
-raises an error naming the file).
+by `data/degradation.py`. Images are read by `data/image_io.py` (its own
+PNG decoder, PIL for JPEG, BMP, WEBP and the PNGs it does not carry; a file
+neither reads raises an error naming it).
 """
 
 from __future__ import annotations

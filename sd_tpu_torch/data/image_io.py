@@ -4,17 +4,19 @@ PIL-compatible resampling, center crop.
 Counterpart of what `sd_tpu/native/image_loader.cc` and
 `sd_tpu/data/datasets.py _load_image` do (the TPU package decodes with
 libjpeg / libpng or PIL; the card's machine has PIL, with JPEG support, but
-not the libjpeg / libpng headers the native decoder builds against, and the
-port decodes its images without either). `load_image` returns float32 HWC
+not the libjpeg / libpng headers the native decoder builds against: the
+port decodes the PNGs below itself and hands every other file to PIL). `load_image` returns float32 HWC
 in [-1, 1] as both of those do.
 
 PNG: 8-bit gray, gray + alpha, RGB and RGBA, and palette or gray at 1, 2, 4
 or 8 bits, non-interlaced; the five row filters (None, Sub and Up
 vectorised over the row, Average and Paeth a byte at a time). Converting to
 RGB follows PIL's `convert("RGB")`: alpha and the palette's transparency
-are dropped, gray is replicated, gray below 8 bits is scaled to 0-255. Any
-other file (a JPEG, a 16-bit or interlaced PNG) raises a ValueError that
-names it.
+are dropped, gray is replicated, gray below 8 bits is scaled to 0-255.
+Every other file (a JPEG, BMP or WEBP, a 16-bit or interlaced PNG) is read
+by PIL, `Image.open(path).convert("RGB")`, the TPU package's own route when
+its native decoder declines a file; a file PIL cannot read either raises a
+ValueError that names it.
 
 Resampling is PIL's separable filter as the native loader ports it:
 bicubic (Keys, a = -0.5) or bilinear, the support scaled by the
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import binascii
 import functools
+import io
 import math
 import struct
 import zlib
@@ -194,17 +197,27 @@ def to_gray(img: np.ndarray) -> np.ndarray:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """The image file at `path` → uint8 [H, W, 3]. Only PNG is carried: any
-    other file raises a ValueError naming it."""
+    """The image file at `path` → uint8 [H, W, 3]: a PNG the decoder above
+    carries by it, any other file (JPEG, BMP, WEBP, a 16-bit or interlaced
+    PNG) by PIL's `convert("RGB")`. A file neither reads raises a ValueError
+    naming it."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:2] == b"\xff\xd8":
-        raise ValueError(f"{path}: JPEG is not supported (no decoder on the standard "
-                         "library; only PNG is carried)")
+    if data[:8] == PNG_SIGNATURE:
+        try:
+            return to_rgb(decode_png(data))
+        except (ValueError, zlib.error, struct.error) as e:
+            png_error = e
+    else:
+        png_error = None
+    from PIL import Image, UnidentifiedImageError
+
     try:
-        return to_rgb(decode_png(data))
-    except (ValueError, zlib.error, struct.error) as e:
-        raise ValueError(f"{path}: {e}") from e
+        with Image.open(io.BytesIO(data)) as img:
+            return np.asarray(img.convert("RGB"), np.uint8)
+    except (OSError, UnidentifiedImageError, ValueError, SyntaxError) as e:
+        cause = png_error if png_error is not None else e
+        raise ValueError(f"{path}: {cause}") from e
 
 
 # -- resampling ---------------------------------------------------------------------

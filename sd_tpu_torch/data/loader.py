@@ -6,6 +6,8 @@ seed-and-epoch shuffle, `drop_last`, the split of each epoch's batches over
 that reads a batch's items ahead of the step and a bounded prefetch queue
 whose producer stops when the consumer leaves early; and
 `parallel_data_prefetch`, a thread-parallel map over chunks of a dataset.
+`rows` keeps only those positions of every batch (a data-parallel rank's
+rows, `parallel/mesh.py local_rows`): the other rows are never read.
 """
 
 from __future__ import annotations
@@ -39,9 +41,12 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4, prefetch: int = 2,
                  seed: int = 0, collate_fn: Callable = collate, rank: int = 0,
-                 world: int = 1):
+                 world: int = 1, rows: np.ndarray | None = None):
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside world {world}")
+        if rows is not None and (not drop_last or max(rows, default=-1) >= batch_size):
+            raise ValueError(f"rows {list(rows)} of a batch of {batch_size} need drop_last "
+                             "and positions inside the batch")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -52,6 +57,7 @@ class DataLoader:
         self.collate_fn = collate_fn
         self.rank = rank
         self.world = world
+        self.rows = None if rows is None else np.asarray(rows, dtype=np.int64)
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -69,7 +75,7 @@ class DataLoader:
             b = idx[s:s + self.batch_size]
             if len(b) < self.batch_size and self.drop_last:
                 break
-            batches.append(b)
+            batches.append(b if self.rows is None else b[self.rows])
         return batches[self.rank::self.world]
 
     def __iter__(self) -> Iterator[dict]:

@@ -17,6 +17,7 @@ import torch
 
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.diffusion.guidance import NoiseFn, gaussian_noise
+from sd_tpu_torch.parallel.mesh import global_draw
 
 # model_fn(x, t, cond) -> prediction (eps, x0 or v by parameterization)
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
@@ -32,11 +33,12 @@ def draw_training_noise(shape: tuple[int, ...], offset: float = 0.0, *,
                         device=None) -> torch.Tensor:
     """Training noise ε ~ N(0, 1) in fp32, plus `offset`·ε_c with one ε_c per
     (sample, channel) when offset > 0 (the noise-offset trick)."""
-    noise = torch.randn(shape, generator=generator, device=device)
+    noise = global_draw(lambda n: torch.randn((n, *shape[1:]), generator=generator,
+                                              device=device), shape[0])
     if offset > 0.0:
-        dc_shape = (shape[0],) + (1,) * (len(shape) - 2) + (shape[-1],)
-        noise = noise + offset * torch.randn(dc_shape, generator=generator,
-                                             device=device)
+        dc_shape = (1,) * (len(shape) - 2) + (shape[-1],)
+        noise = noise + offset * global_draw(
+            lambda n: torch.randn((n, *dc_shape), generator=generator, device=device), shape[0])
     return noise
 
 

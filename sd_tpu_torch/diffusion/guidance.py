@@ -56,6 +56,10 @@ def guided(model_fn: ModelFn, cond=None, uncond=None, guidance_scale: float = 1.
 
 
 def gaussian_noise(generator: torch.Generator | None, device) -> NoiseFn:
-    """The default noise source: fp32 N(0, 1) draws from `generator`."""
-    return lambda index, shape: torch.randn(shape, generator=generator, device=device,
-                                            dtype=torch.float32)
+    """The default noise source: fp32 N(0, 1) draws from `generator` (the
+    whole batch's, this rank's rows kept, inside `parallel.mesh.batch_rows`)."""
+    from sd_tpu_torch.parallel.mesh import global_draw
+
+    return lambda index, shape: global_draw(
+        lambda n: torch.randn((n, *shape[1:]), generator=generator, device=device,
+                              dtype=torch.float32), shape[0])

@@ -50,6 +50,7 @@ from sd_tpu_torch.diffusion.guidance import NoiseFn
 from sd_tpu_torch.diffusion.k_samplers import KDiffusionSampler
 from sd_tpu_torch.diffusion.plms import PLMSSampler
 from sd_tpu_torch.diffusion.unipc import UniPCSampler
+from sd_tpu_torch.parallel.mesh import global_draw
 
 
 def apply_conditioned(unet_apply: Callable, x: torch.Tensor, t: torch.Tensor,
@@ -131,8 +132,9 @@ class LatentDiffusion:
         if torch.is_tensor(posterior):
             return posterior
         if noise is None:
-            noise = torch.randn(posterior.mean.shape, generator=generator,
-                                device=posterior.mean.device)
+            shape = posterior.mean.shape
+            noise = global_draw(lambda n: torch.randn((n, *shape[1:]), generator=generator,
+                                                      device=posterior.mean.device), shape[0])
         return posterior.sample(noise)
 
     def get_learned_conditioning(self, raw_cond) -> torch.Tensor:
@@ -181,8 +183,9 @@ class LatentDiffusion:
         z, cond = self.get_input(batch, generator)
         t = batch.get("t")
         if t is None:
-            t = torch.randint(0, self.schedule.num_timesteps, (z.shape[0],),
-                              generator=generator, device=z.device)
+            t = global_draw(lambda n: torch.randint(0, self.schedule.num_timesteps, (n,),
+                                                    generator=generator, device=z.device),
+                            z.shape[0])
         noise = batch.get("noise")
         if noise is None:
             noise = draw_training_noise(tuple(z.shape), self.noise_offset,

@@ -6,12 +6,16 @@ takes seconds. Libraries are built at first use into `build/sd_tpu_torch/`
 at the root of the checkout (override with `SD_TPU_TORCH_BUILD_DIR`), named
 by a hash of their sources (every header included) and flags so an edited
 source rebuilds. All missing libraries are compiled at once, one `nvcc`
-process per source.
+process per source, under a file lock on the build directory: the ranks of
+a process group that start on a fresh tree build each library once (the
+first takes the lock and builds, the others then find the libraries).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,6 +68,22 @@ def build_all(names=SOURCES) -> dict[str, float]:
     library as `<name>.log`. Raises on a failed build."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with _locked(out_dir / ".lock"):
+        return _build_missing(out_dir, names)
+
+
+@contextlib.contextmanager
+def _locked(path: Path):
+    """An exclusive lock on `path` (blocking) for the block."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_missing(out_dir: Path, names) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:

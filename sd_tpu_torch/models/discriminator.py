@@ -26,6 +26,7 @@ from torch import nn
 
 from sd_tpu_torch.core.config import resolve_device
 from sd_tpu_torch.nn.layers import Conv2d, _cast, _empty
+from sd_tpu_torch.parallel.mesh import data_mean
 
 
 class PromotingConv(nn.Module):
@@ -65,8 +66,9 @@ class BatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.mean, self.var
         else:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            # a data-parallel step: the whole batch's statistics (every rank's mean)
+            mean = data_mean(x.mean(dim=(0, 2, 3)))
+            var = torch.clamp(data_mean((x * x).mean(dim=(0, 2, 3))) - mean * mean, min=0.0)
             if update_stats:
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_(mean.detach(), alpha=1 - self.momentum)

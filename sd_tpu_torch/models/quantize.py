@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.nn.layers import Conv2d
+from sd_tpu_torch.parallel.mesh import data_mean, data_sum_, global_draw
 
 
 def _nearest_code(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -49,7 +50,7 @@ def _one_hot(idx: torch.Tensor, n_e: int) -> torch.Tensor:
 
 def _perplexity(idx: torch.Tensor, n_e: int) -> torch.Tensor:
     """exp(entropy) of the code histogram of `idx`."""
-    avg_probs = _one_hot(idx.reshape(-1), n_e).mean(dim=0)
+    avg_probs = data_mean(_one_hot(idx.reshape(-1), n_e).mean(dim=0))
     return torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
 
 
@@ -65,8 +66,8 @@ def _ema_update_(weight, cluster_size, embed_avg, z_flat, idx, decay, eps) -> No
     assigned to `idx`, written into the three codebook tensors."""
     n_e = weight.shape[0]
     one_hot = _one_hot(idx, n_e)
-    counts = one_hot.sum(dim=0)
-    sums = one_hot.t() @ z_flat
+    counts = data_sum_(one_hot.sum(dim=0))
+    sums = data_sum_(one_hot.t() @ z_flat)
     cluster_size.mul_(decay).add_((1 - decay) * counts)
     embed_avg.mul_(decay).add_((1 - decay) * sums)
     n = cluster_size.sum()
@@ -104,8 +105,9 @@ class VectorQuantizer(nn.Module):
         if self.unknown_index == "random":
             if draws is None:
                 gen = generator or torch.Generator(inds.device).manual_seed(0)
-                draws = torch.randint(0, self.re_embed, new.shape, generator=gen,
-                                      device=gen.device).to(inds.device)
+                draws = global_draw(lambda n: torch.randint(
+                    0, self.re_embed, (n, *new.shape[1:]), generator=gen, device=gen.device),
+                    new.shape[0]).to(inds.device)
             return torch.where(unknown, draws.to(new.dtype), new)
         fill = self.re_embed - 1 if self.unknown_index == "extra" else int(self.unknown_index)
         return torch.where(unknown, torch.full_like(new, fill), new)
@@ -216,7 +218,8 @@ class GumbelQuantize(nn.Module):
             mask[self.used] = 0.0
             logits = logits + torch.from_numpy(mask).to(logits.device)
         if gumbel is None and generator is not None and not deterministic:
-            u = torch.rand(logits.shape, generator=generator, device=logits.device)
+            u = global_draw(lambda n: torch.rand((n, *logits.shape[1:]), generator=generator,
+                                                 device=logits.device), logits.shape[0])
             tiny = torch.finfo(torch.float32).tiny
             gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
         if deterministic or gumbel is None:

@@ -130,7 +130,11 @@ def make_attn(attn_type: str, channels: int, *, dtype=torch.float32,
 class CrossAttention(nn.Module):
     """Multi-head attention with kv from `context` (or x for
     self-attention); to_q/to_k/to_v without bias, to_out with bias, then
-    dropout."""
+    dropout. Split over a model axis (`tp`, `parallel/mesh.py
+    shard_module_`), the block attends over its rank's heads and its
+    output projection is summed over the axis, the bias added once."""
+
+    tp = None
 
     def __init__(self, query_dim: int, context_dim: int | None = None,
                  heads: int = 8, dim_head: int = 64, dropout: float = 0.0, *,
@@ -157,6 +161,9 @@ class CrossAttention(nn.Module):
         ctx = x if context is None else context
         M = ctx.shape[1]
         h, d = self.heads, self.dim_head
+        tp = self.tp
+        if tp is not None:
+            h //= tp.size
         dt = self.to_q.cdtype
         ip = ip_kv if context is not None else None
         probe = attn_probe.wants_capture(self, N, is_self=context is None)
@@ -176,20 +183,26 @@ class CrossAttention(nn.Module):
         if (context is not None and ip is None
                 and xattn_k.crossattn_kv_wants_pallas(N, M, h, d, C, dt)):
             # K/V projected plainly (77 tokens), then q-projection, softmax
-            # and out-projection in one kernel
-            return xattn_k.crossattn_kv_trainable(
-                x.to(dt).contiguous(), self.to_q.weight.to(dt), self.to_k(ctx),
-                self.to_v(ctx), self.to_out.weight.to(dt), self.to_out.bias.to(dt), h)
+            # and out-projection in one kernel (split: its rank's heads, the
+            # bias after the sum)
+            bo = self.to_out.bias.to(dt)
+            xk = x if tp is None else tp.enter(x)
+            out = xattn_k.crossattn_kv_trainable(
+                xk.to(dt).contiguous(), self.to_q.weight.to(dt), self.to_k(ctx),
+                self.to_v(ctx), self.to_out.weight.to(dt),
+                bo if tp is None else torch.zeros_like(bo), h)
+            return out if tp is None else tp.reduce(out, self.to_out.bias)
         if context is None and attn_k.packed_flash_ok(N, M, h, d, dt):
             # opt-in: [B, H, S, D] projections, heads folded into the batch
-            xd = x.to(dt)
+            xd = (x if tp is None else tp.enter(x)).to(dt)
             proj = lambda lin: torch.einsum("bsc,hdc->bhsd", xd,
                                             lin.weight.to(dt).view(h, d, C))
             out = attn_k.packed_flash_attention(proj(self.to_q), proj(self.to_k),
                                                 proj(self.to_v))
-            return (torch.einsum("bhsd,chd->bsc", out,
-                                 self.to_out.weight.to(dt).view(C, h, d))
-                    + self.to_out.bias.to(dt))
+            out = torch.einsum("bhsd,chd->bsc", out, self.to_out.weight.to(dt).view(C, h, d))
+            if tp is not None:
+                return tp.reduce(out, self.to_out.bias)
+            return out + self.to_out.bias.to(dt)
         q = self.to_q(x).reshape(B, N, h, d)
         out = attn_k.dot_product_attention(q, self.to_k(ctx).reshape(B, M, h, d),
                                            self.to_v(ctx).reshape(B, M, h, d))
@@ -200,6 +213,9 @@ class CrossAttention(nn.Module):
         to_out (none without `ip`)."""
         if ip is None:
             return out
+        if self.tp is not None:
+            raise NotImplementedError("IP-Adapter's image read over a tensor-parallel UNet: "
+                                      "its K/V kernels are not split")
         B, _, h, d = q.shape
         dt = self.to_q.cdtype
         wk, wv, tok, scale = ip
@@ -217,6 +233,8 @@ class FeedForwardGEGLU(nn.Module):
     The weights are cast to the compute dtype, the biases added in fp32
     (flax's promotion), but on the kernel route, which takes bf16 ones."""
 
+    tp = None    # the model axis it is split over (`parallel/mesh.py shard_module_`)
+
     def __init__(self, dim: int, mult: int = 4, *, glu: bool = True, dropout: float = 0.0,
                  dtype=torch.float32, compute_dtype=None, device=None):
         super().__init__()
@@ -229,19 +247,29 @@ class FeedForwardGEGLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.proj_in.cdtype
         x = x.to(dt)
+        tp = self.tp
+        inner = self.inner if tp is None else self.inner // tp.size
+        # a split block holds the columns [rank·inner, (rank + 1)·inner) of the activation
+        cols = None if tp is None else (tp.rank * inner, inner, self.inner)
         if not self.glu:
-            return self.proj_out(dropout(F.gelu(self.proj_in(x)), self.dropout, self))
+            return self.proj_out(dropout(F.gelu(self.proj_in(x)), self.dropout, self,
+                                         cols=cols))
         C = x.shape[-1]
+        if tp is not None:
+            x = tp.enter(x)
         w1, w2 = self.proj_in.weight.to(dt), self.proj_out.weight.to(dt)
         b1, b2 = self.proj_in.bias, self.proj_out.bias
+        bo = b2 if tp is None else torch.zeros_like(b2)     # split: added after the sum
         if self.dropout > 0.0 and self.training and dropout_generator() is not None:
             h = F.linear(x.float(), w1.float()) + b1.float()
-            a, g = h[..., :self.inner], h[..., self.inner:]
-            y = dropout((a * F.gelu(g)).to(dt), self.dropout, self)
-            return (F.linear(y.float(), w2.float()) + b2.float()).to(dt)
-        if geglu_k.geglu_wants_pallas(x.numel() // C, C, self.inner, x.dtype):
-            return geglu_k.geglu_ff_trainable(x, w1, b1.to(dt), w2, b2.to(dt))
-        return geglu_k._geglu_xla(x, w1, b1, w2, b2)
+            a, g = h[..., :inner], h[..., inner:]
+            y = dropout((a * F.gelu(g)).to(dt), self.dropout, self, cols=cols)
+            out = (F.linear(y.float(), w2.float()) + bo.float()).to(dt)
+        elif geglu_k.geglu_wants_pallas(x.numel() // C, C, inner, x.dtype):
+            out = geglu_k.geglu_ff_trainable(x, w1, b1.to(dt), w2, bo.to(dt))
+        else:
+            out = geglu_k._geglu_xla(x, w1, b1, w2, bo)
+        return out if tp is None else tp.reduce(out, b2)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -57,11 +57,14 @@ def dropout_generator() -> torch.Generator | None:
 
 
 def dropout(x: torch.Tensor, rate: float, module: nn.Module,
-            name: str = "Dropout_0") -> torch.Tensor:
+            name: str = "Dropout_0", cols: tuple[int, int, int] | None = None) -> torch.Tensor:
     """flax's `nn.Dropout(rate)` at `module`'s child `name`: x / keep where
     a uniform draw from the step's generator is below keep = 1 − rate, 0
     elsewhere, in x's dtype. The identity at rate 0, in eval mode and
-    outside `dropout_rng`."""
+    outside `dropout_rng`. The draw is the whole batch's inside a
+    data-parallel step (`parallel.mesh.global_draw`); `cols` (start, width,
+    whole width): x holds those last-dim columns of the whole activation (a
+    tensor-parallel rank's), and the mask is the whole draw's columns."""
     gen = _DROPOUT_GEN.get()
     if rate <= 0.0 or gen is None or not module.training:
         return x
@@ -70,7 +73,14 @@ def dropout(x: torch.Tensor, rate: float, module: nn.Module,
         mask = torch.as_tensor(mask_hook(module, name, tuple(x.shape), keep),
                                device=x.device)
     else:
-        mask = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) < keep
+        from sd_tpu_torch.parallel.mesh import global_draw
+
+        rest = (*x.shape[1:-1], x.shape[-1] if cols is None else cols[2])[:x.dim() - 1]
+        mask = global_draw(lambda n: torch.rand((n, *rest), generator=gen, device=gen.device),
+                           x.shape[0])
+        if cols is not None:
+            mask = mask[..., cols[0]:cols[0] + cols[1]]
+        mask = mask.to(x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -86,7 +96,11 @@ def _empty(shape, dtype, device, channels_last=False):
 
 
 class Dense(nn.Module):
-    """`nn.Dense`: y = x @ Wᵀ + b with W stored [out, in] (torch layout)."""
+    """`nn.Dense`: y = x @ Wᵀ + b with W stored [out, in] (torch layout).
+    Split over a model axis (`parallel/mesh.py shard_module_`), `tp` is
+    (the axis, "col" | "row") and the layer holds its rank's piece."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, dtype=torch.float32, compute_dtype=None, device=None):
@@ -101,6 +115,8 @@ class Dense(nn.Module):
         return self.compute_dtype or self.weight.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp[0].linear(self, x, self.tp[1])
         dt = self.cdtype
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 

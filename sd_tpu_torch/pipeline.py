@@ -16,6 +16,13 @@ Counterpart of `sd_tpu/pipeline.py` `Text2ImagePipeline`:
     the blend of `img2img` at strength 1;
   * `generate_hires`: a base pass, a host-side upscale, an img2img pass;
   * `set_unet_options` (ToMe, FreeU) and `load_textual_inversion`;
+  * `shard_for_serving(mesh)`: serving over the ranks of a process group
+    (`parallel/mesh.py`): `generate` gives each rank of the "data" axis its
+    rows of the prompt batch (every draw the whole batch's, its rows kept)
+    and gathers the images on every rank; a "model" axis splits the UNet's
+    attention and feed-forward by `TP_RULES_UNET`. Every rank calls
+    `generate` with the same arguments (`serve.py --shard` broadcasts them);
+    the first stage and the text encoder are whole on every rank;
   * weights in and out: `from_sd_checkpoint` (an SD-v1 `.ckpt` or
     `.safetensors`: UNet and first stage), `to_sd_checkpoint`, `from_run`
     (a `train_ldm` run, a flow model's included, or a consistency-distilled
@@ -45,6 +52,7 @@ modules themselves, so loading an adapter needs no cache reset.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -126,6 +134,7 @@ class Text2ImagePipeline:
         self._ti_expansions: dict[str, str] = {}      # load_textual_inversion
         self.controlnet, self.control_scale = None, 1.0           # load_controlnet
         self.ip_params, self.ip_scale, self.ip_embedder = None, 1.0, None  # load_ip_adapter
+        self.mesh, self._unet_split = None, {}                    # shard_for_serving
         lat = cfg["latent"]
         self.ld = LatentDiffusion(
             # the process `build_ldm` builds (a DDPM schedule, x0 unclamped,
@@ -320,6 +329,45 @@ class Text2ImagePipeline:
             loaded.append(token)
         return loaded
 
+    # -- serving over a process group ----------------------------------------------
+
+    def shard_for_serving(self, mesh=None) -> None:
+        """Serve over a mesh of the process group's ranks (default every
+        rank on "data"): `generate`'s prompt batch splits by rows over the
+        "data" axis (a batch must divide it), and a "model" axis of more than
+        one rank splits the UNet in place by `TP_RULES_UNET` (`shard_module_`:
+        each rank keeps its piece of the attention and feed-forward weights
+        and attends over its heads). The text encoder and the first stage stay
+        whole on every rank, as the TPU package replicates them; a textual
+        inversion loaded later patches every rank's encoder, which is its
+        reload there. A split UNet cannot be split again."""
+        from sd_tpu_torch.parallel import mesh as pm
+
+        if self._unet_split:
+            raise ValueError("shard_for_serving: the UNet is already split over a model axis; "
+                             "build a new pipeline for another mesh")
+        self.mesh = mesh if mesh is not None else pm.make_mesh()
+        self._unet_split = pm.shard_module_(self.unet, self.mesh, pm.TP_RULES_UNET)
+
+    def _data_rows(self, batch: int) -> np.ndarray | None:
+        """This rank's rows of a prompt batch over the mesh's "data" axis
+        (None without a mesh); raises where the batch does not divide it."""
+        if self.mesh is None:
+            return None
+        n = self.mesh.size("data")
+        if batch % n:
+            raise ValueError(f"batch {batch} must divide the data axis ({n})")
+        per, r = batch // n, self.mesh.index("data")
+        return np.arange(r * per, (r + 1) * per)
+
+    def _gather_rows(self, images: np.ndarray) -> np.ndarray:
+        """Every data rank's uint8 images, in row order, on every rank."""
+        from sd_tpu_torch.parallel.mesh import all_gather_flat
+
+        t = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        every = all_gather_flat(t.reshape(-1), self.mesh.group("data"))
+        return every.view(-1, *images.shape[1:]).cpu().numpy()
+
     # -- text ----------------------------------------------------------------------
 
     def _tokenize_weighted(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray | None]:
@@ -471,6 +519,9 @@ class Text2ImagePipeline:
         if sag_scale > 0.0 and ip_image is not None:
             raise ValueError("sag_scale and ip_image cannot combine: "
                              "the SAG probe pass has no IP-Adapter payload")
+        rows = self._data_rows(len(prompts))
+        if self._unet_split and sag_scale > 0.0:
+            raise ValueError("sag_scale over a split UNet: its probe reads every head")
         ip_embed = None if ip_image is None else self.embed_ip_image(ip_image, len(prompts))
         hint = (None if control_image is None
                 else self.control_hint(control_image, len(prompts), height, width))
@@ -478,12 +529,27 @@ class Text2ImagePipeline:
         gen = torch.Generator(self.device).manual_seed(seed)
         x_T = torch.randn((len(prompts), h, w, self.cfg["latent"]["channels"]),
                           generator=gen, device=self.device, dtype=torch.float32)
-        img = self.sample(prompts, x_T, negative_prompt, num_steps, guidance_scale, eta,
-                          generator=gen, sampler=sampler, guidance_rescale=guidance_rescale,
-                          clip_skip=clip_skip, sag_scale=sag_scale,
-                          decode_tile=self._latent_tile(decode_tile), control=hint,
-                          ip_embed=ip_embed)
+        batch_rows = contextlib.nullcontext()
+        if rows is not None:
+            # this rank's rows; the sampler's draws the whole batch's, these rows kept
+            from sd_tpu_torch.parallel.mesh import batch_rows as rows_context
+
+            if not isinstance(negative_prompt, str):
+                negative_prompt = [negative_prompt[i] for i in rows]
+            prompts, x_T = [prompts[i] for i in rows], x_T[rows[0]:rows[-1] + 1]
+            if hint is not None and hint.shape[0] > 1:
+                hint = hint[rows[0]:rows[-1] + 1]
+            ip_embed = None if ip_embed is None else ip_embed[rows[0]:rows[-1] + 1]
+            batch_rows = rows_context(rows, len(rows) * self.mesh.size("data"))
+        with batch_rows:
+            img = self.sample(prompts, x_T, negative_prompt, num_steps, guidance_scale, eta,
+                              generator=gen, sampler=sampler, guidance_rescale=guidance_rescale,
+                              clip_skip=clip_skip, sag_scale=sag_scale,
+                              decode_tile=self._latent_tile(decode_tile), control=hint,
+                              ip_embed=ip_embed)
         out = to_uint8(img)
+        if rows is not None:
+            out = self._gather_rows(out)
         if watermark is not None:
             bits = str_to_bits(watermark, watermark_bits)
             out = np.stack([embed_watermark(o, bits, key=watermark_key) for o in out])

@@ -33,7 +33,18 @@ DIR` a `train_ldm` run (`Text2ImagePipeline.from_run`: its EMA UNet, the
 config's trained first stage, its calibrated scale factor), else the weights
 are random from the config's seed. `--lora FILE` merges a `.safetensors` LoRA
 (`load_lora`), `--tome` and `--freeu` set the UNet's serving options
-(`set_unet_options`). Sharding (`--shard`) is not ported yet.
+(`set_unet_options`). `--shard` serves over every rank of the process group
+(`Text2ImagePipeline.shard_for_serving`; under torchrun, `--mesh data=2,model=2`
+for a tensor-parallel UNet, default every rank on "data"): rank 0 owns the HTTP
+server and the batcher, and each grouped batch's prompts and parameters are
+broadcast to the other ranks, which run the same `generate` (`ShardedGenerate`;
+a group is padded to a multiple of the data axis). A `generate` that fails on
+any rank tears the group down: that rank exits non-zero, and the others'
+collectives fail rather than wait. Without torchrun `--shard` runs the same
+path over a process group of one rank.
+
+    torchrun --nproc-per-node 2 -m sd_tpu_torch.serve --config sd_v1 --shard \
+        --mesh data=1,model=2
 
     python -m sd_tpu_torch.serve --config runs/ldm/config.json --run runs/ldm
 
@@ -376,7 +387,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--watermark", default=None,
                     help="invisible provenance mark on every output "
                          "(sd_tpu_torch.utils.watermark.verify_watermark checks it)")
-    ap.add_argument("--shard", action="store_true", help="not ported yet")
+    ap.add_argument("--shard", action="store_true",
+                    help="serve over every rank of the process group (torchrun; one rank "
+                         "without it)")
+    ap.add_argument("--mesh", default=None,
+                    help='the ranks\' axes under --shard, e.g. "data=2,model=2" (default: '
+                         'every rank on data)')
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend under --shard (default nccl on the "
+                         "card, gloo on the CPU)")
     ap.add_argument("--tome", type=float, default=0.0,
                     help="ToMe token-merge ratio (0 = off; ~0.5 typical)")
     ap.add_argument("--freeu", default=None,
@@ -411,12 +430,129 @@ def build_pipeline(args: argparse.Namespace):
     return pipe
 
 
+class ShardedGenerate:
+    """Rank 0's view of a pipeline served over a process group: `generate`
+    broadcasts its arguments to the other ranks (`follow`), pads the prompts
+    to a multiple of the data axis and runs the pipeline's `generate`, as
+    every other rank does with the same arguments. The requests were
+    validated before they were grouped, so a failure here is a fault of the
+    group: it tears the group down (the other ranks' collectives fail and
+    they exit) and every later call raises."""
+
+    def __init__(self, pipeline: Any):
+        self.pipeline = pipeline
+        self.failed: str | None = None
+
+    def generate(self, prompts, **kw):
+        if self.failed:
+            raise RuntimeError(f"the process group was torn down after {self.failed}: "
+                               "restart the server")
+        try:
+            return self._generate(prompts, **kw)
+        except Exception as e:
+            self.failed = f"{type(e).__name__}: {e}"
+            _teardown()
+            raise
+
+    def _generate(self, prompts, **kw):
+        n = len(prompts)
+        data = self.pipeline.mesh.size("data")
+        pad = -n % data
+        prompts = list(prompts) + [prompts[-1]] * pad
+        neg = kw.get("negative_prompt", "")
+        if not isinstance(neg, str):
+            kw["negative_prompt"] = list(neg) + [neg[-1]] * pad
+        _broadcast({"prompts": prompts, "kw": kw})
+        return self.pipeline.generate(prompts, **kw)[:n]
+
+    def stop(self) -> None:
+        if not self.failed:
+            _broadcast(None)
+
+
+def _broadcast(payload):
+    import torch.distributed as dist
+
+    box = [payload]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _teardown() -> None:
+    """End this rank's part in the process group (its peers' pending and
+    later collectives then fail instead of waiting)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def follow(pipeline: Any) -> int:
+    """A rank other than 0 under `--shard`: run every `generate` rank 0
+    broadcasts until it broadcasts None. A failure tears the group down and
+    raises, so the process exits non-zero and rank 0's collective fails
+    rather than waiting for this rank."""
+    served = 0
+    while True:
+        payload = _broadcast(None)
+        if payload is None:
+            return served
+        try:
+            pipeline.generate(payload["prompts"], **payload["kw"])
+        except Exception as e:
+            print(f"[shard] generate failed on this rank: {type(e).__name__}: {e}",
+                  file=sys.stderr, flush=True)
+            _teardown()
+            raise
+        served += 1
+
+
+def parse_mesh(text: str | None) -> dict[str, int] | None:
+    """"data=2,model=2" → {"data": 2, "model": 2}."""
+    if not text:
+        return None
+    return {k.strip(): int(v) for k, v in (part.split("=") for part in text.split(","))}
+
+
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    if args.shard:
-        print("sd_tpu_torch.serve: --shard is not ported yet", file=sys.stderr)
-        return 2
-    pipe = build_pipeline(args)
+    if not args.shard:
+        return _serve(args, build_pipeline(args))
+    import socket
+
+    import torch.distributed as dist
+
+    from sd_tpu_torch.parallel import mesh as pmesh
+    from sd_tpu_torch.parallel import multihost
+
+    if not multihost.initialize(backend=args.backend, device=args.device):
+        with socket.socket() as s:     # one rank: a process group of its own
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        multihost.initialize(backend=args.backend, device=args.device, rank=0, world_size=1,
+                             init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        if args.device is None:
+            args.device = multihost.local_device()
+        mesh = pmesh.make_mesh(parse_mesh(args.mesh))     # before anything is built
+        pipe = build_pipeline(args)
+        pipe.shard_for_serving(mesh)
+        rank, world = multihost.rank_and_world()
+        print(f"[shard] rank {rank}/{world} mesh={pipe.mesh.axes()} ({dist.get_backend()})",
+              flush=True)
+        if rank != 0:
+            follow(pipe)
+            return 0
+        sharded = ShardedGenerate(pipe)
+        try:
+            return _serve(args, sharded)
+        finally:
+            sharded.stop()
+    finally:
+        _teardown()
+
+
+def _serve(args: argparse.Namespace, pipe) -> int:
     batcher = BatchingServer(pipe, max_batch=args.max_batch,
                              batch_window_ms=args.batch_window_ms,
                              default_steps=args.steps, default_sampler=args.sampler,

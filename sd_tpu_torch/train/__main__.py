@@ -26,6 +26,18 @@ of `--platform`).
 `--config` is a config function's name (`core/config.py`, e.g.
 `lcm512_distill`, whose `distill.teacher_run` a .json copy sets) or a .json
 / .yaml file. A task that is none of these exits with 2.
+
+Under torchrun the process group comes up first (`parallel/multihost.py
+initialize`: NCCL, one card per rank; `--backend gloo` with `--device
+cuda:0` puts the ranks on one card, `--device cpu` runs them on the CPU),
+and a config's `parallel:` block (`mesh: {data: N, model: M}`,
+`state_sharding: zero1 | fsdp`) spreads `ddpm`, `kl_vae`, `vq`, `ldm`,
+`ldm_inpaint` and `ldm_sr` over it; rank 0 writes the run's files. A
+group of several ranks without the block, or with another task, exits
+with 2 (or raises) rather than train the same run on every rank:
+
+    torchrun --nproc-per-node 4 -m sd_tpu_torch.train --config runs/ldm_dp.json \
+        --data imgs/ --out runs/ldm_dp
 """
 
 from __future__ import annotations
@@ -34,6 +46,10 @@ import argparse
 import json
 import os
 import sys
+
+
+# the tasks whose trainers read a `parallel:` block (the others run on one process)
+PARALLEL_TASKS = frozenset({"ddpm", "kl_vae", "vq", "ldm", "ldm_inpaint", "ldm_sr"})
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -45,10 +61,31 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--annotations", default=None, help="COCO captions json (ldm task)")
     ap.add_argument("--out", default=None, help="run directory (default runs/<task>)")
     ap.add_argument("--max-steps", type=int, default=None)
-    ap.add_argument("--device", default=None, help="cpu to run on the CPU")
+    ap.add_argument("--device", default=None,
+                    help="cpu to run on the CPU; cuda:K to pin every rank to card K")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend under torchrun (default nccl on the "
+                         "card, gloo on the CPU)")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from sd_tpu_torch.parallel import multihost
+
+    if multihost.initialize(backend=args.backend, device=args.device):
+        rank, world = multihost.rank_and_world()
+        print(f"[multihost] rank {rank}/{world} on {multihost.local_device()} "
+              f"({dist.get_backend()})")
+    try:
+        return _train(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace) -> int:
     from sd_tpu_torch.core.config import load_config
+    from sd_tpu_torch.parallel import multihost
     from sd_tpu_torch.train import (distill, dreambooth, inpaint, runners, sr,
                                     textual_inversion)
 
@@ -65,11 +102,19 @@ def main(argv: list[str] | None = None) -> int:
     if run is None:
         print(f"sd_tpu_torch.train: unknown task {task!r}", file=sys.stderr)
         return 2
+    world = multihost.rank_and_world()[1]
+    if world > 1 and task not in PARALLEL_TASKS:
+        print(f"sd_tpu_torch.train: task {task!r} runs on one process (a `parallel:` block "
+              f"is read by {sorted(PARALLEL_TASKS)}); this group has {world} ranks",
+              file=sys.stderr)
+        return 2
     out = args.out or f"runs/{task}"
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=1)
-    run(cfg, args.data, out_dir=out, max_steps=args.max_steps, device=args.device)
+    if multihost.rank_and_world()[0] == 0:
+        with open(os.path.join(out, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
+    device = multihost.local_device() if args.device is None else args.device
+    run(cfg, args.data, out_dir=out, max_steps=args.max_steps, device=device)
     print(f"[done] task={task} out={out}")
     return 0
 

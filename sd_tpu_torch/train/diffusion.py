@@ -80,11 +80,14 @@ class Adam:
 
     @torch.no_grad()
     def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-                state: AdamState) -> None:
-        """One step on `params`, in place, from `grads`."""
+                state: AdamState, norm: torch.Tensor | None = None) -> None:
+        """One step on `params`, in place, from `grads`; clipped by `norm`,
+        the gradients' global norm, where the caller has it (a sharded
+        update holds slices, whose own norm is not the global one)."""
         gs = [g.to(self.compute_dtype) if self.compute_dtype else g for g in grads]
         if self.grad_clip is not None and self.grad_clip > 0:
-            norm = global_norm(gs)   # a select, not a branch: no wait for the card
+            if norm is None:
+                norm = global_norm(gs)   # a select, not a branch: no wait for the card
             gs = [torch.where(norm < self.grad_clip, g, g / norm.to(g.dtype) * self.grad_clip)
                   for g in gs]
         lr = self.lr(state.count) if callable(self.lr) else self.lr

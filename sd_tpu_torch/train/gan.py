@@ -37,6 +37,7 @@ from sd_tpu_torch.kernels.conv2d import training_trace
 from sd_tpu_torch.losses.gan import (GanLossConfig, adopt_weight,
                                      calculate_adaptive_weight, reconstruction_nll,
                                      vq_reconstruction_nll)
+from sd_tpu_torch.parallel.mesh import data_mean
 from sd_tpu_torch.train.diffusion import Adam, AdamState
 
 
@@ -99,7 +100,8 @@ def _d_weight(cfg: GanLossConfig, nll: torch.Tensor, g: torch.Tensor,
         return torch.tensor(cfg.disc_weight, device=nll.device)
     (nll_grad,) = torch.autograd.grad(nll, last, retain_graph=True)
     (g_grad,) = torch.autograd.grad(g, last, retain_graph=True)
-    return calculate_adaptive_weight(nll_grad, g_grad, cfg.disc_weight)
+    # a data-parallel step: the whole batch's gradients (every rank's mean)
+    return calculate_adaptive_weight(data_mean(nll_grad), data_mean(g_grad), cfg.disc_weight)
 
 
 def _generator_update(state: GanTrainState, opt_g: Adam, loss: torch.Tensor,

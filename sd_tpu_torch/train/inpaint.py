@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from sd_tpu_torch.parallel.mesh import global_draw
+
 
 def _nearest_rows(n_in: int, n_out: int, device) -> torch.Tensor:
     # jax.image.resize's "nearest": source ⌊(i + ½)·in/out⌋, computed in fp32
@@ -171,10 +173,10 @@ def train_ldm_inpaint(config: dict | str, data, out_dir: str | None = None,
     `scale_factor: auto` calibrates as `train_ldm` does. Returns (state,
     history)."""
     from sd_tpu_torch.core.config import resolve_device
-    from sd_tpu_torch.train.diffusion import (ddpm_optimizer, init_train_state,
-                                              make_diffusion_train_step)
+    from sd_tpu_torch.train.diffusion import ddpm_optimizer, init_train_state
     from sd_tpu_torch.train.metrics import count_params
-    from sd_tpu_torch.train.runners import (_Batches, _image, _load_cfg, _resume, _run_loop,
+    from sd_tpu_torch.train.runners import (_Batches, _image, _load_cfg, _maybe_parallel_step,
+                                            _parallel_run, _resume, _run_loop,
                                             auto_scale_factor, build_ldm, make_lr)
 
     cfg = _load_cfg(config)
@@ -184,9 +186,10 @@ def train_ldm_inpaint(config: dict | str, data, out_dir: str | None = None,
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
+    par = _parallel_run(cfg, tc.get("grad_accum", 1))
     ld, unet, _, embed = build_ldm(cfg, gen, device=device)
     print(f"[ldm_inpaint] unet params: {count_params(unet) / 1e6:.1f}M")
-    batches = _Batches(data, cfg)
+    batches = _Batches(data, cfg, par)
     ld = auto_scale_factor(ld, cfg, batches, out_dir, gen, tag="ldm_inpaint")
 
     mk = dict(cfg.get("data", {}).get("inpaint", {}) or {})
@@ -197,8 +200,10 @@ def train_ldm_inpaint(config: dict | str, data, out_dir: str | None = None,
         img = np.asarray(batch["image"], np.float32)
         texts = list(batch.get("txt_raw", [""] * len(img)))
         if cond_dropout > 0.0:
-            texts = ["" if host_rng.random() < cond_dropout else t for t in texts]
-        mask = random_inpaint_masks(host_rng, img.shape[0], img.shape[1], img.shape[2], **mk)
+            draws = global_draw(lambda n: [host_rng.random() for _ in range(n)], len(texts))
+            texts = ["" if u < cond_dropout else t for u, t in zip(draws, texts)]
+        mask = global_draw(lambda n: random_inpaint_masks(host_rng, n, img.shape[1],
+                                                          img.shape[2], **mk), img.shape[0])
         return {"image": _image(batch, device), "txt_emb": embed(texts),
                 "mask": torch.from_numpy(mask).to(device)}
 
@@ -208,8 +213,8 @@ def train_ldm_inpaint(config: dict | str, data, out_dir: str | None = None,
     state, start = _resume(out_dir, lambda: init_train_state(
         dict(unet.named_parameters()), opt, tc.get("ema_decay", 0.9999),
         num_timesteps=ld.schedule.num_timesteps, learn_logvar=learn_logvar))
-    step_fn = make_diffusion_train_step(inpaint_loss(ld, lh, lw), opt,
-                                        grad_accum=tc.get("grad_accum", 1))
+    step_fn = _maybe_parallel_step(par, inpaint_loss(ld, lh, lw), opt, state,
+                                   tc.get("grad_accum", 1), tp=(unet, ""))
     history = _run_loop(lambda st, b, g: step_fn(st, embed_batch(b), g), state, cfg, batches,
                         out_dir, start, seed=seed, device=device, max_steps=max_steps,
                         sampler=_inpaint_eval_sampler(cfg, batches, ld, unet, embed, device))

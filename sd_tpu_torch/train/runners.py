@@ -52,8 +52,10 @@ ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -77,6 +79,9 @@ from sd_tpu_torch.models.lpips import make_lpips_fn
 from sd_tpu_torch.models.unet_ddpm import UNetDDPM
 from sd_tpu_torch.models.unet_sd import UNetModel
 from sd_tpu_torch.nn.layers import dropout_rng
+from sd_tpu_torch.parallel import mesh as pmesh
+from sd_tpu_torch.parallel.mesh import global_draw
+from sd_tpu_torch.parallel.multihost import node_count, node_index, rank_and_world
 from sd_tpu_torch.train.checkpoint import (auto_resume, restore_tree, save_checkpoint,
                                            trained_weights)
 from sd_tpu_torch.train.diffusion import (TrainState, cast_floating, ddpm_optimizer,
@@ -130,12 +135,14 @@ def _load_cfg(config: dict | str) -> dict:
 # -- data ---------------------------------------------------------------------------
 
 
-def _build_loader(data_dir: str, cfg: dict, batch_size: int):
+def _build_loader(data_dir: str, cfg: dict, batch_size: int, rows=None):
     """The config's dataset over `data_dir` (COCO captions with
     `annotation_file`, HR/LR pairs with `data.sr: {sf, degradation}`, class
     captions with `data.captions: class`, else the image folder) in a
-    DataLoader; under `torch.distributed` each rank reads its own share of
-    every epoch."""
+    DataLoader. Each host of a process group reads its own share of every
+    epoch (round-robin, the TPU package's rule with a process per host);
+    `rows`: only those positions of each batch are read (a data-parallel
+    rank's)."""
     from sd_tpu_torch.data.datasets import (ClassCaptionDataset, CocoCaptionDataset,
                                             ImageFolderDataset, SRDataset)
     from sd_tpu_torch.data.loader import DataLoader
@@ -156,18 +163,185 @@ def _build_loader(data_dir: str, cfg: dict, batch_size: int):
                                  template=dcfg.get("template", "a photo of a {}"))
     else:
         ds = ImageFolderDataset(data_dir, image_size=size)
-    dist = torch.distributed
-    rank, world = ((dist.get_rank(), dist.get_world_size())
-                   if dist.is_available() and dist.is_initialized() else (0, 1))
-    return DataLoader(ds, batch_size=batch_size, rank=rank, world=world)
+    return DataLoader(ds, batch_size=batch_size, rank=node_index(), world=node_count(),
+                      rows=rows)
+
+
+def _take_rows(batch: dict, rows: np.ndarray) -> dict:
+    """The rows `rows` of every field of a batch (arrays, tensors, lists)."""
+    return {k: ([v[i] for i in rows] if isinstance(v, (list, tuple))
+                else v[torch.as_tensor(rows)] if torch.is_tensor(v) else np.asarray(v)[rows])
+            for k, v in batch.items()}
+
+
+# -- the parallel layer ---------------------------------------------------------------
+
+
+class ParallelRun:
+    """A run's `parallel:` block over the process group:
+
+        parallel:
+          mesh: {data: 4, model: 2}   # default: every rank on "data"
+          state_sharding: zero1       # zero1 (default) | fsdp
+
+    `train.batch_size` is the global batch of a host; each of its
+    `grad_accum` microbatches splits by rows over the host's ranks of the
+    data axis (`loader_rows`, the positions this rank reads). Across hosts
+    the global microbatch is the hosts' microbatches in host order, and
+    every draw of a step is made for it with this rank's rows kept (`rows`).
+    Rank 0 writes the checkpoints (the
+    whole state, gathered), the metrics and the samples; the other ranks
+    wait. The step makers (`_maybe_parallel_step`, `_maybe_parallel_gan_step`)
+    lay the state out and set `whole` / `local_state`."""
+
+    def __init__(self, cfg: dict, grad_accum: int = 1):
+        pcfg = cfg["parallel"]
+        self.mode = pcfg.get("state_sharding", "zero1")
+        if self.mode not in ("zero1", "fsdp"):
+            raise ValueError(f"parallel.state_sharding={self.mode!r}: expected one of "
+                             "['fsdp', 'zero1']")
+        self.mesh = _parallel_mesh(pcfg)
+        self.grad_accum = grad_accum
+        self.main = rank_and_world()[0] == 0
+        self.sharded: list = []
+        self.whole: Callable = lambda st: st
+        self.local_state: Callable = lambda st: st
+        if self.main:
+            print(f"[parallel] mesh={self.mesh.axes()} state_sharding={self.mode}")
+
+    def rows(self, batch_size: int) -> np.ndarray:
+        """This rank's positions in a global batch of `batch_size` rows."""
+        n, r = self.mesh.size("data"), self.mesh.index("data")
+        return pmesh.local_rows(batch_size, self.grad_accum, r, n)
+
+    def loader_rows(self, batch_size: int) -> np.ndarray:
+        """This rank's positions in its host's batch of `batch_size` rows:
+        the host's ranks of the data axis, in torchrun's host-by-host rank
+        order, split each microbatch (one host: `rows`)."""
+        n, d, hosts = self.mesh.size("data"), self.mesh.index("data"), node_count()
+        if n % hosts or d // (n // hosts) != node_index():
+            raise ValueError(f"the data axis ({n} ranks) must run host by host over the "
+                             f"{hosts} hosts (torchrun's rank order)")
+        per = n // hosts
+        return pmesh.local_rows(batch_size, self.grad_accum, d % per, per)
+
+    def batch_rows(self, batch: dict):
+        """The whole-batch draw context of a step on this rank's `batch`."""
+        total = len(batch["image"]) * self.mesh.size("data")
+        return pmesh.batch_rows(self.rows(total), total)
+
+    @contextlib.contextmanager
+    def eval_view(self, state):
+        """`state` as this rank's modules can run it (the parameters whole
+        over the data axis for the step's duration, the EMA shadow too)."""
+        for sh in self.sharded:
+            sh.gather_()
+        try:
+            yield self.local_state(state)
+        finally:
+            for sh in self.sharded:
+                sh.restore_()
+
+    def save(self, ckpt_dir: str, state, step: int) -> None:
+        whole = self.whole(state)
+        if self.main:
+            save_checkpoint(ckpt_dir, whole, step)
+        torch.distributed.barrier()
+
+
+def _parallel_mesh(pcfg: dict) -> pmesh.Mesh:
+    """The mesh of a `parallel:` block: its axes over every rank of the
+    process group (raises without one, or where they do not cover it)."""
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        raise RuntimeError(f"parallel: {pcfg} needs a torch.distributed process group: launch "
+                           "with torchrun (python -m sd_tpu_torch.train calls "
+                           "multihost.initialize())")
+    world = torch.distributed.get_world_size()
+    axes = dict(pcfg.get("mesh") or {"data": world})
+    n = int(np.prod(list(axes.values())))
+    if n != world:
+        raise ValueError(f"parallel.mesh {axes} covers {n} ranks, the process group has "
+                         f"{world}: launch {n} processes (torchrun --nproc-per-node {n})")
+    return pmesh.make_mesh(axes)
+
+
+def _parallel_run(cfg: dict, grad_accum: int = 1) -> ParallelRun | None:
+    """The run's `ParallelRun`, None on one process without a `parallel:`
+    block. A process group of several ranks without the block raises: each
+    rank would train the whole run on the same batches into one directory."""
+    if cfg.get("parallel"):
+        return ParallelRun(cfg, grad_accum)
+    world = rank_and_world()[1]
+    if world > 1:
+        raise ValueError(f"the process group has {world} ranks and the config has no "
+                         f"`parallel:` block: add `parallel: {{mesh: {{data: {world}}}}}` to "
+                         "split each batch over the ranks, or launch one process")
+    return None
+
+
+def _maybe_parallel_step(par: ParallelRun | None, loss_fn: Callable, opt, state,
+                         grad_accum: int = 1, tp: tuple | None = None) -> Callable:
+    """The train step: `make_diffusion_train_step` without a `parallel:`
+    block, else `parallel/mesh.py make_parallel_train_step` with the state
+    laid out by `state_sharding` (ZeRO-1 or FSDP), in place. `tp`: (module,
+    name prefix) whose parameters the state trains: its attention and
+    feed-forward blocks split over a "model" axis (`TP_RULES_UNET`)."""
+    if par is None:
+        return make_diffusion_train_step(loss_fn, opt, grad_accum=grad_accum)
+    split = {}
+    if tp is not None:
+        module, prefix = tp
+        split = {prefix + n: leaf for n, leaf in
+                 pmesh.shard_module_(module, par.mesh, pmesh.TP_RULES_UNET).items()}
+    sharded = pmesh.shard_train_state_(state, par.mesh, par.mode, split)
+    par.sharded = [sharded]
+    par.whole = lambda st: pmesh.whole_train_state(st, sharded)
+    par.local_state = lambda st: pmesh.ema_over_data(st, sharded)
+    return pmesh.make_parallel_train_step(loss_fn, opt, par.mesh, sharded,
+                                          pmesh._trained_names(state), grad_accum)
+
+
+def _maybe_parallel_gan_step(par: ParallelRun | None, build_step: Callable, state,
+                             opt_g, opt_d) -> Callable:
+    """The GAN step `build_step(None)` without a `parallel:` block; else
+    `build_step((opt_g, opt_d))` over `ShardedAdam`s of the laid-out state
+    (`gan_state_sharding`'s layouts), run with this rank's rows: its draws
+    the whole batch's, the discriminator's batch statistics, the EMA
+    codebook's counts and the adaptive weight's gradients over the data
+    axis, the logs the axis's mean."""
+    if par is None:
+        return build_step(None)
+    mesh, mode = par.mesh, par.mode
+    specs = pmesh.gan_state_sharding(state, mesh, mode=mode)
+    sg = pmesh.shard_tensors_(list(state.params_g.values()), list(state.params_g),
+                              specs.opt_state_g.mu, [state.opt_state_g], mesh, mode)
+    sd = pmesh.shard_tensors_(list(state.params_d.values()), list(state.params_d),
+                              specs.opt_state_d.mu, [state.opt_state_d], mesh, mode)
+    par.sharded = [sg, sd]
+    par.whole = lambda st: pmesh.whole_gan_state(st, sg, sd)
+    step = build_step((pmesh.ShardedAdam(opt_g, sg), pmesh.ShardedAdam(opt_d, sd)))
+    n, r = mesh.size("data"), mesh.index("data")
+
+    def pstep(st: GanTrainState, x: torch.Tensor, generator=None) -> dict:
+        sg.gather_()
+        sd.gather_()
+        b = x.shape[0]
+        with pmesh.data_axis(mesh), pmesh.batch_rows(np.arange(r * b, (r + 1) * b), b * n):
+            logs = step(st, x, generator)
+        return pmesh.mean_logs(logs, mesh)
+
+    return pstep
 
 
 class _Batches:
     """A run's data: a directory (the config's dataset, epoch after epoch)
-    or an iterable of batches (read once)."""
+    or an iterable of batches (read once); with a `ParallelRun`, this
+    rank's rows of each (`peek` stays the whole batch)."""
 
-    def __init__(self, data: str | os.PathLike | Iterable[dict], cfg: dict):
+    def __init__(self, data: str | os.PathLike | Iterable[dict], cfg: dict,
+                 par: ParallelRun | None = None):
         self.cfg = cfg
+        self.par = par
         self.dir = os.fspath(data) if isinstance(data, (str, os.PathLike)) else None
         if self.dir is None:
             self._it = iter(data)
@@ -191,10 +365,13 @@ class _Batches:
     def __iter__(self):
         if self.dir is None:
             if self._first is not None:
-                yield self._first
-                yield from self._it
+                for b in itertools.chain([self._first], self._it):
+                    yield b if self.par is None else _take_rows(
+                        b, self.par.loader_rows(len(b["image"])))
             return
-        loader = _build_loader(self.dir, self.cfg, self.cfg["train"].get("batch_size", 4))
+        size = self.cfg["train"].get("batch_size", 4)
+        loader = _build_loader(self.dir, self.cfg, size,
+                               rows=None if self.par is None else self.par.loader_rows(size))
         while True:
             n = 0
             for batch in loader:
@@ -221,13 +398,19 @@ def _run_loop(step_fn: Callable, state, cfg: dict, batches: _Batches, out_dir: s
     `train.checkpoint_every` steps and at the end, and every
     `train.eval_every` steps `sampler(state, generator)` (images, or
     (images, {metric: value}) logged as `eval_<metric>`) as
-    `samples/step_<N>.png`, its generator from (seed, EVAL_KEY, step)."""
+    `samples/step_<N>.png`, its generator from (seed, EVAL_KEY, step).
+    Under a `parallel:` block (`batches.par`) every rank steps on its rows
+    and runs the sampler (the modules may be split over its ranks); rank 0
+    writes the files, a checkpoint from the whole state."""
     tc = cfg["train"]
+    par = batches.par
+    main = par is None or par.main
     total = max_steps if max_steps is not None else tc.get("total_steps", 1000)
     ckpt_every = tc.get("checkpoint_every", 1000)
     eval_every = tc.get("eval_every", ckpt_every)
     ckpt_dir = os.path.join(out_dir, "ckpt") if out_dir else None
-    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl") if out_dir else None)
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl") if out_dir and main else None)
+    save = save_checkpoint if par is None else par.save
     history, step, saved = [], start_step, None
     it = iter(batches)
     try:
@@ -236,28 +419,31 @@ def _run_loop(step_fn: Callable, state, cfg: dict, batches: _Batches, out_dir: s
             if batch is None:
                 break
             t0 = time.perf_counter()
-            logs = step_fn(state, batch, step_generator(device, seed, step))
+            with contextlib.nullcontext() if par is None else par.batch_rows(batch):
+                logs = step_fn(state, batch, step_generator(device, seed, step))
             row = {k: float(v) for k, v in logs.items()}
             seconds = time.perf_counter() - t0
             logger.log(step, row)
             history.append({**row, "seconds": seconds})
             step += 1
             if ckpt_dir and step % ckpt_every == 0:
-                save_checkpoint(ckpt_dir, state, step)
+                save(ckpt_dir, state, step)
                 saved = step
             if out_dir and sampler is not None and step % eval_every == 0:
-                with torch.no_grad():
-                    imgs = sampler(state, step_generator(device, seed, EVAL_KEY, step))
+                with torch.no_grad(), (contextlib.nullcontext(state) if par is None
+                                       else par.eval_view(state)) as st:
+                    imgs = sampler(st, step_generator(device, seed, EVAL_KEY, step))
                 if isinstance(imgs, tuple):
                     imgs, eval_logs = imgs
                     logger.log(step, {f"eval_{k}": v for k, v in eval_logs.items()})
-                save_image_grid(imgs.float().cpu().numpy(),
-                                os.path.join(out_dir, "samples", f"step_{step}.png"))
+                if main:
+                    save_image_grid(imgs.float().cpu().numpy(),
+                                    os.path.join(out_dir, "samples", f"step_{step}.png"))
     finally:
         it.close()
         logger.close()
     if ckpt_dir and saved != step:
-        save_checkpoint(ckpt_dir, state, step)
+        save(ckpt_dir, state, step)
     return history
 
 
@@ -485,7 +671,8 @@ def caption_dropper(cfg: dict) -> Callable[[list], list]:
     def drop(texts):
         if rate <= 0.0:
             return list(texts)
-        return ["" if rng.random() < rate else t for t in texts]
+        draws = global_draw(lambda n: [rng.random() for _ in range(n)], len(texts))
+        return ["" if u < rate else t for u, t in zip(draws, texts)]
 
     return drop
 
@@ -504,6 +691,7 @@ class LdmBranch:
     ld: LatentDiffusion
     modules: dict = dataclasses.field(default_factory=dict)
     finish: Callable[[TrainState], None] | None = None
+    tp: tuple | None = None     # (module, name prefix) of the trained tensors a model axis splits
 
 
 def ldm_branch(cfg: dict, ld: LatentDiffusion, unet: UNetModel, embed: TextEmbedder,
@@ -581,14 +769,14 @@ def ldm_branch(cfg: dict, ld: LatentDiffusion, unet: UNetModel, embed: TextEmbed
             return out
 
         return LdmBranch(dict(cn.named_parameters()), loss_fn, embed_batch, model,
-                         {"controlnet": cn})
+                         {"controlnet": cn}, tp=(cn, ""))
     if ip_cfg:
         if cond_trainable:
             raise ValueError("ip_adapter and cond_stage.trainable are exclusive")
         base_from(ip_cfg)
         embedder = FrozenClipImageEmbedder(device=device).eval().requires_grad_(False)
         init_params_(embedder, gen(0x1BAD))
-        if out_dir:
+        if out_dir and rank_and_world()[0] == 0:
             # the frozen embedder beside the run, so serving embeds as training did
             save_checkpoint(os.path.join(out_dir, "ip_embedder"),
                             dict(embedder.named_parameters()), 0, max_to_keep=1)
@@ -612,7 +800,7 @@ def ldm_branch(cfg: dict, ld: LatentDiffusion, unet: UNetModel, embed: TextEmbed
             out = embed_texts(batch)
             emb = embedder(out["image"])
             if img_dropout > 0.0:
-                keep = torch.as_tensor(ip_rng.random(emb.shape[0]) >= img_dropout)
+                keep = torch.as_tensor(global_draw(ip_rng.random, emb.shape[0]) >= img_dropout)
                 emb = emb * keep.to(emb.dtype).to(device)[:, None]
             out["ip_embed"] = emb
             return out
@@ -661,9 +849,9 @@ def ldm_branch(cfg: dict, ld: LatentDiffusion, unet: UNetModel, embed: TextEmbed
             ids = torch.from_numpy(embed.tokenizer(texts).astype(np.int64))
             return {"image": _image(batch, device), "txt_ids": ids.to(device)}
 
-        return LdmBranch(params, loss_fn, embed_batch, model, {"cond": clip})
+        return LdmBranch(params, loss_fn, embed_batch, model, {"cond": clip}, tp=(unet, "unet."))
     loss_fn, model = plain_loss(ld)
-    return LdmBranch(dict(unet.named_parameters()), loss_fn, embed_texts, model)
+    return LdmBranch(dict(unet.named_parameters()), loss_fn, embed_texts, model, tp=(unet, ""))
 
 
 def auto_scale_factor(ld: LatentDiffusion, cfg: dict, batches: _Batches, out_dir: str | None,
@@ -677,7 +865,7 @@ def auto_scale_factor(ld: LatentDiffusion, cfg: dict, batches: _Batches, out_dir
     z = ld.encode_first_stage(_image(batches.peek(), generator.device), generator=generator)
     ld = dataclasses.replace(ld, scale_factor=calibrate_scale_factor(z))
     print(f"[{tag}] scale_factor (std-rescale): {ld.scale_factor:.4f}")
-    if out_dir:
+    if out_dir and rank_and_world()[0] == 0:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "calibration.json"), "w") as f:
             json.dump({"scale_factor": float(ld.scale_factor)}, f)
@@ -693,19 +881,21 @@ def train_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | Non
     `base_run`'s own calibration replaces it); a resumed run calibrates
     again on the same batch. The caption-dropout and image-dropout streams
     start from the seed on every start, a resumed run's too, as in the TPU
-    package."""
+    package. A `parallel:` block runs it over the process group
+    (`ParallelRun`)."""
     cfg = _load_cfg(config)
     tc = cfg["train"]
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
     param_dtype = getattr(torch, tc.get("param_dtype") or "float32")
+    par = _parallel_run(cfg, tc.get("grad_accum", 1))
     ld, unet, _, embed = build_ldm(cfg, gen, param_dtype, device)
     print(f"[ldm] unet params: {count_params(unet) / 1e6:.1f}M"
           + (f" ({tc['param_dtype']})" if tc.get("param_dtype") else ""))
     if tc.get("noise_offset"):
         ld = dataclasses.replace(ld, noise_offset=float(tc["noise_offset"]))
-    batches = _Batches(data, cfg)
+    batches = _Batches(data, cfg, par)
     ld = auto_scale_factor(ld, cfg, batches, out_dir, gen)
     branch = ldm_branch(cfg, ld, unet, embed, out_dir, param_dtype)
 
@@ -717,12 +907,15 @@ def train_ldm(config: dict | str, data: str | Iterable[dict], out_dir: str | Non
     state, start = _resume(out_dir, lambda: init_train_state(
         branch.params, opt, tc.get("ema_decay", 0.9999),
         num_timesteps=branch.ld.schedule.num_timesteps, learn_logvar=learn_logvar))
-    step_fn = make_diffusion_train_step(branch.loss_fn, opt, grad_accum=tc.get("grad_accum", 1))
+    step_fn = _maybe_parallel_step(par, branch.loss_fn, opt, state, tc.get("grad_accum", 1),
+                                   tp=branch.tp)
     history = _run_loop(lambda st, b, g: step_fn(st, branch.embed_batch(b), g), state, cfg,
                         batches, out_dir, start, seed=seed, device=device,
                         max_steps=max_steps)
     if branch.finish is not None:
-        branch.finish(state)
+        whole = state if par is None else par.whole(state)
+        if par is None or par.main:
+            branch.finish(whole)
     return state, history
 
 
@@ -791,6 +984,7 @@ def train_kl_vae(config: dict | str, data: str | Iterable[dict], out_dir: str | 
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
+    par = _parallel_run(cfg)
     mp, compute = split_dtype(cfg["model"]["params"])
     vae = AutoencoderKL(**mp, compute_dtype=compute, device=device)
     disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh = _gan_setup(cfg, vae, device, gen, "kl-vae")
@@ -802,12 +996,15 @@ def train_kl_vae(config: dict | str, data: str | Iterable[dict], out_dir: str | 
 
     def ae_apply(x, generator):
         b, h, w, _ = x.shape
-        noise = torch.randn((b, h // down, w // down, embed_dim), generator=generator,
-                            device=x.device)
+        noise = global_draw(lambda n: torch.randn((n, h // down, w // down, embed_dim),
+                                                  generator=generator, device=x.device), b)
         return vae(x, noise)
 
-    step_fn = make_kl_gan_train_step(ae_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg)
-    batches = _Batches(data, cfg)
+    step_fn = _maybe_parallel_gan_step(
+        par, lambda opts: make_kl_gan_train_step(ae_apply, disc, lpips_fn,
+                                                 *(opts or (opt_g, opt_d)), loss_cfg),
+        state, opt_g, opt_d)
+    batches = _Batches(data, cfg, par)
     sampler = _recon_eval_sampler(batches, device, lambda st, x, g: ae_apply(x, g)[0])
     history = _run_loop(lambda st, b, g: step_fn(st, _image(b, device), g), state, cfg,
                         batches, out_dir, start, seed=seed, device=device,
@@ -835,6 +1032,7 @@ def train_vq(config: dict | str, data: str | Iterable[dict], out_dir: str | None
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
+    par = _parallel_run(cfg)
     mp, compute = split_dtype(cfg["model"]["params"])
     vq = VQModel(**mp, compute_dtype=compute, device=device)
     disc, loss_cfg, lpips_fn, opt_g, opt_d, fresh = _gan_setup(cfg, vq, device, gen, "vq")
@@ -855,9 +1053,12 @@ def train_vq(config: dict | str, data: str | Iterable[dict], out_dir: str | None
     def recon(st, x, generator):
         return vq(x, temp=mp.get("temp_init", 1.0), update=False, deterministic=True)[0]
 
-    step_fn = make_vq_gan_train_step(vq_apply, disc, lpips_fn, opt_g, opt_d, loss_cfg,
-                                     temp_fn=temp_fn)
-    batches = _Batches(data, cfg)
+    step_fn = _maybe_parallel_gan_step(
+        par, lambda opts: make_vq_gan_train_step(vq_apply, disc, lpips_fn,
+                                                 *(opts or (opt_g, opt_d)), loss_cfg,
+                                                 temp_fn=temp_fn),
+        state, opt_g, opt_d)
+    batches = _Batches(data, cfg, par)
     history = _run_loop(lambda st, b, g: step_fn(st, _image(b, device), g), state, cfg,
                         batches, out_dir, start, seed=seed, device=device,
                         max_steps=max_steps,
@@ -869,7 +1070,7 @@ def train_vq(config: dict | str, data: str | Iterable[dict], out_dir: str | None
 
 
 def _ddpm_parts(cfg: dict, model: UNetDDPM):
-    """(fresh_state thunk, step, process) of `make_ddpm_trainer`."""
+    """(fresh_state thunk, loss_fn, optimizer, process) of `make_ddpm_trainer`."""
     tc = cfg["train"]
     diff = dict(cfg.get("diffusion", {}))
     min_snr = diff.pop("min_snr_gamma", None)
@@ -883,8 +1084,9 @@ def _ddpm_parts(cfg: dict, model: UNetDDPM):
         x = batch["image"]
         t = batch.get("t")
         if t is None:
-            t = torch.randint(0, process.schedule.num_timesteps, (x.shape[0],),
-                              generator=generator, device=x.device)
+            t = global_draw(lambda n: torch.randint(0, process.schedule.num_timesteps, (n,),
+                                                    generator=generator, device=x.device),
+                            x.shape[0])
         noise = batch.get("noise")
         if noise is None:
             noise = draw_training_noise(tuple(x.shape), noise_offset, generator=generator,
@@ -897,8 +1099,7 @@ def _ddpm_parts(cfg: dict, model: UNetDDPM):
     opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0))
     fresh = lambda: init_train_state(dict(model.named_parameters()), opt,
                                      tc.get("ema_decay", 0.9999))
-    return fresh, make_diffusion_train_step(loss_fn, opt, grad_accum=tc.get("grad_accum", 1)), \
-        process
+    return fresh, loss_fn, opt, process
 
 
 def make_ddpm_trainer(cfg: dict, model: UNetDDPM):
@@ -911,8 +1112,9 @@ def make_ddpm_trainer(cfg: dict, model: UNetDDPM):
     (uniform in [0, T)) and noise from the batch's `t` and `noise` where it
     has them, else from `generator`, then the model's dropout masks from
     `generator`."""
-    fresh, step, _ = _ddpm_parts(cfg, model)
-    return fresh(), step
+    fresh, loss_fn, opt, _ = _ddpm_parts(cfg, model)
+    return fresh(), make_diffusion_train_step(loss_fn, opt,
+                                              grad_accum=cfg["train"].get("grad_accum", 1))
 
 
 def train_ddpm(config: dict | str, data: str | Iterable[dict], out_dir: str | None = None,
@@ -933,9 +1135,12 @@ def train_ddpm(config: dict | str, data: str | Iterable[dict], out_dir: str | No
     seed = cfg.get("seed", 0)
     model = UNetDDPM(**mp, compute_dtype=compute, device=device)
     init_params_(model, torch.Generator(device).manual_seed(seed))
-    fresh, step_fn, process = _ddpm_parts(cfg, model)
+    fresh, loss_fn, opt, process = _ddpm_parts(cfg, model)
     state, start = _resume(out_dir, fresh)
     print(f"[ddpm] params: {count_params(state.params) / 1e6:.1f}M")
+    grad_accum = cfg["train"].get("grad_accum", 1)
+    par = _parallel_run(cfg, grad_accum)
+    step_fn = _maybe_parallel_step(par, loss_fn, opt, state, grad_accum, tp=(model, ""))
     size = cfg["train"].get("image_size", 256)
 
     def sample_with_ema(st, generator):
@@ -946,6 +1151,6 @@ def train_ddpm(config: dict | str, data: str | Iterable[dict], out_dir: str | No
         return process.p_sample_loop(fn, shape, x_T, generator=generator)
 
     history = _run_loop(lambda st, b, g: step_fn(st, {"image": _image(b, device)}, g), state,
-                        cfg, _Batches(data, cfg), out_dir, start, seed=seed, device=device,
+                        cfg, _Batches(data, cfg, par), out_dir, start, seed=seed, device=device,
                         max_steps=max_steps, sampler=sample_with_ema)
     return state, history

@@ -167,10 +167,10 @@ def train_ldm_sr(config: dict | str, data: str | Iterable[dict], out_dir: str | 
 
     Returns (state, history)."""
     from sd_tpu_torch.core.config import resolve_device
-    from sd_tpu_torch.train.diffusion import (ddpm_optimizer, init_train_state,
-                                              make_diffusion_train_step)
+    from sd_tpu_torch.train.diffusion import ddpm_optimizer, init_train_state
     from sd_tpu_torch.train.metrics import count_params
-    from sd_tpu_torch.train.runners import (_Batches, _load_cfg, _resume, _run_loop,
+    from sd_tpu_torch.train.runners import (_Batches, _load_cfg, _maybe_parallel_step,
+                                            _parallel_run, _resume, _run_loop,
                                             auto_scale_factor, make_lr)
 
     cfg = _load_cfg(config)
@@ -178,9 +178,10 @@ def train_ldm_sr(config: dict | str, data: str | Iterable[dict], out_dir: str | 
     device = resolve_device(device)
     seed = cfg.get("seed", 0)
     gen = torch.Generator(device).manual_seed(seed)
+    par = _parallel_run(cfg, tc.get("grad_accum", 1))
     ld, unet, _ = build_ldm_sr(cfg, gen, device)
     print(f"[ldm_sr] unet params: {count_params(unet) / 1e6:.1f}M")
-    batches = _Batches(data, cfg)
+    batches = _Batches(data, cfg, par)
     ld = auto_scale_factor(ld, cfg, batches, out_dir, gen, tag="ldm_sr")
 
     opt = ddpm_optimizer(make_lr(tc), tc.get("grad_clip", 1.0),
@@ -189,9 +190,8 @@ def train_ldm_sr(config: dict | str, data: str | Iterable[dict], out_dir: str | 
     state, start = _resume(out_dir, lambda: init_train_state(
         dict(unet.named_parameters()), opt, tc.get("ema_decay", 0.9999),
         num_timesteps=ld.schedule.num_timesteps, learn_logvar=learn_logvar))
-    step_fn = make_diffusion_train_step(
-        lambda b, g, logvar: ld.training_loss(b, g, logvar), opt,
-        grad_accum=tc.get("grad_accum", 1))
+    step_fn = _maybe_parallel_step(par, lambda b, g, logvar: ld.training_loss(b, g, logvar),
+                                   opt, state, tc.get("grad_accum", 1), tp=(unet, ""))
     size = lat["image_size"]
     history = _run_loop(lambda st, b, g: step_fn(st, sr_batch(b, size, device), g), state, cfg,
                         batches, out_dir, start, seed=seed, device=device, max_steps=max_steps,

@@ -364,13 +364,17 @@ def cli_files(tmp_path_factory):
                                   ["--lora", "l"],
                                   ["--shard"], ["--tome", "0.5"], ["--freeu", "1.1,1.2,0.9,0.2"]])
 def test_cli_refuses_what_is_not_ported(flag, capsys, cli_files):
-    """Only `--shard` is not ported: it exits 2 before building anything. The
-    other flags build the pipeline `scripts/serve.py` builds — the imported
-    checkpoint, the merged LoRA, the UNet options — whose weights, options
-    and images are the pipeline calls' they stand for."""
+    """`--shard` serves over the process group (`tests/test_torch_parallel_serve.py`
+    drives it); here, without torchrun, over a group of one rank, which
+    refuses a mesh it cannot hold before building anything (the full-width
+    `sd_v1` is never built) and leaves no group behind. The other flags
+    build the pipeline `scripts/serve.py` builds — the imported checkpoint,
+    the merged LoRA, the UNet options — whose weights, options and images
+    are the pipeline calls' they stand for."""
     if "--shard" in flag:
-        assert serve.main(["--config", "sd_v1", *flag]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+        with pytest.raises(ValueError, match=r"mesh \{'data': 2\} wants 2 ranks, got 1"):
+            serve.main(["--config", "sd_v1", "--device", "cpu", *flag, "--mesh", "data=2"])
+        assert not torch.distributed.is_initialized()
         return
     args = serve.parse_args(["--config", cli_files["cfg"], "--device", "cpu",
                              *(cli_files.get(v, v) for v in flag)])

@@ -65,7 +65,10 @@
   512² `generate` for each of its bench_serve phase's rows and buckets, and
   its eval_tools phase's heatmap forward (every cross-attention captured,
   the other attentions on their routes), give the launches those phases
-  require.
+  require;
+* the parallel phase's per-rank launches: a data-parallel rank's step is the
+  train cell's, and a full-width UNet split at model 2 (`shard_module_`)
+  takes every kernel gate tp = 1 takes, default and opt-in.
 """
 
 from __future__ import annotations
@@ -1613,3 +1616,67 @@ def test_bench_serve_and_attn_viz_launches(tpu_gates, monkeypatch):
             unet, meta(2, 64, 64, 4), meta(2, dtype=torch.long), meta(2, 77, 768))))
     assert len(maps) == chip_smoke.ATTN_VIZ_MAPS
     assert dict(viz) == {k: v for k, v in chip_smoke.ATTN_VIZ_LAUNCHES.items() if v}
+
+
+def test_parallel_phase_launches(tpu_gates, monkeypatch):
+    """`chip_smoke.py`'s parallel phase, each rank's launches, on `meta`
+    tensors with every gate checked against the JAX package's. A rank of the
+    data-parallel run (batch 8 as 4 microbatches over 2 ranks) trains 4
+    microbatches of one row a step, the train cell's step
+    (`test_training_step_gates_and_launches`); the world-1 runs train the
+    cell's own. A tensor-parallel rank's full-width UNet, split at model 2
+    by `shard_module_` (its attention at 4 of 8 heads, its feed-forwards at
+    half the inner width; a stand-in axis sums nothing), takes every kernel
+    tp = 1 takes at a 4-row call, under the default and the opt-in switches;
+    its 10-step generate is 10 such calls and a decode of 2. A served
+    request of one prompt is 10 calls of 2 rows and a decode of 1."""
+    import types
+
+    from sd_tpu_torch.parallel import mesh as pm
+
+    steps = {"train_zero1_w1": chip_smoke.PARALLEL_W1_STEPS,
+             "train_fsdp_w1": chip_smoke.PARALLEL_W1_STEPS,
+             "train_dp2": chip_smoke.PARALLEL_DP_STEPS}
+    per_step = {k: v for k, v in chip_smoke.EXPECTED_TRAIN_LAUNCHES.items() if v}
+    for r in range(2):
+        rows = pm.local_rows(chip_smoke.PARALLEL_DP_BATCH, sd512_train_config()["train"]
+                             ["grad_accum"], r, 2)
+        assert len(rows) == sd512_train_config()["train"]["batch_size"] == 4
+    for run, n in steps.items():
+        assert {k: v for k, v in chip_smoke.PARALLEL_LAUNCHES[run].items() if v} == {
+            k: n * v for k, v in per_step.items()}
+
+    axes = {"data": 1, "model": 2}
+    mesh = types.SimpleNamespace(axes=lambda: dict(axes), size=lambda a: axes.get(a, 1),
+                                 index=lambda a: 0, group=lambda a: None)
+    monkeypatch.setattr(pm.ModelParallel, "enter", lambda self, x: x)
+    monkeypatch.setattr(pm.ModelParallel, "reduce", lambda self, p, b: (
+        p.float() + (0.0 if b is None else b.float())).to(p.dtype))
+    piece = _fine_tune_piece(monkeypatch)
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    times = lambda k, c: Counter({name: k * v for name, v in c.items()})
+    whole = UNetModel(**UNET, **BF16)
+    unet = UNetModel(**UNET, **BF16)
+    split = pm.shard_module_(unet, mesh)
+    assert len(split) == 32 * 4 + 16 * 3        # 32 attentions, 16 feed-forwards
+    assert all(m.tp is not None for m in unet.modules() if isinstance(m, CrossAttention))
+    vae = AutoencoderKL(**VAE, **BF16)
+    call = lambda model, rows: piece(lambda: model(meta(rows, 64, 64, 4),
+                                                  meta(rows, dtype=torch.long),
+                                                  meta(rows, 77, 768)))
+    want = lambda run: {k: v for k, v in chip_smoke.PARALLEL_LAUNCHES[run].items() if v}
+    tp_call = call(unet, 4)
+    assert dict(tp_call) == want("tp2_unet") == dict(call(whole, 4))
+    for var, value in chip_smoke.OPT_IN.items():
+        monkeypatch.setenv(var, value)
+    optin = call(unet, 4)
+    # every GroupNorm and fused cross-attention launch runs its Hopper source
+    optin.update(group_norm_sm90=optin["group_norm"], crossattn_sm90=optin["crossattn_kv"])
+    assert dict(optin) == want("tp2_unet_optin")
+    for var in chip_smoke.OPT_IN:
+        monkeypatch.delenv(var)
+    steps_tp = _ddim_calls(chip_smoke.PARALLEL_TP_STEPS)
+    decode = lambda b: piece(lambda: vae.decode(meta(b, 64, 64, 4)))
+    assert dict(times(steps_tp, tp_call) + decode(2)) == want("tp2_generate")
+    served = times(_ddim_calls(chip_smoke.PARALLEL_SERVE_STEPS), call(whole, 2)) + decode(1)
+    assert dict(times(2, served)) == want("serve_shard_w1")
